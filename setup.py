@@ -21,6 +21,8 @@ setup(
             'agent/native/*.cc',
             'agent/native/Makefile',
         ],
+        # CUDA sources of the PyTorch port, compiled with nvcc at first use.
+        'skypilot_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh'],
     },
     python_requires='>=3.10',
     install_requires=[

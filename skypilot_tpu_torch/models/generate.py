@@ -1,0 +1,282 @@
+"""KV-cache autoregressive generation (the serving-side compute path).
+
+Port of ``skypilot_tpu/models/generate.py`` for dense models: a prefill
+through ``forward_cached``, then one ``forward_cached`` per new token.
+JAX's ``lax.scan`` over layers and over decode steps becomes a Python
+loop over both; the per-layer cache slices are views of the stacked
+``[L, B, Hkv, M, D]`` buffers.
+
+Unlike the JAX package, which returns new arrays, the port writes the
+cache IN PLACE: ``forward_cached`` fills the caller's cache buffers and
+returns a ``KVCache`` that shares them, with advanced ``lengths``.
+
+Every decode step (S=1) on a CUDA tensor runs the flash-decode kernel
+(``ops/decode_attention.py``) in every layer; there is no opt-in and no
+size gate. Prefill (S>1), and everything on the CPU, runs the plain
+einsum path, as the JAX package computes prefill with XLA einsums.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from skypilot_tpu_torch.models import llama, sampling
+from skypilot_tpu_torch.models.quantization import mm as _mm
+from skypilot_tpu_torch.ops import decode_attention
+
+Params = llama.Params
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Per-layer key/value buffers [L, B, Hkv, max_len, D]; ``lengths``
+    [B] int32 counts each row's cached tokens (rows advance
+    independently, so right-padded prompts of different lengths share a
+    batch). Int8 mode (``k_s``/``v_s`` [L, B, Hkv, max_len] float32 set):
+    k/v hold int8 codes with a symmetric per-position scale over D."""
+    k: torch.Tensor
+    v: torch.Tensor
+    lengths: torch.Tensor
+    k_s: Optional[torch.Tensor] = None
+    v_s: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_s is not None
+
+
+def init_cache(cfg: llama.LlamaConfig, batch: int, max_len: int,
+               dtype: Optional[torch.dtype] = None, quantize: bool = False,
+               device=None) -> KVCache:
+    """Zeroed cache on ``device``; ``quantize=True`` = int8 codes plus
+    float32 per-position scales."""
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if quantize:
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            lengths=lengths,
+            k_s=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            v_s=torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+    dtype = dtype or cfg.dtype
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   lengths=lengths)
+
+
+def _cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, positions: torch.Tensor,
+                      valid_len: torch.Tensor,
+                      k_s: Optional[torch.Tensor] = None,
+                      v_s: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [B, S, Hq, D] at ``positions`` [B, S]; k/v_cache [B, Hkv, M, D]
+    already holding this block's keys; ``valid_len`` [B]. At S=1 (a
+    decode step, where ``positions == valid_len - 1``) this is
+    ``flash_decode``: the kernel on CUDA, its plain version on the CPU.
+    At S>1 it is the einsum path."""
+    if q.shape[1] == 1:
+        out = decode_attention.flash_decode(
+            q[:, 0], k_cache, v_cache, valid_len.to(torch.int32), k_s, v_s)
+        return out[:, None]
+    return decode_attention.cached_attention_reference(
+        q, k_cache, v_cache, positions, valid_len, k_s, v_s)
+
+
+def _row_update(cache: torch.Tensor, new: torch.Tensor,
+                starts: torch.Tensor) -> None:
+    """Write ``new`` [B, Hkv, S, ...] into ``cache`` [B, Hkv, M, ...] at
+    per-row offsets ``starts`` [B], in place. An out-of-range position
+    raises (an index error on the CPU, a device assert on CUDA); it is
+    never clamped the way ``dynamic_update_slice`` clamps."""
+    b, hkv, s = new.shape[:3]
+    dev = cache.device
+    bi = torch.arange(b, device=dev)[:, None, None]
+    hi = torch.arange(hkv, device=dev)[None, :, None]
+    pi = (starts.long()[:, None] + torch.arange(s, device=dev))[:, None, :]
+    cache[bi, hi, pi] = new
+
+
+def _quantize_block(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, Hkv, S, D] -> (int8 codes, [B, Hkv, S] float32 scales):
+    symmetric per-position max|x|/127 over D."""
+    x32 = x.float()
+    s = torch.clamp_min(torch.amax(torch.abs(x32), dim=-1) / 127.0, 1e-8)
+    q8 = torch.clamp(torch.round(x32 / s[..., None]), -127,
+                     127).to(torch.int8)
+    return q8, s
+
+
+def _write_block(cache_arr: torch.Tensor, scale_arr: Optional[torch.Tensor],
+                 block: torch.Tensor, starts: torch.Tensor) -> None:
+    """Write a [B, Hkv, S, D] block at per-row offsets, in place,
+    quantizing on the way in when the cache is int8 (``scale_arr`` set)."""
+    if scale_arr is not None:
+        block, s = _quantize_block(block)
+        _row_update(scale_arr, s, starts)
+    _row_update(cache_arr, block.to(cache_arr.dtype), starts)
+
+
+def _check_fits(starts: torch.Tensor, s: int, max_len: int) -> None:
+    """Assert start + S <= max_len for every row, without a host sync on
+    CUDA (an asynchronous device assert)."""
+    torch._assert_async(torch.all(starts + s <= max_len),
+                        'KV cache overflow: start + S > max_len')
+
+
+def _qkv_proj(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
+              positions: torch.Tensor):
+    """Attention front half: norm, QKV projections, RoPE."""
+    h = llama.rms_norm(x, layer['attn_norm'], cfg.norm_eps)
+    q = _mm(h, layer['wq'], 'bsd,dhk->bshk')
+    k = _mm(h, layer['wk'], 'bsd,dhk->bshk')
+    v = _mm(h, layer['wv'], 'bsd,dhk->bshk')
+    q = llama.rope(q, positions, cfg.rope_theta)
+    k = llama.rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _mlp_tail(cfg: llama.LlamaConfig, x: torch.Tensor,
+              layer: Params) -> torch.Tensor:
+    """Decoder-block back half (post-attention norm + dense SwiGLU MLP),
+    residual included."""
+    h = llama.rms_norm(x, layer['mlp_norm'], cfg.norm_eps)
+    gate = _mm(h, layer['w_gate'], 'bsd,df->bsf')
+    up = _mm(h, layer['w_up'], 'bsd,df->bsf')
+    return x + _mm(F.silu(gate) * up, layer['w_down'], 'bsf,fd->bsd')
+
+
+def _cached_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
+                  positions: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, cache_lens: torch.Tensor,
+                  valid: torch.Tensor,
+                  k_s: Optional[torch.Tensor] = None,
+                  v_s: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One decoder block writing this block's K/V into the (per-layer
+    view of the) cache. x: [B, S, d]; ``cache_lens`` [B] = write
+    offsets; ``valid`` [B] = cache_lens + real new tokens per row.
+    Short rows of a padded batch write junk past their real length; it
+    is never attended and later steps overwrite it."""
+    q, k, v = _qkv_proj(cfg, x, layer, positions)
+    _write_block(k_cache, k_s, k.transpose(1, 2), cache_lens)
+    _write_block(v_cache, v_s, v.transpose(1, 2), cache_lens)
+    att = _cached_attention(q, k_cache, v_cache, positions, valid, k_s, v_s)
+    x = x + _mm(att, layer['wo'], 'bshk,hkd->bsd')
+    return _mlp_tail(cfg, x, layer)
+
+
+def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
+                   cfg: llama.LlamaConfig,
+                   row_lens: Optional[torch.Tensor] = None,
+                   ) -> Tuple[torch.Tensor, KVCache]:
+    """Run ``tokens`` [B, S] through the model appending to ``cache``
+    (in place); returns (float32 logits of each row's LAST REAL position
+    [B, vocab], the cache with advanced lengths). Prefill (S = padded
+    prompt length) and decode (S = 1) alike. ``row_lens`` [B] gives each
+    row's real token count within ``tokens`` (default: all S)."""
+    llama.require_dense(cfg)
+    b, s = tokens.shape
+    dev = tokens.device
+    steps = torch.arange(s, dtype=torch.int32, device=dev)
+    positions = cache.lengths[:, None] + steps[None, :]
+    write_start = cache.lengths
+    valid = cache.lengths + (s if row_lens is None
+                             else row_lens.to(torch.int32))
+    _check_fits(write_start, s, cache.k.shape[3])
+    x = params['embed'].to(cfg.dtype)[tokens.long()]
+    for i in range(cfg.n_layers):
+        x = _cached_layer(
+            cfg, x, llama.layer_params(params['layers'], i), positions,
+            cache.k[i], cache.v[i], write_start, valid,
+            cache.k_s[i] if cache.quantized else None,
+            cache.v_s[i] if cache.quantized else None)
+    x = llama.rms_norm(x, params['final_norm'], cfg.norm_eps)
+    if row_lens is None:
+        last = x[:, -1]
+    else:
+        last = x[torch.arange(b, device=dev), row_lens.long() - 1]
+    logits = _mm(last, params['lm_head'], 'bd,dv->bv',
+                 out_dtype=torch.float32)
+    return logits, dataclasses.replace(cache, lengths=valid)
+
+
+def _sample(logits: torch.Tensor, temperature: float,
+            generator: Optional[torch.Generator], top_k: int = 0,
+            top_p: float = 1.0) -> torch.Tensor:
+    """Scalar-config sampling for the batch path."""
+    if temperature == 0.0 or generator is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    b = logits.shape[0]
+    dev = logits.device
+    filters_on = top_k > 0 or top_p < 1.0  # off: skip the vocab sort
+    return sampling.sample(
+        logits, torch.full((b,), temperature, device=dev), generator,
+        torch.full((b,), top_k, dtype=torch.int32, device=dev)
+        if filters_on else None,
+        torch.full((b,), top_p, device=dev) if filters_on else None)
+
+
+def truncate_at_stop(tokens, eos):
+    """Cut a generated row at its first stop id, INCLUSIVE. Returns
+    (tokens, hit)."""
+    if eos:
+        for j, t in enumerate(tokens):
+            if t in eos:
+                return tokens[:j + 1], True
+    return tokens, False
+
+
+def pad_prompts(rows: Sequence[Sequence[int]], pad_id: int = 0,
+                device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Right-pad variable-length token rows into (tokens [B, S_max],
+    lengths [B]) int32 tensors on ``device``."""
+    lens = [len(r) for r in rows]
+    out = np.full((len(rows), max(lens)), pad_id, np.int32)
+    for i, r in enumerate(rows):
+        out[i, :len(r)] = np.asarray(r, np.int32)
+    return (torch.from_numpy(out).to(device),
+            torch.tensor(lens, dtype=torch.int32, device=device))
+
+
+@torch.inference_mode()
+def generate(params: Params, cfg: llama.LlamaConfig,
+             prompt: torch.Tensor, max_new_tokens: int,
+             temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             max_len: Optional[int] = None,
+             prompt_lengths: Optional[torch.Tensor] = None,
+             kv_quantize: bool = False, top_k: int = 0,
+             top_p: float = 1.0) -> torch.Tensor:
+    """prompt [B, S_p] int -> [B, max_new_tokens] int32 generated ids, on
+    the prompt's device. Greedy when temperature == 0. ``prompt_lengths``
+    [B] marks each row's real length in a right-padded batch
+    (``pad_prompts``). ``kv_quantize`` = int8 KV cache. ``top_k`` /
+    ``top_p`` filter sampled rows. Sampling draws from ``generator``,
+    which must live on the prompt's device."""
+    b, s_p = prompt.shape
+    max_len = max_len or min(cfg.max_seq_len, s_p + max_new_tokens)
+    if s_p + max_new_tokens > max_len:
+        raise ValueError(f'prompt {s_p} + max_new_tokens {max_new_tokens} '
+                         f'exceeds max_len {max_len}')
+    if top_k < 0 or not 0.0 < top_p <= 1.0:
+        raise ValueError('top_k must be >= 0 and top_p in (0, 1]')
+    if temperature > 0.0 and generator is None:
+        raise ValueError('temperature > 0 requires a torch.Generator')
+    dev = prompt.device
+    cache = init_cache(cfg, b, max_len, quantize=kv_quantize, device=dev)
+    logits, cache = forward_cached(params, prompt, cache, cfg,
+                                   prompt_lengths)
+    token = _sample(logits, temperature, generator, top_k, top_p)
+    out: List[torch.Tensor] = [token]
+    ones = (None if prompt_lengths is None
+            else torch.ones((b,), dtype=torch.int32, device=dev))
+    for _ in range(max_new_tokens - 1):
+        logits, cache = forward_cached(params, token[:, None], cache, cfg,
+                                       ones)
+        token = _sample(logits, temperature, generator, top_k, top_p)
+        out.append(token)
+    return torch.stack(out, dim=1)

@@ -1,0 +1,457 @@
+"""LLM inference replica: the window-batching path, in PyTorch.
+
+Port of the window path of ``skypilot_tpu/serve/llm_server.py``
+(``--engine off``): concurrent requests that land within the batch window
+(``SKYTPU_LLM_BATCH_WINDOW_MS``, at most ``SKYTPU_LLM_MAX_BATCH`` rows) are
+right-padded into one ``generate`` call. A seeded sampled request is never
+batched with another, so its output depends on its seed alone. The
+continuous engine, streaming, QoS admission and the KV handoff routes
+are not ported yet; ``--engine`` accepts only ``off``. One check is the
+port's own: token ids outside the vocabulary get a 400 (a JAX gather
+clamps them; a CUDA index fault would end the replica's CUDA context).
+
+HTTP is the standard library's ``ThreadingHTTPServer``. Handler threads
+validate and enqueue; one worker thread runs all device work.
+
+API (token-level, as the JAX replica, so the shared load balancer can
+drive either):
+  GET  /health    -> {"status": "ok", "model": ..., "device": ...,
+                      "batches_served": N, "max_batch_seen": M, ...}
+  POST /generate  {"tokens": [[...]], "max_new_tokens": N,
+                   "temperature": t?, "seed": s?, "top_k": k?,
+                   "top_p": p?, "eos_token": id or [ids]?}
+                  -> {"tokens": [[...]]}
+
+Run: ``python -m skypilot_tpu_torch.serve.llm_server --model bench-1b
+--engine off`` (port from --port or SKYTPU_REPLICA_PORT).
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import concurrent.futures
+import http.server
+import json
+import os
+import queue
+import secrets
+import signal
+import threading
+import time
+from typing import Any, Deque, Dict, List, Optional, Tuple
+
+import torch
+
+from skypilot_tpu_torch.models import generate as gen_lib
+from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import quantization as quant_lib
+from skypilot_tpu_torch.utils.device import resolve_device
+
+MAX_BATCH = int(os.environ.get('SKYTPU_LLM_MAX_BATCH', '32'))
+BATCH_WINDOW_S = float(os.environ.get('SKYTPU_LLM_BATCH_WINDOW_MS',
+                                      '8')) / 1000.0
+
+
+class _Pending:
+
+    def __init__(self, rows: List[List[int]], max_new: int,
+                 temperature: float, seed: Optional[int],
+                 top_k: int = 0, top_p: float = 1.0, eos=None):
+        self.rows = rows
+        self.max_new = max_new
+        self.temperature = temperature
+        self.seed = seed
+        self.top_k = top_k
+        self.top_p = top_p
+        self.eos = eos  # frozenset of stop ids, or None
+        self.future: concurrent.futures.Future = concurrent.futures.Future()
+
+    @property
+    def group_key(self):
+        # Sampling noise depends on batch composition, so a seeded
+        # request is NEVER batched with anything else.
+        if self.temperature > 0 and self.seed is not None:
+            return ('seeded', id(self))
+        # Sampling params are per-generate()-call scalars here, so only
+        # like-configured requests share a batch.
+        return (self.temperature, self.top_k, self.top_p, None)
+
+
+class LlmServer:
+    """One model replica. ``device`` None = CUDA (raises without a
+    card); the tests pass ``device='cpu'``."""
+
+    def __init__(self, model: str, max_len: int = 1024, seed: int = 0,
+                 quantize: Optional[str] = None,
+                 kv_cache: Optional[str] = None, device=None,
+                 engine: Optional[str] = None):
+        # Cheap knobs first: a typo must not cost the weight init.
+        if model not in llama.PRESETS:
+            raise ValueError(f'Unknown model {model!r}; one of '
+                             f'{sorted(llama.PRESETS)}')
+        engine = engine or os.environ.get('SKYTPU_LLM_ENGINE', 'off')
+        if engine != 'off':
+            raise ValueError(
+                f'engine {engine!r} is not ported yet: skypilot_tpu_torch '
+                "serves the window path only (--engine off); the "
+                'continuous engine comes in a later slice')
+        self.kv_cache = (kv_cache
+                         or os.environ.get('SKYTPU_LLM_KV_CACHE', 'bf16'))
+        if self.kv_cache not in ('bf16', 'int8'):
+            raise ValueError(f'Unknown kv_cache {self.kv_cache!r}; '
+                             "'bf16' or 'int8'")
+        self.quantize = quantize or os.environ.get('SKYTPU_LLM_QUANTIZE')
+        if self.quantize and self.quantize != 'int8':
+            raise ValueError(f'Unknown quantization {self.quantize!r}; '
+                             "only 'int8' (weight-only) is supported")
+        self.model_name = model
+        self.cfg = llama.PRESETS[model]
+        self.max_len = min(max_len, self.cfg.max_seq_len)
+        self.device = resolve_device(device)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.params = llama.init_params(self.cfg, gen, self.device)
+        if self.quantize:
+            self.params = quant_lib.quantize_params(self.params)
+        self._queue: 'queue.Queue[Optional[_Pending]]' = queue.Queue()
+        self._overflow: Deque[_Pending] = collections.deque()
+        self._worker: Optional[threading.Thread] = None
+        self._lock = threading.Lock()
+        self.batches_served = 0
+        self.max_batch_seen = 0
+        # (rows, max_new) of the latest generate() calls, in order: lets
+        # a caller tie kernel launch counts to the work that was done.
+        self.generate_calls: Deque[Tuple[int, int]] = collections.deque(
+            maxlen=1024)
+        self.draining = False
+        self._inflight = 0
+
+    # -- /health -------------------------------------------------------------
+
+    def health(self) -> Tuple[int, Dict[str, Any]]:
+        """(HTTP status, /health body)."""
+        if self.draining:
+            # Readiness probes see 503: the LB stops routing here while
+            # in-flight requests finish.
+            return 503, {'status': 'draining', 'model': self.model_name}
+        return 200, {'status': 'ok',
+                     'model': self.model_name,
+                     'device': str(self.device),
+                     'engine': 'off',
+                     'quantize': self.quantize,
+                     'kv_cache': self.kv_cache,
+                     'max_len': self.max_len,
+                     'batches_served': self.batches_served,
+                     'max_batch_seen': self.max_batch_seen,
+                     'queue': {'pending': self._queue.qsize(),
+                               'overflow': len(self._overflow)}}
+
+    # -- batching worker -----------------------------------------------------
+
+    def _collect(self) -> Optional[List[_Pending]]:
+        """One batch: the first waiter plus whatever lands inside the
+        window, capped at MAX_BATCH total rows. A request that would push
+        the batch past the cap spills into the NEXT batch. None = stop."""
+        if self._overflow:
+            first = self._overflow.popleft()
+        else:
+            first = self._queue.get()
+            if first is None:
+                return None
+        batch = [first]
+        rows = len(first.rows)
+        deadline = time.monotonic() + BATCH_WINDOW_S
+        while rows < MAX_BATCH:
+            if self._overflow:
+                nxt = self._overflow.popleft()
+            else:
+                timeout = deadline - time.monotonic()
+                if timeout <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=timeout)
+                except queue.Empty:
+                    break
+                if nxt is None:  # stop: finish this batch first
+                    self._queue.put(None)
+                    break
+            if rows + len(nxt.rows) > MAX_BATCH:
+                self._overflow.append(nxt)
+                break
+            batch.append(nxt)
+            rows += len(nxt.rows)
+        return batch
+
+    def _split_fitting(self, group: List[_Pending]) -> List[List[_Pending]]:
+        """Partition a group so each sub-batch satisfies
+        longest_prompt + max(max_new) <= max_len: requests are validated
+        one by one, but a batch combines one request's long prompt with
+        ANOTHER's large max_new."""
+        out: List[List[_Pending]] = []
+        cur: List[_Pending] = []
+        cur_longest = 0
+        cur_max_new = 0
+        for p in group:
+            longest = max(len(r) for r in p.rows)
+            if cur and (max(cur_longest, longest)
+                        + max(cur_max_new, p.max_new)) > self.max_len:
+                out.append(cur)
+                cur, cur_longest, cur_max_new = [], 0, 0
+            cur.append(p)
+            cur_longest = max(cur_longest, longest)
+            cur_max_new = max(cur_max_new, p.max_new)
+        if cur:
+            out.append(cur)
+        return out
+
+    def _run_group(self, group: List[_Pending]) -> None:
+        """Execute one compatible group as padded generate() calls."""
+        for sub in self._split_fitting(group):
+            rows: List[List[int]] = []
+            for p in sub:
+                rows.extend(p.rows)
+            padded, lens = gen_lib.pad_prompts(rows, device=self.device)
+            max_new = max(p.max_new for p in sub)
+            temperature = sub[0].temperature
+            seed = sub[0].seed
+            generator = None
+            if temperature > 0:
+                generator = torch.Generator(device=self.device)
+                generator.manual_seed(
+                    seed if seed is not None else secrets.randbits(31))
+            out = gen_lib.generate(
+                self.params, self.cfg, padded, max_new,
+                temperature=temperature, generator=generator,
+                max_len=self.max_len, prompt_lengths=lens,
+                kv_quantize=self.kv_cache == 'int8',
+                top_k=sub[0].top_k, top_p=sub[0].top_p).tolist()
+            self.generate_calls.append((len(rows), max_new))
+            i = 0
+            for p in sub:
+                n = len(p.rows)
+                # Each request gets only the tokens it asked for, cut at
+                # its first stop id (inclusive). The batch decodes to the
+                # group max: no per-row early exit on this path.
+                p.future.set_result(
+                    [gen_lib.truncate_at_stop(r[:p.max_new], p.eos)[0]
+                     for r in out[i:i + n]])
+                i += n
+
+    def _worker_loop(self) -> None:
+        while True:
+            batch = self._collect()
+            if batch is None:
+                return
+            groups: Dict[Any, List[_Pending]] = {}
+            for p in batch:
+                groups.setdefault(p.group_key, []).append(p)
+            self.batches_served += 1
+            self.max_batch_seen = max(
+                self.max_batch_seen, sum(len(p.rows) for p in batch))
+            for group in groups.values():
+                try:
+                    self._run_group(group)
+                except Exception as e:  # noqa: BLE001 -- fail the waiters
+                    for p in group:
+                        if not p.future.done():
+                            p.future.set_exception(e)
+
+    def _ensure_worker(self) -> None:
+        with self._lock:
+            if self._worker is None or not self._worker.is_alive():
+                self._worker = threading.Thread(
+                    target=self._worker_loop, name='llm-worker', daemon=True)
+                self._worker.start()
+
+    def stop(self, timeout: float = 60.0) -> None:
+        """Finish queued work, then end the worker thread."""
+        with self._lock:
+            worker = self._worker
+        if worker is not None and worker.is_alive():
+            self._queue.put(None)
+            worker.join(timeout)
+
+    # -- /generate -----------------------------------------------------------
+
+    def generate(self, body: Any) -> Tuple[int, Dict[str, Any]]:
+        """Validate one request body and run it: (HTTP status, JSON).
+        Draining still ACCEPTS work: the LB keeps routing here until its
+        next probe sees the 503 readiness."""
+        with self._lock:
+            self._inflight += 1
+        try:
+            return self._generate_inner(body)
+        finally:
+            with self._lock:
+                self._inflight -= 1
+
+    def _generate_inner(self, body: Any) -> Tuple[int, Dict[str, Any]]:
+        if not isinstance(body, dict):
+            return 400, {'error': 'request body must be a JSON object'}
+        tokens = body.get('tokens')
+        if not tokens:
+            return 400, {'error': 'tokens required'}
+        try:
+            max_new = int(body.get('max_new_tokens', 32))
+            temperature = float(body.get('temperature', 0.0))
+            top_k = int(body.get('top_k', 0))
+            top_p = float(body.get('top_p', 1.0))
+        except (TypeError, ValueError):
+            return 400, {'error': 'max_new_tokens/temperature/top_k/top_p '
+                                  'must be numeric'}
+        if max_new < 1:
+            return 400, {'error': 'max_new_tokens must be >= 1'}
+        if top_k < 0 or not 0.0 < top_p <= 1.0:
+            return 400, {'error': 'top_k must be >= 0 and top_p in (0, 1]'}
+        eos = body.get('eos_token')
+        if eos is not None:
+            def _id(x):
+                # JSON true/false pass isinstance(x, int): a silent stop
+                # id 0/1 instead of a 400.
+                if isinstance(x, bool):
+                    raise ValueError(x)
+                return int(x)
+            try:
+                eos = frozenset([_id(eos)] if isinstance(eos, int)
+                                else (_id(t) for t in eos))
+            except (TypeError, ValueError):
+                return 400, {'error': 'eos_token must be an int or list of '
+                                      'ints'}
+        try:
+            if isinstance(tokens[0], int):
+                tokens = [tokens]
+            rows = [[int(t) for t in row] for row in tokens]
+        except (TypeError, ValueError, KeyError, IndexError):
+            return 400, {'error': 'tokens must be rows of ints'}
+        if not all(rows):
+            return 400, {'error': 'empty token rows not allowed'}
+        if any(t < 0 or t >= self.cfg.vocab_size for r in rows for t in r):
+            return 400, {'error': f'token ids must be in [0, '
+                                  f'{self.cfg.vocab_size})'}
+        longest = max(len(r) for r in rows)
+        if longest + max_new > self.max_len:
+            return 400, {'error': f'prompt+max_new_tokens exceeds max_len '
+                                  f'{self.max_len}'}
+        if body.get('stream'):
+            return 400, {'error': 'stream requires the continuous engine, '
+                                  'which skypilot_tpu_torch has not ported '
+                                  'yet (window path only)'}
+        pending = _Pending(rows, max_new, temperature, body.get('seed'),
+                           top_k=top_k, top_p=top_p, eos=eos)
+        self._ensure_worker()
+        self._queue.put(pending)
+        try:
+            out = pending.future.result()
+        except Exception as e:  # noqa: BLE001 -- the batch failed
+            return 500, {'error': f'{type(e).__name__}: {e}'}
+        return 200, {'tokens': out}
+
+    # -- HTTP ------------------------------------------------------------------
+
+    def make_httpd(self, host: str, port: int
+                   ) -> http.server.ThreadingHTTPServer:
+        """A bound (not yet serving) HTTP server for this replica;
+        ``port`` 0 picks a free one (``httpd.server_address[1]``)."""
+        httpd = http.server.ThreadingHTTPServer((host, port), _Handler)
+        httpd.daemon_threads = True
+        httpd.llm = self
+        return httpd
+
+    def drain(self, httpd: http.server.ThreadingHTTPServer,
+              timeout_s: float) -> None:
+        """Graceful drain: /health turns 503 at once; the HTTP server
+        shuts down once in-flight requests finish (or at ``timeout_s``)."""
+        self.draining = True
+
+        def _finish():
+            deadline = time.monotonic() + timeout_s
+            while self._inflight > 0 and time.monotonic() < deadline:
+                time.sleep(0.2)
+            httpd.shutdown()
+
+        threading.Thread(target=_finish, name='llm-drain',
+                         daemon=True).start()
+
+
+class _Handler(http.server.BaseHTTPRequestHandler):
+    server_version = 'skypilot-tpu-torch'
+
+    def _reply(self, status: int, payload: Dict[str, Any]) -> None:
+        data = json.dumps(payload).encode()
+        self.send_response(status)
+        self.send_header('Content-Type', 'application/json')
+        self.send_header('Content-Length', str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def do_GET(self):  # noqa: N802 -- http.server's name
+        if self.path.split('?', 1)[0] == '/health':
+            self._reply(*self.server.llm.health())
+        else:
+            self._reply(404, {'error': f'no route {self.path}'})
+
+    def do_POST(self):  # noqa: N802 -- http.server's name
+        if self.path.split('?', 1)[0] != '/generate':
+            self._reply(404, {'error': f'no route {self.path}'})
+            return
+        length = int(self.headers.get('Content-Length') or 0)
+        try:
+            body = json.loads(self.rfile.read(length) or b'null')
+        except ValueError:
+            self._reply(400, {'error': 'request body must be JSON'})
+            return
+        self._reply(*self.server.llm.generate(body))
+
+    def log_message(self, format, *args):  # noqa: A002 -- base signature
+        del format, args  # quiet: one line per request is noise here
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description='PyTorch/CUDA LLM replica (window-batching path)')
+    parser.add_argument('--model', default='tiny',
+                        choices=sorted(llama.PRESETS))
+    parser.add_argument('--max-len', type=int, default=1024)
+    parser.add_argument('--port', type=int,
+                        default=int(os.environ.get('SKYTPU_REPLICA_PORT',
+                                                   '8080')))
+    parser.add_argument('--host', default='0.0.0.0')
+    parser.add_argument('--quantize', default=None,
+                        help="'int8' = weight-only quantized decode "
+                             '(also via SKYTPU_LLM_QUANTIZE)')
+    parser.add_argument('--kv-cache', default=None,
+                        choices=('bf16', 'int8'),
+                        help='int8 = quantized KV cache (also via '
+                             'SKYTPU_LLM_KV_CACHE)')
+    parser.add_argument('--engine', default=None,
+                        help="only 'off' (window batching): the continuous "
+                             'engine is not ported yet')
+    return parser
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = build_parser().parse_args(argv)
+    server = LlmServer(args.model, max_len=args.max_len,
+                       quantize=args.quantize, kv_cache=args.kv_cache,
+                       engine=args.engine)
+    httpd = server.make_httpd(args.host, args.port)
+
+    def _graceful(*_):
+        if server.draining:
+            # Second signal: stop now.
+            threading.Thread(target=httpd.shutdown, daemon=True).start()
+            return
+        server.drain(httpd, float(os.environ.get('SKYTPU_LLM_DRAIN_S',
+                                                 '30')))
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, _graceful)
+    try:
+        httpd.serve_forever()
+    finally:
+        httpd.server_close()
+        server.stop()
+
+
+if __name__ == '__main__':
+    main()

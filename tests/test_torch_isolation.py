@@ -1,0 +1,82 @@
+"""The port stands alone: importing every module of ``skypilot_tpu_torch``
+loads neither JAX nor anything of ``skypilot_tpu``, and its entry points
+refuse to run without CUDA unless asked for the CPU by name."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import skypilot_tpu_torch
+from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.serve import llm_server
+from skypilot_tpu_torch.utils import device as device_lib
+
+PKG = pathlib.Path(skypilot_tpu_torch.__file__).resolve().parent
+REPO = PKG.parent
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'skypilot_tpu')
+
+_IMPORT_ALL = r'''
+import importlib, importlib.abc, pkgutil, sys
+
+FORBIDDEN = %r
+
+def forbidden(name):
+    return any(name == f or name.startswith(f + '.') for f in FORBIDDEN)
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if forbidden(name):
+            raise ImportError('blocked import of ' + name)
+        return None
+
+for name in [m for m in sys.modules if forbidden(m)]:
+    del sys.modules[name]
+sys.meta_path.insert(0, Block())
+import skypilot_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    skypilot_tpu_torch.__path__, 'skypilot_tpu_torch.')]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if forbidden(m))
+assert not leaked, leaked
+print(len(names), 'modules')
+''' % (FORBIDDEN,)
+
+
+def test_importing_every_module_loads_no_jax_and_no_skypilot_tpu():
+    r = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=REPO,
+                       capture_output=True, text=True, timeout=300,
+                       check=False)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert int(r.stdout.split()[0]) >= 10  # every module was imported
+
+
+@pytest.mark.parametrize('path', sorted(
+    str(p.relative_to(PKG)) for p in PKG.rglob('*.py')))
+def test_no_source_file_imports_jax_or_skypilot_tpu(path):
+    tree = ast.parse((PKG / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or '']
+        else:
+            continue
+        for name in names:
+            assert name.split('.')[0] not in FORBIDDEN, (path, name)
+
+
+def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        device_lib.resolve_device()
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        llm_server.LlmServer('tiny')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        llama.init_params(llama.TINY, torch.Generator())
+    assert device_lib.resolve_device('cpu') == torch.device('cpu')
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
