@@ -7,22 +7,41 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero):
 
-1. Build: compiles the flash-decode kernel from ``skypilot_tpu_torch/csrc``
-   with nvcc and prints the seconds and the compiler's register report.
-2. Kernel against its plain version at BENCH_1B decode shapes (Hq=16,
+1. Build: compiles both kernel libraries of ``skypilot_tpu_torch/csrc``
+   (flash-decode K4, flash-attention K1-K3), one nvcc each, started
+   together; prints the seconds and the compiler's register report.
+2. K4 against its plain version at BENCH_1B decode shapes (Hq=16,
    Hkv=8, D=128, M=1024, B in {1, 32}; M=1000; a D=64 case), bf16 and
    int8 caches, bf16 and fp32 queries. Tolerances: bf16 2e-2 (bf16 output
    rounding, sums in another order), fp32 1e-4. Prints kernel, plain,
    library (SDPA) and bound ms per case, from CUDA events after warm-up.
-3. End to end on a small model (head_dim 64, float32): prefill and decode
-   logits on the card (through the kernel) against the CPU (plain path).
-4. Serving: ``LlmServer('bench-1b', max_len=1024)`` over HTTP, bf16
-   weights + bf16 KV, then int8 weights + int8 KV. A few concurrent
-   requests (greedy and seeded-sampled); checks status, token counts and
-   ids, repeat determinism, agreement with a direct ``generate`` call, and
-   that the kernel was launched n_layers * (max_new - 1) times for each
-   generate call. Prints decode tokens/s.
-5. Summary: one JSON line of kernels, then the last line
+3. K1, K2, K3 against their plain versions: the training shape (B=2,
+   Hq 16, Hkv 8, D 128, S=4096, bf16, causal), B=1, non-causal, ragged
+   S=1000 and S=65, D=64 with group 4, and fp32 inputs (the CUDA-core
+   bodies; bf16 runs the tensor-core ones). Absolute tolerances: bf16 o
+   2e-2, grads 5e-2; fp32 1e-4 and 1e-3 (lse always 1e-3). Those are
+   near the size of a bf16 value at S=4096, so each of o, dq, dk, dv is
+   also held to a relative limit on every tile of 64 rows along S:
+   ||got - want|| / ||want|| over the tile (REL_TOL). Prints kernel,
+   plain, library (SDPA forward for K1, SDPA's backward for K2+K3
+   together) and bound ms for the training shape.
+4. Serving end to end on a small model (head_dim 64, float32): prefill
+   and decode logits on the card (through K4) against the CPU.
+5. Training end to end on a small model (head_dim 64, float32): 3 steps
+   of the port's ``Trainer`` on the card (K1-K3) and on the CPU from the
+   same weights and batches; losses and params compared.
+6. Training BENCH_1B, the training main path: ``train.run.main`` at seq
+   4096, global batch 2, Adafactor, remat 'full', 4 steps, warmup 1.
+   Every loss must be finite, the weights must move, and the launch
+   counts must be K1 = 2 * 18 * 4 (remat runs the forward again) and
+   K2 = K3 = 18 * 4.
+7. Serving, the serving main path: ``LlmServer('bench-1b', max_len=1024)``
+   over HTTP, bf16 weights + bf16 KV, then int8 weights + int8 KV. A few
+   concurrent requests (greedy and seeded-sampled); checks status, token
+   counts and ids, repeat determinism, agreement with a direct
+   ``generate`` call, and that K4 was launched n_layers * (max_new - 1)
+   times for each generate call. Prints decode tokens/s.
+8. Summary: one JSON line of kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits with an error, printing no result, when CUDA is absent or when
@@ -32,6 +51,7 @@ import concurrent.futures
 import dataclasses
 import itertools
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -41,12 +61,24 @@ import urllib.request
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.utils.device import H100_BF16_DENSE_FLOPS
+
 H100_BYTES_PER_S = 3.35e12        # HBM3, SXM data sheet
-H100_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
+H100_OPS_PER_S = {torch.bfloat16: H100_BF16_DENSE_FLOPS,
                   torch.float32: 67e12}     # fp32 outside tensor cores
+# K1-K3: largest ||got - want|| / ||want|| allowed on any 64-row tile, for
+# (o, grads); about 4x the largest that sound kernels read on an H100 (bf16
+# o 2.4e-3, dq 2.7e-4, dk 1.3e-4, dv 8.6e-5; fp32 4.2e-7).
+REL_TOL = {torch.bfloat16: (1e-2, 1e-3), torch.float32: (2e-6, 2e-6)}
 L2_BYTES = 50 * 2 ** 20
 MODES = {'bf16': ('skypilot_tpu/ops/decode_attention.py:147', False),
          'int8': ('skypilot_tpu/ops/decode_attention.py:162', True)}
+FLASH = {  # K1-K3: wrapper name -> (TPU kernel, launch counter)
+    'flash_fwd': ('skypilot_tpu/ops/attention.py:106', 'fwd_launches'),
+    'flash_bwd_dq': ('skypilot_tpu/ops/attention.py:206',
+                     'bwd_dq_launches'),
+    'flash_bwd_dkv': ('skypilot_tpu/ops/attention.py:257',
+                      'bwd_dkv_launches')}
 
 
 def _card() -> str:
@@ -187,7 +219,145 @@ def kernel_phase(da):
     return results
 
 
-# -- phase 3: end to end on a small model, card against CPU -----------------------
+# -- phase 3: K1-K3 against their plain versions ----------------------------------
+
+
+def _attn_case(gen, b, hq, hkv, s, d, dtype):
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device='cuda').to(dtype)
+    return r(b, hq, s, d), r(b, hkv, s, d), r(b, hkv, s, d), r(b, hq, s, d)
+
+
+def _attn_bound(q, k, causal, n_matmuls, nbytes):
+    """max(flops / peak for q's type, bytes / HBM rate), in ms; causal
+    flops count the (query, key) pairs of the lower triangle only."""
+    b, hq, s, d = q.shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    t_ops = 2 * n_matmuls * d * pairs * b * hq / H100_OPS_PER_S[q.dtype]
+    t_bytes = nbytes / H100_BYTES_PER_S
+    return ((t_ops * 1e3, 'operations') if t_ops >= t_bytes
+            else (t_bytes * 1e3, 'bytes'))
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _tile_rel_err(got, want, tile=64):
+    """Largest ||got - want|| / ||want|| over tiles of ``tile`` rows
+    along S (dim -2; every batch and head of the tile together), so that a
+    fault confined to a few tiles, such as late rows, shows at full size."""
+    def per_tile(x):
+        sq = (x.double() ** 2).transpose(-2, 0).reshape(x.shape[-2], -1)
+        sq = torch.nn.functional.pad(sq.sum(1), (0, -x.shape[-2] % tile))
+        return sq.reshape(-1, tile).sum(1).sqrt()
+    return float((per_tile(got - want) / per_tile(want)).max())
+
+
+def attention_phase(fa):
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (label, b, hq, hkv, s, d, dtype, causal)
+        ('train B=2 S=4096', 2, 16, 8, 4096, 128, bf16, True),
+        ('B=1 S=4096', 1, 16, 8, 4096, 128, bf16, True),
+        ('full S=2048', 1, 16, 8, 2048, 128, bf16, False),
+        ('ragged S=1000', 1, 16, 8, 1000, 128, bf16, True),
+        ('D=64 G=4 S=1024', 1, 32, 8, 1024, 64, bf16, True),
+        ('G=4 full S=65', 2, 4, 1, 65, 128, bf16, False),
+        ('fp32 S=1000', 1, 16, 8, 1000, 128, f32, True),
+        ('fp32 full S=517', 2, 8, 2, 517, 64, f32, False),
+    ]
+    worst = {name: 0.0 for name in FLASH}
+    head = {}
+    for label, b, hq, hkv, s, d, dtype, causal in cases:
+        q, k, v, do = _attn_case(gen, b, hq, hkv, s, d, dtype)
+        o, lse = fa.flash_fwd(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        ro, rlse = fa.flash_fwd_reference(q, k, v, causal)
+        rdq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+        rdk, rdv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                              causal)
+        fwd_tol, grad_tol = (2e-2, 5e-2) if dtype == bf16 else (1e-4, 1e-3)
+        errs, rels = {}, {}
+        for name, got, want, tol in (
+                ('o', o, ro, fwd_tol), ('lse', lse, rlse, 1e-3),
+                ('dq', dq, rdq, grad_tol), ('dk', dk, rdk, grad_tol),
+                ('dv', dv, rdv, grad_tol)):
+            got, want = got.float(), want.float()
+            err = float((got - want).abs().max())
+            if not (torch.isfinite(got).all()
+                    and torch.allclose(got, want, atol=tol, rtol=tol)):
+                raise AssertionError(f'{label} {dtype}: {name} max abs err '
+                                     f'{err} beyond {tol}')
+            if float(want.abs().max()) == 0.0:
+                raise AssertionError(f'{label}: {name} is all zero')
+            errs[name] = err
+            if name != 'lse':  # lse ~ log S: the abs limit is relative
+                rel_tol = REL_TOL[dtype][name != 'o']
+                rels[name] = _tile_rel_err(got, want)
+                if not rels[name] <= rel_tol:
+                    raise AssertionError(
+                        f'{label} {dtype}: {name} tile relative err '
+                        f'{rels[name]} beyond {rel_tol}')
+        worst['flash_fwd'] = max(worst['flash_fwd'], errs['o'], errs['lse'])
+        worst['flash_bwd_dq'] = max(worst['flash_bwd_dq'], errs['dq'])
+        worst['flash_bwd_dkv'] = max(worst['flash_bwd_dkv'], errs['dk'],
+                                     errs['dv'])
+        print(f'  {label:18s} {str(dtype).split(".")[-1]:8s} causal={causal} '
+              + ' '.join(f'{k}_err={v:.3g}' for k, v in errs.items())
+              + ' ' + ' '.join(f'{k}_tile_rel={v:.3g}'
+                               for k, v in rels.items()), flush=True)
+        if head:
+            continue
+        # The training shape: time each kernel, its plain version, the
+        # library call and the bound.
+        calls = {
+            'flash_fwd': (lambda: fa.flash_fwd(q, k, v, causal),
+                          lambda: fa.flash_fwd_reference(q, k, v, causal),
+                          2, _nbytes(q, k, v, o, lse)),
+            'flash_bwd_dq': (
+                lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+                lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                  causal),
+                3, _nbytes(q, k, v, do, lse, delta, dq)),
+            'flash_bwd_dkv': (
+                lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal),
+                lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                   causal),
+                4, _nbytes(q, k, v, do, lse, delta, dk, dv)),
+        }
+        sdpa = _sdpa_train_ms(q, k, v, do, causal)
+        for name, (kernel, plain, n_mm, nbytes) in calls.items():
+            bound, by = _attn_bound(q, k, causal, n_mm, nbytes)
+            head[name] = {
+                'ms': _time_ms(kernel, 10), 'plain_ms': _time_ms(plain, 2),
+                'library_ms': sdpa['fwd' if name == 'flash_fwd' else 'bwd'],
+                'bound_ms': bound, 'bound_by': by}
+            print(f'    {name}: ' + ' '.join(
+                f'{k}={v}' for k, v in head[name].items()), flush=True)
+        del calls
+    return {name: dict(head[name], max_abs_err=worst[name])
+            for name in FLASH}
+
+
+def _sdpa_train_ms(q, k, v, do, causal):
+    """One PyTorch call computing the same function: SDPA forward, and
+    SDPA's backward (dq, dk, dv together)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = _time_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
+                   10)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = sdpa(*leaves, is_causal=causal, enable_gqa=True)
+    bwd = _time_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                               retain_graph=True), 10)
+    return {'fwd': fwd, 'bwd': bwd}
+
+
+# -- phase 4: serving a small model, card against CPU --------------------------------
 
 
 def small_model_phase(llama, gen_lib):
@@ -228,7 +398,105 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
-# -- phase 4: the serving replica ---------------------------------------------------
+# -- phase 5: training a small model, card against CPU -------------------------------
+
+
+def small_train_phase(llama, trainer_lib, data_lib):
+    """3 Adafactor steps (warmup 1, lr 1e-2 so the weights move) of a
+    head_dim-64 fp32 model on the card and on the CPU from the same
+    weights. Tolerances: loss 1e-4, params 1e-4 (fp32; sums in another
+    order, then three Adafactor normalisations)."""
+    model = dataclasses.replace(llama.TINY, d_model=128, n_heads=4,
+                                n_kv_heads=2, head_dim=64, d_ff=256,
+                                dtype=torch.float32)
+    cfg = trainer_lib.TrainerConfig(model=model, global_batch_size=2,
+                                    seq_len=200, warmup_steps=1,
+                                    learning_rate=1e-2)
+    init = llama.init_params(model, torch.Generator().manual_seed(0), 'cpu')
+    runs = {}
+    for dev in ('cpu', 'cuda'):
+        trainer = trainer_lib.Trainer(cfg, device=dev)
+        state = trainer.init_state_from_numpy(_tree_to_numpy(init))
+        losses = []
+        for batch in data_lib.synthetic_batches(2, 200, model.vocab_size,
+                                                seed=3, num_batches=3):
+            state, metrics = trainer.step(state, batch)
+            losses.append(float(metrics['loss']))
+        runs[dev] = (losses, _flat(state['params']))
+    loss_err = max(abs(a - b) for a, b in zip(runs['cpu'][0],
+                                              runs['cuda'][0]))
+    param_err = max(float((a - b.cpu()).abs().max()) for a, b in zip(
+        runs['cpu'][1], runs['cuda'][1]))
+    moved = max(float((a - b).abs().max()) for a, b in zip(
+        runs['cpu'][1], _flat(init)))
+    if not (loss_err <= 1e-4 and param_err <= 1e-4 and moved > 1e-3):
+        raise AssertionError(f'small model training: card vs CPU loss err '
+                             f'{loss_err}, param err {param_err} (limits '
+                             f'1e-4), weights moved {moved}')
+    print(f'  small model (d_model 128, head_dim 64, fp32), 3 Adafactor '
+          f'steps: losses {runs["cuda"][0]}; card vs CPU max loss err '
+          f'{loss_err}, max param err {param_err} (limits 1e-4); weights '
+          f'moved up to {moved}', flush=True)
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k])]
+    return [tree.detach()]
+
+
+def _tree_to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+# -- phase 6: training BENCH_1B through the entry point -------------------------------
+
+
+def train_phase(llama, fa, train_run):
+    steps, layers = 4, llama.BENCH_1B.n_layers
+    for counter in ('fwd_launches', 'bwd_dq_launches', 'bwd_dkv_launches'):
+        setattr(fa.flash_attention, counter, 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_run.main(['--model', 'bench-1b', '--seq-len', '4096',
+                          '--global-batch-size', '2', '--steps', str(steps),
+                          '--warmup-steps', '1', '--optimizer', 'adafactor',
+                          '--remat-policy', 'full', '--log-every', '1'])
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(fa.flash_attention, counter)
+                for name, (_, counter) in FLASH.items()}
+    expected = {'flash_fwd': 2 * layers * steps,
+                'flash_bwd_dq': layers * steps,
+                'flash_bwd_dkv': layers * steps}
+    if launches != expected:
+        raise AssertionError(f'training launches {launches}, expected '
+                             f'{expected}')
+    losses = out['losses']
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f'training losses {losses}')
+    init = llama.init_params(llama.BENCH_1B, torch.Generator(
+        device='cuda').manual_seed(0), 'cuda')
+    changed = total = 0
+    for a, b in zip(_flat(out['state']['params']), _flat(init)):
+        changed += int((a != b).sum())
+        total += a.numel()
+    del init
+    if changed == 0:
+        raise AssertionError('training left every weight unchanged')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'  bench-1b seq 4096 batch 2, {steps} steps in {wall:.1f} s: '
+          f'losses {losses}; step ms by window {out["window_step_ms"]}; '
+          f'{changed / total:.2%} of weights changed (bf16 weights keep '
+          f'updates below half an ulp); peak device memory {peak:.1f} GiB; '
+          f'launches {launches} = expected', flush=True)
+    del out
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 7: the serving replica ---------------------------------------------------
 
 
 def _post(url, body, timeout=600):
@@ -312,14 +580,32 @@ def serving_phase(srv_lib, gen_lib, da, quantize, kv_cache):
         torch.cuda.empty_cache()
 
 
+def _build_all(libs):
+    """One nvcc per kernel library, all started together."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        logs = list(pool.map(lambda lib: lib.build_library(), libs))
+    print(f'  built {", ".join(lib.SOURCE.name for lib in libs)} in '
+          f'{time.perf_counter() - t0:.2f} s', flush=True)
+    for lib, log in zip(libs, logs):
+        for line in log.splitlines():
+            if 'registers' in line or 'spill' in line and ' 0 bytes spill' \
+                    not in line:
+                print(f'  {lib.SOURCE.name}: {line.strip()}', flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 2
     from skypilot_tpu_torch.models import generate as gen_lib
     from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import attention as fa
     from skypilot_tpu_torch.ops import decode_attention as da
     from skypilot_tpu_torch.serve import llm_server as srv_lib
+    from skypilot_tpu_torch.train import data as data_lib
+    from skypilot_tpu_torch.train import run as train_run
+    from skypilot_tpu_torch.train import trainer as trainer_lib
     from skypilot_tpu_torch.utils.device import resolve_device
     print(_card(), flush=True)
     resolve_device()
@@ -327,25 +613,36 @@ def main() -> int:
           f'python {sys.version.split()[0]}', flush=True)
 
     print('phase 1: build', flush=True)
-    t0 = time.perf_counter()
-    log = da.build_library()
-    print(f'  built {da.SOURCE.name} in {time.perf_counter() - t0:.2f} s',
-          flush=True)
-    for line in log.splitlines():
-        if 'registers' in line:
-            print('  ' + line.strip(), flush=True)
+    _build_all([da, fa])
 
-    print('phase 2: flash_decode against its plain version', flush=True)
+    print('phase 2: flash_decode (K4) against its plain version', flush=True)
     kernels = kernel_phase(da)
 
-    print('phase 3: small model end to end, card against CPU', flush=True)
+    print('phase 3: flash attention (K1-K3) against the plain versions',
+          flush=True)
+    flash = attention_phase(fa)
+
+    print('phase 4: small model serving, card against CPU', flush=True)
     small_model_phase(llama, gen_lib)
 
-    print('phase 4: serving bench-1b over HTTP', flush=True)
+    print('phase 5: small model training, card against CPU', flush=True)
+    small_train_phase(llama, trainer_lib, data_lib)
+
+    print('phase 6: training bench-1b at seq 4096 through train.run',
+          flush=True)
+    train_launches = train_phase(llama, fa, train_run)
+
+    print('phase 7: serving bench-1b over HTTP', flush=True)
     launches = {'bf16': serving_phase(srv_lib, gen_lib, da, None, 'bf16'),
                 'int8': serving_phase(srv_lib, gen_lib, da, 'int8', 'int8')}
 
     entries = []
+    for name, (replaces, _) in FLASH.items():
+        entries.append({
+            'name': name, 'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/flash_attention.cu',
+            'replaces': replaces, 'launches': train_launches[name],
+            **flash[name]})
     for mode, (replaces, _) in MODES.items():
         head = kernels[mode]['cases'][0]  # B=32 M=1024 bf16: serving shape
         entries.append({

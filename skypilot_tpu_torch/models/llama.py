@@ -1,23 +1,32 @@
-"""Llama-family transformer: the dense serving parts, in PyTorch.
+"""Llama-family transformer in PyTorch: serving parts and the training
+forward.
 
 Port of ``skypilot_tpu/models/llama.py``: the same config, presets and
 weight tree, so a JAX tree carried over by ``params_from_numpy`` drops
 into the port unchanged. Weights are stacked over layers (``[L, ...]``
-leaves under ``layers``), exactly the JAX scan layout.
+leaves under ``layers``), exactly the JAX scan layout, and stay stacked
+in training too: Adafactor factors and scales each stacked leaf as a whole
+(``train/optim.py``), as optax does.
 
-Only what the serving path needs is here: the full-sequence ``forward``,
-``loss_fn``, remat and MoE come with the training slice. For
-``num_experts > 0`` the functions that would need MoE raise
-``NotImplementedError``.
+The training forward (``forward_with_aux``, ``forward``, ``loss_fn``)
+runs the layers in a Python loop (JAX: ``lax.scan``) with attention
+through ``ops.attention.flash_attention`` (K1 forward, K2/K3 backward on
+the card). Remat policies map onto ``torch.utils.checkpoint``.
+MoE (``num_experts > 0``) and pipeline stages raise
+``NotImplementedError``; sequence parallelism needs a mesh, which the
+port does not have yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from skypilot_tpu_torch.ops.attention import flash_attention
 from skypilot_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
@@ -81,7 +90,7 @@ PRESETS = {'llama3-8b': LLAMA3_8B, 'llama3-1b': LLAMA3_1B,
 def require_dense(cfg: LlamaConfig) -> None:
     if cfg.num_experts > 0:
         raise NotImplementedError(
-            'MoE models are not ported yet (skypilot_tpu_torch serves '
+            'MoE models are not ported yet (skypilot_tpu_torch runs '
             'dense models only)')
 
 
@@ -193,3 +202,182 @@ def layer_params(layers: Params, index: int) -> Params:
         else:
             out[name] = leaf[index]
     return out
+
+
+# -- the training forward -----------------------------------------------------
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum('bsd,d...->bs...', x, w)`` as one matmul."""
+    out = x @ w.reshape(w.shape[0], -1)
+    return out.view(*x.shape[:-1], *w.shape[1:])
+
+
+def _qkv(cfg: LlamaConfig, x: torch.Tensor, layer: Params):
+    """Attention norm and the q/k/v projections (JAX: 'qkv_proj')."""
+    h = rms_norm(x, layer['attn_norm'], cfg.norm_eps)
+    return (_project(h, layer['wq']), _project(h, layer['wk']),
+            _project(h, layer['wv']))
+
+
+def _attend(cfg: LlamaConfig, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """RoPE and causal flash attention: [B, S, H, D] in and out
+    (JAX: 'attn_out')."""
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return flash_attention(qt, kt, vt, causal=True).transpose(1, 2)
+
+
+def _attn_residual(x: torch.Tensor, att: torch.Tensor,
+                   layer: Params) -> torch.Tensor:
+    """x + att . wo (JAX: 'attn_proj')."""
+    wo = layer['wo']
+    return x + att.reshape(*att.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _mlp_hidden(cfg: LlamaConfig, x: torch.Tensor, layer: Params):
+    """MLP norm and the gate/up projections."""
+    h = rms_norm(x, layer['mlp_norm'], cfg.norm_eps)
+    return h @ layer['w_gate'], h @ layer['w_up']
+
+
+def _mlp_down(gate: torch.Tensor, up: torch.Tensor,
+              layer: Params) -> torch.Tensor:
+    """silu(gate) * up . w_down (JAX: 'mlp_down')."""
+    return (F.silu(gate) * up) @ layer['w_down']
+
+
+def _mlp(cfg: LlamaConfig, x: torch.Tensor, layer: Params) -> torch.Tensor:
+    return _mlp_down(*_mlp_hidden(cfg, x, layer), layer)
+
+
+def _decoder_layer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
+                   positions: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One dense decoder block (``llama.py:217``); returns (x, aux) with
+    aux 0, the dense MLP's balance loss."""
+    require_dense(cfg)
+    att = _attend(cfg, *_qkv(cfg, x, layer), positions)
+    x = _attn_residual(x, att, layer)
+    return x + _mlp(cfg, x, layer), x.new_zeros((), dtype=torch.float32)
+
+
+def _ckpt(fn: Callable, *args):
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _remat_full(cfg, x, layer, positions):
+    return _ckpt(lambda x_: _decoder_layer(cfg, x_, layer, positions)[0], x)
+
+
+def _remat_attn(cfg, x, layer, positions):
+    att = _ckpt(lambda x_: _attend(cfg, *_qkv(cfg, x_, layer), positions), x)
+
+    def rest(x_, att_):
+        x_ = _attn_residual(x_, att_, layer)
+        return x_ + _mlp(cfg, x_, layer)
+    return _ckpt(rest, x, att)
+
+
+def _remat_heavy(cfg, x, layer, positions):
+    q, k, v = _ckpt(lambda x_: _qkv(cfg, x_, layer), x)
+    att = _ckpt(lambda *t: _attend(cfg, *t, positions), q, k, v)
+    x = _attn_residual(x, att, layer)
+    return x + _ckpt(lambda x_: _mlp(cfg, x_, layer), x)
+
+
+def _remat_dots(cfg, x, layer, positions):
+    q, k, v = _ckpt(lambda x_: _qkv(cfg, x_, layer), x)
+    att = _ckpt(lambda *t: _attend(cfg, *t, positions), q, k, v)
+    x = _attn_residual(x, att, layer)
+    gate, up = _ckpt(lambda x_: _mlp_hidden(cfg, x_, layer), x)
+    return x + _mlp_down(gate, up, layer)
+
+
+# The JAX policies (``llama.py:267``) name the matmul outputs XLA may keep.
+# Here each policy checkpoints segments of the layer, so the backward keeps
+# the segment boundaries and recomputes the rest; the attention segment
+# (RoPE + flash attention) is always recomputed, as under XLA, where the
+# kernel's residuals carry no name. Per layer the backward keeps:
+#   full:  the layer input x;
+#   attn:  x and the attention output att;
+#   heavy: x, q/k/v before RoPE, att, and x after the attention residual;
+#   dots:  as heavy, plus gate, up and the products the plain MLP tail
+#          saves (silu(gate), silu(gate) * up).
+# Gradients do not depend on the policy.
+REMAT_POLICIES: Dict[str, Callable] = {
+    'full': _remat_full,
+    'attn': _remat_attn,
+    'dots': _remat_dots,
+    'heavy': _remat_heavy,
+}
+
+
+def _layer_stack(cfg: LlamaConfig, x: torch.Tensor, layers: Params,
+                 positions: torch.Tensor, remat: bool,
+                 remat_policy: str = 'full'
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer loop (JAX: ``lax.scan``); returns (x, aux_sum).
+
+    Each stacked leaf is unbound once, so the backward stacks each leaf's
+    layer gradients into one ``[L, ...]`` tensor (indexing ``leaf[i]``
+    would give every layer its own full-size zero gradient)."""
+    require_dense(cfg)
+    if remat and remat_policy not in REMAT_POLICIES:
+        raise ValueError(f'Unknown remat_policy {remat_policy!r}; choose '
+                         f'from {sorted(REMAT_POLICIES)}')
+    per_layer = {name: leaf.unbind(0) for name, leaf in layers.items()}
+    n = len(next(iter(per_layer.values())))
+    aux = x.new_zeros((), dtype=torch.float32)
+    for i in range(n):
+        layer = {name: leaves[i] for name, leaves in per_layer.items()}
+        if remat:
+            x = REMAT_POLICIES[remat_policy](cfg, x, layer, positions)
+        else:
+            x, a = _decoder_layer(cfg, x, layer, positions)
+            aux = aux + a
+    return x, aux
+
+
+def forward_with_aux(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                     remat: bool = False, remat_policy: str = 'full'
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> (logits [B, S, vocab] fp32, aux loss).
+
+    The unembedding multiplies float32 copies of x and ``lm_head``: exact
+    for bf16 operands, as JAX's ``preferred_element_type=float32`` is."""
+    require_dense(cfg)
+    if cfg.pipeline_stages > 1:
+        raise NotImplementedError('pipeline stages are not ported yet')
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    x = F.embedding(tokens.long(), params['embed'].to(cfg.dtype))
+    x, aux = _layer_stack(cfg, x, params['layers'], positions, remat,
+                          remat_policy)
+    x = rms_norm(x, params['final_norm'], cfg.norm_eps)
+    return x.float() @ params['lm_head'].float(), aux
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            remat: bool = False) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, vocab] (fp32)."""
+    return forward_with_aux(params, tokens, cfg, remat=remat)[0]
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            remat: bool = True, remat_policy: str = 'full'
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy over tokens[:, 1:] (``llama.py:398``):
+    the forward runs on the full sequence and logits[:, :-1] predict
+    tokens[:, 1:]. Returns (total, {'loss', 'perplexity'})."""
+    logits, _ = forward_with_aux(params, tokens, cfg, remat=remat,
+                                 remat_policy=remat_policy)
+    logits = logits[:, :-1]
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
+    nll = (logz - gold).mean()
+    return nll, {'loss': nll, 'perplexity': torch.exp(nll)}

@@ -1,0 +1,99 @@
+"""Builds the port's CUDA sources into shared libraries at first use.
+
+Every kernel of the port is CUDA C++ under ``csrc/`` with a plain C
+interface. ``Library`` compiles one source with ``nvcc`` for ``sm_90a``
+into ``csrc/build/`` (gitignored), keyed by a hash of the source and the
+flags, so an unchanged source is compiled once per checkout, and loads it
+with ``ctypes``. ``-Xptxas -v`` makes the compiler report each kernel's
+registers, shared memory and spills; ``build()`` returns that report.
+
+Two libraries can build at once (each holds its own lock), so a caller
+that needs several starts their builds together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Callable, Optional
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_DIR = CSRC / 'build'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+
+def nvcc() -> str:
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH') \
+        or '/usr/local/cuda'
+    path = os.path.join(home, 'bin', 'nvcc')
+    if not os.path.exists(path):
+        raise RuntimeError('nvcc not found: the port\'s kernels are built '
+                           'from source with the CUDA toolkit')
+    return path
+
+
+class Library:
+    """One ``csrc/`` source, compiled and loaded at first use.
+
+    ``configure(lib)`` sets the ``argtypes``/``restype`` of the loaded
+    library's functions. Each source exports
+    ``skytorch_cuda_error_string(int)`` for ``check``."""
+
+    def __init__(self, source_name: str,
+                 configure: Callable[[ctypes.CDLL], None]):
+        self.source = CSRC / source_name
+        self._configure = configure
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+
+    def build(self) -> str:
+        """Compile (unless this source and these flags were built already)
+        and load. Returns the compiler's output of this call, '' when the
+        library was built before."""
+        with self._lock:
+            if self._lib is not None:
+                return ''
+            src = self.source.read_bytes()
+            tag = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()
+                                 ).hexdigest()[:16]
+            so = BUILD_DIR / f'lib{self.source.stem}-{tag}.so'
+            log = ''
+            if not so.exists():
+                compiler = nvcc()
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
+                cmd = [compiler, *NVCC_FLAGS, '-o', str(tmp),
+                       str(self.source)]
+                r = subprocess.run(cmd, capture_output=True, text=True,
+                                   check=False)
+                if r.returncode != 0:
+                    raise RuntimeError(f'nvcc {self.source.name} failed '
+                                       f'({r.returncode}):\n'
+                                       f'{r.stdout}{r.stderr}')
+                os.replace(tmp, so)
+                log = r.stdout + r.stderr
+            lib = ctypes.CDLL(str(so))
+            lib.skytorch_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.skytorch_cuda_error_string.restype = ctypes.c_char_p
+            self._configure(lib)
+            self._lib = lib
+            return log
+
+    def get(self) -> ctypes.CDLL:
+        if self._lib is None:
+            self.build()
+        return self._lib
+
+    def check(self, rc: int, what: str) -> None:
+        """Raise if a launch function returned a CUDA error code."""
+        if rc != 0:
+            msg = self.get().skytorch_cuda_error_string(rc).decode()
+            raise RuntimeError(f'{what} kernel launch failed: {msg} ({rc})')

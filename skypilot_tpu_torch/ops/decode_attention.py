@@ -4,7 +4,8 @@ Port of ``skypilot_tpu/ops/decode_attention.py`` (the Pallas kernel
 ``_decode_kernel``, launched for a bf16 cache at ``:147`` and for an int8
 cache at ``:162``). The kernel is CUDA C++ for Hopper in
 ``csrc/decode_attention.cu``, compiled with ``nvcc`` at first use into a
-shared library with a plain C interface and loaded with ``ctypes``.
+shared library with a plain C interface and loaded with ``ctypes``
+(``ops/_build.py``).
 
 * ``flash_decode`` is the wrapper: on CUDA tensors it launches the kernel
   (or raises); on CPU tensors, and only there, it computes the plain
@@ -22,25 +23,16 @@ same rather than raising, so no launch needs the lengths on the host.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import threading
 from typing import Optional
 
 import torch
+
+from skypilot_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # the head widths the presets use
 MAX_GROUP = 8          # query heads per kv head the kernel holds
 
-_CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
-SOURCE = _CSRC / 'decode_attention.cu'
-BUILD_DIR = _CSRC / 'build'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -96,21 +88,20 @@ def flash_decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
 
 # -- the CUDA kernel ----------------------------------------------------------
 
-_LIB: Optional[ctypes.CDLL] = None
-_LIB_LOCK = threading.Lock()
+
+def _configure(lib) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.skytorch_flash_decode.argtypes = [
+        i32, i32,                      # dtype code, quantized
+        ptr, ptr, ptr, ptr, ptr,       # q, k, v, k_s, v_s
+        ptr, ptr,                      # lengths, out
+        i32, i32, i32, i32, i32,       # batch, hkv, group, max_len, d
+        ctypes.c_float, ptr]           # scale, stream
+    lib.skytorch_flash_decode.restype = i32
 
 
-def _nvcc() -> str:
-    found = shutil.which('nvcc')
-    if found:
-        return found
-    home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH') \
-        or '/usr/local/cuda'
-    path = os.path.join(home, 'bin', 'nvcc')
-    if not os.path.exists(path):
-        raise RuntimeError('nvcc not found: the decode-attention kernel is '
-                           'built from source with the CUDA toolkit')
-    return path
+_LIBRARY = _build.Library('decode_attention.cu', _configure)
+SOURCE = _LIBRARY.source
 
 
 def build_library() -> str:
@@ -118,46 +109,7 @@ def build_library() -> str:
     already) and load it. Returns the compiler's output of this call,
     which ``-Xptxas -v`` makes the registers and shared memory of each
     kernel; '' when the library was built before."""
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is not None:
-            return ''
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()
-                             ).hexdigest()[:16]
-        so = BUILD_DIR / f'libdecode_attention-{tag}.so'
-        log = ''
-        if not so.exists():
-            nvcc = _nvcc()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
-            cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(SOURCE)]
-            r = subprocess.run(cmd, capture_output=True, text=True,
-                               check=False)
-            if r.returncode != 0:
-                raise RuntimeError(f'nvcc failed ({r.returncode}):\n'
-                                   f'{r.stdout}{r.stderr}')
-            os.replace(tmp, so)
-            log = r.stdout + r.stderr
-        lib = ctypes.CDLL(str(so))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.skytorch_flash_decode.argtypes = [
-            i32, i32,                      # dtype code, quantized
-            ptr, ptr, ptr, ptr, ptr,       # q, k, v, k_s, v_s
-            ptr, ptr,                      # lengths, out
-            i32, i32, i32, i32, i32,       # batch, hkv, group, max_len, d
-            ctypes.c_float, ptr]           # scale, stream
-        lib.skytorch_flash_decode.restype = i32
-        lib.skytorch_cuda_error_string.argtypes = [i32]
-        lib.skytorch_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-        return log
-
-
-def _library() -> ctypes.CDLL:
-    if _LIB is None:
-        build_library()
-    return _LIB
+    return _LIBRARY.build()
 
 
 def _check(q, k_cache, v_cache, lengths, k_s, v_s) -> None:
@@ -225,7 +177,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type != 'cuda':
         raise ValueError(f'flash_decode: no kernel for device {q.device}')
     _check(q, k_cache, v_cache, lengths, k_s, v_s)
-    lib = _library()
+    lib = _LIBRARY.get()
     b, hq, d = q.shape
     hkv, m = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
@@ -238,10 +190,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         v_s.data_ptr() if quant else None,
         lengths.data_ptr(), out.data_ptr(),
         b, hkv, hq // hkv, m, d, d ** -0.5, stream)
-    if rc != 0:
-        msg = lib.skytorch_cuda_error_string(rc).decode()
-        raise RuntimeError(f'flash_decode kernel launch failed: {msg} '
-                           f'({rc})')
+    _LIBRARY.check(rc, 'flash_decode')
     flash_decode.launches += 1
     return out
 

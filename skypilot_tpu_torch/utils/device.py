@@ -12,6 +12,8 @@ import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
 
+H100_BF16_DENSE_FLOPS = 989e12  # tensor-core FLOP/s, H100 SXM data sheet
+
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means CUDA. Raises if CUDA is asked for and absent.

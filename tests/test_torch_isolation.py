@@ -12,6 +12,8 @@ import torch
 import skypilot_tpu_torch
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.serve import llm_server
+from skypilot_tpu_torch.train import run as train_run
+from skypilot_tpu_torch.train import trainer as trainer_lib
 from skypilot_tpu_torch.utils import device as device_lib
 
 PKG = pathlib.Path(skypilot_tpu_torch.__file__).resolve().parent
@@ -77,6 +79,12 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
         llm_server.LlmServer('tiny')
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         llama.init_params(llama.TINY, torch.Generator())
+    cfg = trainer_lib.TrainerConfig(model=llama.TINY, seq_len=16)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        trainer_lib.Trainer(cfg)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        train_run.main(['--model', 'tiny', '--steps', '1'])
+    assert trainer_lib.Trainer(cfg, device='cpu').device.type == 'cpu'
     assert device_lib.resolve_device('cpu') == torch.device('cpu')
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
