@@ -23,15 +23,15 @@
 // flops over the tensor-core rate (989 TFLOP/s dense bf16).
 //
 // Two bodies of each kernel, chosen by the input type:
-//  * bf16 (training): the products run on the tensor cores through
-//    mma.sync m16n8k16 with fp32 sums, 4 warps per 64-row tile, tiles kept
-//    in bf16 in shared memory. Synchronous loads, no TMA or wgmma yet: those
-//    (and a producer warp keeping loads in flight) are the next step toward
-//    the bound.
+//  * bf16 (training): the products run on the tensor cores with fp32 sums.
+//    K1 and K3 are flash_attention_sm90.cuh: TMA rings fed by a producer
+//    warpgroup, wgmma in two consumer warpgroups, 128-row tiles (its header
+//    says more). K2 is below: mma.sync m16n8k16, 4 warps per 64-row tile,
+//    synchronous loads into padded shared-memory tiles.
 //  * fp32 (tight checks against the plain version, fp32 models): fp32 FMAs
 //    on the CUDA cores, 256 threads per tile, each holding a 4 x 4 sub-tile
 //    of the logits; tensor cores would round fp32 inputs to TF32.
-// Shared by both:
+// Shared by the fp32 bodies and K2:
 //  * a block owns one 64-row tile of its own rows (K1, K2: a query tile of
 //    one head; K3: a key tile of one kv head) and streams 64-row tiles of
 //    the other side through shared memory;
@@ -49,6 +49,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -606,147 +608,6 @@ __device__ __forceinline__ void load_tile_bf16(bf16* dst,
   }
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-template <int D>
-constexpr size_t fwd_tc_smem() { return 3 * tc_tile_bytes<D>(); }
-
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kTcThreads)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o,
-                    float* __restrict__ lse, int hq, int group, int seq,
-                    float scale) {
-  constexpr int kKSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kKeyTiles = kTile / 8;
-  extern __shared__ uint4 tc_smem[];
-  bf16* q_sm = reinterpret_cast<bf16*>(tc_smem);
-  bf16* k_sm = q_sm + kTile * tc_ld<D>();
-  bf16* v_sm = k_sm + kTile * tc_ld<D>();
-
-  const int n_tiles = (seq + kTile - 1) / kTile;
-  const int qt = n_tiles - 1 - blockIdx.x;  // longest causal rows first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int r0 = (threadIdx.x / 32) * 16;   // this warp's first row
-  const int g = (threadIdx.x % 32) / 4;
-  const int t = threadIdx.x % 4;
-  const int q0 = qt * kTile;
-  const int q_rows = min(kTile, seq - q0);
-  const size_t row_base = ((size_t)b * hq + h) * seq + q0;
-  const size_t kv_base = ((size_t)b * (hq / group) + h / group) * seq * D;
-  const float minus_inf = __int_as_float(0xff800000);
-
-  load_tile_bf16<D>(q_sm, q + row_base * D, q_rows);
-  __syncthreads();
-  uint32_t qa[kKSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) load_a<D>(qa[kk], q_sm, r0, kk * 16);
-
-  float m[2] = {kMaskedM, kMaskedM}, l[2] = {0.f, 0.f};
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  const int kv_tiles = kCausal ? qt + 1 : n_tiles;
-  for (int kt = 0; kt < kv_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    const int kv_rows = min(kTile, seq - k0);
-    __syncthreads();  // the previous tile's readers are done
-    load_tile_bf16<D>(k_sm, k + kv_base + (size_t)k0 * D, kv_rows);
-    load_tile_bf16<D>(v_sm, v + kv_base + (size_t)k0 * D, kv_rows);
-    __syncthreads();
-
-    float s[kKeyTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kKeyTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk)
-#pragma unroll
-      for (int nt = 0; nt < kKeyTiles; ++nt) {
-        uint32_t b0, b1;
-        load_b<D>(b0, b1, k_sm, nt * 8, kk * 16);
-        mma_bf16(s[nt], qa[kk], b0, b1);
-      }
-
-    // Online softmax over rows r0 + g (i = 0) and r0 + g + 8 (i = 1).
-    const bool diag = kCausal && kt == qt;
-    float mx[2] = {minus_inf, minus_inf};
-#pragma unroll
-    for (int nt = 0; nt < kKeyTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + g + 8 * (e / 2);
-        const int col = nt * 8 + 2 * t + e % 2;
-        const bool keep = col < kv_rows && (!diag || col <= row);
-        s[nt][e] = keep ? s[nt][e] * scale : minus_inf;
-        mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kKeyTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(s[nt][e] - m[e / 2]);
-        sum[e / 2] += s[nt][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[dt][e] *= alpha[e / 2];
-
-    // acc += P V, P rounded to bf16.
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; ++dt) {
-        uint32_t b0, b1;
-        load_b_trans<D>(b0, b1, v_sm, kk * 16, dt * 8);
-        mma_bf16(acc[dt], pa, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + g + 8 * i;
-    if (row >= q_rows) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    bf16* orow = o + (row_base + row) * D;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[dt][2 * i] / den,
-                                acc[dt][2 * i + 1] / den);
-    if (t == 0) lse[row_base + row] = m[i] + logf(den);
-  }
-}
-
 template <int D>
 constexpr size_t dq_tc_smem() { return 4 * tc_tile_bytes<D>(); }
 
@@ -865,174 +726,26 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
-constexpr size_t dkv_tc_smem() {
-  return 4 * tc_tile_bytes<D>() + 2 * kTile * sizeof(float);
-}
-
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        float* __restrict__ dk, float* __restrict__ dv,
-                        int hq, int group, int seq, float scale) {
-  constexpr int kKSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kQTiles = kTile / 8;
-  extern __shared__ uint4 tc_smem[];
-  bf16* k_sm = reinterpret_cast<bf16*>(tc_smem);
-  bf16* v_sm = k_sm + kTile * tc_ld<D>();
-  bf16* q_sm = v_sm + kTile * tc_ld<D>();
-  bf16* do_sm = q_sm + kTile * tc_ld<D>();
-  float* lse_sm = reinterpret_cast<float*>(do_sm + kTile * tc_ld<D>());
-  float* delta_sm = lse_sm + kTile;
-
-  const int n_tiles = (seq + kTile - 1) / kTile;
-  const int kt = blockIdx.x;  // longest causal sweeps (kt = 0) first
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hkv = hq / group;
-  const int r0 = (threadIdx.x / 32) * 16;  // this warp's first key row
-  const int g = (threadIdx.x % 32) / 4;
-  const int t = threadIdx.x % 4;
-  const int k0 = kt * kTile;
-  const int kv_rows = min(kTile, seq - k0);
-  const size_t kv_row_base = ((size_t)b * hkv + hk) * seq + k0;
-
-  load_tile_bf16<D>(k_sm, k + kv_row_base * D, kv_rows);
-  load_tile_bf16<D>(v_sm, v + kv_row_base * D, kv_rows);
-  float dk_acc[kDTiles][4], dv_acc[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
-
-  for (int gi = 0; gi < group; ++gi) {
-    const size_t head_base = ((size_t)b * hq + hk * group + gi) * seq;
-    for (int qt = kCausal ? kt : 0; qt < n_tiles; ++qt) {
-      const int q0 = qt * kTile;
-      const int q_rows = min(kTile, seq - q0);
-      __syncthreads();  // the previous tile's readers are done
-      load_tile_bf16<D>(q_sm, q + (head_base + q0) * D, q_rows);
-      load_tile_bf16<D>(do_sm, dout + (head_base + q0) * D, q_rows);
-      if (threadIdx.x < kTile) {
-        const bool in = threadIdx.x < q_rows;
-        lse_sm[threadIdx.x] = in ? lse[head_base + q0 + threadIdx.x] : 0.f;
-        delta_sm[threadIdx.x] =
-            in ? delta[head_base + q0 + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
-
-      // Transposed tiles: rows are this warp's keys, columns queries.
-      float s[kQTiles][4], dpt[kQTiles][4];
-#pragma unroll
-      for (int nt = 0; nt < kQTiles; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dpt[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a<D>(ka, k_sm, r0, kk * 16);
-        load_a<D>(va, v_sm, r0, kk * 16);
-#pragma unroll
-        for (int nt = 0; nt < kQTiles; ++nt) {
-          uint32_t b0, b1;
-          load_b<D>(b0, b1, q_sm, nt * 8, kk * 16);
-          mma_bf16(s[nt], ka, b0, b1);
-          load_b<D>(b0, b1, do_sm, nt * 8, kk * 16);
-          mma_bf16(dpt[nt], va, b0, b1);
-        }
-      }
-
-      // p^T in s, ds^T in dpt.
-      const bool diag = kCausal && qt == kt;
-#pragma unroll
-      for (int nt = 0; nt < kQTiles; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = r0 + g + 8 * (e / 2);
-          const int col = nt * 8 + 2 * t + e % 2;  // query row
-          const bool keep = col < q_rows && (!diag || key <= col);
-          const float p =
-              keep ? expf(s[nt][e] * scale - lse_sm[col]) : 0.f;
-          dpt[nt][e] = (p * (dpt[nt][e] - delta_sm[col])) * scale;
-          s[nt][e] = p;
-        }
-
-      // dv += P^T dO ; dk += dS^T Q  (p and ds rounded to bf16)
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        const uint32_t pa[4] = {
-            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        const uint32_t da[4] = {
-            pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-            pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-            pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-            pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-#pragma unroll
-        for (int dt = 0; dt < kDTiles; ++dt) {
-          uint32_t b0, b1;
-          load_b_trans<D>(b0, b1, do_sm, kk * 16, dt * 8);
-          mma_bf16(dv_acc[dt], pa, b0, b1);
-          load_b_trans<D>(b0, b1, q_sm, kk * 16, dt * 8);
-          mma_bf16(dk_acc[dt], da, b0, b1);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = r0 + g + 8 * i;
-    if (key >= kv_rows) continue;
-    float* dk_row = dk + (kv_row_base + key) * D;
-    float* dv_row = dv + (kv_row_base + key) * D;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      *reinterpret_cast<float2*>(dk_row + dt * 8 + 2 * t) =
-          make_float2(dk_acc[dt][2 * i], dk_acc[dt][2 * i + 1]);
-      *reinterpret_cast<float2*>(dv_row + dt * 8 + 2 * t) =
-          make_float2(dv_acc[dt][2 * i], dv_acc[dt][2 * i + 1]);
-    }
-  }
-}
-
 // -- launches ------------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
+using sm90::allow_smem;
 
 struct Shape {
   int batch, hq, hkv, seq;
   float scale;
 };
 
-// bf16 runs the tensor-core kernels, fp32 the CUDA-core ones.
+// bf16 runs the tensor-core kernels (K1 and K3: sm90::), fp32 the CUDA-core
+// ones.
 template <typename T, int D, bool kCausal>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, Shape s, cudaStream_t stream) {
-  const dim3 grid((s.seq + kTile - 1) / kTile, s.hq, s.batch);
-  const int group = s.hq / s.hkv;
   if constexpr (std::is_same<T, bf16>::value) {
-    auto kernel = flash_fwd_tc_kernel<D, kCausal>;
-    cudaError_t err = allow_smem(kernel, fwd_tc_smem<D>());
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kTcThreads, fwd_tc_smem<D>(), stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o),
-        static_cast<float*>(lse), s.hq, group, s.seq, s.scale);
+    return sm90::launch_fwd<D, kCausal>(q, k, v, o, lse, s.batch, s.hq, s.hkv,
+                                        s.seq, s.scale, stream);
   } else {
+    const dim3 grid((s.seq + kTile - 1) / kTile, s.hq, s.batch);
+    const int group = s.hq / s.hkv;
     auto kernel = flash_fwd_kernel<D, kCausal>;
     cudaError_t err = allow_smem(kernel, fwd_smem<D>());
     if (err != cudaSuccess) return err;
@@ -1076,19 +789,13 @@ template <typename T, int D, bool kCausal>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, Shape s, cudaStream_t stream) {
-  const dim3 grid((s.seq + kTile - 1) / kTile, s.hkv, s.batch);
-  const int group = s.hq / s.hkv;
   if constexpr (std::is_same<T, bf16>::value) {
-    auto kernel = flash_bwd_dkv_tc_kernel<D, kCausal>;
-    cudaError_t err = allow_smem(kernel, dkv_tc_smem<D>());
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kTcThreads, dkv_tc_smem<D>(), stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<float*>(dk), static_cast<float*>(dv), s.hq, group,
-        s.seq, s.scale);
+    return sm90::launch_dkv<D, kCausal>(q, k, v, dout, lse, delta, dk, dv,
+                                        s.batch, s.hq, s.hkv, s.seq, s.scale,
+                                        stream);
   } else {
+    const dim3 grid((s.seq + kTile - 1) / kTile, s.hkv, s.batch);
+    const int group = s.hq / s.hkv;
     auto kernel = flash_bwd_dkv_kernel<D, kCausal>;
     cudaError_t err = allow_smem(kernel, dkv_smem<D>());
     if (err != cudaSuccess) return err;

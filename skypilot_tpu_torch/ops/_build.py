@@ -2,10 +2,16 @@
 
 Every kernel of the port is CUDA C++ under ``csrc/`` with a plain C
 interface. ``Library`` compiles one source with ``nvcc`` for ``sm_90a``
-into ``csrc/build/`` (gitignored), keyed by a hash of the source and the
-flags, so an unchanged source is compiled once per checkout, and loads it
-with ``ctypes``. ``-Xptxas -v`` makes the compiler report each kernel's
-registers, shared memory and spills; ``build()`` returns that report.
+into ``csrc/build/`` (gitignored), keyed by a hash of the source, every
+``csrc/`` header it includes, and the flags (``source_tag``), so an
+unchanged source is compiled once per checkout and a header edit rebuilds,
+and loads it with ``ctypes``. ``-Xptxas -v`` makes the compiler report each
+kernel's registers, shared memory and spills; ``build()`` returns that
+report and ``report()`` reads it back from beside the library. ``sass()``
+disassembles the built library with ``cuobjdump``. No library links
+against the driver (``-lcuda``): a kernel that needs a driver function,
+such as the tensor-map encoder of TMA, reaches it at run time through
+``cudaGetDriverEntryPoint``.
 
 Two libraries can build at once (each holds its own lock), so a caller
 that needs several starts their builds together.
@@ -16,6 +22,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -40,6 +47,32 @@ def nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _local_sources(source: pathlib.Path) -> list:
+    """``source`` and every header it includes with quotes, transitively,
+    found beside the file that includes it."""
+    seen, todo = [], [source]
+    while todo:
+        path = todo.pop(0)
+        if path in seen or not path.exists():
+            continue
+        seen.append(path)
+        todo += [path.parent / m.decode()
+                 for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
+def source_tag(source: pathlib.Path) -> str:
+    """Hash of ``source``, the local headers it includes and the flags:
+    the key of its built library."""
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for path in _local_sources(source):
+        h.update(path.name.encode() + b'\0' + path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 class Library:
     """One ``csrc/`` source, compiled and loaded at first use.
 
@@ -52,6 +85,7 @@ class Library:
         self.source = CSRC / source_name
         self._configure = configure
         self._lib: Optional[ctypes.CDLL] = None
+        self._so: Optional[pathlib.Path] = None
         self._lock = threading.Lock()
 
     def build(self) -> str:
@@ -61,10 +95,8 @@ class Library:
         with self._lock:
             if self._lib is not None:
                 return ''
-            src = self.source.read_bytes()
-            tag = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()
-                                 ).hexdigest()[:16]
-            so = BUILD_DIR / f'lib{self.source.stem}-{tag}.so'
+            so = BUILD_DIR / (f'lib{self.source.stem}-'
+                              f'{source_tag(self.source)}.so')
             log = ''
             if not so.exists():
                 compiler = nvcc()
@@ -78,14 +110,29 @@ class Library:
                     raise RuntimeError(f'nvcc {self.source.name} failed '
                                        f'({r.returncode}):\n'
                                        f'{r.stdout}{r.stderr}')
-                os.replace(tmp, so)
                 log = r.stdout + r.stderr
+                so.with_suffix('.log').write_text(log)
+                os.replace(tmp, so)
             lib = ctypes.CDLL(str(so))
             lib.skytorch_cuda_error_string.argtypes = [ctypes.c_int]
             lib.skytorch_cuda_error_string.restype = ctypes.c_char_p
             self._configure(lib)
-            self._lib = lib
+            self._lib, self._so = lib, so
             return log
+
+    def report(self) -> str:
+        """The compiler's output of the build this library loaded."""
+        self.get()
+        log = self._so.with_suffix('.log')
+        return log.read_text() if log.exists() else ''
+
+    def sass(self) -> str:
+        """``cuobjdump -sass`` of the built library."""
+        self.get()
+        tool = os.path.join(os.path.dirname(nvcc()), 'cuobjdump')
+        return subprocess.run([tool, '-sass', str(self._so)],
+                              capture_output=True, text=True,
+                              check=True).stdout
 
     def get(self) -> ctypes.CDLL:
         if self._lib is None:

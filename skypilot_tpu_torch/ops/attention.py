@@ -1,8 +1,10 @@
 """Flash attention for training: forward, and backward through dQ and dK/dV.
 
 Port of ``skypilot_tpu/ops/attention.py``. The three Pallas kernels there
-become CUDA C++ kernels for Hopper in ``csrc/flash_attention.cu``, built
-with ``nvcc`` at first use and loaded with ``ctypes`` (``ops/_build.py``):
+become CUDA C++ kernels for Hopper in ``csrc/flash_attention.cu`` (the bf16
+bodies of K1 and K3, on TMA and wgmma, in ``csrc/flash_attention_sm90.cuh``),
+built with ``nvcc`` at first use and loaded with ``ctypes``
+(``ops/_build.py``):
 
 * K1 ``flash_fwd`` (``_flash_fwd_kernel``, ``attention.py:106``): o and
   the fp32 log-sum-exp;
@@ -158,6 +160,16 @@ def build_library() -> str:
     """Compile ``csrc/flash_attention.cu`` (unless built already) and
     load it; returns this call's compiler output ('' if built before)."""
     return _LIBRARY.build()
+
+
+def compiler_report() -> str:
+    """The compiler's register and spill report of the loaded library."""
+    return _LIBRARY.report()
+
+
+def sass() -> str:
+    """The loaded library's SASS (``cuobjdump -sass``)."""
+    return _LIBRARY.sass()
 
 
 def _check(q, k, v, *rows) -> None:

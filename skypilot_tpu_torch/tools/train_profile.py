@@ -12,8 +12,8 @@ prints JSON lines:
   peak (``utils/device.py``); peak device memory;
 * ``profile``: over one step under ``torch.profiler``, the device's busy
   share (kernel time over wall time), kernels per step, device time by
-  group (the flash-attention kernels K1-K3, GEMMs, the rest) and the top
-  kernels by device time;
+  group (the flash-attention kernels K1-K3, GEMMs, the rest), the device
+  time of each of K1, K2 and K3, and the top kernels by device time;
 * ``lm_head``: the unembedding product at this shape as the port runs it
   (float32 copies of x and ``lm_head``, TF32 off, which is exact for bf16
   operands as JAX's ``preferred_element_type=float32`` is) against a
@@ -134,10 +134,13 @@ def main(argv=None) -> int:
         for name, t in by_name.items():
             groups[_group(name)] += t
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        flash = {k: sum(t for name, t in by_name.items() if k in name) / 1e3
+                 for k in _FLASH}
         print(json.dumps({'profile': {
             'wall_ms': wall_us / 1e3, 'device_busy_ms': busy / 1e3,
             'device_busy_share': busy / wall_us, 'kernels_per_step': count,
             'device_ms_by_group': {k: v / 1e3 for k, v in groups.items()},
+            'flash_ms_by_kernel': flash,
             'top_kernels_ms': [(k[:90], t / 1e3) for k, t in top]}}),
             flush=True)
 

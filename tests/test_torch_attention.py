@@ -189,3 +189,28 @@ def test_build_without_nvcc_raises_and_leaves_no_library(monkeypatch,
     with pytest.raises(RuntimeError, match='nvcc not found'):
         lib.build()
     assert not (tmp_path / 'build').exists()
+
+
+def test_build_tag_covers_the_headers_a_source_includes(tmp_path):
+    """The built library's key hashes the source and every local header it
+    includes, transitively, so a header edit rebuilds; system headers and
+    headers it does not include do not enter it."""
+    src = tmp_path / 'k.cu'
+    src.write_text('#include <cuda.h>\n#include "a.cuh"\nint x;\n')
+    (tmp_path / 'a.cuh').write_text('#pragma once\n  #include "b.cuh"\n')
+    (tmp_path / 'b.cuh').write_text('int y;\n')
+    (tmp_path / 'unused.cuh').write_text('int z;\n')
+    tag = _build.source_tag(src)
+    assert tag == _build.source_tag(src)
+    (tmp_path / 'unused.cuh').write_text('int z = 1;\n')
+    assert _build.source_tag(src) == tag
+    (tmp_path / 'b.cuh').write_text('int y = 1;\n')
+    changed = _build.source_tag(src)
+    assert changed != tag
+    (tmp_path / 'a.cuh').write_text('#pragma once\n')
+    assert _build.source_tag(src) not in (tag, changed)
+
+
+def test_flash_library_key_covers_its_wgmma_header():
+    names = [p.name for p in _build._local_sources(port_attn.SOURCE)]  # noqa: SLF001
+    assert names == ['flash_attention.cu', 'flash_attention_sm90.cuh']

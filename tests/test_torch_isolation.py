@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``skypilot_tpu_torch``
-loads neither JAX nor anything of ``skypilot_tpu``, and its entry points
+loads neither JAX nor anything of ``skypilot_tpu``, no source of it (nor
+``chip_smoke.py``) imports either, and its entry points
 refuse to run without CUDA unless asked for the CPU by name."""
 import ast
 import pathlib
@@ -57,7 +58,8 @@ def test_importing_every_module_loads_no_jax_and_no_skypilot_tpu():
 
 
 @pytest.mark.parametrize('path', sorted(
-    str(p.relative_to(PKG)) for p in PKG.rglob('*.py')))
+    str(p.relative_to(PKG)) for p in PKG.rglob('*.py')) + [
+        '../chip_smoke.py'])  # the port's smoke test drives it on the card
 def test_no_source_file_imports_jax_or_skypilot_tpu(path):
     tree = ast.parse((PKG / path).read_text())
     for node in ast.walk(tree):
