@@ -11,10 +11,20 @@ Phases (any failure exits non-zero):
    (flash-decode K4, flash-attention K1-K3), one nvcc each, started
    together; prints the seconds and the compiler's register report.
 2. K4 against its plain version at BENCH_1B decode shapes (Hq=16,
-   Hkv=8, D=128, M=1024, B in {1, 32}; M=1000; a D=64 case), bf16 and
-   int8 caches, bf16 and fp32 queries. Tolerances: bf16 2e-2 (bf16 output
-   rounding, sums in another order), fp32 1e-4. Prints kernel, plain,
-   library (SDPA) and bound ms per case, from CUDA events after warm-up.
+   Hkv=8, D=128, M=1024, B in {1, 32}; M=1000; a D=64 case), at the edges
+   of the kernel's split of the cache (lengths of a chunk and one either
+   side, 1, 0 and M, at B=7 and at B=32), with one chunk longer than M
+   (M=48, group 1) and a group that is no power of two (3), bf16 and int8
+   caches, bf16 and fp32 queries. Tolerances: bf16 2e-2 (bf16 output
+   rounding, sums in another order), fp32 1e-4. Every case is also held
+   against ``flash_decode_split_reference`` at the kernel's own chunk
+   (``decode_split``), the same partials and merge, so only the order of
+   sums differs: fp32 to 1e-5, bf16 to ||got - want|| / ||want|| of each
+   (row, head) within SPLIT_REL_TOL. Prints kernel, plain, library (SDPA)
+   and bound ms per bf16 case, from CUDA events around calls issued one
+   after another after warm-up; where the host takes longer to issue a
+   call than the device to run it (K4 at small B), that is the host's
+   time per call.
 3. K1, K2, K3 against their plain versions: the training shape (B=2,
    Hq 16, Hkv 8, D 128, S=4096, bf16, causal), B=1, non-causal, ragged
    S=1000 and S=65, D=64 with group 4, fp32 inputs (the CUDA-core
@@ -28,8 +38,8 @@ Phases (any failure exits non-zero):
    plain, library (SDPA forward for K1, SDPA's backward for K2+K3
    together) and bound ms for the training shape, with TFLOP/s and the
    share of the bound. Fails unless every instance of the wgmma bodies of
-   K1 and K3 shows HGMMA and UTMALDG in the library's SASS and ptxas
-   reports 0 spill bytes for it.
+   K1, K2 and K3 (12: D 64/128, causal or not) shows HGMMA and UTMALDG in
+   the library's SASS and ptxas reports 0 spill bytes for it.
 4. Serving end to end on a small model (head_dim 64, float32): prefill
    and decode logits on the card (through K4) against the CPU.
 5. Training end to end on a small model (head_dim 64, float32): 3 steps
@@ -44,8 +54,9 @@ Phases (any failure exits non-zero):
    over HTTP, bf16 weights + bf16 KV, then int8 weights + int8 KV. A few
    concurrent requests (greedy and seeded-sampled); checks status, token
    counts and ids, repeat determinism, agreement with a direct
-   ``generate`` call, and that K4 was launched n_layers * (max_new - 1)
-   times for each generate call. Prints decode tokens/s.
+   ``generate`` call, and that K4 was called n_layers * (max_new - 1)
+   times for each generate call (a call is two launches: the split
+   kernel and the merge). Prints decode tokens/s.
 8. Summary: one JSON line of kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -76,6 +87,11 @@ H100_OPS_PER_S = {torch.bfloat16: H100_BF16_DENSE_FLOPS,
 # (o, grads); about 4x the largest that sound kernels read on an H100 (bf16
 # o 2.4e-3, dq 2.7e-4, dk 1.3e-4, dv 8.6e-5; fp32 4.2e-7).
 REL_TOL = {torch.bfloat16: (1e-2, 1e-3), torch.float32: (2e-6, 2e-6)}
+# K4 in bf16: largest ||got - want|| / ||want|| allowed of any (row, head)
+# against the split plain version at the kernel's chunk; about 4x the
+# largest that a sound kernel reads on an H100 (5.0e-3, mostly the output's
+# bf16 rounding).
+SPLIT_REL_TOL = 2e-2
 L2_BYTES = 50 * 2 ** 20
 MODES = {'bf16': ('skypilot_tpu/ops/decode_attention.py:147', False),
          'int8': ('skypilot_tpu/ops/decode_attention.py:162', True)}
@@ -84,11 +100,12 @@ FLASH = {  # K1-K3: wrapper name -> (TPU kernel, launch counter, source)
     'flash_fwd': ('skypilot_tpu/ops/attention.py:106', 'fwd_launches',
                   CSRC + 'flash_attention_sm90.cuh'),
     'flash_bwd_dq': ('skypilot_tpu/ops/attention.py:206',
-                     'bwd_dq_launches', CSRC + 'flash_attention.cu'),
+                     'bwd_dq_launches', CSRC + 'flash_attention_sm90.cuh'),
     'flash_bwd_dkv': ('skypilot_tpu/ops/attention.py:257',
                       'bwd_dkv_launches', CSRC + 'flash_attention_sm90.cuh')}
-# The wgmma + TMA bodies of K1 and K3 (D 64 and 128, causal or not each).
-SM90_BODIES = ('flash_fwd_sm90_kernel', 'flash_bwd_dkv_sm90_kernel')
+# The wgmma + TMA bodies of K1, K2 and K3 (D 64 and 128, causal or not each).
+SM90_BODIES = ('flash_fwd_sm90_kernel', 'flash_bwd_dq_sm90_kernel',
+               'flash_bwd_dkv_sm90_kernel')
 
 
 def _card() -> str:
@@ -150,6 +167,13 @@ def _bound(args):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
+def _row_head_rel(got, want):
+    """Largest ||got - want|| / ||want|| over D, of any (row, head)."""
+    got, want = got.float(), want.float()
+    return float(((got - want).norm(dim=-1)
+                  / want.norm(dim=-1).clamp_min(1e-30)).max())
+
+
 def _copies(args):
     """Enough copies of the inputs to exceed L2, so that timed launches
     read device memory the way a decode step (which streams every layer's
@@ -184,12 +208,21 @@ def kernel_phase(da):
     rng = np.random.default_rng(0)
     mixed = rng.integers(1, 1025, 32).tolist()
     mixed[:3] = [1024, 1, 33]  # full, one position, a mid-tile end
+
+    def edges(b, m):  # lengths at the edges of the split of the cache
+        c = da.decode_split(b, 8, m)[1]
+        return ([c - 1, c, c + 1, 1, 0, m, 2 * c + 1]
+                + rng.integers(1, m + 1, b - 7).tolist())
     shapes = [  # (label, b, hq, hkv, d, m, lengths)
         ('B=32 M=1024', 32, 16, 8, 128, 1024, mixed),
         ('B=1 M=1024', 1, 16, 8, 128, 1024, [700]),
         ('B=4 M=1000', 4, 16, 8, 128, 1000, [1000, 999, 517, 0]),
         ('B=8 M=1024 D=64', 8, 32, 8, 64, 1024,
          rng.integers(1, 1025, 8).tolist()),
+        ('edges B=7 M=1024', 7, 16, 8, 128, 1024, edges(7, 1024)),
+        ('edges B=32 M=1024', 32, 16, 8, 128, 1024, edges(32, 1024)),
+        ('M=48 G=1', 3, 8, 8, 64, 48, [48, 0, 17]),
+        ('M=256 G=3', 2, 24, 8, 128, 256, [200, 5]),
     ]
     results = {mode: {'max_abs_err': 0.0, 'cases': []} for mode in MODES}
     for mode, (_, quant) in MODES.items():
@@ -210,7 +243,27 @@ def kernel_phase(da):
                 results[mode]['max_abs_err'] = max(
                     results[mode]['max_abs_err'], err)
                 row = {'case': label, 'dtype': str(dtype).split('.')[-1],
-                       'max_abs_err': err, 'tol': tol}
+                       'max_abs_err': err, 'tol': tol,
+                       'split': da.decode_split(b, hkv, m)}
+                # The kernel's own order of work: fp32 to 1e-5; bf16 (the
+                # output rounded to bf16) per (row, head) to SPLIT_REL_TOL.
+                split = da.flash_decode_split_reference(
+                    *args, chunk=row['split'][1])
+                if dtype == torch.float32:
+                    row['split_err'] = float((out - split).abs().max())
+                    if not torch.allclose(out, split, atol=1e-5, rtol=1e-5):
+                        raise AssertionError(
+                            f'flash_decode {mode} {label}: max abs err '
+                            f'{row["split_err"]} against the split plain '
+                            'version beyond 1e-5')
+                else:
+                    row['split_rel'] = _row_head_rel(out, split)
+                    if not row['split_rel'] <= SPLIT_REL_TOL:
+                        raise AssertionError(
+                            f'flash_decode {mode} {label} bf16: '
+                            f'||got - want|| / ||want|| of a (row, head) '
+                            f'{row["split_rel"]} against the split plain '
+                            f'version beyond {SPLIT_REL_TOL}')
                 if dtype == torch.bfloat16:  # the serving type: time it
                     sets = _copies(args)
                     it = itertools.count()
@@ -379,8 +432,9 @@ def attention_phase(fa):
 
 
 def check_sm90_bodies(fa):
-    """Every instance of the new K1 and K3 bodies must run wgmma (HGMMA) on
-    TMA loads (UTMALDG), and ptxas must report no spill bytes for it."""
+    """Every instance of the K1, K2 and K3 bodies for bf16 must run wgmma
+    (HGMMA) on TMA loads (UTMALDG), and ptxas must report no spill bytes
+    for it."""
     report = fa.compiler_report().splitlines()
     spills = {}
     for line, nxt in zip(report, report[1:] + ['']):
@@ -391,7 +445,7 @@ def check_sm90_bodies(fa):
             spills[m.group(1)] = int(n.group(1)) + int(n.group(2))
     functions = {chunk.split()[0]: chunk
                  for chunk in fa.sass().split('Function : ')[1:]}
-    for body in SM90_BODIES:
+    for body in SM90_BODIES:  # 3 bodies x 4 instances
         names = sorted(f for f in functions if body in f)
         if len(names) != 4:
             raise AssertionError(f'{body}: {len(names)} instances in the '

@@ -24,14 +24,14 @@
 //
 // Two bodies of each kernel, chosen by the input type:
 //  * bf16 (training): the products run on the tensor cores with fp32 sums.
-//    K1 and K3 are flash_attention_sm90.cuh: TMA rings fed by a producer
-//    warpgroup, wgmma in two consumer warpgroups, 128-row tiles (its header
-//    says more). K2 is below: mma.sync m16n8k16, 4 warps per 64-row tile,
-//    synchronous loads into padded shared-memory tiles.
+//    All three are in flash_attention_sm90.cuh: TMA rings fed by a producer
+//    warpgroup, wgmma in two consumer warpgroups, 128-row blocks (its header
+//    says more). At the training shape they take 54-60% of their bound
+//    (H100 80GB HBM3, 700 W).
 //  * fp32 (tight checks against the plain version, fp32 models): fp32 FMAs
 //    on the CUDA cores, 256 threads per tile, each holding a 4 x 4 sub-tile
 //    of the logits; tensor cores would round fp32 inputs to TF32.
-// Shared by the fp32 bodies and K2:
+// The fp32 bodies below:
 //  * a block owns one 64-row tile of its own rows (K1, K2: a query tile of
 //    one head; K3: a key tile of one kv head) and streams 64-row tiles of
 //    the other side through shared memory;
@@ -507,236 +507,17 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// -- bf16: tensor-core kernels ---------------------------------------------------
-//
-// The same three functions for bf16 inputs, with the products on the tensor
-// cores: mma.sync m16n8k16, bf16 operands, fp32 sums. A block of 4 warps
-// owns a 64-row tile, 16 rows per warp; tiles stay bf16 in shared memory
-// (rows padded by 8 elements, so the fragment loads of a warp hit 32
-// different banks). Per thread, with g = lane / 4 and t = lane % 4:
-//   A (16 x 16)  a0: (g, 2t..2t+1)  a1: (g+8, 2t..)  a2: (g, 2t+8..)
-//                a3: (g+8, 2t+8..)
-//   B (16 x 8)   b0: (k 2t..2t+1, n g)  b1: (k 2t+8..2t+9, n g)
-//   C (16 x 8)   c0, c1: (g, 2t..2t+1)  c2, c3: (g+8, 2t..2t+1)
-// so the C fragments of two neighbouring 8-column blocks of p (or ds) are
-// the A fragment of one 16-deep step of the next product, rounded to bf16
-// on the way, as the TPU kernels round p and ds.
-
-using bf16 = __nv_bfloat16;
-constexpr int kTcThreads = 128;  // 4 warps x 16 rows
-
-template <int D>
-__host__ __device__ constexpr int tc_ld() { return D + 8; }
-
-template <int D>
-constexpr size_t tc_tile_bytes() {
-  return (size_t)kTile * tc_ld<D>() * sizeof(bf16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two fp32 values rounded to bf16 (to nearest even), lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragment of rows r0..r0+15, columns k0..k0+15 of a row-major tile.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int r0, int k0) {
-  const int lane = threadIdx.x % 32;
-  const bf16* p = tile + (r0 + lane / 4) * tc_ld<D>() + k0 + 2 * (lane % 4);
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * tc_ld<D>());
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * tc_ld<D>() + 8);
-}
-
-// B fragment with k along a row-major tile's columns (k0..k0+15) and n
-// along its rows (n0..n0+7): the tile is B transposed, as K is for Q.K^T.
-template <int D>
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
-                                       const bf16* tile, int n0, int k0) {
-  const int lane = threadIdx.x % 32;
-  const bf16* p = tile + (n0 + lane / 4) * tc_ld<D>() + k0 + 2 * (lane % 4);
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// B fragment with k along a row-major tile's rows (k0..k0+15) and n along
-// its columns (n0..n0+7), as V is for P.V: ldmatrix transposes on the way.
-template <int D>
-__device__ __forceinline__ void load_b_trans(uint32_t& b0, uint32_t& b1,
-                                             const bf16* tile, int k0,
-                                             int n0) {
-  const int lane = threadIdx.x % 32;
-  const bf16* row = tile + (k0 + lane % 16) * tc_ld<D>() + n0;
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(b0), "=r"(b1)
-      : "r"(addr));
-}
-
-// Rows [0, rows) of the [kTile, D] tile at src into dst (row stride
-// tc_ld<D>()); rows at or past `rows` become zero.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst,
-                                               const bf16* __restrict__ src,
-                                               int rows) {
-  constexpr int kRowVecs = D / 8;
-  for (int idx = threadIdx.x; idx < kTile * kRowVecs; idx += kTcThreads) {
-    const int row = idx / kRowVecs;
-    const int col = (idx % kRowVecs) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row < rows)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)row * D + col);
-    *reinterpret_cast<uint4*>(dst + row * tc_ld<D>() + col) = val;
-  }
-}
-
-template <int D>
-constexpr size_t dq_tc_smem() { return 4 * tc_tile_bytes<D>(); }
-
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       bf16* __restrict__ dq, int hq, int group, int seq,
-                       float scale) {
-  constexpr int kKSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kKeyTiles = kTile / 8;
-  extern __shared__ uint4 tc_smem[];
-  bf16* q_sm = reinterpret_cast<bf16*>(tc_smem);
-  bf16* do_sm = q_sm + kTile * tc_ld<D>();
-  bf16* k_sm = do_sm + kTile * tc_ld<D>();
-  bf16* v_sm = k_sm + kTile * tc_ld<D>();
-
-  const int n_tiles = (seq + kTile - 1) / kTile;
-  const int qt = n_tiles - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int r0 = (threadIdx.x / 32) * 16;
-  const int g = (threadIdx.x % 32) / 4;
-  const int t = threadIdx.x % 4;
-  const int q0 = qt * kTile;
-  const int q_rows = min(kTile, seq - q0);
-  const size_t row_base = ((size_t)b * hq + h) * seq + q0;
-  const size_t kv_base = ((size_t)b * (hq / group) + h / group) * seq * D;
-
-  load_tile_bf16<D>(q_sm, q + row_base * D, q_rows);
-  load_tile_bf16<D>(do_sm, dout + row_base * D, q_rows);
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + g + 8 * i;
-    lse_r[i] = row < q_rows ? lse[row_base + row] : 0.f;
-    delta_r[i] = row < q_rows ? delta[row_base + row] : 0.f;
-  }
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  const int kv_tiles = kCausal ? qt + 1 : n_tiles;
-  for (int kt = 0; kt < kv_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    const int kv_rows = min(kTile, seq - k0);
-    __syncthreads();
-    load_tile_bf16<D>(k_sm, k + kv_base + (size_t)k0 * D, kv_rows);
-    load_tile_bf16<D>(v_sm, v + kv_base + (size_t)k0 * D, kv_rows);
-    __syncthreads();
-
-    float s[kKeyTiles][4], dp[kKeyTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kKeyTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-      uint32_t qa[4], ga[4];
-      load_a<D>(qa, q_sm, r0, kk * 16);
-      load_a<D>(ga, do_sm, r0, kk * 16);
-#pragma unroll
-      for (int nt = 0; nt < kKeyTiles; ++nt) {
-        uint32_t b0, b1;
-        load_b<D>(b0, b1, k_sm, nt * 8, kk * 16);
-        mma_bf16(s[nt], qa, b0, b1);
-        load_b<D>(b0, b1, v_sm, nt * 8, kk * 16);
-        mma_bf16(dp[nt], ga, b0, b1);
-      }
-    }
-
-    // ds = p (dp - delta) scale, kept in s.
-    const bool diag = kCausal && kt == qt;
-#pragma unroll
-    for (int nt = 0; nt < kKeyTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + g + 8 * (e / 2);
-        const int col = nt * 8 + 2 * t + e % 2;
-        const bool keep = col < kv_rows && (!diag || col <= row);
-        const float p = keep ? expf(s[nt][e] * scale - lse_r[e / 2]) : 0.f;
-        s[nt][e] = (p * (dp[nt][e] - delta_r[e / 2])) * scale;
-      }
-
-    // acc += dS K, dS rounded to bf16.
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      const uint32_t da[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; ++dt) {
-        uint32_t b0, b1;
-        load_b_trans<D>(b0, b1, k_sm, kk * 16, dt * 8);
-        mma_bf16(acc[dt], da, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + g + 8 * i;
-    if (row >= q_rows) continue;
-    bf16* out = dq + (row_base + row) * D;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(out + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[dt][2 * i], acc[dt][2 * i + 1]);
-  }
-}
-
 // -- launches ------------------------------------------------------------------
 
 using sm90::allow_smem;
+using sm90::bf16;
 
 struct Shape {
   int batch, hq, hkv, seq;
   float scale;
 };
 
-// bf16 runs the tensor-core kernels (K1 and K3: sm90::), fp32 the CUDA-core
-// ones.
+// bf16 runs the tensor-core kernels (sm90::), fp32 the CUDA-core ones.
 template <typename T, int D, bool kCausal>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, Shape s, cudaStream_t stream) {
@@ -761,18 +542,12 @@ template <typename T, int D, bool kCausal>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, Shape s, cudaStream_t stream) {
-  const dim3 grid((s.seq + kTile - 1) / kTile, s.hq, s.batch);
-  const int group = s.hq / s.hkv;
   if constexpr (std::is_same<T, bf16>::value) {
-    auto kernel = flash_bwd_dq_tc_kernel<D, kCausal>;
-    cudaError_t err = allow_smem(kernel, dq_tc_smem<D>());
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kTcThreads, dq_tc_smem<D>(), stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(dq), s.hq, group, s.seq, s.scale);
+    return sm90::launch_dq<D, kCausal>(q, k, v, dout, lse, delta, dq, s.batch,
+                                       s.hq, s.hkv, s.seq, s.scale, stream);
   } else {
+    const dim3 grid((s.seq + kTile - 1) / kTile, s.hq, s.batch);
+    const int group = s.hq / s.hkv;
     auto kernel = flash_bwd_dq_kernel<D, kCausal>;
     cudaError_t err = allow_smem(kernel, dq_smem<D>());
     if (err != cudaSuccess) return err;

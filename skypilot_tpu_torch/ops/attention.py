@@ -1,14 +1,20 @@
 """Flash attention for training: forward, and backward through dQ and dK/dV.
 
 Port of ``skypilot_tpu/ops/attention.py``. The three Pallas kernels there
-become CUDA C++ kernels for Hopper in ``csrc/flash_attention.cu`` (the bf16
-bodies of K1 and K3, on TMA and wgmma, in ``csrc/flash_attention_sm90.cuh``),
-built with ``nvcc`` at first use and loaded with ``ctypes``
-(``ops/_build.py``):
+become CUDA C++ kernels for Hopper: the bf16 bodies of all three in
+``csrc/flash_attention_sm90.cuh`` (TMA rings fed by a producer warpgroup,
+products on wgmma), the fp32 bodies and the C entry points in
+``csrc/flash_attention.cu``; built with ``nvcc`` at first use and loaded
+with ``ctypes`` (``ops/_build.py``). At the training shapes the kernels
+are bound by the tensor cores' rate, not by memory, so their design is
+about keeping wgmma busy: loads run ahead through the rings and the
+exponentials of one consumer overlap the other's products (the header
+of ``flash_attention_sm90.cuh`` says more).
 
 * K1 ``flash_fwd`` (``_flash_fwd_kernel``, ``attention.py:106``): o and
   the fp32 log-sum-exp;
-* K2 ``flash_bwd_dq`` (``_flash_bwd_dq_kernel``, ``attention.py:206``);
+* K2 ``flash_bwd_dq`` (``_flash_bwd_dq_kernel``, ``attention.py:206``):
+  dq in q's dtype, from fp32 sums;
 * K3 ``flash_bwd_dkv`` (``_flash_bwd_dkv_kernel``, ``attention.py:257``):
   dk and dv in fp32, summed over the GQA group.
 

@@ -12,8 +12,19 @@ shared library with a plain C interface and loaded with ``ctypes``
   version. There is no size gate: the kernel takes any cache length.
 * ``flash_decode_reference`` is the plain version: the einsum path of
   ``generate._cached_attention`` at S=1.
+* ``flash_decode_split_reference`` is the plain version of the kernel's
+  own order of work: partials per chunk of the cache (the probabilities
+  relative to the chunk's max, rounded as the kernel rounds them), then
+  the log-sum-exp merge. ``chip_smoke.py`` holds the fp32 kernel to it at
+  the kernel's own chunk size.
+* ``decode_split`` picks that chunk size from (B, Hkv, M) alone.
 * ``cached_attention_reference`` is that einsum path for any S (prefill
   runs it on every device; the JAX package has no kernel there either).
+
+The kernel is bound by memory: it reads each row's K and V up to its
+length once. A row walked by one block is a latency chain, so the cache
+axis is split across blocks (enough chunks that B=1 fills the card) and a
+second small kernel merges the chunks; a call is those two launches.
 
 Empty rows (``lengths[b] == 0``) follow the plain version: every cache
 position is masked to the same -1e30 logit, so the softmax is uniform and
@@ -23,7 +34,8 @@ same rather than raising, so no launch needs the lengths on the host.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,6 +46,29 @@ HEAD_DIMS = (64, 128)  # the head widths the presets use
 MAX_GROUP = 8          # query heads per kv head the kernel holds
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 32              # cache positions per ring stage of a block (kTile)
+_TARGET_BLOCKS = 1024  # blocks a call aims for: ~8 per SM of an H100's 132
+_CHUNK_TILES = (4, 8)  # tiles a block walks, at least and at most
+
+
+@functools.lru_cache(maxsize=256)
+def decode_split(batch: int, hkv: int, max_len: int) -> Tuple[int, int]:
+    """(splits, chunk): the kernel's blocks per (row, kv head) and the
+    cache positions each one walks, a multiple of ``TILE``. Cached per
+    shape: a decode step calls it once per layer with the same shape.
+
+    Chosen from the shape alone, never from the lengths, so that no
+    launch reads them back: enough chunks that ``batch * hkv * splits``
+    approaches ``_TARGET_BLOCKS`` (a small batch still fills the card),
+    each chunk 4 to 8 tiles long (shorter chunks cost more in each block's
+    fixed work and in the merge than they gain in blocks: on an H100 80GB
+    HBM3 at 700 W, B=1 M=1024 ran slower at 2 tiles than at 4)."""
+    tiles = -(-max_len // TILE)
+    per_row = -(-_TARGET_BLOCKS // (batch * hkv))
+    chunk_tiles = min(max(-(-tiles // per_row), _CHUNK_TILES[0]),
+                      _CHUNK_TILES[1])
+    chunk = chunk_tiles * TILE
+    return -(-max_len // chunk), chunk
 
 
 # -- plain version ------------------------------------------------------------
@@ -86,6 +121,57 @@ def flash_decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
                                       positions, lengths, k_s, v_s)[:, 0]
 
 
+def flash_decode_split_reference(q: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor, lengths: torch.Tensor,
+                                 k_s: Optional[torch.Tensor] = None,
+                                 v_s: Optional[torch.Tensor] = None, *,
+                                 chunk: int) -> torch.Tensor:
+    """Plain version of the kernel's order of work: the cache axis in
+    chunks of ``chunk`` positions (the kernel's is ``decode_split``'s), one
+    partial per chunk (its max m, l = sum exp(s - m), and acc = P.V with
+    p = exp(s - m) times the value scale, rounded to q's dtype), then the
+    merge with weights w = exp(m - max m): sum w acc / max(sum w l,
+    1e-30). Positions at or past a row's length are absent (-inf, weight
+    0), and so is a chunk that holds none of a row's positions; an empty
+    row counts all M positions at the masked logit -1e30 (the mean of
+    V). Same arguments and result as ``flash_decode_reference``."""
+    b, hq, d = q.shape
+    hkv, m = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    qg = q.reshape(b, hkv, group, d).float()
+    logits = torch.einsum('bhgd,bhkd->bhgk', qg,
+                          k_cache.to(q.dtype).float()) * d ** -0.5
+    if k_s is not None:
+        logits = logits * k_s[:, :, None, :]
+    lens = lengths.long()
+    empty = (lens <= 0).view(b, 1, 1, 1)
+    span = torch.where(lens <= 0, m, lens.clamp(max=m)).view(b, 1, 1, 1)
+    ki = torch.arange(m, device=q.device).view(1, 1, 1, m)
+    logits = torch.where(ki < span,
+                         torch.where(empty, torch.full_like(logits, _NEG_INF),
+                                     logits),
+                         torch.full_like(logits, float('-inf')))
+    n = -(-m // chunk)
+    pad = n * chunk - m
+    logits = torch.nn.functional.pad(logits, (0, pad), value=float('-inf'))
+    logits = logits.view(b, hkv, group, n, chunk)
+    mc = logits.amax(dim=-1, keepdim=True)  # -inf: an absent chunk
+    p = torch.exp(logits - torch.where(torch.isinf(mc),
+                                       torch.zeros_like(mc), mc))
+    l = p.sum(dim=-1)
+    if v_s is not None:
+        p = p * torch.nn.functional.pad(v_s, (0, pad)).view(
+            b, hkv, 1, n, chunk)
+    v = torch.nn.functional.pad(v_cache.to(q.dtype).float(), (0, 0, 0, pad))
+    acc = torch.einsum('bhgnc,bhncd->bhgnd', p.to(q.dtype).float(),
+                       v.view(b, hkv, n, chunk, d))
+    mc = mc[..., 0]
+    w = torch.exp(mc - mc.amax(dim=-1, keepdim=True))
+    out = (w[..., None] * acc).sum(dim=3) / torch.clamp_min(
+        (w * l).sum(dim=-1), 1e-30)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
 # -- the CUDA kernel ----------------------------------------------------------
 
 
@@ -94,8 +180,8 @@ def _configure(lib) -> None:
     lib.skytorch_flash_decode.argtypes = [
         i32, i32,                      # dtype code, quantized
         ptr, ptr, ptr, ptr, ptr,       # q, k, v, k_s, v_s
-        ptr, ptr,                      # lengths, out
-        i32, i32, i32, i32, i32,       # batch, hkv, group, max_len, d
+        ptr, ptr, ptr,                 # lengths, out, partials
+        i32, i32, i32, i32, i32, i32,  # batch, hkv, group, max_len, d, chunk
         ctypes.c_float, ptr]           # scale, stream
     lib.skytorch_flash_decode.restype = i32
 
@@ -171,7 +257,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
     CUDA tensors launch the kernel on the current stream, or raise; CPU
     tensors take ``flash_decode_reference``. ``flash_decode.launches``
-    counts the kernel launches."""
+    counts the calls that launched the kernel: each is two launches, the
+    split kernel and the merge of its partials."""
     if q.device.type == 'cpu':
         return flash_decode_reference(q, k_cache, v_cache, lengths, k_s, v_s)
     if q.device.type != 'cuda':
@@ -180,16 +267,22 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     lib = _LIBRARY.get()
     b, hq, d = q.shape
     hkv, m = k_cache.shape[1], k_cache.shape[2]
+    splits, chunk = decode_split(b, hkv, m)
     out = torch.empty_like(q)
+    part = torch.empty(b * hq * splits * (d + 2), dtype=torch.float32,
+                       device=q.device)
     quant = k_s is not None
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # The current stream's raw handle, without building a torch.cuda.Stream
+    # (which takes several microseconds of host time; a decode step calls
+    # this once per layer and is bound by the host).
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())  # noqa: SLF001
     rc = lib.skytorch_flash_decode(
         _DTYPE_CODES[q.dtype], int(quant),
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_s.data_ptr() if quant else None,
         v_s.data_ptr() if quant else None,
-        lengths.data_ptr(), out.data_ptr(),
-        b, hkv, hq // hkv, m, d, d ** -0.5, stream)
+        lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+        b, hkv, hq // hkv, m, d, chunk, d ** -0.5, stream)
     _LIBRARY.check(rc, 'flash_decode')
     flash_decode.launches += 1
     return out

@@ -10,8 +10,12 @@ B=32 (prompt 128, max_len 1024), it prints one JSON line each with:
   cancels out), each ended by ``torch.cuda.synchronize()``;
 * ``device_busy_share``: the device time of all kernels over the wall
   time of a ``torch.profiler`` window around one ``generate`` call;
-* ``kernels_per_token`` (prefill included) and the top kernels by device time, with
-  ``flash_decode``'s share.
+* ``kernels_per_token`` (prefill included) and the top kernels by device
+  time, with ``flash_decode``'s share: both of its kernels (the split
+  kernel and the merge of its partials); and their device time per
+  ``flash_decode`` call (``flash_decode.launches`` counts the calls), the
+  kernel's own time at the serving shape, which a loop of calls from
+  Python cannot show where the host is slower than the device.
 
 Needs one CUDA card; numbers are for the card named on the first line.
 """
@@ -29,10 +33,13 @@ from torch.profiler import ProfilerActivity, profile
 from skypilot_tpu_torch.models import generate as gen_lib
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models import quantization as quant_lib
+from skypilot_tpu_torch.ops.decode_attention import flash_decode
 from skypilot_tpu_torch.utils.device import resolve_device
 
 PROMPT = 128
 MAX_LEN = 1024
+# The two kernels of one flash_decode call (csrc/decode_attention.cu).
+_FLASH_DECODE = ('decode_split_kernel', 'decode_combine_kernel')
 
 
 def _generate(params, cfg, prompt, lens, n, kv_int8):
@@ -53,11 +60,13 @@ def _step_ms(params, cfg, prompt, lens, kv_int8):
 
 
 def _profile(params, cfg, prompt, lens, kv_int8, n=9):
+    calls = flash_decode.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _generate(params, cfg, prompt, lens, n, kv_int8)
         wall_us = (time.perf_counter() - t0) * 1e6
+    calls = flash_decode.launches - calls
     by_name = collections.defaultdict(float)
     count = 0
     for evt in prof.events():
@@ -68,10 +77,12 @@ def _profile(params, cfg, prompt, lens, kv_int8, n=9):
     if not count:
         return {'device_busy_share': 'not measured (no device events)'}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    decode = sum(t for k, t in by_name.items() if 'decode_kernel' in k)
+    decode = sum(t for k, t in by_name.items()
+                 if any(name in k for name in _FLASH_DECODE))
     return {'device_busy_share': busy / wall_us,
             'kernels_per_token': count / n,
             'flash_decode_share_of_device_time': decode / busy,
+            'flash_decode_device_us_per_call': decode / calls,
             'top_kernels_us': [(k[:80], t) for k, t in top]}
 
 

@@ -7,8 +7,14 @@ wrapper runs on CPU tensors). Cases mirror ``tests/test_ops_attention.py``
 (mixed lengths, int8 mode, several blocks). float32, tolerance 2e-5: the
 sums are taken in another order, nothing else differs.
 
+The kernel splits the cache axis across blocks and merges the chunks'
+partials; ``flash_decode_split_reference`` is the plain version of that
+order of work, held here to the JAX kernel over chunk sizes and lengths at
+the chunk edges, and ``decode_split``, which picks the chunk from the
+shape alone, is checked for what the kernel needs of it.
+
 The CUDA kernel itself runs only on a card: ``chip_smoke.py`` holds it
-against the plain version at the serving shapes there.
+against both plain versions at the serving shapes there.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -182,3 +188,70 @@ def test_kernel_checks_shapes_dtypes_and_layout():
     with pytest.raises(ValueError, match='contiguous'):
         port_da._check(*args)  # noqa: SLF001
 
+
+
+# -- the split of the cache axis ----------------------------------------------
+
+SPLIT_M = 256
+
+
+@pytest.mark.parametrize('quant', [False, True], ids=['cache', 'int8'])
+@pytest.mark.parametrize('chunk', [1, 32, 64, 128, SPLIT_M])
+def test_split_reference_matches_jax_kernel(chunk, quant):
+    """Partials per chunk, then the log-sum-exp merge, in float32 against
+    the JAX kernel in interpret mode and the einsum path: lengths 0 (the
+    mean of V over all M), 1, a chunk and one either side, and M.
+    Tolerance 2e-5, as above: only the order of sums differs."""
+    q, k, v, k_s, v_s = _inputs(chunk + quant, 6, 4, 2, SPLIT_M, 16, quant)
+    lengths = np.asarray([0, 1, max(chunk - 1, 0), chunk, chunk + 1,
+                          SPLIT_M], np.int32)
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    got = port_da.flash_decode_split_reference(
+        t(q), t(k), t(v), t(lengths), t(k_s), t(v_s), chunk=chunk).numpy()
+    kernel = np.asarray(jax_da.flash_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(lengths),
+        None if k_s is None else jnp.asarray(k_s),
+        None if v_s is None else jnp.asarray(v_s), interpret=True))
+    np.testing.assert_allclose(got, kernel, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(got, _jax_einsum(q, k, v, lengths, k_s, v_s),
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize('quant', [False, True], ids=['cache', 'int8'])
+def test_split_reference_in_bf16_stays_near_the_plain_version(quant):
+    """In bf16 the split version rounds p relative to each chunk's max
+    instead of the row's, as the kernel does; it stays within the bf16
+    tolerance the kernel is held to (2e-2) of the plain version."""
+    q, k, v, k_s, v_s = _inputs(9, 5, 8, 4, SPLIT_M, 64, quant)
+    lengths = torch.tensor([0, 1, 65, 200, SPLIT_M], dtype=torch.int32)
+    q = torch.from_numpy(q).bfloat16()
+    if quant:
+        k, v = torch.from_numpy(k), torch.from_numpy(v)
+        k_s, v_s = torch.from_numpy(k_s), torch.from_numpy(v_s)
+    else:
+        k, v = torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16()
+    got = port_da.flash_decode_split_reference(q, k, v, lengths, k_s, v_s,
+                                               chunk=64)
+    want = port_da.flash_decode_reference(q, k, v, lengths, k_s, v_s)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_decode_split_fills_the_card_at_batch_one():
+    splits, chunk = port_da.decode_split(1, 8, 1024)
+    assert 8 * splits >= 64
+    assert chunk * splits >= 1024
+
+
+@pytest.mark.parametrize('batch, hkv, max_len', [
+    (1, 8, 1024), (32, 8, 1024), (4, 8, 1000), (8, 8, 1024), (3, 8, 48),
+    (1, 8, 1), (1, 1, 32768), (256, 8, 1024), (2, 8, 257), (64, 2, 4096)])
+def test_decode_split_chunks_are_whole_tiles_covering_the_cache(
+        batch, hkv, max_len):
+    """From (B, Hkv, M) alone, never the lengths, which no launch may read
+    back: whole tiles, and just enough chunks to cover M."""
+    splits, chunk = port_da.decode_split(batch, hkv, max_len)
+    assert chunk >= port_da.TILE and chunk % port_da.TILE == 0
+    assert (splits - 1) * chunk < max_len <= splits * chunk
