@@ -14,8 +14,10 @@ Phases (any failure exits non-zero):
    Hkv=8, D=128, M=1024, B in {1, 32}; M=1000; a D=64 case), at the edges
    of the kernel's split of the cache (lengths of a chunk and one either
    side, 1, 0 and M, at B=7 and at B=32), with one chunk longer than M
-   (M=48, group 1) and a group that is no power of two (3), bf16 and int8
-   caches, bf16 and fp32 queries. Tolerances: bf16 2e-2 (bf16 output
+   (M=48, group 1) and a group that is no power of two (3), and the
+   continuous engine's decode batch (B=16, M=1024, lengths 0, 1, M and
+   past M, as free slots' junk rows reach), bf16 and int8 caches, bf16
+   and fp32 queries. Tolerances: bf16 2e-2 (bf16 output
    rounding, sums in another order), fp32 1e-4. Every case is also held
    against ``flash_decode_split_reference`` at the kernel's own chunk
    (``decode_split``), the same partials and merge, so only the order of
@@ -41,7 +43,9 @@ Phases (any failure exits non-zero):
    K1, K2 and K3 (12: D 64/128, causal or not) shows HGMMA and UTMALDG in
    the library's SASS and ptxas reports 0 spill bytes for it.
 4. Serving end to end on a small model (head_dim 64, float32): prefill
-   and decode logits on the card (through K4) against the CPU.
+   and decode logits on the card (through K4) against the CPU; then the
+   continuous engine (4 slots, max_len 48, 7 requests, full and int8 KV)
+   on the card against the same engine on the CPU, token for token.
 5. Training end to end on a small model (head_dim 64, float32): 3 steps
    of the port's ``Trainer`` on the card (K1-K3) and on the CPU from the
    same weights and batches; losses and params compared.
@@ -50,14 +54,30 @@ Phases (any failure exits non-zero):
    Every loss must be finite, the weights must move, and the launch
    counts must be K1 = 2 * 18 * 4 (remat runs the forward again) and
    K2 = K3 = 18 * 4.
-7. Serving, the serving main path: ``LlmServer('bench-1b', max_len=1024)``
-   over HTTP, bf16 weights + bf16 KV, then int8 weights + int8 KV. A few
+7. Serving through the window path: ``LlmServer('bench-1b',
+   max_len=1024, engine='off')`` over HTTP, bf16 weights + bf16 KV, then
+   int8 weights + int8 KV. A few
    concurrent requests (greedy and seeded-sampled); checks status, token
    counts and ids, repeat determinism, agreement with a direct
    ``generate`` call, and that K4 was called n_layers * (max_new - 1)
    times for each generate call (a call is two launches: the split
    kernel and the merge). Prints decode tokens/s.
-8. Summary: one JSON line of kernels, then the last line
+8. Serving, the serving main path: ``LlmServer('bench-1b', max_len=1024)``
+   with its default continuous engine (16 slots, chunks of 8 steps,
+   pipelined) over HTTP, bf16 + bf16 KV, then int8 + int8 KV. 24
+   concurrent requests (prompts 17-300, max_new 8-64, greedy, top-k and
+   top-p sampled, no seed), then one streamed request. Checks status, ids,
+   lengths, that the NDJSON lines add up to the same request's tokens
+   when not streamed, that K4 was called n_layers x chunk_steps x
+   dispatches times in that window (``stats()['pipeline']``), and that
+   each greedy answer equals a direct ``generate`` or parts from it only
+   where the direct path's top-2 logit gap is below GREEDY_GAP_LIMIT.
+   Then a second engine with max_len 128 serves requests one after
+   another for more than 128 decode steps while 15 slots idle past
+   max_len: no fault. Prints tokens/s, the host's ms per decode step and
+   the pipeline counters.
+9. Summary: one JSON line of kernels (K4's launches are phase 8's; its
+   times are the engine-shape case of phase 2), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits with an error, printing no result, when CUDA is absent or when
@@ -96,6 +116,12 @@ L2_BYTES = 50 * 2 ** 20
 MODES = {'bf16': ('skypilot_tpu/ops/decode_attention.py:147', False),
          'int8': ('skypilot_tpu/ops/decode_attention.py:162', True)}
 CSRC = 'skypilot_tpu_torch/csrc/'
+ENGINE_CASE = 'engine B=16 M=1024'  # K4 at the engine's shape
+# A greedy engine stream may part from a direct generate() only where the
+# direct path's two largest logits were closer than this: the engine's
+# prefill group and 16-slot decode batch are other GEMM shapes, and bf16
+# sums in another order move a logit by a few hundredths.
+GREEDY_GAP_LIMIT = 0.1
 FLASH = {  # K1-K3: wrapper name -> (TPU kernel, launch counter, source)
     'flash_fwd': ('skypilot_tpu/ops/attention.py:106', 'fwd_launches',
                   CSRC + 'flash_attention_sm90.cuh'),
@@ -223,6 +249,11 @@ def kernel_phase(da):
         ('edges B=32 M=1024', 32, 16, 8, 128, 1024, edges(32, 1024)),
         ('M=48 G=1', 3, 8, 8, 64, 48, [48, 0, 17]),
         ('M=256 G=3', 2, 24, 8, 128, 256, [200, 5]),
+        # The engine's decode batch: 16 slots over max_len 1024, free
+        # slots at length 0 and junk rows whose lengths ran past M.
+        (ENGINE_CASE, 16, 16, 8, 128, 1024,
+         [0, 1, 1024, 1025, 1500, 4096, 2 ** 20]
+         + rng.integers(1, 1025, 9).tolist()),
     ]
     results = {mode: {'max_abs_err': 0.0, 'cases': []} for mode in MODES}
     for mode, (_, quant) in MODES.items():
@@ -279,6 +310,10 @@ def kernel_phase(da):
                 print(f'  {mode:4s} {label:16s} {row["dtype"]:8s} '
                       + ' '.join(f'{k}={v}' for k, v in row.items()
                                  if k not in ('case', 'dtype')), flush=True)
+    for mode in MODES:
+        results[mode]['head'] = next(c for c in results[mode]['cases']
+                                     if c['case'] == ENGINE_CASE
+                                     and c['dtype'] == 'bfloat16')
     return results
 
 
@@ -508,6 +543,39 @@ def small_model_phase(llama, gen_lib):
           f'{worst} (limit 1e-3)', flush=True)
 
 
+def small_engine_phase(llama, engine_lib):
+    """The continuous engine on the small fp32 model, on the card and on
+    the CPU from the same weights: greedy tokens equal, token for token,
+    with more requests than slots (slots are reused) and max_len 48, so
+    the free slots' junk rows run past max_len on both."""
+    cfg = dataclasses.replace(llama.TINY, d_model=128, n_heads=4,
+                              n_kv_heads=2, head_dim=64, dtype=torch.float32)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
+    rng = np.random.default_rng(4)
+    rows = [rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in (3, 17, 9, 30, 5, 12, 21)]
+    out = {}
+    for dev, p in (('cpu', params), ('cuda', _tree_to(params, 'cuda'))):
+        for kv_quant in (False, True):
+            eng = engine_lib.ContinuousEngine(
+                p, cfg, slots=4, max_len=48, chunk_steps=4,
+                kv_quantize=kv_quant, device=dev)
+            try:
+                futs = [eng.submit(r, 16) for r in rows]
+                out[dev, kv_quant] = [f.result(timeout=300) for f in futs]
+                lengths = eng._cache.lengths.cpu().tolist()  # noqa: SLF001
+            finally:
+                eng.stop()
+    for kv_quant in (False, True):
+        if out['cuda', kv_quant] != out['cpu', kv_quant]:
+            raise AssertionError(f'small engine (int8 KV {kv_quant}): card '
+                                 f'{out["cuda", kv_quant]} != CPU '
+                                 f'{out["cpu", kv_quant]}')
+    print(f'  small engine (4 slots, max_len 48, 7 requests x 16 tokens), '
+          f'full and int8 KV: card == CPU token for token; slot lengths at '
+          f'the end {lengths}', flush=True)
+
+
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
@@ -625,7 +693,7 @@ def _post(url, body, timeout=600):
 
 def serving_phase(srv_lib, gen_lib, da, quantize, kv_cache):
     server = srv_lib.LlmServer('bench-1b', max_len=1024, quantize=quantize,
-                               kv_cache=kv_cache)
+                               kv_cache=kv_cache, engine='off')
     cfg = server.cfg
     httpd = server.make_httpd('127.0.0.1', 0)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -696,6 +764,188 @@ def serving_phase(srv_lib, gen_lib, da, quantize, kv_cache):
         torch.cuda.empty_cache()
 
 
+# -- phase 8: the replica's default path, the continuous engine ---------------------
+
+
+def _post_stream(url, body, timeout=600):
+    """(status, NDJSON lines) of one streamed request."""
+    req = urllib.request.Request(
+        f'{url}/generate', data=json.dumps(dict(body, stream=True)).encode(),
+        headers={'Content-Type': 'application/json'}, method='POST')
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, [json.loads(line) for line in
+                          r.read().decode().splitlines() if line.strip()]
+
+
+def _direct_gaps(gen_lib, params, cfg, prompt, tokens, kv_int8):
+    """The direct path (``generate``'s calls, batch 1) fed ``tokens``:
+    for each of them, the gap between the two largest logits of the step
+    that chose it, and whether it was a largest logit of that step."""
+    cache = gen_lib.init_cache(cfg, 1, 1024, quantize=kv_int8,
+                               device='cuda')
+    toks = torch.tensor([prompt], dtype=torch.int32, device='cuda')
+    gaps, argmax_ok = [], []
+    with torch.inference_mode():
+        for t in tokens:
+            logits, cache = gen_lib.forward_cached(params, toks, cache, cfg)
+            top = torch.topk(logits[0].float(), 2)
+            gaps.append(float(top.values[0] - top.values[1]))
+            argmax_ok.append(float(logits[0, t]) == float(top.values[0]))
+            toks = torch.tensor([[t]], dtype=torch.int32, device='cuda')
+    return gaps, argmax_ok
+
+
+def _check_greedy(gen_lib, server, prompt, got, kv_int8):
+    """A greedy engine stream equals a direct ``generate``, or parts from
+    it where the direct path's top-2 logit gap is below GREEDY_GAP_LIMIT.
+    Returns (parting position or None, its gap)."""
+    tokens, lens = gen_lib.pad_prompts([prompt], device='cuda')
+    direct = gen_lib.generate(server.params, server.cfg, tokens, len(got),
+                              max_len=1024, prompt_lengths=lens,
+                              kv_quantize=kv_int8)[0].tolist()
+    if got == direct:
+        return None, None
+    j = next(i for i, (a, b) in enumerate(zip(got, direct)) if a != b)
+    gaps, argmax_ok = _direct_gaps(gen_lib, server.params, server.cfg,
+                                   prompt, direct[:j + 1], kv_int8)
+    if not all(argmax_ok) or not gaps[j] < GREEDY_GAP_LIMIT:
+        raise AssertionError(f'engine tokens part from generate() at {j} '
+                             f'where the top-2 logit gap is {gaps[j]} '
+                             f'(limit {GREEDY_GAP_LIMIT}); argmax '
+                             f'replayed {all(argmax_ok)}')
+    return j, gaps[j]
+
+
+def _idle_slot_check(engine_lib, server):
+    """A second bench-1b engine with max_len 128: requests one after
+    another keep slot 0 busy for more than 128 decode steps while the 15
+    other slots idle, their lengths running past max_len. No fault (the
+    device is synchronised after), and each answer is whole."""
+    eng = engine_lib.ContinuousEngine(
+        server.params, server.cfg, max_len=128,
+        kv_quantize=server.kv_cache == 'int8')
+    rng = np.random.default_rng(6)
+    try:
+        for _ in range(5):
+            row = rng.integers(0, server.cfg.vocab_size, 24).tolist()
+            out = eng.submit(row, 48).result(timeout=600)
+            if len(out) != 48 or not all(0 <= t < server.cfg.vocab_size
+                                         for t in out):
+                raise AssertionError(f'idle-slot engine answered {out}')
+        torch.cuda.synchronize()
+        lengths = eng._cache.lengths.cpu().tolist()  # noqa: SLF001
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    steps = stats['pipeline']['dispatches'] * stats['chunk_steps']
+    if steps <= 128 or min(lengths[1:]) <= 128:  # slot 0 took each one
+        raise AssertionError(f'idle-slot check did not run past max_len: '
+                             f'{steps} decode steps, lengths {lengths}')
+    return steps, lengths
+
+
+def engine_phase(srv_lib, gen_lib, engine_lib, da, quantize, kv_cache):
+    """``LlmServer('bench-1b')`` with its default engine over HTTP: 24
+    concurrent requests (more than the 16 slots; prompts 17-300, max_new
+    8-64, greedy and sampled), then one streamed request; K4 launched
+    n_layers x chunk_steps x dispatches times in that window."""
+    server = srv_lib.LlmServer('bench-1b', max_len=1024, quantize=quantize,
+                               kv_cache=kv_cache)
+    cfg, engine = server.cfg, server.engine
+    kv_int8 = kv_cache == 'int8'
+    httpd = server.make_httpd('127.0.0.1', 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f'http://127.0.0.1:{httpd.server_address[1]}'
+    label = f'{quantize or "bf16"} weights + {kv_cache} KV'
+    try:
+        rng = np.random.default_rng(3)
+        reqs = []
+        for i in range(24):
+            body = {'tokens': [rng.integers(0, cfg.vocab_size, int(
+                        rng.integers(17, 301))).tolist()],
+                    'max_new_tokens': int(rng.integers(8, 65))}
+            if i % 3 == 1:
+                body.update(temperature=0.8, top_k=50)
+            elif i % 3 == 2:
+                body.update(temperature=1.0, top_p=0.9)
+            reqs.append(body)
+        stream_req = {'tokens': [rng.integers(0, cfg.vocab_size, 40)
+                                 .tolist()], 'max_new_tokens': 40}
+        for body in ({'tokens': [[1] * 8], 'max_new_tokens': 2},
+                     dict(reqs[0], max_new_tokens=9)):  # warm-up
+            _post(url, body)
+        while engine.busy():
+            time.sleep(0.01)
+        if any(r.get('seed') is not None for r in reqs):
+            raise AssertionError('a seeded request would take the window '
+                                 'path and launch K4 there')
+        d0 = engine.stats()['pipeline']['dispatches']
+        da.flash_decode.launches = 0
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(reqs)) as pool:
+            answers = list(pool.map(lambda r: _post(url, r), reqs))
+        wall = time.perf_counter() - t0
+        while engine.busy():
+            time.sleep(0.01)
+        window = engine.stats()['pipeline']['dispatches'] - d0
+        status, lines = _post_stream(url, stream_req)
+        while engine.busy():
+            time.sleep(0.01)
+        launches = da.flash_decode.launches
+        stats = engine.stats()
+        dispatches = stats['pipeline']['dispatches'] - d0
+        expected = cfg.n_layers * stats['chunk_steps'] * dispatches
+        if launches != expected or dispatches == 0:
+            raise AssertionError(f'flash_decode launched {launches} times '
+                                 f'over {dispatches} chunks; expected '
+                                 f'{expected}')
+        for req, (code, body) in zip(reqs, answers):
+            rows = body.get('tokens') or [[]]
+            if code != 200 or len(rows) != 1 \
+                    or len(rows[0]) != req['max_new_tokens'] \
+                    or not all(0 <= t < cfg.vocab_size for t in rows[0]):
+                raise AssertionError(f'bad answer {code} {body}')
+        streamed = [t for ln in lines[:-1] for t in ln['tokens']]
+        if status != 200 or lines[-1] != {'done': True} \
+                or len(streamed) != stream_req['max_new_tokens'] \
+                or any(ln.get('row') != 0 for ln in lines[:-1]):
+            raise AssertionError(f'bad stream {status} {lines}')
+        # The same request alone, not streamed: the same tokens.
+        if _post(url, stream_req)[1]['tokens'] != [streamed]:
+            raise AssertionError('streamed tokens differ from the same '
+                                 'request not streamed')
+        parted = [_check_greedy(gen_lib, server, r['tokens'][0],
+                                a[1]['tokens'][0], kv_int8)
+                  for r, a in zip(reqs, answers) if 'temperature' not in r]
+        tokens = sum(len(a[1]['tokens'][0]) for a in answers)
+        step_ms = wall * 1e3 / (window * stats['chunk_steps'])
+        steps, lengths = _idle_slot_check(engine_lib, server)
+        print(f'  bench-1b {label}, default engine (16 slots, chunk 8, '
+              f'pipelined): {len(reqs)} concurrent requests, {tokens} '
+              f'tokens in {wall:.2f} s = {tokens / wall:.1f} tok/s, '
+              f'{window} chunks ({step_ms:.2f} ms per decode step on the '
+              f'host clock, admission included); '
+              f'stream of {len(lines) - 1} lines adds up to '
+              f'{len(streamed)} tokens = the request not streamed; '
+              f'flash_decode launches {launches} = n_layers x chunk_steps x '
+              f'dispatches; greedy vs generate(): '
+              f'{sum(p[0] is None for p in parted)} of {len(parted)} equal, '
+              f'parted at (position, top-2 gap) '
+              f'{[p for p in parted if p[0] is not None]} (limit '
+              f'{GREEDY_GAP_LIMIT}); pipeline {stats["pipeline"]}; '
+              f'idle-slot engine (max_len 128): {steps} decode steps, no '
+              f'fault, slot lengths {lengths}', flush=True)
+        return launches
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.stop()
+        thread.join(30)
+        del server
+        torch.cuda.empty_cache()
+
+
 def _build_all(libs):
     """One nvcc per kernel library, all started together; prints each
     kernel's registers, any spills, and any wgmma the compiler had to
@@ -716,6 +966,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 2
+    from skypilot_tpu_torch.models import engine as engine_lib
     from skypilot_tpu_torch.models import generate as gen_lib
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.ops import attention as fa
@@ -743,6 +994,7 @@ def main() -> int:
 
     print('phase 4: small model serving, card against CPU', flush=True)
     small_model_phase(llama, gen_lib)
+    small_engine_phase(llama, engine_lib)
 
     print('phase 5: small model training, card against CPU', flush=True)
     small_train_phase(llama, trainer_lib, data_lib)
@@ -751,9 +1003,17 @@ def main() -> int:
           flush=True)
     train_launches = train_phase(llama, fa, train_run)
 
-    print('phase 7: serving bench-1b over HTTP', flush=True)
-    launches = {'bf16': serving_phase(srv_lib, gen_lib, da, None, 'bf16'),
-                'int8': serving_phase(srv_lib, gen_lib, da, 'int8', 'int8')}
+    print('phase 7: serving bench-1b over HTTP, window path (--engine off)',
+          flush=True)
+    for quantize, kv_cache in ((None, 'bf16'), ('int8', 'int8')):
+        serving_phase(srv_lib, gen_lib, da, quantize, kv_cache)
+
+    print('phase 8: serving bench-1b over HTTP, the default continuous '
+          'engine', flush=True)
+    launches = {
+        'bf16': engine_phase(srv_lib, gen_lib, engine_lib, da, None, 'bf16'),
+        'int8': engine_phase(srv_lib, gen_lib, engine_lib, da, 'int8',
+                             'int8')}
 
     entries = []
     for name, (replaces, _, source) in FLASH.items():
@@ -762,7 +1022,7 @@ def main() -> int:
             'replaces': replaces, 'launches': train_launches[name],
             **flash[name]})
     for mode, (replaces, _) in MODES.items():
-        head = kernels[mode]['cases'][0]  # B=32 M=1024 bf16: serving shape
+        head = kernels[mode]['head']  # the engine's B=16 M=1024, bf16
         entries.append({
             'name': f'flash_decode[{mode} cache]', 'route': 'cuda',
             'source': CSRC + 'decode_attention.cu',

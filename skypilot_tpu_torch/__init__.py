@@ -8,7 +8,8 @@ each Pallas TPU kernel with a CUDA kernel written for Hopper (``sm_90a``).
 It imports ``torch`` and never ``jax``, and nothing of ``skypilot_tpu``:
 what it needs from there it keeps as its own copy.
 
-Ported so far (the serving window path):
+Ported so far (serving, with the continuous engine as the replica's
+default path, and single-device training):
 
 * ``utils/device.py`` -- device resolution (CUDA unless ``device='cpu'``).
 * ``models/llama.py`` -- config, presets, weights, ``rms_norm``, ``rope``.
@@ -17,5 +18,10 @@ Ported so far (the serving window path):
 * ``models/generate.py`` -- KV cache, cached forward, ``generate``.
 * ``ops/decode_attention.py`` + ``csrc/decode_attention.cu`` -- the
   flash-decode kernel.
-* ``serve/llm_server.py`` -- the window-batching HTTP replica.
+* ``models/engine.py`` -- the continuous-batching engine (slot layout).
+* ``observability/profiler.py`` -- the engine's program and memory ledger.
+* ``serve/llm_server.py`` -- the HTTP replica: the engine by default, the
+  window-batching path for ``--engine off`` and seeded requests.
+* ``ops/attention.py`` + ``csrc/flash_attention*.cu*`` and ``train/`` --
+  the flash-attention kernels and the trainer.
 """

@@ -1,0 +1,767 @@
+"""Continuous-batching decode engine: the slot layout, on one device.
+
+Port of ``skypilot_tpu/models/engine.py`` in its default configuration:
+one persistent decode batch of ``slots`` rows over a resident KV cache of
+``max_len`` positions per slot. Arriving requests are prefilled in
+power-of-two groups (prompts right-padded to power-of-two buckets), their
+cache rows inserted into free slots, and K-step decode chunks advance all
+slots together. Short requests drain and their slots refill while long
+ones keep streaming.
+
+* Chunks are pipelined one deep (``SKYTPU_LLM_PIPELINE``, default on):
+  chunk N+1 is issued against the current slot snapshot before chunk N's
+  tokens are read, so reading them, stop-token truncation, callbacks,
+  slot freeing and admission all run while the device computes N+1.
+  PyTorch's ``.cpu()`` would wait for the whole stream (N+1 included), so
+  each chunk's tokens, and each prefill group's first tokens, are copied
+  into pinned host memory without blocking when they are issued, and a
+  CUDA event recorded after the copy is all that retirement waits for.
+  Host arrays go to the device the same way (``_to_device``): a copy
+  from pageable memory would wait for the chunk in flight.
+* A free slot keeps decoding junk until it is reused (the batch shape is
+  fixed). Its length grows without bound, so ``forward_cached`` is given
+  ``active_rows``: a row is active while its request still needs the
+  step's write (``lengths < limit``, where an insert sets ``limit`` to
+  prompt + max_new - 1). Rows not active write at a clamped offset, as
+  ``dynamic_update_slice`` does in the JAX package, and attend all M
+  positions once their length passes M, so no junk row reaches the
+  overflow assert (on the card an assert ends the CUDA context).
+* Every decode step runs the flash-decode kernel (``ops/decode_attention``,
+  K4) in every layer, through ``forward_cached``.
+* Randomness comes from one ``torch.Generator`` on the engine's device,
+  seeded from ``seed`` (the counterpart of ``jax.random.PRNGKey(seed)``);
+  the draws differ from JAX's, the distribution does not. Per-request
+  seeded determinism is impossible under continuous batching, so the
+  replica routes seeded requests to the window path.
+
+A chunk is K eager ``forward_cached`` calls (JAX runs one compiled
+``lax.scan``), so the engine is bound by the host's time to issue them.
+
+Not ported yet; each raises ``NotImplementedError`` at construction: the
+paged layout, the prefix pool, chunked prefill, draft rounds, a mesh,
+block sharing and KV tiers, and the prefill/decode roles (with
+``submit_prefill``, ``submit_import``, ``probe_chain``, ``resolve_chains``
+and ``prefix_summary``). The JAX engine's black-box and trace records are
+not ported either.
+"""
+from __future__ import annotations
+
+import collections
+import concurrent.futures
+import contextlib
+import dataclasses
+import os
+import threading
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from skypilot_tpu_torch.models import generate as gen_lib
+from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import sampling
+from skypilot_tpu_torch.observability import profiler
+from skypilot_tpu_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass
+class _Request:
+    """Host-side bookkeeping for one prompt row occupying (at most) one
+    slot. ``tokens`` accumulates emitted ids; the future resolves with
+    the full list once ``max_new`` have been produced. ``on_tokens``
+    (optional) is called from the ENGINE thread with each newly emitted
+    batch of ids as it lands (streaming); it must not block."""
+    row: List[int]
+    max_new: int
+    temperature: float
+    future: concurrent.futures.Future
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    on_tokens: Optional[object] = None
+    top_k: int = 0        # 0 = off
+    top_p: float = 1.0    # >= 1 = off
+    eos: Optional[frozenset] = None  # stop ids; None = run to max_new
+
+
+class _HostCopy:
+    """A device tensor on its way to the host: on CUDA, a non-blocking
+    copy into pinned memory and an event recorded after it, so reading
+    waits for this copy and not for work issued later on the stream. On
+    the CPU, the tensor itself."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == 'cuda':
+            self._host = torch.empty(t.shape, dtype=t.dtype,
+                                     pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+@dataclasses.dataclass
+class _Inflight:
+    """One issued-but-unread decode chunk: the slot snapshot it was issued
+    against plus its tokens on their way to the host. Retirement emits
+    against the snapshot: a slot freed (or reused) after dispatch fails
+    the ``_slot_req[i] is req`` identity check and its tokens are dropped
+    as junk."""
+    reqs: List[Optional[_Request]]
+    toks: _HostCopy
+    steps: int
+
+
+# Idle engine pacing: the loop parks in _wake.wait(_IDLE_WAIT_S) when no
+# slot is active; submit() sets the event, so the wait length only bounds
+# how often an IDLE replica spins, not admission latency.
+_IDLE_WAIT_S = 1.0
+
+
+def prompt_bucket(n: int, lo: int = 16) -> int:
+    """Smallest power-of-two >= n (>= lo): the padded prefill width."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``, issued without waiting for
+    the device (pinned staging, ``non_blocking``)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != 'cuda':
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _insert_impl(cache: gen_lib.KVCache, last: torch.Tensor,
+                 limit: torch.Tensor, cache_n: gen_lib.KVCache,
+                 firsts: torch.Tensor, limits_n: torch.Tensor,
+                 slots: torch.Tensor) -> None:
+    """Write a prefilled N-row cache into engine slots ``slots`` [N], in
+    place: one indexed write per cache tensor. The prefill cache is only
+    ``width`` (prompt bucket) positions long and only [0, width) of each
+    slot's row is written; what the previous occupant left beyond that is
+    never attended (valid-length masking) and later decode writes
+    overwrite it. Sets each slot's length, last token and write limit."""
+    width = cache_n.k.shape[3]
+    cache.k[:, slots, :, :width] = cache_n.k
+    cache.v[:, slots, :, :width] = cache_n.v
+    if cache.quantized:
+        cache.k_s[:, slots, :, :width] = cache_n.k_s
+        cache.v_s[:, slots, :, :width] = cache_n.v_s
+    cache.lengths[slots] = cache_n.lengths
+    last[slots] = firsts
+    limit[slots] = limits_n
+
+
+def _filters_or_none(top_ks: np.ndarray, top_ps: np.ndarray):
+    """None when every row's filters are off: ``filter_logits`` then
+    skips the full-vocab sort on the decode loop."""
+    if bool(top_ks.any()) or bool((top_ps < 1.0).any()):
+        return top_ks, top_ps
+    return None, None
+
+
+def _chunk_impl(cfg: llama.LlamaConfig, k_steps: int, params,
+                cache: gen_lib.KVCache, last: torch.Tensor,
+                limit: torch.Tensor, temps: Optional[torch.Tensor],
+                top_ks: Optional[torch.Tensor],
+                top_ps: Optional[torch.Tensor],
+                generator: Optional[torch.Generator]):
+    """K decode steps over ALL slots: returns (cache, last, toks [K, B]).
+    Per-slot sampling params ride as data (temps 0 = greedy, top_ks 0 /
+    top_ps 1 = filters off); ``generator`` None = every row greedy."""
+    b = last.shape[0]
+    row_lens = torch.ones((b,), dtype=torch.int32, device=last.device)
+    toks = []
+    for _ in range(k_steps):
+        active = cache.lengths < limit
+        logits, cache = gen_lib.forward_cached(params, last[:, None], cache,
+                                               cfg, row_lens, active)
+        last = sampling.sample(logits, temps, generator, top_ks, top_ps)
+        toks.append(last)
+    return cache, last, torch.stack(toks)
+
+
+_insert = profiler.profiled('engine.insert', _insert_impl)
+_chunk = profiler.profiled('engine.chunk', _chunk_impl)
+_prefill = profiler.profiled('engine.prefill', gen_lib.forward_cached)
+_sample = profiler.profiled('engine.sample', sampling.sample)
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f'{what} is not ported yet: skypilot_tpu_torch serves the '
+        "continuous engine's slot layout only")
+
+
+def check_options(*, kv_layout: Optional[str] = None,
+                  prefix_slots: Optional[int] = None,
+                  prefill_chunk: Optional[int] = None, draft: bool = False,
+                  mesh=None, prefix_share: Optional[bool] = None,
+                  kv_tiers: Optional[bool] = None,
+                  role: Optional[str] = None) -> tuple:
+    """Resolve the engine's options against their environment defaults
+    and refuse the ones not ported yet (``NotImplementedError``) or
+    unknown (``ValueError``). Returns (kv_layout, role). Needs no weights,
+    so a replica checks its flags before it builds them."""
+    kv_layout = (kv_layout or os.environ.get('SKYTPU_LLM_KV_LAYOUT')
+                 or 'slot')
+    if kv_layout not in ('slot', 'paged'):
+        raise ValueError(f'Unknown kv_layout {kv_layout!r}; '
+                         "'slot' or 'paged'")
+    if kv_layout == 'paged':
+        raise _not_ported("kv_layout='paged'")
+    if prefix_slots is None:
+        prefix_slots = int(os.environ.get('SKYTPU_LLM_PREFIX_CACHE', '0'))
+    if int(prefix_slots) > 0:
+        raise _not_ported('the prefix pool (prefix_slots > 0)')
+    if prefill_chunk is None:
+        prefill_chunk = int(os.environ.get('SKYTPU_LLM_PREFILL_CHUNK', '0'))
+    if int(prefill_chunk) > 0:
+        raise _not_ported('chunked prefill (prefill_chunk > 0)')
+    if draft:
+        raise _not_ported('speculative decoding (a draft model)')
+    if mesh is not None:
+        raise _not_ported('a device mesh')
+    if prefix_share or kv_tiers:
+        raise _not_ported('block sharing and KV tiers')
+    role = role or os.environ.get('SKYTPU_LLM_ROLE', 'colocated')
+    if role not in ('colocated', 'prefill', 'decode'):
+        raise ValueError(f'Unknown engine role {role!r}; '
+                         "'colocated', 'prefill' or 'decode'")
+    if role != 'colocated':
+        raise _not_ported(f'the {role!r} role')
+    return kv_layout, role
+
+
+class ContinuousEngine:
+    """Slot server: submit() rows from any thread; a dedicated engine
+    thread owns the device state and loops admit -> decode-chunk -> emit.
+    See the module docstring for the design. ``device`` None = CUDA
+    (raises without a card); the tests pass ``device='cpu'``."""
+
+    def __init__(self, params, cfg: llama.LlamaConfig, *,
+                 slots: Optional[int] = None, max_len: int = 1024,
+                 chunk_steps: Optional[int] = None,
+                 prefill_batch: Optional[int] = None, seed: int = 0,
+                 mesh=None, kv_quantize: Optional[bool] = None,
+                 prefix_slots: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 draft_params=None,
+                 draft_cfg: Optional[llama.LlamaConfig] = None,
+                 kv_layout: Optional[str] = None,
+                 pipeline: Optional[bool] = None,
+                 prefix_share: Optional[bool] = None,
+                 kv_tiers: Optional[bool] = None,
+                 role: Optional[str] = None, device=None):
+        llama.require_dense(cfg)
+        self.kv_layout, self.role = check_options(
+            kv_layout=kv_layout, prefix_slots=prefix_slots,
+            prefill_chunk=prefill_chunk,
+            draft=draft_params is not None or draft_cfg is not None,
+            mesh=mesh, prefix_share=prefix_share, kv_tiers=kv_tiers,
+            role=role)
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        self.slots = slots or int(os.environ.get('SKYTPU_LLM_SLOTS', '16'))
+        self.max_len = min(max_len, cfg.max_seq_len)
+        self.chunk_steps = chunk_steps or int(
+            os.environ.get('SKYTPU_LLM_CHUNK_STEPS', '8'))
+        self.prefill_batch = min(
+            prefill_batch or int(os.environ.get('SKYTPU_LLM_PREFILL_BATCH',
+                                                '8')), self.slots)
+        if kv_quantize is None:
+            kv_quantize = os.environ.get('SKYTPU_LLM_KV_CACHE') == 'int8'
+        self.kv_quantize = bool(kv_quantize)
+        # Pipelined dispatch (default ON): one decode chunk in flight so
+        # host bookkeeping overlaps device compute. Depth 0 = serial.
+        if pipeline is None:
+            pipeline = os.environ.get('SKYTPU_LLM_PIPELINE', '1') != '0'
+        self.pipeline_depth = 1 if pipeline else 0
+        self._seed = seed
+        self._init_device_state()
+        self._slot_req: List[Optional[_Request]] = [None] * self.slots
+        self._pending: collections.deque = collections.deque()
+        # [(reqs, firsts on their way to the host)] of prefilled groups.
+        self._unfetched: List[tuple] = []
+        self._admitting: List[_Request] = []  # mid-prefill group
+        self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._stop = False
+        self._thread: Optional[threading.Thread] = None
+        # Pipeline state: at most ONE issued-but-unread chunk.
+        self._inflight: Optional[_Inflight] = None
+        self._last_dispatch_t: Optional[float] = None
+        self._no_flight_since: Optional[float] = None
+        # Stats (read by /health).
+        self.prefills = 0
+        self.prefill_groups = 0
+        self.prefill_tokens = 0
+        self.prefill_ms = 0.0
+        self.prefill_bubble_ms = 0.0  # prefill host time decode waited on
+        self.chunks_run = 0
+        self.tokens_emitted = 0
+        self.peak_active = 0
+        # Overlap (stats()['pipeline']): host work done while a chunk
+        # computes vs host time the device idled with work waiting.
+        self.dispatches = 0
+        self.host_overlap_ms = 0.0
+        self.bubble_ms = 0.0
+        self._gap_ms_total = 0.0
+        self._gap_count = 0
+
+    # -- public API (any thread) ------------------------------------------
+
+    def submit(self, row: List[int], max_new: int,
+               temperature: float = 0.0, on_tokens=None,
+               top_k: int = 0, top_p: float = 1.0,
+               eos=None) -> concurrent.futures.Future:
+        req = self._build_request(row, max_new, temperature, on_tokens,
+                                  top_k, top_p, eos)
+        with self._lock:
+            self._pending.append(req)
+        self.start()  # idempotent; revives a stop()ped engine
+        self._wake.set()
+        return req.future
+
+    def submit_prefill(self, *args, **kwargs):
+        raise _not_ported('the prefill role (submit_prefill)')
+
+    def submit_import(self, *args, **kwargs):
+        raise _not_ported('the decode role (submit_import)')
+
+    def probe_chain(self, row: List[int]) -> int:
+        raise _not_ported('block sharing (probe_chain)')
+
+    def resolve_chains(self, digests):
+        raise _not_ported('block sharing (resolve_chains)')
+
+    def prefix_summary(self):
+        raise _not_ported('block sharing (prefix_summary)')
+
+    def _build_request(self, row, max_new, temperature, on_tokens,
+                       top_k, top_p, eos) -> _Request:
+        if len(row) + max_new > self.max_len:
+            raise ValueError(
+                f'prompt ({len(row)}) + max_new ({max_new}) exceeds '
+                f'engine max_len limit {self.max_len}')
+        if top_k < 0 or not 0.0 < top_p <= 1.0:
+            raise ValueError('top_k must be >= 0 and top_p in (0, 1]')
+        if eos is not None and not isinstance(eos, frozenset):
+            eos = frozenset([eos] if isinstance(eos, int) else
+                            (int(t) for t in eos))
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        # Engine futures are UNCANCELLABLE (running from birth): a client
+        # disconnect cancelling a pending future would flip it done, and
+        # the emission loop would then skip the slot forever (a slot
+        # leak). The request runs to completion with nobody reading it.
+        fut.set_running_or_notify_cancel()
+        return _Request(list(row), max_new, float(temperature), fut,
+                        on_tokens=on_tokens, top_k=int(top_k),
+                        top_p=float(top_p), eos=eos)
+
+    def start(self) -> None:
+        # Under the lock: two first-submitters racing here must not both
+        # spawn a loop thread (two loops would share one device cache).
+        with self._lock:
+            if self._thread is None or not self._thread.is_alive():
+                self._stop = False
+                self._thread = threading.Thread(
+                    target=self._loop, daemon=True,
+                    name='skytpu-torch-decode-engine')
+                self._thread.start()
+
+    def stop(self) -> None:
+        self._stop = True
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            if self._thread.is_alive():
+                return  # wedged mid-chunk; don't race its state
+        # The loop thread is gone: anything still queued or occupying a
+        # slot would otherwise wait forever (a streaming handler blocks
+        # on these futures).
+        with self._lock:
+            live = bool(self._pending or self._admitting or self._unfetched
+                        or any(r is not None for r in self._slot_req))
+        if live:
+            self._fail_everything(RuntimeError('engine stopped'))
+
+    def busy(self) -> bool:
+        """Requests queued, prefilling or holding a slot."""
+        with self._lock:
+            return bool(self._pending or self._admitting or self._unfetched
+                        or any(r is not None for r in self._slot_req))
+
+    def stats(self) -> dict:
+        """Counters for /health: the keys of the JAX engine's ``stats()``
+        that the slot layout has."""
+        with self._lock:
+            active = sum(r is not None for r in self._slot_req)
+            return {
+                'slots': self.slots, 'active_slots': active,
+                'kv_cache': 'int8' if self.kv_quantize else 'bf16',
+                'kv_layout': self.kv_layout, 'role': self.role,
+                'queued': len(self._pending), 'prefills': self.prefills,
+                'prefill_groups': self.prefill_groups,
+                'prefill_batch': self.prefill_batch,
+                'chunks_run': self.chunks_run,
+                'chunk_steps': self.chunk_steps,
+                'tokens_emitted': self.tokens_emitted,
+                'peak_active_slots': self.peak_active,
+                # Depth 1 = one chunk kept in flight; 0 = serial.
+                # host_overlap_ms and bubble_ms are CUMULATIVE;
+                # dispatch_gap_ms is the mean host-side gap between
+                # consecutive chunk dispatches.
+                'pipeline': {
+                    'pipeline_depth': self.pipeline_depth,
+                    'dispatches': self.dispatches,
+                    'dispatch_gap_ms': round(
+                        self._gap_ms_total / max(self._gap_count, 1), 3),
+                    'host_overlap_ms': round(self.host_overlap_ms, 3),
+                    'bubble_ms': round(self.bubble_ms, 3)},
+                'prefill_tokens': self.prefill_tokens,
+                'prefill_ms': round(self.prefill_ms, 3),
+                'prefill_bubble_ms': round(self.prefill_bubble_ms, 3)}
+
+    # -- engine thread -----------------------------------------------------
+
+    def _device_scope(self):
+        if self.device.type == 'cuda':
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _loop(self) -> None:
+        with torch.inference_mode(), self._device_scope():
+            while not self._stop:
+                try:
+                    t0 = time.perf_counter()
+                    self._admit()
+                    if self._inflight is not None:
+                        # Admission issued while a chunk computes is pure
+                        # overlap: the host work the pipeline hides.
+                        with self._lock:
+                            self.host_overlap_ms += \
+                                (time.perf_counter() - t0) * 1e3
+                    if not any(r is not None for r in self._slot_req):
+                        # Every request of a still-in-flight chunk's
+                        # snapshot is done by now (a live one would hold
+                        # its slot), so the flush only drops junk.
+                        self._flush_pipeline(quiet=True)
+                        self._drain_firsts()  # e.g. all max_new == 1
+                        self._note_decode_quiet()
+                        self._wake.wait(_IDLE_WAIT_S)
+                        self._wake.clear()
+                        continue
+                    self._run_chunk()
+                except Exception as exc:  # noqa: BLE001 -- fail all waiters
+                    # Fail in-flight work, rebuild device state, KEEP
+                    # LOOPING: exiting would strand a request submitted
+                    # while this thread still looked alive.
+                    self._fail_everything(exc)
+                    self._wake.wait(0.1)
+                    self._wake.clear()
+
+    def _fail_everything(self, exc: Exception) -> None:
+        with self._lock:
+            doomed = list(self._pending) + [
+                r for r in self._slot_req if r is not None] + [
+                r for reqs, _ in self._unfetched for r in reqs] + \
+                list(self._admitting)
+            self._pending.clear()
+            self._slot_req = [None] * self.slots
+            self._unfetched = []
+            self._admitting = []
+            # The in-flight chunk goes with the device state.
+            self._inflight = None
+            self._last_dispatch_t = None
+            self._no_flight_since = None
+        for req in doomed:  # dupes are safe: first set_exception wins
+            if not req.future.done():
+                req.future.set_exception(exc)
+        # Fresh device state: the failed call may have half-written the
+        # old buffers.
+        self._init_device_state()
+
+    @torch.inference_mode()
+    def _init_device_state(self) -> None:
+        dev = self.device
+        self._cache = gen_lib.init_cache(self.cfg, self.slots, self.max_len,
+                                         quantize=self.kv_quantize,
+                                         device=dev)
+        self._last = torch.zeros((self.slots,), dtype=torch.int32,
+                                 device=dev)
+        # A row is active while lengths < limit (module docstring); a
+        # free slot's limit is 0.
+        self._limit = torch.zeros((self.slots,), dtype=torch.int32,
+                                  device=dev)
+        self._gen = torch.Generator(device=dev)
+        self._gen.manual_seed(self._seed)
+        profiler.register_logical('kv_cache',
+                                  profiler.tree_nbytes(self._cache))
+
+    @staticmethod
+    def _fire_callbacks(emitted: List[tuple]) -> None:
+        """Run on_tokens callbacks OUTSIDE the lock, each guarded: a
+        raising callback (a streaming client that went away) loses ITS
+        stream only; it must not reach _loop's failure path, which would
+        fail every other request and rebuild the cache."""
+        for req, new in emitted:
+            try:
+                req.on_tokens(new)
+            except Exception:  # noqa: BLE001 -- isolate per request
+                req.on_tokens = None  # stop notifying the dead consumer
+
+    def _sampling_args(self, temps: np.ndarray, top_ks: np.ndarray,
+                       top_ps: np.ndarray) -> tuple:
+        """(temps, generator, top_ks, top_ps) for ``sampling.sample`` on
+        the device, from per-row host arrays. All None when no row
+        samples: every row then takes the argmax and no noise is drawn."""
+        if not bool((temps > 0).any()):
+            return None, None, None, None
+        dev = self.device
+        tk, tp = _filters_or_none(top_ks, top_ps)
+        return (_to_device(temps, dev), self._gen,
+                None if tk is None else _to_device(tk, dev),
+                None if tp is None else _to_device(tp, dev))
+
+    def _admit(self) -> None:
+        """Prefill pending requests into free slots, in power-of-two
+        GROUPS: one padded [N, S] forward + one insert per group, the
+        group size capped at ``prefill_batch``."""
+        while True:
+            with self._lock:
+                free = [i for i, r in enumerate(self._slot_req)
+                        if r is None]
+                n = min(len(free), len(self._pending), self.prefill_batch)
+                if n == 0:
+                    return
+                g = 1
+                while g * 2 <= n:
+                    g *= 2
+                reqs = [self._pending.popleft() for _ in range(g)]
+                # Mid-prefill requests live in NO other structure: a
+                # failure here must still fail their futures.
+                self._admitting = reqs
+            self._prefill_group(reqs, free[:g])
+            with self._lock:
+                self._admitting = []
+
+    def _note_prefill_time(self, t0: float, had_active: bool) -> None:
+        """Host wall time spent issuing prefill work, and the slice of it
+        decode provably waited on (active slots, nothing in flight)."""
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            self.prefill_ms += dt_ms
+            if had_active and self._inflight is None:
+                self.prefill_bubble_ms += dt_ms
+
+    def _prefill_group(self, reqs: List[_Request],
+                       slots: List[int]) -> None:
+        t0 = time.perf_counter()
+        had_active = any(r is not None for r in self._slot_req)
+        n = len(reqs)
+        dev = self.device
+        width = min(prompt_bucket(max(len(r.row) for r in reqs)),
+                    self.max_len)
+        padded = np.zeros((n, width), np.int32)
+        lens = np.zeros((n,), np.int32)
+        temps = np.zeros((n,), np.float32)
+        top_ks = np.zeros((n,), np.int32)
+        top_ps = np.ones((n,), np.float32)
+        for i, r in enumerate(reqs):
+            padded[i, :len(r.row)] = r.row
+            lens[i] = len(r.row)
+            temps[i] = r.temperature
+            top_ks[i] = r.top_k
+            top_ps[i] = r.top_p
+        cache_n = gen_lib.init_cache(self.cfg, n, width,
+                                     quantize=self.kv_quantize, device=dev)
+        logits, cache_n = _prefill(self.params, _to_device(padded, dev),
+                                   cache_n, self.cfg, _to_device(lens, dev))
+        with self._lock:
+            self.prefill_tokens += int(lens.sum())
+        firsts = _sample(logits, *self._sampling_args(temps, top_ks,
+                                                      top_ps))
+        # Insert EVERY row (a single-token request's row becomes harmless
+        # junk in a still-free slot: its limit equals its length, so it is
+        # never active). The first-token VALUES are read lazily
+        # (_drain_firsts), while the next decode chunk computes.
+        limits = lens + np.asarray([r.max_new for r in reqs], np.int32) - 1
+        _insert(self._cache, self._last, self._limit, cache_n, firsts,
+                _to_device(limits, dev),
+                _to_device(np.asarray(slots, np.int64), dev))
+        with self._lock:
+            self.prefills += n
+            self.prefill_groups += 1
+            self._unfetched.append((reqs, _HostCopy(firsts)))
+            for i, req in enumerate(reqs):
+                if req.max_new > 1:
+                    self._slot_req[slots[i]] = req
+        self._note_prefill_time(t0, had_active)
+
+    def _drain_firsts(self) -> None:
+        """Read deferred first tokens. MUST run before a chunk's emission
+        so every admitted request's token list starts with its prefill
+        token; also completes single-token requests."""
+        with self._lock:
+            batches = self._unfetched
+            self._unfetched = []
+        done: List[_Request] = []
+        emitted: List[tuple] = []
+        for reqs, firsts in batches:
+            firsts_host = firsts.numpy()
+            with self._lock:
+                for i, req in enumerate(reqs):
+                    first = int(firsts_host[i])
+                    req.tokens.append(first)
+                    self.tokens_emitted += 1
+                    if req.on_tokens is not None:
+                        emitted.append((req, [first]))
+                    first_is_eos = gen_lib.truncate_at_stop(
+                        [first], req.eos)[1]
+                    if first_is_eos or len(req.tokens) >= req.max_new:
+                        done.append(req)
+                        if first_is_eos:
+                            # The slot was occupied at admission (only
+                            # max_new == 1 requests skip occupancy).
+                            for si, r in enumerate(self._slot_req):
+                                if r is req:
+                                    self._slot_req[si] = None
+                                    break
+        self._fire_callbacks(emitted)
+        for req in done:
+            if not req.future.done():
+                req.future.set_result(req.tokens)
+
+    def _run_chunk(self) -> None:
+        """Issue one decode chunk and retire its predecessor.
+
+        Pipelined (``pipeline_depth == 1``, the default): chunk N+1 is
+        issued against the current slot snapshot BEFORE chunk N's tokens
+        are read, so N's read, stop-token truncation, callbacks, slot
+        freeing, and the admission at the top of the next loop turn all
+        run while the device computes N+1. Greedy output is identical to
+        the serial engine: rows are independent, and a slot that finished
+        in N decodes one discardable chunk more. Serial (depth 0): issue,
+        read, bookkeep; the device idles through all host work (the
+        measured bubble)."""
+        prev, self._inflight = self._inflight, self._dispatch_chunk()
+        if prev is not None:
+            self._retire_chunk(prev)
+        if self.pipeline_depth == 0:
+            self._flush_pipeline()
+
+    def _dispatch_chunk(self) -> _Inflight:
+        """Issue one K-step decode chunk over ALL slots against the
+        current slot snapshot. Dispatch and retirement strictly alternate;
+        an insert that reuses a slot freed while retiring chunk N is
+        issued after chunk N+1, so stream order puts N+1's junk writes for
+        that slot before the insert that overwrites them."""
+        with self._lock:
+            reqs = list(self._slot_req)
+        temps = np.zeros((self.slots,), np.float32)
+        top_ks = np.zeros((self.slots,), np.int32)
+        top_ps = np.ones((self.slots,), np.float32)
+        n_active = 0
+        for i, r in enumerate(reqs):
+            if r is not None:
+                temps[i] = r.temperature
+                top_ks[i] = r.top_k
+                top_ps[i] = r.top_p
+                n_active += 1
+        now = time.perf_counter()
+        with self._lock:
+            self.peak_active = max(self.peak_active, n_active)
+            if self._last_dispatch_t is not None:
+                # Gaps across quiet stretches are excluded (the baseline
+                # is nulled in _note_decode_quiet).
+                self._gap_ms_total += (now - self._last_dispatch_t) * 1e3
+                self._gap_count += 1
+            self._last_dispatch_t = now
+            if self._no_flight_since is not None:
+                # Host time with slots waiting and nothing on the device:
+                # the serial-mode bubble pipelining closes.
+                self.bubble_ms += (now - self._no_flight_since) * 1e3
+                self._no_flight_since = None
+            self.dispatches += 1
+        temps_d, gen, tk, tp = self._sampling_args(temps, top_ks, top_ps)
+        self._cache, self._last, toks = _chunk(
+            self.cfg, self.chunk_steps, self.params, self._cache,
+            self._last, self._limit, temps_d, tk, tp, gen)
+        return _Inflight(reqs=reqs, toks=_HostCopy(toks),
+                         steps=self.chunk_steps)
+
+    def _note_decode_quiet(self) -> None:
+        """No active slot: stop the bubble clock and the dispatch-gap
+        baseline (the gap across a quiet stretch is not chunk cadence)."""
+        self._no_flight_since = None
+        self._last_dispatch_t = None
+
+    def _flush_pipeline(self, quiet: bool = False) -> None:
+        """Retire the in-flight chunk (if any) and mark the device idle
+        with the host working, so time until the next dispatch counts as
+        bubble. ``quiet``: the idle branch dropping a junk-only chunk; no
+        decode work waits, so its time counts toward neither overlap nor
+        bubble."""
+        flight, self._inflight = self._inflight, None
+        if flight is not None:
+            self._retire_chunk(flight, quiet=quiet)
+        if self._no_flight_since is None:
+            self._no_flight_since = time.perf_counter()
+
+    def _retire_chunk(self, flight: _Inflight, quiet: bool = False) -> None:
+        """Read an issued chunk's tokens and run the host bookkeeping:
+        stop-token truncation, streaming callbacks, slot freeing, future
+        resolution. Under pipelining this runs while the NEXT chunk
+        computes on the device."""
+        # First tokens first: emission counts on every admitted request's
+        # list already holding its prefill token (and a first-token eos
+        # resolved here frees its slot before this chunk's junk for it
+        # could be appended).
+        self._drain_firsts()
+        toks_host = flight.toks.numpy()  # [K, B]
+        t0 = time.perf_counter()
+        done: List[_Request] = []
+        emitted: List[tuple] = []
+        with self._lock:
+            self.chunks_run += 1
+            for i, req in enumerate(flight.reqs):
+                if req is None or self._slot_req[i] is not req \
+                        or req.future.done():
+                    # Stale snapshot entry: the slot was freed (possibly
+                    # reused) since dispatch; appending would mutate a
+                    # list already handed to the future.
+                    continue
+                take = min(req.max_new - len(req.tokens), flight.steps)
+                new = [int(t) for t in toks_host[:take, i]]
+                # Stop at the first stop id; the slot frees now instead
+                # of burning max_new's tail.
+                new, hit_eos = gen_lib.truncate_at_stop(new, req.eos)
+                req.tokens.extend(new)
+                self.tokens_emitted += len(new)
+                if req.on_tokens is not None and new:
+                    emitted.append((req, new))
+                if hit_eos or len(req.tokens) >= req.max_new:
+                    self._slot_req[i] = None
+                    done.append(req)
+        self._fire_callbacks(emitted)
+        for req in done:
+            if not req.future.done():
+                req.future.set_result(req.tokens)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            if self._inflight is not None:
+                self.host_overlap_ms += dt_ms  # a chunk computed meanwhile
+            elif not quiet:
+                self.bubble_ms += dt_ms  # serial: the device sat idle

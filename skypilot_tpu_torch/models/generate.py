@@ -91,8 +91,8 @@ def _row_update(cache: torch.Tensor, new: torch.Tensor,
                 starts: torch.Tensor) -> None:
     """Write ``new`` [B, Hkv, S, ...] into ``cache`` [B, Hkv, M, ...] at
     per-row offsets ``starts`` [B], in place. An out-of-range position
-    raises (an index error on the CPU, a device assert on CUDA); it is
-    never clamped the way ``dynamic_update_slice`` clamps."""
+    raises (an index error on the CPU, a device assert on CUDA); only
+    ``forward_cached`` clamps, and only for rows that are not active."""
     b, hkv, s = new.shape[:3]
     dev = cache.device
     bi = torch.arange(b, device=dev)[:, None, None]
@@ -121,11 +121,26 @@ def _write_block(cache_arr: torch.Tensor, scale_arr: Optional[torch.Tensor],
     _row_update(cache_arr, block.to(cache_arr.dtype), starts)
 
 
-def _check_fits(starts: torch.Tensor, s: int, max_len: int) -> None:
-    """Assert start + S <= max_len for every row, without a host sync on
-    CUDA (an asynchronous device assert)."""
-    torch._assert_async(torch.all(starts + s <= max_len),
+def _check_fits(starts: torch.Tensor, s: int, max_len: int,
+                active_rows: Optional[torch.Tensor] = None) -> None:
+    """Assert start + S <= max_len for every row (every active row, when
+    ``active_rows`` is given), without a host sync on CUDA (an
+    asynchronous device assert)."""
+    fits = starts + s <= max_len
+    if active_rows is not None:
+        fits = fits | ~active_rows
+    torch._assert_async(torch.all(fits),
                         'KV cache overflow: start + S > max_len')
+
+
+def _write_starts(starts: torch.Tensor, s: int, max_len: int,
+                  active_rows: Optional[torch.Tensor]) -> torch.Tensor:
+    """Write offsets: ``starts`` for active rows; rows not active write at
+    min(start, max_len - S), where ``dynamic_update_slice`` puts them."""
+    if active_rows is None:
+        return starts
+    return torch.where(active_rows, starts,
+                       torch.clamp(starts, max=max_len - s))
 
 
 def _qkv_proj(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
@@ -172,21 +187,31 @@ def _cached_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
 def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
                    cfg: llama.LlamaConfig,
                    row_lens: Optional[torch.Tensor] = None,
+                   active_rows: Optional[torch.Tensor] = None,
                    ) -> Tuple[torch.Tensor, KVCache]:
     """Run ``tokens`` [B, S] through the model appending to ``cache``
     (in place); returns (float32 logits of each row's LAST REAL position
     [B, vocab], the cache with advanced lengths). Prefill (S = padded
     prompt length) and decode (S = 1) alike. ``row_lens`` [B] gives each
-    row's real token count within ``tokens`` (default: all S)."""
+    row's real token count within ``tokens`` (default: all S).
+
+    ``active_rows`` [B] bool marks the rows that are live requests (the
+    continuous engine decodes its whole slot batch, and a free slot's row
+    is junk whose length grows without bound). Live rows compute exactly
+    what they compute without it. A row that is not active writes at
+    min(start, M - S), as ``dynamic_update_slice`` clamps in the JAX
+    package, and its lengths may pass M (attention then covers all M);
+    the overflow assert covers the active rows only."""
     llama.require_dense(cfg)
     b, s = tokens.shape
     dev = tokens.device
+    max_len = cache.k.shape[3]
     steps = torch.arange(s, dtype=torch.int32, device=dev)
     positions = cache.lengths[:, None] + steps[None, :]
-    write_start = cache.lengths
     valid = cache.lengths + (s if row_lens is None
                              else row_lens.to(torch.int32))
-    _check_fits(write_start, s, cache.k.shape[3])
+    _check_fits(cache.lengths, s, max_len, active_rows)
+    write_start = _write_starts(cache.lengths, s, max_len, active_rows)
     x = params['embed'].to(cfg.dtype)[tokens.long()]
     for i in range(cfg.n_layers):
         x = _cached_layer(

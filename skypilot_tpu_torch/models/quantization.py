@@ -75,10 +75,19 @@ def mm(x: torch.Tensor, w: Any, spec: str,
     output channel is scaled. The scale's dims are the weight's
     non-contracted dims, which the einsum emits as the output's trailing
     dims, so the scale broadcasts from the right. ``out_dtype`` plays
-    the part of JAX's ``preferred_element_type``."""
+    the part of JAX's ``preferred_element_type``: float32 asks for the
+    float32 sums of the products, which a product in ``x``'s dtype would
+    round to that dtype first (bf16 logits tie far more often than the
+    reference's). The operands are then taken in float32: a bf16 value,
+    and the product of two, is exact there."""
+    wide = out_dtype == torch.float32 and x.dtype != torch.float32
     if not is_quantized(w):
+        if wide:
+            return torch.einsum(spec, x.float(), w.float())
         y = torch.einsum(spec, x, w)
         return y if out_dtype is None else y.to(out_dtype)
+    if wide:
+        return torch.einsum(spec, x.float(), w['q8'].float()) * w['s']
     y = torch.einsum(spec, x, w['q8'].to(x.dtype)).float() * w['s']
     return y.to(out_dtype if out_dtype is not None else x.dtype)
 

@@ -1,35 +1,49 @@
-"""LLM inference replica: the window-batching path, in PyTorch.
+"""LLM inference replica, in PyTorch: the continuous engine and the
+window-batching path.
 
-Port of the window path of ``skypilot_tpu/serve/llm_server.py``
-(``--engine off``): concurrent requests that land within the batch window
-(``SKYTPU_LLM_BATCH_WINDOW_MS``, at most ``SKYTPU_LLM_MAX_BATCH`` rows) are
-right-padded into one ``generate`` call. A seeded sampled request is never
-batched with another, so its output depends on its seed alone. The
-continuous engine, streaming, QoS admission and the KV handoff routes
-are not ported yet; ``--engine`` accepts only ``off``. One check is the
-port's own: token ids outside the vocabulary get a 400 (a JAX gather
-clamps them; a CUDA index fault would end the replica's CUDA context).
+Port of ``skypilot_tpu/serve/llm_server.py``, two of its paths:
+
+* CONTINUOUS BATCHING (default, ``--engine continuous``): each row of a
+  request takes one slot of ``models/engine.py``'s ``ContinuousEngine``
+  (the slot layout: 16 slots, 8-step chunks, pipelined). Short requests
+  drain mid-stream while long ones keep decoding. ``"stream": true``
+  writes NDJSON lines ``{"row": i, "tokens": [...]}`` as the engine emits
+  them, then ``{"done": true}`` (an ``{"error": ...}`` line on failure), in
+  a body that ends when the connection closes.
+* WINDOW BATCHING (``--engine off``, and every seeded sampled request,
+  whose output must depend on its seed alone): concurrent requests that
+  land within the batch window (``SKYTPU_LLM_BATCH_WINDOW_MS``, at most
+  ``SKYTPU_LLM_MAX_BATCH`` rows) are right-padded into one ``generate``
+  call. A seeded request is never batched with another.
+
+QoS admission, the KV handoff routes, ``/metrics`` and tracing are not
+ported yet. One check is the port's own: token ids outside the
+vocabulary get a 400 (a JAX gather clamps them; a CUDA index fault would
+end the replica's CUDA context).
 
 HTTP is the standard library's ``ThreadingHTTPServer``. Handler threads
-validate and enqueue; one worker thread runs all device work.
+validate and submit; the engine thread (or the window worker thread)
+runs all device work.
 
 API (token-level, as the JAX replica, so the shared load balancer can
 drive either):
   GET  /health    -> {"status": "ok", "model": ..., "device": ...,
-                      "batches_served": N, "max_batch_seen": M, ...}
+                      "engine": {engine stats} or "off", ...}
   POST /generate  {"tokens": [[...]], "max_new_tokens": N,
                    "temperature": t?, "seed": s?, "top_k": k?,
-                   "top_p": p?, "eos_token": id or [ids]?}
-                  -> {"tokens": [[...]]}
+                   "top_p": p?, "eos_token": id or [ids]?, "stream": b?}
+                  -> {"tokens": [[...]]}, or NDJSON lines when streamed
 
-Run: ``python -m skypilot_tpu_torch.serve.llm_server --model bench-1b
---engine off`` (port from --port or SKYTPU_REPLICA_PORT).
+Run: ``python -m skypilot_tpu_torch.serve.llm_server --model bench-1b``
+(port from --port or SKYTPU_REPLICA_PORT; ``--engine off`` for the window
+path only).
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import concurrent.futures
+import contextlib
 import http.server
 import json
 import os
@@ -38,13 +52,15 @@ import secrets
 import signal
 import threading
 import time
-from typing import Any, Deque, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 import torch
 
+from skypilot_tpu_torch.models import engine as engine_lib
 from skypilot_tpu_torch.models import generate as gen_lib
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models import quantization as quant_lib
+from skypilot_tpu_torch.observability import profiler
 from skypilot_tpu_torch.utils.device import resolve_device
 
 MAX_BATCH = int(os.environ.get('SKYTPU_LLM_MAX_BATCH', '32'))
@@ -84,17 +100,29 @@ class LlmServer:
     def __init__(self, model: str, max_len: int = 1024, seed: int = 0,
                  quantize: Optional[str] = None,
                  kv_cache: Optional[str] = None, device=None,
-                 engine: Optional[str] = None):
+                 engine: Optional[str] = None,
+                 kv_layout: Optional[str] = None,
+                 prefix_cache: Optional[int] = None,
+                 pipeline: Optional[str] = None,
+                 draft_model: Optional[str] = None):
         # Cheap knobs first: a typo must not cost the weight init.
         if model not in llama.PRESETS:
             raise ValueError(f'Unknown model {model!r}; one of '
                              f'{sorted(llama.PRESETS)}')
-        engine = engine or os.environ.get('SKYTPU_LLM_ENGINE', 'off')
-        if engine != 'off':
-            raise ValueError(
-                f'engine {engine!r} is not ported yet: skypilot_tpu_torch '
-                "serves the window path only (--engine off); the "
-                'continuous engine comes in a later slice')
+        engine = engine or os.environ.get('SKYTPU_LLM_ENGINE',
+                                          'continuous')
+        if engine not in ('continuous', 'off'):
+            raise ValueError(f"Unknown engine {engine!r}; 'continuous' "
+                             "or 'off'")
+        if pipeline not in (None, 'on', 'off'):
+            raise ValueError(f'Unknown pipeline {pipeline!r}; '
+                             "'on' or 'off'")
+        if draft_model or os.environ.get('SKYTPU_LLM_DRAFT'):
+            raise NotImplementedError(
+                'speculative decoding (a draft model) is not ported yet')
+        if engine == 'continuous':
+            engine_lib.check_options(kv_layout=kv_layout,
+                                     prefix_slots=prefix_cache)
         self.kv_cache = (kv_cache
                          or os.environ.get('SKYTPU_LLM_KV_CACHE', 'bf16'))
         if self.kv_cache not in ('bf16', 'int8'):
@@ -125,26 +153,42 @@ class LlmServer:
             maxlen=1024)
         self.draining = False
         self._inflight = 0
+        self.engine: Optional[engine_lib.ContinuousEngine] = None
+        if engine == 'continuous':
+            self.engine = engine_lib.ContinuousEngine(
+                self.params, self.cfg, max_len=self.max_len, seed=seed,
+                kv_quantize=self.kv_cache == 'int8', kv_layout=kv_layout,
+                prefix_slots=prefix_cache,
+                pipeline=None if pipeline is None else pipeline == 'on',
+                device=self.device)
 
     # -- /health -------------------------------------------------------------
 
     def health(self) -> Tuple[int, Dict[str, Any]]:
-        """(HTTP status, /health body)."""
+        """(HTTP status, /health body). With ``SKYTPU_PROFILE`` on, the
+        body carries the profiler's ``profile`` block (program calls,
+        first-call ms, device memory sampled now), as the JAX replica's
+        does."""
         if self.draining:
             # Readiness probes see 503: the LB stops routing here while
             # in-flight requests finish.
             return 503, {'status': 'draining', 'model': self.model_name}
-        return 200, {'status': 'ok',
-                     'model': self.model_name,
-                     'device': str(self.device),
-                     'engine': 'off',
-                     'quantize': self.quantize,
-                     'kv_cache': self.kv_cache,
-                     'max_len': self.max_len,
-                     'batches_served': self.batches_served,
-                     'max_batch_seen': self.max_batch_seen,
-                     'queue': {'pending': self._queue.qsize(),
-                               'overflow': len(self._overflow)}}
+        body = {'status': 'ok',
+                'model': self.model_name,
+                'device': str(self.device),
+                'engine': ('off' if self.engine is None
+                           else self.engine.stats()),
+                'quantize': self.quantize,
+                'kv_cache': self.kv_cache,
+                'max_len': self.max_len,
+                'batches_served': self.batches_served,
+                'max_batch_seen': self.max_batch_seen,
+                'queue': {'pending': self._queue.qsize(),
+                          'overflow': len(self._overflow)}}
+        if profiler.enabled():
+            profiler.sample_device_memory(self.device)
+            body['profile'] = profiler.snapshot()
+        return 200, body
 
     # -- batching worker -----------------------------------------------------
 
@@ -264,28 +308,41 @@ class LlmServer:
                 self._worker.start()
 
     def stop(self, timeout: float = 60.0) -> None:
-        """Finish queued work, then end the worker thread."""
+        """Finish queued window work, then end the worker thread and the
+        engine's thread."""
         with self._lock:
             worker = self._worker
         if worker is not None and worker.is_alive():
             self._queue.put(None)
             worker.join(timeout)
+        if self.engine is not None:
+            self.engine.stop()
+
+    def _busy(self) -> bool:
+        """Requests in handlers, or held by the engine's queue or slots."""
+        return self._inflight > 0 or (self.engine is not None
+                                      and self.engine.busy())
 
     # -- /generate -----------------------------------------------------------
 
-    def generate(self, body: Any) -> Tuple[int, Dict[str, Any]]:
-        """Validate one request body and run it: (HTTP status, JSON).
-        Draining still ACCEPTS work: the LB keeps routing here until its
-        next probe sees the 503 readiness."""
+    def generate(self, body: Any, write: Optional[Callable] = None
+                 ) -> Tuple[int, Optional[Dict[str, Any]]]:
+        """Validate one request body and run it: (HTTP status, JSON). A
+        streamed request (``"stream": true``) passes each NDJSON line to
+        ``write`` (one dict per call, from this thread) as the engine
+        emits it, and returns (200, None). Draining still ACCEPTS work:
+        the LB keeps routing here until its next probe sees the 503
+        readiness."""
         with self._lock:
             self._inflight += 1
         try:
-            return self._generate_inner(body)
+            return self._generate_inner(body, write)
         finally:
             with self._lock:
                 self._inflight -= 1
 
-    def _generate_inner(self, body: Any) -> Tuple[int, Dict[str, Any]]:
+    def _generate_inner(self, body: Any, write: Optional[Callable]
+                        ) -> Tuple[int, Optional[Dict[str, Any]]]:
         if not isinstance(body, dict):
             return 400, {'error': 'request body must be a JSON object'}
         tokens = body.get('tokens')
@@ -332,11 +389,27 @@ class LlmServer:
         if longest + max_new > self.max_len:
             return 400, {'error': f'prompt+max_new_tokens exceeds max_len '
                                   f'{self.max_len}'}
-        if body.get('stream'):
-            return 400, {'error': 'stream requires the continuous engine, '
-                                  'which skypilot_tpu_torch has not ported '
-                                  'yet (window path only)'}
-        pending = _Pending(rows, max_new, temperature, body.get('seed'),
+        seed = body.get('seed')
+        seeded = temperature > 0 and seed is not None
+        stream = bool(body.get('stream'))
+        if stream and (self.engine is None or seeded or write is None):
+            return 400, {'error': 'stream requires the continuous engine '
+                                  '(unseeded requests, '
+                                  'SKYTPU_LLM_ENGINE!=off)'}
+        if stream:
+            self._generate_stream(write, rows, max_new, temperature, top_k,
+                                  top_p, eos)
+            return 200, None
+        if self.engine is not None and not seeded:
+            # Continuous-batching path: one engine slot per row.
+            futs = [self.engine.submit(r, max_new, temperature, top_k=top_k,
+                                       top_p=top_p, eos=eos) for r in rows]
+            try:
+                out = [f.result() for f in futs]
+            except Exception as e:  # noqa: BLE001 -- the engine failed
+                return 500, {'error': f'{type(e).__name__}: {e}'}
+            return 200, {'tokens': out}
+        pending = _Pending(rows, max_new, temperature, seed,
                            top_k=top_k, top_p=top_p, eos=eos)
         self._ensure_worker()
         self._queue.put(pending)
@@ -345,6 +418,42 @@ class LlmServer:
         except Exception as e:  # noqa: BLE001 -- the batch failed
             return 500, {'error': f'{type(e).__name__}: {e}'}
         return 200, {'tokens': out}
+
+    def _generate_stream(self, write: Callable, rows, max_new: int,
+                         temperature: float, top_k: int, top_p: float,
+                         eos) -> None:
+        """NDJSON streaming: ``{"row": i, "tokens": [...]}`` per emission
+        (decode-chunk granularity), then ``{"done": true}``; a failure
+        mid-stream is reported in-band as ``{"error": ...}``. The engine
+        fires a request's callbacks before it resolves the future, so the
+        future's done-callback (a ``None`` in the queue) comes after the
+        last tokens of its row."""
+        lines: 'queue.Queue[Optional[Tuple[int, List[int]]]]' = \
+            queue.Queue()
+        futs = []
+        for ri, row in enumerate(rows):
+            fut = self.engine.submit(
+                row, max_new, temperature,
+                on_tokens=lambda toks, ri=ri: lines.put((ri, toks)),
+                top_k=top_k, top_p=top_p, eos=eos)
+            fut.add_done_callback(lambda _: lines.put(None))
+            futs.append(fut)
+        try:
+            open_rows = len(futs)
+            while open_rows:
+                item = lines.get()
+                if item is None:
+                    open_rows -= 1
+                    continue
+                write({'row': item[0], 'tokens': item[1]})
+            for fut in futs:
+                fut.result()  # raises if the engine failed the request
+            write({'done': True})
+        except Exception as e:  # noqa: BLE001 -- report in-band
+            # The failure may BE the transport (client gone): the error
+            # line is best-effort; the requests run on in the engine.
+            with contextlib.suppress(Exception):
+                write({'error': str(e)})
 
     # -- HTTP ------------------------------------------------------------------
 
@@ -360,12 +469,13 @@ class LlmServer:
     def drain(self, httpd: http.server.ThreadingHTTPServer,
               timeout_s: float) -> None:
         """Graceful drain: /health turns 503 at once; the HTTP server
-        shuts down once in-flight requests finish (or at ``timeout_s``)."""
+        shuts down once in-flight requests, and the engine's queued and
+        slotted ones, finish (or at ``timeout_s``)."""
         self.draining = True
 
         def _finish():
             deadline = time.monotonic() + timeout_s
-            while self._inflight > 0 and time.monotonic() < deadline:
+            while self._busy() and time.monotonic() < deadline:
                 time.sleep(0.2)
             httpd.shutdown()
 
@@ -400,7 +510,22 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         except ValueError:
             self._reply(400, {'error': 'request body must be JSON'})
             return
-        self._reply(*self.server.llm.generate(body))
+        streaming = []
+
+        def write(line: Dict[str, Any]) -> None:
+            # NDJSON in a body that ends when the connection closes
+            # (HTTP/1.0: no length, no chunked encoding).
+            if not streaming:
+                self.send_response(200)
+                self.send_header('Content-Type', 'application/x-ndjson')
+                self.end_headers()
+                streaming.append(True)
+            self.wfile.write(json.dumps(line).encode() + b'\n')
+            self.wfile.flush()
+
+        status, payload = self.server.llm.generate(body, write)
+        if payload is not None:
+            self._reply(status, payload)
 
     def log_message(self, format, *args):  # noqa: A002 -- base signature
         del format, args  # quiet: one line per request is noise here
@@ -408,7 +533,8 @@ class _Handler(http.server.BaseHTTPRequestHandler):
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description='PyTorch/CUDA LLM replica (window-batching path)')
+        description='PyTorch/CUDA LLM replica (continuous engine, or '
+                    'window batching)')
     parser.add_argument('--model', default='tiny',
                         choices=sorted(llama.PRESETS))
     parser.add_argument('--max-len', type=int, default=1024)
@@ -424,8 +550,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help='int8 = quantized KV cache (also via '
                              'SKYTPU_LLM_KV_CACHE)')
     parser.add_argument('--engine', default=None,
-                        help="only 'off' (window batching): the continuous "
-                             'engine is not ported yet')
+                        help="'continuous' (default: the slot engine) or "
+                             "'off' (window batching only; also via "
+                             'SKYTPU_LLM_ENGINE)')
     return parser
 
 

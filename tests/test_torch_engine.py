@@ -1,0 +1,574 @@
+"""Parity of the port's continuous engine (slot layout) with the JAX
+engine and with the port's own solo ``generate``, on float32 TINY on the
+CPU, plus its ``forward_cached(active_rows=...)`` against JAX's and the
+profiler subset it uses.
+
+Weights come from the JAX ``init_params`` and are carried over with
+``params_from_numpy``. Every greedy stream must equal its solo
+generation token for token, whatever slot it landed in, whenever it was
+admitted and whatever junk the free slots decode. Sampled draws come from
+a ``torch.Generator`` and differ from JAX's, so sampled rows are checked
+for range and for their filters (top_k=1 is greedy).
+"""
+import dataclasses
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from skypilot_tpu.models import engine as jax_engine
+from skypilot_tpu.models import generate as jax_gen
+from skypilot_tpu.models import llama as jax_llama
+from skypilot_tpu.observability import profiler as jax_profiler
+from skypilot_tpu_torch.models import engine as port_engine
+from skypilot_tpu_torch.models import generate as port_gen
+from skypilot_tpu_torch.models import llama as port_llama
+from skypilot_tpu_torch.observability import profiler as port_profiler
+
+LOGIT_TOL = 1e-5
+MAX_LEN = 64
+
+JAX_CFG = dataclasses.replace(jax_llama.TINY, dtype=jnp.float32)
+PORT_CFG = dataclasses.replace(port_llama.TINY, dtype=torch.float32)
+ROWS = [[5, 6, 7], [8, 9, 10, 11, 12], [13, 14], [15, 16, 17, 18],
+        [19, 20, 21]]  # more rows than the 4 slots: slots are reused
+
+
+@pytest.fixture(scope='module')
+def weights():
+    """(jax params, port params), float32 TINY, same values."""
+    jp = jax_llama.init_params(jax.random.PRNGKey(0), JAX_CFG)
+    return jp, port_llama.params_from_numpy(
+        jax.tree.map(np.asarray, jp), PORT_CFG, 'cpu')
+
+
+def _solo(pp, row, n, max_len=MAX_LEN, **kw):
+    prompt = torch.tensor([row], dtype=torch.int32)
+    return port_gen.generate(pp, PORT_CFG, prompt, n, max_len=max_len,
+                             **kw)[0].tolist()
+
+
+def _mk(pp, **kw):
+    kw.setdefault('slots', 4)
+    kw.setdefault('max_len', MAX_LEN)
+    kw.setdefault('chunk_steps', 4)
+    eng = port_engine.ContinuousEngine(pp, PORT_CFG, device='cpu', **kw)
+    eng.start()
+    return eng
+
+
+# -- the engine against the JAX engine and the solo oracle -----------------------
+
+
+def test_greedy_equals_solo_generate_and_the_jax_engine(weights):
+    jp, pp = weights
+    jeng = jax_engine.ContinuousEngine(jp, JAX_CFG, slots=4, max_len=MAX_LEN,
+                                       chunk_steps=4)
+    try:
+        jfuts = [jeng.submit(r, 6) for r in ROWS]
+        want = [f.result(timeout=300) for f in jfuts]
+    finally:
+        jeng.stop()
+    eng = _mk(pp)
+    try:
+        got = [f.result(timeout=120) for f in [eng.submit(r, 6)
+                                               for r in ROWS]]
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    assert got == want
+    assert got == [_solo(pp, r, 6) for r in ROWS]
+    assert stats['prefills'] == len(ROWS)
+    assert stats['active_slots'] == 0
+    assert stats['tokens_emitted'] == 6 * len(ROWS)
+
+
+def test_stats_keys_are_a_subset_of_the_jax_engines(weights):
+    jp, pp = weights
+    want = jax_engine.ContinuousEngine(jp, JAX_CFG, slots=2,
+                                       max_len=32).stats()
+    got = port_engine.ContinuousEngine(pp, PORT_CFG, slots=2, max_len=32,
+                                       device='cpu').stats()
+    assert set(got) <= set(want)
+    assert set(got['pipeline']) == set(want['pipeline'])
+    for key in ('slots', 'kv_layout', 'chunk_steps', 'prefill_batch',
+                'role', 'kv_cache'):
+        assert got[key] == want[key], key
+    assert got['pipeline']['pipeline_depth'] == 1
+
+
+def test_defaults_are_the_jax_engines(weights, monkeypatch):
+    for var in ('SKYTPU_LLM_SLOTS', 'SKYTPU_LLM_CHUNK_STEPS',
+                'SKYTPU_LLM_PREFILL_BATCH', 'SKYTPU_LLM_KV_CACHE',
+                'SKYTPU_LLM_PIPELINE'):
+        monkeypatch.delenv(var, raising=False)
+    jp, pp = weights
+    jeng = jax_engine.ContinuousEngine(jp, JAX_CFG)
+    peng = port_engine.ContinuousEngine(pp, PORT_CFG, device='cpu')
+    for attr in ('slots', 'max_len', 'chunk_steps', 'prefill_batch',
+                 'kv_quantize', 'pipeline_depth', 'kv_layout', 'role'):
+        assert getattr(peng, attr) == getattr(jeng, attr), attr
+    monkeypatch.setenv('SKYTPU_LLM_SLOTS', '3')
+    monkeypatch.setenv('SKYTPU_LLM_KV_CACHE', 'int8')
+    monkeypatch.setenv('SKYTPU_LLM_PIPELINE', '0')
+    peng = port_engine.ContinuousEngine(pp, PORT_CFG, max_len=32,
+                                        device='cpu')
+    assert (peng.slots, peng.kv_quantize, peng.pipeline_depth) == (3, True, 0)
+    assert peng._cache.k.dtype == torch.int8  # noqa: SLF001
+
+
+def test_mid_stream_admission(weights):
+    """A request admitted while another is mid-decode perturbs neither."""
+    _, pp = weights
+    eng = _mk(pp, chunk_steps=2)
+    try:
+        long_row = [3, 4, 5, 6]
+        f1 = eng.submit(long_row, 20)
+        deadline = time.time() + 60
+        while eng.chunks_run < 1 and time.time() < deadline:
+            time.sleep(0.005)
+        assert eng.chunks_run >= 1 and not f1.done()
+        f2 = eng.submit([9, 8, 7], 4)
+        assert f2.result(timeout=120) == _solo(pp, [9, 8, 7], 4)
+        assert f1.result(timeout=120) == _solo(pp, long_row, 20)
+    finally:
+        eng.stop()
+
+
+def test_slot_reuse_resets_cache_row(weights):
+    _, pp = weights
+    eng = _mk(pp, slots=1)
+    try:
+        assert eng.submit([1, 2, 3], 5).result(timeout=120) == \
+            _solo(pp, [1, 2, 3], 5)
+        row = [40, 41, 42, 43, 44, 45]
+        assert eng.submit(row, 7).result(timeout=120) == _solo(pp, row, 7)
+    finally:
+        eng.stop()
+
+
+def test_single_token_request_never_occupies_a_slot(weights):
+    _, pp = weights
+    eng = _mk(pp, slots=1)
+    try:
+        assert eng.submit([2, 3, 4], 1).result(timeout=120) == \
+            _solo(pp, [2, 3, 4], 1)
+        assert eng.stats()['active_slots'] == 0
+        assert eng.stats()['chunks_run'] == 0  # resolved at prefill
+    finally:
+        eng.stop()
+
+
+@pytest.mark.parametrize('pipeline', [True, False], ids=['pipelined',
+                                                         'serial'])
+def test_eos_mid_chunk_frees_the_slot(weights, pipeline):
+    """The stop id lands mid-chunk (while, pipelined, the next chunk is in
+    flight): the stream ends at it, inclusive, no junk is appended later,
+    and the single slot is at once reusable."""
+    _, pp = weights
+    eng = _mk(pp, slots=1, chunk_steps=2, pipeline=pipeline)
+    try:
+        row = [5, 6, 7]
+        solo = _solo(pp, row, 10)
+        got = eng.submit(row, 10, eos=solo[3]).result(timeout=120)
+        assert got == solo[:solo.index(solo[3]) + 1]
+        assert eng.stats()['active_slots'] == 0
+        other = [40, 41, 42, 43, 44, 45]
+        assert eng.submit(other, 7).result(timeout=120) == \
+            _solo(pp, other, 7)
+        assert got == solo[:solo.index(solo[3]) + 1]
+        # A stop set that is never hit runs to max_new.
+        assert eng.submit(row, 4, eos=[999]).result(timeout=120) == solo[:4]
+    finally:
+        eng.stop()
+
+
+def test_eos_on_the_first_token(weights):
+    _, pp = weights
+    eng = _mk(pp, slots=1)
+    try:
+        row = [5, 6, 7]
+        first = _solo(pp, row, 1)[0]
+        got = eng.submit(row, 10, eos=first).result(timeout=120)
+        assert got == [first]
+        assert eng.stats()['active_slots'] == 0
+        other = [9, 8, 7]
+        assert eng.submit(other, 3).result(timeout=120) == _solo(pp, other, 3)
+        assert got == [first]  # the in-flight chunk appended nothing
+    finally:
+        eng.stop()
+
+
+def test_oversized_request_is_refused_as_jax_refuses_it(weights):
+    jp, pp = weights
+    jeng = jax_engine.ContinuousEngine(jp, JAX_CFG, slots=2, max_len=32)
+    peng = port_engine.ContinuousEngine(pp, PORT_CFG, slots=2, max_len=32,
+                                        device='cpu')
+    for eng in (jeng, peng):
+        with pytest.raises(ValueError, match='max_len') as info:
+            eng.submit([1] * 30, 8)
+        assert 'exceeds engine max_len limit 32' in str(info.value)
+        with pytest.raises(ValueError, match='top_k'):
+            eng.submit([1], 2, top_p=0.0)
+
+
+@pytest.mark.parametrize('n', [1, 15, 16, 17, 100, 1000, 1024])
+def test_prompt_bucket_matches_jax(n):
+    assert port_engine.prompt_bucket(n) == jax_engine.prompt_bucket(n)
+    assert port_engine.prompt_bucket(n, lo=8) == \
+        jax_engine.prompt_bucket(n, lo=8)
+
+
+def test_per_slot_sampling_mix(weights):
+    """Greedy, top_k=1 sampled and top-k sampled requests share the
+    decode batch: the first two equal the greedy solo run, the third
+    stays in the vocabulary."""
+    _, pp = weights
+    eng = _mk(pp, chunk_steps=2)
+    try:
+        g = eng.submit([5, 6, 7], 6)
+        k1 = eng.submit([5, 6, 7], 6, temperature=1.5, top_k=1)
+        s = eng.submit([8, 9, 10], 6, temperature=1.0, top_k=8, top_p=0.9)
+        want = _solo(pp, [5, 6, 7], 6)
+        assert g.result(timeout=120) == want
+        assert k1.result(timeout=120) == want
+        out = s.result(timeout=120)
+        assert len(out) == 6 and all(0 <= t < PORT_CFG.vocab_size
+                                     for t in out)
+    finally:
+        eng.stop()
+
+
+def test_sampled_tokens_stay_in_the_top_k(weights):
+    """Each sampled token of a top-k request is one of the k largest
+    logits of the step that drew it (checked on the solo cache)."""
+    _, pp = weights
+    eng = _mk(pp, chunk_steps=3)
+    try:
+        row, k = [3, 4, 5], 3
+        out = eng.submit(row, 8, temperature=2.0, top_k=k).result(
+            timeout=120)
+    finally:
+        eng.stop()
+    cache = port_gen.init_cache(PORT_CFG, 1, MAX_LEN, device='cpu')
+    toks = torch.tensor([row], dtype=torch.int32)
+    with torch.inference_mode():
+        for t in out:
+            logits, cache = port_gen.forward_cached(pp, toks, cache,
+                                                    PORT_CFG)
+            assert t in torch.topk(logits[0], k).indices.tolist()
+            toks = torch.tensor([[t]], dtype=torch.int32)
+
+
+def test_streaming_callback_is_exact(weights):
+    _, pp = weights
+    eng = _mk(pp, chunk_steps=2)
+    try:
+        chunks = []
+        fut = eng.submit([5, 6, 7], 7, on_tokens=chunks.append)
+        final = fut.result(timeout=120)
+        assert final == _solo(pp, [5, 6, 7], 7)
+        time.sleep(0.3)  # let any stale in-flight retirement land
+        assert [t for c in chunks for t in c] == final
+        assert len(chunks) >= 4  # the first token, then 3 chunks of 2
+    finally:
+        eng.stop()
+
+
+def test_raising_callback_stays_isolated(weights):
+    _, pp = weights
+    eng = _mk(pp, chunk_steps=2)
+    try:
+        def boom(_):
+            raise RuntimeError('client went away')
+        bad = eng.submit([1, 2, 3], 6, on_tokens=boom)
+        good_chunks = []
+        good = eng.submit([9, 8, 7], 6, on_tokens=good_chunks.append)
+        assert good.result(timeout=120) == _solo(pp, [9, 8, 7], 6)
+        assert bad.result(timeout=120) == _solo(pp, [1, 2, 3], 6)
+        assert [t for c in good_chunks for t in c] == good.result()
+    finally:
+        eng.stop()
+
+
+def test_survives_a_forced_failure(weights):
+    """A failed call fails the waiters with the real error at once,
+    rebuilds the device state and keeps serving."""
+    import concurrent.futures as cf
+    _, pp = weights
+    eng = _mk(pp)
+    try:
+        assert eng.submit([1, 2, 3], 4).result(timeout=120) == \
+            _solo(pp, [1, 2, 3], 4)
+        eng._cache = None  # noqa: SLF001 -- sabotage the device state
+        with pytest.raises(Exception) as info:
+            eng.submit([4, 5, 6], 4).result(timeout=120)
+        assert not isinstance(info.value, cf.TimeoutError)
+        assert eng.submit([7, 8, 9], 4).result(timeout=120) == \
+            _solo(pp, [7, 8, 9], 4)
+    finally:
+        eng.stop()
+
+
+def test_stop_fails_what_is_left(weights):
+    _, pp = weights
+    eng = port_engine.ContinuousEngine(pp, PORT_CFG, slots=1, max_len=32,
+                                       device='cpu')
+    eng._pending.append(eng._build_request(  # noqa: SLF001
+        [1, 2], 3, 0.0, None, 0, 1.0, None))
+    fut = eng._pending[0].future  # noqa: SLF001
+    eng.stop()  # no thread ever ran: the queued request fails
+    with pytest.raises(RuntimeError, match='engine stopped'):
+        fut.result(timeout=5)
+
+
+def test_kv_int8_equals_generate_kv_quantize(weights):
+    _, pp = weights
+    eng = _mk(pp, kv_quantize=True)
+    try:
+        rows = [[5, 6, 7], [8, 9, 10, 11], [13, 14]]
+        futs = [eng.submit(r, 6) for r in rows]
+        for row, fut in zip(rows, futs):
+            assert fut.result(timeout=120) == _solo(pp, row, 6,
+                                                    kv_quantize=True), row
+        assert eng.stats()['kv_cache'] == 'int8'
+    finally:
+        eng.stop()
+
+
+# -- the pipeline ---------------------------------------------------------------
+
+
+def test_pipelined_default_reports_overlap(weights):
+    _, pp = weights
+    eng = _mk(pp)
+    assert eng.pipeline_depth == 1
+    try:
+        futs = [eng.submit(r, 6) for r in ROWS]
+        for row, fut in zip(ROWS, futs):
+            assert fut.result(timeout=120) == _solo(pp, row, 6), row
+        pl = eng.stats()['pipeline']
+        assert pl['pipeline_depth'] == 1 and pl['dispatches'] >= 2
+        assert pl['host_overlap_ms'] > 0 and pl['dispatch_gap_ms'] > 0
+    finally:
+        eng.stop()
+
+
+def test_pipelined_output_identical_to_serial(weights):
+    _, pp = weights
+    rows = ROWS + [[3, 4]]
+    results = {}
+    for pipe in (True, False):
+        eng = _mk(pp, chunk_steps=2, pipeline=pipe)
+        assert eng.pipeline_depth == (1 if pipe else 0)
+        try:
+            results[pipe] = [f.result(timeout=120)
+                             for f in [eng.submit(r, 7) for r in rows]]
+        finally:
+            eng.stop()
+    assert results[True] == results[False]
+    assert results[True] == [_solo(pp, r, 7) for r in rows]
+
+
+def test_serial_engine_reports_bubble_not_overlap(weights):
+    _, pp = weights
+    eng = _mk(pp, pipeline=False)
+    try:
+        for f in [eng.submit([i + 2, i + 3], 6) for i in range(4)]:
+            f.result(timeout=120)
+        pl = eng.stats()['pipeline']
+        assert pl['pipeline_depth'] == 0 and pl['dispatches'] >= 2
+        assert pl['bubble_ms'] > 0 and pl['host_overlap_ms'] == 0
+    finally:
+        eng.stop()
+
+
+def test_idle_engine_wakes_on_submit(weights, monkeypatch):
+    """The idle loop parks in a long wait; a submit wakes it through the
+    event, well inside a deadline the wait alone would blow."""
+    _, pp = weights
+    monkeypatch.setattr(port_engine, '_IDLE_WAIT_S', 30.0)
+    eng = _mk(pp)
+    try:
+        assert eng.submit([1, 2, 3], 4).result(timeout=120) == \
+            _solo(pp, [1, 2, 3], 4)
+        time.sleep(0.3)  # parked in the 30 s idle wait
+        assert eng.submit([4, 5, 6], 4).result(timeout=10) == \
+            _solo(pp, [4, 5, 6], 4)
+    finally:
+        eng.stop()
+
+
+# -- junk rows past max_len -------------------------------------------------------
+
+
+def test_idle_slot_decodes_past_max_len_without_fault(weights):
+    """slots=2, max_len=32: requests one after another keep slot 0 busy
+    while slot 1 idles for more than 32 decode steps, so its length runs
+    past max_len. No error, and every output equals its solo run."""
+    _, pp = weights
+    eng = _mk(pp, slots=2, max_len=32)
+    try:
+        for i in range(5):
+            row = [i + 1, i + 2, i + 3]
+            assert eng.submit(row, 12).result(timeout=120) == \
+                _solo(pp, row, 12, max_len=32), i
+        stats = eng.stats()
+        steps = stats['pipeline']['dispatches'] * stats['chunk_steps']
+        assert steps > 32
+        assert int(eng._cache.lengths.max()) > 32  # noqa: SLF001
+    finally:
+        eng.stop()
+
+
+@pytest.mark.parametrize('s, lengths', [(1, [5, 7, 20]), (4, [0, 3, 14])],
+                         ids=['decode', 'block'])
+def test_forward_cached_active_rows_matches_jax(weights, s, lengths):
+    """An inactive row whose start is past M - S writes where JAX's
+    dynamic_update_slice clamps it; live rows' logits agree within 1e-5
+    and the caches agree."""
+    jp, pp = weights
+    m, b = 16, 3
+    rng = np.random.default_rng(5)
+    lens = np.asarray(lengths, np.int32)
+    k0 = rng.standard_normal((2, b, 2, m, 16)).astype(np.float32)
+    v0 = rng.standard_normal((2, b, 2, m, 16)).astype(np.float32)
+    tokens = rng.integers(0, 256, (b, s)).astype(np.int32)
+    active = np.asarray([True, True, False])
+    row_lens = np.full((b,), s, np.int32)
+    jc = jax_gen.KVCache(k=jnp.asarray(k0), v=jnp.asarray(v0),
+                         lengths=jnp.asarray(lens))
+    jlog, jc = jax_gen.forward_cached(jp, jnp.asarray(tokens), jc, JAX_CFG,
+                                      jnp.asarray(row_lens),
+                                      jnp.asarray(active))
+    pc = port_gen.KVCache(k=torch.from_numpy(k0.copy()),
+                          v=torch.from_numpy(v0.copy()),
+                          lengths=torch.from_numpy(lens.copy()))
+    plog, pc = port_gen.forward_cached(pp, torch.from_numpy(tokens), pc,
+                                       PORT_CFG, torch.from_numpy(row_lens),
+                                       torch.from_numpy(active))
+    np.testing.assert_allclose(plog.numpy(), np.asarray(jlog),
+                               atol=LOGIT_TOL, rtol=0)
+    np.testing.assert_array_equal(pc.lengths.numpy(), np.asarray(jc.lengths))
+    for got, want in ((pc.k, jc.k), (pc.v, jc.v)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=LOGIT_TOL, rtol=0)
+        # The live rows' positions outside this step's write are untouched.
+        np.testing.assert_array_equal(got.numpy()[:, :2, :, :lengths[0]],
+                                      k0[:, :2, :, :lengths[0]]
+                                      if got is pc.k else
+                                      v0[:, :2, :, :lengths[0]])
+
+
+def test_active_rows_keep_the_overflow_assert(weights):
+    _, pp = weights
+    cache = port_gen.init_cache(PORT_CFG, 2, 8, device='cpu')
+    cache.lengths.copy_(torch.tensor([8, 3], dtype=torch.int32))
+    tok = torch.zeros((2, 1), dtype=torch.int32)
+    ones = torch.ones((2,), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match='overflow'):
+        port_gen.forward_cached(pp, tok, cache, PORT_CFG, ones,
+                                torch.tensor([True, True]))
+    _, out = port_gen.forward_cached(pp, tok, cache, PORT_CFG, ones,
+                                     torch.tensor([False, True]))
+    assert out.lengths.tolist() == [9, 4]
+
+
+# -- options not ported yet -------------------------------------------------------
+
+
+UNPORTED = {
+    'paged': dict(kv_layout='paged'),
+    'prefix_pool': dict(prefix_slots=4),
+    'chunked_prefill': dict(prefill_chunk=32),
+    'draft': dict(draft_cfg=PORT_CFG),
+    'mesh': dict(mesh=object()),
+    'block_sharing': dict(prefix_share=True),
+    'kv_tiers': dict(kv_tiers=True),
+    'prefill_role': dict(role='prefill'),
+}
+
+
+@pytest.mark.parametrize('name', sorted(UNPORTED))
+def test_unported_options_raise_at_construction(weights, name):
+    _, pp = weights
+    with pytest.raises(NotImplementedError, match='not ported yet'):
+        port_engine.ContinuousEngine(pp, PORT_CFG, slots=2, max_len=32,
+                                     device='cpu', **UNPORTED[name])
+
+
+def test_unported_methods_and_bad_options(weights):
+    _, pp = weights
+    eng = port_engine.ContinuousEngine(pp, PORT_CFG, slots=2, max_len=32,
+                                       device='cpu')
+    for call in (lambda: eng.submit_prefill([1], 2),
+                 lambda: eng.submit_import([1], 2, 3),
+                 lambda: eng.probe_chain([1]),
+                 lambda: eng.resolve_chains([]),
+                 eng.prefix_summary):
+        with pytest.raises(NotImplementedError, match='not ported yet'):
+            call()
+    with pytest.raises(ValueError, match='kv_layout'):
+        port_engine.ContinuousEngine(pp, PORT_CFG, kv_layout='dense',
+                                     device='cpu')
+    with pytest.raises(ValueError, match='role'):
+        port_engine.ContinuousEngine(pp, PORT_CFG, role='router',
+                                     device='cpu')
+    with pytest.raises(NotImplementedError):
+        port_engine.ContinuousEngine(
+            pp, port_llama.MOE_TINY, device='cpu')
+
+
+# -- the profiler subset ----------------------------------------------------------
+
+
+def test_profiled_counts_calls_and_times_first_shapes(monkeypatch):
+    ledger = port_profiler.Ledger()
+    fn = port_profiler.profiled('engine.test', lambda x: x * 2, ledger)
+    monkeypatch.setenv('SKYTPU_PROFILE', '0')
+    assert fn(torch.ones(2)).tolist() == [2.0, 2.0]
+    assert ledger.snapshot() == {'enabled': False}
+    monkeypatch.setenv('SKYTPU_PROFILE', '1')
+    fn(torch.ones(2))
+    fn(torch.ones(2))
+    fn(torch.ones(3))
+    prog = ledger.snapshot()['programs']['engine.test']
+    assert prog['calls'] == 4
+    assert sorted(prog['shapes']) == ['float32[2]', 'float32[3]']
+    assert prog['first_call_ms'] >= 0.0
+    ledger.reset()
+    assert ledger.snapshot()['programs']['engine.test']['calls'] == 0
+
+
+def test_tree_nbytes_and_logical_memory_match_jax(monkeypatch):
+    rng = np.random.default_rng(0)
+    tree = {'a': rng.standard_normal((3, 4)).astype(np.float32),
+            'b': [rng.integers(0, 9, (5,)).astype(np.int8),
+                  rng.standard_normal((2, 2)).astype(np.float32)]}
+    ported = {'a': torch.from_numpy(tree['a']),
+              'b': [torch.from_numpy(x) for x in tree['b']]}
+    assert port_profiler.tree_nbytes(ported) == \
+        jax_profiler.tree_nbytes(tree)
+    cache = port_gen.init_cache(PORT_CFG, 2, 8, quantize=True, device='cpu')
+    assert port_profiler.tree_nbytes(cache) == sum(
+        t.numel() * t.element_size()
+        for t in (cache.k, cache.v, cache.lengths, cache.k_s, cache.v_s))
+    ledger = port_profiler.Ledger()
+    ledger.register_logical('kv_cache', 100)
+    ledger.register_logical('kv_cache', 120)  # re-registering replaces
+    assert ledger.logical_bytes() == {'kv_cache': 120}
+    monkeypatch.setenv('SKYTPU_PROFILE', '1')
+    mem = ledger.sample_device_memory('cpu')
+    assert mem['logical_bytes'] == 120
+    assert ledger.snapshot()['device_memory'] == mem
+
+
+def test_engine_registers_its_cache(weights):
+    _, pp = weights
+    eng = port_engine.ContinuousEngine(pp, PORT_CFG, slots=2, max_len=32,
+                                       device='cpu')
+    assert port_profiler.logical_bytes()['kv_cache'] == \
+        port_profiler.tree_nbytes(eng._cache)  # noqa: SLF001

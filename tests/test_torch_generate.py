@@ -151,6 +151,28 @@ def test_quantize_params_matches_jax(weights, quant_weights):
         atol=1e-6)
 
 
+@pytest.mark.parametrize('quantized', [False, True], ids=['bf16', 'int8'])
+def test_mm_float32_output_keeps_float32_sums(quantized):
+    """``out_dtype=float32`` (the lm_head's logits) is JAX's
+    ``preferred_element_type=float32``: float32 sums of bf16 products, not
+    a bf16 product cast up (whose logits tie on bf16's coarse grid)."""
+    rng = np.random.default_rng(11)
+    x = jnp.asarray(rng.standard_normal((4, 64)), jnp.bfloat16)
+    w = jnp.asarray(rng.standard_normal((64, 256)) * 0.1, jnp.bfloat16)
+    jw = jax_quant._quantize(w, 1, False) if quantized else w  # noqa: SLF001
+    want = np.asarray(jax_quant.mm(x, jw, 'bd,dv->bv',
+                                   preferred_element_type=jnp.float32))
+    pw = (port_llama.params_from_numpy(
+        {'lm_head': jax.tree.map(np.asarray, jw)}, port_llama.TINY,
+        'cpu')['lm_head'])
+    px = torch.tensor(np.asarray(x.astype(jnp.float32))).to(torch.bfloat16)
+    got = port_quant.mm(px, pw, 'bd,dv->bv', out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    rounded = got.to(torch.bfloat16).float()
+    assert float((got - rounded).abs().max()) > 1e-3  # not on bf16's grid
+
+
 # -- sampling -------------------------------------------------------------------
 
 

@@ -1,6 +1,7 @@
-"""The port's window-path replica on the CPU (TINY): HTTP round trips,
+"""The port's replica on the CPU (TINY): HTTP round trips through the
+default continuous engine and through the window path, NDJSON streaming,
 request validation against the JAX replica's messages, /health, batching,
-seeded determinism, drain, and the refusal of unported engines."""
+seeded determinism, drain, and the refusal of options not ported yet."""
 import asyncio
 import concurrent.futures
 import json
@@ -132,7 +133,10 @@ def test_bad_requests_get_the_jax_400s(replica, jax_replica, name):
 
 def test_port_only_refusals(replica):
     _, url = replica
-    status, body = _post(url, {'tokens': [[1, 2]], 'stream': True})
+    # A seeded stream would need the window path, which does not stream
+    # (the JAX replica's 400).
+    status, body = _post(url, {'tokens': [[1, 2]], 'stream': True,
+                               'temperature': 0.5, 'seed': 3})
     assert status == 400 and 'continuous engine' in body['error']
     status, body = _post(url, {'tokens': [[1, 256]]})
     assert status == 400 and 'token ids' in body['error']
@@ -149,7 +153,8 @@ def test_health_fields(replica):
     assert body['status'] == 'ok'
     assert body['model'] == 'tiny'
     assert body['device'] == 'cpu'
-    assert body['engine'] == 'off'
+    assert body['engine']['slots'] == 16
+    assert body['engine']['kv_layout'] == 'slot'
     assert body['kv_cache'] == 'bf16' and body['max_len'] == MAX_LEN
     assert isinstance(body['batches_served'], int)
     assert isinstance(body['max_batch_seen'], int)
@@ -169,7 +174,7 @@ def test_seeded_sampling_is_deterministic(replica):
 def test_concurrent_requests_share_a_batch(monkeypatch):
     monkeypatch.setattr(port_srv, 'BATCH_WINDOW_S', 0.5)
     server = port_srv.LlmServer('tiny', max_len=MAX_LEN, seed=1,
-                                device='cpu')
+                                device='cpu', engine='off')
     httpd, thread, url = _serve(server)
     try:
         rows = [[1, 2, 3], [4, 5, 6, 7, 8], [9]]
@@ -223,19 +228,40 @@ def test_drain_turns_health_503_then_shuts_down():
         server.stop()
 
 
-def test_unported_engines_and_bad_knobs_are_refused():
-    with pytest.raises(ValueError, match='later slice'):
-        port_srv.LlmServer('tiny', engine='continuous', device='cpu')
-    with pytest.raises(ValueError, match='later slice'):
-        port_srv.main(['--model', 'tiny', '--engine', 'continuous'])
-    with pytest.raises(ValueError, match='kv_cache'):
-        port_srv.LlmServer('tiny', kv_cache='fp8', device='cpu')
-    with pytest.raises(ValueError, match='quantization'):
-        port_srv.LlmServer('tiny', quantize='int4', device='cpu')
-    with pytest.raises(ValueError, match='Unknown model'):
-        port_srv.LlmServer('gpt-5', device='cpu')
-    with pytest.raises(NotImplementedError):
-        port_srv.LlmServer('moe-tiny', device='cpu')
+REFUSED = {  # name -> (LlmServer kwargs, env, exception, message)
+    'paged': (dict(kv_layout='paged'), {}, NotImplementedError,
+              'not ported yet'),
+    'prefix_pool': (dict(prefix_cache=4), {}, NotImplementedError,
+                    'not ported yet'),
+    'chunked_prefill': ({}, {'SKYTPU_LLM_PREFILL_CHUNK': '64'},
+                        NotImplementedError, 'not ported yet'),
+    'draft': (dict(draft_model='bench-draft'), {}, NotImplementedError,
+              'not ported yet'),
+    'engine_typo': (dict(engine='turbo'), {}, ValueError, 'Unknown engine'),
+    'pipeline_typo': (dict(pipeline='maybe'), {}, ValueError,
+                      'Unknown pipeline'),
+    'kv_cache': (dict(kv_cache='fp8'), {}, ValueError, 'kv_cache'),
+    'quantization': (dict(quantize='int4'), {}, ValueError, 'quantization'),
+    'model': (dict(model='gpt-5'), {}, ValueError, 'Unknown model'),
+    'moe': (dict(model='moe-tiny'), {}, NotImplementedError,
+            'not ported yet'),
+}
+
+
+@pytest.mark.parametrize('name', sorted(REFUSED))
+def test_unported_engines_and_bad_knobs_are_refused(name, monkeypatch):
+    kwargs, env, exc, message = REFUSED[name]
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    kwargs = dict(kwargs)
+    model = kwargs.pop('model', 'tiny')
+    with pytest.raises(exc, match=message):
+        port_srv.LlmServer(model, device='cpu', **kwargs)
+
+
+def test_cli_refuses_an_unknown_engine():
+    with pytest.raises(ValueError, match='Unknown engine'):
+        port_srv.main(['--model', 'tiny', '--engine', 'continuous-ish'])
 
 
 def test_int8_replica_serves():
@@ -249,3 +275,155 @@ def test_int8_replica_serves():
     assert np.asarray(body['tokens']).shape == (1, 5)
     assert isinstance(server.params['lm_head'], dict)
     assert server.params['lm_head']['q8'].dtype == torch.int8
+
+
+# -- the continuous engine over HTTP ----------------------------------------------
+
+
+def _post_stream(url, body, timeout=120):
+    """(status, NDJSON lines) of one streamed request."""
+    req = urllib.request.Request(
+        f'{url}/generate', data=json.dumps(dict(body, stream=True)).encode(),
+        headers={'Content-Type': 'application/json'}, method='POST')
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, [json.loads(line) for line in
+                          r.read().decode().splitlines() if line.strip()]
+
+
+def test_generate_goes_through_the_default_engine(replica):
+    server, url = replica
+    assert server.engine is not None
+    before = server.engine.stats()['prefills']
+    calls = len(server.generate_calls)
+    rows = [[5, 6, 7, 8, 9], [3, 4], [11, 12, 13]]
+    status, body = _post(url, {'tokens': rows, 'max_new_tokens': 6})
+    assert status == 200
+    assert body['tokens'] == [_solo(server, [r], 6)[0] for r in rows]
+    assert server.engine.stats()['prefills'] == before + len(rows)
+    assert len(server.generate_calls) == calls  # the window path idled
+    # Sampled, unseeded: also the engine, ids in the vocabulary.
+    status, body = _post(url, {'tokens': [[1, 2]], 'max_new_tokens': 5,
+                               'temperature': 0.9, 'top_p': 0.8})
+    assert status == 200 and len(body['tokens'][0]) == 5
+    assert all(0 <= t < 256 for t in body['tokens'][0])
+    assert server.engine.stats()['prefills'] == before + len(rows) + 1
+
+
+def test_stream_lines_add_up_to_the_unstreamed_tokens(replica):
+    _, url = replica
+    body = {'tokens': [[5, 6, 7], [9, 10]], 'max_new_tokens': 20}
+    status, want = _post(url, body)
+    assert status == 200
+    status, lines = _post_stream(url, body)
+    assert status == 200
+    assert lines[-1] == {'done': True}
+    got = [[], []]
+    for line in lines[:-1]:
+        assert set(line) == {'row', 'tokens'}
+        got[line['row']].extend(line['tokens'])
+    assert got == want['tokens']
+    assert len(lines) > 3  # one line per emission, not one per request
+    # A stop id ends a streamed row early, inclusive.
+    stop = want['tokens'][0][4]
+    status, lines = _post_stream(url, dict(body, eos_token=stop))
+    row0 = [t for ln in lines[:-1] if ln['row'] == 0 for t in ln['tokens']]
+    assert row0 == want['tokens'][0][:want['tokens'][0].index(stop) + 1]
+    assert lines[-1] == {'done': True}
+
+
+def test_stream_reports_engine_failure_in_band(monkeypatch):
+    server = port_srv.LlmServer('tiny', max_len=MAX_LEN, device='cpu')
+    httpd, thread, url = _serve(server)
+    try:
+        def fail(*args, **kwargs):
+            raise RuntimeError('device lost')
+        monkeypatch.setattr(port_srv.engine_lib, '_chunk', fail)
+        status, lines = _post_stream(url, {'tokens': [[1, 2, 3]],
+                                           'max_new_tokens': 6})
+        assert status == 200
+        assert lines[-1] == {'error': 'device lost'}
+        # At most the first token came before the failed chunk.
+        assert len(lines) <= 2
+        assert all(set(ln) == {'row', 'tokens'} for ln in lines[:-1])
+        status, body = _post(url, {'tokens': [[1, 2, 3]],
+                                   'max_new_tokens': 6})
+        assert status == 500 and 'device lost' in body['error']
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.stop()
+        thread.join(10)
+
+
+def test_seeded_requests_take_the_window_path(replica):
+    server, url = replica
+    prefills = server.engine.stats()['prefills']
+    calls = len(server.generate_calls)
+    body = {'tokens': [[7, 8, 9]], 'max_new_tokens': 4, 'temperature': 0.7,
+            'seed': 11}
+    status, out = _post(url, body)
+    assert status == 200 and len(out['tokens'][0]) == 4
+    assert len(server.generate_calls) == calls + 1
+    assert server.engine.stats()['prefills'] == prefills
+
+
+def test_health_engine_stats_are_a_subset_of_jax(replica, jax_replica):
+    _, url = replica
+    from skypilot_tpu.models import engine as jax_engine
+    from skypilot_tpu.models import llama as jax_llama
+    import jax
+    jeng = jax_engine.ContinuousEngine(
+        jax_llama.init_params(jax.random.PRNGKey(0), jax_llama.TINY),
+        jax_llama.TINY, max_len=MAX_LEN)
+    want = jeng.stats()
+    status, body = _get(url, '/health')
+    assert status == 200
+    got = body['engine']
+    assert set(got) <= set(want)
+    assert set(got['pipeline']) <= set(want['pipeline'])
+    assert got['slots'] == want['slots'] and got['kv_layout'] == 'slot'
+
+
+def test_engine_off_serves_the_window_path():
+    server = port_srv.LlmServer('tiny', max_len=MAX_LEN, device='cpu',
+                                engine='off')
+    try:
+        assert server.engine is None
+        assert server.health()[1]['engine'] == 'off'
+        status, body = server.generate({'tokens': [[4, 5, 6]],
+                                        'max_new_tokens': 5})
+        assert status == 200 and list(server.generate_calls) == [(1, 5)]
+        assert body['tokens'] == _solo(server, [[4, 5, 6]], 5)
+        status, body = server.generate({'tokens': [[4, 5]], 'stream': True},
+                                       write=lambda line: None)
+        assert status == 400 and 'continuous engine' in body['error']
+    finally:
+        server.stop()
+
+
+def test_drain_waits_for_the_engine_slots():
+    server = port_srv.LlmServer('tiny', max_len=MAX_LEN, device='cpu')
+    httpd, thread, url = _serve(server)
+    try:
+        fut = server.engine.submit([1, 2, 3], 40)  # no handler waits on it
+        server.drain(httpd, timeout_s=60)
+        thread.join(60)
+        assert not thread.is_alive()
+        assert fut.done() and len(fut.result()) == 40
+    finally:
+        httpd.server_close()
+        server.stop()
+
+
+def test_health_carries_the_profile_when_profiling(replica, monkeypatch):
+    _, url = replica
+    monkeypatch.setenv('SKYTPU_PROFILE', '0')
+    assert 'profile' not in _get(url, '/health')[1]
+    monkeypatch.setenv('SKYTPU_PROFILE', '1')
+    assert _post(url, {'tokens': [[3, 4, 5]], 'max_new_tokens': 9})[0] == 200
+    prof = _get(url, '/health')[1]['profile']
+    assert prof['enabled'] is True
+    assert prof['programs']['engine.chunk']['calls'] >= 1
+    assert prof['programs']['engine.prefill']['shapes']  # first calls timed
+    mem = prof['device_memory']
+    assert mem['logical']['kv_cache'] > 0 and 'bytes_in_use' not in mem
