@@ -16,8 +16,9 @@ Phases (any failure exits non-zero):
    side, 1, 0 and M, at B=7 and at B=32), with one chunk longer than M
    (M=48, group 1) and a group that is no power of two (3), and the
    continuous engine's decode batch (B=16, M=1024, lengths 0, 1, M and
-   past M, as free slots' junk rows reach), bf16 and int8 caches, bf16
-   and fp32 queries. Tolerances: bf16 2e-2 (bf16 output
+   past M, as free slots' junk rows reach) and the serve-llama recipe's
+   (llama3-1b: B=16, Hq 32, Hkv 8, D=64, M=2048, the same lengths), bf16
+   and int8 caches, bf16 and fp32 queries. Tolerances: bf16 2e-2 (bf16 output
    rounding, sums in another order), fp32 1e-4. Every case is also held
    against ``flash_decode_split_reference`` at the kernel's own chunk
    (``decode_split``), the same partials and merge, so only the order of
@@ -45,7 +46,11 @@ Phases (any failure exits non-zero):
 4. Serving end to end on a small model (head_dim 64, float32): prefill
    and decode logits on the card (through K4) against the CPU; then the
    continuous engine (4 slots, max_len 48, 7 requests, full and int8 KV)
-   on the card against the same engine on the CPU, token for token.
+   on the card against the same engine on the CPU, token for token. Then
+   ``quantization.mm`` on the card (bf16 x bf16 -> float32 GEMM) against
+   the CPU's float32 einsum for each projection of BENCH_1B and llama3-1b:
+   int8 weights' bf16 outputs within one ulp, at most MM_BF16_DIFF_SHARE
+   of them differing, float32 logits within MM_F32_REL_TOL.
 5. Training end to end on a small model (head_dim 64, float32): 3 steps
    of the port's ``Trainer`` on the card (K1-K3) and on the CPU from the
    same weights and batches; losses and params compared.
@@ -76,18 +81,35 @@ Phases (any failure exits non-zero):
    another for more than 128 decode steps while 15 slots idle past
    max_len: no fault. Prints tokens/s, the host's ms per decode step and
    the pipeline counters.
-9. Summary: one JSON line of kernels (K4's launches are phase 8's; its
-   times are the engine-shape case of phase 2), then the last line
+9. The serve-llama recipe (``examples/llm/serve-llama/serve.yaml``):
+   ``LlmServer('llama3-1b', max_len=2048, quantize='int8',
+   kv_cache='int8', prefix_cache=8)`` over HTTP. 4 preambles of 256
+   random ids; a warm-up of 8 requests (each preamble twice, storing 4
+   pool entries), then 32 concurrent requests (a preamble + 16-200 ids,
+   max_new 16-64, greedy, top-k and top-p, no seed): 32 pool hits and
+   8,192 hit and saved tokens in that window, K4 launched 16 x
+   chunk_steps x dispatches times, greedy answers under the gap rule,
+   and the device busy share of one more such round. The same rounds on
+   a replica without the pool, printed beside it. Then a replica with
+   SKYTPU_LLM_PREFILL_CHUNK=256: a 1,500-token prompt arrives while 15
+   short requests decode; >= 6 prefill chunks, decode chunks run
+   meanwhile, its greedy answer under the gap rule.
+10. Summary: one JSON line of kernels (K4's launches are phase 8's, and
+   phase 9's for the int8 cache, each path's count in
+   ``launches_by_path``; its times are the engine-shape case of phase 2,
+   named in ``timed_at``), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits with an error, printing no result, when CUDA is absent or when
 the ``skypilot_tpu_torch`` package is not beside it.
 """
 import concurrent.futures
+import contextlib
 import dataclasses
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -117,6 +139,18 @@ MODES = {'bf16': ('skypilot_tpu/ops/decode_attention.py:147', False),
          'int8': ('skypilot_tpu/ops/decode_attention.py:162', True)}
 CSRC = 'skypilot_tpu_torch/csrc/'
 ENGINE_CASE = 'engine B=16 M=1024'  # K4 at the engine's shape
+LLAMA_CASE = 'llama3-1b B=16 M=2048 D=64'  # K4 at the serve-llama recipe's
+# The int8 ``mm`` on the card against the CPU's. Float32 sums taken in
+# another order differ by up to ~1e-6 of the output's scale: that moves a
+# rounded bf16 output across a rounding boundary now and then (one ulp),
+# and a value near zero, whose ulp is tiny, by several of its ulps. So
+# each bf16 output is held to one ulp plus MM_F32_REL_TOL of the largest
+# |output|, and at most MM_BF16_DIFF_SHARE of them may differ at all;
+# float32 outputs (logits) to MM_F32_REL_TOL of the largest |logit|.
+MM_BF16_DIFF_SHARE = 1e-2
+MM_F32_REL_TOL = 1e-5
+# The serve-llama recipe (examples/llm/serve-llama/serve.yaml) on the port.
+RECIPE = dict(max_len=2048, quantize='int8', kv_cache='int8')
 # A greedy engine stream may part from a direct generate() only where the
 # direct path's two largest logits were closer than this: the engine's
 # prefill group and 16-slot decode batch are other GEMM shapes, and bf16
@@ -140,6 +174,14 @@ def _card() -> str:
          '--format=csv,noheader'],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+_T0 = time.perf_counter()
+
+
+def _phase(title: str) -> None:
+    """Print a phase's title with the seconds since the script started."""
+    print(f'{title} (at {time.perf_counter() - _T0:.1f} s)', flush=True)
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -254,6 +296,11 @@ def kernel_phase(da):
         (ENGINE_CASE, 16, 16, 8, 128, 1024,
          [0, 1, 1024, 1025, 1500, 4096, 2 ** 20]
          + rng.integers(1, 1025, 9).tolist()),
+        # The serve-llama recipe's decode batch: llama3-1b's heads over
+        # max_len 2048.
+        (LLAMA_CASE, 16, 32, 8, 64, 2048,
+         [0, 1, 2048, 2049, 3000, 8192, 2 ** 20]
+         + rng.integers(1, 2049, 9).tolist()),
     ]
     results = {mode: {'max_abs_err': 0.0, 'cases': []} for mode in MODES}
     for mode, (_, quant) in MODES.items():
@@ -311,9 +358,10 @@ def kernel_phase(da):
                       + ' '.join(f'{k}={v}' for k, v in row.items()
                                  if k not in ('case', 'dtype')), flush=True)
     for mode in MODES:
-        results[mode]['head'] = next(c for c in results[mode]['cases']
-                                     if c['case'] == ENGINE_CASE
-                                     and c['dtype'] == 'bfloat16')
+        for key, case in (('head', ENGINE_CASE), ('llama', LLAMA_CASE)):
+            results[mode][key] = next(c for c in results[mode]['cases']
+                                      if c['case'] == case
+                                      and c['dtype'] == 'bfloat16')
     return results
 
 
@@ -576,6 +624,86 @@ def small_engine_phase(llama, engine_lib):
           f'the end {lengths}', flush=True)
 
 
+def _bf16_ulp(t):
+    """The spacing of bf16 values at each element of ``t`` (8 bits of
+    significand)."""
+    t = t.float()
+    return torch.ldexp(torch.ones_like(t), torch.frexp(t).exponent - 8)
+
+
+def mm_phase(quant_lib, llama):
+    """``quantization.mm`` on the card (a bf16 x bf16 -> float32 GEMM,
+    scaled, rounded once) against the same call on the CPU (a float32
+    einsum), for each projection of BENCH_1B and llama3-1b at the engine's
+    decode batch of 16 rows: int8 weights, bf16 outputs within one ulp and
+    at most MM_BF16_DIFF_SHARE of them differing, and no difference beyond
+    that ulp larger than MM_F32_REL_TOL of the largest |output|; the
+    lm_head's float32 logits, from int8 and from bf16 weights, within
+    MM_F32_REL_TOL of the largest |logit|. Prints the lm_head product's ms against the float32
+    copies the port multiplied before."""
+    gen = torch.Generator().manual_seed(5)
+    for cfg in (llama.BENCH_1B, llama.LLAMA3_1B):
+        d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+        f, v = cfg.d_ff, cfg.vocab_size
+        worst = {'excess': 0.0, 'share': 0.0, 'rel': 0.0}
+        for name, spec, xs, ws, n_c, out in (
+                ('wq', 'bsd,dhk->bshk', (16, 1, d), (d, h, hd), 1, None),
+                ('wo', 'bshk,hkd->bsd', (16, 1, h, hd), (h, hd, d), 2, None),
+                ('w_gate', 'bsd,df->bsf', (16, 1, d), (d, f), 1, None),
+                ('w_down', 'bsf,fd->bsd', (16, 1, f), (f, d), 1, None),
+                ('lm_head', 'bd,dv->bv', (16, d), (d, v), 1, torch.float32)):
+            x = torch.randn(*xs, generator=gen).to(torch.bfloat16)
+            wf = torch.randn(*ws, generator=gen) * 0.02
+            weights = [quant_lib._quantize(wf, n_c, stacked=False)]  # noqa: SLF001
+            if out is not None:  # the lm_head's bf16 weights too
+                weights.append(wf.to(torch.bfloat16))
+            for w in weights:
+                want = quant_lib.mm(x, w, spec, out)
+                got = quant_lib.mm(x.cuda(), _tree_to(w, 'cuda'), spec,
+                                   out).cpu()
+                if got.dtype != want.dtype or got.shape != want.shape:
+                    raise AssertionError(f'mm {name}: {got.dtype} '
+                                         f'{tuple(got.shape)} != {want.dtype} '
+                                         f'{tuple(want.shape)}')
+                if out is None:
+                    diff = (got.float() - want.float()).abs()
+                    share = float((diff > 0).float().mean())
+                    excess = float((diff - _bf16_ulp(want)).clamp_min(0).max()
+                                   / want.float().abs().max())
+                    worst['share'] = max(worst['share'], share)
+                    worst['excess'] = max(worst['excess'], excess)
+                    if excess > MM_F32_REL_TOL or share > MM_BF16_DIFF_SHARE:
+                        raise AssertionError(
+                            f'mm {name} ({cfg.d_model} wide): {share} of '
+                            f'values differ, by up to {excess} of the '
+                            'largest beyond one bf16 ulp (limits '
+                            f'{MM_BF16_DIFF_SHARE}, {MM_F32_REL_TOL})')
+                else:
+                    rel = float((got - want).abs().max()
+                                / want.abs().max())
+                    worst['rel'] = max(worst['rel'], rel)
+                    if not rel <= MM_F32_REL_TOL:
+                        raise AssertionError(f'mm {name}: float32 logits off '
+                                             f'by {rel} of the largest')
+        # The lm_head product at this width: the float32 sums from bf16
+        # weights, against the float32 copies multiplied before.
+        xc, wc = x.cuda(), wf.to(torch.bfloat16).cuda()
+        ms = _time_ms(lambda: quant_lib.mm(xc, wc, 'bd,dv->bv',
+                                           torch.float32), 20)
+        copies_ms = _time_ms(lambda: torch.einsum('bd,dv->bv', xc.float(),
+                                                  wc.float()), 20)
+        print(f'  mm d_model {d} vocab {v}: int8 projections against the '
+              f'CPU: at most {worst["share"]:.2e} of values differing (limit '
+              f'{MM_BF16_DIFF_SHARE}), by one bf16 ulp plus at most '
+              f'{worst["excess"]:.2e} of the largest (limit '
+              f'{MM_F32_REL_TOL}); lm_head float32 logits within '
+              f'{worst["rel"]:.2e} of the largest (limit {MM_F32_REL_TOL}); '
+              f'lm_head bf16 -> float32 product {ms:.4f} ms, float32 '
+              f'copies {copies_ms:.4f} ms', flush=True)
+        del xc, wc
+        torch.cuda.empty_cache()
+
+
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
@@ -683,6 +811,32 @@ def train_phase(llama, fa, train_run):
 # -- phase 7: the serving replica ---------------------------------------------------
 
 
+@contextlib.contextmanager
+def _served(server):
+    """``server`` over HTTP on a free local port; yields its URL and stops
+    the HTTP server and the replica on exit."""
+    httpd = server.make_httpd('127.0.0.1', 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f'http://127.0.0.1:{httpd.server_address[1]}'
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.stop()
+        thread.join(30)
+
+
+def _idle(engine):
+    while engine.busy():
+        time.sleep(0.01)
+
+
+def _post_all(url, reqs):
+    with concurrent.futures.ThreadPoolExecutor(len(reqs)) as pool:
+        return list(pool.map(lambda r: _post(url, r), reqs))
+
+
 def _post(url, body, timeout=600):
     req = urllib.request.Request(
         f'{url}/generate', data=json.dumps(body).encode(),
@@ -695,11 +849,7 @@ def serving_phase(srv_lib, gen_lib, da, quantize, kv_cache):
     server = srv_lib.LlmServer('bench-1b', max_len=1024, quantize=quantize,
                                kv_cache=kv_cache, engine='off')
     cfg = server.cfg
-    httpd = server.make_httpd('127.0.0.1', 0)
-    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    thread.start()
-    url = f'http://127.0.0.1:{httpd.server_address[1]}'
-    try:
+    with _served(server) as url:
         rng = np.random.default_rng(2)
 
         def prompt(n):
@@ -713,8 +863,7 @@ def serving_phase(srv_lib, gen_lib, da, quantize, kv_cache):
         _post(url, {'tokens': [prompt(8)], 'max_new_tokens': 2})  # warm-up
         server.generate_calls.clear()
         da.flash_decode.launches = 0
-        with concurrent.futures.ThreadPoolExecutor(len(reqs)) as pool:
-            answers = list(pool.map(lambda r: _post(url, r), reqs))
+        answers = _post_all(url, reqs)
         launches = da.flash_decode.launches
         calls = list(server.generate_calls)
         expected = sum(cfg.n_layers * (max_new - 1) for _, max_new in calls)
@@ -754,14 +903,9 @@ def serving_phase(srv_lib, gen_lib, da, quantize, kv_cache):
               f'{launches} = n_layers x sum(max_new - 1); request tok/s '
               f'(prompt 128 + 64 new): B=1 {rates[1]:.1f}, '
               f'B=32 {rates[32]:.1f}', flush=True)
-        return launches
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        server.stop()
-        thread.join(30)
-        del server
-        torch.cuda.empty_cache()
+    del server
+    torch.cuda.empty_cache()
+    return launches
 
 
 # -- phase 8: the replica's default path, the continuous engine ---------------------
@@ -777,13 +921,14 @@ def _post_stream(url, body, timeout=600):
                           r.read().decode().splitlines() if line.strip()]
 
 
-def _direct_gaps(gen_lib, params, cfg, prompt, tokens, kv_int8):
+def _direct_gaps(gen_lib, server, prompt, tokens, kv_int8):
     """The direct path (``generate``'s calls, batch 1) fed ``tokens``:
     for each of them, the gap between the two largest logits of the step
     that chose it, and whether it was a largest logit of that step."""
-    cache = gen_lib.init_cache(cfg, 1, 1024, quantize=kv_int8,
-                               device='cuda')
-    toks = torch.tensor([prompt], dtype=torch.int32, device='cuda')
+    params, cfg, dev = server.params, server.cfg, server.device
+    cache = gen_lib.init_cache(cfg, 1, server.max_len, quantize=kv_int8,
+                               device=dev)
+    toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
     gaps, argmax_ok = [], []
     with torch.inference_mode():
         for t in tokens:
@@ -791,7 +936,7 @@ def _direct_gaps(gen_lib, params, cfg, prompt, tokens, kv_int8):
             top = torch.topk(logits[0].float(), 2)
             gaps.append(float(top.values[0] - top.values[1]))
             argmax_ok.append(float(logits[0, t]) == float(top.values[0]))
-            toks = torch.tensor([[t]], dtype=torch.int32, device='cuda')
+            toks = torch.tensor([[t]], dtype=torch.int32, device=dev)
     return gaps, argmax_ok
 
 
@@ -799,21 +944,32 @@ def _check_greedy(gen_lib, server, prompt, got, kv_int8):
     """A greedy engine stream equals a direct ``generate``, or parts from
     it where the direct path's top-2 logit gap is below GREEDY_GAP_LIMIT.
     Returns (parting position or None, its gap)."""
-    tokens, lens = gen_lib.pad_prompts([prompt], device='cuda')
+    tokens, lens = gen_lib.pad_prompts([prompt], device=server.device)
     direct = gen_lib.generate(server.params, server.cfg, tokens, len(got),
-                              max_len=1024, prompt_lengths=lens,
+                              max_len=server.max_len, prompt_lengths=lens,
                               kv_quantize=kv_int8)[0].tolist()
     if got == direct:
         return None, None
     j = next(i for i, (a, b) in enumerate(zip(got, direct)) if a != b)
-    gaps, argmax_ok = _direct_gaps(gen_lib, server.params, server.cfg,
-                                   prompt, direct[:j + 1], kv_int8)
+    gaps, argmax_ok = _direct_gaps(gen_lib, server, prompt, direct[:j + 1],
+                                   kv_int8)
     if not all(argmax_ok) or not gaps[j] < GREEDY_GAP_LIMIT:
         raise AssertionError(f'engine tokens part from generate() at {j} '
                              f'where the top-2 logit gap is {gaps[j]} '
                              f'(limit {GREEDY_GAP_LIMIT}); argmax '
                              f'replayed {all(argmax_ok)}')
     return j, gaps[j]
+
+
+def _check_answers(reqs, answers, vocab):
+    """Every answer is HTTP 200 with one row of ``max_new_tokens`` ids in
+    [0, vocab)."""
+    for req, (code, body) in zip(reqs, answers):
+        rows = body.get('tokens') or [[]]
+        if code != 200 or len(rows) != 1 \
+                or len(rows[0]) != req['max_new_tokens'] \
+                or not all(0 <= t < vocab for t in rows[0]):
+            raise AssertionError(f'bad answer {code} {body}')
 
 
 def _idle_slot_check(engine_lib, server):
@@ -853,12 +1009,8 @@ def engine_phase(srv_lib, gen_lib, engine_lib, da, quantize, kv_cache):
                                kv_cache=kv_cache)
     cfg, engine = server.cfg, server.engine
     kv_int8 = kv_cache == 'int8'
-    httpd = server.make_httpd('127.0.0.1', 0)
-    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    thread.start()
-    url = f'http://127.0.0.1:{httpd.server_address[1]}'
     label = f'{quantize or "bf16"} weights + {kv_cache} KV'
-    try:
+    with _served(server) as url:
         rng = np.random.default_rng(3)
         reqs = []
         for i in range(24):
@@ -875,23 +1027,19 @@ def engine_phase(srv_lib, gen_lib, engine_lib, da, quantize, kv_cache):
         for body in ({'tokens': [[1] * 8], 'max_new_tokens': 2},
                      dict(reqs[0], max_new_tokens=9)):  # warm-up
             _post(url, body)
-        while engine.busy():
-            time.sleep(0.01)
+        _idle(engine)
         if any(r.get('seed') is not None for r in reqs):
             raise AssertionError('a seeded request would take the window '
                                  'path and launch K4 there')
         d0 = engine.stats()['pipeline']['dispatches']
         da.flash_decode.launches = 0
         t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(len(reqs)) as pool:
-            answers = list(pool.map(lambda r: _post(url, r), reqs))
+        answers = _post_all(url, reqs)
         wall = time.perf_counter() - t0
-        while engine.busy():
-            time.sleep(0.01)
+        _idle(engine)
         window = engine.stats()['pipeline']['dispatches'] - d0
         status, lines = _post_stream(url, stream_req)
-        while engine.busy():
-            time.sleep(0.01)
+        _idle(engine)
         launches = da.flash_decode.launches
         stats = engine.stats()
         dispatches = stats['pipeline']['dispatches'] - d0
@@ -900,12 +1048,7 @@ def engine_phase(srv_lib, gen_lib, engine_lib, da, quantize, kv_cache):
             raise AssertionError(f'flash_decode launched {launches} times '
                                  f'over {dispatches} chunks; expected '
                                  f'{expected}')
-        for req, (code, body) in zip(reqs, answers):
-            rows = body.get('tokens') or [[]]
-            if code != 200 or len(rows) != 1 \
-                    or len(rows[0]) != req['max_new_tokens'] \
-                    or not all(0 <= t < cfg.vocab_size for t in rows[0]):
-                raise AssertionError(f'bad answer {code} {body}')
+        _check_answers(reqs, answers, cfg.vocab_size)
         streamed = [t for ln in lines[:-1] for t in ln['tokens']]
         if status != 200 or lines[-1] != {'done': True} \
                 or len(streamed) != stream_req['max_new_tokens'] \
@@ -936,14 +1079,233 @@ def engine_phase(srv_lib, gen_lib, engine_lib, da, quantize, kv_cache):
               f'{GREEDY_GAP_LIMIT}); pipeline {stats["pipeline"]}; '
               f'idle-slot engine (max_len 128): {steps} decode steps, no '
               f'fault, slot lengths {lengths}', flush=True)
-        return launches
+    del server
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 9: the serve-llama recipe -----------------------------------------------
+
+
+def _recipe_traffic(vocab):
+    """Phase 9's requests, from a numpy seed: 4 system preambles of 256
+    ids; each request is one preamble and a user suffix of 16-200 ids
+    (272-456 in all, so 256 is the stored bucket prefix), max_new 16-64, a
+    third greedy, a third top-k 50, a third top-p 0.9, no seed. Returns
+    (warm-up: 8, each preamble twice; measured: 32)."""
+    rng = np.random.default_rng(9)
+    preambles = [rng.integers(0, vocab, 256).tolist() for _ in range(4)]
+
+    def body(i):
+        suffix = rng.integers(0, vocab, int(rng.integers(16, 201))).tolist()
+        req = {'tokens': [preambles[i % 4] + suffix],
+               'max_new_tokens': int(rng.integers(16, 65))}
+        if i % 3 == 1:
+            req.update(temperature=0.8, top_k=50)
+        elif i % 3 == 2:
+            req.update(temperature=1.0, top_p=0.9)
+        return req
+    return [body(i) for i in range(8)], [body(i) for i in range(32)]
+
+
+def _window(url, server, da, reqs):
+    """Serve ``reqs`` at once on an idle replica: (answers, the window's
+    figures). K4 must be launched n_layers x chunk_steps x dispatches
+    times in the window."""
+    engine, cfg = server.engine, server.cfg
+    _idle(engine)
+    s0 = engine.stats()
+    da.flash_decode.launches = 0
+    t0 = time.perf_counter()
+    answers = _post_all(url, reqs)
+    wall = time.perf_counter() - t0
+    _idle(engine)
+    launches = da.flash_decode.launches
+    s1 = engine.stats()
+    _check_answers(reqs, answers, cfg.vocab_size)
+    dispatches = s1['pipeline']['dispatches'] - s0['pipeline']['dispatches']
+    expected = cfg.n_layers * s1['chunk_steps'] * dispatches
+    if launches != expected or dispatches == 0:
+        raise AssertionError(f'flash_decode launched {launches} times over '
+                             f'{dispatches} chunks; expected {expected}')
+    tokens = sum(len(a[1]['tokens'][0]) for a in answers)
+
+    def delta(*keys):
+        a, b = s0, s1
+        for k in keys:
+            a, b = a[k], b[k]
+        return b - a
+    return answers, {
+        'tok_s': tokens / wall, 'tokens': tokens, 'wall_s': wall,
+        'host_ms_per_step': wall * 1e3 / (dispatches * s1['chunk_steps']),
+        'dispatches': dispatches, 'launches': launches,
+        'prefill_ms': delta('prefill_ms'),
+        'prefill_bubble_ms': delta('prefill_bubble_ms'),
+        'prefill_tokens': delta('prefill_tokens'),
+        'prefill_tokens_saved': delta('prefill_tokens_saved'),
+        'prefix_hits': delta('prefix_cache', 'hits'),
+        'prefix_hit_tokens': delta('prefix_cache', 'hit_tokens'),
+        'prefix_entries': s1['prefix_cache']['entries']}
+
+
+def _device_busy(fn):
+    """Device time of all kernels over the wall time of ``fn``, from a
+    ``torch.profiler`` trace of the device alone (CUPTI sees the engine
+    thread's launches), summed over the profiler's raw events: building
+    its Python event tree for a round's ~300,000 events takes minutes.
+    The raw events are a private API of torch's profiler
+    (``prof.profiler.kineto_results.events()``, ``e.device_type()``):
+    where it is missing, or the trace holds no device events, this
+    raises rather than report a share it did not measure."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ns = (time.perf_counter() - t0) * 1e9
+    try:
+        events = prof.profiler.kineto_results.events()
+        busy = sum(e.duration_ns() if hasattr(e, 'duration_ns')
+                   else e.duration_us() * 1e3
+                   for e in events
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    except AttributeError as e:
+        raise RuntimeError('device busy share: torch.profiler has no raw '
+                           f'event API here ({e})') from e
+    if not busy:
+        raise AssertionError('device busy share: the trace holds no device '
+                             'events')
+    return busy / wall_ns
+
+
+def _recipe_round(srv_lib, gen_lib, da, prefix_cache):
+    """Warm-up and measured rounds of phase 9's traffic on a fresh
+    recipe replica with ``prefix_cache`` pool slots. With the pool: all
+    32 measured requests hit (8,192 tokens), and the greedy answers meet
+    the gap rule; then the device busy share of one more such round."""
+    server = srv_lib.LlmServer('llama3-1b', prefix_cache=prefix_cache,
+                               **RECIPE)
+    warm, measured = _recipe_traffic(server.cfg.vocab_size)
+    with _served(server) as url:
+        _check_answers(warm, _post_all(url, warm), server.cfg.vocab_size)
+        answers, fig = _window(url, server, da, measured)
+        hits = (fig['prefix_hits'], fig['prefix_hit_tokens'],
+                fig['prefill_tokens_saved'])
+        if prefix_cache:
+            if hits != (32, 8192, 8192) or fig['prefix_entries'] > 8:
+                raise AssertionError(f'prefix pool in the measured window: '
+                                     f'{fig}; expected 32 hits, 8,192 hit '
+                                     'and saved tokens, <= 8 entries')
+            fig['greedy_parted'] = [
+                _check_greedy(gen_lib, server, r['tokens'][0],
+                              a[1]['tokens'][0], True)
+                for r, a in zip(measured, answers)
+                if 'temperature' not in r]
+            _phase('  greedy checks done')
+            fig['device_busy'] = _device_busy(
+                lambda: (_post_all(url, measured), _idle(server.engine)))
+        elif hits != (0, 0, 0):
+            raise AssertionError(f'no pool, yet {hits}')
+    del server
+    torch.cuda.empty_cache()
+    fig['greedy_answers'] = [a[1]['tokens'][0] for r, a in zip(measured, answers)
+                             if 'temperature' not in r]
+    return fig
+
+
+def _chunked_round(srv_lib, gen_lib, da):
+    """A fresh recipe replica with SKYTPU_LLM_PREFILL_CHUNK=256: one
+    prompt of 1,500 tokens arrives while 15 short requests decode. It
+    takes >= 6 prefill chunks, decode chunks run while it prefills, and
+    its greedy answer meets the gap rule."""
+    os.environ['SKYTPU_LLM_PREFILL_CHUNK'] = '256'
+    try:
+        server = srv_lib.LlmServer('llama3-1b', prefix_cache=8, **RECIPE)
     finally:
-        httpd.shutdown()
-        httpd.server_close()
-        server.stop()
-        thread.join(30)
-        del server
-        torch.cuda.empty_cache()
+        del os.environ['SKYTPU_LLM_PREFILL_CHUNK']
+    engine, vocab = server.engine, server.cfg.vocab_size
+    rng = np.random.default_rng(10)
+    shorts = [{'tokens': [rng.integers(0, vocab, 32).tolist()],
+               'max_new_tokens': 96} for _ in range(15)]
+    long_req = {'tokens': [rng.integers(0, vocab, 1500).tolist()],
+                'max_new_tokens': 32}
+    with _served(server) as url:
+        _post(url, {'tokens': [[1] * 8], 'max_new_tokens': 2})  # warm-up
+        _idle(engine)
+        s0 = engine.stats()
+        da.flash_decode.launches = 0
+        samples = []  # (prefilling, chunks_run) while the long one runs
+        with concurrent.futures.ThreadPoolExecutor(16) as pool:
+            futs = [pool.submit(_post, url, b) for b in shorts]
+            deadline = time.monotonic() + 300
+            while (engine.stats()['active_slots'] < 15
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+            long_fut = pool.submit(_post, url, long_req)
+            while not long_fut.done():
+                st = engine.stats()
+                samples.append((st['prefilling'], st['chunks_run']))
+                time.sleep(0.002)
+            answers = [f.result() for f in futs] + [long_fut.result()]
+        _idle(engine)
+        launches = da.flash_decode.launches
+        s1 = engine.stats()
+        _check_answers(shorts + [long_req], answers, vocab)
+        dispatches = (s1['pipeline']['dispatches']
+                      - s0['pipeline']['dispatches'])
+        expected = server.cfg.n_layers * s1['chunk_steps'] * dispatches
+        if launches != expected or dispatches == 0:
+            raise AssertionError(f'flash_decode launched {launches} times '
+                                 f'over {dispatches} chunks; expected '
+                                 f'{expected}')
+        chunks = s1['prefill_chunks'] - s0['prefill_chunks']
+        during = [c for p, c in samples if p > 0]
+        if chunks < 6 or not during or max(during) <= min(during):
+            raise AssertionError(f'{chunks} prefill chunks (>= 6 expected); '
+                                 f'chunks_run while prefilling {during}')
+        parted = _check_greedy(gen_lib, server, long_req['tokens'][0],
+                               answers[-1][1]['tokens'][0], True)
+    del server
+    torch.cuda.empty_cache()
+    return {'prefill_chunks': chunks, 'decode_chunks_while_prefilling':
+            max(during) - min(during), 'launches': launches,
+            'long_greedy_parted': parted}
+
+
+def recipe_phase(srv_lib, gen_lib, da):
+    """The serve-llama recipe: ``LlmServer('llama3-1b', max_len=2048,
+    quantize='int8', kv_cache='int8', prefix_cache=8)`` over HTTP, then
+    the same traffic on a replica without the pool, then chunked prefill.
+    Returns K4's launches in the three checked windows."""
+    figs = {}
+    for pool in (8, 0):
+        figs[pool] = _recipe_round(srv_lib, gen_lib, da, pool)
+        _phase(f'  pool {pool} rounds done')
+    chunked = _chunked_round(srv_lib, gen_lib, da)
+    keys = ('tok_s', 'host_ms_per_step', 'prefill_ms', 'prefill_bubble_ms',
+            'prefill_tokens', 'prefill_tokens_saved', 'tokens', 'wall_s',
+            'dispatches', 'launches')
+    print('  llama3-1b int8 weights + int8 KV, max_len 2048, 32 concurrent '
+          'requests (4 preambles of 256 + suffixes 16-200; max_new 16-64), '
+          'measured window, --prefix-cache 8 | 0:', flush=True)
+    for key in keys:
+        print(f'    {key:22s} {figs[8][key]} | {figs[0][key]}', flush=True)
+    parted = figs[8]['greedy_parted']
+    same = sum(a == b for a, b in zip(figs[8]['greedy_answers'],
+                                      figs[0]['greedy_answers']))
+    print(f'    greedy answers equal with and without the pool: {same} of '
+          f'{len(parted)}', flush=True)
+    print(f'    prefix hits 32, hit tokens 8192, entries '
+          f'{figs[8]["prefix_entries"]}; K4 launches = 16 x chunk_steps x '
+          f'dispatches in each window; greedy vs generate(): '
+          f'{sum(p[0] is None for p in parted)} of {len(parted)} equal, '
+          f'parted at (position, top-2 gap) '
+          f'{[p for p in parted if p[0] is not None]} (limit '
+          f'{GREEDY_GAP_LIMIT}); device busy (profiled round, pool) '
+          f'{figs[8]["device_busy"]}', flush=True)
+    print(f'  chunked prefill (SKYTPU_LLM_PREFILL_CHUNK=256): {chunked}',
+          flush=True)
+    return figs[8]['launches'] + figs[0]['launches'] + chunked['launches']
 
 
 def _build_all(libs):
@@ -969,6 +1331,7 @@ def main() -> int:
     from skypilot_tpu_torch.models import engine as engine_lib
     from skypilot_tpu_torch.models import generate as gen_lib
     from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models import quantization as quant_lib
     from skypilot_tpu_torch.ops import attention as fa
     from skypilot_tpu_torch.ops import decode_attention as da
     from skypilot_tpu_torch.serve import llm_server as srv_lib
@@ -981,39 +1344,49 @@ def main() -> int:
     print(f'torch {torch.__version__} cuda {torch.version.cuda} '
           f'python {sys.version.split()[0]}', flush=True)
 
-    print('phase 1: build', flush=True)
+    _phase('phase 1: build')
     _build_all([da, fa])
 
-    print('phase 2: flash_decode (K4) against its plain version', flush=True)
+    _phase('phase 2: flash_decode (K4) against its plain version')
     kernels = kernel_phase(da)
 
-    print('phase 3: flash attention (K1-K3) against the plain versions',
-          flush=True)
+    _phase('phase 3: flash attention (K1-K3) against the plain versions')
     flash = attention_phase(fa)
     check_sm90_bodies(fa)
 
-    print('phase 4: small model serving, card against CPU', flush=True)
+    _phase('phase 4: small model serving, card against CPU')
     small_model_phase(llama, gen_lib)
     small_engine_phase(llama, engine_lib)
+    mm_phase(quant_lib, llama)
 
-    print('phase 5: small model training, card against CPU', flush=True)
+    _phase('phase 5: small model training, card against CPU')
     small_train_phase(llama, trainer_lib, data_lib)
 
-    print('phase 6: training bench-1b at seq 4096 through train.run',
-          flush=True)
+    _phase('phase 6: training bench-1b at seq 4096 through train.run')
     train_launches = train_phase(llama, fa, train_run)
 
-    print('phase 7: serving bench-1b over HTTP, window path (--engine off)',
-          flush=True)
+    _phase('phase 7: serving bench-1b over HTTP, window path (--engine off)')
     for quantize, kv_cache in ((None, 'bf16'), ('int8', 'int8')):
         serving_phase(srv_lib, gen_lib, da, quantize, kv_cache)
 
-    print('phase 8: serving bench-1b over HTTP, the default continuous '
-          'engine', flush=True)
+    _phase('phase 8: serving bench-1b over HTTP, the default continuous '
+           'engine')
     launches = {
         'bf16': engine_phase(srv_lib, gen_lib, engine_lib, da, None, 'bf16'),
         'int8': engine_phase(srv_lib, gen_lib, engine_lib, da, 'int8',
                              'int8')}
+
+    _phase('phase 9: the serve-llama recipe (llama3-1b, int8 + int8 KV, '
+           'prefix pool 8, max_len 2048) over HTTP, then chunked prefill')
+    by_path = {mode: {'phase 8 bench-1b engine': n}
+               for mode, n in launches.items()}
+    by_path['int8']['phase 9 serve-llama'] = recipe_phase(srv_lib, gen_lib,
+                                                          da)
+    for mode in MODES:
+        row = kernels[mode]['llama']
+        print(f'  flash_decode[{mode} cache] at {LLAMA_CASE}: ms {row["ms"]}'
+              f' plain_ms {row["plain_ms"]} library_ms {row["library_ms"]}'
+              f' bound_ms {row["bound_ms"]} ({row["bound_by"]})', flush=True)
 
     entries = []
     for name, (replaces, _, source) in FLASH.items():
@@ -1026,7 +1399,8 @@ def main() -> int:
         entries.append({
             'name': f'flash_decode[{mode} cache]', 'route': 'cuda',
             'source': CSRC + 'decode_attention.cu',
-            'replaces': replaces, 'launches': launches[mode],
+            'replaces': replaces, 'launches': sum(by_path[mode].values()),
+            'launches_by_path': by_path[mode], 'timed_at': ENGINE_CASE,
             'max_abs_err': kernels[mode]['max_abs_err'],
             'ms': head['ms'], 'plain_ms': head['plain_ms'],
             'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],

@@ -20,12 +20,27 @@ ones keep streaming.
   from pageable memory would wait for the chunk in flight.
 * A free slot keeps decoding junk until it is reused (the batch shape is
   fixed). Its length grows without bound, so ``forward_cached`` is given
-  ``active_rows``: a row is active while its request still needs the
-  step's write (``lengths < limit``, where an insert sets ``limit`` to
-  prompt + max_new - 1). Rows not active write at a clamped offset, as
-  ``dynamic_update_slice`` does in the JAX package, and attend all M
-  positions once their length passes M, so no junk row reaches the
-  overflow assert (on the card an assert ends the CUDA context).
+  ``active_rows``: as in the JAX package, the slots the host saw occupied
+  when it issued the chunk, ANDed here with ``lengths < limit`` (an
+  insert sets ``limit`` to prompt + max_new - 1), which turns off a
+  request's row once it has every write it needs, in its last chunk and
+  in the stale one the pipeline issues after it. Rows not active write at
+  a clamped offset, as ``dynamic_update_slice`` does in the JAX package,
+  and attend all M positions once their length passes M, so no junk row
+  reaches the overflow assert (on the card an assert ends the CUDA
+  context).
+* Prefix pool (``prefix_slots`` > 0, ``SKYTPU_LLM_PREFIX_CACHE``): popular
+  prompt prefixes keep their KV in ``prefix_slots`` extra max_len rows.
+  A prefix is matched at power-of-two lengths (at least 16, strictly
+  shorter than the prompt), stored on its second sighting, evicted LRU;
+  a hit gathers the prefix rows and prefills only the suffix. Exact by
+  causality: position i's KV depends on tokens <= i only.
+* Chunked prefill (``prefill_chunk`` > 0, ``SKYTPU_LLM_PREFILL_CHUNK``):
+  a prompt longer than ``prefill_chunk`` (at most two at a time) leaves
+  the queue and advances one ``prefill_chunk``-token piece per loop turn
+  into a scratch max_len row, between decode chunks; its first token is
+  read through a pinned copy, and the finished row parks until a slot
+  frees (free slots are held back for parked rows).
 * Every decode step runs the flash-decode kernel (``ops/decode_attention``,
   K4) in every layer, through ``forward_cached``.
 * Randomness comes from one ``torch.Generator`` on the engine's device,
@@ -38,11 +53,10 @@ A chunk is K eager ``forward_cached`` calls (JAX runs one compiled
 ``lax.scan``), so the engine is bound by the host's time to issue them.
 
 Not ported yet; each raises ``NotImplementedError`` at construction: the
-paged layout, the prefix pool, chunked prefill, draft rounds, a mesh,
-block sharing and KV tiers, and the prefill/decode roles (with
-``submit_prefill``, ``submit_import``, ``probe_chain``, ``resolve_chains``
-and ``prefix_summary``). The JAX engine's black-box and trace records are
-not ported either.
+paged layout, draft rounds, a mesh, block sharing and KV tiers, and the
+prefill/decode roles (with ``submit_prefill``, ``submit_import``,
+``probe_chain``, ``resolve_chains`` and ``prefix_summary``). The JAX
+engine's black-box and trace records are not ported either.
 """
 from __future__ import annotations
 
@@ -107,6 +121,22 @@ class _HostCopy:
 
 
 @dataclasses.dataclass
+class _Prefilling:
+    """An in-flight incremental (chunked) long prefill. ``first`` is set
+    once the final chunk has sampled the request's first token; the
+    entry may then PARK awaiting a free slot."""
+    req: _Request
+    cache: Optional[gen_lib.KVCache] = None  # scratch max_len row
+    consumed: int = 0                        # prompt tokens prefilled
+    first: Optional[torch.Tensor] = None
+    first_host: Optional[int] = None
+
+    @property
+    def parked(self) -> bool:
+        return self.first is not None
+
+
+@dataclasses.dataclass
 class _Inflight:
     """One issued-but-unread decode chunk: the slot snapshot it was issued
     against plus its tokens on their way to the host. Retirement emits
@@ -162,6 +192,35 @@ def _insert_impl(cache: gen_lib.KVCache, last: torch.Tensor,
     limit[slots] = limits_n
 
 
+def _gather_prefix_impl(pool: gen_lib.KVCache, idx: torch.Tensor,
+                        lengths: torch.Tensor,
+                        width: int) -> gen_lib.KVCache:
+    """A new prefill cache whose row i holds pool row idx[i]'s first
+    ``width`` positions, with ``lengths[i]`` valid prefix tokens (0 = a
+    miss: the zeros gathered from pool row 0 are never attended, and the
+    suffix write starts at 0). One indexed copy per cache tensor."""
+    ks = vs = None
+    if pool.quantized:
+        ks = pool.k_s[:, idx, :, :width]
+        vs = pool.v_s[:, idx, :, :width]
+    return gen_lib.KVCache(k=pool.k[:, idx, :, :width],
+                           v=pool.v[:, idx, :, :width],
+                           lengths=lengths, k_s=ks, v_s=vs)
+
+
+def _store_prefix_impl(pool: gen_lib.KVCache, cache_n: gen_lib.KVCache,
+                       row: int, slot: int, p: int) -> None:
+    """Copy the first ``p`` positions of prefill row ``row`` into pool
+    row ``slot``, in place. Causality makes this exact: a longer prompt's
+    first p positions ARE the prefix's KV (int8 codes and scales are per
+    position, so they copy verbatim)."""
+    pool.k[:, slot, :, :p] = cache_n.k[:, row, :, :p]
+    pool.v[:, slot, :, :p] = cache_n.v[:, row, :, :p]
+    if pool.quantized:
+        pool.k_s[:, slot, :, :p] = cache_n.k_s[:, row, :, :p]
+        pool.v_s[:, slot, :, :p] = cache_n.v_s[:, row, :, :p]
+
+
 def _filters_or_none(top_ks: np.ndarray, top_ps: np.ndarray):
     """None when every row's filters are off: ``filter_logits`` then
     skips the full-vocab sort on the decode loop."""
@@ -172,18 +231,21 @@ def _filters_or_none(top_ks: np.ndarray, top_ps: np.ndarray):
 
 def _chunk_impl(cfg: llama.LlamaConfig, k_steps: int, params,
                 cache: gen_lib.KVCache, last: torch.Tensor,
-                limit: torch.Tensor, temps: Optional[torch.Tensor],
+                limit: torch.Tensor, occupied: torch.Tensor,
+                temps: Optional[torch.Tensor],
                 top_ks: Optional[torch.Tensor],
                 top_ps: Optional[torch.Tensor],
                 generator: Optional[torch.Generator]):
     """K decode steps over ALL slots: returns (cache, last, toks [K, B]).
-    Per-slot sampling params ride as data (temps 0 = greedy, top_ks 0 /
-    top_ps 1 = filters off); ``generator`` None = every row greedy."""
+    ``occupied`` [B] is the host's slot snapshot at dispatch (JAX's
+    ``active``). Per-slot sampling params ride as data (temps 0 = greedy,
+    top_ks 0 / top_ps 1 = filters off); ``generator`` None = every row
+    greedy."""
     b = last.shape[0]
     row_lens = torch.ones((b,), dtype=torch.int32, device=last.device)
     toks = []
     for _ in range(k_steps):
-        active = cache.lengths < limit
+        active = occupied & (cache.lengths < limit)
         logits, cache = gen_lib.forward_cached(params, last[:, None], cache,
                                                cfg, row_lens, active)
         last = sampling.sample(logits, temps, generator, top_ks, top_ps)
@@ -195,6 +257,9 @@ _insert = profiler.profiled('engine.insert', _insert_impl)
 _chunk = profiler.profiled('engine.chunk', _chunk_impl)
 _prefill = profiler.profiled('engine.prefill', gen_lib.forward_cached)
 _sample = profiler.profiled('engine.sample', sampling.sample)
+_gather_prefix = profiler.profiled('engine.gather_prefix',
+                                   _gather_prefix_impl)
+_store_prefix = profiler.profiled('engine.store_prefix', _store_prefix_impl)
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -211,8 +276,9 @@ def check_options(*, kv_layout: Optional[str] = None,
                   role: Optional[str] = None) -> tuple:
     """Resolve the engine's options against their environment defaults
     and refuse the ones not ported yet (``NotImplementedError``) or
-    unknown (``ValueError``). Returns (kv_layout, role). Needs no weights,
-    so a replica checks its flags before it builds them."""
+    unknown (``ValueError``). Returns (kv_layout, prefix_slots,
+    prefill_chunk, role). Needs no weights, so a replica checks its
+    flags before it builds them."""
     kv_layout = (kv_layout or os.environ.get('SKYTPU_LLM_KV_LAYOUT')
                  or 'slot')
     if kv_layout not in ('slot', 'paged'):
@@ -222,12 +288,8 @@ def check_options(*, kv_layout: Optional[str] = None,
         raise _not_ported("kv_layout='paged'")
     if prefix_slots is None:
         prefix_slots = int(os.environ.get('SKYTPU_LLM_PREFIX_CACHE', '0'))
-    if int(prefix_slots) > 0:
-        raise _not_ported('the prefix pool (prefix_slots > 0)')
     if prefill_chunk is None:
         prefill_chunk = int(os.environ.get('SKYTPU_LLM_PREFILL_CHUNK', '0'))
-    if int(prefill_chunk) > 0:
-        raise _not_ported('chunked prefill (prefill_chunk > 0)')
     if draft:
         raise _not_ported('speculative decoding (a draft model)')
     if mesh is not None:
@@ -240,7 +302,8 @@ def check_options(*, kv_layout: Optional[str] = None,
                          "'colocated', 'prefill' or 'decode'")
     if role != 'colocated':
         raise _not_ported(f'the {role!r} role')
-    return kv_layout, role
+    return (kv_layout, max(int(prefix_slots), 0), max(int(prefill_chunk), 0),
+            role)
 
 
 class ContinuousEngine:
@@ -264,7 +327,8 @@ class ContinuousEngine:
                  kv_tiers: Optional[bool] = None,
                  role: Optional[str] = None, device=None):
         llama.require_dense(cfg)
-        self.kv_layout, self.role = check_options(
+        (self.kv_layout, self.prefix_slots, self.prefill_chunk,
+         self.role) = check_options(
             kv_layout=kv_layout, prefix_slots=prefix_slots,
             prefill_chunk=prefill_chunk,
             draft=draft_params is not None or draft_cfg is not None,
@@ -289,12 +353,18 @@ class ContinuousEngine:
             pipeline = os.environ.get('SKYTPU_LLM_PIPELINE', '1') != '0'
         self.pipeline_depth = 1 if pipeline else 0
         self._seed = seed
+        self.prefix_min = 16  # smallest cacheable/matchable prefix
+        self._prefix_index: 'collections.OrderedDict[tuple, int]' = \
+            collections.OrderedDict()  # prefix tokens -> pool row (LRU)
+        self._prefix_seen: 'collections.OrderedDict[tuple, int]' = \
+            collections.OrderedDict()  # sighting counts (bounded)
         self._init_device_state()
         self._slot_req: List[Optional[_Request]] = [None] * self.slots
         self._pending: collections.deque = collections.deque()
         # [(reqs, firsts on their way to the host)] of prefilled groups.
         self._unfetched: List[tuple] = []
         self._admitting: List[_Request] = []  # mid-prefill group
+        self._prefilling: List[_Prefilling] = []  # chunked long prefills
         self._lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = False
@@ -309,6 +379,11 @@ class ContinuousEngine:
         self.prefill_tokens = 0
         self.prefill_ms = 0.0
         self.prefill_bubble_ms = 0.0  # prefill host time decode waited on
+        self.prefill_chunks = 0
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_stores = 0
+        self.prefill_tokens_saved = 0  # prompt tokens the pool skipped
         self.chunks_run = 0
         self.tokens_emitted = 0
         self.peak_active = 0
@@ -392,7 +467,8 @@ class ContinuousEngine:
         # slot would otherwise wait forever (a streaming handler blocks
         # on these futures).
         with self._lock:
-            live = bool(self._pending or self._admitting or self._unfetched
+            live = bool(self._pending or self._admitting or self._prefilling
+                        or self._unfetched
                         or any(r is not None for r in self._slot_req))
         if live:
             self._fail_everything(RuntimeError('engine stopped'))
@@ -400,12 +476,16 @@ class ContinuousEngine:
     def busy(self) -> bool:
         """Requests queued, prefilling or holding a slot."""
         with self._lock:
-            return bool(self._pending or self._admitting or self._unfetched
+            return bool(self._pending or self._admitting or self._prefilling
+                        or self._unfetched
                         or any(r is not None for r in self._slot_req))
 
     def stats(self) -> dict:
         """Counters for /health: the keys of the JAX engine's ``stats()``
-        that the slot layout has."""
+        that the slot layout has. ``prefill_tokens`` counts the prompt
+        tokens prefill computed; ``prefill_tokens_saved`` those the prefix
+        pool skipped in grouped prefills (as in the JAX engine, a pool hit
+        seeding a chunked prefill counts in ``prefix_cache`` only)."""
         with self._lock:
             active = sum(r is not None for r in self._slot_req)
             return {
@@ -415,6 +495,9 @@ class ContinuousEngine:
                 'queued': len(self._pending), 'prefills': self.prefills,
                 'prefill_groups': self.prefill_groups,
                 'prefill_batch': self.prefill_batch,
+                'prefill_chunk': self.prefill_chunk,
+                'prefill_chunks': self.prefill_chunks,
+                'prefilling': len(self._prefilling),
                 'chunks_run': self.chunks_run,
                 'chunk_steps': self.chunk_steps,
                 'tokens_emitted': self.tokens_emitted,
@@ -430,7 +513,14 @@ class ContinuousEngine:
                         self._gap_ms_total / max(self._gap_count, 1), 3),
                     'host_overlap_ms': round(self.host_overlap_ms, 3),
                     'bubble_ms': round(self.bubble_ms, 3)},
+                'prefix_cache': {
+                    'slots': self.prefix_slots,
+                    'entries': len(self._prefix_index),
+                    'hits': self.prefix_hits,
+                    'hit_tokens': self.prefix_hit_tokens,
+                    'stores': self.prefix_stores},
                 'prefill_tokens': self.prefill_tokens,
+                'prefill_tokens_saved': self.prefill_tokens_saved,
                 'prefill_ms': round(self.prefill_ms, 3),
                 'prefill_bubble_ms': round(self.prefill_bubble_ms, 3)}
 
@@ -446,6 +536,9 @@ class ContinuousEngine:
             while not self._stop:
                 try:
                     t0 = time.perf_counter()
+                    # Prefill advance BEFORE admission: a parked finished
+                    # prefill must win a freed slot over younger shorts.
+                    self._advance_prefill()
                     self._admit()
                     if self._inflight is not None:
                         # Admission issued while a chunk computes is pure
@@ -460,6 +553,8 @@ class ContinuousEngine:
                         self._flush_pipeline(quiet=True)
                         self._drain_firsts()  # e.g. all max_new == 1
                         self._note_decode_quiet()
+                        if self._prefilling:
+                            continue  # keep chunking the long prompt
                         self._wake.wait(_IDLE_WAIT_S)
                         self._wake.clear()
                         continue
@@ -477,11 +572,12 @@ class ContinuousEngine:
             doomed = list(self._pending) + [
                 r for r in self._slot_req if r is not None] + [
                 r for reqs, _ in self._unfetched for r in reqs] + \
-                list(self._admitting)
+                list(self._admitting) + [p.req for p in self._prefilling]
             self._pending.clear()
             self._slot_req = [None] * self.slots
             self._unfetched = []
             self._admitting = []
+            self._prefilling = []
             # The in-flight chunk goes with the device state.
             self._inflight = None
             self._last_dispatch_t = None
@@ -509,6 +605,18 @@ class ContinuousEngine:
         self._gen.manual_seed(self._seed)
         profiler.register_logical('kv_cache',
                                   profiler.tree_nbytes(self._cache))
+        # The pool is zero-filled like every cache here: a miss gathers
+        # row 0, whose positions are masked, and 0 x NaN would be NaN.
+        self._prefix_pool = None
+        if self.prefix_slots > 0:
+            self._prefix_pool = gen_lib.init_cache(
+                self.cfg, self.prefix_slots, self.max_len,
+                quantize=self.kv_quantize, device=dev)
+            profiler.register_logical(
+                'prefix_pool', profiler.tree_nbytes(self._prefix_pool))
+        self._prefix_index.clear()
+        self._prefix_seen.clear()
+        self._prefix_free = list(range(self.prefix_slots))
 
     @staticmethod
     def _fire_callbacks(emitted: List[tuple]) -> None:
@@ -538,12 +646,36 @@ class ContinuousEngine:
     def _admit(self) -> None:
         """Prefill pending requests into free slots, in power-of-two
         GROUPS: one padded [N, S] forward + one insert per group, the
-        group size capped at ``prefill_batch``."""
+        group size capped at ``prefill_batch``. Prompts longer than
+        ``prefill_chunk`` leave the queue for the incremental path
+        (``_advance_prefill``), at most two at a time; FIFO order holds:
+        a long head blocks later shorts only while that capacity is
+        full."""
         while True:
             with self._lock:
+                while (self.prefill_chunk and self._pending
+                       and len(self._prefilling) < 2
+                       and len(self._pending[0].row) > self.prefill_chunk):
+                    self._prefilling.append(
+                        _Prefilling(self._pending.popleft()))
+                if (self.prefill_chunk and self._pending
+                        and len(self._pending[0].row) > self.prefill_chunk):
+                    return  # long head waiting on prefill capacity
                 free = [i for i, r in enumerate(self._slot_req)
                         if r is None]
-                n = min(len(free), len(self._pending), self.prefill_batch)
+                # Slots owed to parked finished prefills are reserved: a
+                # steady stream of shorts would otherwise starve them.
+                parked = sum(1 for e in self._prefilling if e.parked)
+                n = min(max(len(free) - parked, 0), len(self._pending),
+                        self.prefill_batch)
+                if self.prefill_chunk:
+                    # Only CONSECUTIVE short requests join a group.
+                    run = 0
+                    for p in self._pending:
+                        if len(p.row) > self.prefill_chunk or run >= n:
+                            break
+                        run += 1
+                    n = run
                 if n == 0:
                     return
                 g = 1
@@ -566,38 +698,241 @@ class ContinuousEngine:
             if had_active and self._inflight is None:
                 self.prefill_bubble_ms += dt_ms
 
+    def _match_prefix(self, row: List[int]):
+        """Longest cached prefix of ``row`` at power-of-two lengths
+        STRICTLY shorter than the prompt (the last prompt token must be
+        prefilled to produce the first logits). Returns (p, pool_row)."""
+        best = (0, 0)
+        b = self.prefix_min
+        while b <= len(row) - 1:
+            slot = self._prefix_index.get(tuple(row[:b]))
+            if slot is not None:
+                best = (b, slot)
+                self._prefix_index.move_to_end(tuple(row[:b]))  # LRU
+            b *= 2
+        return best
+
+    def _maybe_store_prefixes(self, rows, p_lens,
+                              cache_n: gen_lib.KVCache) -> None:
+        """Store each row's largest bucket prefix on its SECOND sighting
+        (a pool row is too precious for one-shot prompts); LRU-evict
+        when full. Issued after the prefill that wrote ``cache_n`` and
+        before the insert, on the same stream."""
+        for i, row in enumerate(rows):
+            p = self.prefix_min
+            while p * 2 <= len(row):
+                p *= 2
+            if p > len(row) or p < self.prefix_min:
+                continue
+            if p_lens[i] >= p:
+                continue  # the hit already covers this prefix
+            key = tuple(row[:p])
+            if key in self._prefix_index:
+                continue
+            self._prefix_seen[key] = self._prefix_seen.get(key, 0) + 1
+            self._prefix_seen.move_to_end(key)
+            while len(self._prefix_seen) > 512:
+                self._prefix_seen.popitem(last=False)
+            if self._prefix_seen[key] < 2:
+                continue
+            if self._prefix_free:
+                slot = self._prefix_free.pop()
+            else:
+                _, slot = self._prefix_index.popitem(last=False)  # LRU
+            _store_prefix(self._prefix_pool, cache_n, i, slot, p)
+            self._prefix_index[key] = slot
+            with self._lock:
+                self.prefix_stores += 1
+
+    def _prefill_one_chunk(self, cache1: gen_lib.KVCache, row: List[int],
+                           consumed: int):
+        """One bounded chunk of a single-row incremental prefill.
+        Returns (logits, cache, new_consumed). The padded width may not
+        overhang max_len (the cache write would raise); room always
+        suffices, as the prompt is < max_len (``submit`` validates row +
+        max_new <= max_len)."""
+        w = min(self.prefill_chunk, self.max_len - consumed)
+        chunk = row[consumed:consumed + w]
+        padded = np.zeros((1, w), np.int32)
+        padded[0, :len(chunk)] = chunk
+        dev = self.device
+        logits, cache1 = _prefill(
+            self.params, _to_device(padded, dev), cache1, self.cfg,
+            _to_device(np.asarray([len(chunk)], np.int32), dev))
+        with self._lock:
+            self.prefill_tokens += len(chunk)
+        return logits, cache1, consumed + len(chunk)
+
+    def _advance_prefill(self) -> None:
+        if not self._prefilling:
+            return
+        t0 = time.perf_counter()
+        had_active = any(r is not None for r in self._slot_req)
+        try:
+            self._advance_prefill_impl()
+        finally:
+            self._note_prefill_time(t0, had_active)
+
+    def _advance_prefill_impl(self) -> None:
+        """Advance the oldest in-flight long prefill by ONE chunk (the
+        per-iteration budget that bounds how long active slots wait
+        between decode chunks). On the final chunk: sample the first
+        token; insert once a slot frees."""
+        entry = self._prefilling[0]
+        req = entry.req
+        if entry.parked:
+            self._finish_long_prefill(entry)
+            return
+        dev = self.device
+        if entry.cache is None:
+            # First chunk: seed from the prefix pool when the prompt's
+            # head is cached (long popular prompts are where reuse pays).
+            cache1, p_hit = None, 0
+            if self._prefix_pool is not None:
+                p_hit, pool_row = self._match_prefix(req.row)
+                if p_hit:
+                    cache1 = _gather_prefix(
+                        self._prefix_pool,
+                        _to_device(np.asarray([pool_row], np.int64), dev),
+                        _to_device(np.asarray([p_hit], np.int32), dev),
+                        self.max_len)
+                    with self._lock:
+                        self.prefix_hits += 1
+                        self.prefix_hit_tokens += p_hit
+            if cache1 is None:
+                cache1 = gen_lib.init_cache(self.cfg, 1, self.max_len,
+                                            quantize=self.kv_quantize,
+                                            device=dev)
+            entry.cache, entry.consumed = cache1, p_hit
+        logits, entry.cache, entry.consumed = self._prefill_one_chunk(
+            entry.cache, req.row, entry.consumed)
+        with self._lock:
+            self.prefill_chunks += 1
+        if entry.consumed >= len(req.row):
+            if self._prefix_pool is not None:
+                # Store this prompt's bucket prefix on its second
+                # sighting, like the grouped path.
+                self._maybe_store_prefixes([req.row], [0], entry.cache)
+            # Sample the first token ONCE off the final chunk's logits;
+            # the entry may then park for a free slot.
+            entry.first = _sample(logits, *self._sampling_args(
+                np.asarray([req.temperature], np.float32),
+                np.asarray([req.top_k], np.int32),
+                np.asarray([req.top_p], np.float32)))
+            # The chunked path's one host read (stop ids and the slot
+            # decision need the value now): a pinned copy and its event,
+            # which still follow the decode chunk in flight.
+            entry.first_host = int(_HostCopy(entry.first).numpy()[0])
+            self._finish_long_prefill(entry)
+
+    def _finish_long_prefill(self, entry: _Prefilling) -> None:
+        """Emit a finished long prefill's first token and insert its
+        scratch row into a free slot; return without popping (PARK) when
+        no slot is free."""
+        req = entry.req
+        done = (req.max_new == 1
+                or gen_lib.truncate_at_stop([entry.first_host],
+                                            req.eos)[1])
+        slot = None
+        with self._lock:
+            if not done:
+                free = [i for i, r in enumerate(self._slot_req)
+                        if r is None]
+                if not free:
+                    return  # park; retried next iteration
+                slot = free[0]
+                self._slot_req[slot] = req
+            self._prefilling.pop(0)
+            self.prefills += 1
+            req.tokens.append(entry.first_host)
+            self.tokens_emitted += 1
+        if req.on_tokens is not None:
+            self._fire_callbacks([(req, [entry.first_host])])
+        if done:
+            if not req.future.done():
+                req.future.set_result(req.tokens)
+            return
+        dev = self.device
+        _insert(self._cache, self._last, self._limit, entry.cache,
+                entry.first,
+                _to_device(np.asarray([len(req.row) + req.max_new - 1],
+                                      np.int32), dev),
+                _to_device(np.asarray([slot], np.int64), dev))
+
     def _prefill_group(self, reqs: List[_Request],
                        slots: List[int]) -> None:
+        """Prefill a group and insert it into ``slots``. With the prefix
+        pool, each row's cached prefix is gathered and only its suffix
+        is prefilled; gather, prefill, store and insert are issued in
+        that order on the engine's stream."""
         t0 = time.perf_counter()
         had_active = any(r is not None for r in self._slot_req)
         n = len(reqs)
         dev = self.device
-        width = min(prompt_bucket(max(len(r.row) for r in reqs)),
+        rows = [r.row for r in reqs]
+        p_lens = [0] * n
+        pool_rows = [0] * n
+        if self._prefix_pool is not None:
+            for i, row in enumerate(rows):
+                p_lens[i], pool_rows[i] = self._match_prefix(row)
+            # Demote any hit whose prefix + PADDED suffix would overflow
+            # the cache width: the write would raise past max_len (JAX's
+            # would clamp, smearing padded junk over real prefix KV).
+            while True:
+                s_b = min(prompt_bucket(max(
+                    len(r) - p for r, p in zip(rows, p_lens))),
                     self.max_len)
-        padded = np.zeros((n, width), np.int32)
+                bad = [i for i in range(n)
+                       if p_lens[i] and p_lens[i] + s_b > self.max_len]
+                if not bad:
+                    break
+                for i in bad:
+                    p_lens[i], pool_rows[i] = 0, 0
+        suffixes = [row[p:] for row, p in zip(rows, p_lens)]
+        width_s = min(prompt_bucket(max(len(s) for s in suffixes)),
+                      self.max_len)
+        cache_width = min(prompt_bucket(
+            max(p + width_s for p in p_lens)), self.max_len)
+        padded = np.zeros((n, width_s), np.int32)
         lens = np.zeros((n,), np.int32)
         temps = np.zeros((n,), np.float32)
         top_ks = np.zeros((n,), np.int32)
         top_ps = np.ones((n,), np.float32)
-        for i, r in enumerate(reqs):
-            padded[i, :len(r.row)] = r.row
-            lens[i] = len(r.row)
+        for i, (r, suf) in enumerate(zip(reqs, suffixes)):
+            padded[i, :len(suf)] = suf
+            lens[i] = len(suf)
             temps[i] = r.temperature
             top_ks[i] = r.top_k
             top_ps[i] = r.top_p
-        cache_n = gen_lib.init_cache(self.cfg, n, width,
-                                     quantize=self.kv_quantize, device=dev)
+        hits = sum(1 for p in p_lens if p)
+        if hits:
+            cache_n = _gather_prefix(
+                self._prefix_pool,
+                _to_device(np.asarray(pool_rows, np.int64), dev),
+                _to_device(np.asarray(p_lens, np.int32), dev), cache_width)
+            with self._lock:
+                self.prefix_hits += hits
+                self.prefix_hit_tokens += sum(p_lens)
+        else:
+            cache_n = gen_lib.init_cache(self.cfg, n, cache_width,
+                                         quantize=self.kv_quantize,
+                                         device=dev)
         logits, cache_n = _prefill(self.params, _to_device(padded, dev),
                                    cache_n, self.cfg, _to_device(lens, dev))
         with self._lock:
             self.prefill_tokens += int(lens.sum())
+            self.prefill_tokens_saved += sum(p_lens)
+        if self._prefix_pool is not None:
+            self._maybe_store_prefixes(rows, p_lens, cache_n)
         firsts = _sample(logits, *self._sampling_args(temps, top_ks,
                                                       top_ps))
         # Insert EVERY row (a single-token request's row becomes harmless
         # junk in a still-free slot: its limit equals its length, so it is
         # never active). The first-token VALUES are read lazily
-        # (_drain_firsts), while the next decode chunk computes.
-        limits = lens + np.asarray([r.max_new for r in reqs], np.int32) - 1
+        # (_drain_firsts), while the next decode chunk computes. A row's
+        # limit counts its whole prompt, prefix included.
+        limits = np.asarray([len(r.row) + r.max_new - 1 for r in reqs],
+                            np.int32)
         _insert(self._cache, self._last, self._limit, cache_n, firsts,
                 _to_device(limits, dev),
                 _to_device(np.asarray(slots, np.int64), dev))
@@ -673,16 +1008,16 @@ class ContinuousEngine:
         temps = np.zeros((self.slots,), np.float32)
         top_ks = np.zeros((self.slots,), np.int32)
         top_ps = np.ones((self.slots,), np.float32)
-        n_active = 0
+        occupied = np.zeros((self.slots,), bool)
         for i, r in enumerate(reqs):
             if r is not None:
                 temps[i] = r.temperature
                 top_ks[i] = r.top_k
                 top_ps[i] = r.top_p
-                n_active += 1
+                occupied[i] = True
         now = time.perf_counter()
         with self._lock:
-            self.peak_active = max(self.peak_active, n_active)
+            self.peak_active = max(self.peak_active, int(occupied.sum()))
             if self._last_dispatch_t is not None:
                 # Gaps across quiet stretches are excluded (the baseline
                 # is nulled in _note_decode_quiet).
@@ -698,7 +1033,8 @@ class ContinuousEngine:
         temps_d, gen, tk, tp = self._sampling_args(temps, top_ks, top_ps)
         self._cache, self._last, toks = _chunk(
             self.cfg, self.chunk_steps, self.params, self._cache,
-            self._last, self._limit, temps_d, tk, tp, gen)
+            self._last, self._limit, _to_device(occupied, self.device),
+            temps_d, tk, tp, gen)
         return _Inflight(reqs=reqs, toks=_HostCopy(toks),
                          steps=self.chunk_steps)
 

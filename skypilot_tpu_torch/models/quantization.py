@@ -4,11 +4,13 @@ Port of ``skypilot_tpu/models/quantization.py`` (single device; the
 sharded variants come with the multi-device slice). Target weights become
 ``{'q8': int8, 's': float32}`` leaves with symmetric per-output-channel
 scales; ``mm`` multiplies by the int8 codes cast to the activation dtype
-and applies the scale after the product, as the JAX package does. The
-products are plain ``torch.einsum``: the JAX package leaves them to XLA.
+and applies the scale to the float32 sums of the product, as the JAX
+package does. The products are library GEMMs (``torch.einsum``,
+``torch.mm``): the JAX package leaves them to XLA.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -68,26 +70,45 @@ def quantize_params(params: Params) -> Params:
     return out
 
 
+def _sums_f32(spec: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The float32 sums of ``einsum(spec, x, w)``, both operands in
+    ``x``'s dtype, rounded nowhere. On CUDA a bf16 pair goes to a bf16 x
+    bf16 -> float32 GEMM (``torch.mm`` with ``out_dtype``), so no float32
+    copy of the weight is made; ``spec`` must then contract x's trailing
+    dims with w's leading dims, in order, as every projection of the
+    model does. Elsewhere the operands are taken in float32, where a bf16
+    value, and the product of two, is exact."""
+    if x.device.type != 'cuda' or x.dtype == torch.float32:
+        return torch.einsum(spec, x.float(), w.float())
+    ins, out = spec.split('->')
+    xs, ws = ins.split(',')
+    n = sum(c not in out for c in ws)
+    if xs[len(xs) - n:] != ws[:n] or out != xs[:len(xs) - n] + ws[n:]:
+        raise ValueError(f'mm: {spec!r} does not contract the trailing '
+                         "dims of x with the leading dims of w")
+    k = math.prod(w.shape[:n])
+    y = torch.mm(x.reshape(-1, k), w.reshape(k, -1), out_dtype=torch.float32)
+    return y.reshape(*x.shape[:x.dim() - n], *w.shape[n:])
+
+
 def mm(x: torch.Tensor, w: Any, spec: str,
        out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``einsum(spec, x, w)`` that also takes a quantized weight: the
-    product runs on the int8 codes cast to ``x``'s dtype, then each
-    output channel is scaled. The scale's dims are the weight's
-    non-contracted dims, which the einsum emits as the output's trailing
-    dims, so the scale broadcasts from the right. ``out_dtype`` plays
-    the part of JAX's ``preferred_element_type``: float32 asks for the
-    float32 sums of the products, which a product in ``x``'s dtype would
-    round to that dtype first (bf16 logits tie far more often than the
-    reference's). The operands are then taken in float32: a bf16 value,
-    and the product of two, is exact there."""
-    wide = out_dtype == torch.float32 and x.dtype != torch.float32
+    product of ``x`` and the int8 codes cast to ``x``'s dtype (exact in
+    bf16: |q| <= 127) yields float32 sums, each output channel is scaled,
+    and the result is rounded once, to ``out_dtype`` or ``x``'s dtype, as
+    the JAX package's ``preferred_element_type=float32`` product is. The
+    scale's dims are the weight's non-contracted dims, which the einsum
+    emits as the output's trailing dims, so the scale broadcasts from the
+    right. ``out_dtype`` plays the part of JAX's
+    ``preferred_element_type``: float32 asks for the float32 sums of the
+    products, which a product in ``x``'s dtype would round to that dtype
+    first (bf16 logits tie far more often than the reference's)."""
     if not is_quantized(w):
-        if wide:
-            return torch.einsum(spec, x.float(), w.float())
+        if out_dtype == torch.float32 and x.dtype != torch.float32:
+            return _sums_f32(spec, x, w)
         y = torch.einsum(spec, x, w)
         return y if out_dtype is None else y.to(out_dtype)
-    if wide:
-        return torch.einsum(spec, x.float(), w['q8'].float()) * w['s']
-    y = torch.einsum(spec, x, w['q8'].to(x.dtype)).float() * w['s']
+    y = _sums_f32(spec, x, w['q8'].to(x.dtype)) * w['s']
     return y.to(out_dtype if out_dtype is not None else x.dtype)
 

@@ -5,8 +5,10 @@ Port of ``skypilot_tpu/serve/llm_server.py``, two of its paths:
 
 * CONTINUOUS BATCHING (default, ``--engine continuous``): each row of a
   request takes one slot of ``models/engine.py``'s ``ContinuousEngine``
-  (the slot layout: 16 slots, 8-step chunks, pipelined). Short requests
-  drain mid-stream while long ones keep decoding. ``"stream": true``
+  (the slot layout: 16 slots, 8-step chunks, pipelined unless
+  ``--pipeline off``; ``--prefix-cache N`` keeps N popular prompt
+  prefixes' KV; ``SKYTPU_LLM_PREFILL_CHUNK`` chunks long prompts). Short
+  requests drain mid-stream while long ones keep decoding. ``"stream": true``
   writes NDJSON lines ``{"row": i, "tokens": [...]}`` as the engine emits
   them, then ``{"done": true}`` (an ``{"error": ...}`` line on failure), in
   a body that ends when the connection closes.
@@ -34,9 +36,10 @@ drive either):
                    "top_p": p?, "eos_token": id or [ids]?, "stream": b?}
                   -> {"tokens": [[...]]}, or NDJSON lines when streamed
 
-Run: ``python -m skypilot_tpu_torch.serve.llm_server --model bench-1b``
-(port from --port or SKYTPU_REPLICA_PORT; ``--engine off`` for the window
-path only).
+Run: ``python -m skypilot_tpu_torch.serve.llm_server --model llama3-1b
+--max-len 2048 --quantize int8 --kv-cache int8 --prefix-cache 8`` (the
+serve-llama recipe; port from --port or SKYTPU_REPLICA_PORT; ``--engine
+off`` for the window path only).
 """
 from __future__ import annotations
 
@@ -553,14 +556,39 @@ def build_parser() -> argparse.ArgumentParser:
                         help="'continuous' (default: the slot engine) or "
                              "'off' (window batching only; also via "
                              'SKYTPU_LLM_ENGINE)')
+    parser.add_argument('--kv-layout', default=None,
+                        choices=('slot', 'paged'),
+                        help="the engine's KV layout (also via "
+                             "SKYTPU_LLM_KV_LAYOUT; 'paged' is not ported "
+                             'yet)')
+    parser.add_argument('--prefix-cache', type=int, default=None,
+                        help='device pool slots for popular prompt '
+                             'prefixes (opt-in, default 0; costs N extra '
+                             'max_len cache rows; also via '
+                             'SKYTPU_LLM_PREFIX_CACHE)')
+    parser.add_argument('--pipeline', default=None,
+                        choices=('on', 'off'),
+                        help='pipelined decode dispatch: keep one chunk '
+                             'in flight so host bookkeeping overlaps '
+                             'device compute (default on; off = serial '
+                             'engine; also via SKYTPU_LLM_PIPELINE)')
     return parser
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def server_from_args(args: argparse.Namespace, device=None) -> LlmServer:
+    """The replica that ``build_parser``'s ``args`` describe; ``device``
+    None = CUDA."""
+    return LlmServer(args.model, max_len=args.max_len,
+                     quantize=args.quantize, kv_cache=args.kv_cache,
+                     engine=args.engine, kv_layout=args.kv_layout,
+                     prefix_cache=args.prefix_cache, pipeline=args.pipeline,
+                     device=device)
+
+
+def main(argv: Optional[List[str]] = None, device=None) -> None:
+    """Serve until SIGTERM/SIGINT; ``device`` None = CUDA."""
     args = build_parser().parse_args(argv)
-    server = LlmServer(args.model, max_len=args.max_len,
-                       quantize=args.quantize, kv_cache=args.kv_cache,
-                       engine=args.engine)
+    server = server_from_args(args, device=device)
     httpd = server.make_httpd(args.host, args.port)
 
     def _graceful(*_):

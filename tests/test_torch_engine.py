@@ -95,9 +95,21 @@ def test_stats_keys_are_a_subset_of_the_jax_engines(weights):
     assert set(got) <= set(want)
     assert set(got['pipeline']) == set(want['pipeline'])
     for key in ('slots', 'kv_layout', 'chunk_steps', 'prefill_batch',
-                'role', 'kv_cache'):
+                'role', 'kv_cache', 'prefix_cache', 'prefill_chunk',
+                'prefill_chunks', 'prefilling', 'prefill_tokens_saved'):
         assert got[key] == want[key], key
     assert got['pipeline']['pipeline_depth'] == 1
+    got = port_engine.ContinuousEngine(
+        pp, PORT_CFG, slots=2, max_len=32, prefix_slots=3, prefill_chunk=8,
+        device='cpu').stats()
+    want = jax_engine.ContinuousEngine(jp, JAX_CFG, slots=2, max_len=32,
+                                       prefix_slots=3,
+                                       prefill_chunk=8).stats()
+    assert set(got) <= set(want)
+    for key in ('prefix_cache', 'prefill_chunk', 'prefill_chunks',
+                'prefilling', 'prefill_tokens_saved'):
+        assert got[key] == want[key], key
+    assert got['prefix_cache']['slots'] == 3 and got['prefill_chunk'] == 8
 
 
 def test_defaults_are_the_jax_engines(weights, monkeypatch):
@@ -477,18 +489,277 @@ def test_active_rows_keep_the_overflow_assert(weights):
     assert out.lengths.tolist() == [9, 4]
 
 
+def _preload(eng, jobs):
+    """Queue ``jobs`` [(row, max_new, eos)] before the engine's thread
+    starts, so the first admission takes them as one group (slots in
+    order) on either engine; returns their futures."""
+    reqs = [eng._build_request(row, n, 0.0, None, 0, 1.0, eos)  # noqa: SLF001
+            for row, n, eos in jobs]
+    with eng._lock:  # noqa: SLF001
+        eng._pending.extend(reqs)  # noqa: SLF001
+    eng.start()
+    return [r.future for r in reqs]
+
+
+def test_active_rows_is_the_dispatch_snapshot_like_jax(weights, monkeypatch):
+    """Request B (slot 1) stops at an eos mid-chunk while A (slot 0) runs
+    on. JAX's ``active`` is the host's slot snapshot at dispatch; the
+    port's mask, at every step of every chunk, is a subset of it, and from
+    the chunk issued after the retirement that freed B's slot it is False
+    there, as JAX's is. Greedy tokens are unchanged."""
+    jp, pp = weights
+    a_row, b_row = [3, 4, 5], [9, 8, 7, 6]
+    solo_b = _solo(pp, b_row, 12)
+    j = next(j for j in range(2, 12) if solo_b[j] not in solo_b[:j])
+    jobs = [(a_row, 20, None), (b_row, 12, solo_b[j])]
+    masks = {'jax': [], 'port': []}
+    b_done = {'jax': [], 'port': []}  # B resolved when the chunk was issued
+    futs = {}
+    jax_chunk, port_chunk = jax_engine._jit_chunk, port_engine._chunk  # noqa: SLF001
+    port_fwd = port_gen.forward_cached
+
+    def jchunk(*args, **kw):
+        masks['jax'].append(np.asarray(args[8]).copy())  # active
+        b_done['jax'].append(futs['jax'][1].done())
+        return jax_chunk(*args, **kw)
+
+    def pchunk(*args, **kw):
+        masks['port'].append([])
+        b_done['port'].append(futs['port'][1].done())
+        return port_chunk(*args, **kw)
+
+    def pfwd(params, tokens, cache, cfg, row_lens=None, active_rows=None):
+        if active_rows is not None:  # a decode step of a chunk
+            masks['port'][-1].append(active_rows.clone().numpy())
+        return port_fwd(params, tokens, cache, cfg, row_lens, active_rows)
+
+    monkeypatch.setattr(jax_engine, '_jit_chunk', jchunk)
+    monkeypatch.setattr(port_engine, '_chunk', pchunk)
+    monkeypatch.setattr(port_gen, 'forward_cached', pfwd)
+    out = {}
+    for name, eng in (('jax', jax_engine.ContinuousEngine(
+            jp, JAX_CFG, slots=2, max_len=MAX_LEN, chunk_steps=4)),
+            ('port', port_engine.ContinuousEngine(
+                pp, PORT_CFG, slots=2, max_len=MAX_LEN, chunk_steps=4,
+                device='cpu'))):
+        try:
+            futs[name] = _preload(eng, jobs)
+            out[name] = [f.result(timeout=300) for f in futs[name]]
+        finally:
+            eng.stop()
+    monkeypatch.undo()
+    assert out['port'] == out['jax']
+    assert out['port'] == [_solo(pp, a_row, 20), solo_b[:j + 1]]
+    assert b_done['port'] == b_done['jax']
+    assert len(masks['port']) == len(masks['jax'])
+    after = 0
+    for jm, steps, done in zip(masks['jax'], masks['port'], b_done['port']):
+        assert len(steps) == 4
+        for pm in steps:
+            assert not (pm & ~jm).any(), (pm, jm)
+        if done:
+            assert not jm[1] and not any(pm[1] for pm in steps)
+            after += bool(jm[0])
+    assert after >= 1  # A was still decoding after B's slot was freed
+
+
+def _jax_mk(jp, **kw):
+    kw.setdefault('slots', 4)
+    kw.setdefault('max_len', MAX_LEN)
+    kw.setdefault('chunk_steps', 4)
+    eng = jax_engine.ContinuousEngine(jp, JAX_CFG, **kw)
+    eng.start()
+    return eng
+
+
+def _on_both(weights, script, **kw):
+    """``script(engine)`` on the JAX engine, then on the port's, both built
+    with the options ``kw``; returns (JAX's result, the port's)."""
+    jp, pp = weights
+    out = []
+    for mk, params in ((_jax_mk, jp), (_mk, pp)):
+        eng = mk(params, **kw)
+        try:
+            out.append(script(eng))
+        finally:
+            eng.stop()
+    return out
+
+
+def _pool_stats(eng):
+    st = eng.stats()
+    return dict(st['prefix_cache'], saved=st['prefill_tokens_saved'],
+                chunks=st['prefill_chunks'])
+
+
+# -- the prefix pool against the JAX engine -------------------------------------
+
+
+def test_prefix_pool_exact_on_repeat(weights):
+    """Second sighting stores the 16-token prefix; the third request
+    gathers it and prefills only the suffix, and still equals the solo
+    generation."""
+    row = list(range(1, 25))
+
+    def script(eng):
+        return ([eng.submit(row, 5).result(timeout=300) for _ in range(3)],
+                _pool_stats(eng))
+    (jout, jst), (pout, pst) = _on_both(weights, script, prefix_slots=4)
+    assert pout == jout == [_solo(weights[1], row, 5)] * 3
+    assert pst == jst
+    assert (pst['stores'], pst['entries'], pst['hits'], pst['hit_tokens'],
+            pst['saved']) == (1, 1, 1, 16, 16)
+
+
+def test_prefix_pool_shared_prefix_variants(weights):
+    """Prompts sharing a stored 16-token prefix all hit the pool, grouped
+    or not, and each equals its own solo generation."""
+    base = list(range(1, 17))
+    variants = [base + [50 + i, 60 + i] for i in range(3)]
+
+    def script(eng):
+        for _ in range(2):
+            eng.submit(base + [40], 3).result(timeout=300)
+        stores = eng.stats()['prefix_cache']['stores']
+        futs = [eng.submit(v, 6) for v in variants]
+        return [f.result(timeout=300) for f in futs], stores, _pool_stats(eng)
+    (jout, jstores, jst), (pout, pstores, pst) = _on_both(
+        weights, script, prefix_slots=4)
+    assert pout == jout == [_solo(weights[1], v, 6) for v in variants]
+    assert pstores == jstores == 1
+    assert pst == jst and pst['hits'] == 3 and pst['hit_tokens'] == 48
+
+
+def test_prefix_pool_eviction_and_reuse(weights):
+    """One pool row, two alternating prefixes: LRU eviction recycles the
+    row and outputs stay exact."""
+    a, b = list(range(1, 20)), list(range(100, 119))
+
+    def script(eng):
+        outs = [eng.submit(row, 4).result(timeout=300)
+                for _ in range(2) for row in (a, b)]
+        return outs, _pool_stats(eng)
+    (jout, jst), (pout, pst) = _on_both(weights, script, prefix_slots=1)
+    assert pout == jout == [_solo(weights[1], r, 4) for r in (a, b, a, b)]
+    assert pst == jst and pst['entries'] == 1 and pst['stores'] == 2
+
+
+def test_prefix_pool_with_kv_int8(weights):
+    """Pool rows carry int8 codes and scales verbatim: reuse equals the
+    solo int8-KV generation."""
+    row = list(range(3, 27))
+
+    def script(eng):
+        return ([eng.submit(row, 5).result(timeout=300) for _ in range(3)],
+                _pool_stats(eng))
+    (jout, jst), (pout, pst) = _on_both(weights, script, prefix_slots=2,
+                                        kv_quantize=True)
+    assert pout == jout == [_solo(weights[1], row, 5, kv_quantize=True)] * 3
+    assert pst == jst and pst['hits'] == 1
+
+
+def test_prefix_pool_demotion_near_max_len(weights):
+    """A hit whose padded suffix would run past max_len is demoted to a
+    full prefill (the port's cache write would raise; JAX's would clamp
+    over the prefix): exact output, no hit counted, no fault."""
+    short = list(range(1, 18))
+    long_row = short[:16] + list(range(200, 246))  # 62: 16 + bucket(46) > 64
+
+    def script(eng):
+        for _ in range(2):
+            eng.submit(short, 3).result(timeout=300)
+        return eng.submit(long_row, 2).result(timeout=300), _pool_stats(eng)
+    (jout, jst), (pout, pst) = _on_both(weights, script, prefix_slots=2)
+    assert pout == jout == _solo(weights[1], long_row, 2)
+    assert pst == jst and pst['stores'] == 1 and pst['hit_tokens'] == 0
+
+
+# -- chunked prefill against the JAX engine -------------------------------------
+
+
+def test_chunked_prefill_exact(weights):
+    """A 30-token prompt with prefill_chunk 8 advances in 4 chunks and
+    equals the solo generation; short prompts keep the grouped path."""
+    long_row, short = list(range(1, 31)), [5, 6, 7]
+
+    def script(eng):
+        got = eng.submit(long_row, 6).result(timeout=300)
+        st = eng.stats()
+        return (got, eng.submit(short, 4).result(timeout=300),
+                st['prefill_chunks'], st['prefilling'], st['active_slots'],
+                eng.stats()['prefill_chunks'])
+    jout, pout = _on_both(weights, script, prefill_chunk=8)
+    assert pout == jout
+    assert pout[:2] == (_solo(weights[1], long_row, 6),
+                        _solo(weights[1], short, 4))
+    assert pout[2:] == (4, 0, 0, 4)
+
+
+def test_chunked_prefill_interleaves_with_decode(weights):
+    """A short request keeps decoding while a 40-token prompt chunks in,
+    4 tokens a chunk: both exact, 10 chunks, and decode chunks ran while
+    the long prompt was prefilling."""
+    short, long_row = [9, 8, 7], list(range(1, 41))
+
+    def script(eng):
+        f_short = eng.submit(short, 12)
+        f_long = eng.submit(long_row, 4)
+        return ([f_short.result(timeout=300), f_long.result(timeout=300)],
+                eng.stats()['prefill_chunks'])
+    (jout, jchunks), (pout, pchunks) = _on_both(
+        weights, script, prefill_chunk=4, chunk_steps=2)
+    assert pout == jout == [_solo(weights[1], short, 12),
+                            _solo(weights[1], long_row, 4)]
+    assert pchunks == jchunks == 10
+
+
+def test_chunked_prefill_parks_until_a_slot_frees(weights):
+    """One slot, busy: the finished long prefill parks and lands once the
+    slot frees; exact output."""
+    holder, long_row = [3, 4, 5], list(range(10, 30))
+
+    def script(eng):
+        f1 = eng.submit(holder, 10)
+        f2 = eng.submit(long_row, 3)
+        return [f1.result(timeout=300), f2.result(timeout=300)]
+    jout, pout = _on_both(weights, script, slots=1, prefill_chunk=4,
+                          chunk_steps=2)
+    assert pout == jout == [_solo(weights[1], holder, 10),
+                            _solo(weights[1], long_row, 3)]
+
+
+def test_chunked_prefill_with_the_prefix_pool(weights):
+    """The second sighting of a 40-token prompt stores its 32-token
+    prefix; the third seeds its chunked prefill from the pool and runs
+    exactly 1 chunk (8 tokens) instead of 5."""
+    long_row = list(range(1, 41))
+
+    def script(eng):
+        outs = [eng.submit(long_row, 4).result(timeout=300)
+                for _ in range(2)]
+        before = eng.stats()['prefill_chunks']
+        outs.append(eng.submit(long_row, 4).result(timeout=300))
+        return outs, eng.stats()['prefill_chunks'] - before, _pool_stats(eng)
+    (jout, jd, jst), (pout, pd, pst) = _on_both(
+        weights, script, prefill_chunk=8, prefix_slots=4)
+    assert pout == jout == [_solo(weights[1], long_row, 4)] * 3
+    assert pd == jd == 1
+    assert pst == jst
+    assert (pst['stores'], pst['hits'], pst['hit_tokens']) == (1, 1, 32)
+
+
 # -- options not ported yet -------------------------------------------------------
 
 
 UNPORTED = {
     'paged': dict(kv_layout='paged'),
-    'prefix_pool': dict(prefix_slots=4),
-    'chunked_prefill': dict(prefill_chunk=32),
     'draft': dict(draft_cfg=PORT_CFG),
+    'draft_params': dict(draft_params={}),
     'mesh': dict(mesh=object()),
     'block_sharing': dict(prefix_share=True),
     'kv_tiers': dict(kv_tiers=True),
     'prefill_role': dict(role='prefill'),
+    'decode_role': dict(role='decode'),
 }
 
 

@@ -173,6 +173,46 @@ def test_mm_float32_output_keeps_float32_sums(quantized):
     assert float((got - rounded).abs().max()) > 1e-3  # not on bf16's grid
 
 
+def _bf16_ordinals(bits: np.ndarray) -> np.ndarray:
+    """bf16 bit patterns as integers that step by one per ulp across 0."""
+    i = bits.astype(np.int32)
+    return np.where(i & 0x8000, -(i & 0x7fff), i)
+
+
+# Largest share of bf16 outputs allowed to differ from JAX's at all, by one
+# ulp: float32 sums taken in another order cross a rounding boundary now and
+# then (6e-5 read here at lm_head's spec). A product rounded to bf16 before
+# its scale (rounded twice) differs in about a quarter of them.
+MM_BF16_DIFF_SHARE = 1e-2
+
+
+@pytest.mark.parametrize('spec, x_shape, w_shape, n_contract', [
+    ('bsd,dhk->bshk', (2, 8, 512), (512, 8, 64), 1),   # wq
+    ('bd,dv->bv', (16, 512), (512, 4096), 1),           # lm_head, bf16 out
+    ('bshk,hkd->bsd', (2, 8, 8, 64), (8, 64, 512), 2),  # wo
+], ids=['wq', 'lm_head', 'wo'])
+def test_mm_int8_bf16_rounds_once_like_jax(spec, x_shape, w_shape,
+                                           n_contract):
+    """int8 weights on bf16 activations: JAX scales the float32 sums and
+    rounds once. The port's output is within one bf16 ulp of JAX's, and
+    only a small share of values differs at all."""
+    rng = np.random.default_rng(12)
+    x = jnp.asarray(rng.standard_normal(x_shape), jnp.bfloat16)
+    jw = jax_quant._quantize(  # noqa: SLF001
+        jnp.asarray(rng.standard_normal(w_shape) * 0.05, jnp.float32),
+        n_contract, False)
+    want = np.asarray(jax_quant.mm(x, jw, spec))
+    assert want.dtype == jnp.bfloat16
+    pw = {k: torch.from_numpy(np.array(v)) for k, v in jw.items()}
+    px = torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
+    got = port_quant.mm(px, pw, spec)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    ulps = np.abs(_bf16_ordinals(got.view(torch.int16).numpy().view(np.uint16))
+                  - _bf16_ordinals(want.view(np.uint16)))
+    assert ulps.max() <= 1
+    assert (ulps > 0).mean() <= MM_BF16_DIFF_SHARE
+
+
 # -- sampling -------------------------------------------------------------------
 
 

@@ -231,10 +231,9 @@ def test_drain_turns_health_503_then_shuts_down():
 REFUSED = {  # name -> (LlmServer kwargs, env, exception, message)
     'paged': (dict(kv_layout='paged'), {}, NotImplementedError,
               'not ported yet'),
-    'prefix_pool': (dict(prefix_cache=4), {}, NotImplementedError,
-                    'not ported yet'),
-    'chunked_prefill': ({}, {'SKYTPU_LLM_PREFILL_CHUNK': '64'},
-                        NotImplementedError, 'not ported yet'),
+    'paged_env': ({}, {'SKYTPU_LLM_KV_LAYOUT': 'paged'}, NotImplementedError,
+                  'not ported yet'),
+    'kv_layout_typo': (dict(kv_layout='dense'), {}, ValueError, 'kv_layout'),
     'draft': (dict(draft_model='bench-draft'), {}, NotImplementedError,
               'not ported yet'),
     'engine_typo': (dict(engine='turbo'), {}, ValueError, 'Unknown engine'),
@@ -262,6 +261,82 @@ def test_unported_engines_and_bad_knobs_are_refused(name, monkeypatch):
 def test_cli_refuses_an_unknown_engine():
     with pytest.raises(ValueError, match='Unknown engine'):
         port_srv.main(['--model', 'tiny', '--engine', 'continuous-ish'])
+
+
+def test_cli_refuses_the_paged_layout():
+    with pytest.raises(NotImplementedError, match='not ported yet'):
+        port_srv.main(['--model', 'tiny', '--kv-layout', 'paged'])
+
+
+# The serve-llama recipe (examples/llm/serve-llama/serve.yaml) on TINY.
+RECIPE_ARGV = ['--model', 'tiny', '--max-len', '64', '--quantize', 'int8',
+               '--kv-cache', 'int8', '--prefix-cache', '8', '--pipeline',
+               'off', '--kv-layout', 'slot']
+
+
+@pytest.mark.parametrize('argv, env', [
+    (RECIPE_ARGV, {}),
+    (RECIPE_ARGV[:8], {'SKYTPU_LLM_PREFIX_CACHE': '5',
+                       'SKYTPU_LLM_PREFILL_CHUNK': '32',
+                       'SKYTPU_LLM_PIPELINE': '0'}),
+], ids=['flags', 'env'])
+def test_recipe_argv_builds_the_jax_replicas_engine(argv, env, monkeypatch):
+    """The recipe's command line (with ``--model tiny``) parses in both
+    replicas' argparse and builds an engine with the same options; the
+    environment fills what the flags leave out, as in the JAX replica."""
+    from skypilot_tpu.serve import llm_server as jax_srv
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    jserver = jax_srv.server_from_args(jax_srv.build_parser().parse_args(argv))
+    pserver = port_srv.server_from_args(
+        port_srv.build_parser().parse_args(argv), device='cpu')
+    try:
+        for attr in ('max_len', 'quantize', 'kv_cache'):
+            assert getattr(pserver, attr) == getattr(jserver, attr), attr
+        for attr in ('slots', 'max_len', 'chunk_steps', 'prefill_batch',
+                     'kv_quantize', 'kv_layout', 'prefix_slots',
+                     'prefill_chunk', 'pipeline_depth'):
+            assert (getattr(pserver.engine, attr)
+                    == getattr(jserver.engine, attr)), attr
+        assert pserver.engine.prefix_slots == (8 if '--prefix-cache' in argv
+                                               else 5)
+        assert pserver.engine.pipeline_depth == 0
+        assert pserver.engine._prefix_pool.k.dtype == torch.int8  # noqa: SLF001
+        assert port_srv.quant_lib.is_quantized(pserver.params['lm_head'])
+    finally:
+        jserver.engine.stop()
+        pserver.stop()
+
+
+def test_recipe_argv_runs_through_main(monkeypatch):
+    """``main`` with the recipe's command line builds the replica, binds
+    the flags' host and port, installs the drain handlers and serves;
+    the HTTP server is a stub whose ``serve_forever`` returns at once."""
+    calls = {}
+
+    class _Httpd:
+        def serve_forever(self):
+            calls['served'] = True
+
+        def server_close(self):
+            calls['closed'] = True
+
+    def make_httpd(server, host, port):
+        calls['server'], calls['bind'] = server, (host, port)
+        return _Httpd()
+
+    handlers = {}
+    monkeypatch.setattr(port_srv.LlmServer, 'make_httpd', make_httpd)
+    monkeypatch.setattr(port_srv.signal, 'signal',
+                        lambda sig, fn: handlers.__setitem__(sig, fn))
+    port_srv.main(RECIPE_ARGV + ['--host', '127.0.0.1', '--port', '0'],
+                  device='cpu')
+    assert calls['bind'] == ('127.0.0.1', 0)
+    assert calls['served'] and calls['closed']
+    assert set(handlers) == {port_srv.signal.SIGTERM, port_srv.signal.SIGINT}
+    server = calls['server']
+    assert server.engine.prefix_slots == 8
+    assert server.engine.kv_quantize
 
 
 def test_int8_replica_serves():
@@ -382,6 +457,35 @@ def test_health_engine_stats_are_a_subset_of_jax(replica, jax_replica):
     assert set(got) <= set(want)
     assert set(got['pipeline']) <= set(want['pipeline'])
     assert got['slots'] == want['slots'] and got['kv_layout'] == 'slot'
+    for key in ('prefix_cache', 'prefill_chunk', 'prefill_chunks',
+                'prefilling', 'prefill_tokens_saved'):
+        assert key in got, key
+    assert set(got['prefix_cache']) == set(want['prefix_cache'])
+
+
+def test_prefix_pool_over_http_shows_in_health():
+    """A replica with ``prefix_cache=4``: the third sighting of a prompt
+    hits the pool (in ``/health``) and answers what ``generate`` does."""
+    server = port_srv.LlmServer('tiny', max_len=MAX_LEN, prefix_cache=4,
+                                device='cpu')
+    httpd, thread, url = _serve(server)
+    try:
+        row = list(range(1, 25))
+        want = _solo(server, [row], 5)
+        for _ in range(3):
+            assert _post(url, {'tokens': [row], 'max_new_tokens': 5}) == \
+                (200, {'tokens': want})
+        engine = _get(url, '/health')[1]['engine']
+        assert engine['prefix_cache'] == {'slots': 4, 'entries': 1,
+                                          'hits': 1, 'hit_tokens': 16,
+                                          'stores': 1}
+        assert engine['prefill_tokens_saved'] == 16
+        assert engine['prefill_tokens'] == 3 * 24 - 16
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.stop()
+        thread.join(10)
 
 
 def test_engine_off_serves_the_window_path():
