@@ -33,16 +33,19 @@ Phases (any failure exits non-zero):
    S=1000 and S=65, D=64 with group 4, fp32 inputs (the CUDA-core
    bodies; bf16 runs the tensor-core ones), and the edges of the 128-row
    tiles of K1 and K3 (S=4032, a multiple of 64 but not of 128; S=129;
-   S=1; D=64 with group 2 at S=4096). Absolute tolerances: bf16 o 2e-2,
+   S=1; D=64 with group 2 at S=4096), and the llama-finetune recipe's
+   shape (llama3-1b: B=8, Hq 32, Hkv 8, D 64, S=2048). Absolute
+   tolerances: bf16 o 2e-2,
    grads 5e-2; fp32 1e-4 and 1e-3 (lse always 1e-3). Those are near the
    size of a bf16 value at S=4096, so each of o, dq, dk, dv is also held
    to a relative limit on every tile of 64 rows along S:
    ||got - want|| / ||want|| over the tile (REL_TOL). Prints kernel,
    plain, library (SDPA forward for K1, SDPA's backward for K2+K3
-   together) and bound ms for the training shape, with TFLOP/s and the
-   share of the bound. Fails unless every instance of the wgmma bodies of
-   K1, K2 and K3 (12: D 64/128, causal or not) shows HGMMA and UTMALDG in
-   the library's SASS and ptxas reports 0 spill bytes for it.
+   together) and bound ms for both training shapes (train-s4096's and
+   llama-finetune's), with TFLOP/s and the share of the bound. Fails
+   unless every instance of the wgmma bodies of K1, K2 and K3 (12: D
+   64/128, causal or not) shows HGMMA and UTMALDG in the library's SASS
+   and ptxas reports 0 spill bytes for it.
 4. Serving end to end on a small model (head_dim 64, float32): prefill
    and decode logits on the card (through K4) against the CPU; then the
    continuous engine (4 slots, max_len 48, 7 requests, full and int8 KV)
@@ -94,10 +97,28 @@ Phases (any failure exits non-zero):
    SKYTPU_LLM_PREFILL_CHUNK=256: a 1,500-token prompt arrives while 15
    short requests decode; >= 6 prefill chunks, decode chunks run
    meanwhile, its greedy answer under the gap rule.
-10. Summary: one JSON line of kernels (K4's launches are phase 8's, and
+10. The llama-finetune recipe (``examples/llama_finetune.yaml``):
+   ``train.run.main`` with llama3-1b, global batch 8, seq 2048, Adafactor,
+   remat 'full', checkpoints under ``_ckpt_smoke/`` (removed at the end),
+   telemetry to a spool read back with ``read_records``. A: 4 steps,
+   async saves at 2 and 4. B: the same dir to 6 steps; it must print
+   ``resumed from checkpoint step 4``. C: 6 steps in a fresh dir with
+   ``--ckpt-sync``, saves at 3 and 6. A's losses must equal C's first four,
+   B's C's last two, and B's final state C's, bit for bit; K1/K2/K3
+   launches over A, B and C = 2 x 16 / 16 / 16 per step. Then the recipe
+   in a subprocess (``--steps 10 --save-every 3``, with
+   ``--ckpt-local-dir``) gets SIGTERM after its line ``step 4/10``: exit
+   143 with step 3 or later durable; a relaunch with ``--steps 5`` must
+   print the resumed line and exit 0. Every committed step passes
+   ``verify_step(deep=True)``. Prints step ms, tokens/s, MFU, peak device
+   memory, snapshot bytes, the stall of each async and sync save, persist,
+   restore and emergency-persist seconds.
+11. Summary: the card's name and power limit again, one JSON line of
+   kernels (K1-K3's launches are phases 6 and 10, K4's phase 8's, and
    phase 9's for the int8 cache, each path's count in
-   ``launches_by_path``; its times are the engine-shape case of phase 2,
-   named in ``timed_at``), then the last line
+   ``launches_by_path``; K4's times are the engine-shape case of phase 2,
+   K1-K3's the train-s4096 shape, each named in ``timed_at``, with the
+   llama-finetune shape under ``by_shape``), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits with an error, printing no result, when CUDA is absent or when
@@ -111,6 +132,8 @@ import json
 import math
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -140,6 +163,8 @@ MODES = {'bf16': ('skypilot_tpu/ops/decode_attention.py:147', False),
 CSRC = 'skypilot_tpu_torch/csrc/'
 ENGINE_CASE = 'engine B=16 M=1024'  # K4 at the engine's shape
 LLAMA_CASE = 'llama3-1b B=16 M=2048 D=64'  # K4 at the serve-llama recipe's
+TRAIN_CASE = 'train B=2 S=4096'  # K1-K3 at train-s4096 (BENCH_1B)
+FINETUNE_CASE = 'llama3-1b B=8 S=2048'  # K1-K3 at llama-finetune's shape
 # The int8 ``mm`` on the card against the CPU's. Float32 sums taken in
 # another order differ by up to ~1e-6 of the output's scale: that moves a
 # rounded bf16 output across a rounding boundary now and then (one ulp),
@@ -410,7 +435,7 @@ def attention_phase(fa):
     gen.manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # (label, b, hq, hkv, s, d, dtype, causal)
-        ('train B=2 S=4096', 2, 16, 8, 4096, 128, bf16, True),
+        (TRAIN_CASE, 2, 16, 8, 4096, 128, bf16, True),
         ('B=1 S=4096', 1, 16, 8, 4096, 128, bf16, True),
         ('full S=2048', 1, 16, 8, 2048, 128, bf16, False),
         ('ragged S=1000', 1, 16, 8, 1000, 128, bf16, True),
@@ -422,9 +447,10 @@ def attention_phase(fa):
         ('S=129', 1, 16, 8, 129, 128, bf16, True),
         ('S=1', 1, 16, 8, 1, 128, bf16, True),
         ('D=64 G=2 S=4096', 1, 16, 8, 4096, 64, bf16, True),
+        (FINETUNE_CASE, 8, 32, 8, 2048, 64, bf16, True),
     ]
     worst = {name: 0.0 for name in FLASH}
-    head = {}
+    timed = {TRAIN_CASE: {}, FINETUNE_CASE: {}}
     for label, b, hq, hkv, s, d, dtype, causal in cases:
         q, k, v, do = _attn_case(gen, b, hq, hkv, s, d, dtype)
         o, lse = fa.flash_fwd(q, k, v, causal)
@@ -471,10 +497,11 @@ def attention_phase(fa):
               + ' '.join(f'{k}_err={v:.3g}' for k, v in errs.items())
               + ' ' + ' '.join(f'{k}_tile_rel={v:.3g}'
                                for k, v in rels.items()), flush=True)
-        if head:
+        if label not in timed:
             continue
-        # The training shape: time each kernel, its plain version, the
+        # The training shapes: time each kernel, its plain version, the
         # library call and the bound.
+        head = timed[label]
         calls = {
             'flash_fwd': (lambda: fa.flash_fwd(q, k, v, causal),
                           lambda: fa.flash_fwd_reference(q, k, v, causal),
@@ -510,7 +537,9 @@ def attention_phase(fa):
               f'{_attn_flops(q, causal, 5) / sdpa["bwd"] / 1e9:.1f} TFLOP/s',
               flush=True)
         del calls
-    return {name: dict(head[name], max_abs_err=worst[name])
+    return {name: dict(timed[TRAIN_CASE][name], max_abs_err=worst[name],
+                       timed_at=TRAIN_CASE,
+                       by_shape={FINETUNE_CASE: timed[FINETUNE_CASE][name]})
             for name in FLASH}
 
 
@@ -1308,6 +1337,242 @@ def recipe_phase(srv_lib, gen_lib, da):
     return figs[8]['launches'] + figs[0]['launches'] + chunked['launches']
 
 
+# -- phase 10: the llama-finetune recipe --------------------------------------
+
+# examples/llama_finetune.yaml's command line on the port (llama3-1b, global
+# batch 8, seq 2048, Adafactor, remat 'full' by default); its --steps 2000
+# and --save-every 50 are cut per call below.
+FINETUNE_ARGV = ['--model', 'llama3-1b', '--global-batch-size', '8',
+                 '--seq-len', '2048', '--log-every', '1']
+CKPT_DIR = '_ckpt_smoke'  # under the checkout; removed when phase 10 ends
+
+
+class _Tee:
+    """Echo stdout and keep what was written."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _recipe_main(train_run, argv):
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = train_run.main(FINETUNE_ARGV + argv)
+    return out, ''.join(tee.parts)
+
+
+def _same_state(a, b):
+    """Leaves not bit-equal between two train states, and each state's
+    checksum (float64 sum over every leaf)."""
+    from skypilot_tpu_torch.ckpt import snapshot
+    la, _ = snapshot.flatten_named(a)
+    lb, _ = snapshot.flatten_named(b)
+    if [x.name for x in la] != [x.name for x in lb]:
+        raise AssertionError('train states of different layouts')
+    differ = [x.name for x, y in zip(la, lb)
+              if not (torch.equal(x.value, y.value)
+                      if isinstance(x.value, torch.Tensor)
+                      else x.value == y.value)]
+
+    def checksum(leaves):
+        return sum(float(x.value.detach().double().sum())
+                   if isinstance(x.value, torch.Tensor)
+                   else float(x.value or 0) for x in leaves)
+    return differ, checksum(la), checksum(lb)
+
+
+def _ckpt_records(spool, op):
+    from skypilot_tpu_torch.observability import train_telemetry
+    return [r for r in train_telemetry.read_records(spool)
+            if r.get('kind') == 'ckpt' and r['op'] == op]
+
+
+def _windows(spool):
+    from skypilot_tpu_torch.observability import train_telemetry
+    return [(r['step'], r['step_time_s'] * 1e3, r['tokens_per_s'],
+             r.get('mfu')) for r in train_telemetry.read_records(spool)
+            if 'kind' not in r]
+
+
+def _preempt_and_relaunch(manifest, root, env):
+    """The recipe in a subprocess, SIGTERM after the line 'step 4/10',
+    then a relaunch to 5 steps. Returns the newest committed step after
+    the exit, what the SIGTERM handler reported (durable step or None,
+    seconds), and the seconds from SIGTERM to exit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(env, PYTHONPATH=here)
+    bucket = os.path.join(root, 'd3')
+    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.train.run',
+           *FINETUNE_ARGV, '--save-every', '3', '--ckpt-dir', bucket,
+           '--ckpt-local-dir', os.path.join(root, 'd3_local')]
+    proc = subprocess.Popen(cmd + ['--steps', '10'], cwd=here, env=env,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    watchdog = threading.Timer(420, proc.kill)
+    watchdog.start()
+    lines, sent = [], None
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            print('    | ' + line.rstrip(), flush=True)
+            if sent is None and '[train] step 4/10' in line:
+                proc.send_signal(signal.SIGTERM)
+                sent = time.perf_counter()
+        rc = proc.wait(timeout=60)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+    exit_s = time.perf_counter() - sent if sent else None
+    if sent is None or rc != 143:
+        raise AssertionError(f'preempted recipe: exit {rc} (want 143), '
+                             f'SIGTERM sent: {sent is not None}')
+    m = re.search(r'emergency persist returned step (\w+) in ([\d.]+) s',
+                  ''.join(lines))
+    if m is None:
+        raise AssertionError('preempted recipe: no line from the SIGTERM '
+                             'handler')
+    committed = manifest.committed_steps(bucket)
+    if not committed or committed[-1][0] < 3:
+        raise AssertionError(f'preempted recipe: newest committed step in '
+                             f'{bucket} is {committed}, want 3 or later')
+    durable = committed[-1][0]
+    relaunch = subprocess.run(cmd + ['--steps', '5'], cwd=here, env=env,
+                              capture_output=True, text=True, timeout=420,
+                              check=False)
+    for line in relaunch.stdout.splitlines():
+        print('    | ' + line, flush=True)
+    if relaunch.returncode != 0 or \
+            f'[train] resumed from checkpoint step {durable}' \
+            not in relaunch.stdout:
+        raise AssertionError(f'relaunch: exit {relaunch.returncode}, '
+                             f'stderr {relaunch.stderr[-2000:]}')
+    return durable, (m.group(1), float(m.group(2))), exit_s
+
+
+def finetune_phase(llama, fa, train_run, manifest):
+    """The llama-finetune recipe through train.run with checkpoints: A
+    trains 4 steps saving at 2 and 4 (async); B resumes to 6; C runs 6
+    uninterrupted with --ckpt-sync, saving at 3 and 6. B's losses and
+    final state must equal C's bit for bit, A's losses C's first four.
+    Then the recipe in a subprocess is preempted and relaunched, and
+    every committed step passes a deep verify. Returns K1-K3's launches
+    over A, B and C."""
+    root = os.path.abspath(CKPT_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    spool = os.path.join(root, 'telemetry')
+    saved_env = {k: os.environ.get(k) for k in
+                 ('SKYTPU_TRAIN_TELEMETRY_DIR', 'SKYTPU_PEAK_FLOPS')}
+    os.environ.update(SKYTPU_TRAIN_TELEMETRY_DIR=spool,
+                      SKYTPU_PEAK_FLOPS=str(H100_BF16_DENSE_FLOPS))
+    d1, d2 = os.path.join(root, 'd1'), os.path.join(root, 'd2')
+    try:
+        for counter in ('fwd_launches', 'bwd_dq_launches',
+                        'bwd_dkv_launches'):
+            setattr(fa.flash_attention, counter, 0)
+        torch.cuda.reset_peak_memory_stats()
+        a, _ = _recipe_main(train_run, ['--steps', '4', '--save-every', '2',
+                                        '--ckpt-dir', d1])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        a_losses = a['losses']
+        del a
+        b, text = _recipe_main(train_run, ['--steps', '6', '--save-every',
+                                           '2', '--ckpt-dir', d1])
+        if '[train] resumed from checkpoint step 4' not in text:
+            raise AssertionError('call B did not resume from step 4')
+        c, _ = _recipe_main(train_run, ['--steps', '6', '--save-every', '3',
+                                        '--ckpt-sync', '--ckpt-dir', d2])
+        launches = {name: getattr(fa.flash_attention, counter)
+                    for name, (_, counter, _) in FLASH.items()}
+        model = FINETUNE_ARGV[FINETUNE_ARGV.index('--model') + 1]
+        layers, steps = llama.PRESETS[model].n_layers, 4 + 2 + 6
+        expected = {'flash_fwd': 2 * layers * steps,
+                    'flash_bwd_dq': layers * steps,
+                    'flash_bwd_dkv': layers * steps}
+        if launches != expected:
+            raise AssertionError(f'finetune launches {launches}, expected '
+                                 f'{expected}')
+        if a_losses != c['losses'][:4] or b['losses'] != c['losses'][4:]:
+            raise AssertionError(f'losses: A {a_losses}, B {b["losses"]}, '
+                                 f'C {c["losses"]}')
+        if not all(math.isfinite(x) for x in c['losses']):
+            raise AssertionError(f'losses {c["losses"]}')
+        differ, sum_b, sum_c = _same_state(b['state'], c['state'])
+        if differ:
+            raise AssertionError(f'resumed state differs from the '
+                                 f'uninterrupted one in {differ[:8]}')
+        b_losses = b['losses']
+        del b, c
+        torch.cuda.empty_cache()
+        print(f'  A/B/C: losses {a_losses} + resumed at 4 {b_losses} '
+              f'equal C bit for bit; state '
+              f'checksum {sum_b!r} = {sum_c!r}; peak device memory '
+              f'{peak:.2f} GiB; launches {launches} = expected', flush=True)
+        for step, ms, tok_s, mfu in _windows(spool):
+            print(f'    window step {step}: {ms:.1f} ms, {tok_s:.0f} '
+                  f'tokens/s, mfu {mfu}', flush=True)
+        for rec in _ckpt_records(spool, 'save'):
+            print(f'    save step {rec["step"]}: async {rec["async"]}, '
+                  f'{rec["nbytes"]} bytes, stall {rec["stall_s"]} s, '
+                  f'persist {rec["seconds"]} s', flush=True)
+        for rec in _ckpt_records(spool, 'restore'):
+            print(f'    restore step {rec["step"]} ({rec["source"]}): '
+                  f'{rec["seconds"]} s', flush=True)
+        verified = _verify_all(manifest, (d1, d2))
+        shutil.rmtree(d1)
+        shutil.rmtree(d2)
+        _phase('  preempt and relaunch')
+        sub_spool = os.path.join(root, 'telemetry_sub')
+        durable, handler, exit_s = _preempt_and_relaunch(
+            manifest, root,
+            dict(os.environ, SKYTPU_TRAIN_TELEMETRY_DIR=sub_spool))
+        for rec in _ckpt_records(sub_spool, 'save'):
+            print(f'    subprocess save step {rec["step"]}: stall '
+                  f'{rec["stall_s"]} s, persist and mirror '
+                  f'{rec["seconds"]} s', flush=True)
+        restores = _ckpt_records(sub_spool, 'restore')
+        verified += _verify_all(manifest, (os.path.join(root, 'd3'),
+                                           os.path.join(root, 'd3_local')))
+        print(f'  preempted after step 4: exit 143, step {durable} '
+              f'committed; the handler\'s emergency persist returned step '
+              f'{handler[0]} in {handler[1]} s; SIGTERM to exit '
+              f'{exit_s:.3f} s; relaunch resumed at {durable} (restore '
+              f'{[(r["step"], r["source"], r["seconds"]) for r in restores]}'
+              f'); {verified} committed steps pass verify_step(deep=True)',
+              flush=True)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def _verify_all(manifest, roots):
+    n = 0
+    for root in roots:
+        for step, path in manifest.committed_steps(root):
+            t0 = time.perf_counter()
+            report = manifest.verify_step(path, deep=True)
+            if not report['ok']:
+                raise AssertionError(f'verify_step {path}: '
+                                     f'{report["errors"]}')
+            print(f'    verify_step(deep=True) {path}: ok, '
+                  f'{report["nbytes"]} bytes in '
+                  f'{time.perf_counter() - t0:.2f} s', flush=True)
+            n += 1
+    return n
+
+
 def _build_all(libs):
     """One nvcc per kernel library, all started together; prints each
     kernel's registers, any spills, and any wgmma the compiler had to
@@ -1328,6 +1593,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 2
+    from skypilot_tpu_torch.ckpt import manifest as ckpt_manifest
     from skypilot_tpu_torch.models import engine as engine_lib
     from skypilot_tpu_torch.models import generate as gen_lib
     from skypilot_tpu_torch.models import llama
@@ -1382,18 +1648,26 @@ def main() -> int:
                for mode, n in launches.items()}
     by_path['int8']['phase 9 serve-llama'] = recipe_phase(srv_lib, gen_lib,
                                                           da)
+    _phase('phase 10: the llama-finetune recipe (llama3-1b, batch 8, seq '
+           '2048) through train.run: save, resume, preempt')
+    finetune_launches = finetune_phase(llama, fa, train_run, ckpt_manifest)
+
     for mode in MODES:
         row = kernels[mode]['llama']
         print(f'  flash_decode[{mode} cache] at {LLAMA_CASE}: ms {row["ms"]}'
               f' plain_ms {row["plain_ms"]} library_ms {row["library_ms"]}'
               f' bound_ms {row["bound_ms"]} ({row["bound_by"]})', flush=True)
 
+    _phase('phase 11: summary')
+    print(_card(), flush=True)  # again here, where the output's tail has it
     entries = []
     for name, (replaces, _, source) in FLASH.items():
+        paths = {'phase 6 train-s4096': train_launches[name],
+                 'phase 10 llama-finetune': finetune_launches[name]}
         entries.append({
             'name': name, 'route': 'cuda', 'source': source,
-            'replaces': replaces, 'launches': train_launches[name],
-            **flash[name]})
+            'replaces': replaces, 'launches': sum(paths.values()),
+            'launches_by_path': paths, **flash[name]})
     for mode, (replaces, _) in MODES.items():
         head = kernels[mode]['head']  # the engine's B=16 M=1024, bf16
         entries.append({

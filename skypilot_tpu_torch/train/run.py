@@ -6,19 +6,32 @@ seq 4096 on one H100:
     python -m skypilot_tpu_torch.train.run --model bench-1b --seq-len 4096 \\
         --global-batch-size 2 --steps 20 --log-every 5
 
-It takes the original's model, batch, optimizer, data and remat flags,
-plus ``--warmup-steps`` and ``--device`` (CUDA unless ``cpu``).
-Checkpointing (``--ckpt-*``), meshes (``--mesh``, ``--num-slices``) and
-LoRA (``--lora-rank``) are not ported yet: they exit with code 2. Every
-``--log-every`` steps it prints ``[train] step i/N loss=...`` as the
-original does, with the window's step ms, tokens/s, and model FLOP/s as a
-share of the card's dense bf16 peak (989 TFLOP/s, an H100 SXM at 700 W)
-beside the card's name. ``main`` returns the per-step losses and the final
-state, so a script can drive it in-process.
+or the repo's flagship recipe (``examples/llama_finetune.yaml``), which
+resumes from the newest durable step when it is relaunched:
+
+    python -m skypilot_tpu_torch.train.run --model llama3-1b --steps 2000 \\
+        --global-batch-size 8 --seq-len 2048 --ckpt-dir /ckpt --save-every 50
+
+It takes the original's model, batch, optimizer, data, remat and
+checkpoint flags (``--ckpt-dir``, ``--ckpt-local-dir``, ``--ckpt-sync``,
+``--save-every``, ``--step-time-floor``), plus ``--warmup-steps`` and
+``--device`` (CUDA unless ``cpu``). Checkpoints are the JAX package's
+format (``ckpt/``), so a run of either package resumes from the other's.
+On SIGTERM it persists the freshest snapshot and exits 143. Meshes
+(``--mesh``, ``--num-slices``) and LoRA (``--lora-rank``) are not ported
+yet: they exit with code 2. Every ``--log-every`` steps it prints
+``[train] step i/N loss=...`` as the original does, with the window's
+step ms, tokens/s, and model FLOP/s as a share of the card's dense bf16
+peak (989 TFLOP/s, an H100 SXM at 700 W) beside the card's name, and
+appends a window record to the telemetry spool when
+``SKYTPU_TRAIN_TELEMETRY_DIR`` is set. ``main`` returns the losses of the
+steps it ran and the final state, so a script can drive it in-process.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import signal
 import time
 from typing import Any, Dict, List, Optional
 
@@ -26,8 +39,27 @@ import torch
 
 from skypilot_tpu_torch.utils.device import H100_BF16_DENSE_FLOPS
 
-_NOT_PORTED = ('ckpt_dir', 'ckpt_local_dir', 'ckpt_sync', 'mesh',
-               'num_slices', 'lora_rank')
+_NOT_PORTED = ('mesh', 'num_slices', 'lora_rank')
+
+
+def make_sigterm_handler(mgr):
+    """The preemption SIGTERM handler: emergency-persist FIRST (the
+    checkpoint write races the SIGKILL escalation deadline), then exit
+    143, after one line on stderr with the durable step and the seconds
+    the persist took. The JAX handler dumps a flight-recorder bundle
+    between the two; the port has no flight recorder yet."""
+
+    def _on_sigterm(signum, frame):
+        del signum, frame
+        t0 = time.perf_counter()
+        step = mgr.emergency_persist()
+        # os.write, not print: the signal may land inside a print of the
+        # step loop, and a buffered stream refuses a reentrant write.
+        os.write(2, f'[train] SIGTERM: emergency persist returned step '
+                    f'{step} in {time.perf_counter() - t0:.3f} s\n'.encode())
+        raise SystemExit(143)
+
+    return _on_sigterm
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,18 +81,29 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--data', default=None,
                         help='pretokenized token file (train/data.py '
                              'TokenDataset); synthetic stream when unset')
+    parser.add_argument('--ckpt-dir', default=None,
+                        help='checkpoint dir (mounted bucket for recovery)')
+    parser.add_argument('--ckpt-local-dir', default=None,
+                        help='fast local staging dir: saves commit here '
+                             'and mirror to --ckpt-dir in the background '
+                             '(restore prefers local, falls back to the '
+                             'bucket)')
+    parser.add_argument('--ckpt-sync', action='store_true',
+                        help='persist synchronously (stalls the step '
+                             'loop for the full write; default is async '
+                             '— the loop waits only to issue the '
+                             'device->host copies)')
+    parser.add_argument('--save-every', type=int, default=20)
+    parser.add_argument('--log-every', type=int, default=10)
+    parser.add_argument('--step-time-floor', type=float, default=0.0,
+                        help='min seconds per step (tests use it to make '
+                             'preemption windows deterministic)')
     parser.add_argument('--remat-policy', default='full',
                         help='remat policy (models/llama.py '
                              'REMAT_POLICIES)')
-    parser.add_argument('--log-every', type=int, default=10)
     parser.add_argument('--device', default=None,
                         help="'cpu' to run without a card; CUDA otherwise")
     # Flags of the JAX entry point that the port does not run yet.
-    parser.add_argument('--ckpt-dir', default=None, help='not ported yet')
-    parser.add_argument('--ckpt-local-dir', default=None,
-                        help='not ported yet')
-    parser.add_argument('--ckpt-sync', action='store_true',
-                        help='not ported yet')
     parser.add_argument('--mesh', default=None, help='not ported yet')
     parser.add_argument('--num-slices', type=int, default=None,
                         help='not ported yet')
@@ -76,9 +119,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         if getattr(args, name):
             parser.exit(2, f'--{name.replace("_", "-")} is not ported yet '
                            '(skypilot_tpu_torch trains on one device, '
-                           'without checkpoints or LoRA)\n')
+                           'without LoRA)\n')
 
     from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.observability import train_telemetry
     from skypilot_tpu_torch.ops import attention
     from skypilot_tpu_torch.train import data as data_lib
     from skypilot_tpu_torch.train import trainer as trainer_lib
@@ -103,45 +147,91 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
           f'params) seq {cfg.seq_len} batch {cfg.global_batch_size} '
           f'{cfg.optimizer} remat {cfg.remat_policy} on {card}', flush=True)
 
+    # Created before the checkpoint manager so restore/save records ride
+    # the same spool as the loss windows; None unless the spool dir env
+    # var is set (the gang driver exports it per worker).
+    telem = train_telemetry.TelemetryWriter.from_env()
+    mgr, start_step, prev_handler = None, 0, None
+    if args.ckpt_dir:
+        from skypilot_tpu_torch.train import checkpoint as ckpt_lib
+        mgr = ckpt_lib.CheckpointManager(
+            args.ckpt_dir, save_interval_steps=args.save_every,
+            async_save=not args.ckpt_sync,
+            local_dir=args.ckpt_local_dir, telemetry=telem)
+        restored = mgr.restore_latest(state)
+        if restored is not None:
+            state = restored
+            start_step = state['step']
+            print(f'[train] resumed from checkpoint step {start_step}',
+                  flush=True)
+        # Preemption hook: the agent driver's cancel path SIGTERMs the
+        # gang (then escalates after a grace window) — persist the
+        # freshest host-side snapshot before dying.
+        prev_handler = signal.signal(signal.SIGTERM,
+                                     make_sigterm_handler(mgr))
+
     dataset = None
     if args.data:
+        # batch(step) is pure in step: resume replays the exact data
+        # trajectory the checkpoint was trained on.
         dataset = data_lib.TokenDataset(args.data, seq_len=cfg.seq_len,
                                         batch_size=cfg.global_batch_size)
     flops = trainer_lib.model_flops_per_step(cfg)
     tokens = trainer_lib.tokens_per_step(cfg)
     losses: List[torch.Tensor] = []
     windows: List[float] = []
-    window_t0, window_steps = time.perf_counter(), 0
-    for i in range(args.steps):
-        if dataset is not None:
-            batch = dataset.batch(i)
-        else:
-            batch = next(iter(data_lib.synthetic_batches(
-                cfg.global_batch_size, cfg.seq_len, cfg.model.vocab_size,
-                seed=i, num_batches=1)))
-        state, metrics = trainer.step(state, batch)
-        losses.append(metrics['loss'])
-        step, window_steps = i + 1, window_steps + 1
-        if step % args.log_every == 0 or step == args.steps:
-            loss = float(metrics['loss'])  # waits for the step
-            if on_card:
-                torch.cuda.synchronize(dev)
-            now = time.perf_counter()
-            step_s = (now - window_t0) / window_steps
-            windows.append(step_s * 1e3)
-            rate = (f'mfu={trainer_lib.mfu(cfg, step_s):.2%} of '
-                    f'{H100_BF16_DENSE_FLOPS / 1e12:.0f} TFLOP/s bf16 dense '
-                    'peak'
-                    if on_card else 'mfu=not measured')
-            print(f'[train] step {step}/{args.steps} loss={loss:.4f} '
-                  f'step_ms={step_s * 1e3:.1f} '
-                  f'tokens/s={tokens / step_s:.0f} '
-                  f'model_flops/s={flops / step_s:.3e} {rate} ({card})',
-                  flush=True)
-            window_t0, window_steps = now, 0
+    try:
+        window_t0, window_steps = time.perf_counter(), 0
+        for i in range(start_step, args.steps):
+            if dataset is not None:
+                batch = dataset.batch(i)
+            else:
+                batch = next(iter(data_lib.synthetic_batches(
+                    cfg.global_batch_size, cfg.seq_len,
+                    cfg.model.vocab_size, seed=i, num_batches=1)))
+            t0 = time.perf_counter()
+            state, metrics = trainer.step(state, batch)
+            losses.append(metrics['loss'])
+            step, window_steps = i + 1, window_steps + 1
+            if step % args.log_every == 0 or step == args.steps:
+                loss = float(metrics['loss'])  # waits for the step
+                if on_card:
+                    torch.cuda.synchronize(dev)
+                now = time.perf_counter()
+                step_s = (now - window_t0) / window_steps
+                windows.append(step_s * 1e3)
+                rate = (f'mfu={trainer_lib.mfu(cfg, step_s):.2%} of '
+                        f'{H100_BF16_DENSE_FLOPS / 1e12:.0f} TFLOP/s bf16 '
+                        'dense peak'
+                        if on_card else 'mfu=not measured')
+                print(f'[train] step {step}/{args.steps} loss={loss:.4f} '
+                      f'step_ms={step_s * 1e3:.1f} '
+                      f'tokens/s={tokens / step_s:.0f} '
+                      f'model_flops/s={flops / step_s:.3e} {rate} ({card})',
+                      flush=True)
+                if telem is not None:
+                    telem.emit(train_telemetry.window_record(
+                        step=step, steps=window_steps,
+                        window_s=now - window_t0, tokens_per_step=tokens,
+                        model_flops_per_step=flops, loss=loss,
+                        ts=time.time()))
+                window_t0, window_steps = now, 0
+            if mgr is not None:
+                mgr.save(step, state)
+            dt = time.perf_counter() - t0
+            if args.step_time_floor > dt:
+                time.sleep(args.step_time_floor - dt)
+        if mgr is not None and mgr.latest_step() != args.steps:
+            mgr.save(args.steps, state, force=True)
+    finally:
+        if mgr is not None:
+            mgr.close()  # flushes any in-flight async persist
+            signal.signal(signal.SIGTERM, prev_handler
+                          if prev_handler is not None else signal.SIG_DFL)
     print('[train] done', flush=True)
     return {'losses': torch.stack(losses).tolist() if losses else [],
-            'window_step_ms': windows, 'state': state}
+            'start_step': start_step, 'window_step_ms': windows,
+            'state': state}
 
 
 if __name__ == '__main__':

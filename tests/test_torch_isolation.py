@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of ``skypilot_tpu_torch``
-loads neither JAX nor anything of ``skypilot_tpu``, no source of it (nor
-``chip_smoke.py``) imports either, and its entry points
-refuse to run without CUDA unless asked for the CPU by name."""
+(``ckpt/`` and ``observability/`` included) loads neither JAX nor anything
+of ``skypilot_tpu``, nor ``ml_dtypes`` or ``orbax``, which come with JAX
+and which a CUDA host of the port need not have; no source of it (nor
+``chip_smoke.py``) imports any of them, and its entry points refuse to
+run without CUDA unless asked for the CPU by name."""
 import ast
 import pathlib
 import subprocess
@@ -19,7 +21,8 @@ from skypilot_tpu_torch.utils import device as device_lib
 
 PKG = pathlib.Path(skypilot_tpu_torch.__file__).resolve().parent
 REPO = PKG.parent
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'skypilot_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'skypilot_tpu', 'ml_dtypes',
+             'orbax')
 
 _IMPORT_ALL = r'''
 import importlib, importlib.abc, pkgutil, sys
@@ -46,6 +49,7 @@ for name in names:
 leaked = sorted(m for m in sys.modules if forbidden(m))
 assert not leaked, leaked
 print(len(names), 'modules')
+print(' '.join(names))
 ''' % (FORBIDDEN,)
 
 
@@ -55,6 +59,11 @@ def test_importing_every_module_loads_no_jax_and_no_skypilot_tpu():
                        check=False)
     assert r.returncode == 0, r.stdout + r.stderr
     assert int(r.stdout.split()[0]) >= 10  # every module was imported
+    walked = set(r.stdout.splitlines()[1].split())
+    for sub in ('ckpt.manifest', 'ckpt.committer', 'ckpt.mirror',
+                'ckpt.snapshot', 'ckpt.manager', 'train.checkpoint',
+                'observability.train_telemetry'):
+        assert 'skypilot_tpu_torch.' + sub in walked, sub
 
 
 @pytest.mark.parametrize('path', sorted(
@@ -73,7 +82,7 @@ def test_no_source_file_imports_jax_or_skypilot_tpu(path):
             assert name.split('.')[0] not in FORBIDDEN, (path, name)
 
 
-def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         device_lib.resolve_device()
@@ -86,6 +95,13 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
         trainer_lib.Trainer(cfg)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         train_run.main(['--model', 'tiny', '--steps', '1'])
+    ckpt = str(tmp_path / 'ck')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        train_run.main(['--model', 'tiny', '--steps', '1', '--ckpt-dir',
+                        ckpt])
+    out = train_run.main(['--model', 'tiny', '--steps', '1', '--seq-len',
+                          '16', '--ckpt-dir', ckpt, '--device', 'cpu'])
+    assert out['state']['step'] == 1
     assert trainer_lib.Trainer(cfg, device='cpu').device.type == 'cpu'
     assert device_lib.resolve_device('cpu') == torch.device('cpu')
     assert torch.backends.cuda.matmul.allow_tf32 is False

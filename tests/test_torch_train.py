@@ -14,9 +14,21 @@
   first updates are near lr * sign(g), which magnifies the grads' last
   bits where g is near 0).
 
+* ``train.run`` with checkpoints: 4 steps and a resumed run to 6 give
+  exactly the losses and state of 6 steps without a break; telemetry
+  windows and checkpoint records reach the spool; a run sent SIGTERM exits
+  143 with its freshest snapshot durable, and its relaunch resumes.
+
 Inputs are made with numpy from a seed and handed to both packages.
 """
 import dataclasses
+import os
+import pathlib
+import re
+import signal
+import subprocess
+import sys
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +40,10 @@ import torch
 from skypilot_tpu.models import llama as jax_llama
 from skypilot_tpu.train import data as jax_data
 from skypilot_tpu.train import trainer as jax_trainer
+from skypilot_tpu_torch.ckpt import manifest as ckpt_manifest
+from skypilot_tpu_torch.ckpt import snapshot as ckpt_snapshot
 from skypilot_tpu_torch.models import llama as port_llama
+from skypilot_tpu_torch.observability import train_telemetry
 from skypilot_tpu_torch.train import data as port_data
 from skypilot_tpu_torch.train import optim as port_optim
 from skypilot_tpu_torch.train import run as port_run
@@ -365,11 +380,122 @@ def test_run_main_trains_on_cpu(capsys):
     assert out['state']['step'] == 3
 
 
-@pytest.mark.parametrize('flag', [['--ckpt-dir', '/tmp/x'], ['--mesh',
-                                  'fsdp=-1'], ['--num-slices', '2'],
-                                  ['--lora-rank', '8'], ['--ckpt-sync']])
+@pytest.mark.parametrize('flag', [['--mesh', 'fsdp=-1'],
+                                  ['--num-slices', '2'],
+                                  ['--lora-rank', '8']])
 def test_run_main_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         port_run.main(['--device', 'cpu'] + flag)
     assert exc.value.code == 2
     assert 'not ported yet' in capsys.readouterr().err
+
+
+# -- train.run with checkpoints ------------------------------------------------
+
+_RUN = ['--model', 'tiny', '--seq-len', '32', '--warmup-steps', '1',
+        '--log-every', '1', '--device', 'cpu']
+
+
+def _state_leaves(state):
+    return ckpt_snapshot.flatten_named(state)[0]
+
+
+@pytest.mark.parametrize('optimizer', ['adafactor', 'adamw'])
+def test_run_resumes_to_the_uninterrupted_run(tmp_path, capsys, optimizer):
+    """4 steps saving at 2 and 4 (async), then a relaunch to 6: exactly
+    the losses and state of 6 steps without a break (the port's
+    counterpart of test_checkpoint_save_restore_resume)."""
+    run = _RUN + ['--optimizer', optimizer]
+    d1, d2 = str(tmp_path / 'd1'), str(tmp_path / 'd2')
+    a = port_run.main(run + ['--steps', '4', '--save-every', '2',
+                             '--ckpt-dir', d1])
+    b = port_run.main(run + ['--steps', '6', '--save-every', '2',
+                             '--ckpt-dir', d1])
+    assert '[train] resumed from checkpoint step 4' in capsys.readouterr().out
+    c = port_run.main(run + ['--steps', '6', '--save-every', '3',
+                             '--ckpt-dir', d2, '--ckpt-sync'])
+    assert a['start_step'] == 0 and b['start_step'] == 4
+    assert a['losses'] == c['losses'][:4] and b['losses'] == c['losses'][4:]
+    for x, y in zip(_state_leaves(b['state']), _state_leaves(c['state'])):
+        assert x.name == y.name
+        if isinstance(x.value, torch.Tensor):
+            assert torch.equal(x.value, y.value), x.name
+        else:
+            assert x.value == y.value, x.name
+    assert [s for s, _ in ckpt_manifest.committed_steps(d1)] == [2, 4, 6]
+    assert [s for s, _ in ckpt_manifest.committed_steps(d2)] == [3, 6]
+    # A run that ends off the interval still saves its last step.
+    port_run.main(run + ['--steps', '7', '--save-every', '3',
+                         '--ckpt-dir', d2])
+    assert [s for s, _ in ckpt_manifest.committed_steps(d2)] == [3, 6, 7]
+
+
+def test_run_writes_telemetry_windows_and_checkpoint_records(tmp_path,
+                                                             monkeypatch):
+    spool = str(tmp_path / 'spool')
+    monkeypatch.setenv(train_telemetry.ENV_DIR, spool)
+    port_run.main(_RUN + ['--steps', '4', '--log-every', '2',
+                          '--save-every', '2', '--ckpt-dir',
+                          str(tmp_path / 'ck')])
+    port_run.main(_RUN + ['--steps', '5', '--log-every', '2',
+                          '--ckpt-dir', str(tmp_path / 'ck')])
+    recs = train_telemetry.read_records(spool)
+    windows = [r for r in recs if 'kind' not in r]
+    assert [(r['step'], r['steps_in_window']) for r in windows] == \
+        [(2, 2), (4, 2), (5, 1)]
+    assert all(r['tokens_per_s'] > 0 and 'loss' in r for r in windows)
+    ops = [(r['op'], r['step']) for r in recs if r.get('kind') == 'ckpt']
+    assert ops == [('save', 2), ('save', 4), ('restore', 4), ('save', 5)]
+
+
+def _wait_for(proc, text, timeout):
+    """Read the child's lines until one holds ``text``."""
+    lines, found = [], threading.Event()
+
+    def pump():
+        for line in proc.stdout:
+            lines.append(line)
+            if text in line:
+                found.set()
+        found.set()
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    assert found.wait(timeout) and any(text in x for x in lines), lines
+    return lines, reader
+
+
+def test_sigterm_persists_the_freshest_snapshot_and_relaunch_resumes(
+        tmp_path):
+    repo = str(pathlib.Path(port_run.__file__).resolve().parents[2])
+    ck = str(tmp_path / 'ck')
+    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.train.run', *_RUN,
+           '--save-every', '2', '--step-time-floor', '0.4', '--ckpt-dir',
+           ck]
+    env = dict(os.environ, PYTHONPATH=repo)
+    proc = subprocess.Popen(cmd + ['--steps', '200'], cwd=repo, env=env,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        lines, reader = _wait_for(proc, '[train] step 3/200', 120)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 143
+        reader.join(10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    text = ''.join(lines)
+    m = re.search(r'emergency persist returned step (\d+)', text)
+    assert m, text
+    durable = int(m.group(1))
+    printed = max(int(x) for x in re.findall(r'step (\d+)/200', text))
+    # The freshest snapshot is the last save's step: every 2 steps.
+    assert durable == printed // 2 * 2 >= 2
+    assert ckpt_manifest.committed_steps(ck)[-1][0] == durable
+    relaunch = subprocess.run(cmd + ['--steps', str(durable + 1)],
+                              cwd=repo, env=env, capture_output=True,
+                              text=True, timeout=120, check=False)
+    assert relaunch.returncode == 0, relaunch.stderr
+    assert f'[train] resumed from checkpoint step {durable}' in \
+        relaunch.stdout
+    assert f'step {durable + 1}/{durable + 1}' in relaunch.stdout
