@@ -49,7 +49,11 @@ Phases (any failure exits non-zero):
 4. Serving end to end on a small model (head_dim 64, float32): prefill
    and decode logits on the card (through K4) against the CPU; then the
    continuous engine (4 slots, max_len 48, 7 requests, full and int8 KV)
-   on the card against the same engine on the CPU, token for token. Then
+   on the card against the same engine on the CPU, token for token, and
+   the same again with the paged layout (blocks of 16, a pool of 6 usable
+   blocks, block sharing and KV tiers on; requests on repeated 16- and
+   32-token heads in 4 waves: share hits, a copy-on-write fork, evictions
+   demoted to the host tier and promoted back). Then
    ``quantization.mm`` on the card (bf16 x bf16 -> float32 GEMM) against
    the CPU's float32 einsum for each projection of BENCH_1B and llama3-1b:
    int8 weights' bf16 outputs within one ulp, at most MM_BF16_DIFF_SHARE
@@ -113,9 +117,26 @@ Phases (any failure exits non-zero):
    ``verify_step(deep=True)``. Prints step ms, tokens/s, MFU, peak device
    memory, snapshot bytes, the stall of each async and sync save, persist,
    restore and emergency-persist seconds.
-11. Summary: the card's name and power limit again, one JSON line of
+11. The paged layout at full width: ``LlmServer('llama3-1b',
+   max_len=2048, quantize='int8', kv_cache='int8', kv_layout='paged')``
+   over HTTP, the engine's defaults (16 slots, chunks of 8, pipelined,
+   blocks of 16, sharing and tiers on). P1, the full-capacity pool (2,049
+   blocks): a warm-up of one request per preamble of phase 9's traffic,
+   its 32-request window (32 share hits, 8,192 hit tokens), then 4
+   requests that copy an earlier one's first 264 tokens and diverge (>= 4
+   copy-on-write forks). P2, ``kv_blocks`` 257 with
+   SKYTPU_KV_HOST_BYTES=10,000,000 and a temporary spill directory
+   (removed at the end): round 1 the same window, round 2 8 new
+   preambles x 2 requests, round 3 the first 4 preambles again;
+   evictions, demotes and spills >= 1, promotes + fetches >= 1 in round
+   3, nothing corrupt. In every window K4 is launched 16 x chunk_steps x
+   dispatches times, answers are whole and greedy ones meet the gap
+   rule; after each drain the block accounts reconcile exactly (owned 0,
+   used == cached, free + cached == usable). Prints P1's figures beside
+   phase 9's slot layout, and each P2 round's.
+12. Summary: the card's name and power limit again, one JSON line of
    kernels (K1-K3's launches are phases 6 and 10, K4's phase 8's, and
-   phase 9's for the int8 cache, each path's count in
+   phases 9's and 11's for the int8 cache, each path's count in
    ``launches_by_path``; K4's times are the engine-shape case of phase 2,
    K1-K3's the train-s4096 shape, each named in ``timed_at``, with the
    llama-finetune shape under ``by_shape``), then the last line
@@ -136,6 +157,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -651,6 +673,71 @@ def small_engine_phase(llama, engine_lib):
     print(f'  small engine (4 slots, max_len 48, 7 requests x 16 tokens), '
           f'full and int8 KV: card == CPU token for token; slot lengths at '
           f'the end {lengths}', flush=True)
+
+
+def small_paged_engine_phase(llama, engine_lib):
+    """The paged engine on the small fp32 model, on the card and on the
+    CPU from the same weights: 4 slots, max_len 48, blocks of 16 and a
+    pool of 6 usable blocks (of 12 at full capacity), block sharing and
+    KV tiers on. Four waves: prompts on a 16- and a 32-token head, then
+    on the same heads (share hits, a copy-on-write fork of a partly
+    matched block), then prompts that overflow the pool (backpressure;
+    idle chains evicted and demoted to the host tier), then the heads
+    again (promoted back). Greedy tokens equal,
+    token for token, full and int8 KV: the scatter, gather, fork and
+    import indices mean on CUDA what they mean on the CPU."""
+    cfg = dataclasses.replace(llama.TINY, d_model=128, n_heads=4,
+                              n_kv_heads=2, head_dim=64, dtype=torch.float32)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
+    rng = np.random.default_rng(5)
+    h16 = rng.integers(0, cfg.vocab_size, 16).tolist()
+    h32 = rng.integers(0, cfg.vocab_size, 32).tolist()
+
+    def tail(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+    waves = [[h16 + tail(5), h32 + tail(3)],
+             [h32[:24] + tail(4), h16 + tail(9)],
+             [tail(30) for _ in range(4)],
+             [h16 + tail(7), h32 + tail(2), h32 + tail(6)]]
+    out, stats = {}, {}
+    for dev, p in (('cpu', params), ('cuda', _tree_to(params, 'cuda'))):
+        for kv_quant in (False, True):
+            eng = engine_lib.ContinuousEngine(
+                p, cfg, slots=4, max_len=48, chunk_steps=4,
+                kv_quantize=kv_quant, kv_layout='paged', kv_block=16,
+                kv_blocks=7, prefix_share=True, kv_tiers=True, device=dev)
+            try:
+                got = []
+                for rows in waves:
+                    futs = [eng.submit(r, 10) for r in rows]
+                    got += [f.result(timeout=300) for f in futs]
+                    if not eng._kv_tiers.quiesce(60):  # noqa: SLF001
+                        raise AssertionError('tier worker did not drain')
+                out[dev, kv_quant] = got
+                st = eng.stats()
+                stats[dev, kv_quant] = (st['kv_blocks'], st['prefix_share'],
+                                        st['kv_tiers'])
+            finally:
+                eng.stop()
+    for kv_quant in (False, True):
+        if out['cuda', kv_quant] != out['cpu', kv_quant]:
+            raise AssertionError(f'small paged engine (int8 KV {kv_quant}): '
+                                 f'card {out["cuda", kv_quant]} != CPU '
+                                 f'{out["cpu", kv_quant]}')
+        kb, share, tiers = stats['cuda', kv_quant]
+        if (share['hits'] < 1 or share['cow_forks'] < 1
+                or share['evictions'] < 1 or tiers['demotes'] < 1
+                or tiers['promotes'] < 1 or tiers['corrupt']
+                or kb['owned'] or kb['shared']
+                or kb['free'] + kb['cached'] != kb['usable']):
+            raise AssertionError(f'small paged engine (int8 KV {kv_quant}) '
+                                 f'on the card: {stats["cuda", kv_quant]}')
+    print(f'  small paged engine (4 slots, max_len 48, blocks of 16, 6 '
+          f'usable, sharing and tiers on, 11 requests x 10 tokens in 4 '
+          f'waves), full and int8 KV: card == CPU token for token; card '
+          f'int8: prefix_share {stats["cuda", True][1]}, kv_tiers demotes '
+          f'{stats["cuda", True][2]["demotes"]} promotes '
+          f'{stats["cuda", True][2]["promotes"]}', flush=True)
 
 
 def _bf16_ulp(t):
@@ -1174,7 +1261,11 @@ def _window(url, server, da, reqs):
         'prefill_tokens_saved': delta('prefill_tokens_saved'),
         'prefix_hits': delta('prefix_cache', 'hits'),
         'prefix_hit_tokens': delta('prefix_cache', 'hit_tokens'),
-        'prefix_entries': s1['prefix_cache']['entries']}
+        'prefix_entries': s1['prefix_cache']['entries'],
+        'share_hits': delta('prefix_share', 'hits'),
+        'share_hit_tokens': delta('prefix_share', 'hit_tokens'),
+        'cow_forks': delta('prefix_share', 'cow_forks'),
+        'evictions': delta('prefix_share', 'evictions')}
 
 
 def _device_busy(fn):
@@ -1334,7 +1425,185 @@ def recipe_phase(srv_lib, gen_lib, da):
           f'{figs[8]["device_busy"]}', flush=True)
     print(f'  chunked prefill (SKYTPU_LLM_PREFILL_CHUNK=256): {chunked}',
           flush=True)
-    return figs[8]['launches'] + figs[0]['launches'] + chunked['launches']
+    return (figs[8]['launches'] + figs[0]['launches'] + chunked['launches'],
+            figs)
+
+
+# -- phase 11: the paged layout at full width ----------------------------------------
+
+
+PAGED = dict(RECIPE, kv_layout='paged')
+P2_BLOCKS = 257  # 256 usable: 4,096 positions, an eighth of 16 x 2048
+P2_HOST_BYTES = 10_000_000  # about two 256-token chains of int8 blocks
+
+
+def _diverging(measured, vocab):
+    """4 requests that copy an earlier request's first 264 tokens (its
+    256-token preamble and 8 of its own) and then diverge: each forks the
+    partly matched 17th block."""
+    rng = np.random.default_rng(11)
+    return [{'tokens': [measured[i]['tokens'][0][:264]
+                        + rng.integers(0, vocab, 24).tolist()],
+             'max_new_tokens': 16} for i in (0, 5, 10, 15)]
+
+
+def _greedy_parted(gen_lib, server, reqs, answers):
+    return [_check_greedy(gen_lib, server, r['tokens'][0], a[1]['tokens'][0],
+                          True)
+            for r, a in zip(reqs, answers) if 'temperature' not in r]
+
+
+def _reconciled(engine):
+    """The block accounts after a drain: nothing owned or referenced,
+    used == cached, free + cached == usable, and the tier counts equal
+    the tiers' own."""
+    _idle(engine)
+    st = engine.stats()
+    kb, tiers = st['kv_blocks'], st['kv_tiers']
+    if (kb['owned'] or kb['shared'] or kb['used'] != kb['cached']
+            or kb['free'] + kb['cached'] != kb['usable']
+            or kb['host'] != tiers['host_blocks']
+            or kb['spilled'] != tiers['spilled_blocks']):
+        raise AssertionError(f'block accounts do not reconcile: {kb} '
+                             f'{tiers}')
+    return kb
+
+
+def _paged_p1(srv_lib, gen_lib, da):
+    """P1: a full-capacity pool (2,049 blocks). Warm-up of one request
+    per preamble (committing the chains), the 32-request window (32
+    share hits, 8,192 hit tokens), then 4 diverging requests (>= 4
+    copy-on-write forks)."""
+    server = srv_lib.LlmServer('llama3-1b', **PAGED)
+    vocab = server.cfg.vocab_size
+    warm, measured = _recipe_traffic(vocab)
+    with _served(server) as url:
+        _check_answers(warm[:4], _post_all(url, warm[:4]), vocab)
+        answers, fig = _window(url, server, da, measured)
+        if (fig['share_hits'], fig['share_hit_tokens']) != (32, 8192):
+            raise AssertionError(f'share hits in the measured window: {fig}'
+                                 '; expected 32 hits and 8,192 hit tokens')
+        fig['greedy_parted'] = _greedy_parted(gen_lib, server, measured,
+                                              answers)
+        div = _diverging(measured, vocab)
+        div_answers, div_fig = _window(url, server, da, div)
+        if div_fig['cow_forks'] < 4:
+            raise AssertionError(f'diverging requests: {div_fig}; expected '
+                                 '>= 4 copy-on-write forks')
+        fig['div_greedy_parted'] = _greedy_parted(gen_lib, server, div,
+                                                  div_answers)
+        fig['div_cow_forks'] = div_fig['cow_forks']
+        fig['launches'] += div_fig['launches']
+        fig['kv_blocks'] = _reconciled(server.engine)
+    del server
+    torch.cuda.empty_cache()
+    return fig
+
+
+def _paged_p2(srv_lib, gen_lib, da):
+    """P2: a pool of 256 usable blocks and a host tier of about two
+    chains, spilling to a temporary directory. Round 1: the warm-up and
+    the 32-request window; round 2: 8 new preambles x 2 requests; round
+    3: the first 4 preambles again. Evictions, demotes and spills; round
+    3 promotes or fetches with nothing corrupt; the accounts reconcile."""
+    spill = tempfile.mkdtemp(prefix='kvspill-')
+    env = {'SKYTPU_KV_HOST_BYTES': str(P2_HOST_BYTES),
+           'SKYTPU_KV_SPILL_DIR': spill}
+    os.environ.update(env)
+    try:
+        server = srv_lib.LlmServer('llama3-1b', kv_blocks=P2_BLOCKS,
+                                   **PAGED)
+    finally:
+        for var in env:
+            del os.environ[var]
+    vocab, engine = server.cfg.vocab_size, server.engine
+    warm, measured = _recipe_traffic(vocab)
+    rng = np.random.default_rng(12)
+    fresh = [rng.integers(0, vocab, 256).tolist() for _ in range(8)]
+    round2 = [{'tokens': [fresh[i % 8] + rng.integers(
+                   0, vocab, int(rng.integers(16, 201))).tolist()],
+               'max_new_tokens': int(rng.integers(16, 65))}
+              for i in range(16)]
+    round3 = [{'tokens': [measured[i]['tokens'][0][:256] + rng.integers(
+                   0, vocab, 40).tolist()], 'max_new_tokens': 32}
+              for i in range(4)]
+    figs = {}
+    try:
+        with _served(server) as url:
+            _check_answers(warm[:4], _post_all(url, warm[:4]), vocab)
+            for name, reqs in (('round 1', measured), ('round 2', round2),
+                               ('round 3', round3)):
+                t0 = engine.stats()['kv_tiers']
+                answers, fig = _window(url, server, da, reqs)
+                if not engine._kv_tiers.quiesce(120):  # noqa: SLF001
+                    raise AssertionError('tier worker did not drain')
+                t1 = engine.stats()['kv_tiers']
+                fig['tiers'] = {k: t1[k] - t0[k] for k in (
+                    'demotes', 'spills', 'promotes', 'fetches', 'reloads',
+                    'corrupt', 'dropped')}
+                fig['greedy_parted'] = _greedy_parted(gen_lib, server, reqs,
+                                                      answers)
+                figs[name] = fig
+            tiers = engine.stats()['kv_tiers']
+            total = {k: sum(f[k] for f in figs.values())
+                     for k in ('evictions', 'launches')}
+            r3 = figs['round 3']['tiers']
+            if (total['evictions'] < 1 or tiers['demotes'] < 1
+                    or tiers['spills'] < 1
+                    or r3['promotes'] + r3['fetches'] < 1
+                    or tiers['corrupt'] or tiers['quarantined']):
+                raise AssertionError(f'tiers under pressure: {figs} '
+                                     f'{tiers}')
+            kb = _reconciled(engine)
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    del server
+    torch.cuda.empty_cache()
+    return figs, total, tiers, kb
+
+
+def paged_phase(srv_lib, gen_lib, da, slot_fig):
+    """The paged layout at full width: ``LlmServer('llama3-1b',
+    max_len=2048, quantize='int8', kv_cache='int8', kv_layout='paged')``
+    with the engine's defaults (16 slots, chunks of 8, pipelined, blocks
+    of 16, sharing and tiers on), P1 then P2. Returns K4's launches in
+    their checked windows."""
+    t0 = time.perf_counter()
+    p1 = _paged_p1(srv_lib, gen_lib, da)
+    _phase('  P1 done')
+    figs, total, tiers, kb = _paged_p2(srv_lib, gen_lib, da)
+    keys = ('tok_s', 'host_ms_per_step', 'prefill_ms', 'prefill_bubble_ms',
+            'prefill_tokens', 'prefill_tokens_saved', 'tokens', 'wall_s',
+            'dispatches', 'launches')
+    print('  llama3-1b int8 weights + int8 KV, max_len 2048, the 32-request '
+          'window of phase 9: paged P1 (full pool, sharing) | slot layout '
+          'with --prefix-cache 8 (phase 9):', flush=True)
+    for key in keys:
+        print(f'    {key:22s} {p1[key]} | {slot_fig[key]}', flush=True)
+
+    def parted(fig, key='greedy_parted'):
+        return (f'{sum(p[0] is None for p in fig[key])} of {len(fig[key])} '
+                f'equal, parted at {[p for p in fig[key] if p[0] is not None]}')
+    print(f'    share hits {p1["share_hits"]}, hit tokens '
+          f'{p1["share_hit_tokens"]}; diverging 4: cow_forks '
+          f'{p1["div_cow_forks"]}; greedy vs generate(): window '
+          f'{parted(p1)}, diverging {parted(p1, "div_greedy_parted")} '
+          f'(limit {GREEDY_GAP_LIMIT}); accounts after drain '
+          f'{p1["kv_blocks"]}', flush=True)
+    print(f'  P2: --kv-blocks {P2_BLOCKS}, SKYTPU_KV_HOST_BYTES '
+          f'{P2_HOST_BYTES}, spill to a temporary directory:', flush=True)
+    for name, fig in figs.items():
+        print(f'    {name}: {len(fig["greedy_parted"])} greedy '
+              f'({parted(fig)}), tok_s {fig["tok_s"]}, host_ms_per_step '
+              f'{fig["host_ms_per_step"]}, share hits {fig["share_hits"]} '
+              f'({fig["share_hit_tokens"]} tokens), evictions '
+              f'{fig["evictions"]}, prefill_tokens {fig["prefill_tokens"]}, '
+              f'saved {fig["prefill_tokens_saved"]}, tiers {fig["tiers"]}',
+              flush=True)
+    print(f'    tiers at the end {tiers}; accounts after drain {kb}; K4 '
+          f'launches = 16 x chunk_steps x dispatches in every window; phase '
+          f'11 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return p1['launches'] + total['launches']
 
 
 # -- phase 10: the llama-finetune recipe --------------------------------------
@@ -1623,6 +1892,7 @@ def main() -> int:
     _phase('phase 4: small model serving, card against CPU')
     small_model_phase(llama, gen_lib)
     small_engine_phase(llama, engine_lib)
+    small_paged_engine_phase(llama, engine_lib)
     mm_phase(quant_lib, llama)
 
     _phase('phase 5: small model training, card against CPU')
@@ -1646,11 +1916,16 @@ def main() -> int:
            'prefix pool 8, max_len 2048) over HTTP, then chunked prefill')
     by_path = {mode: {'phase 8 bench-1b engine': n}
                for mode, n in launches.items()}
-    by_path['int8']['phase 9 serve-llama'] = recipe_phase(srv_lib, gen_lib,
-                                                          da)
+    by_path['int8']['phase 9 serve-llama'], recipe_figs = recipe_phase(
+        srv_lib, gen_lib, da)
     _phase('phase 10: the llama-finetune recipe (llama3-1b, batch 8, seq '
            '2048) through train.run: save, resume, preempt')
     finetune_launches = finetune_phase(llama, fa, train_run, ckpt_manifest)
+
+    _phase('phase 11: the paged layout at full width (llama3-1b, int8 + '
+           'int8 KV, max_len 2048, --kv-layout paged) over HTTP')
+    by_path['int8']['phase 11 serve-paged'] = paged_phase(
+        srv_lib, gen_lib, da, recipe_figs[8])
 
     for mode in MODES:
         row = kernels[mode]['llama']
@@ -1658,7 +1933,7 @@ def main() -> int:
               f' plain_ms {row["plain_ms"]} library_ms {row["library_ms"]}'
               f' bound_ms {row["bound_ms"]} ({row["bound_by"]})', flush=True)
 
-    _phase('phase 11: summary')
+    _phase('phase 12: summary')
     print(_card(), flush=True)  # again here, where the output's tail has it
     entries = []
     for name, (replaces, _, source) in FLASH.items():

@@ -1,8 +1,10 @@
-"""Continuous-batching decode engine: the slot layout, on one device.
+"""Continuous-batching decode engine, on one device.
 
-Port of ``skypilot_tpu/models/engine.py`` in its default configuration:
-one persistent decode batch of ``slots`` rows over a resident KV cache of
-``max_len`` positions per slot. Arriving requests are prefilled in
+Port of ``skypilot_tpu/models/engine.py``: one persistent decode batch of
+``slots`` rows over a resident KV cache, in one of two layouts. The slot
+layout (the default) holds ``max_len`` positions per slot; the paged
+layout (``kv_layout='paged'``, ``SKYTPU_LLM_KV_LAYOUT``) shares
+fixed-size blocks of one pool (``models/paged.py``). Arriving requests are prefilled in
 power-of-two groups (prompts right-padded to power-of-two buckets), their
 cache rows inserted into free slots, and K-step decode chunks advance all
 slots together. Short requests drain and their slots refill while long
@@ -41,21 +43,41 @@ ones keep streaming.
   into a scratch max_len row, between decode chunks; its first token is
   read through a pinned copy, and the finished row parks until a slot
   frees (free slots are held back for parked rows).
+* Paged layout (``kv_blocks`` incl. the junk-sink block 0, default full
+  capacity; ``kv_block`` positions per block, ``SKYTPU_LLM_KV_BLOCK``,
+  default 16): a request reserves ``ceil((prompt + max_new) / block)``
+  blocks at admission and QUEUES while the pool is short (backpressure);
+  a chunked long prefill parks until its blocks are free. The device
+  sees only block tables: the free list and per-slot block lists are
+  host-side, and a freed slot's row writes the junk sink.
+* Copy-on-write block sharing (``prefix_share``, paged only, default on,
+  ``SKYTPU_LLM_PREFIX_SHARE``): full prompt blocks commit into a share
+  trie (``paged.BlockTrie``); a request whose head matches points its
+  table at the shared blocks, forks a partially matched tail block, and
+  prefills only its tail directly over the pool (``_admit_shared``).
+  Idle shared blocks are evicted LRU when the pool runs short.
+* KV tiers (``kv_tiers``, on by default wherever sharing is,
+  ``SKYTPU_KV_TIERS``): evicted chains demote to host memory and spill to
+  ``SKYTPU_KV_SPILL_DIR`` (``serve/kv_tiers.py``) and promote back on a
+  later match instead of being recomputed. The demote gather is issued
+  on the stream before the evicted ids can be rewritten, and its planes
+  reach the host through ``_HostCopy``; promotes go to the device
+  through ``_to_device``.
 * Every decode step runs the flash-decode kernel (``ops/decode_attention``,
-  K4) in every layer, through ``forward_cached``.
+  K4) in every layer, through ``forward_cached`` or, paged, through
+  ``paged.forward_paged`` on the gathered ``[B, Hkv, max_len, D]`` view.
 * Randomness comes from one ``torch.Generator`` on the engine's device,
   seeded from ``seed`` (the counterpart of ``jax.random.PRNGKey(seed)``);
   the draws differ from JAX's, the distribution does not. Per-request
   seeded determinism is impossible under continuous batching, so the
   replica routes seeded requests to the window path.
 
-A chunk is K eager ``forward_cached`` calls (JAX runs one compiled
-``lax.scan``), so the engine is bound by the host's time to issue them.
+A chunk is K eager forward calls (JAX runs one compiled ``lax.scan``),
+so the engine is bound by the host's time to issue them.
 
-Not ported yet; each raises ``NotImplementedError`` at construction: the
-paged layout, draft rounds, a mesh, block sharing and KV tiers, and the
-prefill/decode roles (with ``submit_prefill``, ``submit_import``,
-``probe_chain``, ``resolve_chains`` and ``prefix_summary``). The JAX
+Not ported yet; each raises ``NotImplementedError`` at construction: draft
+rounds, a mesh, and the prefill/decode roles (with ``submit_prefill``,
+``submit_import``, ``probe_chain`` and ``resolve_chains``). The JAX
 engine's black-box and trace records are not ported either.
 """
 from __future__ import annotations
@@ -74,8 +96,10 @@ import torch
 
 from skypilot_tpu_torch.models import generate as gen_lib
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import paged as paged_lib
 from skypilot_tpu_torch.models import sampling
 from skypilot_tpu_torch.observability import profiler
+from skypilot_tpu_torch.utils import prefix_affinity as affinity_lib
 from skypilot_tpu_torch.utils.device import resolve_device
 
 
@@ -95,16 +119,23 @@ class _Request:
     top_k: int = 0        # 0 = off
     top_p: float = 1.0    # >= 1 = off
     eos: Optional[frozenset] = None  # stop ids; None = run to max_new
+    # Times this request parked on a background spill fetch (KV tiers);
+    # after two it is admitted as a plain miss.
+    tier_parks: int = 0
 
 
 class _HostCopy:
     """A device tensor on its way to the host: on CUDA, a non-blocking
     copy into pinned memory and an event recorded after it, so reading
     waits for this copy and not for work issued later on the stream. On
-    the CPU, the tensor itself."""
+    the CPU, the tensor itself. numpy has no bfloat16 here, so a bf16
+    tensor reads as its uint16 storage words."""
 
     def __init__(self, t: torch.Tensor):
         self._event = None
+        self._words = t.dtype == torch.bfloat16
+        if self._words:
+            t = t.view(torch.int16)
         if t.device.type == 'cuda':
             self._host = torch.empty(t.shape, dtype=t.dtype,
                                      pin_memory=True)
@@ -117,7 +148,8 @@ class _HostCopy:
     def numpy(self) -> np.ndarray:
         if self._event is not None:
             self._event.synchronize()
-        return self._host.numpy()
+        out = self._host.numpy()
+        return out.view(np.uint16) if self._words else out
 
 
 @dataclasses.dataclass
@@ -162,13 +194,24 @@ def prompt_bucket(n: int, lo: int = 16) -> int:
     return b
 
 
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def _to_device(a: np.ndarray, device: torch.device,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """A host array as a tensor on ``device``, issued without waiting for
-    the device (pinned staging, ``non_blocking``)."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type != 'cuda':
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+    the device (pinned staging, ``non_blocking``). ``dtype`` bfloat16
+    takes ``a`` as uint16 storage words (``_HostCopy``'s bf16 form)."""
+    a = np.ascontiguousarray(a)
+    words = dtype == torch.bfloat16
+    t = torch.from_numpy(a.view(np.int16) if words else a)
+    if device.type == 'cuda':
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t.view(torch.bfloat16) if words else t
+
+
+def _host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a pool plane on the host (bf16: uint16 words)."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.uint16)
+    return torch.empty((), dtype=dtype).numpy().dtype
 
 
 def _insert_impl(cache: gen_lib.KVCache, last: torch.Tensor,
@@ -253,8 +296,54 @@ def _chunk_impl(cfg: llama.LlamaConfig, k_steps: int, params,
     return cache, last, torch.stack(toks)
 
 
+def _paged_insert_impl(pool: paged_lib.PagedKVCache, last: torch.Tensor,
+                       limit: torch.Tensor, cache_n: gen_lib.KVCache,
+                       firsts: torch.Tensor, limits_n: torch.Tensor,
+                       tables_new: torch.Tensor,
+                       slots: torch.Tensor) -> None:
+    """``_insert_impl`` for the paged layout: scatter the prefilled rows
+    into the blocks of ``tables_new`` [N, MB] and install the tables,
+    lengths, last tokens and write limits at ``slots``, in place."""
+    paged_lib._insert_impl(pool, cache_n, tables_new, slots)  # noqa: SLF001
+    last[slots] = firsts
+    limit[slots] = limits_n
+
+
+def _paged_chunk_impl(cfg: llama.LlamaConfig, k_steps: int, params,
+                      cache: paged_lib.PagedKVCache, last: torch.Tensor,
+                      limit: torch.Tensor, occupied: torch.Tensor,
+                      temps: Optional[torch.Tensor],
+                      top_ks: Optional[torch.Tensor],
+                      top_ps: Optional[torch.Tensor],
+                      generator: Optional[torch.Generator]):
+    """K decode steps over the PAGED pool: the twin of ``_chunk_impl``
+    with ``paged.forward_paged`` in place of ``forward_cached``. Rows not
+    active (``occupied`` ANDed with ``lengths < limit`` at every step)
+    write the junk sink."""
+    toks = []
+    for _ in range(k_steps):
+        active = occupied & (cache.lengths < limit)
+        logits, cache = paged_lib.forward_paged(params, last[:, None],
+                                                cache, cfg, active)
+        last = sampling.sample(logits, temps, generator, top_ks, top_ps)
+        toks.append(last)
+    return cache, last, torch.stack(toks)
+
+
 _insert = profiler.profiled('engine.insert', _insert_impl)
 _chunk = profiler.profiled('engine.chunk', _chunk_impl)
+_paged_insert = profiler.profiled('paged.insert', _paged_insert_impl)
+_paged_chunk = profiler.profiled('engine.paged_chunk', _paged_chunk_impl)
+_prefill_shared = profiler.profiled('paged.prefill_shared',
+                                    paged_lib._prefill_shared_impl)  # noqa: SLF001
+_fork_block = profiler.profiled('paged.fork_block',
+                                paged_lib._fork_block_impl)  # noqa: SLF001
+_gather_blocks = profiler.profiled('paged.gather_blocks',
+                                   paged_lib._gather_blocks_impl)  # noqa: SLF001
+_export_blocks = profiler.profiled('paged.export_blocks',
+                                   paged_lib._export_blocks_impl)  # noqa: SLF001
+_import_blocks = profiler.profiled('paged.import_blocks',
+                                   paged_lib._import_blocks_impl)  # noqa: SLF001
 _prefill = profiler.profiled('engine.prefill', gen_lib.forward_cached)
 _sample = profiler.profiled('engine.sample', sampling.sample)
 _gather_prefix = profiler.profiled('engine.gather_prefix',
@@ -265,7 +354,7 @@ _store_prefix = profiler.profiled('engine.store_prefix', _store_prefix_impl)
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f'{what} is not ported yet: skypilot_tpu_torch serves the '
-        "continuous engine's slot layout only")
+        "continuous engine on one device, without draft rounds or roles")
 
 
 def check_options(*, kv_layout: Optional[str] = None,
@@ -277,15 +366,16 @@ def check_options(*, kv_layout: Optional[str] = None,
     """Resolve the engine's options against their environment defaults
     and refuse the ones not ported yet (``NotImplementedError``) or
     unknown (``ValueError``). Returns (kv_layout, prefix_slots,
-    prefill_chunk, role). Needs no weights, so a replica checks its
-    flags before it builds them."""
+    prefill_chunk, role, prefix_share, kv_tiers). As in the JAX engine,
+    block sharing is on only with the paged layout (and a dense model
+    without a draft, the only models the port serves), and KV tiers only
+    with sharing. Needs no weights, so a replica checks its flags before
+    it builds them."""
     kv_layout = (kv_layout or os.environ.get('SKYTPU_LLM_KV_LAYOUT')
                  or 'slot')
     if kv_layout not in ('slot', 'paged'):
         raise ValueError(f'Unknown kv_layout {kv_layout!r}; '
                          "'slot' or 'paged'")
-    if kv_layout == 'paged':
-        raise _not_ported("kv_layout='paged'")
     if prefix_slots is None:
         prefix_slots = int(os.environ.get('SKYTPU_LLM_PREFIX_CACHE', '0'))
     if prefill_chunk is None:
@@ -294,8 +384,12 @@ def check_options(*, kv_layout: Optional[str] = None,
         raise _not_ported('speculative decoding (a draft model)')
     if mesh is not None:
         raise _not_ported('a device mesh')
-    if prefix_share or kv_tiers:
-        raise _not_ported('block sharing and KV tiers')
+    if prefix_share is None:
+        prefix_share = os.environ.get('SKYTPU_LLM_PREFIX_SHARE', '1') != '0'
+    prefix_share = bool(prefix_share) and kv_layout == 'paged'
+    if kv_tiers is None:
+        kv_tiers = os.environ.get('SKYTPU_KV_TIERS', '1') != '0'
+    kv_tiers = bool(kv_tiers) and prefix_share
     role = role or os.environ.get('SKYTPU_LLM_ROLE', 'colocated')
     if role not in ('colocated', 'prefill', 'decode'):
         raise ValueError(f'Unknown engine role {role!r}; '
@@ -303,14 +397,20 @@ def check_options(*, kv_layout: Optional[str] = None,
     if role != 'colocated':
         raise _not_ported(f'the {role!r} role')
     return (kv_layout, max(int(prefix_slots), 0), max(int(prefill_chunk), 0),
-            role)
+            role, prefix_share, kv_tiers)
 
 
 class ContinuousEngine:
     """Slot server: submit() rows from any thread; a dedicated engine
     thread owns the device state and loops admit -> decode-chunk -> emit.
     See the module docstring for the design. ``device`` None = CUDA
-    (raises without a card); the tests pass ``device='cpu'``."""
+    (raises without a card); the tests pass ``device='cpu'``.
+
+    Block accounting (paged layout): ``_free_blocks`` is the free list,
+    ``_slot_blocks[i]`` the blocks slot i owns outright and
+    ``_slot_shared[i]`` the trie nodes it holds a reference on; with the
+    trie's referenced and idle blocks they partition the usable pool.
+    Every method that touches them runs under ``_lock``."""
 
     def __init__(self, params, cfg: llama.LlamaConfig, *,
                  slots: Optional[int] = None, max_len: int = 1024,
@@ -322,13 +422,15 @@ class ContinuousEngine:
                  draft_params=None,
                  draft_cfg: Optional[llama.LlamaConfig] = None,
                  kv_layout: Optional[str] = None,
+                 kv_blocks: Optional[int] = None,
+                 kv_block: Optional[int] = None,
                  pipeline: Optional[bool] = None,
                  prefix_share: Optional[bool] = None,
                  kv_tiers: Optional[bool] = None,
                  role: Optional[str] = None, device=None):
         llama.require_dense(cfg)
         (self.kv_layout, self.prefix_slots, self.prefill_chunk,
-         self.role) = check_options(
+         self.role, self.prefix_share, tiers_on) = check_options(
             kv_layout=kv_layout, prefix_slots=prefix_slots,
             prefill_chunk=prefill_chunk,
             draft=draft_params is not None or draft_cfg is not None,
@@ -353,6 +455,25 @@ class ContinuousEngine:
             pipeline = os.environ.get('SKYTPU_LLM_PIPELINE', '1') != '0'
         self.pipeline_depth = 1 if pipeline else 0
         self._seed = seed
+        self.kv_block = kv_block or int(
+            os.environ.get('SKYTPU_LLM_KV_BLOCK', '16'))
+        if self.kv_layout == 'paged':
+            # Pool size INCLUDING the junk-sink block 0; the default is
+            # full capacity (no saving, always safe), deployments size it
+            # down and admission backpressures.
+            self.kv_blocks = kv_blocks or (
+                self.slots * (self.max_len // self.kv_block) + 1)
+        # Bound on the /health prefix advert's entries.
+        self._summary_max = max(
+            int(os.environ.get('SKYTPU_PREFIX_SUMMARY_MAX', '64')), 0)
+        self._kv_tiers = None
+        if tiers_on:
+            from skypilot_tpu_torch.serve import kv_tiers as kv_tiers_lib
+            self._kv_tiers = kv_tiers_lib.KVTiers.from_env(
+                cfg, self.kv_block, quantized=self.kv_quantize)
+        # Requests parked on a background spill fetch; its completion
+        # re-queues them at the head of _pending.
+        self._tier_waiting: List[_Request] = []
         self.prefix_min = 16  # smallest cacheable/matchable prefix
         self._prefix_index: 'collections.OrderedDict[tuple, int]' = \
             collections.OrderedDict()  # prefix tokens -> pool row (LRU)
@@ -383,6 +504,13 @@ class ContinuousEngine:
         self.prefix_hits = 0
         self.prefix_hit_tokens = 0
         self.prefix_stores = 0
+        # Block-share accounting (stats()['prefix_share']).
+        self.share_hits = 0
+        self.share_hit_tokens = 0
+        self.share_misses = 0
+        self.share_commits = 0
+        self.share_evictions = 0
+        self.cow_forks = 0
         self.prefill_tokens_saved = 0  # prompt tokens the pool skipped
         self.chunks_run = 0
         self.tokens_emitted = 0
@@ -416,13 +544,29 @@ class ContinuousEngine:
         raise _not_ported('the decode role (submit_import)')
 
     def probe_chain(self, row: List[int]) -> int:
-        raise _not_ported('block sharing (probe_chain)')
+        raise _not_ported('the KV handoff of the roles (probe_chain)')
 
     def resolve_chains(self, digests):
-        raise _not_ported('block sharing (resolve_chains)')
+        raise _not_ported('the KV handoff of the roles (resolve_chains)')
 
-    def prefix_summary(self):
-        raise _not_ported('block sharing (prefix_summary)')
+    def prefix_summary(self) -> Optional[dict]:
+        """Bounded resident-chain summary for prefix-affinity routing
+        (``BlockTrie.summary``), or None when sharing is off; the
+        replica's /health body carries it. Tier-resident chains ride
+        along as ``[chain_hex, depth, tier]`` rows (1 = host, 2 =
+        spilled)."""
+        if self._trie is None:
+            return None
+        with self._lock:
+            summ = self._trie.summary(self._summary_max)
+        if self._kv_tiers is not None:
+            have = {e[0] for e in summ['entries']}
+            room = self._summary_max - len(summ['entries'])
+            extra, trunc = self._kv_tiers.advert_entries(room, have)
+            summ['entries'].extend(extra)
+            summ['truncated'] = bool(summ['truncated'] or trunc)
+            summ['tiers'] = True
+        return summ
 
     def _build_request(self, row, max_new, temperature, on_tokens,
                        top_k, top_p, eos) -> _Request:
@@ -430,6 +574,15 @@ class ContinuousEngine:
             raise ValueError(
                 f'prompt ({len(row)}) + max_new ({max_new}) exceeds '
                 f'engine max_len limit {self.max_len}')
+        if self.kv_layout == 'paged' and max_new > 1:
+            need = self._blocks_for(len(row), max_new)
+            if need > self.kv_blocks - 1:
+                # Bigger than the WHOLE pool: it could never be admitted
+                # and would starve everything queued behind it.
+                raise ValueError(
+                    f'request needs {need} KV blocks but the pool has '
+                    f'only {self.kv_blocks - 1}; raise kv_blocks or '
+                    'shrink prompt+max_new')
         if top_k < 0 or not 0.0 < top_p <= 1.0:
             raise ValueError('top_k must be >= 0 and top_p in (0, 1]')
         if eos is not None and not isinstance(eos, frozenset):
@@ -459,6 +612,11 @@ class ContinuousEngine:
     def stop(self) -> None:
         self._stop = True
         self._wake.set()
+        if self._kv_tiers is not None:
+            # Tier worker first: a fetch completing after the loop thread
+            # died would re-queue its parked requests into a _pending
+            # nobody drains.
+            self._kv_tiers.stop()
         if self._thread is not None:
             self._thread.join(timeout=10)
             if self._thread.is_alive():
@@ -468,30 +626,59 @@ class ContinuousEngine:
         # on these futures).
         with self._lock:
             live = bool(self._pending or self._admitting or self._prefilling
-                        or self._unfetched
+                        or self._unfetched or self._tier_waiting
                         or any(r is not None for r in self._slot_req))
         if live:
             self._fail_everything(RuntimeError('engine stopped'))
 
     def busy(self) -> bool:
-        """Requests queued, prefilling or holding a slot."""
+        """Requests queued, parked on a tier fetch, prefilling or holding
+        a slot."""
         with self._lock:
             return bool(self._pending or self._admitting or self._prefilling
-                        or self._unfetched
+                        or self._unfetched or self._tier_waiting
                         or any(r is not None for r in self._slot_req))
 
     def stats(self) -> dict:
-        """Counters for /health: the keys of the JAX engine's ``stats()``
-        that the slot layout has. ``prefill_tokens`` counts the prompt
-        tokens prefill computed; ``prefill_tokens_saved`` those the prefix
-        pool skipped in grouped prefills (as in the JAX engine, a pool hit
-        seeding a chunked prefill counts in ``prefix_cache`` only)."""
+        """Counters for /health under the JAX engine's ``stats()`` keys
+        (all but its speculative and disaggregation blocks).
+        ``prefill_tokens`` counts the prompt tokens prefill computed;
+        ``prefill_tokens_saved`` those shared blocks or the prefix pool
+        skipped (as in the JAX engine, a pool hit seeding a chunked
+        prefill counts in ``prefix_cache`` only). ``kv_blocks`` (paged):
+        free + owned + shared + cached == usable, in one snapshot;
+        ``host``/``spilled`` count blocks held off the device by the
+        tiers, outside that partition."""
         with self._lock:
             active = sum(r is not None for r in self._slot_req)
+            free_blocks = owned_blocks = shared_blocks = cached_blocks = 0
+            if self.kv_layout == 'paged':
+                free_blocks = len(self._free_blocks)
+                owned_blocks = sum(len(b) for b in self._slot_blocks)
+                if self._trie is not None:
+                    shared_blocks = self._trie.referenced
+                    cached_blocks = self._trie.reclaimable
+            # Lock order engine -> tiers: host/spilled agree with the
+            # kv_tiers block they summarize.
+            tier_stats = None
+            if self._kv_tiers is not None:
+                tier_stats = self._kv_tiers.stats()
+                tier_stats['waiting'] = len(self._tier_waiting)
             return {
                 'slots': self.slots, 'active_slots': active,
                 'kv_cache': 'int8' if self.kv_quantize else 'bf16',
                 'kv_layout': self.kv_layout, 'role': self.role,
+                'kv_blocks': (None if self.kv_layout != 'paged' else {
+                    'total': self.kv_blocks, 'block': self.kv_block,
+                    'free': free_blocks, 'usable': self.kv_blocks - 1,
+                    'used': self.kv_blocks - 1 - free_blocks,
+                    'owned': owned_blocks, 'shared': shared_blocks,
+                    'cached': cached_blocks,
+                    'host': tier_stats['host_blocks'] if tier_stats else 0,
+                    'spilled': (tier_stats['spilled_blocks']
+                                if tier_stats else 0),
+                    'cow_forks': self.cow_forks}),
+                'kv_tiers': tier_stats,
                 'queued': len(self._pending), 'prefills': self.prefills,
                 'prefill_groups': self.prefill_groups,
                 'prefill_batch': self.prefill_batch,
@@ -519,6 +706,19 @@ class ContinuousEngine:
                     'hits': self.prefix_hits,
                     'hit_tokens': self.prefix_hit_tokens,
                     'stores': self.prefix_stores},
+                'prefix_share': {
+                    'enabled': self.prefix_share,
+                    'hits': self.share_hits,
+                    'hit_tokens': self.share_hit_tokens,
+                    'misses': self.share_misses,
+                    'hit_rate': round(
+                        self.share_hits
+                        / max(self.share_hits + self.share_misses, 1), 4),
+                    'commits': self.share_commits,
+                    'evictions': self.share_evictions,
+                    'cow_forks': self.cow_forks,
+                    'shared_blocks': shared_blocks,
+                    'cached_blocks': cached_blocks},
                 'prefill_tokens': self.prefill_tokens,
                 'prefill_tokens_saved': self.prefill_tokens_saved,
                 'prefill_ms': round(self.prefill_ms, 3),
@@ -572,8 +772,10 @@ class ContinuousEngine:
             doomed = list(self._pending) + [
                 r for r in self._slot_req if r is not None] + [
                 r for reqs, _ in self._unfetched for r in reqs] + \
-                list(self._admitting) + [p.req for p in self._prefilling]
+                list(self._admitting) + [p.req for p in self._prefilling] \
+                + list(self._tier_waiting)
             self._pending.clear()
+            self._tier_waiting = []
             self._slot_req = [None] * self.slots
             self._unfetched = []
             self._admitting = []
@@ -585,16 +787,33 @@ class ContinuousEngine:
         for req in doomed:  # dupes are safe: first set_exception wins
             if not req.future.done():
                 req.future.set_exception(exc)
-        # Fresh device state: the failed call may have half-written the
-        # old buffers.
+        # Fresh device state (and, paged, a fresh free list and trie): the
+        # failed call may have half-written the old buffers.
         self._init_device_state()
 
     @torch.inference_mode()
     def _init_device_state(self) -> None:
         dev = self.device
-        self._cache = gen_lib.init_cache(self.cfg, self.slots, self.max_len,
-                                         quantize=self.kv_quantize,
-                                         device=dev)
+        # Share-trie state exists on every layout (None = sharing off).
+        self._trie: Optional[paged_lib.BlockTrie] = None
+        self._slot_shared: List[list] = [[] for _ in range(self.slots)]
+        if self.kv_layout == 'paged':
+            self._cache = paged_lib.init_pool(
+                self.cfg, self.slots, self.max_len, self.kv_blocks,
+                self.kv_block, quantize=self.kv_quantize, device=dev)
+            # Host-side accounting: block 0 is the junk sink, never
+            # allocated; _slot_blocks holds each slot's OWNED blocks,
+            # _slot_shared its refcounted trie nodes.
+            self._free_blocks = list(range(1, self.kv_blocks))
+            self._slot_blocks: List[List[int]] = [
+                [] for _ in range(self.slots)]
+            if self.prefix_share:
+                self._trie = paged_lib.BlockTrie(self.kv_block)
+        else:
+            self._cache = gen_lib.init_cache(self.cfg, self.slots,
+                                             self.max_len,
+                                             quantize=self.kv_quantize,
+                                             device=dev)
         self._last = torch.zeros((self.slots,), dtype=torch.int32,
                                  device=dev)
         # A row is active while lengths < limit (module docstring); a
@@ -617,6 +836,126 @@ class ContinuousEngine:
         self._prefix_index.clear()
         self._prefix_seen.clear()
         self._prefix_free = list(range(self.prefix_slots))
+
+    # -- paged block accounting (callers hold _lock) -----------------------
+
+    def _blocks_for(self, row_len: int, max_new: int) -> int:
+        """Blocks reserved at admission: the request's actual ask, not
+        max_len. The ONE definition: submit-time feasibility and
+        admission-time reservation must never disagree."""
+        return -(-(row_len + max_new) // self.kv_block)
+
+    def _blocks_needed(self, req: _Request) -> int:
+        return self._blocks_for(len(req.row), req.max_new)
+
+    def _release_blocks(self, slot: int) -> None:
+        """Return a finished slot's owned blocks to the free list and
+        drop its references on shared ones: refs-0 blocks park in the
+        trie's idle LRU as reusable cache (a detached node's block frees
+        for real)."""
+        if self.kv_layout != 'paged':
+            return
+        self._free_blocks.extend(self._slot_blocks[slot])
+        self._slot_blocks[slot] = []
+        if self._trie is not None and self._slot_shared[slot]:
+            for node in self._slot_shared[slot]:
+                freed = self._trie.release(node)
+                if freed is not None:
+                    self._free_blocks.append(freed)
+            self._slot_shared[slot] = []
+
+    def _blocks_avail(self) -> int:
+        """Allocatable blocks RIGHT NOW: the free list plus the idle
+        (refs == 0) trie blocks the allocator may evict."""
+        avail = len(self._free_blocks)
+        if self._trie is not None:
+            avail += self._trie.reclaimable
+        return avail
+
+    def _alloc_blocks(self, n: int) -> List[int]:
+        """Pop ``n`` blocks, evicting idle trie blocks LRU when the free
+        list runs short (callers checked ``_blocks_avail() >= n``). With
+        KV tiers, eviction DEMOTES: the evicted chains' KV is gathered
+        off the pool on the stream before the freed ids can be written
+        again."""
+        if len(self._free_blocks) < n and self._trie is not None:
+            pairs = self._trie.evict_nodes(n - len(self._free_blocks))
+            self.share_evictions += len(pairs)
+            if self._kv_tiers is not None and pairs:
+                self._demote_evicted(pairs)
+            self._free_blocks.extend(b for b, _ in pairs)
+        return [self._free_blocks.pop() for _ in range(n)]
+
+    def _demote_evicted(self, pairs: list) -> None:
+        """Queue just-evicted trie chains for host-tier demotion: ONE
+        pow2-padded export gather over the victim blocks, issued HERE,
+        before this admission (or any later one) can write the freed ids,
+        so stream order has it read the pre-eviction KV. Its planes go to
+        the host as ``_HostCopy``s (pinned, non-blocking, an event each):
+        the tier thread waits on those events, never on the stream, and
+        the engine thread never waits at all."""
+        tiers = self._kv_tiers
+        items = []
+        for blk, node in pairs:
+            if not tiers.accepts(node.chain):
+                continue
+            parts = []
+            cur = node
+            while cur is not None:
+                parts.append(cur.key)
+                cur = cur.parent
+            row = [t for key in reversed(parts) for t in key]
+            items.append((node.chain, row, len(items), blk))
+        if not items:
+            return
+        nbp = 1
+        while nbp < len(items):
+            nbp *= 2
+        tbl = np.zeros((nbp,), np.int64)  # pad -> junk sink block 0
+        tbl[:len(items)] = [blk for _, _, _, blk in items]
+        planes = _export_blocks(self._cache, _to_device(tbl, self.device))
+        tiers.offer_demote([(d, row, gi) for d, row, gi, _ in items],
+                           tuple(None if t is None else _HostCopy(t)
+                                 for t in planes))
+
+    def _tier_consult(self, row: List[int], nodes: list) -> tuple:
+        """Extend a trie match through the tier index, block by block
+        (chain digests, as the adverts use): consecutive host-tier hits
+        become the promote list; the first spilled block switches to a
+        fetch list; any gap ends the walk (promotion stays contiguous).
+        The last prompt token is never covered."""
+        p = self.kv_block
+        tiers = self._kv_tiers
+        promote: list = []
+        fetch: list = []
+        prev = nodes[-1].chain if nodes else None
+        pos = len(nodes) * p
+        limit = len(row) - 1
+        while pos + p <= limit:
+            digest = affinity_lib.chain_digest(prev, row[pos:pos + p])
+            where = tiers.lookup(digest)
+            if where == 'host' and not fetch:
+                promote.append(digest)
+            elif where == 'spilled':
+                fetch.append(digest)
+            else:
+                break
+            prev = digest
+            pos += p
+        return promote, fetch
+
+    def _tier_fetch_done(self, digests: List[bytes], ok: bool) -> None:
+        """Tier-thread callback: a background spill fetch finished
+        (blocks host-resident now, or quarantined). Re-queue every parked
+        request at the FRONT of the queue, keeping their FIFO seniority."""
+        del digests, ok  # re-matching consults the index afresh
+        with self._lock:
+            if not self._tier_waiting:
+                return
+            for req in reversed(self._tier_waiting):
+                self._pending.appendleft(req)
+            self._tier_waiting = []
+        self._wake.set()
 
     @staticmethod
     def _fire_callbacks(emitted: List[tuple]) -> None:
@@ -650,7 +989,9 @@ class ContinuousEngine:
         ``prefill_chunk`` leave the queue for the incremental path
         (``_advance_prefill``), at most two at a time; FIFO order holds:
         a long head blocks later shorts only while that capacity is
-        full."""
+        full. Paged: a group admits only requests whose blocks fit the
+        allocatable pool (backpressure), and a block-share hit at the
+        head of the queue takes ``_admit_shared`` instead."""
         while True:
             with self._lock:
                 while (self.prefill_chunk and self._pending
@@ -661,33 +1002,263 @@ class ContinuousEngine:
                 if (self.prefill_chunk and self._pending
                         and len(self._pending[0].row) > self.prefill_chunk):
                     return  # long head waiting on prefill capacity
-                free = [i for i, r in enumerate(self._slot_req)
-                        if r is None]
-                # Slots owed to parked finished prefills are reserved: a
-                # steady stream of shorts would otherwise starve them.
-                parked = sum(1 for e in self._prefilling if e.parked)
-                n = min(max(len(free) - parked, 0), len(self._pending),
-                        self.prefill_batch)
-                if self.prefill_chunk:
-                    # Only CONSECUTIVE short requests join a group.
-                    run = 0
-                    for p in self._pending:
-                        if len(p.row) > self.prefill_chunk or run >= n:
-                            break
-                        run += 1
-                    n = run
-                if n == 0:
-                    return
-                g = 1
-                while g * 2 <= n:
-                    g *= 2
-                reqs = [self._pending.popleft() for _ in range(g)]
-                # Mid-prefill requests live in NO other structure: a
-                # failure here must still fail their futures.
-                self._admitting = reqs
+                shared, parked_on_fetch = self._match_head()
+                if shared == 'wait':
+                    return  # backpressure: the hit head waits
+                if parked_on_fetch:
+                    continue
+                if shared is None:
+                    free = [i for i, r in enumerate(self._slot_req)
+                            if r is None]
+                    # Slots owed to parked finished prefills are
+                    # reserved: a steady stream of shorts would
+                    # otherwise starve them.
+                    parked = sum(1 for e in self._prefilling if e.parked)
+                    n = min(max(len(free) - parked, 0), len(self._pending),
+                            self.prefill_batch)
+                    if self.prefill_chunk:
+                        # Only CONSECUTIVE short requests join a group.
+                        run = 0
+                        for p in self._pending:
+                            if len(p.row) > self.prefill_chunk or run >= n:
+                                break
+                            run += 1
+                        n = run
+                    if self.kv_layout == 'paged':
+                        # Admit only requests whose reservation fits the
+                        # allocatable pool; a later share HIT also ends
+                        # the group (it heads the queue next turn).
+                        avail = self._blocks_avail()
+                        run = 0
+                        for p in self._pending:
+                            if run >= n:
+                                break
+                            if (run > 0 and self._trie is not None
+                                    and p.max_new > 1
+                                    and self._trie.match(p.row)[0]):
+                                break
+                            nb = (self._blocks_needed(p)
+                                  if p.max_new > 1 else 0)
+                            if nb > avail:
+                                break
+                            avail -= nb
+                            run += 1
+                        n = run
+                    if n == 0:
+                        return
+                    g = 1
+                    while g * 2 <= n:
+                        g *= 2
+                    reqs = [self._pending.popleft() for _ in range(g)]
+                    # Mid-prefill requests live in NO other structure: a
+                    # failure here must still fail their futures.
+                    self._admitting = reqs
+            if shared is not None:
+                self._admit_shared(*shared)
+                with self._lock:
+                    self._admitting = []
+                continue
             self._prefill_group(reqs, free[:g])
             with self._lock:
                 self._admitting = []
+
+    def _match_head(self):
+        """Under the lock: look the queue's head up in the share trie and
+        the tier index. Returns (shared, parked_on_fetch): ``shared`` is
+        the ``_admit_shared`` arguments of a hit that has its slot and
+        blocks (pinned and allocated here), ``'wait'`` for a hit that
+        must wait for them (FIFO: younger requests do not jump it), or
+        None for a miss; ``parked_on_fetch`` is True when the head left
+        the queue to wait on a background spill fetch."""
+        if (self._trie is None or not self._pending
+                or self._pending[0].max_new <= 1):
+            return None, False
+        head = self._pending[0]
+        nodes, partial, plen = self._trie.match(head.row)
+        promote: list = []
+        fetch: list = []
+        if self._kv_tiers is not None:
+            promote, fetch = self._tier_consult(head.row, nodes)
+            if fetch and not nodes and not promote and head.tier_parks < 2:
+                # Whole chain cold on disk: park THIS request on a
+                # bounded background fetch (younger requests keep
+                # admitting); completion re-queues it at the head.
+                # Saturation or repeated parks degrade to a plain miss.
+                if self._kv_tiers.request_fetch(fetch,
+                                                self._tier_fetch_done):
+                    head.tier_parks += 1
+                    self._pending.popleft()
+                    self._tier_waiting.append(head)
+                    return None, True
+            elif fetch:
+                # Partial warmth: admit with what is resident now and
+                # warm the spilled tail for next time.
+                self._kv_tiers.request_fetch(fetch, self._tier_fetch_done)
+        if promote:
+            # The promoted chain covers >= one full block past the trie
+            # match: more than any partial-tail fork donor could.
+            partial, plen = None, 0
+        if not (nodes or promote):
+            return None, False
+        free_s = [i for i, r in enumerate(self._slot_req) if r is None]
+        pk = sum(1 for e in self._prefilling if e.parked)
+        need = self._blocks_needed(head) - len(nodes)
+        # The matched chain's IDLE blocks are about to be pinned, so they
+        # are not allocatable supply for this same admission.
+        pinned = sum(1 for nd in nodes if nd.refs == 0)
+        p_idle = int(partial is not None and partial.refs == 0)
+        if self._blocks_avail() - pinned - p_idle < need \
+                and partial is not None:
+            # The fork donor is pure upside: drop it before parking the
+            # whole queue on its pin.
+            partial, plen, p_idle = None, 0, 0
+        if len(free_s) - pk <= 0 \
+                or self._blocks_avail() - pinned - p_idle < need:
+            return 'wait', False
+        # Pin the matched chain (and the fork donor) BEFORE allocating:
+        # eviction must not reclaim blocks this admission uses.
+        for nd in nodes:
+            self._trie.acquire(nd)
+        if partial is not None:
+            self._trie.acquire(partial)
+        owned = self._alloc_blocks(need)
+        slot = free_s[0]
+        self._pending.popleft()
+        self._slot_req[slot] = head
+        self._slot_blocks[slot] = list(owned)
+        self._slot_shared[slot] = list(nodes)
+        self._admitting = [head]
+        # Claim the host-tier entries LAST (validated and popped): a
+        # backpressure return above must not have consumed them. A corrupt
+        # entry truncates the promoted head; the owned blocks serve the
+        # tail.
+        pro = (self._kv_tiers.take_for_promote(promote) if promote
+               else [])
+        return (head, slot, nodes, partial, plen, owned, pro), False
+
+    def _admit_shared(self, req: _Request, slot: int, nodes: list,
+                      partial, plen: int, owned: List[int],
+                      pro: Optional[list] = None) -> None:
+        """Admit ONE block-share hit: the table head points at the shared
+        blocks (referenced by ``_match_head``), host-tier promotes
+        (``pro``, validated planes, one per block) scatter into the
+        leading owned blocks, a partially matched tail block is forked
+        copy-on-write into the next owned block, and only the unshared
+        tail prefills, directly over the pool. Every step is issued on
+        the engine's stream in that order."""
+        t0 = time.perf_counter()
+        had_active = any(r is not None and r is not req
+                         for r in self._slot_req)
+        p = self.kv_block
+        row = req.row
+        pro = pro or []
+        dev = self.device
+        covered = (len(nodes) + len(pro)) * p + plen
+        mb = self.max_len // p
+        table = np.zeros((mb,), np.int32)
+        table[:len(nodes)] = [nd.block for nd in nodes]
+        table[len(nodes):len(nodes) + len(owned)] = owned
+        if pro:
+            # Promote: scatter the demoted chain's planes into the first
+            # len(pro) owned blocks, pow2-padded with junk-sink ids (the
+            # zeros of the padding land in block 0 only), and install the
+            # table and covered length (the tail prefill below overwrites
+            # both with the final values).
+            nbp = 1
+            while nbp < len(pro):
+                nbp *= 2
+            blocks = np.zeros((nbp,), np.int64)
+            blocks[:len(pro)] = owned[:len(pro)]
+            cfg = self.cfg
+            shp = (cfg.n_layers, nbp, cfg.n_kv_heads, p, cfg.head_dim)
+            kdt = self._cache.k.dtype
+            pads = {'k': np.zeros(shp, _host_dtype(kdt)),
+                    'v': np.zeros(shp, _host_dtype(kdt))}
+            if self.kv_quantize:
+                pads['k_s'] = np.zeros(shp[:-1], np.float32)
+                pads['v_s'] = np.zeros(shp[:-1], np.float32)
+            for j, planes in enumerate(pro):
+                for name, arr in pads.items():
+                    arr[:, j] = planes[name]
+            on_dev = {name: _to_device(arr, dev,
+                                       kdt if name in ('k', 'v') else None)
+                      for name, arr in pads.items()}
+            _import_blocks(self._cache, on_dev['k'], on_dev['v'],
+                           on_dev.get('k_s'), on_dev.get('v_s'),
+                           _to_device(blocks, dev),
+                           _to_device(table, dev), slot, covered)
+        if partial is not None:
+            # The first append past the shared partial block forks it:
+            # copy the donor into our next owned block; the tail prefill
+            # then writes from in-block offset ``plen``.
+            _fork_block(self._cache, partial.block, owned[0])
+        suffix = row[covered:]
+        # The padded width must not overhang max_len: positions past the
+        # table CLIP to its last entry, which with a full reservation is
+        # the request's own live block. Room always suffices: submit
+        # checks row + max_new <= max_len.
+        w = min(prompt_bucket(len(suffix)), self.max_len - covered)
+        padded = np.zeros((1, w), np.int32)
+        padded[0, :len(suffix)] = suffix
+        logits = _prefill_shared(
+            self.cfg, self.params, self._cache, _to_device(padded, dev),
+            _to_device(table[None], dev), slot,
+            _to_device(np.asarray([covered], np.int32), dev),
+            _to_device(np.asarray([len(suffix)], np.int32), dev))
+        first = _sample(logits, *self._sampling_args(
+            np.asarray([req.temperature], np.float32),
+            np.asarray([req.top_k], np.int32),
+            np.asarray([req.top_p], np.float32)))
+        self._last[slot] = first[0]
+        self._limit[slot] = len(row) + req.max_new - 1
+        with self._lock:
+            if partial is not None:
+                # The fork donor was pinned only across the copy; it
+                # returns to the idle LRU.
+                freed = self._trie.release(partial)
+                if freed is not None:
+                    self._free_blocks.append(freed)
+                self.cow_forks += 1
+            self._commit_prompt_blocks(slot, row, nodes)
+            self._unfetched.append(([req], _HostCopy(first)))
+            self.prefills += 1
+            self.prefill_groups += 1
+            self.share_hits += 1
+            self.share_hit_tokens += covered
+            self.prefill_tokens += len(suffix)
+            self.prefill_tokens_saved += covered
+        self._note_prefill_time(t0, had_active)
+
+    def _commit_prompt_blocks(self, slot: int, row: List[int],
+                              shared_nodes: list) -> None:
+        """Index the slot's full PROMPT blocks in the share trie (caller
+        holds the lock). Ownership transfers: committed blocks leave
+        ``_slot_blocks`` for the refcounted ``_slot_shared``. Duplicate
+        content (an identical commit that won the race, or a chunked long
+        prefill that COPIED its matched head) keeps our copy owned and
+        chains deeper commits under the existing node."""
+        if self._trie is None:
+            return
+        p = self.kv_block
+        nb_commit = len(row) // p  # only blocks fully inside the prompt
+        base = len(shared_nodes)
+        if nb_commit <= base:
+            return
+        owned = self._slot_blocks[slot]
+        idx_block = {base + j: b for j, b in enumerate(owned)}
+        parent = shared_nodes[-1] if shared_nodes else None
+        for i in range(base, nb_commit):
+            key = tuple(row[i * p:(i + 1) * p])
+            existing = self._trie.child(parent, key)
+            if existing is not None:
+                parent = existing
+                continue
+            blk = idx_block[i]
+            node = self._trie.commit(parent, key, blk)
+            owned.remove(blk)
+            self._slot_shared[slot].append(node)
+            self.share_commits += 1
+            parent = node
 
     def _note_prefill_time(self, t0: float, had_active: bool) -> None:
         """Host wall time spent issuing prefill work, and the slice of it
@@ -785,10 +1356,38 @@ class ContinuousEngine:
             return
         dev = self.device
         if entry.cache is None:
-            # First chunk: seed from the prefix pool when the prompt's
-            # head is cached (long popular prompts are where reuse pays).
+            # First chunk: seed from the share trie (block granularity,
+            # preferred) or the prefix pool when the prompt's head is
+            # cached (long popular prompts are where reuse pays).
             cache1, p_hit = None, 0
-            if self._prefix_pool is not None:
+            if self._trie is not None:
+                with self._lock:
+                    t_nodes, _, _ = self._trie.match(req.row)
+                    t_blocks = [nd.block for nd in t_nodes]
+                    for nd in t_nodes:
+                        self._trie.touch(nd)
+                if t_blocks:
+                    # Seed the dense scratch row from the shared blocks
+                    # (one gather, issued before any later admission can
+                    # evict them); the tail then computes only unshared
+                    # tokens. The row is inserted whole at finish, so this
+                    # path shares COMPUTE, not storage: its copies of the
+                    # matched head dedup against the chain at commit.
+                    tbl = np.zeros((self.max_len // self.kv_block,),
+                                   np.int64)
+                    tbl[:len(t_blocks)] = t_blocks
+                    p_hit = len(t_blocks) * self.kv_block
+                    cache1 = _gather_blocks(
+                        self._cache, _to_device(tbl, dev),
+                        _to_device(np.asarray([p_hit], np.int32), dev))
+                    with self._lock:
+                        self.share_hits += 1
+                        self.share_hit_tokens += p_hit
+                        self.prefill_tokens_saved += p_hit
+                else:
+                    with self._lock:
+                        self.share_misses += 1
+            if cache1 is None and self._prefix_pool is not None:
                 p_hit, pool_row = self._match_prefix(req.row)
                 if p_hit:
                     cache1 = _gather_prefix(
@@ -828,18 +1427,28 @@ class ContinuousEngine:
     def _finish_long_prefill(self, entry: _Prefilling) -> None:
         """Emit a finished long prefill's first token and insert its
         scratch row into a free slot; return without popping (PARK) when
-        no slot is free."""
+        no slot is free or, paged, the pool cannot hold its blocks."""
         req = entry.req
         done = (req.max_new == 1
                 or gen_lib.truncate_at_stop([entry.first_host],
                                             req.eos)[1])
         slot = None
+        table_row = None
         with self._lock:
             if not done:
                 free = [i for i, r in enumerate(self._slot_req)
                         if r is None]
                 if not free:
                     return  # park; retried next iteration
+                if self.kv_layout == 'paged':
+                    nb = self._blocks_needed(req)
+                    if self._blocks_avail() < nb:
+                        return  # park until a completion frees blocks
+                    blocks = self._alloc_blocks(nb)
+                    table_row = np.zeros(
+                        (self.max_len // self.kv_block,), np.int32)
+                    table_row[:nb] = blocks
+                    self._slot_blocks[free[0]] = list(blocks)
                 slot = free[0]
                 self._slot_req[slot] = req
             self._prefilling.pop(0)
@@ -853,11 +1462,19 @@ class ContinuousEngine:
                 req.future.set_result(req.tokens)
             return
         dev = self.device
-        _insert(self._cache, self._last, self._limit, entry.cache,
-                entry.first,
-                _to_device(np.asarray([len(req.row) + req.max_new - 1],
-                                      np.int32), dev),
-                _to_device(np.asarray([slot], np.int64), dev))
+        limits = _to_device(np.asarray([len(req.row) + req.max_new - 1],
+                                       np.int32), dev)
+        slots = _to_device(np.asarray([slot], np.int64), dev)
+        if self.kv_layout == 'paged':
+            _paged_insert(self._cache, self._last, self._limit, entry.cache,
+                          entry.first, limits,
+                          _to_device(table_row[None], dev), slots)
+            with self._lock:
+                if self._slot_req[slot] is req:
+                    self._commit_prompt_blocks(slot, req.row, [])
+        else:
+            _insert(self._cache, self._last, self._limit, entry.cache,
+                    entry.first, limits, slots)
 
     def _prefill_group(self, reqs: List[_Request],
                        slots: List[int]) -> None:
@@ -931,11 +1548,36 @@ class ContinuousEngine:
         # never active). The first-token VALUES are read lazily
         # (_drain_firsts), while the next decode chunk computes. A row's
         # limit counts its whole prompt, prefix included.
-        limits = np.asarray([len(r.row) + r.max_new - 1 for r in reqs],
-                            np.int32)
-        _insert(self._cache, self._last, self._limit, cache_n, firsts,
-                _to_device(limits, dev),
-                _to_device(np.asarray(slots, np.int64), dev))
+        limits = _to_device(np.asarray(
+            [len(r.row) + r.max_new - 1 for r in reqs], np.int32), dev)
+        slots_d = _to_device(np.asarray(slots, np.int64), dev)
+        if self.kv_layout == 'paged':
+            mb = self.max_len // self.kv_block
+            tables_host = np.zeros((n, mb), np.int32)
+            with self._lock:
+                for i, r in enumerate(reqs):
+                    if r.max_new <= 1:
+                        continue  # resolves at prefill: junk-sink row
+                    nb = self._blocks_needed(r)
+                    blocks = self._alloc_blocks(nb)  # _admit reserved
+                    self._slot_blocks[slots[i]] = blocks
+                    tables_host[i, :nb] = blocks
+            _paged_insert(self._cache, self._last, self._limit, cache_n,
+                          firsts, limits, _to_device(tables_host, dev),
+                          slots_d)
+            if self._trie is not None:
+                # Index the group's full prompt blocks for later sharers
+                # (the insert above was issued first, so any later gather
+                # of these blocks follows their content on the stream).
+                with self._lock:
+                    for i, r in enumerate(reqs):
+                        if r.max_new > 1:
+                            self._commit_prompt_blocks(slots[i], rows[i],
+                                                       [])
+                            self.share_misses += 1
+        else:
+            _insert(self._cache, self._last, self._limit, cache_n, firsts,
+                    limits, slots_d)
         with self._lock:
             self.prefills += n
             self.prefill_groups += 1
@@ -973,6 +1615,7 @@ class ContinuousEngine:
                             for si, r in enumerate(self._slot_req):
                                 if r is req:
                                     self._slot_req[si] = None
+                                    self._release_blocks(si)
                                     break
         self._fire_callbacks(emitted)
         for req in done:
@@ -1002,7 +1645,9 @@ class ContinuousEngine:
         current slot snapshot. Dispatch and retirement strictly alternate;
         an insert that reuses a slot freed while retiring chunk N is
         issued after chunk N+1, so stream order puts N+1's junk writes for
-        that slot before the insert that overwrites them."""
+        that slot before the insert that overwrites them. Paged, the same
+        order puts N+1's last writes into the blocks released while
+        retiring N before any admission that reallocates them."""
         with self._lock:
             reqs = list(self._slot_req)
         temps = np.zeros((self.slots,), np.float32)
@@ -1031,7 +1676,8 @@ class ContinuousEngine:
                 self._no_flight_since = None
             self.dispatches += 1
         temps_d, gen, tk, tp = self._sampling_args(temps, top_ks, top_ps)
-        self._cache, self._last, toks = _chunk(
+        chunk = _paged_chunk if self.kv_layout == 'paged' else _chunk
+        self._cache, self._last, toks = chunk(
             self.cfg, self.chunk_steps, self.params, self._cache,
             self._last, self._limit, _to_device(occupied, self.device),
             temps_d, tk, tp, gen)
@@ -1090,6 +1736,7 @@ class ContinuousEngine:
                     emitted.append((req, new))
                 if hit_eos or len(req.tokens) >= req.max_new:
                     self._slot_req[i] = None
+                    self._release_blocks(i)
                     done.append(req)
         self._fire_callbacks(emitted)
         for req in done:

@@ -5,9 +5,13 @@ Port of ``skypilot_tpu/serve/llm_server.py``, two of its paths:
 
 * CONTINUOUS BATCHING (default, ``--engine continuous``): each row of a
   request takes one slot of ``models/engine.py``'s ``ContinuousEngine``
-  (the slot layout: 16 slots, 8-step chunks, pipelined unless
-  ``--pipeline off``; ``--prefix-cache N`` keeps N popular prompt
-  prefixes' KV; ``SKYTPU_LLM_PREFILL_CHUNK`` chunks long prompts). Short
+  (16 slots, 8-step chunks, pipelined unless ``--pipeline off``;
+  ``--prefix-cache N`` keeps N popular prompt prefixes' KV;
+  ``SKYTPU_LLM_PREFILL_CHUNK`` chunks long prompts). ``--kv-layout
+  paged`` serves from a block pool of ``--kv-blocks`` blocks, with
+  copy-on-write block sharing (``--prefix-share``, default on there) and
+  KV tiers (``SKYTPU_KV_TIERS``, ``SKYTPU_KV_HOST_BYTES``,
+  ``SKYTPU_KV_SPILL_DIR``). Short
   requests drain mid-stream while long ones keep decoding. ``"stream": true``
   writes NDJSON lines ``{"row": i, "tokens": [...]}`` as the engine emits
   them, then ``{"done": true}`` (an ``{"error": ...}`` line on failure), in
@@ -30,7 +34,8 @@ runs all device work.
 API (token-level, as the JAX replica, so the shared load balancer can
 drive either):
   GET  /health    -> {"status": "ok", "model": ..., "device": ...,
-                      "engine": {engine stats} or "off", ...}
+                      "engine": {engine stats} or "off",
+                      "prefix_summary": {...} (paged, sharing on), ...}
   POST /generate  {"tokens": [[...]], "max_new_tokens": N,
                    "temperature": t?, "seed": s?, "top_k": k?,
                    "top_p": p?, "eos_token": id or [ids]?, "stream": b?}
@@ -38,8 +43,10 @@ drive either):
 
 Run: ``python -m skypilot_tpu_torch.serve.llm_server --model llama3-1b
 --max-len 2048 --quantize int8 --kv-cache int8 --prefix-cache 8`` (the
-serve-llama recipe; port from --port or SKYTPU_REPLICA_PORT; ``--engine
-off`` for the window path only).
+serve-llama recipe; ``--kv-layout paged [--kv-blocks N] [--prefix-share
+on|off]`` in place of ``--prefix-cache 8`` for the paged layout; port
+from --port or SKYTPU_REPLICA_PORT; ``--engine off`` for the window path
+only).
 """
 from __future__ import annotations
 
@@ -107,7 +114,9 @@ class LlmServer:
                  kv_layout: Optional[str] = None,
                  prefix_cache: Optional[int] = None,
                  pipeline: Optional[str] = None,
-                 draft_model: Optional[str] = None):
+                 draft_model: Optional[str] = None,
+                 kv_blocks: Optional[int] = None,
+                 prefix_share: Optional[str] = None):
         # Cheap knobs first: a typo must not cost the weight init.
         if model not in llama.PRESETS:
             raise ValueError(f'Unknown model {model!r}; one of '
@@ -120,6 +129,13 @@ class LlmServer:
         if pipeline not in (None, 'on', 'off'):
             raise ValueError(f'Unknown pipeline {pipeline!r}; '
                              "'on' or 'off'")
+        if prefix_share not in (None, 'on', 'off'):
+            raise ValueError(f'Unknown prefix_share {prefix_share!r}; '
+                             "'on' or 'off'")
+        # The paged pool's size in blocks, junk sink included; 0/None =
+        # the engine's default (full capacity).
+        self.kv_blocks = kv_blocks or int(
+            os.environ.get('SKYTPU_LLM_KV_BLOCKS', '0')) or None
         if draft_model or os.environ.get('SKYTPU_LLM_DRAFT'):
             raise NotImplementedError(
                 'speculative decoding (a draft model) is not ported yet')
@@ -161,8 +177,10 @@ class LlmServer:
             self.engine = engine_lib.ContinuousEngine(
                 self.params, self.cfg, max_len=self.max_len, seed=seed,
                 kv_quantize=self.kv_cache == 'int8', kv_layout=kv_layout,
-                prefix_slots=prefix_cache,
+                kv_blocks=self.kv_blocks, prefix_slots=prefix_cache,
                 pipeline=None if pipeline is None else pipeline == 'on',
+                prefix_share=(None if prefix_share is None
+                              else prefix_share == 'on'),
                 device=self.device)
 
     # -- /health -------------------------------------------------------------
@@ -188,6 +206,13 @@ class LlmServer:
                 'max_batch_seen': self.max_batch_seen,
                 'queue': {'pending': self._queue.qsize(),
                           'overflow': len(self._overflow)}}
+        if self.engine is not None:
+            # The prefix-affinity advert (paged, sharing on): top level,
+            # as in the JAX replica, so routers need not know the
+            # engine's stats shape.
+            summary = self.engine.prefix_summary()
+            if summary is not None:
+                body['prefix_summary'] = summary
         if profiler.enabled():
             profiler.sample_device_memory(self.device)
             body['profile'] = profiler.snapshot()
@@ -558,9 +583,20 @@ def build_parser() -> argparse.ArgumentParser:
                              'SKYTPU_LLM_ENGINE)')
     parser.add_argument('--kv-layout', default=None,
                         choices=('slot', 'paged'),
-                        help="the engine's KV layout (also via "
-                             "SKYTPU_LLM_KV_LAYOUT; 'paged' is not ported "
-                             'yet)')
+                        help="the engine's KV layout: 'paged' = block-table "
+                             'KV pool, requests reserve only their actual '
+                             'ask (also via SKYTPU_LLM_KV_LAYOUT)')
+    parser.add_argument('--kv-blocks', type=int, default=None,
+                        help='paged pool size in blocks incl. the junk '
+                             'sink (also via SKYTPU_LLM_KV_BLOCKS; '
+                             'default = full capacity; size it below '
+                             'slots*max_len/block to save memory, and '
+                             'admissions queue when it runs out)')
+    parser.add_argument('--prefix-share', default=None,
+                        choices=('on', 'off'),
+                        help='copy-on-write block-level prefix sharing on '
+                             'the paged pool (default on with --kv-layout '
+                             'paged; also via SKYTPU_LLM_PREFIX_SHARE)')
     parser.add_argument('--prefix-cache', type=int, default=None,
                         help='device pool slots for popular prompt '
                              'prefixes (opt-in, default 0; costs N extra '
@@ -582,7 +618,8 @@ def server_from_args(args: argparse.Namespace, device=None) -> LlmServer:
                      quantize=args.quantize, kv_cache=args.kv_cache,
                      engine=args.engine, kv_layout=args.kv_layout,
                      prefix_cache=args.prefix_cache, pipeline=args.pipeline,
-                     device=device)
+                     kv_blocks=args.kv_blocks,
+                     prefix_share=args.prefix_share, device=device)
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> None:

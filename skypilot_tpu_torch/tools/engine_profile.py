@@ -1,12 +1,17 @@
 """Where the continuous engine's time goes on the card, for BENCH_1B.
 
     python -m skypilot_tpu_torch.tools.engine_profile
+    python -m skypilot_tpu_torch.tools.engine_profile --model llama3-1b \
+        --max-len 2048 --kv-layout both --weights-kv int8 --pipeline on
 
 For bf16 weights + bf16 KV and for int8 weights + int8 KV, the engine in
 the replica's default configuration (16 slots, ``max_len`` 1024, chunks of
-8 steps) is filled with 16 requests at once (prompt 128, 64 new tokens
-each, greedy), pipelined and then serial (``pipeline=False``), after one
-warm-up round. It prints one JSON line per run with:
+8 steps, the slot layout) is filled with 16 requests at once (prompt 128,
+64 new tokens each, greedy, no shared prefix), pipelined and then serial
+(``pipeline=False``), after one warm-up round. The flags pick the model,
+``max_len``, the KV layouts (``paged``: blocks of 16, the full-capacity
+pool, sharing and tiers at their defaults), the weight and KV modes and
+the pipeline settings to run. It prints one JSON line per run with:
 
 * ``tok_s``: generated tokens over the host-clock time from submit to the
   last answer (prefill included);
@@ -24,6 +29,7 @@ Needs one CUDA card; numbers are for the card named on the first line.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import subprocess
@@ -89,29 +95,51 @@ def _profiled_round(eng, rows):
             'top_kernels_us': [(k[:80], t) for k, t in top]}
 
 
-def main() -> int:
+def _choices(value, both):
+    return both if value == 'both' else (value,)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--model', default='bench-1b',
+                        choices=sorted(llama.PRESETS))
+    parser.add_argument('--max-len', type=int, default=MAX_LEN)
+    parser.add_argument('--kv-layout', default='slot',
+                        choices=('slot', 'paged', 'both'))
+    parser.add_argument('--weights-kv', default='both',
+                        choices=('bf16', 'int8', 'both'))
+    parser.add_argument('--pipeline', default='both',
+                        choices=('on', 'off', 'both'))
+    args = parser.parse_args(argv)
     dev = resolve_device()
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
-    cfg = llama.BENCH_1B
+    cfg = llama.PRESETS[args.model]
     base = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                              dev)
     gen = torch.Generator().manual_seed(1)
     rows = torch.randint(0, cfg.vocab_size, (SLOTS, PROMPT),
                          generator=gen).tolist()
-    for label, int8 in (('bf16', False), ('int8', True)):
+    runs = [(label, layout, pipeline)
+            for label in _choices(args.weights_kv, ('bf16', 'int8'))
+            for layout in _choices(args.kv_layout, ('slot', 'paged'))
+            for pipeline in _choices(args.pipeline, ('on', 'off'))]
+    for label in dict.fromkeys(r[0] for r in runs):
+        int8 = label == 'int8'
         params = quant_lib.quantize_params(base) if int8 else base
-        for pipeline in (True, False):
+        for _, layout, pipeline in (r for r in runs if r[0] == label):
             eng = engine_lib.ContinuousEngine(
-                params, cfg, slots=SLOTS, max_len=MAX_LEN, chunk_steps=8,
-                kv_quantize=int8, pipeline=pipeline, device=dev)
+                params, cfg, slots=SLOTS, max_len=args.max_len,
+                chunk_steps=8, kv_quantize=int8, kv_layout=layout,
+                pipeline=pipeline == 'on', device=dev)
             try:
                 _round(eng, rows)  # warm-up
                 p0 = eng.stats()['pipeline']
                 wall, decode_wall, steps, tokens = _round(eng, rows)
                 p1 = eng.stats()['pipeline']
-                row = {'weights_kv': label, 'pipeline': pipeline,
+                row = {'model': args.model, 'weights_kv': label,
+                       'kv_layout': layout, 'pipeline': pipeline == 'on',
                        'tok_s': tokens / wall,
                        'step_ms': decode_wall / steps * 1e3,
                        'decode_steps': steps,

@@ -752,23 +752,42 @@ def test_chunked_prefill_with_the_prefix_pool(weights):
 
 
 UNPORTED = {
-    'paged': dict(kv_layout='paged'),
     'draft': dict(draft_cfg=PORT_CFG),
     'draft_params': dict(draft_params={}),
     'mesh': dict(mesh=object()),
-    'block_sharing': dict(prefix_share=True),
-    'kv_tiers': dict(kv_tiers=True),
     'prefill_role': dict(role='prefill'),
     'decode_role': dict(role='decode'),
 }
+# Refused until the paged layout, block sharing and KV tiers were ported;
+# now accepted and resolved as the JAX engine resolves them (block sharing
+# only on the paged layout, tiers only with sharing).
+PORTED = {
+    'paged': dict(kv_layout='paged'),
+    'block_sharing': dict(prefix_share=True),
+    'kv_tiers': dict(kv_tiers=True),
+}
 
 
-@pytest.mark.parametrize('name', sorted(UNPORTED))
+@pytest.mark.parametrize('name', sorted(set(UNPORTED) | set(PORTED)))
 def test_unported_options_raise_at_construction(weights, name):
-    _, pp = weights
-    with pytest.raises(NotImplementedError, match='not ported yet'):
-        port_engine.ContinuousEngine(pp, PORT_CFG, slots=2, max_len=32,
-                                     device='cpu', **UNPORTED[name])
+    jp, pp = weights
+    if name in UNPORTED:
+        with pytest.raises(NotImplementedError, match='not ported yet'):
+            port_engine.ContinuousEngine(pp, PORT_CFG, slots=2, max_len=32,
+                                         device='cpu', **UNPORTED[name])
+        return
+    jeng = jax_engine.ContinuousEngine(jp, JAX_CFG, slots=2, max_len=32,
+                                       **PORTED[name])
+    eng = port_engine.ContinuousEngine(pp, PORT_CFG, slots=2, max_len=32,
+                                       device='cpu', **PORTED[name])
+    try:
+        for attr in ('kv_layout', 'prefix_share'):
+            assert getattr(eng, attr) == getattr(jeng, attr), attr
+        assert (eng._kv_tiers is None) == (jeng._kv_tiers is None)  # noqa: SLF001
+        row = [5, 6, 7]
+        assert eng.submit(row, 4).result(timeout=120) == _solo(pp, row, 4)
+    finally:
+        eng.stop()
 
 
 def test_unported_methods_and_bad_options(weights):
@@ -778,8 +797,7 @@ def test_unported_methods_and_bad_options(weights):
     for call in (lambda: eng.submit_prefill([1], 2),
                  lambda: eng.submit_import([1], 2, 3),
                  lambda: eng.probe_chain([1]),
-                 lambda: eng.resolve_chains([]),
-                 eng.prefix_summary):
+                 lambda: eng.resolve_chains([])):
         with pytest.raises(NotImplementedError, match='not ported yet'):
             call()
     with pytest.raises(ValueError, match='kv_layout'):

@@ -62,7 +62,9 @@ def test_importing_every_module_loads_no_jax_and_no_skypilot_tpu():
     walked = set(r.stdout.splitlines()[1].split())
     for sub in ('ckpt.manifest', 'ckpt.committer', 'ckpt.mirror',
                 'ckpt.snapshot', 'ckpt.manager', 'train.checkpoint',
-                'observability.train_telemetry'):
+                'observability.train_telemetry', 'models.paged',
+                'serve.kv_tiers', 'utils.prefix_affinity',
+                'utils.atomic_io'):
         assert 'skypilot_tpu_torch.' + sub in walked, sub
 
 
@@ -88,6 +90,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
         device_lib.resolve_device()
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         llm_server.LlmServer('tiny')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        llm_server.LlmServer('tiny', kv_layout='paged')
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         llama.init_params(llama.TINY, torch.Generator())
     cfg = trainer_lib.TrainerConfig(model=llama.TINY, seq_len=16)

@@ -229,10 +229,6 @@ def test_drain_turns_health_503_then_shuts_down():
 
 
 REFUSED = {  # name -> (LlmServer kwargs, env, exception, message)
-    'paged': (dict(kv_layout='paged'), {}, NotImplementedError,
-              'not ported yet'),
-    'paged_env': ({}, {'SKYTPU_LLM_KV_LAYOUT': 'paged'}, NotImplementedError,
-                  'not ported yet'),
     'kv_layout_typo': (dict(kv_layout='dense'), {}, ValueError, 'kv_layout'),
     'draft': (dict(draft_model='bench-draft'), {}, NotImplementedError,
               'not ported yet'),
@@ -244,18 +240,42 @@ REFUSED = {  # name -> (LlmServer kwargs, env, exception, message)
     'model': (dict(model='gpt-5'), {}, ValueError, 'Unknown model'),
     'moe': (dict(model='moe-tiny'), {}, NotImplementedError,
             'not ported yet'),
+    'prefix_share_typo': (dict(prefix_share='yes'), {}, ValueError,
+                          'Unknown prefix_share'),
+}
+# Refused until the paged layout was ported; now the replica serves it,
+# with block sharing on (the JAX default there).
+ACCEPTED = {  # name -> (LlmServer kwargs, env)
+    'paged': (dict(kv_layout='paged'), {}),
+    'paged_env': ({}, {'SKYTPU_LLM_KV_LAYOUT': 'paged'}),
 }
 
 
-@pytest.mark.parametrize('name', sorted(REFUSED))
+@pytest.mark.parametrize('name', sorted(set(REFUSED) | set(ACCEPTED)))
 def test_unported_engines_and_bad_knobs_are_refused(name, monkeypatch):
-    kwargs, env, exc, message = REFUSED[name]
+    if name in ACCEPTED:
+        kwargs, env = ACCEPTED[name]
+    else:
+        kwargs, env, exc, message = REFUSED[name]
     for var, value in env.items():
         monkeypatch.setenv(var, value)
     kwargs = dict(kwargs)
     model = kwargs.pop('model', 'tiny')
-    with pytest.raises(exc, match=message):
-        port_srv.LlmServer(model, device='cpu', **kwargs)
+    if name in REFUSED:
+        with pytest.raises(exc, match=message):
+            port_srv.LlmServer(model, device='cpu', **kwargs)
+        return
+    server = port_srv.LlmServer(model, max_len=MAX_LEN, device='cpu',
+                                **kwargs)
+    try:
+        assert server.engine.kv_layout == 'paged'
+        assert server.engine.prefix_share
+        status, body = server.generate({'tokens': [[4, 5, 6]],
+                                        'max_new_tokens': 5})
+        assert status == 200
+        assert body['tokens'] == _solo(server, [[4, 5, 6]], 5)
+    finally:
+        server.stop()
 
 
 def test_cli_refuses_an_unknown_engine():
@@ -263,9 +283,102 @@ def test_cli_refuses_an_unknown_engine():
         port_srv.main(['--model', 'tiny', '--engine', 'continuous-ish'])
 
 
-def test_cli_refuses_the_paged_layout():
-    with pytest.raises(NotImplementedError, match='not ported yet'):
-        port_srv.main(['--model', 'tiny', '--kv-layout', 'paged'])
+def test_cli_refuses_the_paged_layout(monkeypatch):
+    """Refused until the paged layout was ported: ``main`` now builds a
+    paged replica from ``--kv-layout paged --kv-blocks N --prefix-share
+    off`` and serves (the HTTP server is a stub); without CUDA and
+    without ``device`` it still refuses to start."""
+    argv = ['--model', 'tiny', '--max-len', str(MAX_LEN), '--kv-layout',
+            'paged', '--kv-blocks', '9', '--prefix-share', 'off', '--host',
+            '127.0.0.1', '--port', '0']
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        port_srv.main(argv)
+    calls = {}
+
+    class _Httpd:
+        def serve_forever(self):
+            server = calls['server']
+            calls['answer'] = server.generate({'tokens': [[7, 8]],
+                                               'max_new_tokens': 3})
+
+        def server_close(self):
+            pass
+
+    def make_httpd(server, host, port):
+        calls['server'] = server
+        return _Httpd()
+    monkeypatch.setattr(port_srv.LlmServer, 'make_httpd', make_httpd)
+    monkeypatch.setattr(port_srv.signal, 'signal', lambda sig, fn: None)
+    port_srv.main(argv, device='cpu')
+    engine = calls['server'].engine
+    assert engine.kv_layout == 'paged' and engine.kv_blocks == 9
+    assert not engine.prefix_share and engine._kv_tiers is None  # noqa: SLF001
+    status, body = calls['answer']
+    assert status == 200
+    assert body['tokens'] == _solo(calls['server'], [[7, 8]], 3)
+
+
+@pytest.mark.parametrize('argv, env', [
+    (['--kv-layout', 'paged', '--kv-blocks', '17', '--prefix-share', 'on'],
+     {}),
+    (['--kv-layout', 'paged'], {'SKYTPU_LLM_KV_BLOCKS': '11',
+                                'SKYTPU_LLM_PREFIX_SHARE': '0'}),
+    ([], {'SKYTPU_LLM_KV_LAYOUT': 'paged', 'SKYTPU_KV_TIERS': '0'}),
+], ids=['flags', 'env', 'layout_env'])
+def test_paged_argv_builds_the_jax_replicas_engine(argv, env, monkeypatch):
+    """``--kv-layout``, ``--kv-blocks`` and ``--prefix-share`` (and their
+    environment fallbacks) parse in both replicas' argparse and build
+    engines with the same paged options."""
+    from skypilot_tpu.serve import llm_server as jax_srv
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    argv = ['--model', 'tiny', '--max-len', str(MAX_LEN)] + argv
+    jserver = jax_srv.server_from_args(jax_srv.build_parser().parse_args(argv))
+    pserver = port_srv.server_from_args(
+        port_srv.build_parser().parse_args(argv), device='cpu')
+    try:
+        for attr in ('kv_layout', 'kv_blocks', 'kv_block', 'prefix_share',
+                     'slots', 'max_len'):
+            assert (getattr(pserver.engine, attr)
+                    == getattr(jserver.engine, attr)), attr
+        assert ((pserver.engine._kv_tiers is None)  # noqa: SLF001
+                == (jserver.engine._kv_tiers is None))  # noqa: SLF001
+    finally:
+        jserver.engine.stop()
+        pserver.stop()
+
+
+def test_paged_replica_health_carries_the_prefix_summary():
+    """Over HTTP: a repeated 24-token head hits the share trie, and
+    /health carries the engine's block accounts and, at top level as in
+    the JAX replica, the prefix advert naming the committed chain."""
+    from skypilot_tpu.utils import prefix_affinity as jax_affinity
+    server = port_srv.LlmServer('tiny', max_len=MAX_LEN, device='cpu',
+                                kv_layout='paged')
+    httpd, thread, url = _serve(server)
+    try:
+        head = list(range(1, 25))
+        for tail in ([30, 31], [40, 41]):
+            status, body = _post(url, {'tokens': [head + tail],
+                                       'max_new_tokens': 4})
+            assert status == 200 and len(body['tokens'][0]) == 4
+        status, body = _get(url, '/health')
+        assert status == 200
+        eng = body['engine']
+        assert eng['kv_layout'] == 'paged'
+        assert eng['kv_blocks']['total'] == 16 * MAX_LEN // 16 + 1
+        assert eng['prefix_share']['hits'] == 1
+        assert eng['kv_tiers']['enabled']
+        summary = body['prefix_summary']
+        info = jax_affinity.parse_summary(summary)
+        hashes = jax_affinity.chain_hashes(head, summary['block'], 8)
+        assert jax_affinity.match_depth(hashes, info['hashes']) == 1
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.stop()
+        thread.join(10)
 
 
 # The serve-llama recipe (examples/llm/serve-llama/serve.yaml) on TINY.
