@@ -16,9 +16,11 @@ Phases (any failure exits non-zero):
    side, 1, 0 and M, at B=7 and at B=32), with one chunk longer than M
    (M=48, group 1) and a group that is no power of two (3), and the
    continuous engine's decode batch (B=16, M=1024, lengths 0, 1, M and
-   past M, as free slots' junk rows reach) and the serve-llama recipe's
-   (llama3-1b: B=16, Hq 32, Hkv 8, D=64, M=2048, the same lengths), bf16
-   and int8 caches, bf16 and fp32 queries. Tolerances: bf16 2e-2 (bf16 output
+   past M, as free slots' junk rows reach), the serve-llama recipe's
+   (llama3-1b: B=16, Hq 32, Hkv 8, D=64, M=2048, the same lengths) and
+   the speculative engine's draft (bench-draft: B=16, Hq 8, Hkv 8, D=64,
+   M=1024, the same lengths), bf16 and int8 caches, bf16 and fp32
+   queries. Tolerances: bf16 2e-2 (bf16 output
    rounding, sums in another order), fp32 1e-4. Every case is also held
    against ``flash_decode_split_reference`` at the kernel's own chunk
    (``decode_split``), the same partials and merge, so only the order of
@@ -33,16 +35,19 @@ Phases (any failure exits non-zero):
    S=1000 and S=65, D=64 with group 4, fp32 inputs (the CUDA-core
    bodies; bf16 runs the tensor-core ones), and the edges of the 128-row
    tiles of K1 and K3 (S=4032, a multiple of 64 but not of 128; S=129;
-   S=1; D=64 with group 2 at S=4096), and the llama-finetune recipe's
-   shape (llama3-1b: B=8, Hq 32, Hkv 8, D 64, S=2048). Absolute
+   S=1; D=64 with group 2 at S=4096), the llama-finetune recipe's
+   shape (llama3-1b: B=8, Hq 32, Hkv 8, D 64, S=2048) and the
+   lora-finetune recipe's (BENCH_1B: B=16, Hq 16, Hkv 8, D 128,
+   S=2048). Absolute
    tolerances: bf16 o 2e-2,
    grads 5e-2; fp32 1e-4 and 1e-3 (lse always 1e-3). Those are near the
    size of a bf16 value at S=4096, so each of o, dq, dk, dv is also held
    to a relative limit on every tile of 64 rows along S:
    ||got - want|| / ||want|| over the tile (REL_TOL). Prints kernel,
    plain, library (SDPA forward for K1, SDPA's backward for K2+K3
-   together) and bound ms for both training shapes (train-s4096's and
-   llama-finetune's), with TFLOP/s and the share of the bound. Fails
+   together) and bound ms for the three training shapes (train-s4096's,
+   llama-finetune's and lora-finetune's), with TFLOP/s and the share of
+   the bound. Fails
    unless every instance of the wgmma bodies of K1, K2 and K3 (12: D
    64/128, causal or not) shows HGMMA and UTMALDG in the library's SASS
    and ptxas reports 0 spill bytes for it.
@@ -53,14 +58,19 @@ Phases (any failure exits non-zero):
    the same again with the paged layout (blocks of 16, a pool of 6 usable
    blocks, block sharing and KV tiers on; requests on repeated 16- and
    32-token heads in 4 waves: share hits, a copy-on-write fork, evictions
-   demoted to the host tier and promoted back). Then
+   demoted to the host tier and promoted back); then the speculative
+   engine (k 3, a one-layer divergent draft and the target as its own
+   draft; slot layout full and int8 KV, paged layout), tokens and
+   proposal counts equal card against CPU. Then
    ``quantization.mm`` on the card (bf16 x bf16 -> float32 GEMM) against
    the CPU's float32 einsum for each projection of BENCH_1B and llama3-1b:
    int8 weights' bf16 outputs within one ulp, at most MM_BF16_DIFF_SHARE
    of them differing, float32 logits within MM_F32_REL_TOL.
 5. Training end to end on a small model (head_dim 64, float32): 3 steps
    of the port's ``Trainer`` on the card (K1-K3) and on the CPU from the
-   same weights and batches; losses and params compared.
+   same weights and batches; losses and params compared. Then 3 LoRA
+   steps (rank 4, every target, float32 adapters) card against CPU:
+   losses and adapters within 1e-4, the base bit for bit unchanged.
 6. Training BENCH_1B, the training main path: ``train.run.main`` at seq
    4096, global batch 2, Adafactor, remat 'full', 4 steps, warmup 1.
    Every loss must be finite, the weights must move, and the launch
@@ -134,13 +144,39 @@ Phases (any failure exits non-zero):
    rule; after each drain the block accounts reconcile exactly (owned 0,
    used == cached, free + cached == usable). Prints P1's figures beside
    phase 9's slot layout, and each P2 round's.
-12. Summary: the card's name and power limit again, one JSON line of
-   kernels (K1-K3's launches are phases 6 and 10, K4's phase 8's, and
-   phases 9's and 11's for the int8 cache, each path's count in
-   ``launches_by_path``; K4's times are the engine-shape case of phase 2,
-   K1-K3's the train-s4096 shape, each named in ``timed_at``, with the
-   llama-finetune shape under ``by_shape``), then the last line
-   ``{"ok": true, "device": {...}}``.
+12. The lora-finetune recipe
+   (``examples/llm/lora-finetune/lora_finetune.yaml``): ``train.run.main``
+   with bench-1b, global batch 16, seq 2048, ``--mesh fsdp=-1``, rank 16,
+   alpha 32, targets wq,wk,wv,wo, Adafactor, remat 'full', checkpoints
+   under ``_ckpt_lora_smoke/`` (removed at the end). A: 4 steps, saves at
+   2 and 4; B: the same dir to 6 (must print ``resumed from checkpoint
+   step 4``); C: 6 steps in a fresh dir (sync saves at 3 and 6). A's
+   losses equal C's first four, B's C's last two, B's final state C's
+   bit for bit; the base after 6 steps equals the initial weights bit
+   for bit; the adapters hold 4,128,768 values; the optimizer state is
+   under half the base's size; K1/K2/K3 launches = 2 x 18 / 18 / 18 per
+   step. Prints step ms, tokens/s, MFU and peak device memory.
+13. Speculative decoding at full width, SKYTPU_LLM_SPEC_K=4:
+   ``LlmServer('bench-1b', max_len=1024, draft_model='bench-draft')``
+   over HTTP (bf16 + bf16 KV, the engine's defaults) with phase 8's
+   traffic, then one stream: answers whole, the stream equal to the
+   request not streamed, greedy answers under the gap rule against a
+   direct target ``generate``, /health's speculative block, K4 launched 4
+   draft layers x (k+1) x rounds times. Then the window path
+   (``engine='off'``) with the draft: 4 greedy rows of 128 tokens, 64
+   new, through ``generate_speculative`` (gap rule, verifies > 0, K4 = 4
+   x (k+1) x verifies). Then an engine whose draft is its target
+   (bench-draft): acceptance >= 0.9. Prints the pair's acceptance (near
+   0 with random weights), tok/s and host ms a round beside phase 8's
+   bf16 figures of the same call.
+14. Summary: the card's name and power limit again, one JSON line of
+   kernels (K1-K3's launches are phases 6, 10 and 12, K4's phase 8's and
+   13's for the bf16 cache, phases 8's, 9's and 11's for the int8 cache,
+   each path's count in ``launches_by_path``; K4's times are the
+   engine-shape case of phase 2, K1-K3's the train-s4096 shape, each
+   named in ``timed_at``, with the llama-finetune and lora-finetune
+   shapes (K1-K3) and the serve-llama and draft shapes (K4) under
+   ``by_shape``), then the last line ``{"ok": true, "device": {...}}``.
 
 It exits with an error, printing no result, when CUDA is absent or when
 the ``skypilot_tpu_torch`` package is not beside it.
@@ -185,8 +221,10 @@ MODES = {'bf16': ('skypilot_tpu/ops/decode_attention.py:147', False),
 CSRC = 'skypilot_tpu_torch/csrc/'
 ENGINE_CASE = 'engine B=16 M=1024'  # K4 at the engine's shape
 LLAMA_CASE = 'llama3-1b B=16 M=2048 D=64'  # K4 at the serve-llama recipe's
+DRAFT_CASE = 'bench-draft B=16 M=1024 D=64'  # K4 at the serve-spec draft's
 TRAIN_CASE = 'train B=2 S=4096'  # K1-K3 at train-s4096 (BENCH_1B)
 FINETUNE_CASE = 'llama3-1b B=8 S=2048'  # K1-K3 at llama-finetune's shape
+LORA_CASE = 'bench-1b B=16 S=2048'  # K1-K3 at the lora-finetune recipe's
 # The int8 ``mm`` on the card against the CPU's. Float32 sums taken in
 # another order differ by up to ~1e-6 of the output's scale: that moves a
 # rounded bf16 output across a rounding boundary now and then (one ulp),
@@ -348,6 +386,11 @@ def kernel_phase(da):
         (LLAMA_CASE, 16, 32, 8, 64, 2048,
          [0, 1, 2048, 2049, 3000, 8192, 2 ** 20]
          + rng.integers(1, 2049, 9).tolist()),
+        # The draft's decode batch in the speculative engine (serve-spec):
+        # bench-draft's heads (group 1, D 64) over max_len 1024.
+        (DRAFT_CASE, 16, 8, 8, 64, 1024,
+         [0, 1, 1024, 1025, 1500, 4096, 2 ** 20]
+         + rng.integers(1, 1025, 9).tolist()),
     ]
     results = {mode: {'max_abs_err': 0.0, 'cases': []} for mode in MODES}
     for mode, (_, quant) in MODES.items():
@@ -405,7 +448,8 @@ def kernel_phase(da):
                       + ' '.join(f'{k}={v}' for k, v in row.items()
                                  if k not in ('case', 'dtype')), flush=True)
     for mode in MODES:
-        for key, case in (('head', ENGINE_CASE), ('llama', LLAMA_CASE)):
+        for key, case in (('head', ENGINE_CASE), ('llama', LLAMA_CASE),
+                          ('draft', DRAFT_CASE)):
             results[mode][key] = next(c for c in results[mode]['cases']
                                       if c['case'] == case
                                       and c['dtype'] == 'bfloat16')
@@ -470,9 +514,10 @@ def attention_phase(fa):
         ('S=1', 1, 16, 8, 1, 128, bf16, True),
         ('D=64 G=2 S=4096', 1, 16, 8, 4096, 64, bf16, True),
         (FINETUNE_CASE, 8, 32, 8, 2048, 64, bf16, True),
+        (LORA_CASE, 16, 16, 8, 2048, 128, bf16, True),
     ]
     worst = {name: 0.0 for name in FLASH}
-    timed = {TRAIN_CASE: {}, FINETUNE_CASE: {}}
+    timed = {TRAIN_CASE: {}, FINETUNE_CASE: {}, LORA_CASE: {}}
     for label, b, hq, hkv, s, d, dtype, causal in cases:
         q, k, v, do = _attn_case(gen, b, hq, hkv, s, d, dtype)
         o, lse = fa.flash_fwd(q, k, v, causal)
@@ -561,7 +606,8 @@ def attention_phase(fa):
         del calls
     return {name: dict(timed[TRAIN_CASE][name], max_abs_err=worst[name],
                        timed_at=TRAIN_CASE,
-                       by_shape={FINETUNE_CASE: timed[FINETUNE_CASE][name]})
+                       by_shape={FINETUNE_CASE: timed[FINETUNE_CASE][name],
+                                 LORA_CASE: timed[LORA_CASE][name]})
             for name in FLASH}
 
 
@@ -740,6 +786,62 @@ def small_paged_engine_phase(llama, engine_lib):
           f'{stats["cuda", True][2]["promotes"]}', flush=True)
 
 
+def small_spec_engine_phase(llama, engine_lib):
+    """The speculative engine on the small fp32 model, on the card and on
+    the CPU from the same weights: a divergent draft (one layer, other
+    weights) and an identical one (the target itself), k 3, 4 slots,
+    max_len 48, 7 greedy requests; slot layout with full and int8 KV,
+    paged layout (blocks of 16) with both drafts. Tokens and the
+    speculative counts equal, card against CPU: the draft's K4 steps, the
+    k+1-position verify (einsum, or paged scatter and gather) and the
+    per-row rewind mean on CUDA what they mean on the CPU."""
+    cfg = dataclasses.replace(llama.TINY, d_model=128, n_heads=4,
+                              n_kv_heads=2, head_dim=64, dtype=torch.float32)
+    d_cfg = dataclasses.replace(cfg, n_layers=1, d_model=64, n_heads=2,
+                                n_kv_heads=2, d_ff=128)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
+    d_params = llama.init_params(d_cfg, torch.Generator().manual_seed(9),
+                                 'cpu')
+    rng = np.random.default_rng(7)
+    rows = [rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in (3, 17, 9, 20, 5, 12, 21)]
+    runs = [  # (label, layout, int8 KV, identical draft)
+        ('slot, divergent draft', 'slot', False, False),
+        ('slot, divergent draft, int8 KV', 'slot', True, False),
+        ('paged, divergent draft', 'paged', False, False),
+        ('paged, identical draft', 'paged', False, True)]
+    out = {}
+    for dev, p, dp in (('cpu', params, d_params),
+                       ('cuda', _tree_to(params, 'cuda'),
+                        _tree_to(d_params, 'cuda'))):
+        for label, layout, kv_quant, same in runs:
+            eng = engine_lib.ContinuousEngine(
+                p, cfg, slots=4, max_len=48, kv_quantize=kv_quant,
+                kv_layout=layout, kv_block=16, spec_k=3,
+                draft_params=p if same else dp,
+                draft_cfg=cfg if same else d_cfg, device=dev)
+            try:
+                futs = [eng.submit(r, 16) for r in rows]
+                toks = [f.result(timeout=300) for f in futs]
+                st = eng.stats()['speculative']
+                out[dev, label] = (toks, st['proposals'], st['accepted'])
+            finally:
+                eng.stop()
+    for label, *_ in runs:
+        if out['cuda', label] != out['cpu', label]:
+            raise AssertionError(f'small spec engine ({label}): card '
+                                 f'{out["cuda", label]} != CPU '
+                                 f'{out["cpu", label]}')
+    rates = {label: round(out['cuda', label][2] / out['cuda', label][1], 3)
+             for label, *_ in runs}
+    if rates['paged, identical draft'] != 1.0:
+        raise AssertionError(f'identical draft accepted {rates}')
+    print(f'  small spec engine (k 3, 4 slots, max_len 48, 7 greedy '
+          f'requests x 16 tokens): card == CPU token for token and in '
+          f'proposals/accepted for each of {[r[0] for r in runs]}; '
+          f'acceptance {rates}', flush=True)
+
+
 def _bf16_ulp(t):
     """The spacing of bf16 values at each element of ``t`` (8 bits of
     significand)."""
@@ -865,6 +967,59 @@ def small_train_phase(llama, trainer_lib, data_lib):
           f'steps: losses {runs["cuda"][0]}; card vs CPU max loss err '
           f'{loss_err}, max param err {param_err} (limits 1e-4); weights '
           f'moved up to {moved}', flush=True)
+
+
+def small_lora_phase(llama, trainer_lib, lora_lib):
+    """3 LoRA steps (Adafactor, warmup 1, lr 1e-2, rank 4, every target)
+    of the small fp32 model on the card and on the CPU from the same
+    weights and float32 adapters (B made nonzero, so both factors learn).
+    Losses and adapters within 1e-4, as the full finetune of phase 5; the
+    base params bit for bit unchanged on both."""
+    model = dataclasses.replace(llama.TINY, d_model=128, n_heads=4,
+                                n_kv_heads=2, head_dim=64, d_ff=256,
+                                dtype=torch.float32)
+    lcfg = lora_lib.LoraConfig(rank=4, targets=lora_lib.ALL_TARGETS)
+    cfg = trainer_lib.TrainerConfig(model=model, global_batch_size=2,
+                                    seq_len=200, warmup_steps=1,
+                                    learning_rate=1e-2, lora=lcfg)
+    init = llama.init_params(model, torch.Generator().manual_seed(0), 'cpu')
+    adapters = lora_lib.init_lora(torch.Generator().manual_seed(1), init,
+                                  lcfg, dtype=torch.float32, device='cpu')
+    for ab in adapters.values():
+        ab['b'] = torch.randn(ab['b'].shape,
+                              generator=torch.Generator().manual_seed(2)
+                              ) * 0.01
+    rng = np.random.default_rng(8)
+    batches = [rng.integers(0, model.vocab_size, (2, 200)).astype(np.int32)
+               for _ in range(3)]
+    runs = {}
+    for dev in ('cpu', 'cuda'):
+        trainer = trainer_lib.Trainer(cfg, device=dev)
+        state = trainer.init_state_from_numpy(_tree_to_numpy(init),
+                                              lora=_tree_to_numpy(adapters))
+        losses = []
+        for batch in batches:
+            state, metrics = trainer.step(state, batch)
+            losses.append(float(metrics['loss']))
+        runs[dev] = (losses, _flat(state['lora']), _flat(state['params']))
+    loss_err = max(abs(a - b) for a, b in zip(runs['cpu'][0],
+                                              runs['cuda'][0]))
+    lora_err = max(float((a - b.cpu()).abs().max()) for a, b in zip(
+        runs['cpu'][1], runs['cuda'][1]))
+    moved = max(float((a - b).abs().max()) for a, b in zip(
+        runs['cuda'][1], [t.cuda() for t in _flat(adapters)]))
+    frozen = all(torch.equal(a.cpu(), b) for dev in runs
+                 for a, b in zip(runs[dev][2], _flat(init)))
+    if not (loss_err <= 1e-4 and lora_err <= 1e-4 and moved > 1e-3
+            and frozen):
+        raise AssertionError(f'small LoRA training: card vs CPU loss err '
+                             f'{loss_err}, adapter err {lora_err} (limits '
+                             f'1e-4), adapters moved {moved}, base frozen '
+                             f'{frozen}')
+    print(f'  small model LoRA (rank 4, all 7 targets, fp32), 3 Adafactor '
+          f'steps: losses {runs["cuda"][0]}; card vs CPU max loss err '
+          f'{loss_err}, max adapter err {lora_err} (limits 1e-4); adapters '
+          f'moved up to {moved}; base bit for bit unchanged', flush=True)
 
 
 def _flat(tree):
@@ -1116,30 +1271,39 @@ def _idle_slot_check(engine_lib, server):
     return steps, lengths
 
 
+def _engine_traffic(vocab):
+    """Phase 8's traffic: 24 requests (prompts 17-300, max_new 8-64, a
+    third greedy, a third top-k 50, a third top-p 0.9, no seed) and one
+    request to stream."""
+    rng = np.random.default_rng(3)
+    reqs = []
+    for i in range(24):
+        body = {'tokens': [rng.integers(0, vocab, int(
+                    rng.integers(17, 301))).tolist()],
+                'max_new_tokens': int(rng.integers(8, 65))}
+        if i % 3 == 1:
+            body.update(temperature=0.8, top_k=50)
+        elif i % 3 == 2:
+            body.update(temperature=1.0, top_p=0.9)
+        reqs.append(body)
+    stream_req = {'tokens': [rng.integers(0, vocab, 40).tolist()],
+                  'max_new_tokens': 40}
+    return reqs, stream_req
+
+
 def engine_phase(srv_lib, gen_lib, engine_lib, da, quantize, kv_cache):
     """``LlmServer('bench-1b')`` with its default engine over HTTP: 24
     concurrent requests (more than the 16 slots; prompts 17-300, max_new
     8-64, greedy and sampled), then one streamed request; K4 launched
-    n_layers x chunk_steps x dispatches times in that window."""
+    n_layers x chunk_steps x dispatches times in that window. Returns the
+    launches and the window's tok/s and host ms per decode step."""
     server = srv_lib.LlmServer('bench-1b', max_len=1024, quantize=quantize,
                                kv_cache=kv_cache)
     cfg, engine = server.cfg, server.engine
     kv_int8 = kv_cache == 'int8'
     label = f'{quantize or "bf16"} weights + {kv_cache} KV'
     with _served(server) as url:
-        rng = np.random.default_rng(3)
-        reqs = []
-        for i in range(24):
-            body = {'tokens': [rng.integers(0, cfg.vocab_size, int(
-                        rng.integers(17, 301))).tolist()],
-                    'max_new_tokens': int(rng.integers(8, 65))}
-            if i % 3 == 1:
-                body.update(temperature=0.8, top_k=50)
-            elif i % 3 == 2:
-                body.update(temperature=1.0, top_p=0.9)
-            reqs.append(body)
-        stream_req = {'tokens': [rng.integers(0, cfg.vocab_size, 40)
-                                 .tolist()], 'max_new_tokens': 40}
+        reqs, stream_req = _engine_traffic(cfg.vocab_size)
         for body in ({'tokens': [[1] * 8], 'max_new_tokens': 2},
                      dict(reqs[0], max_new_tokens=9)):  # warm-up
             _post(url, body)
@@ -1197,7 +1361,7 @@ def engine_phase(srv_lib, gen_lib, engine_lib, da, quantize, kv_cache):
               f'fault, slot lengths {lengths}', flush=True)
     del server
     torch.cuda.empty_cache()
-    return launches
+    return launches, {'tok_s': tokens / wall, 'step_ms': step_ms}
 
 
 # -- phase 9: the serve-llama recipe -----------------------------------------------
@@ -1842,6 +2006,321 @@ def _verify_all(manifest, roots):
     return n
 
 
+# -- phase 12: the lora-finetune recipe ------------------------------------
+
+# examples/llm/lora-finetune/lora_finetune.yaml's command line on the port
+# (BENCH_1B, global batch 16, seq 2048, --mesh fsdp=-1, rank 16, alpha 32,
+# targets wq,wk,wv,wo; Adafactor and remat 'full' by default); its --steps
+# 2000 and --save-every 50 are cut per call below.
+LORA_ARGV = ['--model', 'bench-1b', '--global-batch-size', '16',
+             '--seq-len', '2048', '--mesh', 'fsdp=-1', '--lora-rank', '16',
+             '--lora-alpha', '32', '--lora-targets', 'wq,wk,wv,wo',
+             '--log-every', '1']
+LORA_CKPT_DIR = '_ckpt_lora_smoke'  # under the checkout; removed at the end
+LORA_ADAPTER_VALUES = 18 * 229_376  # 4,128,768 at rank 16 on BENCH_1B
+
+
+def lora_phase(llama, fa, train_run, lora_lib, trainer_lib):
+    """The lora-finetune recipe through train.run with checkpoints: A
+    trains 4 steps saving at 2 and 4 (async); B resumes to 6; C runs 6
+    uninterrupted in a fresh dir (sync saves at 3 and 6). A's losses must
+    equal C's first four, B's C's last two, B's final state (adapters,
+    optimizer state, base) C's bit for bit; the base after 6 steps equals
+    the initial weights bit for bit; the adapters hold 4,128,768 values
+    and the optimizer state is under half the base's size. Returns K1-K3's
+    launches over A, B and C (2 x 18 / 18 / 18 per step)."""
+    from skypilot_tpu_torch.ckpt import snapshot
+    root = os.path.abspath(LORA_CKPT_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    spool = os.path.join(root, 'telemetry')
+    d1, d2 = os.path.join(root, 'd1'), os.path.join(root, 'd2')
+
+    def run(argv):
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            out = train_run.main(LORA_ARGV + argv)
+        return out, ''.join(tee.parts)
+    with _env(SKYTPU_TRAIN_TELEMETRY_DIR=spool,
+              SKYTPU_PEAK_FLOPS=H100_BF16_DENSE_FLOPS):
+        try:
+            for counter in ('fwd_launches', 'bwd_dq_launches',
+                            'bwd_dkv_launches'):
+                setattr(fa.flash_attention, counter, 0)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            a, _ = run(['--steps', '4', '--save-every', '2', '--ckpt-dir', d1])
+            a_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            a_losses, a_ms = a['losses'], a['window_step_ms']
+            del a
+            b, text = run(['--steps', '6', '--save-every', '2', '--ckpt-dir',
+                           d1])
+            if '[train] resumed from checkpoint step 4' not in text:
+                raise AssertionError('call B did not resume from step 4')
+            c, _ = run(['--steps', '6', '--save-every', '3', '--ckpt-sync',
+                        '--ckpt-dir', d2])
+            launches = {name: getattr(fa.flash_attention, counter)
+                        for name, (_, counter, _) in FLASH.items()}
+            layers, steps = llama.BENCH_1B.n_layers, 4 + 2 + 6
+            expected = {'flash_fwd': 2 * layers * steps,
+                        'flash_bwd_dq': layers * steps,
+                        'flash_bwd_dkv': layers * steps}
+            if launches != expected:
+                raise AssertionError(f'lora launches {launches}, expected '
+                                     f'{expected}')
+            if a_losses != c['losses'][:4] or b['losses'] != c['losses'][4:]:
+                raise AssertionError(f'losses: A {a_losses}, B {b["losses"]}, '
+                                     f'C {c["losses"]}')
+            if not all(math.isfinite(x) for x in c['losses']):
+                raise AssertionError(f'losses {c["losses"]}')
+            differ, sum_b, sum_c = _same_state(b['state'], c['state'])
+            if differ:
+                raise AssertionError(f'resumed LoRA state differs from the '
+                                     f'uninterrupted one in {differ[:8]}')
+            # The initial state, as Trainer.init_state(seed=0) draws it.
+            init = llama.init_params(llama.BENCH_1B, torch.Generator(
+                device='cuda').manual_seed(0), 'cuda')
+            lora0 = lora_lib.init_lora(
+                torch.Generator(device='cuda').manual_seed(
+                    trainer_lib.fold_in(0, 1)), init,
+                lora_lib.LoraConfig(rank=16, alpha=32.0,
+                                    targets=('wq', 'wk', 'wv', 'wo')),
+                device='cuda')
+            if not all(torch.equal(x, y) for x, y in zip(
+                    _flat(c['state']['params']), _flat(init))):
+                raise AssertionError('LoRA moved base weights')
+            lora_moved = max(float((x.float() - y.float()).abs().max())
+                             for x, y in zip(_flat(c['state']['lora']),
+                                             _flat(lora0)))
+            if not lora_moved > 0:
+                raise AssertionError('LoRA left the adapters unchanged')
+            del init, lora0
+            adapter_values = lora_lib.param_count(c['state']['lora'])
+            base_values = sum(x.numel() for x in _flat(c['state']['params']))
+            opt_values = sum(int(np.prod(lf.shape)) for lf in
+                             snapshot.flatten_named(c['state'])[0]
+                             if lf.name.startswith("['opt_state']"))
+            if adapter_values != LORA_ADAPTER_VALUES or \
+                    not opt_values < base_values / 2:
+                raise AssertionError(f'adapters {adapter_values} values (want '
+                                     f'{LORA_ADAPTER_VALUES}), optimizer state '
+                                     f'{opt_values} against base {base_values}')
+            b_losses = b['losses']
+            del b, c
+            torch.cuda.empty_cache()
+            windows = _windows(spool)
+            # The median window: saves (a sync one stalls a step) land in
+            # a few of them.
+            median = sorted(windows, key=lambda w: w[1])[len(windows) // 2]
+            print(f'  A/B/C: losses {a_losses} + resumed at 4 {b_losses} '
+                  f'equal C bit for bit; state checksum {sum_b!r} = {sum_c!r}; '
+                  f'base bit for bit the initial weights; adapters '
+                  f'{adapter_values} values, moved up to {lora_moved} (warmup '
+                  f'100: the LR is still small), '
+                  f'optimizer state {opt_values} values against a base of '
+                  f'{base_values}; A took {a_s:.1f} s (step ms {a_ms}); peak '
+                  f'device memory {peak:.2f} GiB; launches {launches} = '
+                  'expected', flush=True)
+            for step, ms, tok_s, mfu in windows:
+                print(f'    window step {step}: {ms:.1f} ms, {tok_s:.0f} '
+                      f'tokens/s, mfu {mfu} (6 N T accounting of the JAX '
+                      'trainer)', flush=True)
+            for rec in _ckpt_records(spool, 'save'):
+                print(f'    save step {rec["step"]}: async {rec["async"]}, '
+                      f'{rec["nbytes"]} bytes, stall {rec["stall_s"]} s, '
+                      f'persist {rec["seconds"]} s', flush=True)
+            print(f'  lora-finetune median step of {len(windows)}: '
+                  f'{median[1]:.1f} ms, {median[2]:.0f} tokens/s, mfu '
+                  f'{median[3]}', flush=True)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+# -- phase 13: speculative decoding, bench-1b with the bench-draft --------------
+
+
+SPEC_K = 4  # SKYTPU_LLM_SPEC_K, the replica's default
+
+
+@contextlib.contextmanager
+def _env(**values):
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _get(url, path):
+    with urllib.request.urlopen(f'{url}{path}', timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _spec_engine_window(srv_lib, gen_lib, da, engine_fig):
+    """bench-1b with --draft-model bench-draft in the default engine, over
+    HTTP: phase 8's traffic, then one stream. K4 launched 4 x (k+1) x
+    rounds times (the draft's steps; the verify is the einsum path);
+    greedy answers under the gap rule; /health's speculative block."""
+    server = srv_lib.LlmServer('bench-1b', max_len=1024,
+                               draft_model='bench-draft')
+    cfg, engine = server.cfg, server.engine
+    d_layers = server.draft_cfg.n_layers
+    with _served(server) as url:
+        reqs, stream_req = _engine_traffic(cfg.vocab_size)
+        for body in ({'tokens': [[1] * 8], 'max_new_tokens': 2},
+                     dict(reqs[0], max_new_tokens=9)):  # warm-up
+            _post(url, body)
+        _idle(engine)
+        r0 = engine.stats()['speculative']['rounds']
+        da.flash_decode.launches = 0
+        t0 = time.perf_counter()
+        answers = _post_all(url, reqs)
+        wall = time.perf_counter() - t0
+        _idle(engine)
+        window = engine.stats()['speculative']['rounds'] - r0
+        status, lines = _post_stream(url, stream_req)
+        _idle(engine)
+        launches = da.flash_decode.launches
+        health = _get(url, '/health')
+        spec = health['engine']['speculative']
+        rounds = spec['rounds'] - r0
+        expected = d_layers * (SPEC_K + 1) * rounds
+        if launches != expected or rounds == 0:
+            raise AssertionError(f'flash_decode launched {launches} times '
+                                 f'over {rounds} rounds; expected '
+                                 f'{expected}')
+        if not (spec['k'] == SPEC_K and spec['proposals'] > 0
+                and spec['accepted'] >= 0
+                and health['draft_model'] == 'bench-draft'
+                and health['engine']['pipeline']['pipeline_depth'] == 0):
+            raise AssertionError(f'/health: {health}')
+        _check_answers(reqs, answers, cfg.vocab_size)
+        streamed = [t for ln in lines[:-1] for t in ln['tokens']]
+        if status != 200 or lines[-1] != {'done': True} \
+                or len(streamed) != stream_req['max_new_tokens']:
+            raise AssertionError(f'bad stream {status} {lines}')
+        if _post(url, stream_req)[1]['tokens'] != [streamed]:
+            raise AssertionError('streamed tokens differ from the same '
+                                 'request not streamed')
+        parted = [_check_greedy(gen_lib, server, r['tokens'][0],
+                                a[1]['tokens'][0], False)
+                  for r, a in zip(reqs, answers) if 'temperature' not in r]
+        tokens = sum(len(a[1]['tokens'][0]) for a in answers)
+        print(f'  bench-1b + bench-draft (k {SPEC_K}), bf16 + bf16 KV, '
+              f'default engine (16 slots, serial rounds): {len(reqs)} '
+              f'concurrent requests, {tokens} tokens in {wall:.2f} s = '
+              f'{tokens / wall:.1f} tok/s, {window} rounds '
+              f'({wall * 1e3 / max(window, 1):.2f} host ms a round); '
+              f'acceptance {spec["acceptance_rate"]:.4f} ({spec["accepted"]}'
+              f' of {spec["proposals"]} proposals, random weights); phase 8 '
+              f'bf16 in this call: {engine_fig["tok_s"]:.1f} tok/s, '
+              f'{engine_fig["step_ms"]:.2f} host ms a decode step; stream '
+              f'of {len(lines) - 1} lines = the request not streamed; '
+              f'flash_decode launches {launches} = {d_layers} draft layers '
+              f'x (k+1) x {rounds} rounds; greedy vs generate(): '
+              f'{sum(p[0] is None for p in parted)} of {len(parted)} equal, '
+              f'parted at (position, top-2 gap) '
+              f'{[p for p in parted if p[0] is not None]} (limit '
+              f'{GREEDY_GAP_LIMIT}); /health speculative {spec}',
+              flush=True)
+    del server
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _spec_window_path(srv_lib, gen_lib, da):
+    """--engine off with the draft: one request of 4 greedy rows of 128
+    tokens, 64 new each, through generate_speculative; each row under the
+    gap rule against generate(), verifies > 0, K4 = 4 x (k+1) x verifies."""
+    server = srv_lib.LlmServer('bench-1b', max_len=1024, engine='off',
+                               draft_model='bench-draft')
+    cfg = server.cfg
+    rng = np.random.default_rng(11)
+    rows = [rng.integers(0, cfg.vocab_size, 128).tolist() for _ in range(4)]
+    with _served(server) as url:
+        _post(url, {'tokens': [[1] * 8], 'max_new_tokens': 4})  # warm-up
+        before = _get(url, '/health')['speculative']
+        da.flash_decode.launches = 0
+        t0 = time.perf_counter()
+        status, body = _post(url, {'tokens': rows, 'max_new_tokens': 64})
+        wall = time.perf_counter() - t0
+        launches = da.flash_decode.launches
+        spec = _get(url, '/health')['speculative']
+        verifies = spec['verifies'] - before['verifies']
+        if status != 200 or verifies <= 0 or \
+                spec['requests'] - before['requests'] != 1:
+            raise AssertionError(f'window path with a draft: {status}, '
+                                 f'speculative {before} -> {spec}')
+        expected = server.draft_cfg.n_layers * (SPEC_K + 1) * verifies
+        if launches != expected:
+            raise AssertionError(f'flash_decode launched {launches} times '
+                                 f'over {verifies} verifies; expected '
+                                 f'{expected}')
+        _check_answers([{'max_new_tokens': 64}] * 4,
+                       [(status, {'tokens': [r]}) for r in body['tokens']],
+                       cfg.vocab_size)
+        parted = [_check_greedy(gen_lib, server, row, got, False)
+                  for row, got in zip(rows, body['tokens'])]
+    print(f'  window path (--engine off) + bench-draft: 4 greedy rows x '
+          f'(128 + 64) in {wall:.2f} s = {4 * 64 / wall:.1f} tok/s, '
+          f'{verifies} verifies, acceptance {spec["acceptance_rate"]}; '
+          f'flash_decode launches {launches} = '
+          f'{server.draft_cfg.n_layers} draft layers x (k+1) x verifies; vs '
+          f'generate(): {sum(p[0] is None for p in parted)} of 4 equal, '
+          f'parted at {[p for p in parted if p[0] is not None]}',
+          flush=True)
+    del server
+    torch.cuda.empty_cache()
+
+
+def _spec_identical_draft(llama, engine_lib):
+    """An engine whose draft is its target (bench-draft as both, bf16):
+    8 greedy requests of 128 + 64; acceptance at least 0.9 (not 1: the
+    draft's K4 steps and the verify's einsum round bf16 differently)."""
+    cfg = llama.BENCH_DRAFT
+    params = llama.init_params(cfg, torch.Generator(
+        device='cuda').manual_seed(0), 'cuda')
+    eng = engine_lib.ContinuousEngine(params, cfg, max_len=1024,
+                                      draft_params=params, draft_cfg=cfg,
+                                      spec_k=SPEC_K)
+    rng = np.random.default_rng(12)
+    try:
+        t0 = time.perf_counter()
+        futs = [eng.submit(rng.integers(0, cfg.vocab_size, 128).tolist(), 64)
+                for _ in range(8)]
+        outs = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        spec = eng.stats()['speculative']
+    finally:
+        eng.stop()
+    if not all(len(o) == 64 for o in outs) or \
+            not spec['acceptance_rate'] >= 0.9:
+        raise AssertionError(f'identical draft: speculative {spec}')
+    print(f'  bench-draft as its own draft (k {SPEC_K}): 8 x (128 + 64) '
+          f'in {wall:.2f} s, {spec["rounds"]} rounds, acceptance '
+          f'{spec["acceptance_rate"]:.4f} (limit 0.9)', flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+def spec_phase(srv_lib, gen_lib, engine_lib, llama, da, engine_fig):
+    """Speculative decoding at full width: the engine window, the window
+    path, an identical draft. Returns K4's launches in the engine window
+    (bf16 cache)."""
+    with _env(SKYTPU_LLM_SPEC_K=SPEC_K):
+        launches = _spec_engine_window(srv_lib, gen_lib, da, engine_fig)
+        _phase('  engine window done')
+        _spec_window_path(srv_lib, gen_lib, da)
+        _spec_identical_draft(llama, engine_lib)
+    return launches
+
+
 def _build_all(libs):
     """One nvcc per kernel library, all started together; prints each
     kernel's registers, any spills, and any wgmma the compiler had to
@@ -1866,6 +2345,7 @@ def main() -> int:
     from skypilot_tpu_torch.models import engine as engine_lib
     from skypilot_tpu_torch.models import generate as gen_lib
     from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models import lora as lora_lib
     from skypilot_tpu_torch.models import quantization as quant_lib
     from skypilot_tpu_torch.ops import attention as fa
     from skypilot_tpu_torch.ops import decode_attention as da
@@ -1893,10 +2373,12 @@ def main() -> int:
     small_model_phase(llama, gen_lib)
     small_engine_phase(llama, engine_lib)
     small_paged_engine_phase(llama, engine_lib)
+    small_spec_engine_phase(llama, engine_lib)
     mm_phase(quant_lib, llama)
 
     _phase('phase 5: small model training, card against CPU')
     small_train_phase(llama, trainer_lib, data_lib)
+    small_lora_phase(llama, trainer_lib, lora_lib)
 
     _phase('phase 6: training bench-1b at seq 4096 through train.run')
     train_launches = train_phase(llama, fa, train_run)
@@ -1907,10 +2389,10 @@ def main() -> int:
 
     _phase('phase 8: serving bench-1b over HTTP, the default continuous '
            'engine')
-    launches = {
-        'bf16': engine_phase(srv_lib, gen_lib, engine_lib, da, None, 'bf16'),
-        'int8': engine_phase(srv_lib, gen_lib, engine_lib, da, 'int8',
-                             'int8')}
+    launches, engine_figs = {}, {}
+    for mode, quantize in (('bf16', None), ('int8', 'int8')):
+        launches[mode], engine_figs[mode] = engine_phase(
+            srv_lib, gen_lib, engine_lib, da, quantize, mode)
 
     _phase('phase 9: the serve-llama recipe (llama3-1b, int8 + int8 KV, '
            'prefix pool 8, max_len 2048) over HTTP, then chunked prefill')
@@ -1927,18 +2409,31 @@ def main() -> int:
     by_path['int8']['phase 11 serve-paged'] = paged_phase(
         srv_lib, gen_lib, da, recipe_figs[8])
 
-    for mode in MODES:
-        row = kernels[mode]['llama']
-        print(f'  flash_decode[{mode} cache] at {LLAMA_CASE}: ms {row["ms"]}'
-              f' plain_ms {row["plain_ms"]} library_ms {row["library_ms"]}'
-              f' bound_ms {row["bound_ms"]} ({row["bound_by"]})', flush=True)
+    _phase('phase 12: the lora-finetune recipe (bench-1b, batch 16, seq '
+           '2048, --mesh fsdp=-1, rank 16) through train.run: save, resume')
+    lora_launches = lora_phase(llama, fa, train_run, lora_lib, trainer_lib)
 
-    _phase('phase 12: summary')
+    _phase('phase 13: speculative decoding (bench-1b + bench-draft, k 4) '
+           'over HTTP: the engine, the window path, an identical draft')
+    by_path['bf16']['phase 13 serve-spec'] = spec_phase(
+        srv_lib, gen_lib, engine_lib, llama, da, engine_figs['bf16'])
+
+    for mode in MODES:
+        for case in (LLAMA_CASE, DRAFT_CASE):
+            row = next(c for c in kernels[mode]['cases']
+                       if c['case'] == case and c['dtype'] == 'bfloat16')
+            print(f'  flash_decode[{mode} cache] at {case}: ms {row["ms"]}'
+                  f' plain_ms {row["plain_ms"]} library_ms '
+                  f'{row["library_ms"]} bound_ms {row["bound_ms"]} '
+                  f'({row["bound_by"]})', flush=True)
+
+    _phase('phase 14: summary')
     print(_card(), flush=True)  # again here, where the output's tail has it
     entries = []
     for name, (replaces, _, source) in FLASH.items():
         paths = {'phase 6 train-s4096': train_launches[name],
-                 'phase 10 llama-finetune': finetune_launches[name]}
+                 'phase 10 llama-finetune': finetune_launches[name],
+                 'phase 12 lora-finetune': lora_launches[name]}
         entries.append({
             'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': sum(paths.values()),
@@ -1953,7 +2448,11 @@ def main() -> int:
             'max_abs_err': kernels[mode]['max_abs_err'],
             'ms': head['ms'], 'plain_ms': head['plain_ms'],
             'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],
-            'library_ms': head['library_ms']})
+            'library_ms': head['library_ms'],
+            'by_shape': {case: {k: kernels[mode][key][k] for k in (
+                'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')}
+                for key, case in (('llama', LLAMA_CASE),
+                                  ('draft', DRAFT_CASE))}})
     print(json.dumps({'kernels': entries}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

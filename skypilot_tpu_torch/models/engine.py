@@ -63,6 +63,25 @@ ones keep streaming.
   on the stream before the evicted ids can be rewritten, and its planes
   reach the host through ``_HostCopy``; promotes go to the device
   through ``_to_device``.
+* Speculative decoding (``draft_params``/``draft_cfg`` set, ``spec_k``
+  proposals a round, ``SKYTPU_LLM_SPEC_K``, default 4): each engine turn
+  is a draft-propose / target-verify ROUND over all slots
+  (``_run_spec_round``). A draft KV cache (slot layout, also under a
+  paged target) tracks the same committed stream: the draft prefills
+  each prompt whole (chunked prompts chunk it too, ``d_consumed``), its
+  k+1 greedy steps per round run K4, and the target scores the window
+  [last, p1..pk] in ONE k+1-position forward (``all_logits``, the einsum
+  path; paged: ``paged.forward_paged``). Acceptance is decided on the
+  host per slot: greedy slots commit their accepted prefix plus the
+  target's correction (the solo greedy stream, whatever the draft);
+  sampled slots commit one token drawn from the verify's position-0
+  logits with the engine's generator. Rollback rewrites both caches'
+  ``lengths``. The round's proposals, target argmaxes and samples reach
+  the host in one ``_HostCopy``. Rounds are serial (``pipeline_depth``
+  0: acceptance shapes the next round), a request's write limit and its
+  paged reservation cover the k+1 window overhang, and ``submit``
+  reserves it below ``max_len``. Block sharing is off with a draft, as
+  in the JAX engine.
 * Every decode step runs the flash-decode kernel (``ops/decode_attention``,
   K4) in every layer, through ``forward_cached`` or, paged, through
   ``paged.forward_paged`` on the gathered ``[B, Hkv, max_len, D]`` view.
@@ -75,8 +94,8 @@ ones keep streaming.
 A chunk is K eager forward calls (JAX runs one compiled ``lax.scan``),
 so the engine is bound by the host's time to issue them.
 
-Not ported yet; each raises ``NotImplementedError`` at construction: draft
-rounds, a mesh, and the prefill/decode roles (with ``submit_prefill``,
+Not ported yet; each raises ``NotImplementedError`` at construction: a
+mesh, and the prefill/decode roles (with ``submit_prefill``,
 ``submit_import``, ``probe_chain`` and ``resolve_chains``). The JAX
 engine's black-box and trace records are not ported either.
 """
@@ -162,6 +181,10 @@ class _Prefilling:
     consumed: int = 0                        # prompt tokens prefilled
     first: Optional[torch.Tensor] = None
     first_host: Optional[int] = None
+    # Spec mode: the draft's own scratch row and progress (it starts at 0
+    # even when the target's head came from a prefix hit).
+    d_cache: Optional[gen_lib.KVCache] = None
+    d_consumed: int = 0
 
     @property
     def parked(self) -> bool:
@@ -224,6 +247,15 @@ def _insert_impl(cache: gen_lib.KVCache, last: torch.Tensor,
     slot's row is written; what the previous occupant left beyond that is
     never attended (valid-length masking) and later decode writes
     overwrite it. Sets each slot's length, last token and write limit."""
+    _insert_cache_impl(cache, cache_n, slots)
+    last[slots] = firsts
+    limit[slots] = limits_n
+
+
+def _insert_cache_impl(cache: gen_lib.KVCache, cache_n: gen_lib.KVCache,
+                       slots: torch.Tensor) -> None:
+    """The cache half of ``_insert_impl``, alone for the DRAFT cache (spec
+    mode), whose committed stream and write limit are the target's."""
     width = cache_n.k.shape[3]
     cache.k[:, slots, :, :width] = cache_n.k
     cache.v[:, slots, :, :width] = cache_n.v
@@ -231,8 +263,6 @@ def _insert_impl(cache: gen_lib.KVCache, last: torch.Tensor,
         cache.k_s[:, slots, :, :width] = cache_n.k_s
         cache.v_s[:, slots, :, :width] = cache_n.v_s
     cache.lengths[slots] = cache_n.lengths
-    last[slots] = firsts
-    limit[slots] = limits_n
 
 
 def _gather_prefix_impl(pool: gen_lib.KVCache, idx: torch.Tensor,
@@ -330,7 +360,61 @@ def _paged_chunk_impl(cfg: llama.LlamaConfig, k_steps: int, params,
     return cache, last, torch.stack(toks)
 
 
+def _rewind_impl(cache, adj: torch.Tensor) -> None:
+    """Per-row rollback, in place: positions past a row's valid length
+    are never attended and get overwritten, so rejecting proposals is a
+    lengths subtraction (the dense cache and the paged pool alike)."""
+    cache.lengths.sub_(adj)
+
+
+def _spec_impl(t_cfg: llama.LlamaConfig, d_cfg: llama.LlamaConfig, k: int,
+               t_params, d_params, t_cache, d_cache: gen_lib.KVCache,
+               last: torch.Tensor, limit: torch.Tensor,
+               occupied: torch.Tensor, temps: Optional[torch.Tensor],
+               top_ks: Optional[torch.Tensor],
+               top_ps: Optional[torch.Tensor],
+               generator: Optional[torch.Generator]):
+    """One speculative round over ALL slots. Returns (t_cache, d_cache,
+    out [B, 2k+3] int32 = props [B, k+1] | tgt [B, k+1] | samp [B]) with
+    BOTH caches advanced k+1 positions (the host rolls back per row).
+
+    The draft runs k+1 greedy steps (the surplus step writes p_k's KV, as
+    in ``models/speculative.py``); the target scores the window [last,
+    p1..pk] in one forward with per-position logits; ``samp`` is drawn
+    from the verify's position-0 logits with each row's sampling params,
+    so for a sampled row a round is one plain decode step. A row is
+    active while ``occupied`` and its length is below ``limit``."""
+    b = last.shape[0]
+    ones = torch.ones((b,), dtype=torch.int32, device=last.device)
+    props = []
+    tok = last
+    for _ in range(k + 1):
+        active = occupied & (d_cache.lengths < limit)
+        logits, d_cache = gen_lib.forward_cached(d_params, tok[:, None],
+                                                 d_cache, d_cfg, ones, active)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        props.append(tok)
+    props = torch.stack(props, dim=1)  # [B, k+1]
+    window = torch.cat([last[:, None], props[:, :k]], dim=1)
+    active = occupied & (t_cache.lengths < limit)
+    if isinstance(t_cache, gen_lib.KVCache):
+        logits_all, t_cache = gen_lib.forward_cached(
+            t_params, window, t_cache, t_cfg, (k + 1) * ones, active,
+            all_logits=True)
+    else:  # paged target: multi-position block writes, lengths rewind
+        logits_all, t_cache = paged_lib.forward_paged(
+            t_params, window, t_cache, t_cfg, active, all_logits=True)
+    tgt = torch.argmax(logits_all, dim=-1).to(torch.int32)  # [B, k+1]
+    samp = sampling.sample(logits_all[:, 0], temps, generator, top_ks,
+                           top_ps)
+    return t_cache, d_cache, torch.cat(
+        [props, tgt, samp.to(torch.int32)[:, None]], dim=1)
+
+
 _insert = profiler.profiled('engine.insert', _insert_impl)
+_insert_cache = profiler.profiled('engine.insert_cache', _insert_cache_impl)
+_rewind = profiler.profiled('engine.rewind', _rewind_impl)
+_spec = profiler.profiled('engine.spec_round', _spec_impl)
 _chunk = profiler.profiled('engine.chunk', _chunk_impl)
 _paged_insert = profiler.profiled('paged.insert', _paged_insert_impl)
 _paged_chunk = profiler.profiled('engine.paged_chunk', _paged_chunk_impl)
@@ -354,7 +438,7 @@ _store_prefix = profiler.profiled('engine.store_prefix', _store_prefix_impl)
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f'{what} is not ported yet: skypilot_tpu_torch serves the '
-        "continuous engine on one device, without draft rounds or roles")
+        "continuous engine on one device, without a mesh or roles")
 
 
 def check_options(*, kv_layout: Optional[str] = None,
@@ -367,10 +451,10 @@ def check_options(*, kv_layout: Optional[str] = None,
     and refuse the ones not ported yet (``NotImplementedError``) or
     unknown (``ValueError``). Returns (kv_layout, prefix_slots,
     prefill_chunk, role, prefix_share, kv_tiers). As in the JAX engine,
-    block sharing is on only with the paged layout (and a dense model
-    without a draft, the only models the port serves), and KV tiers only
-    with sharing. Needs no weights, so a replica checks its flags before
-    it builds them."""
+    block sharing is on only with the paged layout and without a draft
+    (``draft``: the engine has one; spec mode keeps its own dense draft
+    prefill), and KV tiers only with sharing. Needs no weights, so a
+    replica checks its flags before it builds them."""
     kv_layout = (kv_layout or os.environ.get('SKYTPU_LLM_KV_LAYOUT')
                  or 'slot')
     if kv_layout not in ('slot', 'paged'):
@@ -380,13 +464,12 @@ def check_options(*, kv_layout: Optional[str] = None,
         prefix_slots = int(os.environ.get('SKYTPU_LLM_PREFIX_CACHE', '0'))
     if prefill_chunk is None:
         prefill_chunk = int(os.environ.get('SKYTPU_LLM_PREFILL_CHUNK', '0'))
-    if draft:
-        raise _not_ported('speculative decoding (a draft model)')
     if mesh is not None:
         raise _not_ported('a device mesh')
     if prefix_share is None:
         prefix_share = os.environ.get('SKYTPU_LLM_PREFIX_SHARE', '1') != '0'
-    prefix_share = bool(prefix_share) and kv_layout == 'paged'
+    prefix_share = (bool(prefix_share) and kv_layout == 'paged'
+                    and not draft)
     if kv_tiers is None:
         kv_tiers = os.environ.get('SKYTPU_KV_TIERS', '1') != '0'
     kv_tiers = bool(kv_tiers) and prefix_share
@@ -421,6 +504,7 @@ class ContinuousEngine:
                  prefill_chunk: Optional[int] = None,
                  draft_params=None,
                  draft_cfg: Optional[llama.LlamaConfig] = None,
+                 spec_k: Optional[int] = None,
                  kv_layout: Optional[str] = None,
                  kv_blocks: Optional[int] = None,
                  kv_block: Optional[int] = None,
@@ -428,6 +512,29 @@ class ContinuousEngine:
                  prefix_share: Optional[bool] = None,
                  kv_tiers: Optional[bool] = None,
                  role: Optional[str] = None, device=None):
+        # Speculative mode: the draft proposes, the target verifies, per
+        # slot, inside the continuous batch (module docstring).
+        if (draft_params is None) != (draft_cfg is None):
+            raise ValueError('draft_params and draft_cfg go together')
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.spec_k = (spec_k if spec_k is not None
+                       else int(os.environ.get('SKYTPU_LLM_SPEC_K', '4')))
+        if draft_cfg is not None:
+            if self.spec_k < 1:
+                raise ValueError(f'spec_k must be >= 1, got {self.spec_k}')
+            if cfg.num_experts > 0:
+                # Expert capacity is per forward CALL: a k+1-token verify
+                # routes differently than sequential decode.
+                raise ValueError('speculative decoding requires a dense '
+                                 'target (MoE expert capacity is per '
+                                 'forward call; a k+1-token verify would '
+                                 'break greedy exactness)')
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    'draft and target must share a vocabulary '
+                    f'({draft_cfg.vocab_size} vs {cfg.vocab_size})')
+            llama.require_dense(draft_cfg)
         llama.require_dense(cfg)
         (self.kv_layout, self.prefix_slots, self.prefill_chunk,
          self.role, self.prefix_share, tiers_on) = check_options(
@@ -454,6 +561,15 @@ class ContinuousEngine:
         if pipeline is None:
             pipeline = os.environ.get('SKYTPU_LLM_PIPELINE', '1') != '0'
         self.pipeline_depth = 1 if pipeline else 0
+        if draft_cfg is not None:
+            # Rounds are host-synchronous by construction: acceptance
+            # decides the rollback that shapes the next round's inputs.
+            self.pipeline_depth = 0
+        # A verify may write k+1 positions past a row's last committed one
+        # before its tail rolls back: submit reserves that overhang below
+        # max_len, and a row's write limit and paged reservation cover it.
+        self._overhang = self.spec_k + 1 if draft_cfg is not None else 0
+        self._submit_max = self.max_len - self._overhang
         self._seed = seed
         self.kv_block = kv_block or int(
             os.environ.get('SKYTPU_LLM_KV_BLOCK', '16'))
@@ -515,6 +631,9 @@ class ContinuousEngine:
         self.chunks_run = 0
         self.tokens_emitted = 0
         self.peak_active = 0
+        self.spec_rounds = 0
+        self.spec_proposals = 0
+        self.spec_accepted = 0
         # Overlap (stats()['pipeline']): host work done while a chunk
         # computes vs host time the device idled with work waiting.
         self.dispatches = 0
@@ -570,10 +689,13 @@ class ContinuousEngine:
 
     def _build_request(self, row, max_new, temperature, on_tokens,
                        top_k, top_p, eos) -> _Request:
-        if len(row) + max_new > self.max_len:
+        if len(row) + max_new > self._submit_max:
+            extra = ('' if self._submit_max == self.max_len else
+                     f' (max_len {self.max_len} minus the speculative '
+                     f'verify window overhang {self._overhang})')
             raise ValueError(
                 f'prompt ({len(row)}) + max_new ({max_new}) exceeds '
-                f'engine max_len limit {self.max_len}')
+                f'engine max_len limit {self._submit_max}{extra}')
         if self.kv_layout == 'paged' and max_new > 1:
             need = self._blocks_for(len(row), max_new)
             if need > self.kv_blocks - 1:
@@ -641,7 +763,7 @@ class ContinuousEngine:
 
     def stats(self) -> dict:
         """Counters for /health under the JAX engine's ``stats()`` keys
-        (all but its speculative and disaggregation blocks).
+        (all but its disaggregation block).
         ``prefill_tokens`` counts the prompt tokens prefill computed;
         ``prefill_tokens_saved`` those shared blocks or the prefix pool
         skipped (as in the JAX engine, a pool hit seeding a chunked
@@ -700,6 +822,14 @@ class ContinuousEngine:
                         self._gap_ms_total / max(self._gap_count, 1), 3),
                     'host_overlap_ms': round(self.host_overlap_ms, 3),
                     'bubble_ms': round(self.bubble_ms, 3)},
+                'speculative': None if self.draft_cfg is None else {
+                    'k': self.spec_k,
+                    'rounds': self.spec_rounds,
+                    'proposals': self.spec_proposals,
+                    'accepted': self.spec_accepted,
+                    'acceptance_rate': (
+                        self.spec_accepted / self.spec_proposals
+                        if self.spec_proposals else 0.0)},
                 'prefix_cache': {
                     'slots': self.prefix_slots,
                     'entries': len(self._prefix_index),
@@ -758,7 +888,10 @@ class ContinuousEngine:
                         self._wake.wait(_IDLE_WAIT_S)
                         self._wake.clear()
                         continue
-                    self._run_chunk()
+                    if self.draft_cfg is not None:
+                        self._run_spec_round()
+                    else:
+                        self._run_chunk()
                 except Exception as exc:  # noqa: BLE001 -- fail all waiters
                     # Fail in-flight work, rebuild device state, KEEP
                     # LOOPING: exiting would strand a request submitted
@@ -824,6 +957,16 @@ class ContinuousEngine:
         self._gen.manual_seed(self._seed)
         profiler.register_logical('kv_cache',
                                   profiler.tree_nbytes(self._cache))
+        self._d_cache = None
+        if self.draft_cfg is not None:
+            # The draft cache is dense (one max_len row per slot) on both
+            # layouts, as in the JAX engine.
+            self._d_cache = gen_lib.init_cache(self.draft_cfg, self.slots,
+                                               self.max_len,
+                                               quantize=self.kv_quantize,
+                                               device=dev)
+            profiler.register_logical('kv_draft',
+                                      profiler.tree_nbytes(self._d_cache))
         # The pool is zero-filled like every cache here: a miss gathers
         # row 0, whose positions are masked, and 0 x NaN would be NaN.
         self._prefix_pool = None
@@ -841,9 +984,15 @@ class ContinuousEngine:
 
     def _blocks_for(self, row_len: int, max_new: int) -> int:
         """Blocks reserved at admission: the request's actual ask, not
-        max_len. The ONE definition: submit-time feasibility and
-        admission-time reservation must never disagree."""
-        return -(-(row_len + max_new) // self.kv_block)
+        max_len, plus (spec mode) the verify window's overhang, which a
+        round writes before it rolls back. The ONE definition: submit-time
+        feasibility and admission-time reservation must never disagree."""
+        return -(-(row_len + max_new + self._overhang) // self.kv_block)
+
+    def _limit_for(self, req: _Request) -> int:
+        """A slot's write limit: its row is active while its length is
+        below this (prompt + max_new - 1, plus the spec window)."""
+        return len(req.row) + req.max_new - 1 + self._overhang
 
     def _blocks_needed(self, req: _Request) -> int:
         return self._blocks_for(len(req.row), req.max_new)
@@ -1210,7 +1359,7 @@ class ContinuousEngine:
             np.asarray([req.top_k], np.int32),
             np.asarray([req.top_p], np.float32)))
         self._last[slot] = first[0]
-        self._limit[slot] = len(row) + req.max_new - 1
+        self._limit[slot] = self._limit_for(req)
         with self._lock:
             if partial is not None:
                 # The fork donor was pinned only across the copy; it
@@ -1315,23 +1464,25 @@ class ContinuousEngine:
             with self._lock:
                 self.prefix_stores += 1
 
-    def _prefill_one_chunk(self, cache1: gen_lib.KVCache, row: List[int],
+    def _prefill_one_chunk(self, params, cfg: llama.LlamaConfig,
+                           cache1: gen_lib.KVCache, row: List[int],
                            consumed: int):
-        """One bounded chunk of a single-row incremental prefill.
-        Returns (logits, cache, new_consumed). The padded width may not
-        overhang max_len (the cache write would raise); room always
-        suffices, as the prompt is < max_len (``submit`` validates row +
-        max_new <= max_len)."""
+        """One bounded chunk of a single-row incremental prefill of the
+        target (or, spec mode, the draft). Returns (logits, cache,
+        new_consumed). The padded width may not overhang max_len (the
+        cache write would raise); room always suffices, as the prompt is
+        < max_len (``submit`` validates row + max_new <= max_len)."""
         w = min(self.prefill_chunk, self.max_len - consumed)
         chunk = row[consumed:consumed + w]
         padded = np.zeros((1, w), np.int32)
         padded[0, :len(chunk)] = chunk
         dev = self.device
         logits, cache1 = _prefill(
-            self.params, _to_device(padded, dev), cache1, self.cfg,
+            params, _to_device(padded, dev), cache1, cfg,
             _to_device(np.asarray([len(chunk)], np.int32), dev))
-        with self._lock:
-            self.prefill_tokens += len(chunk)
+        if params is self.params:  # the draft's chunks do not count
+            with self._lock:
+                self.prefill_tokens += len(chunk)
         return logits, cache1, consumed + len(chunk)
 
     def _advance_prefill(self) -> None:
@@ -1347,14 +1498,26 @@ class ContinuousEngine:
     def _advance_prefill_impl(self) -> None:
         """Advance the oldest in-flight long prefill by ONE chunk (the
         per-iteration budget that bounds how long active slots wait
-        between decode chunks). On the final chunk: sample the first
-        token; insert once a slot frees."""
+        between decode chunks), and in spec mode the draft's too. On the
+        target's final chunk: sample the first token; insert once the
+        draft has caught up and a slot frees."""
         entry = self._prefilling[0]
         req = entry.req
+        spec = self.draft_cfg is not None
+        dev = self.device
+        # The draft advances first: it starts at 0 even when the target's
+        # head came from a prefix hit (the pool stores target KV only), and
+        # a parked target must not stall the draft's remaining chunks.
+        if spec and entry.cache is not None \
+                and entry.d_consumed < len(req.row):
+            _, entry.d_cache, entry.d_consumed = self._prefill_one_chunk(
+                self.draft_params, self.draft_cfg, entry.d_cache, req.row,
+                entry.d_consumed)
+            with self._lock:
+                self.prefill_chunks += 1
         if entry.parked:
             self._finish_long_prefill(entry)
             return
-        dev = self.device
         if entry.cache is None:
             # First chunk: seed from the share trie (block granularity,
             # preferred) or the prefix pool when the prompt's head is
@@ -1403,8 +1566,12 @@ class ContinuousEngine:
                                             quantize=self.kv_quantize,
                                             device=dev)
             entry.cache, entry.consumed = cache1, p_hit
+            if spec:
+                entry.d_cache = gen_lib.init_cache(
+                    self.draft_cfg, 1, self.max_len,
+                    quantize=self.kv_quantize, device=dev)
         logits, entry.cache, entry.consumed = self._prefill_one_chunk(
-            entry.cache, req.row, entry.consumed)
+            self.params, self.cfg, entry.cache, req.row, entry.consumed)
         with self._lock:
             self.prefill_chunks += 1
         if entry.consumed >= len(req.row):
@@ -1413,7 +1580,8 @@ class ContinuousEngine:
                 # sighting, like the grouped path.
                 self._maybe_store_prefixes([req.row], [0], entry.cache)
             # Sample the first token ONCE off the final chunk's logits;
-            # the entry may then park for a free slot.
+            # the entry may then park for a free slot (or, spec mode, for
+            # the draft's remaining chunks).
             entry.first = _sample(logits, *self._sampling_args(
                 np.asarray([req.temperature], np.float32),
                 np.asarray([req.top_k], np.int32),
@@ -1427,8 +1595,11 @@ class ContinuousEngine:
     def _finish_long_prefill(self, entry: _Prefilling) -> None:
         """Emit a finished long prefill's first token and insert its
         scratch row into a free slot; return without popping (PARK) when
-        no slot is free or, paged, the pool cannot hold its blocks."""
+        no slot is free, paged, the pool cannot hold its blocks, or, spec
+        mode, the draft has not caught up."""
         req = entry.req
+        if self.draft_cfg is not None and entry.d_consumed < len(req.row):
+            return  # the draft cache is still catching up
         done = (req.max_new == 1
                 or gen_lib.truncate_at_stop([entry.first_host],
                                             req.eos)[1])
@@ -1462,8 +1633,8 @@ class ContinuousEngine:
                 req.future.set_result(req.tokens)
             return
         dev = self.device
-        limits = _to_device(np.asarray([len(req.row) + req.max_new - 1],
-                                       np.int32), dev)
+        limits = _to_device(np.asarray([self._limit_for(req)], np.int32),
+                            dev)
         slots = _to_device(np.asarray([slot], np.int64), dev)
         if self.kv_layout == 'paged':
             _paged_insert(self._cache, self._last, self._limit, entry.cache,
@@ -1475,6 +1646,8 @@ class ContinuousEngine:
         else:
             _insert(self._cache, self._last, self._limit, entry.cache,
                     entry.first, limits, slots)
+        if self.draft_cfg is not None:
+            _insert_cache(self._d_cache, entry.d_cache, slots)
 
     def _prefill_group(self, reqs: List[_Request],
                        slots: List[int]) -> None:
@@ -1549,7 +1722,7 @@ class ContinuousEngine:
         # (_drain_firsts), while the next decode chunk computes. A row's
         # limit counts its whole prompt, prefix included.
         limits = _to_device(np.asarray(
-            [len(r.row) + r.max_new - 1 for r in reqs], np.int32), dev)
+            [self._limit_for(r) for r in reqs], np.int32), dev)
         slots_d = _to_device(np.asarray(slots, np.int64), dev)
         if self.kv_layout == 'paged':
             mb = self.max_len // self.kv_block
@@ -1578,6 +1751,25 @@ class ContinuousEngine:
         else:
             _insert(self._cache, self._last, self._limit, cache_n, firsts,
                     limits, slots_d)
+        if self.draft_cfg is not None:
+            # The draft tracks the same committed stream, so it prefills
+            # the FULL rows (the prefix pool stores target KV only; the
+            # draft is small enough that re-prefilling a cached head costs
+            # little).
+            width_f = min(prompt_bucket(max(len(r) for r in rows)),
+                          self.max_len)
+            padded_f = np.zeros((n, width_f), np.int32)
+            lens_f = np.zeros((n,), np.int32)
+            for i, r in enumerate(rows):
+                padded_f[i, :len(r)] = r
+                lens_f[i] = len(r)
+            d_cache_n = gen_lib.init_cache(self.draft_cfg, n, width_f,
+                                           quantize=self.kv_quantize,
+                                           device=dev)
+            _, d_cache_n = _prefill(self.draft_params,
+                                    _to_device(padded_f, dev), d_cache_n,
+                                    self.draft_cfg, _to_device(lens_f, dev))
+            _insert_cache(self._d_cache, d_cache_n, slots_d)
         with self._lock:
             self.prefills += n
             self.prefill_groups += 1
@@ -1621,6 +1813,98 @@ class ContinuousEngine:
         for req in done:
             if not req.future.done():
                 req.future.set_result(req.tokens)
+
+    def _run_spec_round(self) -> None:
+        """One draft-propose / target-verify round over all slots (spec
+        mode's decode step). Greedy slots commit their accepted prefix and
+        the target's correction; sampled slots one token drawn from the
+        verify's position-0 logits; free slots one target token (as a
+        decode step would). Both caches then roll back per row to their
+        committed lengths. Serial: the round's one host read waits for it,
+        and the device idles through the bookkeeping (``bubble_ms``)."""
+        with self._lock:
+            reqs = list(self._slot_req)
+        k = self.spec_k
+        temps = np.zeros((self.slots,), np.float32)
+        top_ks = np.zeros((self.slots,), np.int32)
+        top_ps = np.ones((self.slots,), np.float32)
+        occupied = np.zeros((self.slots,), bool)
+        for i, r in enumerate(reqs):
+            if r is not None:
+                temps[i] = r.temperature
+                top_ks[i] = r.top_k
+                top_ps[i] = r.top_p
+                occupied[i] = True
+        now = time.perf_counter()
+        with self._lock:
+            self.peak_active = max(self.peak_active, int(occupied.sum()))
+            if self._no_flight_since is not None:
+                self.bubble_ms += (now - self._no_flight_since) * 1e3
+                self._no_flight_since = None
+            self.dispatches += 1
+        temps_d, gen, tk, tp = self._sampling_args(temps, top_ks, top_ps)
+        self._cache, self._d_cache, out = _spec(
+            self.cfg, self.draft_cfg, k, self.params, self.draft_params,
+            self._cache, self._d_cache, self._last, self._limit,
+            _to_device(occupied, self.device), temps_d, tk, tp, gen)
+        # ONE transfer for the round's props, tgt and samp.
+        out = _HostCopy(out)
+        # First tokens first, while the round computes: emission counts on
+        # every admitted request's list already holding its prefill token.
+        self._drain_firsts()
+        host = out.numpy()
+        t0 = time.perf_counter()
+        props_h, tgt_h, samp_h = (host[:, :k + 1], host[:, k + 1:2 * k + 2],
+                                  host[:, 2 * k + 2])
+        committed = np.ones((self.slots,), np.int32)
+        new_last = tgt_h[:, 0].astype(np.int32).copy()  # free-slot default
+        done: List[_Request] = []
+        emitted: List[tuple] = []
+        with self._lock:
+            self.spec_rounds += 1
+            self.chunks_run += 1
+            for i, req in enumerate(reqs):
+                if req is None or self._slot_req[i] is not req \
+                        or req.future.done():
+                    continue  # a free slot's junk
+                if req.temperature == 0.0:
+                    a = 0
+                    while a < k and props_h[i, a] == tgt_h[i, a]:
+                        a += 1
+                    new = [int(t) for t in props_h[i, :a]]
+                    new.append(int(tgt_h[i, a]))
+                    self.spec_proposals += k
+                    self.spec_accepted += a
+                    committed[i] = a + 1
+                    new_last[i] = int(tgt_h[i, a])
+                else:
+                    # Exactly one plain decode step per round: greedy
+                    # acceptance would skew the sampling distribution.
+                    new = [int(samp_h[i])]
+                    new_last[i] = int(samp_h[i])
+                new = new[:req.max_new - len(req.tokens)]
+                new, hit_eos = gen_lib.truncate_at_stop(new, req.eos)
+                req.tokens.extend(new)
+                self.tokens_emitted += len(new)
+                if req.on_tokens is not None and new:
+                    emitted.append((req, new))
+                if hit_eos or len(req.tokens) >= req.max_new:
+                    self._slot_req[i] = None
+                    self._release_blocks(i)
+                    done.append(req)
+        # Rollback: both models advanced k+1; each row keeps `committed`.
+        dev = self.device
+        adj = _to_device(np.int32(k + 1) - committed, dev)
+        _rewind(self._cache, adj)
+        _rewind(self._d_cache, adj)
+        self._last = _to_device(new_last, dev)
+        self._fire_callbacks(emitted)
+        for req in done:
+            if not req.future.done():
+                req.future.set_result(req.tokens)
+        with self._lock:
+            self.bubble_ms += (time.perf_counter() - t0) * 1e3
+        self._no_flight_since = None
 
     def _run_chunk(self) -> None:
         """Issue one decode chunk and retire its predecessor.

@@ -188,12 +188,16 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
                    cfg: llama.LlamaConfig,
                    row_lens: Optional[torch.Tensor] = None,
                    active_rows: Optional[torch.Tensor] = None,
+                   all_logits: bool = False,
                    ) -> Tuple[torch.Tensor, KVCache]:
     """Run ``tokens`` [B, S] through the model appending to ``cache``
     (in place); returns (float32 logits of each row's LAST REAL position
     [B, vocab], the cache with advanced lengths). Prefill (S = padded
     prompt length) and decode (S = 1) alike. ``row_lens`` [B] gives each
     row's real token count within ``tokens`` (default: all S).
+    ``all_logits`` returns float32 logits at EVERY position [B, S, vocab]
+    instead (a speculative verify needs the target's prediction after
+    each proposed token; S is the small draft window).
 
     ``active_rows`` [B] bool marks the rows that are live requests (the
     continuous engine decodes its whole slot batch, and a free slot's row
@@ -220,13 +224,17 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
             cache.k_s[i] if cache.quantized else None,
             cache.v_s[i] if cache.quantized else None)
     x = llama.rms_norm(x, params['final_norm'], cfg.norm_eps)
+    new_cache = dataclasses.replace(cache, lengths=valid)
+    if all_logits:
+        return (_mm(x, params['lm_head'], 'bsd,dv->bsv',
+                    out_dtype=torch.float32), new_cache)
     if row_lens is None:
         last = x[:, -1]
     else:
         last = x[torch.arange(b, device=dev), row_lens.long() - 1]
     logits = _mm(last, params['lm_head'], 'bd,dv->bv',
                  out_dtype=torch.float32)
-    return logits, dataclasses.replace(cache, lengths=valid)
+    return logits, new_cache
 
 
 def _sample(logits: torch.Tensor, temperature: float,

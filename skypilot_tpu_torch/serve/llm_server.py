@@ -11,7 +11,9 @@ Port of ``skypilot_tpu/serve/llm_server.py``, two of its paths:
   paged`` serves from a block pool of ``--kv-blocks`` blocks, with
   copy-on-write block sharing (``--prefix-share``, default on there) and
   KV tiers (``SKYTPU_KV_TIERS``, ``SKYTPU_KV_HOST_BYTES``,
-  ``SKYTPU_KV_SPILL_DIR``). Short
+  ``SKYTPU_KV_SPILL_DIR``). ``--draft-model`` (``SKYTPU_LLM_DRAFT``)
+  rides a draft model inside the engine: per-slot propose/verify rounds
+  of ``SKYTPU_LLM_SPEC_K`` (default 4) proposals. Short
   requests drain mid-stream while long ones keep decoding. ``"stream": true``
   writes NDJSON lines ``{"row": i, "tokens": [...]}`` as the engine emits
   them, then ``{"done": true}`` (an ``{"error": ...}`` line on failure), in
@@ -20,7 +22,10 @@ Port of ``skypilot_tpu/serve/llm_server.py``, two of its paths:
   whose output must depend on its seed alone): concurrent requests that
   land within the batch window (``SKYTPU_LLM_BATCH_WINDOW_MS``, at most
   ``SKYTPU_LLM_MAX_BATCH`` rows) are right-padded into one ``generate``
-  call. A seeded request is never batched with another.
+  call. A seeded request is never batched with another. With a draft,
+  greedy batches of uniform prompt length decode through
+  ``speculative.generate_speculative`` (the target's exact greedy
+  stream; ``/health`` ``speculative`` counts them).
 
 QoS admission, the KV handoff routes, ``/metrics`` and tracing are not
 ported yet. One check is the port's own: token ids outside the
@@ -35,6 +40,7 @@ API (token-level, as the JAX replica, so the shared load balancer can
 drive either):
   GET  /health    -> {"status": "ok", "model": ..., "device": ...,
                       "engine": {engine stats} or "off",
+                      "draft_model": ..., "speculative": {...} (a draft),
                       "prefix_summary": {...} (paged, sharing on), ...}
   POST /generate  {"tokens": [[...]], "max_new_tokens": N,
                    "temperature": t?, "seed": s?, "top_k": k?,
@@ -70,6 +76,7 @@ from skypilot_tpu_torch.models import engine as engine_lib
 from skypilot_tpu_torch.models import generate as gen_lib
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models import quantization as quant_lib
+from skypilot_tpu_torch.models import speculative
 from skypilot_tpu_torch.observability import profiler
 from skypilot_tpu_torch.utils.device import resolve_device
 
@@ -136,12 +143,19 @@ class LlmServer:
         # the engine's default (full capacity).
         self.kv_blocks = kv_blocks or int(
             os.environ.get('SKYTPU_LLM_KV_BLOCKS', '0')) or None
-        if draft_model or os.environ.get('SKYTPU_LLM_DRAFT'):
-            raise NotImplementedError(
-                'speculative decoding (a draft model) is not ported yet')
+        # Speculative decoding: with the continuous engine the draft rides
+        # inside it (per-slot rounds); with --engine off it rides the
+        # window path (models/speculative.py), greedy batches only.
+        self.draft_model = (draft_model
+                            or os.environ.get('SKYTPU_LLM_DRAFT') or None)
+        self.spec_k = int(os.environ.get('SKYTPU_LLM_SPEC_K', '4'))
+        if self.spec_k < 1:
+            raise ValueError(f'SKYTPU_LLM_SPEC_K must be >= 1, got '
+                             f'{self.spec_k}')
         if engine == 'continuous':
             engine_lib.check_options(kv_layout=kv_layout,
-                                     prefix_slots=prefix_cache)
+                                     prefix_slots=prefix_cache,
+                                     draft=self.draft_model is not None)
         self.kv_cache = (kv_cache
                          or os.environ.get('SKYTPU_LLM_KV_CACHE', 'bf16'))
         if self.kv_cache not in ('bf16', 'int8'):
@@ -154,12 +168,46 @@ class LlmServer:
         self.model_name = model
         self.cfg = llama.PRESETS[model]
         self.max_len = min(max_len, self.cfg.max_seq_len)
+        self.draft_cfg = None
+        if self.draft_model is not None:
+            if self.draft_model not in llama.PRESETS:
+                raise ValueError(f'Unknown draft model '
+                                 f'{self.draft_model!r}')
+            if self.cfg.num_experts > 0:
+                raise ValueError(
+                    '--draft-model requires a dense target model; '
+                    f'{model!r} is MoE (expert capacity is per forward '
+                    'call, so a multi-token verify breaks greedy '
+                    'exactness)')
+            self.draft_cfg = llama.PRESETS[self.draft_model]
+            if self.draft_cfg.vocab_size != self.cfg.vocab_size:
+                raise ValueError(
+                    'draft and target must share a vocabulary '
+                    f'({self.draft_cfg.vocab_size} vs '
+                    f'{self.cfg.vocab_size})')
+            if self.draft_cfg.max_seq_len < self.max_len:
+                # Otherwise every spec-eligible request would fail the
+                # context check of generate_speculative.
+                raise ValueError(
+                    f'draft model {self.draft_model!r} max_seq_len '
+                    f'{self.draft_cfg.max_seq_len} < server max_len '
+                    f'{self.max_len}')
         self.device = resolve_device(device)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         self.params = llama.init_params(self.cfg, gen, self.device)
         if self.quantize:
             self.params = quant_lib.quantize_params(self.params)
+        # The draft's weights from seed + 1, unquantized (as the JAX
+        # replica keeps them).
+        self.draft_params = None
+        self._spec_stats = {'requests': 0, 'verifies': 0, 'proposals': 0,
+                            'accepted': 0}
+        if self.draft_cfg is not None:
+            dgen = torch.Generator(device=self.device)
+            dgen.manual_seed(seed + 1)
+            self.draft_params = llama.init_params(self.draft_cfg, dgen,
+                                                  self.device)
         self._queue: 'queue.Queue[Optional[_Pending]]' = queue.Queue()
         self._overflow: Deque[_Pending] = collections.deque()
         self._worker: Optional[threading.Thread] = None
@@ -181,7 +229,8 @@ class LlmServer:
                 pipeline=None if pipeline is None else pipeline == 'on',
                 prefix_share=(None if prefix_share is None
                               else prefix_share == 'on'),
-                device=self.device)
+                draft_params=self.draft_params, draft_cfg=self.draft_cfg,
+                spec_k=self.spec_k, device=self.device)
 
     # -- /health -------------------------------------------------------------
 
@@ -202,6 +251,7 @@ class LlmServer:
                 'quantize': self.quantize,
                 'kv_cache': self.kv_cache,
                 'max_len': self.max_len,
+                'draft_model': self.draft_model,
                 'batches_served': self.batches_served,
                 'max_batch_seen': self.max_batch_seen,
                 'queue': {'pending': self._queue.qsize(),
@@ -216,6 +266,14 @@ class LlmServer:
         if profiler.enabled():
             profiler.sample_device_memory(self.device)
             body['profile'] = profiler.snapshot()
+        if self.draft_params is not None:
+            # The window path's speculative counters (the engine's are in
+            # its stats), as the JAX replica reports them.
+            spec = dict(self._spec_stats)
+            spec['acceptance_rate'] = (
+                round(spec['accepted'] / spec['proposals'], 4)
+                if spec['proposals'] else None)
+            body['speculative'] = spec
         return 200, body
 
     # -- batching worker -----------------------------------------------------
@@ -286,6 +344,25 @@ class LlmServer:
             max_new = max(p.max_new for p in sub)
             temperature = sub[0].temperature
             seed = sub[0].seed
+            lens_host = [len(r) for r in rows]
+            # With a draft: greedy batches of uniform prompt length
+            # (generate_speculative takes no per-row lengths) whose window
+            # overhang fits max_len; everything else takes generate().
+            if (self.draft_params is not None and temperature == 0
+                    and min(lens_host) == max(lens_host)
+                    and max(lens_host) + max_new + self.spec_k + 1
+                    <= self.max_len):
+                out, spec = speculative.generate_speculative(
+                    self.params, self.cfg, self.draft_params,
+                    self.draft_cfg, padded, max_new, k=self.spec_k,
+                    max_len=self.max_len,
+                    kv_quantize=self.kv_cache == 'int8')
+                with self._lock:
+                    self._spec_stats['requests'] += len(sub)
+                    for key in ('verifies', 'proposals', 'accepted'):
+                        self._spec_stats[key] += spec[key]
+                self._deliver(sub, out.tolist())
+                continue
             generator = None
             if temperature > 0:
                 generator = torch.Generator(device=self.device)
@@ -298,16 +375,20 @@ class LlmServer:
                 kv_quantize=self.kv_cache == 'int8',
                 top_k=sub[0].top_k, top_p=sub[0].top_p).tolist()
             self.generate_calls.append((len(rows), max_new))
-            i = 0
-            for p in sub:
-                n = len(p.rows)
-                # Each request gets only the tokens it asked for, cut at
-                # its first stop id (inclusive). The batch decodes to the
-                # group max: no per-row early exit on this path.
-                p.future.set_result(
-                    [gen_lib.truncate_at_stop(r[:p.max_new], p.eos)[0]
-                     for r in out[i:i + n]])
-                i += n
+            self._deliver(sub, out)
+
+    @staticmethod
+    def _deliver(sub: List[_Pending], out: List[List[int]]) -> None:
+        """Each request gets only the tokens it asked for, cut at its
+        first stop id (inclusive). The batch decodes to the group max: no
+        per-row early exit on this path."""
+        i = 0
+        for p in sub:
+            n = len(p.rows)
+            p.future.set_result(
+                [gen_lib.truncate_at_stop(r[:p.max_new], p.eos)[0]
+                 for r in out[i:i + n]])
+            i += n
 
     def _worker_loop(self) -> None:
         while True:
@@ -602,6 +683,12 @@ def build_parser() -> argparse.ArgumentParser:
                              'prefixes (opt-in, default 0; costs N extra '
                              'max_len cache rows; also via '
                              'SKYTPU_LLM_PREFIX_CACHE)')
+    parser.add_argument('--draft-model', default=None,
+                        help='preset name of a small draft model for '
+                             'speculative decoding (rides inside the '
+                             'continuous engine, or the window path '
+                             "with --engine off; dense targets only; "
+                             'also via SKYTPU_LLM_DRAFT)')
     parser.add_argument('--pipeline', default=None,
                         choices=('on', 'off'),
                         help='pipelined decode dispatch: keep one chunk '
@@ -619,7 +706,8 @@ def server_from_args(args: argparse.Namespace, device=None) -> LlmServer:
                      engine=args.engine, kv_layout=args.kv_layout,
                      prefix_cache=args.prefix_cache, pipeline=args.pipeline,
                      kv_blocks=args.kv_blocks,
-                     prefix_share=args.prefix_share, device=device)
+                     prefix_share=args.prefix_share,
+                     draft_model=args.draft_model, device=device)
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> None:

@@ -3,6 +3,8 @@
     python -m skypilot_tpu_torch.tools.engine_profile
     python -m skypilot_tpu_torch.tools.engine_profile --model llama3-1b \
         --max-len 2048 --kv-layout both --weights-kv int8 --pipeline on
+    python -m skypilot_tpu_torch.tools.engine_profile --weights-kv bf16 \
+        --draft-model bench-draft   # speculative rounds (k 4)
 
 For bf16 weights + bf16 KV and for int8 weights + int8 KV, the engine in
 the replica's default configuration (16 slots, ``max_len`` 1024, chunks of
@@ -11,7 +13,10 @@ the replica's default configuration (16 slots, ``max_len`` 1024, chunks of
 (``pipeline=False``), after one warm-up round. The flags pick the model,
 ``max_len``, the KV layouts (``paged``: blocks of 16, the full-capacity
 pool, sharing and tiers at their defaults), the weight and KV modes and
-the pipeline settings to run. It prints one JSON line per run with:
+the pipeline settings to run; ``--draft-model`` gives the engine a draft
+(weights from seed 1, ``--spec-k`` proposals a round; rounds are serial,
+so the pipeline setting has no effect and one run is made per layout and
+mode, and a "step" is a round). It prints one JSON line per run with:
 
 * ``tok_s``: generated tokens over the host-clock time from submit to the
   last answer (prefill included);
@@ -52,7 +57,7 @@ _FLASH_DECODE = ('decode_split_kernel', 'decode_combine_kernel')
 
 def _round(eng, rows):
     """Submit every row at once and wait; returns (wall s, decode wall s,
-    decode steps, tokens)."""
+    decode steps (rounds with a draft), tokens)."""
     d0 = eng.stats()['pipeline']['dispatches']
     t0 = time.perf_counter()
     futs = [eng.submit(r, NEW) for r in rows]
@@ -64,7 +69,7 @@ def _round(eng, rows):
     while eng.busy():
         time.sleep(0.001)
     steps = ((eng.stats()['pipeline']['dispatches'] - d0)
-             * eng.chunk_steps)
+             * (1 if eng.draft_cfg is not None else eng.chunk_steps))
     return t1 - t0, t1 - t_decode, steps, tokens
 
 
@@ -110,7 +115,12 @@ def main(argv=None) -> int:
                         choices=('bf16', 'int8', 'both'))
     parser.add_argument('--pipeline', default='both',
                         choices=('on', 'off', 'both'))
+    parser.add_argument('--draft-model', default=None,
+                        choices=sorted(llama.PRESETS))
+    parser.add_argument('--spec-k', type=int, default=4)
     args = parser.parse_args(argv)
+    if args.draft_model:
+        args.pipeline = 'off'  # spec rounds are serial
     dev = resolve_device()
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -121,6 +131,13 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(1)
     rows = torch.randint(0, cfg.vocab_size, (SLOTS, PROMPT),
                          generator=gen).tolist()
+    spec = {}
+    if args.draft_model:
+        d_cfg = llama.PRESETS[args.draft_model]
+        spec = dict(draft_cfg=d_cfg, spec_k=args.spec_k,
+                    draft_params=llama.init_params(
+                        d_cfg, torch.Generator(device=dev).manual_seed(1),
+                        dev))
     runs = [(label, layout, pipeline)
             for label in _choices(args.weights_kv, ('bf16', 'int8'))
             for layout in _choices(args.kv_layout, ('slot', 'paged'))
@@ -132,13 +149,14 @@ def main(argv=None) -> int:
             eng = engine_lib.ContinuousEngine(
                 params, cfg, slots=SLOTS, max_len=args.max_len,
                 chunk_steps=8, kv_quantize=int8, kv_layout=layout,
-                pipeline=pipeline == 'on', device=dev)
+                pipeline=pipeline == 'on', device=dev, **spec)
             try:
                 _round(eng, rows)  # warm-up
                 p0 = eng.stats()['pipeline']
                 wall, decode_wall, steps, tokens = _round(eng, rows)
                 p1 = eng.stats()['pipeline']
                 row = {'model': args.model, 'weights_kv': label,
+                       'draft_model': args.draft_model,
                        'kv_layout': layout, 'pipeline': pipeline == 'on',
                        'tok_s': tokens / wall,
                        'step_ms': decode_wall / steps * 1e3,
@@ -149,6 +167,8 @@ def main(argv=None) -> int:
                            - p0['host_overlap_ms'],
                            'bubble_ms': p1['bubble_ms'] - p0['bubble_ms'],
                            'dispatch_gap_ms': p1['dispatch_gap_ms']}}
+                if spec:
+                    row['speculative'] = eng.stats()['speculative']
                 row.update(_profiled_round(eng, rows))
             finally:
                 eng.stop()

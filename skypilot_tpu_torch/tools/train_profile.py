@@ -2,9 +2,13 @@
 
     python -m skypilot_tpu_torch.tools.train_profile [--steps 3]
         [--remat-policy full]
+    # the lora-finetune recipe's step:
+    python -m skypilot_tpu_torch.tools.train_profile --lora-rank 16 \
+        --global-batch-size 16 --seq-len 2048
 
-Runs the port's ``Trainer`` (global batch 2, Adafactor, warmup 1) and
-prints JSON lines:
+Runs the port's ``Trainer`` (global batch 2 unless set, Adafactor, warmup
+1; with ``--lora-rank``, LoRA of rank r, alpha 32, targets wq,wk,wv,wo)
+and prints JSON lines:
 
 * ``step``: step ms on the host clock over ``--steps`` steps after two
   warm-up steps, each window ended by ``torch.cuda.synchronize()``;
@@ -68,6 +72,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--steps', type=int, default=3)
     parser.add_argument('--remat-policy', default='full')
+    parser.add_argument('--global-batch-size', type=int,
+                        default=GLOBAL_BATCH)
+    parser.add_argument('--seq-len', type=int, default=SEQ_LEN)
+    parser.add_argument('--lora-rank', type=int, default=0,
+                        help='LoRA rank (alpha 32, wq,wk,wv,wo); 0 = full '
+                             'finetune')
     args = parser.parse_args(argv)
 
     dev = resolve_device()
@@ -76,10 +86,14 @@ def main(argv=None) -> int:
                          text=True, check=True, timeout=60).stdout.strip(),
           flush=True)
     attention.build_library()
+    lora = None
+    if args.lora_rank:
+        from skypilot_tpu_torch.models import lora as lora_lib
+        lora = lora_lib.LoraConfig(rank=args.lora_rank, alpha=32.0)
     cfg = trainer_lib.TrainerConfig(
-        model=llama.BENCH_1B, global_batch_size=GLOBAL_BATCH,
-        seq_len=SEQ_LEN, warmup_steps=1,
-        remat_policy=args.remat_policy)
+        model=llama.BENCH_1B, global_batch_size=args.global_batch_size,
+        seq_len=args.seq_len, warmup_steps=1,
+        remat_policy=args.remat_policy, lora=lora)
     trainer = trainer_lib.Trainer(cfg, device=dev)
     state = trainer.init_state(seed=0)
     batches = data_lib.synthetic_batches(cfg.global_batch_size, cfg.seq_len,
@@ -104,6 +118,7 @@ def main(argv=None) -> int:
         'step': {'model': 'bench-1b', 'seq_len': cfg.seq_len,
                  'global_batch_size': cfg.global_batch_size,
                  'remat_policy': cfg.remat_policy,
+                 'lora_rank': args.lora_rank,
                  'step_ms': step_s * 1e3,
                  'tokens_per_s': trainer_lib.tokens_per_step(cfg) / step_s,
                  'model_flops_per_s': flops / step_s,

@@ -17,10 +17,15 @@ A leaf is a whole stacked ``[L, ...]`` tensor, as in the JAX tree, so the
 factored dims and the parameter-scale RMS are those of the stack. State
 tensors take the dtype of their leaf, as optax's do; the step counts are
 Python ints, and the schedule and decay scalars are computed in float32
-as JAX computes them, so an fp32 run repeats optax's arithmetic.
+as JAX computes them, so an fp32 run repeats optax's arithmetic. Where
+optax multiplies a leaf by a Python scalar (a weakly typed JAX scalar) or
+casts a scalar to the leaf's dtype, the port rounds that scalar to the
+leaf's dtype first (``_in``): in bfloat16, ``0.1 * g`` is
+``bf16(0.1) * g`` in JAX, not ``float(0.1) * g`` as in PyTorch.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, List, Tuple
 
 import numpy as np
@@ -50,6 +55,18 @@ def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf (``optax.global_norm``),
     summed per leaf in the leaf's dtype."""
     return torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(tree)))
+
+
+@functools.lru_cache(maxsize=4096)
+def _rounded(x: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(x, dtype=dtype))
+
+
+def _in(x: float, like: torch.Tensor) -> float:
+    """``x`` rounded to ``like``'s dtype, as JAX converts a weakly typed
+    Python scalar (or ``jnp.array(x, dtype=like.dtype)``) before the op;
+    PyTorch then multiplies in float32 and rounds once, as XLA does."""
+    return _rounded(float(x), like.dtype)
 
 
 # -- schedule ---------------------------------------------------------------------
@@ -225,7 +242,7 @@ class ScaleBySchedule(Transform):
 
     def update(self, updates, state, params):
         step = self.sign * self.schedule(state['count'])
-        return (tree_map(lambda u: u * step, updates),
+        return (tree_map(lambda u: u * _in(step, u), updates),
                 {'count': state['count'] + 1})
 
 
@@ -254,16 +271,17 @@ class ScaleByAdam(Transform):
 
     def update(self, updates, state, params):
         b1, b2 = self.b1, self.b2
-        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, updates,
-                      state['mu'])
-        nu = tree_map(lambda g, n: (1 - b2) * (g * g) + b2 * n, updates,
-                      state['nu'])
+        mu = tree_map(lambda g, m: _in(1 - b1, g) * g + _in(b1, m) * m,
+                      updates, state['mu'])
+        nu = tree_map(lambda g, n: _in(1 - b2, g) * (g * g) + _in(b2, n) * n,
+                      updates, state['nu'])
         count = state['count'] + 1
         f32 = np.float32
         c1 = float(f32(1) - f32(b1) ** f32(count))
         c2 = float(f32(1) - f32(b2) ** f32(count))
         out = tree_map(
-            lambda m, n: (m / c1) / (torch.sqrt(n / c2) + self.eps), mu, nu)
+            lambda m, n: (m / _in(c1, m)) / (torch.sqrt(n / _in(c2, n))
+                                             + _in(self.eps, n)), mu, nu)
         return out, {'count': count, 'mu': mu, 'nu': nu}
 
 
@@ -272,8 +290,8 @@ class AddDecayedWeights(Transform):
         self.weight_decay = weight_decay
 
     def update(self, updates, state, params):
-        return tree_map(lambda u, p: u + self.weight_decay * p, updates,
-                        params), state
+        return tree_map(lambda u, p: u + _in(self.weight_decay, p) * p,
+                        updates, params), state
 
 
 # -- the chains --------------------------------------------------------------------

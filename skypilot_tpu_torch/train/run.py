@@ -12,14 +12,25 @@ resumes from the newest durable step when it is relaunched:
     python -m skypilot_tpu_torch.train.run --model llama3-1b --steps 2000 \\
         --global-batch-size 8 --seq-len 2048 --ckpt-dir /ckpt --save-every 50
 
+or the LoRA recipe (``examples/llm/lora-finetune/lora_finetune.yaml``):
+
+    python -m skypilot_tpu_torch.train.run --model bench-1b \\
+        --global-batch-size 16 --seq-len 2048 --mesh fsdp=-1 \\
+        --lora-rank 16 --lora-alpha 32 --lora-targets wq,wk,wv,wo \\
+        --ckpt-dir /ckpt --save-every 50
+
 It takes the original's model, batch, optimizer, data, remat and
 checkpoint flags (``--ckpt-dir``, ``--ckpt-local-dir``, ``--ckpt-sync``,
 ``--save-every``, ``--step-time-floor``), plus ``--warmup-steps`` and
 ``--device`` (CUDA unless ``cpu``). Checkpoints are the JAX package's
 format (``ckpt/``), so a run of either package resumes from the other's.
-On SIGTERM it persists the freshest snapshot and exits 143. Meshes
-(``--mesh``, ``--num-slices``) and LoRA (``--lora-rank``) are not ported
-yet: they exit with code 2. Every ``--log-every`` steps it prints
+On SIGTERM it persists the freshest snapshot and exits 143. LoRA
+(``--lora-rank``, ``--lora-alpha``, ``--lora-targets``) trains adapters
+over a frozen base. ``--mesh`` is accepted where its spec resolves to one
+device (``fsdp=-1`` does, as it does on a one-chip host of the JAX
+package); a spec that needs more devices, or ``--num-slices`` > 1 (or
+``MEGASCALE_NUM_SLICES``), exits with code 2: meshes are not ported
+yet. Every ``--log-every`` steps it prints
 ``[train] step i/N loss=...`` as the original does, with the window's
 step ms, tokens/s, and model FLOP/s as a share of the card's dense bf16
 peak (989 TFLOP/s, an H100 SXM at 700 W) beside the card's name, and
@@ -38,8 +49,6 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from skypilot_tpu_torch.utils.device import H100_BF16_DENSE_FLOPS
-
-_NOT_PORTED = ('mesh', 'num_slices', 'lora_rank')
 
 
 def make_sigterm_handler(mgr):
@@ -103,23 +112,57 @@ def build_parser() -> argparse.ArgumentParser:
                              'REMAT_POLICIES)')
     parser.add_argument('--device', default=None,
                         help="'cpu' to run without a card; CUDA otherwise")
-    # Flags of the JAX entry point that the port does not run yet.
-    parser.add_argument('--mesh', default=None, help='not ported yet')
+    parser.add_argument('--mesh', default=None,
+                        help='logical mesh axes, e.g. "fsdp=-1" '
+                             '(parallel/mesh.py MeshSpec); only specs '
+                             'that resolve to one device are ported')
     parser.add_argument('--num-slices', type=int, default=None,
-                        help='not ported yet')
+                        help='slices in the mesh; defaults to '
+                             'MEGASCALE_NUM_SLICES, else 1; only 1 is '
+                             'ported')
     parser.add_argument('--lora-rank', type=int, default=0,
-                        help='not ported yet')
+                        help='LoRA adapter rank; 0 = full finetune '
+                             '(models/lora.py)')
+    parser.add_argument('--lora-alpha', type=float, default=32.0)
+    parser.add_argument('--lora-targets', default='wq,wk,wv,wo',
+                        help='comma-separated weight names to adapt '
+                             '(also: w_gate,w_up,w_down)')
     return parser
+
+
+def _check_mesh(parser: argparse.ArgumentParser, args) -> None:
+    """Accept a mesh that resolves to the one device the port trains on
+    (the JAX package builds the same one-device mesh on a one-chip host);
+    exit 2 for anything larger."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    num_slices = args.num_slices
+    if num_slices is None:
+        num_slices = int(os.environ.get('MEGASCALE_NUM_SLICES', '1'))
+    why = None
+    if num_slices > 1:
+        why = f'--num-slices {num_slices}'
+    elif args.mesh:
+        try:
+            axes = {}
+            for part in args.mesh.split(','):
+                k, v = part.split('=')
+                axes[k.strip()] = int(v)
+            sizes = mesh_lib.MeshSpec(**axes).resolve(1)
+        except (TypeError, ValueError) as e:
+            why = f'--mesh {args.mesh} ({e})'
+        else:
+            if any(n != 1 for n in sizes.values()):
+                why = f'--mesh {args.mesh}'
+    if why is not None:
+        parser.exit(2, f'{why}: a mesh over more than one device is not '
+                       'ported yet (ROADMAP item 9; skypilot_tpu_torch '
+                       'trains on one device)\n')
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for name in _NOT_PORTED:
-        if getattr(args, name):
-            parser.exit(2, f'--{name.replace("_", "-")} is not ported yet '
-                           '(skypilot_tpu_torch trains on one device, '
-                           'without LoRA)\n')
+    _check_mesh(parser, args)
 
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.observability import train_telemetry
@@ -127,12 +170,19 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     from skypilot_tpu_torch.train import data as data_lib
     from skypilot_tpu_torch.train import trainer as trainer_lib
 
+    lora_cfg = None
+    if args.lora_rank > 0:
+        from skypilot_tpu_torch.models import lora as lora_lib
+        lora_cfg = lora_lib.LoraConfig(
+            rank=args.lora_rank, alpha=args.lora_alpha,
+            targets=tuple(t.strip()
+                          for t in args.lora_targets.split(',') if t.strip()))
     cfg = trainer_lib.TrainerConfig(
         model=llama.PRESETS[args.model],
         global_batch_size=args.global_batch_size, seq_len=args.seq_len,
         optimizer=args.optimizer, accum_steps=args.accum_steps,
         total_steps=args.total_steps, warmup_steps=args.warmup_steps,
-        remat=True, remat_policy=args.remat_policy)
+        remat=True, remat_policy=args.remat_policy, lora=lora_cfg)
     trainer = trainer_lib.Trainer(cfg, device=args.device)
     dev = trainer.device
     on_card = dev.type == 'cuda'
@@ -143,9 +193,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         print(f'[train] flash-attention kernels ready in '
               f'{time.perf_counter() - t0:.1f} s', flush=True)
     state = trainer.init_state(seed=0)
+    lora_note = ''
+    if lora_cfg is not None:
+        from skypilot_tpu_torch.models import lora as lora_lib
+        lora_note = (f' lora rank {lora_cfg.rank} alpha {lora_cfg.alpha:g} '
+                     f'{",".join(sorted(lora_cfg.targets))} '
+                     f'({lora_lib.param_count(state["lora"])} adapter '
+                     'values)')
     print(f'[train] {args.model} ({cfg.model.param_count / 1e9:.2f}B '
           f'params) seq {cfg.seq_len} batch {cfg.global_batch_size} '
-          f'{cfg.optimizer} remat {cfg.remat_policy} on {card}', flush=True)
+          f'{cfg.optimizer} remat {cfg.remat_policy}{lora_note} on {card}',
+          flush=True)
 
     # Created before the checkpoint manager so restore/save records ride
     # the same spool as the loss windows; None unless the spool dir env

@@ -3,22 +3,28 @@
 Port of ``skypilot_tpu/train/trainer.py``. JAX's jitted step over a mesh
 becomes an eager step on one device: ``loss_fn`` forward and backward
 (flash attention K1-K3 on the card), then the optax chain of
-``train/optim.py`` applied in place. ``mesh``/``rules`` (sharding) and
-LoRA are not ported yet and raise ``NotImplementedError``.
+``train/optim.py`` applied in place. ``mesh``/``rules`` (sharding) are
+not ported yet and raise ``NotImplementedError``.
 
-The state is ``{'step': int, 'params': tree, 'opt_state': ...}``; params
-are leaf tensors with ``requires_grad`` and are updated in place (JAX
+The state is ``{'step': int, 'params': tree, 'opt_state': ...}``; the
+trainable leaves carry ``requires_grad`` and are updated in place (JAX
 returns new arrays), which keeps one copy of the weights on the card.
+With LoRA (``TrainerConfig.lora``) the state also holds ``'lora'``, the
+adapter tree (``models/lora.py``): the loss runs on ``merge(params,
+lora)``, the gradients and the optimizer state cover the adapters only,
+and the base params carry no ``requires_grad`` (frozen by construction).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import lora as lora_lib
 from skypilot_tpu_torch.train import optim
 from skypilot_tpu_torch.utils.device import (H100_BF16_DENSE_FLOPS,
                                              DeviceLike, resolve_device)
@@ -39,7 +45,8 @@ class TrainerConfig:
     accum_steps: int = 1
     remat: bool = True
     remat_policy: str = 'full'  # models/llama.py REMAT_POLICIES
-    lora: Optional[Any] = None  # not ported yet: must stay None
+    # LoRA finetuning (models/lora.py): None = full finetune.
+    lora: Optional[lora_lib.LoraConfig] = None
 
     def __post_init__(self):
         if self.remat_policy not in llama.REMAT_POLICIES:
@@ -79,8 +86,6 @@ class Trainer:
             raise NotImplementedError(
                 'sharded training (mesh/rules) is not ported yet: the port '
                 'trains on one device')
-        if cfg.lora is not None:
-            raise NotImplementedError('LoRA is not ported yet')
         llama.require_dense(cfg.model)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -90,29 +95,58 @@ class Trainer:
 
     def init_state(self, seed: int = 0) -> Dict[str, Any]:
         """Random weights from ``seed`` (``torch.Generator``: not the
-        values ``jax.random`` gives for the same seed)."""
+        values ``jax.random`` gives for the same seed); with LoRA, the
+        adapters from a generator seeded with ``fold_in(seed, 1)``, as
+        JAX draws them from ``fold_in(key, 1)``."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return self._state(llama.init_params(self.cfg.model, gen,
-                                             self.device))
+                                             self.device), seed)
 
-    def init_state_from_numpy(self, tree: Any) -> Dict[str, Any]:
-        """Start from a JAX weight tree given as numpy arrays."""
+    def init_state_from_numpy(self, tree: Any,
+                              lora: Any = None) -> Dict[str, Any]:
+        """Start from a JAX weight tree and, with LoRA, a JAX adapter tree
+        (``init_lora``'s from seed 0 when None), given as numpy arrays."""
         return self._state(llama.params_from_numpy(tree, self.cfg.model,
-                                                   self.device))
+                                                   self.device), 0, lora)
 
-    def _state(self, params) -> Dict[str, Any]:
-        for p in optim.tree_leaves(params):
+    def _state(self, params, seed: int, lora: Any = None) -> Dict[str, Any]:
+        adapters = None
+        if self.cfg.lora is not None:
+            if lora is None:
+                gen = torch.Generator(device=self.device).manual_seed(
+                    fold_in(seed, 1))
+                adapters = lora_lib.init_lora(gen, params, self.cfg.lora,
+                                              device=self.device)
+            else:
+                lora_lib._check_targets(params['layers'],  # noqa: SLF001
+                                        self.cfg.lora.targets)
+                adapters = lora_lib.lora_from_numpy(lora, self.device)
+        # Only the trainable tree carries requires_grad; with LoRA the
+        # optimizer state covers the adapters only.
+        trainable = params if adapters is None else adapters
+        for p in optim.tree_leaves(trainable):
             p.requires_grad_(True)
-        return {'step': 0, 'params': params,
-                'opt_state': self.optimizer.init(params)}
+        state = {'step': 0, 'params': params,
+                 'opt_state': self.optimizer.init(trainable)}
+        if adapters is not None:
+            state['lora'] = adapters
+        return state
 
     # -- train step --------------------------------------------------------
 
-    def _grads(self, params, tokens) -> Tuple[Dict[str, torch.Tensor], Any]:
+    def _grads(self, state: Dict[str, Any], tokens
+               ) -> Tuple[Dict[str, torch.Tensor], Any]:
+        """Gradients of the loss with respect to the trainable tree (the
+        params, or with LoRA the adapters, the loss then running on the
+        merged params), and the step's metrics."""
         cfg = self.cfg
-        leaves = optim.tree_leaves(params)
+        lora = cfg.lora
+        trainable = state['params'] if lora is None else state['lora']
+        leaves = optim.tree_leaves(trainable)
 
         def one(toks):
+            params = (state['params'] if lora is None else
+                      lora_lib.merge(state['params'], trainable, lora))
             loss, metrics = llama.loss_fn(params, toks, cfg.model,
                                           remat=cfg.remat,
                                           remat_policy=cfg.remat_policy)
@@ -143,24 +177,26 @@ class Trainer:
             # exp is nonlinear: perplexity from the mean loss.
             metrics['perplexity'] = torch.exp(metrics['loss'])
         it = iter(grads)
-        return optim.tree_map(lambda _: next(it), params), metrics
+        return optim.tree_map(lambda _: next(it), trainable), metrics
 
     def step(self, state: Dict[str, Any], tokens: Any
              ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
         """One optimizer step over a [global_batch, S] batch of token ids
-        (numpy or torch). Updates ``state['params']`` in place."""
+        (numpy or torch). Updates the trainable tree (``state['params']``,
+        or with LoRA ``state['lora']``) in place."""
         if not isinstance(tokens, torch.Tensor):
             tokens = torch.from_numpy(np.asarray(tokens))
         tokens = tokens.to(self.device)
-        params = state['params']
-        grads, metrics = self._grads(params, tokens)
+        trainable = (state['params'] if self.cfg.lora is None
+                     else state['lora'])
+        grads, metrics = self._grads(state, tokens)
         with torch.no_grad():
             updates, opt_state = self.optimizer.update(
-                grads, state['opt_state'], params)
-            optim.apply_updates(params, updates)
+                grads, state['opt_state'], trainable)
+            optim.apply_updates(trainable, updates)
             metrics['grad_norm'] = optim.global_norm(grads)
-        return ({'step': state['step'] + 1, 'params': params,
-                 'opt_state': opt_state}, metrics)
+        return {**state, 'step': state['step'] + 1,
+                'opt_state': opt_state}, metrics
 
     def train(self, state: Dict[str, Any], batches: Iterable,
               log_every: int = 10,
@@ -171,6 +207,15 @@ class Trainer:
             if callback is not None and (i + 1) % log_every == 0:
                 callback(i + 1, {k: float(v) for k, v in metrics.items()})
         return state, metrics
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new generator seed from (seed, data): the counterpart of
+    ``jax.random.fold_in`` for ``torch.Generator`` seeds (distinct,
+    deterministic streams; not JAX's values)."""
+    digest = hashlib.blake2b(f'{seed}:{data}'.encode(),
+                             digest_size=8).digest()
+    return int.from_bytes(digest, 'little') >> 1
 
 
 def tokens_per_step(cfg: TrainerConfig) -> int:

@@ -752,19 +752,23 @@ def test_chunked_prefill_with_the_prefix_pool(weights):
 
 
 UNPORTED = {
-    'draft': dict(draft_cfg=PORT_CFG),
-    'draft_params': dict(draft_params={}),
     'mesh': dict(mesh=object()),
     'prefill_role': dict(role='prefill'),
     'decode_role': dict(role='decode'),
 }
-# Refused until the paged layout, block sharing and KV tiers were ported;
-# now accepted and resolved as the JAX engine resolves them (block sharing
-# only on the paged layout, tiers only with sharing).
+# Refused until the paged layout, block sharing and KV tiers and
+# draft rounds (a draft model, paged or not) were ported; now accepted and
+# resolved as the JAX engine resolves them (block sharing only on the
+# paged layout and without a draft, tiers only with sharing, serial
+# rounds with a draft). 'draft' and 'draft_params' name the pair; a half
+# pair is refused with JAX's ValueError.
 PORTED = {
     'paged': dict(kv_layout='paged'),
     'block_sharing': dict(prefix_share=True),
     'kv_tiers': dict(kv_tiers=True),
+    'draft': dict(draft=True),
+    'draft_params': dict(draft=True, kv_layout='paged'),
+    'draft_half_pair': dict(draft='half'),
 }
 
 
@@ -776,12 +780,28 @@ def test_unported_options_raise_at_construction(weights, name):
             port_engine.ContinuousEngine(pp, PORT_CFG, slots=2, max_len=32,
                                          device='cpu', **UNPORTED[name])
         return
+    opts = dict(PORTED[name])
+    draft = opts.pop('draft', None)
+    jkw, pkw = dict(opts), dict(opts)
+    if draft == 'half':  # draft_params without draft_cfg, and the reverse
+        for kw in (dict(draft_params=jp), dict(draft_cfg=JAX_CFG)):
+            with pytest.raises(ValueError, match='go together'):
+                jax_engine.ContinuousEngine(jp, JAX_CFG, slots=2,
+                                            max_len=32, **kw)
+        for kw in (dict(draft_params=pp), dict(draft_cfg=PORT_CFG)):
+            with pytest.raises(ValueError, match='go together'):
+                port_engine.ContinuousEngine(pp, PORT_CFG, slots=2,
+                                             max_len=32, device='cpu', **kw)
+        return
+    if draft:
+        jkw.update(draft_params=jp, draft_cfg=JAX_CFG, spec_k=2)
+        pkw.update(draft_params=pp, draft_cfg=PORT_CFG, spec_k=2)
     jeng = jax_engine.ContinuousEngine(jp, JAX_CFG, slots=2, max_len=32,
-                                       **PORTED[name])
+                                       **jkw)
     eng = port_engine.ContinuousEngine(pp, PORT_CFG, slots=2, max_len=32,
-                                       device='cpu', **PORTED[name])
+                                       device='cpu', **pkw)
     try:
-        for attr in ('kv_layout', 'prefix_share'):
+        for attr in ('kv_layout', 'prefix_share', 'pipeline_depth'):
             assert getattr(eng, attr) == getattr(jeng, attr), attr
         assert (eng._kv_tiers is None) == (jeng._kv_tiers is None)  # noqa: SLF001
         row = [5, 6, 7]

@@ -277,17 +277,27 @@ def test_paged_gates(weights):
 
 
 def test_paged_moe_and_spec_stay_refused(weights):
-    """MoE and a draft model, which the JAX engine serves paged without
-    sharing, stay refused by the port, paged or not."""
-    _, pp = weights
+    """MoE, which the JAX engine serves paged without sharing, stays
+    refused by the port, paged or not. A draft model is ported: paged, it
+    runs as JAX's does, with block sharing (and so the tiers) off."""
+    jp, pp = weights
     with pytest.raises(NotImplementedError, match='not ported yet'):
         port_engine.ContinuousEngine(
             pp, port_llama.MOE_TINY, kv_layout='paged', slots=2,
             max_len=32, device='cpu')
-    with pytest.raises(NotImplementedError, match='not ported yet'):
-        port_engine.ContinuousEngine(
-            pp, PORT_CFG, kv_layout='paged', slots=2, max_len=64,
-            draft_params=pp, draft_cfg=PORT_CFG, device='cpu')
+    jeng = _mk('jax', jp, kv_layout='paged', slots=2, max_len=64,
+               draft_params=jp, draft_cfg=JAX_CFG)
+    eng = _mk('port', pp, kv_layout='paged', slots=2, max_len=64,
+              draft_params=pp, draft_cfg=PORT_CFG)
+    try:
+        assert eng.prefix_share is jeng.prefix_share is False
+        assert eng._kv_tiers is None and jeng._kv_tiers is None  # noqa: SLF001
+        row = [5, 6, 7]
+        assert eng.submit(row, 6).result(timeout=120) == \
+            jeng.submit(row, 6).result(timeout=300)
+    finally:
+        eng.stop()
+        jeng.stop()
 
 
 # -- counterparts of the engine cases of tests/test_engine_prefix_share.py -----------

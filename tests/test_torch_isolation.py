@@ -64,7 +64,8 @@ def test_importing_every_module_loads_no_jax_and_no_skypilot_tpu():
                 'ckpt.snapshot', 'ckpt.manager', 'train.checkpoint',
                 'observability.train_telemetry', 'models.paged',
                 'serve.kv_tiers', 'utils.prefix_affinity',
-                'utils.atomic_io'):
+                'utils.atomic_io', 'models.lora', 'models.speculative',
+                'parallel.mesh'):
         assert 'skypilot_tpu_torch.' + sub in walked, sub
 
 

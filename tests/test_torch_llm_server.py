@@ -4,6 +4,7 @@ request validation against the JAX replica's messages, /health, batching,
 seeded determinism, drain, and the refusal of options not ported yet."""
 import asyncio
 import concurrent.futures
+import dataclasses
 import json
 import threading
 import urllib.error
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from skypilot_tpu_torch.models import generate as port_gen
+from skypilot_tpu_torch.models import llama as port_llama
 from skypilot_tpu_torch.serve import llm_server as port_srv
 
 MAX_LEN = 64
@@ -230,8 +232,12 @@ def test_drain_turns_health_503_then_shuts_down():
 
 REFUSED = {  # name -> (LlmServer kwargs, env, exception, message)
     'kv_layout_typo': (dict(kv_layout='dense'), {}, ValueError, 'kv_layout'),
-    'draft': (dict(draft_model='bench-draft'), {}, NotImplementedError,
-              'not ported yet'),
+    # --draft-model is ported; JAX's refusals of a draft stay.
+    'draft_unknown': (dict(draft_model='gpt-5-draft'), {}, ValueError,
+                      'Unknown draft model'),
+    'draft_short_context': (dict(max_len=512, draft_model='tiny-short',
+                                 preset=('tiny-short', 128)), {},
+                            ValueError, 'max_seq_len'),
     'engine_typo': (dict(engine='turbo'), {}, ValueError, 'Unknown engine'),
     'pipeline_typo': (dict(pipeline='maybe'), {}, ValueError,
                       'Unknown pipeline'),
@@ -261,6 +267,11 @@ def test_unported_engines_and_bad_knobs_are_refused(name, monkeypatch):
         monkeypatch.setenv(var, value)
     kwargs = dict(kwargs)
     model = kwargs.pop('model', 'tiny')
+    preset = kwargs.pop('preset', None)
+    if preset is not None:  # (name, max_seq_len): a TINY of that context
+        monkeypatch.setitem(port_llama.PRESETS, preset[0],
+                            dataclasses.replace(port_llama.TINY,
+                                                max_seq_len=preset[1]))
     if name in REFUSED:
         with pytest.raises(exc, match=message):
             port_srv.LlmServer(model, device='cpu', **kwargs)

@@ -343,9 +343,6 @@ def test_trainer_refuses_what_is_not_ported():
     cfg = port_trainer.TrainerConfig(model=port_llama.TINY)
     with pytest.raises(NotImplementedError, match='mesh'):
         port_trainer.Trainer(cfg, device='cpu', mesh=object())
-    with pytest.raises(NotImplementedError, match='LoRA'):
-        port_trainer.Trainer(dataclasses.replace(cfg, lora=object()),
-                             device='cpu')
     with pytest.raises(NotImplementedError):
         port_trainer.Trainer(port_trainer.TrainerConfig(
             model=port_llama.MOE_TINY), device='cpu')
@@ -380,14 +377,18 @@ def test_run_main_trains_on_cpu(capsys):
     assert out['state']['step'] == 3
 
 
-@pytest.mark.parametrize('flag', [['--mesh', 'fsdp=-1'],
+@pytest.mark.parametrize('flag', [['--mesh', 'data=2'],
                                   ['--num-slices', '2'],
-                                  ['--lora-rank', '8']])
+                                  ['--mesh', 'fsdp=-1,tensor=-1']])
 def test_run_main_refuses_unported_flags(flag, capsys):
+    """A mesh over more than one device (or a spec no device count
+    resolves) exits 2; ``--mesh fsdp=-1`` and LoRA are ported
+    (tests/test_torch_lora.py)."""
     with pytest.raises(SystemExit) as exc:
         port_run.main(['--device', 'cpu'] + flag)
     assert exc.value.code == 2
-    assert 'not ported yet' in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert 'not ported yet' in err and 'ROADMAP item 9' in err
 
 
 # -- train.run with checkpoints ------------------------------------------------
