@@ -36,8 +36,9 @@ Phases (any failure exits non-zero):
    bodies; bf16 runs the tensor-core ones), and the edges of the 128-row
    tiles of K1 and K3 (S=4032, a multiple of 64 but not of 128; S=129;
    S=1; D=64 with group 2 at S=4096), the llama-finetune recipe's
-   shape (llama3-1b: B=8, Hq 32, Hkv 8, D 64, S=2048) and the
+   shape (llama3-1b: B=8, Hq 32, Hkv 8, D 64, S=2048), the
    lora-finetune recipe's (BENCH_1B: B=16, Hq 16, Hkv 8, D 128,
+   S=2048) and train-moe's (moe-8x1b: B=2, Hq 16, Hkv 8, D 128,
    S=2048). Absolute
    tolerances: bf16 o 2e-2,
    grads 5e-2; fp32 1e-4 and 1e-3 (lse always 1e-3). Those are near the
@@ -45,9 +46,9 @@ Phases (any failure exits non-zero):
    to a relative limit on every tile of 64 rows along S:
    ||got - want|| / ||want|| over the tile (REL_TOL). Prints kernel,
    plain, library (SDPA forward for K1, SDPA's backward for K2+K3
-   together) and bound ms for the three training shapes (train-s4096's,
-   llama-finetune's and lora-finetune's), with TFLOP/s and the share of
-   the bound. Fails
+   together) and bound ms for the four training shapes (train-s4096's,
+   llama-finetune's, lora-finetune's and train-moe's), with TFLOP/s and
+   the share of the bound. Fails
    unless every instance of the wgmma bodies of K1, K2 and K3 (12: D
    64/128, causal or not) shows HGMMA and UTMALDG in the library's SASS
    and ptxas reports 0 spill bytes for it.
@@ -100,11 +101,12 @@ Phases (any failure exits non-zero):
    the pipeline counters.
 9. The serve-llama recipe (``examples/llm/serve-llama/serve.yaml``):
    ``LlmServer('llama3-1b', max_len=2048, quantize='int8',
-   kv_cache='int8', prefix_cache=8)`` over HTTP. 4 preambles of 256
+   kv_cache='int8', prefix_cache=8)`` over HTTP, at full width and 8 of
+   its 16 layers (``RECIPE_LAYERS``, as in phase 11). 4 preambles of 256
    random ids; a warm-up of 8 requests (each preamble twice, storing 4
    pool entries), then 32 concurrent requests (a preamble + 16-200 ids,
    max_new 16-64, greedy, top-k and top-p, no seed): 32 pool hits and
-   8,192 hit and saved tokens in that window, K4 launched 16 x
+   8,192 hit and saved tokens in that window, K4 launched n_layers x
    chunk_steps x dispatches times, greedy answers under the gap rule,
    and the device busy share of one more such round. The same rounds on
    a replica without the pool, printed beside it. Then a replica with
@@ -129,21 +131,22 @@ Phases (any failure exits non-zero):
    restore and emergency-persist seconds.
 11. The paged layout at full width: ``LlmServer('llama3-1b',
    max_len=2048, quantize='int8', kv_cache='int8', kv_layout='paged')``
-   over HTTP, the engine's defaults (16 slots, chunks of 8, pipelined,
-   blocks of 16, sharing and tiers on). P1, the full-capacity pool (2,049
-   blocks): a warm-up of one request per preamble of phase 9's traffic,
-   its 32-request window (32 share hits, 8,192 hit tokens), then 4
-   requests that copy an earlier one's first 264 tokens and diverge (>= 4
-   copy-on-write forks). P2, ``kv_blocks`` 257 with
-   SKYTPU_KV_HOST_BYTES=10,000,000 and a temporary spill directory
-   (removed at the end): round 1 the same window, round 2 8 new
-   preambles x 2 requests, round 3 the first 4 preambles again;
-   evictions, demotes and spills >= 1, promotes + fetches >= 1 in round
-   3, nothing corrupt. In every window K4 is launched 16 x chunk_steps x
-   dispatches times, answers are whole and greedy ones meet the gap
-   rule; after each drain the block accounts reconcile exactly (owned 0,
-   used == cached, free + cached == usable). Prints P1's figures beside
-   phase 9's slot layout, and each P2 round's.
+   over HTTP, 8 of 16 layers, the engine's defaults (16 slots, chunks of
+   8, pipelined, blocks of 16, sharing and tiers on). P1, the
+   full-capacity pool (2,049 blocks): a warm-up of one request per
+   preamble of phase 9's traffic, its 32-request window (32 share hits,
+   8,192 hit tokens), then 4 requests that copy an earlier one's first
+   264 tokens and diverge (>= 4 copy-on-write forks). P2, ``kv_blocks``
+   257 with SKYTPU_KV_HOST_BYTES=5,000,000 (two 256-token chains of
+   int8 blocks at 8 layers) and a temporary spill directory (removed at
+   the end): round 1 the same window, round 2 8 new preambles x 2
+   requests, round 3 the first 4 preambles again; evictions, demotes and
+   spills >= 1, promotes + fetches >= 1 in round 3, nothing corrupt. In
+   every window K4 is launched n_layers x chunk_steps x dispatches
+   times, answers are whole and greedy ones meet the gap rule; after
+   each drain the block accounts reconcile exactly (owned 0, used ==
+   cached, free + cached == usable). Prints P1's figures beside phase
+   9's slot layout, and each P2 round's.
 12. The lora-finetune recipe
    (``examples/llm/lora-finetune/lora_finetune.yaml``): ``train.run.main``
    with bench-1b, global batch 16, seq 2048, ``--mesh fsdp=-1``, rank 16,
@@ -169,14 +172,41 @@ Phases (any failure exits non-zero):
    (bench-draft): acceptance >= 0.9. Prints the pair's acceptance (near
    0 with random weights), tok/s and host ms a round beside phase 8's
    bf16 figures of the same call.
-14. Summary: the card's name and power limit again, one JSON line of
-   kernels (K1-K3's launches are phases 6, 10 and 12, K4's phase 8's and
-   13's for the bf16 cache, phases 8's, 9's and 11's for the int8 cache,
-   each path's count in ``launches_by_path``; K4's times are the
-   engine-shape case of phase 2, K1-K3's the train-s4096 shape, each
-   named in ``timed_at``, with the llama-finetune and lora-finetune
-   shapes (K1-K3) and the serve-llama and draft shapes (K4) under
-   ``by_shape``), then the last line ``{"ok": true, "device": {...}}``.
+14. Mixture of experts. 14a: a small MoE model (4 experts, top-2,
+   head_dim 64, float32, capacity factor 1.0 so that choices drop), card
+   against CPU: ``forward_cached`` prefill and decode logits within 1e-4;
+   the engine with 16 slots (a decode step's capacity of 8 binds), slot
+   and paged, full and int8 KV, 24 requests queued before its loop
+   starts, token for token; 3 ``Trainer`` steps, losses, ``moe_aux`` and
+   params within 1e-4; a failure prints the smallest gap between a
+   token's top-2 and top-3 router probabilities. 14b:
+   ``LlmServer('moe-8x1b', max_len=1024, prefix_cache=8)`` over HTTP,
+   bf16 + bf16 KV, then int8 + int8 KV: /health shows the engine serial
+   and the pool off; phase 8's traffic and one stream (answers whole,
+   the stream equal to the request not streamed), K4 = n_layers x
+   chunk_steps x dispatches; co-batched greedy answers against a direct
+   ``generate`` are printed in bf16 (capacity per call may part them),
+   and a
+   lone 64-token greedy request after the traffic must meet the gap
+   rule; tok/s, host ms a step, kernels a step, device busy share and
+   peak memory. 14c: the window path (``engine='off'``), 4 greedy rows
+   of 17-300 tokens x 64 new in one request: equal to a direct
+   ``generate`` of the batch, K4 = n_layers x (max_new - 1), each row
+   against its solo ``generate`` under the gap rule. 14d:
+   ``train.run.main`` with moe-8x1b, global batch 2, seq 2048 (the
+   moe-finetune recipe runs batch 16 on ``fsdp=2,expert=8``), Adafactor,
+   remat 'full', 3 steps: finite losses and ``moe_aux``, the router and
+   every expert leaf moved, K1 = 2 x 18 x 3, K2 = K3 = 18 x 3; step ms,
+   tokens/s, the printed mfu and the active-parameter share.
+15. Summary: the card's name and power limit again, one JSON line of
+   kernels (K1-K3's launches are phases 6, 10, 12 and 14, K4's phase
+   8's, 13's and 14's for the bf16 cache, phases 8's, 9's, 11's and 14's
+   for the int8 cache, each path's count in ``launches_by_path``; K4's
+   times are the engine-shape case of phase 2, K1-K3's the train-s4096
+   shape, each named in ``timed_at``, with the llama-finetune,
+   lora-finetune and train-moe shapes (K1-K3) and the serve-llama and
+   draft shapes (K4) under ``by_shape``), then the last line ``{"ok":
+   true, "device": {...}}``.
 
 It exits with an error, printing no result, when CUDA is absent or when
 the ``skypilot_tpu_torch`` package is not beside it.
@@ -196,6 +226,7 @@ import sys
 import tempfile
 import threading
 import time
+import unittest.mock
 import urllib.request
 
 import numpy as np
@@ -225,6 +256,7 @@ DRAFT_CASE = 'bench-draft B=16 M=1024 D=64'  # K4 at the serve-spec draft's
 TRAIN_CASE = 'train B=2 S=4096'  # K1-K3 at train-s4096 (BENCH_1B)
 FINETUNE_CASE = 'llama3-1b B=8 S=2048'  # K1-K3 at llama-finetune's shape
 LORA_CASE = 'bench-1b B=16 S=2048'  # K1-K3 at the lora-finetune recipe's
+MOE_CASE = 'moe-8x1b B=2 S=2048'  # K1-K3 at train-moe's shape (phase 14d)
 # The int8 ``mm`` on the card against the CPU's. Float32 sums taken in
 # another order differ by up to ~1e-6 of the output's scale: that moves a
 # rounded bf16 output across a rounding boundary now and then (one ulp),
@@ -236,6 +268,9 @@ MM_BF16_DIFF_SHARE = 1e-2
 MM_F32_REL_TOL = 1e-5
 # The serve-llama recipe (examples/llm/serve-llama/serve.yaml) on the port.
 RECIPE = dict(max_len=2048, quantize='int8', kv_cache='int8')
+# Phases 9 and 11 serve llama3-1b at full width and RECIPE_LAYERS of its 16
+# layers, so that the whole script stays well inside its time limit.
+RECIPE_LAYERS = 8
 # A greedy engine stream may part from a direct generate() only where the
 # direct path's two largest logits were closer than this: the engine's
 # prefill group and 16-slot decode batch are other GEMM shapes, and bf16
@@ -515,9 +550,11 @@ def attention_phase(fa):
         ('D=64 G=2 S=4096', 1, 16, 8, 4096, 64, bf16, True),
         (FINETUNE_CASE, 8, 32, 8, 2048, 64, bf16, True),
         (LORA_CASE, 16, 16, 8, 2048, 128, bf16, True),
+        (MOE_CASE, 2, 16, 8, 2048, 128, bf16, True),
     ]
     worst = {name: 0.0 for name in FLASH}
-    timed = {TRAIN_CASE: {}, FINETUNE_CASE: {}, LORA_CASE: {}}
+    timed = {TRAIN_CASE: {}, FINETUNE_CASE: {}, LORA_CASE: {},
+             MOE_CASE: {}}
     for label, b, hq, hkv, s, d, dtype, causal in cases:
         q, k, v, do = _attn_case(gen, b, hq, hkv, s, d, dtype)
         o, lse = fa.flash_fwd(q, k, v, causal)
@@ -607,7 +644,8 @@ def attention_phase(fa):
     return {name: dict(timed[TRAIN_CASE][name], max_abs_err=worst[name],
                        timed_at=TRAIN_CASE,
                        by_shape={FINETUNE_CASE: timed[FINETUNE_CASE][name],
-                                 LORA_CASE: timed[LORA_CASE][name]})
+                                 LORA_CASE: timed[LORA_CASE][name],
+                                 MOE_CASE: timed[MOE_CASE][name]})
             for name in FLASH}
 
 
@@ -1192,6 +1230,22 @@ def _post_stream(url, body, timeout=600):
                           r.read().decode().splitlines() if line.strip()]
 
 
+def _check_stream(url, stream_req, status, lines):
+    """A streamed answer (``_post_stream``'s) is whole: HTTP 200, row 0's
+    lines adding up to ``max_new_tokens`` ids, then ``{"done": true}``;
+    and the same request, not streamed, gives the same tokens. Returns
+    the streamed ids."""
+    streamed = [t for ln in lines[:-1] for t in ln['tokens']]
+    if status != 200 or lines[-1] != {'done': True} \
+            or len(streamed) != stream_req['max_new_tokens'] \
+            or any(ln.get('row') != 0 for ln in lines[:-1]):
+        raise AssertionError(f'bad stream {status} {lines}')
+    if _post(url, stream_req)[1]['tokens'] != [streamed]:
+        raise AssertionError('streamed tokens differ from the same request '
+                             'not streamed')
+    return streamed
+
+
 def _direct_gaps(gen_lib, server, prompt, tokens, kv_int8):
     """The direct path (``generate``'s calls, batch 1) fed ``tokens``:
     for each of them, the gap between the two largest logits of the step
@@ -1211,25 +1265,37 @@ def _direct_gaps(gen_lib, server, prompt, tokens, kv_int8):
     return gaps, argmax_ok
 
 
-def _check_greedy(gen_lib, server, prompt, got, kv_int8):
-    """A greedy engine stream equals a direct ``generate``, or parts from
-    it where the direct path's top-2 logit gap is below GREEDY_GAP_LIMIT.
-    Returns (parting position or None, its gap)."""
+def _greedy_part(gen_lib, server, prompt, got, kv_int8):
+    """Where a greedy stream parts from a direct ``generate`` of its
+    prompt alone: (position, the direct path's top-2 logit gap there,
+    whether replaying the direct path's tokens gave its argmax at every
+    step up to it), or None where it does not part."""
     tokens, lens = gen_lib.pad_prompts([prompt], device=server.device)
     direct = gen_lib.generate(server.params, server.cfg, tokens, len(got),
                               max_len=server.max_len, prompt_lengths=lens,
                               kv_quantize=kv_int8)[0].tolist()
     if got == direct:
-        return None, None
+        return None
     j = next(i for i, (a, b) in enumerate(zip(got, direct)) if a != b)
     gaps, argmax_ok = _direct_gaps(gen_lib, server, prompt, direct[:j + 1],
                                    kv_int8)
-    if not all(argmax_ok) or not gaps[j] < GREEDY_GAP_LIMIT:
+    return j, gaps[j], all(argmax_ok)
+
+
+def _check_greedy(gen_lib, server, prompt, got, kv_int8):
+    """A greedy engine stream equals a direct ``generate``, or parts from
+    it where the direct path's top-2 logit gap is below GREEDY_GAP_LIMIT.
+    Returns (parting position or None, its gap)."""
+    part = _greedy_part(gen_lib, server, prompt, got, kv_int8)
+    if part is None:
+        return None, None
+    j, gap, replayed = part
+    if not replayed or not gap < GREEDY_GAP_LIMIT:
         raise AssertionError(f'engine tokens part from generate() at {j} '
-                             f'where the top-2 logit gap is {gaps[j]} '
-                             f'(limit {GREEDY_GAP_LIMIT}); argmax '
-                             f'replayed {all(argmax_ok)}')
-    return j, gaps[j]
+                             f'where the top-2 logit gap is {gap} (limit '
+                             f'{GREEDY_GAP_LIMIT}); argmax replayed '
+                             f'{replayed}')
+    return j, gap
 
 
 def _check_answers(reqs, answers, vocab):
@@ -1329,15 +1395,7 @@ def engine_phase(srv_lib, gen_lib, engine_lib, da, quantize, kv_cache):
                                  f'over {dispatches} chunks; expected '
                                  f'{expected}')
         _check_answers(reqs, answers, cfg.vocab_size)
-        streamed = [t for ln in lines[:-1] for t in ln['tokens']]
-        if status != 200 or lines[-1] != {'done': True} \
-                or len(streamed) != stream_req['max_new_tokens'] \
-                or any(ln.get('row') != 0 for ln in lines[:-1]):
-            raise AssertionError(f'bad stream {status} {lines}')
-        # The same request alone, not streamed: the same tokens.
-        if _post(url, stream_req)[1]['tokens'] != [streamed]:
-            raise AssertionError('streamed tokens differ from the same '
-                                 'request not streamed')
+        streamed = _check_stream(url, stream_req, status, lines)
         parted = [_check_greedy(gen_lib, server, r['tokens'][0],
                                 a[1]['tokens'][0], kv_int8)
                   for r, a in zip(reqs, answers) if 'temperature' not in r]
@@ -1365,6 +1423,18 @@ def engine_phase(srv_lib, gen_lib, engine_lib, da, quantize, kv_cache):
 
 
 # -- phase 9: the serve-llama recipe -----------------------------------------------
+
+
+@contextlib.contextmanager
+def _cut_depth(llama, name, n_layers):
+    """``llama.PRESETS[name]`` at ``n_layers`` layers, its widths
+    untouched, while open."""
+    full = llama.PRESETS[name]
+    llama.PRESETS[name] = dataclasses.replace(full, n_layers=n_layers)
+    try:
+        yield
+    finally:
+        llama.PRESETS[name] = full
 
 
 def _recipe_traffic(vocab):
@@ -1433,14 +1503,21 @@ def _window(url, server, da, reqs):
 
 
 def _device_busy(fn):
-    """Device time of all kernels over the wall time of ``fn``, from a
-    ``torch.profiler`` trace of the device alone (CUPTI sees the engine
-    thread's launches), summed over the profiler's raw events: building
-    its Python event tree for a round's ~300,000 events takes minutes.
-    The raw events are a private API of torch's profiler
-    (``prof.profiler.kineto_results.events()``, ``e.device_type()``):
-    where it is missing, or the trace holds no device events, this
-    raises rather than report a share it did not measure."""
+    """Device time of all kernels over the wall time of ``fn``
+    (``_device_trace``)."""
+    return _device_trace(fn)[0]
+
+
+def _device_trace(fn):
+    """(device busy share, device kernels) over ``fn``: device time of all
+    kernels over the wall time of ``fn``, from a ``torch.profiler`` trace
+    of the device alone (CUPTI sees the engine thread's launches), summed
+    over the profiler's raw events: building its Python event tree for a
+    round's ~300,000 events takes minutes. The raw events are a private
+    API of torch's profiler (``prof.profiler.kineto_results.events()``,
+    ``e.device_type()``): where it is missing, or the trace holds no
+    device events, this raises rather than report a share it did not
+    measure."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1448,18 +1525,17 @@ def _device_busy(fn):
         torch.cuda.synchronize()
         wall_ns = (time.perf_counter() - t0) * 1e9
     try:
-        events = prof.profiler.kineto_results.events()
+        events = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA]
         busy = sum(e.duration_ns() if hasattr(e, 'duration_ns')
-                   else e.duration_us() * 1e3
-                   for e in events
-                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+                   else e.duration_us() * 1e3 for e in events)
     except AttributeError as e:
         raise RuntimeError('device busy share: torch.profiler has no raw '
                            f'event API here ({e})') from e
     if not busy:
         raise AssertionError('device busy share: the trace holds no device '
                              'events')
-    return busy / wall_ns
+    return busy / wall_ns, len(events)
 
 
 def _recipe_round(srv_lib, gen_lib, da, prefix_cache):
@@ -1580,7 +1656,8 @@ def recipe_phase(srv_lib, gen_lib, da):
     print(f'    greedy answers equal with and without the pool: {same} of '
           f'{len(parted)}', flush=True)
     print(f'    prefix hits 32, hit tokens 8192, entries '
-          f'{figs[8]["prefix_entries"]}; K4 launches = 16 x chunk_steps x '
+          f'{figs[8]["prefix_entries"]}; K4 launches = n_layers x '
+          f'chunk_steps x '
           f'dispatches in each window; greedy vs generate(): '
           f'{sum(p[0] is None for p in parted)} of {len(parted)} equal, '
           f'parted at (position, top-2 gap) '
@@ -1598,7 +1675,8 @@ def recipe_phase(srv_lib, gen_lib, da):
 
 PAGED = dict(RECIPE, kv_layout='paged')
 P2_BLOCKS = 257  # 256 usable: 4,096 positions, an eighth of 16 x 2048
-P2_HOST_BYTES = 10_000_000  # about two 256-token chains of int8 blocks
+# About two 256-token chains of int8 blocks (139,264 bytes at 8 layers).
+P2_HOST_BYTES = 10_000_000 * RECIPE_LAYERS // 16
 
 
 def _diverging(measured, vocab):
@@ -1765,7 +1843,8 @@ def paged_phase(srv_lib, gen_lib, da, slot_fig):
               f'saved {fig["prefill_tokens_saved"]}, tiers {fig["tiers"]}',
               flush=True)
     print(f'    tiers at the end {tiers}; accounts after drain {kb}; K4 '
-          f'launches = 16 x chunk_steps x dispatches in every window; phase '
+          f'launches = n_layers x chunk_steps x dispatches in every '
+          f'window; phase '
           f'11 took {time.perf_counter() - t0:.1f} s', flush=True)
     return p1['launches'] + total['launches']
 
@@ -2201,13 +2280,7 @@ def _spec_engine_window(srv_lib, gen_lib, da, engine_fig):
                 and health['engine']['pipeline']['pipeline_depth'] == 0):
             raise AssertionError(f'/health: {health}')
         _check_answers(reqs, answers, cfg.vocab_size)
-        streamed = [t for ln in lines[:-1] for t in ln['tokens']]
-        if status != 200 or lines[-1] != {'done': True} \
-                or len(streamed) != stream_req['max_new_tokens']:
-            raise AssertionError(f'bad stream {status} {lines}')
-        if _post(url, stream_req)[1]['tokens'] != [streamed]:
-            raise AssertionError('streamed tokens differ from the same '
-                                 'request not streamed')
+        streamed = _check_stream(url, stream_req, status, lines)
         parted = [_check_greedy(gen_lib, server, r['tokens'][0],
                                 a[1]['tokens'][0], False)
                   for r, a in zip(reqs, answers) if 'temperature' not in r]
@@ -2321,6 +2394,357 @@ def spec_phase(srv_lib, gen_lib, engine_lib, llama, da, engine_fig):
     return launches
 
 
+# -- phase 14: mixture of experts (moe-8x1b) ---------------------------------
+
+MOE_TRAIN_STEPS = 3
+MOE_TRAIN_ARGV = ['--model', 'moe-8x1b', '--global-batch-size', '2',
+                  '--seq-len', '2048', '--steps', str(MOE_TRAIN_STEPS),
+                  '--warmup-steps', '1', '--optimizer', 'adafactor',
+                  '--remat-policy', 'full', '--log-every', '1']
+
+
+def _small_moe_cfg(llama):
+    """MOE_TINY widened to head_dim 64, float32, capacity factor 1.0: the
+    prefill groups and a 16-slot decode step drop choices."""
+    return dataclasses.replace(llama.MOE_TINY, d_model=128, n_heads=4,
+                               n_kv_heads=2, head_dim=64,
+                               dtype=torch.float32,
+                               expert_capacity_factor=1.0)
+
+
+@contextlib.contextmanager
+def _router_gaps(moe_lib):
+    """Record, over every ``moe_mlp`` call while open, the smallest gap
+    between a routed token's k-th and (k+1)-th router probabilities: where
+    that gap is within float32 noise, the card and the CPU may route a
+    token to different experts. Yields a list whose ``min`` is the gap."""
+    mlp, gaps = moe_lib.moe_mlp, []
+
+    def recording(x, params, num_experts, top_k, capacity_factor,
+                  token_mask=None):
+        with torch.no_grad():
+            probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                  @ params['router'], dim=-1)
+            top = torch.topk(probs, top_k + 1, dim=-1).values
+            gap = top[:, top_k - 1] - top[:, top_k]
+            if token_mask is not None:
+                gap = gap[token_mask.reshape(-1) > 0]
+            if gap.numel():
+                gaps.append(gap.min())
+        return mlp(x, params, num_experts, top_k, capacity_factor,
+                   token_mask=token_mask)
+
+    moe_lib.moe_mlp = recording
+    try:
+        yield gaps
+    finally:
+        moe_lib.moe_mlp = mlp
+
+
+def _min_gap(gaps):
+    return min(float(g) for g in gaps) if gaps else None
+
+
+def _run_preloaded(eng, reqs):
+    """Every request of ``reqs`` queued before the engine's loop starts,
+    so the first admission sees them all and both devices admit the same
+    groups into the same slots; returns their tokens."""
+    with unittest.mock.patch.object(type(eng), 'start', lambda self: None):
+        futs = [eng.submit(row, n) for row, n in reqs]
+    type(eng).start(eng)
+    try:
+        return [f.result(timeout=300) for f in futs]
+    finally:
+        eng.stop()
+
+
+def small_moe_phase(llama, moe_lib, gen_lib, engine_lib, trainer_lib,
+                    data_lib):
+    """14a: a small MoE model (4 experts, top-2, head_dim 64, float32,
+    capacity factor 1.0), card against CPU from the same weights:
+    ``forward_cached`` prefill and decode logits within 1e-4; the engine
+    (16 slots, so a decode step's capacity of 8 binds; slot and paged
+    layouts, full and int8 KV; 24 requests that mostly finish mid-chunk)
+    token for token; 3 ``Trainer`` steps, losses, ``moe_aux`` and params
+    within 1e-4. A failure prints the smallest top-2/top-3 router gap."""
+    cfg = _small_moe_cfg(llama)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
+    on_card = _tree_to(params, 'cuda')
+    rng = np.random.default_rng(5)
+    with _router_gaps(moe_lib) as gaps:
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 40)
+                                               ).astype(np.int32))
+        row_lens = torch.tensor([40, 13, 27], dtype=torch.int32)
+        worst = {}
+        for kv_quant in (False, True):
+            # int8 KV: a value on a rounding boundary may take the next
+            # code on one device, which moves a logit by ~1e-4 (phase 4's
+            # limit for the dense model is 1e-3 in both modes).
+            limit = 1e-3 if kv_quant else 1e-4
+            caches = {dev: gen_lib.init_cache(cfg, 3, 64, quantize=kv_quant,
+                                              device=dev)
+                      for dev in ('cpu', 'cuda')}
+            toks, lens = tokens, row_lens
+            for _ in range(8):
+                logits = {}
+                for dev, p in (('cpu', params), ('cuda', on_card)):
+                    logits[dev], caches[dev] = gen_lib.forward_cached(
+                        p, toks.to(dev), caches[dev], cfg, lens.to(dev))
+                err = float((logits['cuda'].cpu() - logits['cpu']
+                             ).abs().max())
+                worst[kv_quant] = max(worst.get(kv_quant, 0.0), err)
+                if not err <= limit:
+                    raise AssertionError(
+                        f'small MoE logits (int8 KV {kv_quant}): card vs '
+                        f'CPU max abs err {err} > {limit}; smallest router '
+                        f'top-2/top-3 gap {_min_gap(gaps)}')
+                toks = torch.argmax(logits['cpu'], -1).to(torch.int32)[:, None]
+                lens = torch.ones(3, dtype=torch.int32)
+        reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(2, 40))
+                              ).tolist(), int(rng.integers(2, 20)))
+                for _ in range(24)]
+        out = {}
+        for layout in ('slot', 'paged'):
+            for kv_quant in (False, True):
+                for dev, p in (('cpu', params), ('cuda', on_card)):
+                    out[dev] = _run_preloaded(engine_lib.ContinuousEngine(
+                        p, cfg, slots=16, max_len=64, chunk_steps=4,
+                        kv_layout=layout, kv_quantize=kv_quant,
+                        device=dev), reqs)
+                if out['cuda'] != out['cpu']:
+                    bad = [i for i, (a, b) in enumerate(zip(out['cuda'],
+                                                            out['cpu']))
+                           if a != b]
+                    raise AssertionError(
+                        f'small MoE engine ({layout}, int8 KV {kv_quant}): '
+                        f'card != CPU for requests {bad}; smallest router '
+                        f'top-2/top-3 gap {_min_gap(gaps)}')
+        tcfg = trainer_lib.TrainerConfig(model=cfg, global_batch_size=2,
+                                         seq_len=200, warmup_steps=1,
+                                         learning_rate=1e-2)
+        runs = {}
+        for dev in ('cpu', 'cuda'):
+            trainer = trainer_lib.Trainer(tcfg, device=dev)
+            state = trainer.init_state_from_numpy(_tree_to_numpy(params))
+            losses, aux = [], []
+            for batch in data_lib.synthetic_batches(
+                    2, 200, cfg.vocab_size, seed=3, num_batches=3):
+                state, metrics = trainer.step(state, batch)
+                losses.append(float(metrics['loss']))
+                aux.append(float(metrics['moe_aux']))
+            runs[dev] = (losses, aux, _flat(state['params']))
+    loss_err = max(abs(a - b) for a, b in zip(
+        runs['cpu'][0] + runs['cpu'][1], runs['cuda'][0] + runs['cuda'][1]))
+    param_err = max(float((a - b.cpu()).abs().max()) for a, b in zip(
+        runs['cpu'][2], runs['cuda'][2]))
+    if not (loss_err <= 1e-4 and param_err <= 1e-4):
+        raise AssertionError(
+            f'small MoE training: card vs CPU loss/moe_aux err {loss_err}, '
+            f'param err {param_err} (limits 1e-4); smallest router '
+            f'top-2/top-3 gap {_min_gap(gaps)}')
+    print(f'  small MoE (4 experts, top-2, capacity factor 1.0, head_dim 64, '
+          f'fp32): prefill + 7 decode steps, max abs logit err card vs CPU '
+          f'{worst[False]} with the float32 KV cache (limit 1e-4), '
+          f'{worst[True]} with int8 KV (limit 1e-3); engine (16 slots, '
+          f'chunk 4, '
+          f'24 requests), slot and paged, full and int8 KV: card == CPU '
+          f'token for token; 3 Adafactor steps: losses {runs["cuda"][0]} '
+          f'moe_aux {runs["cuda"][1]}, max loss/aux err {loss_err}, max '
+          f'param err {param_err} (limits 1e-4); smallest router '
+          f'top-2/top-3 probability gap {_min_gap(gaps)}', flush=True)
+
+
+def moe_engine_phase(srv_lib, gen_lib, da, quantize, kv_cache):
+    """14b: ``LlmServer('moe-8x1b', max_len=1024, prefix_cache=8)`` with
+    its default engine over HTTP: phase 8's traffic, then one streamed
+    request, then a lone greedy request after the traffic left junk in the
+    slots. Returns K4's launches and the window's figures."""
+    torch.cuda.reset_peak_memory_stats()
+    server = srv_lib.LlmServer('moe-8x1b', max_len=1024, quantize=quantize,
+                               kv_cache=kv_cache, prefix_cache=8)
+    cfg, engine = server.cfg, server.engine
+    kv_int8 = kv_cache == 'int8'
+    label = f'{quantize or "bf16"} weights + {kv_cache} KV'
+    health = server.health()[1]['engine']
+    if (health['pipeline']['pipeline_depth'] != 0
+            or health['prefix_cache']['slots'] != 0
+            or health['prefix_share']['enabled']):
+        raise AssertionError(f'moe-8x1b engine: /health shows pipeline '
+                             f'{health["pipeline"]}, prefix pool '
+                             f'{health["prefix_cache"]}; expected serial and '
+                             'no pool')
+    with _served(server) as url:
+        reqs, stream_req = _engine_traffic(cfg.vocab_size)
+        for body in ({'tokens': [[1] * 8], 'max_new_tokens': 2},
+                     dict(reqs[0], max_new_tokens=9)):  # warm-up
+            _post(url, body)
+        answers, fig = _window(url, server, da, reqs)
+        # The stream, the same request not streamed, and a lone greedy
+        # request: K4 counted over the three.
+        d0 = engine.stats()['pipeline']['dispatches']
+        da.flash_decode.launches = 0
+        status, lines = _post_stream(url, stream_req)
+        _idle(engine)
+        streamed = _check_stream(url, stream_req, status, lines)
+        # A 64-token prompt fills its prefill bucket, so the engine's
+        # prefill has the direct path's capacity, and one real token a
+        # decode step cannot fill an expert: the gap rule binds.
+        rng = np.random.default_rng(8)
+        lone = rng.integers(0, cfg.vocab_size, 64).tolist()
+        got = _post(url, {'tokens': [lone], 'max_new_tokens': 32})[1]
+        _idle(engine)
+        dispatches = engine.stats()['pipeline']['dispatches'] - d0
+        launches = da.flash_decode.launches
+        if launches != cfg.n_layers * engine.chunk_steps * dispatches:
+            raise AssertionError(f'flash_decode launched {launches} times '
+                                 f'over {dispatches} chunks after the '
+                                 'window')
+        launches += fig['launches']
+        lone_part = _check_greedy(gen_lib, server, lone, got['tokens'][0],
+                                  kv_int8)
+        parted = 'not compared in int8 mode'
+        if not kv_int8:
+            parted = [_greedy_part(gen_lib, server, r['tokens'][0],
+                                   a[1]['tokens'][0], kv_int8)
+                      for r, a in zip(reqs, answers)
+                      if 'temperature' not in r]
+            parted = (f'{sum(p is None for p in parted)} of {len(parted)} '
+                      'equal, parted at (step, top-2 gap) '
+                      f'{[(p[0], round(p[1], 4)) for p in parted if p]}')
+        s0 = engine.stats()['pipeline']['dispatches']
+        busy, kernels = _device_trace(lambda: _post_all(url, reqs))
+        steps = (engine.stats()['pipeline']['dispatches'] - s0) \
+            * engine.chunk_steps
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f'  moe-8x1b {label}, default engine (16 slots, chunk 8, '
+              f'serial; /health pipeline_depth 0, prefix pool 0 slots of 8 '
+              f'asked): {len(reqs)} concurrent requests, {fig["tokens"]} '
+              f'tokens in {fig["wall_s"]:.2f} s = {fig["tok_s"]:.1f} tok/s, '
+              f'{fig["dispatches"]} chunks, {fig["host_ms_per_step"]:.2f} ms '
+              f'per decode step on the host clock (admission included); '
+              f'stream of {len(lines) - 1} lines = the request not '
+              f'streamed; flash_decode launches {launches} = n_layers x '
+              f'chunk_steps x dispatches; co-batched greedy vs generate(): '
+              f'{parted}; lone greedy '
+              f'request after the traffic: parted at {lone_part} (None = '
+              f'equal; limit {GREEDY_GAP_LIMIT}); one more window traced: '
+              f'device busy share {busy:.1%}, {kernels} device kernels over '
+              f'{steps} decode steps ({kernels / max(steps, 1):.0f} a step, '
+              f'prefills included); peak device memory {peak:.1f} GiB',
+              flush=True)
+    del server
+    torch.cuda.empty_cache()
+    return launches, fig
+
+
+def moe_window_phase(srv_lib, gen_lib, da):
+    """14c: the window path, ``engine='off'``: 4 greedy rows of mixed
+    length (17-300) x 64 new tokens in one request. The answer must equal
+    a direct ``generate`` of the same padded batch, and K4 must be
+    launched n_layers x (max_new - 1) times a generate call. Each row's
+    parting from its solo ``generate`` is printed, not held to the gap
+    rule: expert capacity is per call (the batch's prefill routes 1,200
+    positions, a solo one its own), and a bf16 difference too small to
+    matter in a dense model can move a token across a near-tied router
+    choice. Returns K4's launches."""
+    server = srv_lib.LlmServer('moe-8x1b', max_len=1024, engine='off')
+    cfg = server.cfg
+    rng = np.random.default_rng(9)
+    rows = [rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in (17, 300, 96, 211)]
+    with _served(server) as url:
+        _post(url, {'tokens': [[1] * 8], 'max_new_tokens': 2})  # warm-up
+        server.generate_calls.clear()
+        da.flash_decode.launches = 0
+        t0 = time.perf_counter()
+        status, body = _post(url, {'tokens': rows, 'max_new_tokens': 64})
+        wall = time.perf_counter() - t0
+        launches = da.flash_decode.launches
+        calls = list(server.generate_calls)
+        expected = sum(cfg.n_layers * (max_new - 1) for _, max_new in calls)
+        if status != 200 or launches != expected or not calls:
+            raise AssertionError(f'window path: status {status}, '
+                                 f'flash_decode launched {launches} times '
+                                 f'for generate calls {calls}')
+        tokens, lens = gen_lib.pad_prompts(rows, device=server.device)
+        direct = gen_lib.generate(server.params, cfg, tokens, 64,
+                                  max_len=1024, prompt_lengths=lens).tolist()
+        if body['tokens'] != direct:
+            raise AssertionError('served rows differ from a direct '
+                                 'generate() of the same batch')
+        parts = [_greedy_part(gen_lib, server, row, got, False)
+                 for row, got in zip(rows, body['tokens'])]
+        parts = [None if p is None else (p[0], round(p[1], 4))
+                 for p in parts]
+    print(f'  moe-8x1b window path (engine off), 4 greedy rows of '
+          f'{[len(r) for r in rows]} tokens x 64 new in {len(calls)} '
+          f'generate call(s) {calls}: {4 * 64 / wall:.1f} tok/s; equal to a '
+          f'direct generate() of the batch; flash_decode launches '
+          f'{launches} = n_layers x sum(max_new - 1); each row vs its solo '
+          f'generate(): parted at (step, top-2 gap) {parts} (None = '
+          f'equal)', flush=True)
+    del server
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_train_phase(llama, fa, train_run, trainer_lib):
+    """14d: ``train.run.main`` on moe-8x1b at global batch 2, seq 2048,
+    Adafactor, remat 'full', 3 steps: finite losses and ``moe_aux``, the
+    router and every expert leaf moved, K1 = 2 x 18 x 3 and K2 = K3 = 18
+    x 3. Returns the launches."""
+    cfg = llama.MOE_8X1B
+    steps, layers = MOE_TRAIN_STEPS, cfg.n_layers
+    for counter in ('fwd_launches', 'bwd_dq_launches', 'bwd_dkv_launches'):
+        setattr(fa.flash_attention, counter, 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_run.main(MOE_TRAIN_ARGV)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {name: getattr(fa.flash_attention, counter)
+                for name, (_, counter, _) in FLASH.items()}
+    expected = {'flash_fwd': 2 * layers * steps,
+                'flash_bwd_dq': layers * steps,
+                'flash_bwd_dkv': layers * steps}
+    if launches != expected:
+        raise AssertionError(f'moe training launches {launches}, expected '
+                             f'{expected}')
+    losses, aux = out['losses'], out['moe_aux']
+    if len(losses) != steps or len(aux) != steps \
+            or not all(math.isfinite(x) for x in losses + aux):
+        raise AssertionError(f'moe training losses {losses}, moe_aux {aux}')
+    windows = out['window_step_ms']  # one step each (--log-every 1)
+    trained = out['state']['params']['layers']['moe']
+    del out
+    torch.cuda.empty_cache()
+    init = llama.init_params(cfg, torch.Generator(
+        device='cuda').manual_seed(0), 'cuda')['layers']['moe']
+    moved = {name: float((trained[name].detach().float()
+                          - init[name].float()).abs().max())
+             for name in sorted(init)}
+    del init, trained
+    torch.cuda.empty_cache()
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f'moe training left a leaf unchanged: {moved}')
+    tcfg = trainer_lib.TrainerConfig(model=cfg, global_batch_size=2,
+                                     seq_len=2048)
+    step_s = windows[-1] / 1e3  # the last step, past the warm-up
+    mfu = trainer_lib.mfu(tcfg, step_s)
+    share = cfg.active_param_count / cfg.param_count
+    print(f'  moe-8x1b batch 2 seq 2048 (one card; the recipe runs batch 16 '
+          f'on fsdp=2,expert=8), {steps} steps in {wall:.1f} s: losses '
+          f'{losses}, moe_aux {aux}; step ms by step {windows}; last step '
+          f'{trainer_lib.tokens_per_step(tcfg) / step_s:.0f} tokens/s, '
+          f'printed mfu={mfu:.2%} (6 x all {cfg.param_count} params x '
+          f'tokens, JAX\'s formula); a token runs through {share:.1%} of the '
+          f'params ({cfg.active_param_count}), which gives '
+          f'{mfu * share:.2%}; peak device memory {peak:.1f} GiB; router and '
+          f'experts moved (max |change| {moved}); launches {launches} = '
+          f'expected', flush=True)
+    return launches
+
+
 def _build_all(libs):
     """One nvcc per kernel library, all started together; prints each
     kernel's registers, any spills, and any wgmma the compiler had to
@@ -2346,6 +2770,7 @@ def main() -> int:
     from skypilot_tpu_torch.models import generate as gen_lib
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.models import lora as lora_lib
+    from skypilot_tpu_torch.models import moe as moe_lib
     from skypilot_tpu_torch.models import quantization as quant_lib
     from skypilot_tpu_torch.ops import attention as fa
     from skypilot_tpu_torch.ops import decode_attention as da
@@ -2394,20 +2819,24 @@ def main() -> int:
         launches[mode], engine_figs[mode] = engine_phase(
             srv_lib, gen_lib, engine_lib, da, quantize, mode)
 
-    _phase('phase 9: the serve-llama recipe (llama3-1b, int8 + int8 KV, '
-           'prefix pool 8, max_len 2048) over HTTP, then chunked prefill')
+    _phase(f'phase 9: the serve-llama recipe (llama3-1b, {RECIPE_LAYERS} of '
+           '16 layers, int8 + int8 KV, prefix pool 8, max_len 2048) over '
+           'HTTP, then chunked prefill')
     by_path = {mode: {'phase 8 bench-1b engine': n}
                for mode, n in launches.items()}
-    by_path['int8']['phase 9 serve-llama'], recipe_figs = recipe_phase(
-        srv_lib, gen_lib, da)
+    with _cut_depth(llama, 'llama3-1b', RECIPE_LAYERS):
+        by_path['int8']['phase 9 serve-llama'], recipe_figs = recipe_phase(
+            srv_lib, gen_lib, da)
     _phase('phase 10: the llama-finetune recipe (llama3-1b, batch 8, seq '
            '2048) through train.run: save, resume, preempt')
     finetune_launches = finetune_phase(llama, fa, train_run, ckpt_manifest)
 
-    _phase('phase 11: the paged layout at full width (llama3-1b, int8 + '
-           'int8 KV, max_len 2048, --kv-layout paged) over HTTP')
-    by_path['int8']['phase 11 serve-paged'] = paged_phase(
-        srv_lib, gen_lib, da, recipe_figs[8])
+    _phase(f'phase 11: the paged layout at full width (llama3-1b, '
+           f'{RECIPE_LAYERS} of 16 layers, int8 + int8 KV, max_len 2048, '
+           '--kv-layout paged) over HTTP')
+    with _cut_depth(llama, 'llama3-1b', RECIPE_LAYERS):
+        by_path['int8']['phase 11 serve-paged'] = paged_phase(
+            srv_lib, gen_lib, da, recipe_figs[8])
 
     _phase('phase 12: the lora-finetune recipe (bench-1b, batch 16, seq '
            '2048, --mesh fsdp=-1, rank 16) through train.run: save, resume')
@@ -2418,6 +2847,27 @@ def main() -> int:
     by_path['bf16']['phase 13 serve-spec'] = spec_phase(
         srv_lib, gen_lib, engine_lib, llama, da, engine_figs['bf16'])
 
+    _phase('phase 14: mixture of experts (moe-8x1b): a small MoE model card '
+           'against CPU, serving over HTTP through the engine and the window '
+           'path, training through train.run')
+    small_moe_phase(llama, moe_lib, gen_lib, engine_lib, trainer_lib,
+                    data_lib)
+    _phase('  14a done')
+    moe_figs = {}
+    for mode, quantize in (('bf16', None), ('int8', 'int8')):
+        by_path[mode]['phase 14 serve-moe'], moe_figs[mode] = \
+            moe_engine_phase(srv_lib, gen_lib, da, quantize, mode)
+    _phase('  14b done')
+    by_path['bf16']['phase 14 window-moe'] = moe_window_phase(
+        srv_lib, gen_lib, da)
+    _phase('  14c done')
+    moe_launches = moe_train_phase(llama, fa, train_run, trainer_lib)
+    for mode in MODES:
+        print(f'  serve-moe {mode}: {moe_figs[mode]["tok_s"]:.1f} tok/s, '
+              f'{moe_figs[mode]["host_ms_per_step"]:.2f} host ms a step; '
+              f'phase 8 bench-1b {mode}: {engine_figs[mode]["tok_s"]:.1f} '
+              f'tok/s, {engine_figs[mode]["step_ms"]:.2f} ms', flush=True)
+
     for mode in MODES:
         for case in (LLAMA_CASE, DRAFT_CASE):
             row = next(c for c in kernels[mode]['cases']
@@ -2427,13 +2877,14 @@ def main() -> int:
                   f'{row["library_ms"]} bound_ms {row["bound_ms"]} '
                   f'({row["bound_by"]})', flush=True)
 
-    _phase('phase 14: summary')
+    _phase('phase 15: summary')
     print(_card(), flush=True)  # again here, where the output's tail has it
     entries = []
     for name, (replaces, _, source) in FLASH.items():
         paths = {'phase 6 train-s4096': train_launches[name],
                  'phase 10 llama-finetune': finetune_launches[name],
-                 'phase 12 lora-finetune': lora_launches[name]}
+                 'phase 12 lora-finetune': lora_launches[name],
+                 'phase 14 train-moe': moe_launches[name]}
         entries.append({
             'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': sum(paths.values()),

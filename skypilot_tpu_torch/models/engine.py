@@ -30,7 +30,14 @@ ones keep streaming.
   a clamped offset, as ``dynamic_update_slice`` does in the JAX package,
   and attend all M positions once their length passes M, so no junk row
   reaches the overflow assert (on the card an assert ends the CUDA
-  context).
+  context). MoE routing keeps JAX's mask: the snapshot alone
+  (``route_rows``), so a request that finishes mid-chunk takes expert
+  capacity for the rest of that chunk, as it does in the JAX engine.
+* MoE models (``num_experts > 0``) follow the JAX engine's rules: expert
+  capacity is per forward call and couples the rows of a batch, so the
+  engine dispatches serially (pipeline depth 0) and quietly turns off
+  chunked prefill, the prefix pool and block sharing (with it the KV
+  tiers); a draft model is refused.
 * Prefix pool (``prefix_slots`` > 0, ``SKYTPU_LLM_PREFIX_CACHE``): popular
   prompt prefixes keep their KV in ``prefix_slots`` extra max_len rows.
   A prefix is matched at power-of-two lengths (at least 16, strictly
@@ -320,7 +327,8 @@ def _chunk_impl(cfg: llama.LlamaConfig, k_steps: int, params,
     for _ in range(k_steps):
         active = occupied & (cache.lengths < limit)
         logits, cache = gen_lib.forward_cached(params, last[:, None], cache,
-                                               cfg, row_lens, active)
+                                               cfg, row_lens, active,
+                                               route_rows=occupied)
         last = sampling.sample(logits, temps, generator, top_ks, top_ps)
         toks.append(last)
     return cache, last, torch.stack(toks)
@@ -349,10 +357,15 @@ def _paged_chunk_impl(cfg: llama.LlamaConfig, k_steps: int, params,
     """K decode steps over the PAGED pool: the twin of ``_chunk_impl``
     with ``paged.forward_paged`` in place of ``forward_cached``. Rows not
     active (``occupied`` ANDed with ``lengths < limit`` at every step)
-    write the junk sink."""
+    write the junk sink. An MoE model's rows are active while
+    ``occupied``, as in the JAX engine: a row that finishes mid-chunk
+    routes its junk for the rest of the chunk, so it must also write and
+    read that junk where JAX's does, in its own blocks. MoE dispatches
+    serially, so the chunk is read before those blocks are released."""
     toks = []
     for _ in range(k_steps):
-        active = occupied & (cache.lengths < limit)
+        active = (occupied if cfg.num_experts > 0
+                  else occupied & (cache.lengths < limit))
         logits, cache = paged_lib.forward_paged(params, last[:, None],
                                                 cache, cfg, active)
         last = sampling.sample(logits, temps, generator, top_ks, top_ps)
@@ -446,15 +459,19 @@ def check_options(*, kv_layout: Optional[str] = None,
                   prefill_chunk: Optional[int] = None, draft: bool = False,
                   mesh=None, prefix_share: Optional[bool] = None,
                   kv_tiers: Optional[bool] = None,
-                  role: Optional[str] = None) -> tuple:
+                  role: Optional[str] = None, moe: bool = False) -> tuple:
     """Resolve the engine's options against their environment defaults
     and refuse the ones not ported yet (``NotImplementedError``) or
     unknown (``ValueError``). Returns (kv_layout, prefix_slots,
     prefill_chunk, role, prefix_share, kv_tiers). As in the JAX engine,
     block sharing is on only with the paged layout and without a draft
     (``draft``: the engine has one; spec mode keeps its own dense draft
-    prefill), and KV tiers only with sharing. Needs no weights, so a
-    replica checks its flags before it builds them."""
+    prefill), and KV tiers only with sharing. An MoE model (``moe``)
+    gets no prefix pool, no chunked prefill and no block sharing
+    (``engine.py:680-726`` of the JAX package): expert capacity is per
+    forward call, so each would route differently from the monolithic
+    prefill. Needs no weights, so a replica checks its flags before it
+    builds them."""
     kv_layout = (kv_layout or os.environ.get('SKYTPU_LLM_KV_LAYOUT')
                  or 'slot')
     if kv_layout not in ('slot', 'paged'):
@@ -469,7 +486,9 @@ def check_options(*, kv_layout: Optional[str] = None,
     if prefix_share is None:
         prefix_share = os.environ.get('SKYTPU_LLM_PREFIX_SHARE', '1') != '0'
     prefix_share = (bool(prefix_share) and kv_layout == 'paged'
-                    and not draft)
+                    and not draft and not moe)
+    if moe:
+        prefix_slots = prefill_chunk = 0
     if kv_tiers is None:
         kv_tiers = os.environ.get('SKYTPU_KV_TIERS', '1') != '0'
     kv_tiers = bool(kv_tiers) and prefix_share
@@ -534,15 +553,13 @@ class ContinuousEngine:
                 raise ValueError(
                     'draft and target must share a vocabulary '
                     f'({draft_cfg.vocab_size} vs {cfg.vocab_size})')
-            llama.require_dense(draft_cfg)
-        llama.require_dense(cfg)
         (self.kv_layout, self.prefix_slots, self.prefill_chunk,
          self.role, self.prefix_share, tiers_on) = check_options(
             kv_layout=kv_layout, prefix_slots=prefix_slots,
             prefill_chunk=prefill_chunk,
             draft=draft_params is not None or draft_cfg is not None,
             mesh=mesh, prefix_share=prefix_share, kv_tiers=kv_tiers,
-            role=role)
+            role=role, moe=cfg.num_experts > 0)
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -561,6 +578,11 @@ class ContinuousEngine:
         if pipeline is None:
             pipeline = os.environ.get('SKYTPU_LLM_PIPELINE', '1') != '0'
         self.pipeline_depth = 1 if pipeline else 0
+        if cfg.num_experts > 0:
+            # A chunk in flight runs against a snapshot one retirement
+            # stale, so a row freed meanwhile would still take expert
+            # capacity and change the live rows' routing.
+            self.pipeline_depth = 0
         if draft_cfg is not None:
             # Rounds are host-synchronous by construction: acceptance
             # decides the rollback that shapes the next round's inputs.

@@ -1,7 +1,8 @@
 """KV-cache autoregressive generation (the serving-side compute path).
 
-Port of ``skypilot_tpu/models/generate.py`` for dense models: a prefill
-through ``forward_cached``, then one ``forward_cached`` per new token.
+Port of ``skypilot_tpu/models/generate.py``: a prefill through
+``forward_cached``, then one ``forward_cached`` per new token, for dense
+and MoE models alike.
 JAX's ``lax.scan`` over layers and over decode steps becomes a Python
 loop over both; the per-layer cache slices are views of the stacked
 ``[L, B, Hkv, M, D]`` buffers.
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from skypilot_tpu_torch.models import llama, sampling
+from skypilot_tpu_torch.models import llama, moe, sampling
 from skypilot_tpu_torch.models.quantization import mm as _mm
 from skypilot_tpu_torch.ops import decode_attention
 
@@ -155,11 +156,17 @@ def _qkv_proj(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
     return q, k, v
 
 
-def _mlp_tail(cfg: llama.LlamaConfig, x: torch.Tensor,
-              layer: Params) -> torch.Tensor:
-    """Decoder-block back half (post-attention norm + dense SwiGLU MLP),
-    residual included."""
+def _mlp_tail(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
+              token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Decoder-block back half (post-attention norm + MoE or dense SwiGLU
+    MLP), residual included. ``token_mask`` [B, S] (MoE only) keeps
+    padded and junk positions out of expert routing."""
     h = llama.rms_norm(x, layer['mlp_norm'], cfg.norm_eps)
+    if cfg.num_experts > 0:
+        out, _ = moe.moe_mlp(h, layer['moe'], cfg.num_experts,
+                             cfg.expert_top_k, cfg.expert_capacity_factor,
+                             token_mask=token_mask)
+        return x + out
     gate = _mm(h, layer['w_gate'], 'bsd,df->bsf')
     up = _mm(h, layer['w_up'], 'bsd,df->bsf')
     return x + _mm(F.silu(gate) * up, layer['w_down'], 'bsf,fd->bsd')
@@ -170,10 +177,13 @@ def _cached_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
                   v_cache: torch.Tensor, cache_lens: torch.Tensor,
                   valid: torch.Tensor,
                   k_s: Optional[torch.Tensor] = None,
-                  v_s: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  v_s: Optional[torch.Tensor] = None,
+                  token_mask: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """One decoder block writing this block's K/V into the (per-layer
     view of the) cache. x: [B, S, d]; ``cache_lens`` [B] = write
-    offsets; ``valid`` [B] = cache_lens + real new tokens per row.
+    offsets; ``valid`` [B] = cache_lens + real new tokens per row;
+    ``token_mask`` [B, S] = the positions MoE routes (``_route_mask``).
     Short rows of a padded batch write junk past their real length; it
     is never attended and later steps overwrite it."""
     q, k, v = _qkv_proj(cfg, x, layer, positions)
@@ -181,7 +191,24 @@ def _cached_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
     _write_block(v_cache, v_s, v.transpose(1, 2), cache_lens)
     att = _cached_attention(q, k_cache, v_cache, positions, valid, k_s, v_s)
     x = x + _mm(att, layer['wo'], 'bshk,hkd->bsd')
-    return _mlp_tail(cfg, x, layer)
+    return _mlp_tail(cfg, x, layer, token_mask)
+
+
+def _route_mask(cfg: llama.LlamaConfig, positions: torch.Tensor,
+                valid: torch.Tensor, uniform: bool,
+                route_rows: Optional[torch.Tensor]
+                ) -> Optional[torch.Tensor]:
+    """The MoE token mask [B, S] in ``cfg.dtype`` (``generate.py:326``):
+    None for a dense model, and for a uniform batch with no rows given
+    (every position is real); else ``positions < valid``, ANDed with
+    ``route_rows``. Padded positions and rows outside ``route_rows`` take
+    no expert capacity."""
+    if cfg.num_experts == 0 or (uniform and route_rows is None):
+        return None
+    mask = positions < valid[:, None]
+    if route_rows is not None:
+        mask = mask & route_rows[:, None]
+    return mask.to(cfg.dtype)
 
 
 def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
@@ -189,6 +216,7 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
                    row_lens: Optional[torch.Tensor] = None,
                    active_rows: Optional[torch.Tensor] = None,
                    all_logits: bool = False,
+                   route_rows: Optional[torch.Tensor] = None,
                    ) -> Tuple[torch.Tensor, KVCache]:
     """Run ``tokens`` [B, S] through the model appending to ``cache``
     (in place); returns (float32 logits of each row's LAST REAL position
@@ -205,8 +233,14 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
     what they compute without it. A row that is not active writes at
     min(start, M - S), as ``dynamic_update_slice`` clamps in the JAX
     package, and its lengths may pass M (attention then covers all M);
-    the overflow assert covers the active rows only."""
-    llama.require_dense(cfg)
+    the overflow assert covers the active rows only.
+
+    ``route_rows`` [B] bool marks the rows whose tokens take MoE expert
+    capacity, JAX's ``active_rows`` (None = ``active_rows``). The engine
+    passes its dispatch snapshot here: a request that finishes mid-chunk
+    keeps routing its junk for the rest of the chunk, as in the JAX
+    engine, while ``active_rows`` turns its writes off. Expert routing is
+    the one place where rows of a batch affect each other."""
     b, s = tokens.shape
     dev = tokens.device
     max_len = cache.k.shape[3]
@@ -216,13 +250,16 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
                              else row_lens.to(torch.int32))
     _check_fits(cache.lengths, s, max_len, active_rows)
     write_start = _write_starts(cache.lengths, s, max_len, active_rows)
+    token_mask = _route_mask(
+        cfg, positions, valid, row_lens is None,
+        active_rows if route_rows is None else route_rows)
     x = params['embed'].to(cfg.dtype)[tokens.long()]
     for i in range(cfg.n_layers):
         x = _cached_layer(
             cfg, x, llama.layer_params(params['layers'], i), positions,
             cache.k[i], cache.v[i], write_start, valid,
             cache.k_s[i] if cache.quantized else None,
-            cache.v_s[i] if cache.quantized else None)
+            cache.v_s[i] if cache.quantized else None, token_mask)
     x = llama.rms_norm(x, params['final_norm'], cfg.norm_eps)
     new_cache = dataclasses.replace(cache, lengths=valid)
     if all_logits:

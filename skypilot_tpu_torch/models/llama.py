@@ -12,9 +12,11 @@ The training forward (``forward_with_aux``, ``forward``, ``loss_fn``)
 runs the layers in a Python loop (JAX: ``lax.scan``) with attention
 through ``ops.attention.flash_attention`` (K1 forward, K2/K3 backward on
 the card). Remat policies map onto ``torch.utils.checkpoint``.
-MoE (``num_experts > 0``) and pipeline stages raise
-``NotImplementedError``; sequence parallelism needs a mesh, which the
-port does not have yet.
+An MoE model (``num_experts > 0``) takes ``models/moe.py``'s block in
+place of the dense MLP under ``layers/moe``; its balance loss is summed
+over the layers and weighted into ``loss_fn`` as in the JAX package.
+Pipeline stages raise ``NotImplementedError``; sequence parallelism
+needs a mesh, which the port does not have yet.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from skypilot_tpu_torch.models import moe
 from skypilot_tpu_torch.ops.attention import flash_attention
 from skypilot_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -63,6 +66,16 @@ class LlamaConfig:
         embed = self.vocab_size * d * 2  # in + out (untied)
         return L * (attn + mlp + 2 * d) + embed + d
 
+    @property
+    def active_param_count(self) -> int:
+        """``param_count`` with only the ``expert_top_k`` experts a token
+        runs through counted (equal to it for a dense model)."""
+        if self.num_experts == 0:
+            return self.param_count
+        unused = self.num_experts - self.expert_top_k
+        return self.param_count - self.n_layers * unused * 3 * \
+            self.d_model * self.d_ff
+
 
 # -- presets (same widths as the JAX package) ---------------------------------
 
@@ -87,13 +100,6 @@ PRESETS = {'llama3-8b': LLAMA3_8B, 'llama3-1b': LLAMA3_1B,
            'moe-8x1b': MOE_8X1B, 'tiny-mh': TINY_MH}
 
 
-def require_dense(cfg: LlamaConfig) -> None:
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            'MoE models are not ported yet (skypilot_tpu_torch runs '
-            'dense models only)')
-
-
 # -- params -------------------------------------------------------------------
 
 
@@ -103,8 +109,9 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     normal(0, fan_in**-0.5) in ``cfg.dtype``, norms at one, and the
     embedding scaled by ``d_model**0.5``. ``generator`` must live on
     ``device``. The values differ from ``jax.random``'s for the same
-    seed; tests carry JAX weights over with ``params_from_numpy``."""
-    require_dense(cfg)
+    seed; tests carry JAX weights over with ``params_from_numpy``. An
+    MoE model's layers hold ``moe`` (``models/moe.py``) in place of
+    ``w_gate``/``w_up``/``w_down``."""
     dev = resolve_device(device)
     d, L = cfg.d_model, cfg.n_layers
 
@@ -124,10 +131,14 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         'wo': dense_init((L, cfg.n_heads, cfg.head_dim, d),
                          cfg.n_heads * cfg.head_dim),
         'mlp_norm': norm_init((L, d)),
-        'w_gate': dense_init((L, d, cfg.d_ff), d),
-        'w_up': dense_init((L, d, cfg.d_ff), d),
-        'w_down': dense_init((L, cfg.d_ff, d), cfg.d_ff),
     }
+    if cfg.num_experts > 0:
+        layers['moe'] = moe.init_moe_params(generator, L, d, cfg.d_ff,
+                                            cfg.num_experts, cfg.dtype, dev)
+    else:
+        layers['w_gate'] = dense_init((L, d, cfg.d_ff), d)
+        layers['w_up'] = dense_init((L, d, cfg.d_ff), d)
+        layers['w_down'] = dense_init((L, cfg.d_ff, d), cfg.d_ff)
     return {
         'embed': dense_init((cfg.vocab_size, d), d) * (d ** 0.5),
         'layers': layers,
@@ -139,10 +150,11 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 def params_from_numpy(tree: Any, cfg: LlamaConfig,
                       device: DeviceLike = None) -> Params:
     """Carry a JAX weight tree, given as numpy arrays, into the port:
-    a key-for-key copy. Int8 ``q8`` codes stay int8 and ``s`` scales stay
-    float32 (``models/quantization.py``); every other leaf becomes
-    ``cfg.dtype``. ``torch.from_numpy`` cannot read ``ml_dtypes``'
-    bfloat16, so such leaves go through float32 first, which is exact."""
+    a key-for-key copy. Int8 ``q8`` codes stay int8, and ``s`` scales
+    (``models/quantization.py``) and the MoE ``router`` stay float32;
+    every other leaf becomes ``cfg.dtype``. ``torch.from_numpy`` cannot
+    read ``ml_dtypes``' bfloat16, so such leaves go through float32
+    first, which is exact."""
     dev = resolve_device(device)
 
     def leaf(key: str, arr) -> torch.Tensor:
@@ -152,7 +164,7 @@ def params_from_numpy(tree: Any, cfg: LlamaConfig,
         t = torch.from_numpy(np.array(arr))  # a writable copy
         if key == 'q8':
             dtype = torch.int8
-        elif key == 's':
+        elif key in ('s', 'router'):
             dtype = torch.float32
         else:
             dtype = cfg.dtype
@@ -253,15 +265,27 @@ def _mlp(cfg: LlamaConfig, x: torch.Tensor, layer: Params) -> torch.Tensor:
     return _mlp_down(*_mlp_hidden(cfg, x, layer), layer)
 
 
+def _ffn(cfg: LlamaConfig, x: torch.Tensor, layer: Params
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's back half without its residual: (out, aux). An MoE
+    model runs the MLP norm and ``models/moe.py``'s block; the dense MLP's
+    aux is 0."""
+    if cfg.num_experts > 0:
+        h = rms_norm(x, layer['mlp_norm'], cfg.norm_eps)
+        return moe.moe_mlp(h, layer['moe'], cfg.num_experts,
+                           cfg.expert_top_k, cfg.expert_capacity_factor)
+    return _mlp(cfg, x, layer), x.new_zeros((), dtype=torch.float32)
+
+
 def _decoder_layer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
                    positions: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One dense decoder block (``llama.py:217``); returns (x, aux) with
-    aux 0, the dense MLP's balance loss."""
-    require_dense(cfg)
+    """One decoder block (``llama.py:217``); returns (x, aux), aux being
+    the MoE block's balance loss (0 for the dense MLP)."""
     att = _attend(cfg, *_qkv(cfg, x, layer), positions)
     x = _attn_residual(x, att, layer)
-    return x + _mlp(cfg, x, layer), x.new_zeros((), dtype=torch.float32)
+    out, aux = _ffn(cfg, x, layer)
+    return x + out, aux
 
 
 def _ckpt(fn: Callable, *args):
@@ -269,7 +293,7 @@ def _ckpt(fn: Callable, *args):
 
 
 def _remat_full(cfg, x, layer, positions):
-    return _ckpt(lambda x_: _decoder_layer(cfg, x_, layer, positions)[0], x)
+    return _ckpt(lambda x_: _decoder_layer(cfg, x_, layer, positions), x)
 
 
 def _remat_attn(cfg, x, layer, positions):
@@ -277,7 +301,8 @@ def _remat_attn(cfg, x, layer, positions):
 
     def rest(x_, att_):
         x_ = _attn_residual(x_, att_, layer)
-        return x_ + _mlp(cfg, x_, layer)
+        out, aux = _ffn(cfg, x_, layer)
+        return x_ + out, aux
     return _ckpt(rest, x, att)
 
 
@@ -285,15 +310,18 @@ def _remat_heavy(cfg, x, layer, positions):
     q, k, v = _ckpt(lambda x_: _qkv(cfg, x_, layer), x)
     att = _ckpt(lambda *t: _attend(cfg, *t, positions), q, k, v)
     x = _attn_residual(x, att, layer)
-    return x + _ckpt(lambda x_: _mlp(cfg, x_, layer), x)
+    out, aux = _ckpt(lambda x_: _ffn(cfg, x_, layer), x)
+    return x + out, aux
 
 
 def _remat_dots(cfg, x, layer, positions):
+    if cfg.num_experts > 0:
+        return _remat_heavy(cfg, x, layer, positions)
     q, k, v = _ckpt(lambda x_: _qkv(cfg, x_, layer), x)
     att = _ckpt(lambda *t: _attend(cfg, *t, positions), q, k, v)
     x = _attn_residual(x, att, layer)
     gate, up = _ckpt(lambda x_: _mlp_hidden(cfg, x_, layer), x)
-    return x + _mlp_down(gate, up, layer)
+    return x + _mlp_down(gate, up, layer), x.new_zeros((), dtype=torch.float32)
 
 
 # The JAX policies (``llama.py:267``) name the matmul outputs XLA may keep.
@@ -306,7 +334,9 @@ def _remat_dots(cfg, x, layer, positions):
 #   heavy: x, q/k/v before RoPE, att, and x after the attention residual;
 #   dots:  as heavy, plus gate, up and the products the plain MLP tail
 #          saves (silu(gate), silu(gate) * up).
-# Gradients do not depend on the policy.
+# The MoE block is one segment wherever the dense MLP is recomputed (and
+# under 'dots' too, as under 'heavy'). Every policy returns (x, aux), and
+# gradients do not depend on the policy.
 REMAT_POLICIES: Dict[str, Callable] = {
     'full': _remat_full,
     'attn': _remat_attn,
@@ -315,29 +345,39 @@ REMAT_POLICIES: Dict[str, Callable] = {
 }
 
 
+def _unstack(layers: Params) -> list:
+    """The stacked ``layers`` tree as one tree per layer. Each stacked
+    leaf is unbound once, so the backward stacks each leaf's layer
+    gradients into one ``[L, ...]`` tensor (indexing ``leaf[i]`` would
+    give every layer its own full-size zero gradient)."""
+    per_leaf = {}
+    for name, leaf in layers.items():
+        if isinstance(leaf, dict):  # the MoE block's leaves
+            parts = {k: v.unbind(0) for k, v in leaf.items()}
+            per_leaf[name] = [dict(zip(parts, vals))
+                              for vals in zip(*parts.values())]
+        else:
+            per_leaf[name] = leaf.unbind(0)
+    n = len(next(iter(per_leaf.values())))
+    return [{name: leaves[i] for name, leaves in per_leaf.items()}
+            for i in range(n)]
+
+
 def _layer_stack(cfg: LlamaConfig, x: torch.Tensor, layers: Params,
                  positions: torch.Tensor, remat: bool,
                  remat_policy: str = 'full'
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The layer loop (JAX: ``lax.scan``); returns (x, aux_sum).
-
-    Each stacked leaf is unbound once, so the backward stacks each leaf's
-    layer gradients into one ``[L, ...]`` tensor (indexing ``leaf[i]``
-    would give every layer its own full-size zero gradient)."""
-    require_dense(cfg)
+    """The layer loop (JAX: ``lax.scan``); returns (x, aux_sum)."""
     if remat and remat_policy not in REMAT_POLICIES:
         raise ValueError(f'Unknown remat_policy {remat_policy!r}; choose '
                          f'from {sorted(REMAT_POLICIES)}')
-    per_layer = {name: leaf.unbind(0) for name, leaf in layers.items()}
-    n = len(next(iter(per_layer.values())))
     aux = x.new_zeros((), dtype=torch.float32)
-    for i in range(n):
-        layer = {name: leaves[i] for name, leaves in per_layer.items()}
+    for layer in _unstack(layers):
         if remat:
-            x = REMAT_POLICIES[remat_policy](cfg, x, layer, positions)
+            x, a = REMAT_POLICIES[remat_policy](cfg, x, layer, positions)
         else:
             x, a = _decoder_layer(cfg, x, layer, positions)
-            aux = aux + a
+        aux = aux + a
     return x, aux
 
 
@@ -348,7 +388,6 @@ def forward_with_aux(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
 
     The unembedding multiplies float32 copies of x and ``lm_head``: exact
     for bf16 operands, as JAX's ``preferred_element_type=float32`` is."""
-    require_dense(cfg)
     if cfg.pipeline_stages > 1:
         raise NotImplementedError('pipeline stages are not ported yet')
     b, s = tokens.shape
@@ -367,17 +406,28 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     return forward_with_aux(params, tokens, cfg, remat=remat)[0]
 
 
+MOE_AUX_WEIGHT = 0.01
+
+
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
             remat: bool = True, remat_policy: str = 'full'
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy over tokens[:, 1:] (``llama.py:398``):
     the forward runs on the full sequence and logits[:, :-1] predict
-    tokens[:, 1:]. Returns (total, {'loss', 'perplexity'})."""
-    logits, _ = forward_with_aux(params, tokens, cfg, remat=remat,
-                                 remat_policy=remat_policy)
+    tokens[:, 1:]. Returns (total, {'loss', 'perplexity'}); an MoE model
+    adds ``MOE_AUX_WEIGHT`` times the per-layer mean balance loss to the
+    total and reports that mean as ``moe_aux``."""
+    logits, aux = forward_with_aux(params, tokens, cfg, remat=remat,
+                                   remat_policy=remat_policy)
     logits = logits[:, :-1]
     targets = tokens[:, 1:].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
     nll = (logz - gold).mean()
-    return nll, {'loss': nll, 'perplexity': torch.exp(nll)}
+    metrics = {'loss': nll, 'perplexity': torch.exp(nll)}
+    total = nll
+    if cfg.num_experts > 0:
+        aux_mean = aux / cfg.n_layers
+        total = nll + MOE_AUX_WEIGHT * aux_mean
+        metrics['moe_aux'] = aux_mean
+    return total, metrics

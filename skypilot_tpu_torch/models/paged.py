@@ -210,14 +210,16 @@ def _paged_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer,
                  k_pool: torch.Tensor, v_pool: torch.Tensor,
                  active_rows: Optional[torch.Tensor],
                  k_s: Optional[torch.Tensor],
-                 v_s: Optional[torch.Tensor]) -> torch.Tensor:
+                 v_s: Optional[torch.Tensor],
+                 token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decoder block at S >= 1 over the paged pool (per-layer views
     ``[NB, H, P, D]``, written in place). The math is ``generate``'s
     (``_qkv_proj`` / ``_cached_attention`` / ``_mlp_tail``); only the
     cache write (pool scatter) and read (block gather) differ from the
     dense layer. Rows not active write the junk sink: within a chunk a
     finishing row stays active and its blocks are released only after
-    the chunk is read, so active writes never race a reallocation."""
+    the chunk is read, so active writes never race a reallocation.
+    ``token_mask`` [B, S]: the positions MoE routes."""
     s = x.shape[1]
     positions = lengths[:, None] + torch.arange(
         s, dtype=torch.int32, device=x.device)[None]  # [B, S]
@@ -242,7 +244,7 @@ def _paged_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer,
         _view(k_s, tables) if k_s is not None else None,
         _view(v_s, tables) if v_s is not None else None)
     x = x + _mm(att, layer['wo'], 'bshk,hkd->bsd')
-    return _mlp_tail(cfg, x, layer)
+    return _mlp_tail(cfg, x, layer, token_mask)
 
 
 def forward_paged(params, tokens: torch.Tensor, cache: PagedKVCache,
@@ -257,16 +259,24 @@ def forward_paged(params, tokens: torch.Tensor, cache: PagedKVCache,
     [B, S, V]; ``logit_index`` [B] instead picks each row's own last
     REAL position (padded prefill); by default the last position's. The
     structural twin of ``generate.forward_cached`` with pool
-    scatter/gather replacing the dense row update."""
-    llama.require_dense(cfg)
+    scatter/gather replacing the dense row update. An MoE model routes
+    every position of the ``active_rows`` (all rows when None), as at
+    ``paged.py:280`` of the JAX package: there is no padding term, as the
+    JAX engine runs MoE through this forward at S = 1 only."""
     b, s = tokens.shape
+    token_mask = None
+    if cfg.num_experts > 0:
+        mask = torch.ones((b, s), dtype=torch.bool, device=tokens.device)
+        if active_rows is not None:
+            mask = mask & active_rows[:, None]
+        token_mask = mask.to(cfg.dtype)
     x = params['embed'].to(cfg.dtype)[tokens.long()]
     for i in range(cfg.n_layers):
         x = _paged_layer(
             cfg, x, llama.layer_params(params['layers'], i), cache.lengths,
             cache.tables, cache.k[i], cache.v[i], active_rows,
             cache.k_s[i] if cache.quantized else None,
-            cache.v_s[i] if cache.quantized else None)
+            cache.v_s[i] if cache.quantized else None, token_mask)
     x = llama.rms_norm(x, params['final_norm'], cfg.norm_eps)
     new_cache = dataclasses.replace(cache, lengths=cache.lengths + s)
     if all_logits:

@@ -5,6 +5,8 @@
         --max-len 2048 --kv-layout both --weights-kv int8 --pipeline on
     python -m skypilot_tpu_torch.tools.engine_profile --weights-kv bf16 \
         --draft-model bench-draft   # speculative rounds (k 4)
+    python -m skypilot_tpu_torch.tools.engine_profile --model moe-8x1b \
+        --pipeline off   # MoE: the engine dispatches serially
 
 For bf16 weights + bf16 KV and for int8 weights + int8 KV, the engine in
 the replica's default configuration (16 slots, ``max_len`` 1024, chunks of
@@ -157,7 +159,8 @@ def main(argv=None) -> int:
                 p1 = eng.stats()['pipeline']
                 row = {'model': args.model, 'weights_kv': label,
                        'draft_model': args.draft_model,
-                       'kv_layout': layout, 'pipeline': pipeline == 'on',
+                       'kv_layout': layout,
+                       'pipeline': eng.pipeline_depth > 0,
                        'tok_s': tokens / wall,
                        'step_ms': decode_wall / steps * 1e3,
                        'decode_steps': steps,

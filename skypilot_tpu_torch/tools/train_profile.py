@@ -1,10 +1,14 @@
-"""Where a training step's time goes on the card, for BENCH_1B at seq 4096.
+"""Where a training step's time goes on the card, for BENCH_1B at seq 4096
+unless ``--model`` names another preset.
 
     python -m skypilot_tpu_torch.tools.train_profile [--steps 3]
         [--remat-policy full]
     # the lora-finetune recipe's step:
     python -m skypilot_tpu_torch.tools.train_profile --lora-rank 16 \
         --global-batch-size 16 --seq-len 2048
+    # moe-8x1b (8 experts, top-2) on one card:
+    python -m skypilot_tpu_torch.tools.train_profile --model moe-8x1b \
+        --global-batch-size 2 --seq-len 2048
 
 Runs the port's ``Trainer`` (global batch 2 unless set, Adafactor, warmup
 1; with ``--lora-rank``, LoRA of rank r, alpha 32, targets wq,wk,wv,wo)
@@ -16,7 +20,9 @@ and prints JSON lines:
   peak (``utils/device.py``); peak device memory;
 * ``profile``: over one step under ``torch.profiler``, the device's busy
   share (kernel time over wall time), kernels per step, device time by
-  group (the flash-attention kernels K1-K3, GEMMs, the rest), the device
+  group (the flash-attention kernels K1-K3, float32 GEMMs, which are an
+  MoE model's one-hot dispatch and combine products, other GEMMs, the
+  rest), the device
   time of each of K1, K2 and K3, and the top kernels by device time;
 * ``lm_head``: the unembedding product at this shape as the port runs it
   (float32 copies of x and ``lm_head``, TF32 off, which is exact for bf16
@@ -51,6 +57,8 @@ def _group(name: str) -> str:
     if any(k in name for k in _FLASH):
         return 'flash_attention'
     low = name.lower()
+    if 'sgemm' in low or 'gemm_f32f32' in low:
+        return 'gemm_fp32'
     if any(k in low for k in ('gemm', 'xmma', 'cutlass', 'nvjet')):
         return 'gemm'
     return 'other'
@@ -71,6 +79,8 @@ def _event_ms(fn, iters: int) -> float:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--steps', type=int, default=3)
+    parser.add_argument('--model', default='bench-1b',
+                        help='preset name (models/llama.py PRESETS)')
     parser.add_argument('--remat-policy', default='full')
     parser.add_argument('--global-batch-size', type=int,
                         default=GLOBAL_BATCH)
@@ -91,7 +101,8 @@ def main(argv=None) -> int:
         from skypilot_tpu_torch.models import lora as lora_lib
         lora = lora_lib.LoraConfig(rank=args.lora_rank, alpha=32.0)
     cfg = trainer_lib.TrainerConfig(
-        model=llama.BENCH_1B, global_batch_size=args.global_batch_size,
+        model=llama.PRESETS[args.model],
+        global_batch_size=args.global_batch_size,
         seq_len=args.seq_len, warmup_steps=1,
         remat_policy=args.remat_policy, lora=lora)
     trainer = trainer_lib.Trainer(cfg, device=dev)
@@ -115,7 +126,7 @@ def main(argv=None) -> int:
     step_s = (time.perf_counter() - t0) / args.steps
     flops = trainer_lib.model_flops_per_step(cfg)
     print(json.dumps({
-        'step': {'model': 'bench-1b', 'seq_len': cfg.seq_len,
+        'step': {'model': args.model, 'seq_len': cfg.seq_len,
                  'global_batch_size': cfg.global_batch_size,
                  'remat_policy': cfg.remat_policy,
                  'lora_rank': args.lora_rank,
@@ -123,7 +134,11 @@ def main(argv=None) -> int:
                  'tokens_per_s': trainer_lib.tokens_per_step(cfg) / step_s,
                  'model_flops_per_s': flops / step_s,
                  'mfu_vs_bf16_dense_peak': trainer_lib.mfu(cfg, step_s),
+                 'active_param_share': (cfg.model.active_param_count
+                                        / cfg.model.param_count),
                  'loss': float(metrics['loss']),
+                 'moe_aux': (float(metrics['moe_aux'])
+                             if 'moe_aux' in metrics else None),
                  'peak_memory_gib':
                      torch.cuda.max_memory_allocated() / 2 ** 30}}),
           flush=True)

@@ -35,8 +35,13 @@ yet. Every ``--log-every`` steps it prints
 step ms, tokens/s, and model FLOP/s as a share of the card's dense bf16
 peak (989 TFLOP/s, an H100 SXM at 700 W) beside the card's name, and
 appends a window record to the telemetry spool when
-``SKYTPU_TRAIN_TELEMETRY_DIR`` is set. ``main`` returns the losses of the
-steps it ran and the final state, so a script can drive it in-process.
+``SKYTPU_TRAIN_TELEMETRY_DIR`` is set. The model FLOPs are 6 x
+``param_count`` x tokens, as the JAX package counts them: for an MoE
+model (``--model moe-8x1b``) that counts every expert, so the start line
+also prints the share of the parameters a token runs through, and each
+step line the balance loss ``moe_aux``. ``main`` returns the losses (and
+an MoE model's ``moe_aux``) of the steps it ran and the final state, so a
+script can drive it in-process.
 """
 from __future__ import annotations
 
@@ -200,8 +205,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                      f'{",".join(sorted(lora_cfg.targets))} '
                      f'({lora_lib.param_count(state["lora"])} adapter '
                      'values)')
+    moe_note, m = '', cfg.model
+    if m.num_experts > 0:
+        moe_note = (f', {m.active_param_count / 1e9:.2f}B active '
+                    f'({m.active_param_count / m.param_count:.1%}): '
+                    f'{m.expert_top_k} of {m.num_experts} experts')
     print(f'[train] {args.model} ({cfg.model.param_count / 1e9:.2f}B '
-          f'params) seq {cfg.seq_len} batch {cfg.global_batch_size} '
+          f'params{moe_note}) seq {cfg.seq_len} batch {cfg.global_batch_size} '
           f'{cfg.optimizer} remat {cfg.remat_policy}{lora_note} on {card}',
           flush=True)
 
@@ -237,6 +247,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     flops = trainer_lib.model_flops_per_step(cfg)
     tokens = trainer_lib.tokens_per_step(cfg)
     losses: List[torch.Tensor] = []
+    moe_aux: List[torch.Tensor] = []
     windows: List[float] = []
     try:
         window_t0, window_steps = time.perf_counter(), 0
@@ -250,6 +261,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             t0 = time.perf_counter()
             state, metrics = trainer.step(state, batch)
             losses.append(metrics['loss'])
+            if 'moe_aux' in metrics:
+                moe_aux.append(metrics['moe_aux'])
             step, window_steps = i + 1, window_steps + 1
             if step % args.log_every == 0 or step == args.steps:
                 loss = float(metrics['loss'])  # waits for the step
@@ -262,8 +275,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                         f'{H100_BF16_DENSE_FLOPS / 1e12:.0f} TFLOP/s bf16 '
                         'dense peak'
                         if on_card else 'mfu=not measured')
+                aux = (f'moe_aux={float(metrics["moe_aux"]):.4f} '
+                       if 'moe_aux' in metrics else '')
                 print(f'[train] step {step}/{args.steps} loss={loss:.4f} '
-                      f'step_ms={step_s * 1e3:.1f} '
+                      f'{aux}step_ms={step_s * 1e3:.1f} '
                       f'tokens/s={tokens / step_s:.0f} '
                       f'model_flops/s={flops / step_s:.3e} {rate} ({card})',
                       flush=True)
@@ -288,6 +303,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                           if prev_handler is not None else signal.SIG_DFL)
     print('[train] done', flush=True)
     return {'losses': torch.stack(losses).tolist() if losses else [],
+            'moe_aux': torch.stack(moe_aux).tolist() if moe_aux else [],
             'start_step': start_step, 'window_step_ms': windows,
             'state': state}
 

@@ -4,7 +4,9 @@ Port of ``skypilot_tpu/train/trainer.py``. JAX's jitted step over a mesh
 becomes an eager step on one device: ``loss_fn`` forward and backward
 (flash attention K1-K3 on the card), then the optax chain of
 ``train/optim.py`` applied in place. ``mesh``/``rules`` (sharding) are
-not ported yet and raise ``NotImplementedError``.
+not ported yet and raise ``NotImplementedError``. An MoE model trains
+like a dense one; its metrics carry ``moe_aux``, and LoRA adapts its
+attention only.
 
 The state is ``{'step': int, 'params': tree, 'opt_state': ...}``; the
 trainable leaves carry ``requires_grad`` and are updated in place (JAX
@@ -86,7 +88,6 @@ class Trainer:
             raise NotImplementedError(
                 'sharded training (mesh/rules) is not ported yet: the port '
                 'trains on one device')
-        llama.require_dense(cfg.model)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.optimizer = make_optimizer(cfg)

@@ -506,13 +506,15 @@ def test_active_rows_is_the_dispatch_snapshot_like_jax(weights, monkeypatch):
     on. JAX's ``active`` is the host's slot snapshot at dispatch; the
     port's mask, at every step of every chunk, is a subset of it, and from
     the chunk issued after the retirement that freed B's slot it is False
-    there, as JAX's is. Greedy tokens are unchanged."""
+    there, as JAX's is. The MoE routing mask (``route_rows``) is JAX's
+    snapshot itself at every step. Greedy tokens are unchanged."""
     jp, pp = weights
     a_row, b_row = [3, 4, 5], [9, 8, 7, 6]
     solo_b = _solo(pp, b_row, 12)
     j = next(j for j in range(2, 12) if solo_b[j] not in solo_b[:j])
     jobs = [(a_row, 20, None), (b_row, 12, solo_b[j])]
     masks = {'jax': [], 'port': []}
+    routes = []  # the port's route_rows, per chunk and step
     b_done = {'jax': [], 'port': []}  # B resolved when the chunk was issued
     futs = {}
     jax_chunk, port_chunk = jax_engine._jit_chunk, port_engine._chunk  # noqa: SLF001
@@ -525,13 +527,17 @@ def test_active_rows_is_the_dispatch_snapshot_like_jax(weights, monkeypatch):
 
     def pchunk(*args, **kw):
         masks['port'].append([])
+        routes.append([])
         b_done['port'].append(futs['port'][1].done())
         return port_chunk(*args, **kw)
 
-    def pfwd(params, tokens, cache, cfg, row_lens=None, active_rows=None):
+    def pfwd(params, tokens, cache, cfg, row_lens=None, active_rows=None,
+             **kw):
         if active_rows is not None:  # a decode step of a chunk
             masks['port'][-1].append(active_rows.clone().numpy())
-        return port_fwd(params, tokens, cache, cfg, row_lens, active_rows)
+            routes[-1].append(kw['route_rows'].clone().numpy())
+        return port_fwd(params, tokens, cache, cfg, row_lens, active_rows,
+                        **kw)
 
     monkeypatch.setattr(jax_engine, '_jit_chunk', jchunk)
     monkeypatch.setattr(port_engine, '_chunk', pchunk)
@@ -553,10 +559,12 @@ def test_active_rows_is_the_dispatch_snapshot_like_jax(weights, monkeypatch):
     assert b_done['port'] == b_done['jax']
     assert len(masks['port']) == len(masks['jax'])
     after = 0
-    for jm, steps, done in zip(masks['jax'], masks['port'], b_done['port']):
-        assert len(steps) == 4
-        for pm in steps:
+    for jm, steps, route, done in zip(masks['jax'], masks['port'], routes,
+                                      b_done['port']):
+        assert len(steps) == len(route) == 4
+        for pm, rm in zip(steps, route):
             assert not (pm & ~jm).any(), (pm, jm)
+            assert np.array_equal(rm, jm), (rm, jm)
         if done:
             assert not jm[1] and not any(pm[1] for pm in steps)
             after += bool(jm[0])
@@ -826,9 +834,14 @@ def test_unported_methods_and_bad_options(weights):
     with pytest.raises(ValueError, match='role'):
         port_engine.ContinuousEngine(pp, PORT_CFG, role='router',
                                      device='cpu')
-    with pytest.raises(NotImplementedError):
-        port_engine.ContinuousEngine(
-            pp, port_llama.MOE_TINY, device='cpu')
+    # MoE is ported: the engine builds, with the JAX engine's MoE rules.
+    moe = port_engine.ContinuousEngine(
+        port_llama.init_params(port_llama.MOE_TINY,
+                               torch.Generator().manual_seed(0), 'cpu'),
+        port_llama.MOE_TINY, prefix_slots=4, prefill_chunk=8,
+        device='cpu')
+    assert (moe.pipeline_depth, moe.prefix_slots, moe.prefill_chunk) == \
+        (0, 0, 0)
 
 
 # -- the profiler subset ----------------------------------------------------------

@@ -8,9 +8,10 @@ and on the port's with the same options; every batch of requests is
 queued whole before the engine looks at the queue, so both engines admit
 it in the same groups. Greedy tokens must equal JAX's and the port's own
 solo ``generate``; the block accounts (free, owned, shared, cached), the
-share counters and the prefill counters must equal JAX's. Left out: MoE
-(ROADMAP §1 item 6) and tensor parallelism (item 9); their gates are
-checked to stay refused.
+share counters and the prefill counters must equal JAX's. MoE runs paged
+without block sharing, as in the JAX engine (``tests/test_torch_moe.py``
+holds it under a binding capacity). Left out: tensor parallelism
+(ROADMAP §1 item 9), whose gate is checked to stay refused.
 """
 import dataclasses
 import time
@@ -277,14 +278,31 @@ def test_paged_gates(weights):
 
 
 def test_paged_moe_and_spec_stay_refused(weights):
-    """MoE, which the JAX engine serves paged without sharing, stays
-    refused by the port, paged or not. A draft model is ported: paged, it
-    runs as JAX's does, with block sharing (and so the tiers) off."""
+    """MoE and a draft model are both ported now (this name predates
+    them): paged, each runs as JAX's does, with block sharing (and so the
+    tiers) off, and an MoE request gives JAX's tokens
+    (``test_engine_paged.py:164``)."""
     jp, pp = weights
-    with pytest.raises(NotImplementedError, match='not ported yet'):
-        port_engine.ContinuousEngine(
-            pp, port_llama.MOE_TINY, kv_layout='paged', slots=2,
-            max_len=32, device='cpu')
+    j_moe = dataclasses.replace(jax_llama.MOE_TINY, dtype=jnp.float32,
+                                expert_capacity_factor=4.0)
+    p_moe = dataclasses.replace(port_llama.MOE_TINY, dtype=torch.float32,
+                                expert_capacity_factor=4.0)
+    jmp = jax_llama.init_params(jax.random.PRNGKey(7), j_moe)
+    pmp = port_llama.params_from_numpy(jax.tree.map(np.asarray, jmp), p_moe,
+                                       'cpu')
+    jeng = jax_engine.ContinuousEngine(jmp, j_moe, kv_layout='paged',
+                                       slots=2, max_len=32)
+    eng = port_engine.ContinuousEngine(pmp, p_moe, kv_layout='paged',
+                                       slots=2, max_len=32, device='cpu')
+    try:
+        assert eng.prefix_share is jeng.prefix_share is False
+        assert eng._kv_tiers is None and jeng._kv_tiers is None  # noqa: SLF001
+        row = [11, 12, 13, 14]
+        assert eng.submit(row, 5).result(timeout=120) == \
+            jeng.submit(row, 5).result(timeout=300)
+    finally:
+        eng.stop()
+        jeng.stop()
     jeng = _mk('jax', jp, kv_layout='paged', slots=2, max_len=64,
                draft_params=jp, draft_cfg=JAX_CFG)
     eng = _mk('port', pp, kv_layout='paged', slots=2, max_len=64,

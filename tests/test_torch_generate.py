@@ -92,9 +92,33 @@ def test_init_params_tree_and_layout_match_jax():
 
 
 def test_moe_is_not_ported_yet():
+    """MoE is ported now (this name predates it): MOE_TINY's weights
+    come in JAX's tree, and ``forward_cached`` and greedy ``generate``
+    on float32 MOE_TINY equal JAX's (logits within 1e-4, tokens equal).
+    ``tests/test_torch_moe.py`` holds the rest of the MoE path."""
+    jcfg = dataclasses.replace(jax_llama.MOE_TINY, dtype=jnp.float32)
+    pcfg = dataclasses.replace(port_llama.MOE_TINY, dtype=torch.float32)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError):
-        port_llama.init_params(port_llama.MOE_TINY, gen, 'cpu')
+    mine = port_llama.init_params(port_llama.MOE_TINY, gen, 'cpu')
+    assert sorted(mine['layers']['moe']) == ['router', 'we_down', 'we_gate',
+                                             'we_up']
+    assert mine['layers']['moe']['router'].dtype == torch.float32
+    jp = jax_llama.init_params(jax.random.PRNGKey(7), jcfg)
+    pp = port_llama.params_from_numpy(_to_numpy(jp), pcfg, 'cpu')
+    prompt = _prompt(14, 2, 9)
+    want, _ = jax_gen.forward_cached(jp, jnp.asarray(prompt),
+                                     jax_gen.init_cache(jcfg, 2, MAX_LEN),
+                                     jcfg)
+    got, _ = port_gen.forward_cached(
+        pp, torch.from_numpy(prompt),
+        port_gen.init_cache(pcfg, 2, MAX_LEN, device='cpu'), pcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    want = jax_gen.generate(jp, jcfg, jnp.asarray(prompt), 5,
+                            max_len=MAX_LEN)
+    got = port_gen.generate(pp, pcfg, torch.from_numpy(prompt), 5,
+                            max_len=MAX_LEN)
+    assert got.tolist() == np.asarray(want).tolist()
 
 
 def test_params_from_numpy_carries_bf16_leaves_exactly():

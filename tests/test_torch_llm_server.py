@@ -244,16 +244,16 @@ REFUSED = {  # name -> (LlmServer kwargs, env, exception, message)
     'kv_cache': (dict(kv_cache='fp8'), {}, ValueError, 'kv_cache'),
     'quantization': (dict(quantize='int4'), {}, ValueError, 'quantization'),
     'model': (dict(model='gpt-5'), {}, ValueError, 'Unknown model'),
-    'moe': (dict(model='moe-tiny'), {}, NotImplementedError,
-            'not ported yet'),
     'prefix_share_typo': (dict(prefix_share='yes'), {}, ValueError,
                           'Unknown prefix_share'),
 }
-# Refused until the paged layout was ported; now the replica serves it,
-# with block sharing on (the JAX default there).
+# Refused until ported; now the replica serves them. The paged layout
+# with block sharing on (the JAX default there); an MoE model with its
+# pipeline serial and its prefix pool off, as the JAX engine runs it.
 ACCEPTED = {  # name -> (LlmServer kwargs, env)
     'paged': (dict(kv_layout='paged'), {}),
     'paged_env': ({}, {'SKYTPU_LLM_KV_LAYOUT': 'paged'}),
+    'moe': (dict(model='moe-tiny', prefix_cache=8), {}),
 }
 
 
@@ -279,8 +279,13 @@ def test_unported_engines_and_bad_knobs_are_refused(name, monkeypatch):
     server = port_srv.LlmServer(model, max_len=MAX_LEN, device='cpu',
                                 **kwargs)
     try:
-        assert server.engine.kv_layout == 'paged'
-        assert server.engine.prefix_share
+        if model == 'moe-tiny':
+            stats = server.health()[1]['engine']
+            assert stats['pipeline']['pipeline_depth'] == 0
+            assert stats['prefix_cache']['slots'] == 0
+        else:
+            assert server.engine.kv_layout == 'paged'
+            assert server.engine.prefix_share
         status, body = server.generate({'tokens': [[4, 5, 6]],
                                         'max_new_tokens': 5})
         assert status == 200

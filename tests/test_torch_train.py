@@ -202,9 +202,13 @@ def test_unported_model_features_raise():
     params = port_llama.init_params(cfg, torch.Generator().manual_seed(0),
                                     'cpu')
     tokens = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        port_llama.forward(params, tokens,
-                           dataclasses.replace(cfg, num_experts=4))
+    # MoE is ported: an MoE model's forward runs (tests/test_torch_moe.py
+    # holds it against JAX's); pipeline stages still raise.
+    moe_cfg = dataclasses.replace(cfg, num_experts=4)
+    moe_params = port_llama.init_params(
+        moe_cfg, torch.Generator().manual_seed(0), 'cpu')
+    assert port_llama.forward(moe_params, tokens, moe_cfg).shape == \
+        (1, 8, cfg.vocab_size)
     with pytest.raises(NotImplementedError):
         port_llama.forward(params, tokens,
                            dataclasses.replace(cfg, pipeline_stages=2))
@@ -343,9 +347,11 @@ def test_trainer_refuses_what_is_not_ported():
     cfg = port_trainer.TrainerConfig(model=port_llama.TINY)
     with pytest.raises(NotImplementedError, match='mesh'):
         port_trainer.Trainer(cfg, device='cpu', mesh=object())
-    with pytest.raises(NotImplementedError):
-        port_trainer.Trainer(port_trainer.TrainerConfig(
-            model=port_llama.MOE_TINY), device='cpu')
+    # MoE is ported: the trainer builds for it, and a mesh stays refused.
+    moe = port_trainer.TrainerConfig(model=port_llama.MOE_TINY)
+    port_trainer.Trainer(moe, device='cpu')
+    with pytest.raises(NotImplementedError, match='mesh'):
+        port_trainer.Trainer(moe, device='cpu', mesh=object())
 
 
 def test_trainer_train_loop_calls_back_every_log_every_steps():
