@@ -198,9 +198,34 @@ Phases (any failure exits non-zero):
    remat 'full', 3 steps: finite losses and ``moe_aux``, the router and
    every expert leaf moved, K1 = 2 x 18 x 3, K2 = K3 = 18 x 3; step ms,
    tokens/s, the printed mfu and the active-parameter share.
-15. Summary: the card's name and power limit again, one JSON line of
+15. The replica's boot and fleet contract, bench-1b. 15a: three fresh
+   replicas through ``python -m skypilot_tpu_torch.serve.llm_server
+   --model bench-1b`` (subprocesses, SKYTPU_PROFILE=1, one empty
+   temporary SKYTPU_COMPILE_CACHE shared by all three): A with warm-up
+   off and the kernel-build cache cold, B with warm-up off and the cache
+   warm, C with SKYTPU_WARMUP=1. Each: /health polled until 200, one
+   greedy request (prompt 128, 16 new), then a second (the steady
+   state), then SIGTERM, which must drain to exit 0. Checks:
+   ``compile_cache.warm`` false in A, true in B and C; C's ``warmup``
+   covered with no error; the cold-start ledger's phases in their
+   declared order, non-negative, summing to the wall time from spawn to
+   the first answer within 5%; ``profile`` program names the JAX
+   package's. Prints each boot's first and steady TTFT and its ledger.
+   15b: ``LlmServer('bench-1b', qos='on')`` behind ``make_httpd`` with
+   SKYTPU_QOS_MAX_QUEUE=16: the warm-up (covered), then 48 requests of
+   phase 8's mix, 36 batch, 6 standard and 6 interactive, sent in that
+   order: answers whole, greedy ones under the gap rule, every 429 with
+   ``Retry-After``, sheds on batch first and none on interactive, served
+   + shed + evicted = 48 and equal to /health's ``qos`` counters, a
+   mid-flood /health with ``depth_total`` = pending + overflow +
+   ``qos.queue_depth_total`` > 0, ``ttft_ms.count`` = requests served,
+   interactive's mean queue wait (of those that queued) below batch's,
+   /metrics parsed by a small parser with exactly the port's families,
+   /metrics and /debug/profile 401 without SKYTPU_METRICS_TOKEN's bearer
+   and 200 with it, K4 = n_layers x chunk_steps x dispatches.
+16. Summary: the card's name and power limit again, one JSON line of
    kernels (K1-K3's launches are phases 6, 10, 12 and 14, K4's phase
-   8's, 13's and 14's for the bf16 cache, phases 8's, 9's, 11's and 14's
+   8's, 13's, 14's and 15's for the bf16 cache, phases 8's, 9's, 11's and 14's
    for the int8 cache, each path's count in ``launches_by_path``; K4's
    times are the engine-shape case of phase 2, K1-K3's the train-s4096
    shape, each named in ``timed_at``, with the llama-finetune,
@@ -211,6 +236,7 @@ Phases (any failure exits non-zero):
 It exits with an error, printing no result, when CUDA is absent or when
 the ``skypilot_tpu_torch`` package is not beside it.
 """
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -227,6 +253,7 @@ import tempfile
 import threading
 import time
 import unittest.mock
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -2745,6 +2772,365 @@ def moe_train_phase(llama, fa, train_run, trainer_lib):
     return launches
 
 
+# -- phase 15: the replica's boot and fleet contract -------------------------------
+
+
+# 15a boots the replica the way a service starts it. A CPU rehearsal swaps
+# in a command that passes device='cpu' and a smaller model.
+BOOT_CMD = [sys.executable, '-m', 'skypilot_tpu_torch.serve.llm_server']
+BOOT_ARGV = ['--model', 'bench-1b']
+BOOT_PROMPT, BOOT_NEW = 128, 16
+BOOT_TIMEOUT_S = 300
+BOOT_PHASES = ('imports', 'backend_init.plugin_discovery',
+               'backend_init.device_enumeration', 'weights_load',
+               'jit_warmup', 'ready', 'first_token')
+# 15b's flood: the classes in the order sent, batch first, and how many of
+# each. 16 slots and a queue of 16: 16 batch requests take the slots, 16
+# queue, 4 batch arrivals are refused, and the 12 standard and
+# interactive arrivals each displace the newest queued batch request, so
+# 4 batch requests are served from the queue, after the others.
+FLOOD = (('batch', 36), ('standard', 6), ('interactive', 6))
+FLOOD_QUEUE = 16
+METRICS_TOKEN = 'phase-15-scrape'
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _http(url, path, body=None, headers=None, timeout=600):
+    """(status, headers, body bytes) of one request; HTTP errors too."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f'{url}{path}', data=data,
+                                 headers=dict(headers or {}),
+                                 method='GET' if body is None else 'POST')
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _boot(label, env, log_dir, vocab):
+    """One fresh replica process: poll /health until 200, one greedy
+    request (BOOT_PROMPT ids, BOOT_NEW new), then one more as the steady
+    state, then SIGTERM, which must drain to exit 0. Returns the
+    figures."""
+    port = _free_port()
+    url = f'http://127.0.0.1:{port}'
+    log = open(os.path.join(log_dir, f'boot-{label}.log'), 'w')
+    t_spawn = time.monotonic()
+    proc = subprocess.Popen(
+        BOOT_CMD + BOOT_ARGV + ['--host', '127.0.0.1', '--port', str(port)],
+        env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f'boot {label} exited {proc.returncode}'
+                                     ' before /health answered')
+            if time.monotonic() - t_spawn > BOOT_TIMEOUT_S:
+                raise AssertionError(f'boot {label}: no 200 on /health in '
+                                     f'{BOOT_TIMEOUT_S} s')
+            try:
+                if _http(url, '/health', timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.05)
+        t_ready = time.monotonic()
+        rng = np.random.default_rng(15)
+        prompts = [rng.integers(0, vocab, BOOT_PROMPT).tolist()
+                   for _ in range(2)]
+        first = _http(url, '/generate', {'tokens': [prompts[0]],
+                                         'max_new_tokens': BOOT_NEW})
+        t_first = time.monotonic()
+        body = json.loads(first[2])
+        if first[0] != 200 or len(body['tokens'][0]) != BOOT_NEW:
+            raise AssertionError(f'boot {label}: first answer {first}')
+        health = json.loads(_http(url, '/health')[2])
+        ttft_first = health['ttft_ms']['p50']
+        if _http(url, '/generate', {'tokens': [prompts[1]],
+                                    'max_new_tokens': BOOT_NEW})[0] != 200:
+            raise AssertionError(f'boot {label}: second request failed')
+        steady = json.loads(_http(url, '/health')[2])
+        ttft_steady = min(steady['ttft_ms']['p50'], ttft_first)
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        if code != 0:
+            raise AssertionError(f'boot {label}: SIGTERM ended it with '
+                                 f'{code}, not a clean drain')
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    return {'health': health, 'wall_to_first_token_s': t_first - t_spawn,
+            'wall_to_ready_s': t_ready - t_spawn, 'ttft_first_ms': ttft_first,
+            'ttft_steady_ms': ttft_steady}
+
+
+def _check_boot(label, fig, warm, warmed, program_names):
+    health = fig['health']
+    cache, report = health['compile_cache'], health['warmup']
+    if not cache.get('enabled') or cache['warm'] is not warm:
+        raise AssertionError(f'boot {label}: compile_cache {cache}, '
+                             f'expected warm {warm}')
+    if warmed and (not report.get('covered') or 'error' in report):
+        raise AssertionError(f'boot {label}: warm-up {report}')
+    if not warmed and report.get('ran'):
+        raise AssertionError(f'boot {label}: warm-up ran: {report}')
+    cold = health['profile']['cold_start']
+    phases = list(cold['phases'])
+    want = [p for p in BOOT_PHASES if warmed or p != 'jit_warmup']
+    if phases != want or min(cold['phases'].values()) < 0:
+        raise AssertionError(f'boot {label}: phases {cold["phases"]}, '
+                             f'expected {want} in that order')
+    total, wall = sum(cold['phases'].values()), fig['wall_to_first_token_s']
+    if abs(total - cold['total_s']) > 1e-2 or abs(total - wall) > 0.05 * wall:
+        raise AssertionError(f'boot {label}: phases sum to {total:.3f} s '
+                             f'(total_s {cold["total_s"]}), the wall from '
+                             f'spawn to the first answer is {wall:.3f} s')
+    prof = health['profile']
+    names = set(prof['compile']) | set(prof['calls'])
+    if not names <= program_names or 'generate.prefill' not in names:
+        raise AssertionError(f'boot {label}: profile programs {names} are '
+                             'not the JAX package\'s')
+    return cold, report
+
+
+def boot_phase():
+    """15a: three fresh replicas through ``python -m
+    skypilot_tpu_torch.serve.llm_server`` sharing one empty kernel-build
+    cache, SKYTPU_PROFILE=1: A cold, B warm, C warm with SKYTPU_WARMUP=1."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.observability import profiler
+    vocab = llama.PRESETS[BOOT_ARGV[BOOT_ARGV.index('--model') + 1]] \
+        .vocab_size
+    figs = {}
+    with tempfile.TemporaryDirectory(prefix='skytpu-boot-') as tmp:
+        cache = os.path.join(tmp, 'kernels')
+        for label, warm, warmed in (('A', False, False), ('B', True, False),
+                                    ('C', True, True)):
+            env = dict(os.environ, SKYTPU_PROFILE='1',
+                       SKYTPU_COMPILE_CACHE=cache,
+                       SKYTPU_WARMUP='1' if warmed else '0',
+                       PYTHONPATH=os.pathsep.join(
+                           [os.getcwd(), os.environ.get('PYTHONPATH', '')]))
+            try:
+                fig = _boot(label, env, tmp, vocab)
+            except Exception:
+                with open(os.path.join(tmp, f'boot-{label}.log')) as f:
+                    print(f.read()[-4000:], flush=True)
+                raise
+            cold, report = _check_boot(label, fig, warm, warmed,
+                                       profiler.PROGRAM_NAMES)
+            figs[label] = fig
+            extra = (f'; warm-up {report["wall_s"]} s, rounds '
+                     f'{report["rounds"]}, buckets {report["buckets"]}, '
+                     f'covered, new signatures {report["cache_entries"]}, '
+                     f'canary {report.get("cache_canary")}'
+                     if warmed else '')
+            print(f'  boot {label} (kernel cache '
+                  f'{"warm" if warm else "cold"}, warm-up '
+                  f'{"on" if warmed else "off"}): first request TTFT '
+                  f'{fig["ttft_first_ms"]} ms, then {fig["ttft_steady_ms"]} '
+                  f'ms; spawn to READY {fig["wall_to_ready_s"]:.2f} s, to '
+                  f'the first answer {fig["wall_to_first_token_s"]:.2f} s = '
+                  f'ledger {cold["total_s"]} s; phases {cold["phases"]}; '
+                  f'compiles {fig["health"]["profile"]["compiles_total"]} '
+                  f'({fig["health"]["profile"]["compile_ms_total"]} ms)'
+                  f'{extra}; SIGTERM drained to exit 0', flush=True)
+    print('  first-request TTFT ms: A (cold cache) '
+          f'{figs["A"]["ttft_first_ms"]}, B (warm cache) '
+          f'{figs["B"]["ttft_first_ms"]}, C (warm-up) '
+          f'{figs["C"]["ttft_first_ms"]}; steady state '
+          f'{[figs[k]["ttft_steady_ms"] for k in "ABC"]}', flush=True)
+    return figs
+
+
+def _scrape_families(text):
+    """{family: type} of a Prometheus text exposition, by a small parser:
+    every sample line must belong to a declared family."""
+    families, current = {}, None
+    for line in text.splitlines():
+        if line.startswith('# TYPE '):
+            _, _, name, kind = line.split(' ', 3)
+            families[name], current = kind, name
+        elif line.startswith('#') or not line.strip():
+            continue
+        else:
+            name = re.match(r'[a-zA-Z_:][a-zA-Z0-9_:]*', line).group(0)
+            float(line.rsplit(' ', 1)[1].replace('Inf', 'inf'))
+            if current is None or not (
+                    name == current or families[current] == 'histogram'
+                    and name in (f'{current}_bucket', f'{current}_count',
+                                 f'{current}_sum')):
+                raise AssertionError(f'/metrics: sample {line!r} outside '
+                                     f'its family ({current})')
+    return families
+
+
+def _queue_means(text):
+    """{qos_class: (mean s, mean s over the requests that queued)} of
+    skytpu_serve_queue_wait_seconds: an immediate grant waits < 1 ms."""
+    sums, counts, instant = {}, {}, {}
+    for line in text.splitlines():
+        m = re.match(r'skytpu_serve_queue_wait_seconds_(sum|count|bucket)'
+                     r'\{(.*)\} (\S+)$', line)
+        if not m:
+            continue
+        labels = dict(re.findall(r'(\w+)="([^"]*)"', m.group(2)))
+        cls, value = labels['qos_class'], float(m.group(3))
+        if m.group(1) == 'sum':
+            sums[cls] = value
+        elif m.group(1) == 'count':
+            counts[cls] = value
+        elif labels['le'] == '0.001':
+            instant[cls] = value
+    return {c: (sums[c] / counts[c], sums[c] / (counts[c] - instant[c])
+                if counts[c] > instant[c] else None) for c in counts}
+
+
+def qos_phase(srv_lib, gen_lib, da, metrics_lib, warmup_lib):
+    """15b: ``LlmServer('bench-1b', qos='on')`` behind ``make_httpd`` with
+    SKYTPU_QOS_MAX_QUEUE=16: warm-up, then a flood of 48 requests (phase
+    8's mix over the classes of FLOOD, batch first). Returns K4's
+    launches over the flood."""
+    with _env(SKYTPU_QOS_MAX_QUEUE=FLOOD_QUEUE):
+        server = srv_lib.LlmServer('bench-1b', max_len=1024, qos='on')
+    cfg, engine = server.cfg, server.engine
+    report = warmup_lib.run(server)
+    if not report['covered'] or 'error' in report:
+        raise AssertionError(f'warm-up: {report}')
+    classes = [c for c, n in FLOOD for _ in range(n)]
+    rng = np.random.default_rng(16)
+    reqs = []
+    for i, cls in enumerate(classes):
+        body = {'tokens': [rng.integers(0, cfg.vocab_size, int(
+                    rng.integers(17, 301))).tolist()],
+                'max_new_tokens': int(rng.integers(8, 65)),
+                'priority': cls}
+        if i % 3 == 1:
+            body.update(temperature=0.8, top_k=50)
+        elif i % 3 == 2:
+            body.update(temperature=1.0, top_p=0.9)
+        reqs.append(body)
+    with _served(server) as url:
+        d0 = engine.stats()['pipeline']['dispatches']
+        da.flash_decode.launches = 0
+        mid = {}
+        with concurrent.futures.ThreadPoolExecutor(len(reqs)) as pool:
+            futs = []
+            for body in reqs:  # in order: batch first
+                futs.append(pool.submit(_http, url, '/generate', body))
+                time.sleep(0.002)
+            # /health while the flood is queued: every body polled must
+            # add up, and one must show a queue.
+            while not all(f.done() for f in futs):
+                polled = json.loads(_http(url, '/health')[2])
+                q = polled['queue']
+                if q['depth_total'] != (q['pending'] + q['overflow'] +
+                                        polled['qos']['queue_depth_total']):
+                    raise AssertionError(f'/health queue {q}, qos depth '
+                                         f'{polled["qos"]["queue_depth_total"]}')
+                if q['depth_total'] > 0 and 'health' not in mid:
+                    mid['health'] = polled
+                time.sleep(0.01)
+            answers = [f.result() for f in futs]
+        _idle(engine)
+        dispatches = engine.stats()['pipeline']['dispatches'] - d0
+        launches = da.flash_decode.launches
+        if launches != cfg.n_layers * engine.chunk_steps * dispatches \
+                or dispatches == 0:
+            raise AssertionError(f'flash_decode launched {launches} times '
+                                 f'over {dispatches} chunks')
+        health = json.loads(_http(url, '/health')[2])
+        qos = health['qos']
+        by_class = {c: collections.Counter() for c, _ in FLOOD}
+        parted = []
+        for req, (status, headers, raw) in zip(reqs, answers):
+            body = json.loads(raw)
+            by_class[req['priority']][status] += 1
+            if status == 200:
+                _check_answers([req], [(status, body)], cfg.vocab_size)
+                if 'temperature' not in req:
+                    parted.append(_check_greedy(
+                        gen_lib, server, req['tokens'][0],
+                        body['tokens'][0], False))
+            elif status == 429:
+                if int(headers.get('Retry-After', 0)) < 1 \
+                        or not body.get('shed'):
+                    raise AssertionError(f'429 without Retry-After: '
+                                         f'{headers} {body}')
+            elif status != 504:
+                raise AssertionError(f'flood answer {status} {body}')
+        served = sum(c[200] for c in by_class.values())
+        shed = {c: by_class[c][429] for c in by_class}
+        evicted = {c: by_class[c][504] for c in by_class}
+        if served + sum(shed.values()) + sum(evicted.values()) != len(reqs) \
+                or any(qos['classes'][c]['shed'] != shed[c]
+                       or qos['classes'][c]['evicted'] != evicted[c]
+                       for c in by_class):
+            raise AssertionError(f'flood accounts: answers {by_class}, '
+                                 f'/health qos {qos}')
+        if shed['interactive'] or not shed['batch'] \
+                or shed['standard'] > shed['batch']:
+            raise AssertionError(f'sheds {shed}: batch must take them first')
+        if 'health' not in mid:
+            raise AssertionError('no /health polled mid-flood showed a '
+                                 'queue')
+        q = mid['health']['queue']
+        if health['ttft_ms']['count'] != served:
+            raise AssertionError(f'ttft_ms {health["ttft_ms"]} after '
+                                 f'{served} requests served')
+        status, _, text = _http(url, '/metrics')
+        families = _scrape_families(text.decode())
+        created = {f'{h}_created' for h in metrics_lib.HISTOGRAMS}
+        if status != 200 or set(families) - created != set(
+                metrics_lib.FAMILY_NAMES) or not set(families) >= created:
+            raise AssertionError(f'/metrics {status}: families '
+                                 f'{sorted(families)}')
+        means = _queue_means(text.decode())
+        if not means['interactive'][1] < means['batch'][1]:
+            raise AssertionError(f'queue wait means (all, queued) {means}: '
+                                 'interactive must wait less than batch')
+        with _env(SKYTPU_METRICS_TOKEN=METRICS_TOKEN):
+            for path in ('/metrics', '/debug/profile'):
+                codes = (_http(url, path)[0], _http(url, path, headers={
+                    'Authorization': f'Bearer {METRICS_TOKEN}'})[0])
+                if codes != (401, 200):
+                    raise AssertionError(f'{path} answered {codes} without '
+                                         'and with the scrape token')
+        # The gate's own host cost: admit and release one request.
+        gate = srv_lib.qos_lib.QosScheduler(max_inflight=16, max_queue=256,
+                                            sweep_s=0, tenant_rps=0,
+                                            tenant_tps=0)
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            ticket = gate.submit('standard', 'anonymous', est_tokens=64.0)
+            gate.release(ticket, generated_tokens=64)
+        gate_us = (time.perf_counter() - t0) / 2000 * 1e6
+        print(f'  bench-1b, QoS on (16 slots, queue {FLOOD_QUEUE}): '
+              f'warm-up {report["wall_s"]} s, {report["rounds"]} rounds, '
+              f'covered; flood of {len(reqs)} ({FLOOD}, batch first): '
+              f'{served} served, shed {shed}, evicted {evicted}, every 429 '
+              f'with Retry-After; mid-flood queue {q}; queue wait s (mean, '
+              f'mean of those queued) {means}; ttft_ms {health["ttft_ms"]}; '
+              f'/metrics {len(families)} families; scrape token 401/200; '
+              f'greedy vs generate(): {sum(p[0] is None for p in parted)} '
+              f'of {len(parted)} equal, parted at '
+              f'{[p for p in parted if p[0] is not None]}; flash_decode '
+              f'launches {launches} = n_layers x chunk_steps x dispatches; '
+              f'the gate admits and releases a request in {gate_us:.1f} us '
+              'of host time', flush=True)
+    del server
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _build_all(libs):
     """One nvcc per kernel library, all started together; prints each
     kernel's registers, any spills, and any wgmma the compiler had to
@@ -2775,6 +3161,8 @@ def main() -> int:
     from skypilot_tpu_torch.ops import attention as fa
     from skypilot_tpu_torch.ops import decode_attention as da
     from skypilot_tpu_torch.serve import llm_server as srv_lib
+    from skypilot_tpu_torch.serve import metrics as metrics_lib
+    from skypilot_tpu_torch.serve import warmup as warmup_lib
     from skypilot_tpu_torch.train import data as data_lib
     from skypilot_tpu_torch.train import run as train_run
     from skypilot_tpu_torch.train import trainer as trainer_lib
@@ -2877,7 +3265,15 @@ def main() -> int:
                   f'{row["library_ms"]} bound_ms {row["bound_ms"]} '
                   f'({row["bound_by"]})', flush=True)
 
-    _phase('phase 15: summary')
+    _phase('phase 15: the replica\'s boot and fleet contract (bench-1b): '
+           'three boots through python -m skypilot_tpu_torch.serve.'
+           'llm_server, then QoS admission under a flood')
+    boot_phase()
+    _phase('  15a done')
+    by_path['bf16']['phase 15 serve-qos'] = qos_phase(
+        srv_lib, gen_lib, da, metrics_lib, warmup_lib)
+
+    _phase('phase 16: summary')
     print(_card(), flush=True)  # again here, where the output's tail has it
     entries = []
     for name, (replaces, _, source) in FLASH.items():

@@ -19,9 +19,12 @@ default path, and single-device training):
 * ``ops/decode_attention.py`` + ``csrc/decode_attention.cu`` -- the
   flash-decode kernel.
 * ``models/engine.py`` -- the continuous-batching engine (slot layout).
-* ``observability/profiler.py`` -- the engine's program and memory ledger.
+* ``observability/profiler.py`` -- the program ledger, device memory and
+  the cold-start phase ledger.
 * ``serve/llm_server.py`` -- the HTTP replica: the engine by default, the
-  window-batching path for ``--engine off`` and seeded requests.
+  window-batching path for ``--engine off`` and seeded requests, and the
+  fleet contract: ``serve/qos.py`` (admission), ``serve/metrics.py``
+  (``/metrics``), ``serve/warmup.py``, ``utils/cuda_client_guard.py``.
 * ``ops/attention.py`` + ``csrc/flash_attention*.cu*`` and ``train/`` --
   the flash-attention kernels and the trainer.
 """

@@ -441,7 +441,7 @@ _export_blocks = profiler.profiled('paged.export_blocks',
                                    paged_lib._export_blocks_impl)  # noqa: SLF001
 _import_blocks = profiler.profiled('paged.import_blocks',
                                    paged_lib._import_blocks_impl)  # noqa: SLF001
-_prefill = profiler.profiled('engine.prefill', gen_lib.forward_cached)
+_prefill = gen_lib.jit_prefill  # JAX's engine calls generate.prefill too
 _sample = profiler.profiled('engine.sample', sampling.sample)
 _gather_prefix = profiler.profiled('engine.gather_prefix',
                                    _gather_prefix_impl)
@@ -1064,11 +1064,12 @@ class ContinuousEngine:
         so stream order has it read the pre-eviction KV. Its planes go to
         the host as ``_HostCopy``s (pinned, non-blocking, an event each):
         the tier thread waits on those events, never on the stream, and
-        the engine thread never waits at all."""
+        the engine thread never waits at all. A chain that served a share
+        hit is hot: a saturated queue still takes it (``KVTiers.accepts``)."""
         tiers = self._kv_tiers
         items = []
         for blk, node in pairs:
-            if not tiers.accepts(node.chain):
+            if not tiers.accepts(node.chain, hot=node.hits > 0):
                 continue
             parts = []
             cur = node

@@ -11,6 +11,11 @@ Unlike the JAX package, which returns new arrays, the port writes the
 cache IN PLACE: ``forward_cached`` fills the caller's cache buffers and
 returns a ``KVCache`` that shares them, with advanced ``lengths``.
 
+``generate`` runs its prefill and its decode loop as the JAX package's
+programs ``generate.prefill`` and ``generate.decode_scan`` on the
+profiler's ledger (``observability/profiler.py``); the engine and the
+speculative path prefill through the same ``jit_prefill``.
+
 Every decode step (S=1) on a CUDA tensor runs the flash-decode kernel
 (``ops/decode_attention.py``) in every layer; there is no opt-in and no
 size gate. Prefill (S>1), and everything on the CPU, runs the plain
@@ -27,6 +32,7 @@ import torch.nn.functional as F
 
 from skypilot_tpu_torch.models import llama, moe, sampling
 from skypilot_tpu_torch.models.quantization import mm as _mm
+from skypilot_tpu_torch.observability import profiler
 from skypilot_tpu_torch.ops import decode_attention
 
 Params = llama.Params
@@ -312,6 +318,30 @@ def pad_prompts(rows: Sequence[Sequence[int]], pad_id: int = 0,
             torch.tensor(lens, dtype=torch.int32, device=device))
 
 
+jit_prefill = profiler.profiled('generate.prefill', forward_cached)
+
+
+def _decode_scan_impl(params: Params, cache: KVCache, first: torch.Tensor,
+                      generator: Optional[torch.Generator],
+                      cfg: llama.LlamaConfig, n: int, temperature: float,
+                      top_k: int, top_p: float, uniform: bool
+                      ) -> List[torch.Tensor]:
+    """The n - 1 decode steps after ``first`` [B]: one
+    ``forward_cached`` and one draw each (JAX's ``lax.scan``)."""
+    ones = (None if uniform else torch.ones(
+        (first.shape[0],), dtype=torch.int32, device=first.device))
+    token, out = first, []
+    for _ in range(n - 1):
+        logits, cache = forward_cached(params, token[:, None], cache, cfg,
+                                       ones)
+        token = _sample(logits, temperature, generator, top_k, top_p)
+        out.append(token)
+    return out
+
+
+_decode_scan = profiler.profiled('generate.decode_scan', _decode_scan_impl)
+
+
 @torch.inference_mode()
 def generate(params: Params, cfg: llama.LlamaConfig,
              prompt: torch.Tensor, max_new_tokens: int,
@@ -336,17 +366,11 @@ def generate(params: Params, cfg: llama.LlamaConfig,
         raise ValueError('top_k must be >= 0 and top_p in (0, 1]')
     if temperature > 0.0 and generator is None:
         raise ValueError('temperature > 0 requires a torch.Generator')
-    dev = prompt.device
-    cache = init_cache(cfg, b, max_len, quantize=kv_quantize, device=dev)
-    logits, cache = forward_cached(params, prompt, cache, cfg,
-                                   prompt_lengths)
-    token = _sample(logits, temperature, generator, top_k, top_p)
-    out: List[torch.Tensor] = [token]
-    ones = (None if prompt_lengths is None
-            else torch.ones((b,), dtype=torch.int32, device=dev))
-    for _ in range(max_new_tokens - 1):
-        logits, cache = forward_cached(params, token[:, None], cache, cfg,
-                                       ones)
-        token = _sample(logits, temperature, generator, top_k, top_p)
-        out.append(token)
-    return torch.stack(out, dim=1)
+    cache = init_cache(cfg, b, max_len, quantize=kv_quantize,
+                       device=prompt.device)
+    logits, cache = jit_prefill(params, prompt, cache, cfg, prompt_lengths)
+    first = _sample(logits, temperature, generator, top_k, top_p)
+    rest = _decode_scan(params, cache, first, generator, cfg,
+                        max_new_tokens, temperature, top_k, top_p,
+                        prompt_lengths is None)
+    return torch.stack([first] + rest, dim=1)

@@ -24,6 +24,7 @@ import torch
 
 from skypilot_tpu_torch.models import generate as gen_lib
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.observability import profiler
 
 
 def _propose_impl(cfg: llama.LlamaConfig, k: int, params,
@@ -52,6 +53,10 @@ def _verify_impl(cfg: llama.LlamaConfig, params, cache: gen_lib.KVCache,
     logits, cache = gen_lib.forward_cached(params, window, cache, cfg,
                                            all_logits=True)
     return cache, torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+_propose = profiler.profiled('spec.propose', _propose_impl)
+_verify = profiler.profiled('spec.verify', _verify_impl)
 
 
 def _rewind(cache: gen_lib.KVCache, adj) -> gen_lib.KVCache:
@@ -112,10 +117,10 @@ def generate_speculative(target_params, target_cfg: llama.LlamaConfig,
                                  quantize=kv_quantize, device=dev)
     d_cache = gen_lib.init_cache(draft_cfg, b, max_len,
                                  quantize=kv_quantize, device=dev)
-    logits, t_cache = gen_lib.forward_cached(target_params, prompt, t_cache,
-                                             target_cfg)
-    _, d_cache = gen_lib.forward_cached(draft_params, prompt, d_cache,
-                                        draft_cfg)
+    logits, t_cache = gen_lib.jit_prefill(target_params, prompt, t_cache,
+                                          target_cfg)
+    _, d_cache = gen_lib.jit_prefill(draft_params, prompt, d_cache,
+                                     draft_cfg)
     cur = torch.argmax(logits, dim=-1).to(torch.int32)
 
     out = [[int(t)] for t in cur.tolist()]
@@ -125,14 +130,12 @@ def generate_speculative(target_params, target_cfg: llama.LlamaConfig,
     # share one committed length (rows that already have max_new keep
     # decoding, their surplus is not emitted).
     while min(len(o) for o in out) < max_new_tokens:
-        d_cache, props = _propose_impl(draft_cfg, k, draft_params, d_cache,
-                                       cur)
+        d_cache, props = _propose(draft_cfg, k, draft_params, d_cache, cur)
         # The verify window [cur, p1..pk] checks every proposal;
         # tgt[:, j] is the target's choice after window[:j+1].
         window = torch.cat([cur[:, None], props.transpose(0, 1)[:, :k]],
                            dim=1)
-        t_cache, tgt = _verify_impl(target_cfg, target_params, t_cache,
-                                    window)
+        t_cache, tgt = _verify(target_cfg, target_params, t_cache, window)
         host = torch.cat([props.transpose(0, 1), tgt], dim=1).cpu().numpy()
         props_h, tgt_h = host[:, :k + 1], host[:, k + 1:]  # [B, k+1] each
         # Rows share the cache length, so the batch commits the shortest

@@ -15,6 +15,14 @@ such as the tensor-map encoder of TMA, reaches it at run time through
 
 Two libraries can build at once (each holds its own lock), so a caller
 that needs several starts their builds together.
+
+``SKYTPU_COMPILE_CACHE`` points the builds at a directory that outlives
+the checkout (the counterpart of the JAX package's persistent compilation
+cache, ``models/engine.maybe_enable_compile_cache``): a replica that boots
+where one ran before loads its libraries from there instead of running
+``nvcc``. ``compile_cache()`` reports that directory as the replica's
+``/health`` ``compile_cache`` block: ``warm`` says whether it held a built
+library when this process first looked.
 """
 from __future__ import annotations
 
@@ -45,6 +53,40 @@ def nvcc() -> str:
         raise RuntimeError('nvcc not found: the port\'s kernels are built '
                            'from source with the CUDA toolkit')
     return path
+
+
+_CACHE_STATE: Optional[dict] = None
+
+
+def compile_cache() -> dict:
+    """Where this process builds its libraries, read once per process:
+    ``{'enabled': False}`` without ``SKYTPU_COMPILE_CACHE`` (builds go to
+    ``csrc/build/``), else ``{'enabled': True, 'dir', 'entries_at_start',
+    'warm'}`` with the built libraries the directory held at that first
+    look. A directory that cannot be made raises."""
+    global _CACHE_STATE
+    if _CACHE_STATE is None:
+        raw = (os.environ.get('SKYTPU_COMPILE_CACHE') or '').strip()
+        if not raw:
+            _CACHE_STATE = {'enabled': False}
+        else:
+            path = pathlib.Path(raw).expanduser().resolve()
+            path.mkdir(parents=True, exist_ok=True)
+            entries = cache_entries(path)
+            _CACHE_STATE = {'enabled': True, 'dir': str(path),
+                            'entries_at_start': entries,
+                            'warm': entries > 0}
+    return _CACHE_STATE
+
+
+def cache_entries(path: pathlib.Path) -> int:
+    """Built libraries in ``path``."""
+    return len(list(path.glob('lib*.so')))
+
+
+def build_dir() -> pathlib.Path:
+    state = compile_cache()
+    return pathlib.Path(state['dir']) if state['enabled'] else BUILD_DIR
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
@@ -95,12 +137,13 @@ class Library:
         with self._lock:
             if self._lib is not None:
                 return ''
-            so = BUILD_DIR / (f'lib{self.source.stem}-'
-                              f'{source_tag(self.source)}.so')
+            out_dir = build_dir()
+            so = out_dir / (f'lib{self.source.stem}-'
+                            f'{source_tag(self.source)}.so')
             log = ''
             if not so.exists():
                 compiler = nvcc()
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                out_dir.mkdir(parents=True, exist_ok=True)
                 tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
                 cmd = [compiler, *NVCC_FLAGS, '-o', str(tmp),
                        str(self.source)]

@@ -68,6 +68,11 @@ _LEN = struct.Struct('<I')
 # Engine-side demote queue bound: chains offered past this are simply
 # dropped (a missed demotion is a future recompute, never an error).
 _DEMOTE_QUEUE_MAX = 64
+# A HOT chain (one that served a share hit) is still taken until the
+# queue holds this many times the bound: under a burst of evictions the
+# one-shot suffixes are dropped first and the shared prefixes a later
+# request would promote are kept.
+_HOT_HEADROOM = 4
 # Bounded scan width for the decayed-hotness eviction pick: the LRU
 # front is the cold end; among its first K entries the coldest by
 # decayed hit count goes first (a recently-inserted-but-never-hit
@@ -449,17 +454,18 @@ class KVTiers:
 
     # -- engine-side API (called under the ENGINE lock) -------------------
 
-    def accepts(self, digest: bytes) -> bool:
+    def accepts(self, digest: bytes, hot: bool = False) -> bool:
         """Worth demoting? Not if the tier ladder already holds it, a
-        corrupt copy poisoned it, or the demote queue is saturated."""
+        corrupt copy poisoned it, or the demote queue is saturated (for
+        a ``hot`` chain, ``_HOT_HEADROOM`` times saturated)."""
         with self._lock:
             if digest in self._quarantine or digest in self._host or \
                     digest in self._pending_demote:
                 return False
             if self._spill is not None and digest in self._spill:
                 return False
-            return sum(len(j.items)
-                       for j in self._demote_q) < _DEMOTE_QUEUE_MAX
+            bound = _DEMOTE_QUEUE_MAX * (_HOT_HEADROOM if hot else 1)
+            return sum(len(j.items) for j in self._demote_q) < bound
 
     def offer_demote(self, items: List[Tuple[bytes, List[int], int]],
                      handles) -> None:
@@ -468,10 +474,11 @@ class KVTiers:
         block axis); ``handles`` the (k, v, k_s, v_s) planes on their way
         to the host, each None or an object whose ``numpy()`` waits for
         its own copy only. Engine thread, engine lock held: nothing here
-        blocks."""
+        blocks. Past the hot bound every offer is dropped; the caller
+        asked :meth:`accepts` for each item first."""
         with self._lock:
-            if sum(len(j.items)
-                   for j in self._demote_q) >= _DEMOTE_QUEUE_MAX:
+            if sum(len(j.items) for j in self._demote_q) >= \
+                    _DEMOTE_QUEUE_MAX * _HOT_HEADROOM:
                 self.dropped += len(items)
                 return
             for digest, _row, _gi in items:

@@ -27,10 +27,30 @@ Port of ``skypilot_tpu/serve/llm_server.py``, two of its paths:
   ``speculative.generate_speculative`` (the target's exact greedy
   stream; ``/health`` ``speculative`` counts them).
 
-QoS admission, the KV handoff routes, ``/metrics`` and tracing are not
-ported yet. One check is the port's own: token ids outside the
-vocabulary get a 400 (a JAX gather clamps them; a CUDA index fault would
-end the replica's CUDA context).
+The fleet contract (what ``sky serve``'s controller, autoscalers and SLO
+engine read): ``/health`` with ``queue.depth_total``, the ``qos``,
+``compile_cache``, ``warmup`` and ``ttft_ms`` blocks (``ttft_ms`` from a
+512-deep window of recent TTFTs: the first emission on the engine path,
+the whole call on the window path), and ``profile`` with
+``SKYTPU_PROFILE=1``; ``/metrics`` (Prometheus text, ``serve/metrics.py``)
+and ``/debug/profile``, both behind ``SKYTPU_METRICS_TOKEN`` when it is
+set. ``--qos on`` (``SKYTPU_QOS``) puts ``serve/qos.py``'s admission in
+front of both paths: priority classes, tenant quotas, 429 with
+``Retry-After`` on a shed, 504 past a class's queue TTL.
+
+``main()`` boots as the JAX replica does, marking the cold-start ledger
+(``observability/profiler.py``): imports, the arguments, the kernel-build
+cache (``SKYTPU_COMPILE_CACHE``), the CUDA context under deferred
+signals (``utils/cuda_client_guard.py``), the weights and engine, the
+warm-up (``SKYTPU_WARMUP=1``, ``serve/warmup.py``; a failed warm-up fails
+the boot), then the listener. ``/health`` answers 503 ``warming`` while a
+warm-up runs and marks ``ready`` on its first 200.
+
+The KV handoff routes, the prefill/decode roles, tensor parallelism and
+tracing (``/debug/traces`` and the rest of ``/debug``, the OpenMetrics
+exemplars) are not ported yet. One check is the port's own: token ids
+outside the vocabulary get a 400 (a JAX gather clamps them; a CUDA index
+fault would end the replica's CUDA context).
 
 HTTP is the standard library's ``ThreadingHTTPServer``. Handler threads
 validate and submit; the engine thread (or the window worker thread)
@@ -39,12 +59,18 @@ runs all device work.
 API (token-level, as the JAX replica, so the shared load balancer can
 drive either):
   GET  /health    -> {"status": "ok", "model": ..., "device": ...,
-                      "engine": {engine stats} or "off",
+                      "queue": {"pending", "overflow", "depth_total"},
+                      "engine": {engine stats} (absent with --engine off),
+                      "qos": {...} (QoS on), "compile_cache": {...},
+                      "warmup": {...}, "ttft_ms": {...} (after a request),
+                      "profile": {...} (SKYTPU_PROFILE=1),
                       "draft_model": ..., "speculative": {...} (a draft),
                       "prefix_summary": {...} (paged, sharing on), ...}
+  GET  /metrics, /debug/profile (bearer SKYTPU_METRICS_TOKEN when set)
   POST /generate  {"tokens": [[...]], "max_new_tokens": N,
                    "temperature": t?, "seed": s?, "top_k": k?,
-                   "top_p": p?, "eos_token": id or [ids]?, "stream": b?}
+                   "top_p": p?, "eos_token": id or [ids]?, "stream": b?,
+                   "priority": class?, "tenant": id?}
                   -> {"tokens": [[...]]}, or NDJSON lines when streamed
 
 Run: ``python -m skypilot_tpu_torch.serve.llm_server --model llama3-1b
@@ -52,7 +78,8 @@ Run: ``python -m skypilot_tpu_torch.serve.llm_server --model llama3-1b
 serve-llama recipe; ``--kv-layout paged [--kv-blocks N] [--prefix-share
 on|off]`` in place of ``--prefix-cache 8`` for the paged layout; port
 from --port or SKYTPU_REPLICA_PORT; ``--engine off`` for the window path
-only).
+only; ``--qos on`` for admission control; ``SKYTPU_WARMUP=1`` to warm up
+before the listener binds).
 """
 from __future__ import annotations
 
@@ -68,6 +95,7 @@ import secrets
 import signal
 import threading
 import time
+import urllib.parse
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 import torch
@@ -78,11 +106,37 @@ from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models import quantization as quant_lib
 from skypilot_tpu_torch.models import speculative
 from skypilot_tpu_torch.observability import profiler
+from skypilot_tpu_torch.ops import _build
+from skypilot_tpu_torch.serve import metrics as metrics_lib
+from skypilot_tpu_torch.serve import qos as qos_lib
+from skypilot_tpu_torch.serve import warmup as warmup_lib
+from skypilot_tpu_torch.utils import cuda_client_guard
+from skypilot_tpu_torch.utils import users as users_lib
 from skypilot_tpu_torch.utils.device import resolve_device
 
 MAX_BATCH = int(os.environ.get('SKYTPU_LLM_MAX_BATCH', '32'))
 BATCH_WINDOW_S = float(os.environ.get('SKYTPU_LLM_BATCH_WINDOW_MS',
                                       '8')) / 1000.0
+
+
+class _ChunkRecorder:
+    """A request's emission times: the engine thread's callback appends
+    (time, row, tokens) and nothing else; the histograms and the TTFT
+    window read them after the request ends."""
+    __slots__ = ('t0', 'events')
+
+    def __init__(self):
+        self.t0 = time.time()
+        self.events: List[Tuple[float, int, int]] = []
+
+    def cb(self, ri: int, then: Optional[Callable] = None) -> Callable:
+        events = self.events
+
+        def _cb(toks):
+            events.append((time.time(), ri, len(toks)))
+            if then is not None:
+                then(toks)
+        return _cb
 
 
 class _Pending:
@@ -123,16 +177,17 @@ class LlmServer:
                  pipeline: Optional[str] = None,
                  draft_model: Optional[str] = None,
                  kv_blocks: Optional[int] = None,
-                 prefix_share: Optional[str] = None):
+                 prefix_share: Optional[str] = None,
+                 qos: Optional[str] = None,
+                 qos_opts: Optional[Dict[str, Any]] = None):
         # Cheap knobs first: a typo must not cost the weight init.
-        if model not in llama.PRESETS:
-            raise ValueError(f'Unknown model {model!r}; one of '
-                             f'{sorted(llama.PRESETS)}')
-        engine = engine or os.environ.get('SKYTPU_LLM_ENGINE',
-                                          'continuous')
-        if engine not in ('continuous', 'off'):
-            raise ValueError(f"Unknown engine {engine!r}; 'continuous' "
-                             "or 'off'")
+        engine = check_knobs(model, engine, qos)
+        # QoS admission (serve/qos.py), off by default: without it no
+        # scheduler exists and the serving path is the ungated one.
+        qos_on = qos_lib.enabled(qos)
+        qos_opts = dict(qos_opts or {})
+        if qos_on and not qos_opts:
+            qos_lib.validate_env()
         if pipeline not in (None, 'on', 'off'):
             raise ValueError(f'Unknown pipeline {pipeline!r}; '
                              "'on' or 'off'")
@@ -208,6 +263,12 @@ class LlmServer:
             dgen.manual_seed(seed + 1)
             self.draft_params = llama.init_params(self.draft_cfg, dgen,
                                                   self.device)
+        profiler.mark('weights_load')
+        profiler.register_logical('weights',
+                                  profiler.tree_nbytes(self.params))
+        if self.draft_params is not None:
+            profiler.register_logical(
+                'draft_weights', profiler.tree_nbytes(self.draft_params))
         self._queue: 'queue.Queue[Optional[_Pending]]' = queue.Queue()
         self._overflow: Deque[_Pending] = collections.deque()
         self._worker: Optional[threading.Thread] = None
@@ -231,41 +292,87 @@ class LlmServer:
                               else prefix_share == 'on'),
                 draft_params=self.draft_params, draft_cfg=self.draft_cfg,
                 spec_k=self.spec_k, device=self.device)
+        self.qos: Optional[qos_lib.QosScheduler] = None
+        if qos_on:
+            if not qos_opts.get('max_inflight'):
+                # The gate sits where the device's bound on concurrency
+                # is: the engine's slots, or the window path's batch cap.
+                qos_opts['max_inflight'] = (
+                    int(os.environ.get('SKYTPU_QOS_MAX_INFLIGHT', '0'))
+                    or (self.engine.slots if self.engine is not None
+                        else MAX_BATCH))
+            self.qos = qos_lib.QosScheduler(**qos_opts)
+        # Recent TTFTs (seconds) behind /health's ttft_ms, which the SLO
+        # engine's serve.ttft_p99 rule reads.
+        self._ttft_window: Deque[float] = collections.deque(maxlen=512)
+        # main() runs the warm-up before the listener binds and replaces
+        # this report; the 'jit_warmup' crossing is marked only by a
+        # warm-up that ran.
+        self.warmup_report: Dict[str, Any] = warmup_lib.skipped(
+            'SKYTPU_WARMUP disabled')
+        self._warming = False
 
     # -- /health -------------------------------------------------------------
 
     def health(self) -> Tuple[int, Dict[str, Any]]:
-        """(HTTP status, /health body). With ``SKYTPU_PROFILE`` on, the
-        body carries the profiler's ``profile`` block (program calls,
-        first-call ms, device memory sampled now), as the JAX replica's
-        does."""
+        """(HTTP status, /health body): 503 while draining or warming up;
+        with ``SKYTPU_PROFILE`` on, the first 200 marks ``ready`` and the
+        device memory is sampled (at most every ``SKYTPU_PROFILE_MEM_S``
+        seconds)."""
         if self.draining:
             # Readiness probes see 503: the LB stops routing here while
             # in-flight requests finish.
             return 503, {'status': 'draining', 'model': self.model_name}
-        body = {'status': 'ok',
-                'model': self.model_name,
-                'device': str(self.device),
-                'engine': ('off' if self.engine is None
-                           else self.engine.stats()),
-                'quantize': self.quantize,
-                'kv_cache': self.kv_cache,
-                'max_len': self.max_len,
-                'draft_model': self.draft_model,
-                'batches_served': self.batches_served,
-                'max_batch_seen': self.max_batch_seen,
-                'queue': {'pending': self._queue.qsize(),
-                          'overflow': len(self._overflow)}}
+        if self._warming:
+            return 503, {'status': 'warming', 'model': self.model_name}
+        if profiler.enabled():
+            profiler.mark('ready')
+            profiler.maybe_sample_device_memory(self.device)
+        return 200, self.health_snapshot()
+
+    def health_snapshot(self) -> Dict[str, Any]:
+        """The /health body, under the JAX replica's keys but ``role``,
+        ``disagg``, ``tp`` and ``trace``, which later slices bring, and
+        with the port's ``device``."""
+        body: Dict[str, Any] = {
+            'status': 'draining' if self.draining else 'ok',
+            'model': self.model_name,
+            'device': str(self.device),
+            'quantize': self.quantize,
+            'kv_cache': self.kv_cache,
+            'max_len': self.max_len,
+            'draft_model': self.draft_model,
+            'batches_served': self.batches_served,
+            'max_batch_seen': self.max_batch_seen}
+        # depth_total is the controller's routing and scaling signal: the
+        # window FIFO, its overflow and the QoS queue.
+        queue = {'pending': self._queue.qsize(),
+                 'overflow': len(self._overflow)}
+        queue['depth_total'] = queue['pending'] + queue['overflow']
+        if self.qos is not None:
+            qos_stats = self.qos.stats()
+            body['qos'] = qos_stats
+            queue['depth_total'] += qos_stats['queue_depth_total']
+        body['queue'] = queue
+        # The controller labels a boot warm or cold from compile_cache.
+        body['compile_cache'] = _build.compile_cache()
+        body['warmup'] = self.warmup_report
+        if self._ttft_window:
+            waits = sorted(round(t * 1000.0, 1) for t in self._ttft_window)
+            body['ttft_ms'] = {'count': len(waits),
+                               'p50': qos_lib.nearest_rank(waits, 50),
+                               'p95': qos_lib.nearest_rank(waits, 95),
+                               'p99': qos_lib.nearest_rank(waits, 99)}
+        if profiler.enabled():
+            body['profile'] = profiler.snapshot()
         if self.engine is not None:
+            body['engine'] = self.engine.stats()
             # The prefix-affinity advert (paged, sharing on): top level,
             # as in the JAX replica, so routers need not know the
             # engine's stats shape.
             summary = self.engine.prefix_summary()
             if summary is not None:
                 body['prefix_summary'] = summary
-        if profiler.enabled():
-            profiler.sample_device_memory(self.device)
-            body['profile'] = profiler.snapshot()
         if self.draft_params is not None:
             # The window path's speculative counters (the engine's are in
             # its stats), as the JAX replica reports them.
@@ -274,7 +381,13 @@ class LlmServer:
                 round(spec['accepted'] / spec['proposals'], 4)
                 if spec['proposals'] else None)
             body['speculative'] = spec
-        return 200, body
+        return body
+
+    def metrics(self) -> bytes:
+        """The ``/metrics`` body (``serve/metrics.py``)."""
+        return metrics_lib.render_serving(
+            engine=self.engine.stats() if self.engine is not None else None,
+            qos=self.qos.stats() if self.qos is not None else None)
 
     # -- batching worker -----------------------------------------------------
 
@@ -434,23 +547,29 @@ class LlmServer:
 
     # -- /generate -----------------------------------------------------------
 
-    def generate(self, body: Any, write: Optional[Callable] = None
+    def generate(self, body: Any, write: Optional[Callable] = None,
+                 headers: Any = None,
+                 reply_headers: Optional[Dict[str, str]] = None
                  ) -> Tuple[int, Optional[Dict[str, Any]]]:
         """Validate one request body and run it: (HTTP status, JSON). A
         streamed request (``"stream": true``) passes each NDJSON line to
         ``write`` (one dict per call, from this thread) as the engine
-        emits it, and returns (200, None). Draining still ACCEPTS work:
-        the LB keeps routing here until its next probe sees the 503
-        readiness."""
+        emits it, and returns (200, None). ``headers`` are the request's
+        (priority, tenant, bearer); a shed's ``Retry-After`` goes into
+        ``reply_headers``. Draining still ACCEPTS work: the LB keeps
+        routing here until its next probe sees the 503 readiness."""
         with self._lock:
             self._inflight += 1
         try:
-            return self._generate_inner(body, write)
+            return self._generate_inner(body, write, headers or {},
+                                        reply_headers)
         finally:
             with self._lock:
                 self._inflight -= 1
 
-    def _generate_inner(self, body: Any, write: Optional[Callable]
+    def _generate_inner(self, body: Any, write: Optional[Callable],
+                        headers: Any,
+                        reply_headers: Optional[Dict[str, str]]
                         ) -> Tuple[int, Optional[Dict[str, Any]]]:
         if not isinstance(body, dict):
             return 400, {'error': 'request body must be a JSON object'}
@@ -505,45 +624,181 @@ class LlmServer:
             return 400, {'error': 'stream requires the continuous engine '
                                   '(unseeded requests, '
                                   'SKYTPU_LLM_ENGINE!=off)'}
+        args = (rows, max_new, temperature, seed, top_k, top_p, eos)
+        if self.qos is not None:
+            return self._generate_qos(body, headers, reply_headers, write,
+                                      args, seeded, stream)
+        # A histogram label only: with QoS off the priority field is
+        # advisory and never rejects.
+        try:
+            qos_class = qos_lib.classify(body, headers)
+        except ValueError:
+            qos_class = 'standard'
         if stream:
-            self._generate_stream(write, rows, max_new, temperature, top_k,
-                                  top_p, eos)
+            self._generate_stream(write, *args, qos_class=qos_class)
             return 200, None
         if self.engine is not None and not seeded:
-            # Continuous-batching path: one engine slot per row.
-            futs = [self.engine.submit(r, max_new, temperature, top_k=top_k,
-                                       top_p=top_p, eos=eos) for r in rows]
-            try:
-                out = [f.result() for f in futs]
-            except Exception as e:  # noqa: BLE001 -- the engine failed
-                return 500, {'error': f'{type(e).__name__}: {e}'}
-            return 200, {'tokens': out}
+            return self._run_engine(*args, qos_class=qos_class)
         pending = _Pending(rows, max_new, temperature, seed,
                            top_k=top_k, top_p=top_p, eos=eos)
         self._ensure_worker()
+        t_queued = time.time()
         self._queue.put(pending)
+        return self._await_window(pending, t_queued, qos_class)
+
+    def _run_engine(self, rows, max_new: int, temperature: float, seed,
+                    top_k: int, top_p: float, eos, qos_class: str
+                    ) -> Tuple[int, Dict[str, Any]]:
+        """The continuous-engine path: one slot per row, its emission
+        times recorded for the TTFT window and the histograms."""
+        del seed  # unseeded by construction
+        rec = _ChunkRecorder()
+        futs = [self.engine.submit(r, max_new, temperature, top_k=top_k,
+                                   top_p=top_p, eos=eos, on_tokens=rec.cb(i))
+                for i, r in enumerate(rows)]
+        try:
+            out = [f.result() for f in futs]
+        except Exception as e:  # noqa: BLE001 -- the engine failed
+            return 500, {'error': f'{type(e).__name__}: {e}'}
+        self._observe_serving(rec, qos_class)
+        return 200, {'tokens': out}
+
+    def _await_window(self, pending: _Pending, t_start: float,
+                      qos_class: str) -> Tuple[int, Dict[str, Any]]:
         try:
             out = pending.future.result()
         except Exception as e:  # noqa: BLE001 -- the batch failed
             return 500, {'error': f'{type(e).__name__}: {e}'}
+        self._observe_window(t_start, out, qos_class)
         return 200, {'tokens': out}
 
+    def _observe_serving(self, rec: _ChunkRecorder, qos_class: str) -> None:
+        """TTFT (submit to the first emission) into the window and the
+        histograms, then the decode phase and rate, as the JAX replica
+        observes them."""
+        events = sorted(rec.events)
+        if not events:
+            return
+        ttft = max(events[0][0] - rec.t0, 0.0)
+        profiler.mark('first_token')
+        self._ttft_window.append(ttft)
+        metrics_lib.observe_serving('skytpu_serve_ttft_seconds', ttft,
+                                    qos_class=qos_class)
+        metrics_lib.observe_serving('skytpu_serve_phase_seconds', ttft,
+                                    phase='prefill', qos_class=qos_class)
+        decode_s = max(events[-1][0] - events[0][0], 0.0)
+        metrics_lib.observe_serving('skytpu_serve_phase_seconds', decode_s,
+                                    phase='decode', qos_class=qos_class)
+        # The first emission's tokens came out of the prefill window.
+        decode_toks = sum(n for _, _, n in events) - events[0][2]
+        if decode_s > 0 and decode_toks > 0:
+            metrics_lib.observe_serving('skytpu_serve_decode_tok_s',
+                                        decode_toks / decode_s,
+                                        qos_class=qos_class)
+
+    def _observe_window(self, t_start: float, out, qos_class: str) -> None:
+        """The window path has no per-chunk signal: its TTFT is the whole
+        call."""
+        dur = max(time.time() - t_start, 0.0)
+        toks = sum(len(r) for r in out)
+        profiler.mark('first_token')
+        self._ttft_window.append(dur)
+        metrics_lib.observe_serving('skytpu_serve_ttft_seconds', dur,
+                                    qos_class=qos_class)
+        metrics_lib.observe_serving('skytpu_serve_phase_seconds', dur,
+                                    phase='window', qos_class=qos_class)
+        if dur > 0 and toks:
+            metrics_lib.observe_serving('skytpu_serve_decode_tok_s',
+                                        toks / dur, qos_class=qos_class)
+
+    # -- QoS-gated dispatch (serve/qos.py; SKYTPU_QOS=1 / --qos on) ----------
+
+    def _dispatch_window(self, pending: _Pending) -> None:
+        """A window-path request enters the batching FIFO only at its
+        grant: until then it waits (and expires, or is shed) in the
+        weighted-fair queue."""
+        self._ensure_worker()
+        self._queue.put(pending)
+
+    def _generate_qos(self, body, headers, reply_headers, write, args,
+                      seeded: bool, stream: bool
+                      ) -> Tuple[int, Optional[Dict[str, Any]]]:
+        """classify -> admit (quota, overload) -> wait for the grant ->
+        the ungated path -> release. An admitted request's output is the
+        ungated path's; QoS decides only when work starts and which
+        requests are refused (400 for an unknown class, 429 with
+        ``Retry-After`` on a shed, 504 past the class's TTL)."""
+        rows, max_new, temperature, seed, top_k, top_p, eos = args
+        try:
+            qos_class = qos_lib.classify(body, headers)
+        except ValueError as e:
+            return 400, {'error': str(e)}
+        tenant = qos_lib.resolve_tenant(headers, body)
+        pending = on_dispatch = None
+        if (self.engine is None or seeded) and not stream:
+            pending = _Pending(rows, max_new, temperature, seed,
+                               top_k=top_k, top_p=top_p, eos=eos)
+            on_dispatch = (lambda p=pending: self._dispatch_window(p))
+        t_submit = time.time()
+        try:
+            ticket = self.qos.submit(
+                qos_class, tenant, cost=float(len(rows)),
+                est_tokens=float(len(rows) * max_new),
+                on_dispatch=on_dispatch)
+            ticket.granted.result()
+        except qos_lib.ShedError as e:
+            if reply_headers is not None:
+                reply_headers['Retry-After'] = str(e.retry_after_s)
+            return 429, {'error': str(e), 'qos_class': qos_class,
+                         'shed': True}
+        except qos_lib.QueueTimeout as e:
+            return 504, {'error': str(e), 'qos_class': qos_class}
+        t_granted = time.time()
+        metrics_lib.observe_serving('skytpu_serve_queue_wait_seconds',
+                                    max(t_granted - t_submit, 0.0),
+                                    qos_class=qos_class)
+        # What the quota refund counts at release: the tokens made on
+        # success, 0 on a server-side failure (a full refund).
+        generated = 0
+        try:
+            if stream:
+                counter = [0]
+                self._generate_stream(write, *args, token_count=counter,
+                                      qos_class=qos_class)
+                generated = counter[0]
+                return 200, None
+            if pending is None:
+                status, reply = self._run_engine(*args, qos_class=qos_class)
+            else:
+                status, reply = self._await_window(pending, t_granted,
+                                                   qos_class)
+            if status == 200:
+                generated = sum(len(o) for o in reply['tokens'])
+            return status, reply
+        finally:
+            self.qos.release(ticket, generated_tokens=generated)
+
     def _generate_stream(self, write: Callable, rows, max_new: int,
-                         temperature: float, top_k: int, top_p: float,
-                         eos) -> None:
+                         temperature: float, seed, top_k: int, top_p: float,
+                         eos, token_count: Optional[List[int]] = None,
+                         qos_class: str = 'standard') -> None:
         """NDJSON streaming: ``{"row": i, "tokens": [...]}`` per emission
         (decode-chunk granularity), then ``{"done": true}``; a failure
         mid-stream is reported in-band as ``{"error": ...}``. The engine
         fires a request's callbacks before it resolves the future, so the
         future's done-callback (a ``None`` in the queue) comes after the
-        last tokens of its row."""
+        last tokens of its row. ``token_count`` [n] counts the tokens
+        written (the QoS quota's refund)."""
+        del seed  # unseeded by construction
         lines: 'queue.Queue[Optional[Tuple[int, List[int]]]]' = \
             queue.Queue()
+        rec = _ChunkRecorder()
         futs = []
         for ri, row in enumerate(rows):
             fut = self.engine.submit(
                 row, max_new, temperature,
-                on_tokens=lambda toks, ri=ri: lines.put((ri, toks)),
+                on_tokens=rec.cb(ri, lambda toks, ri=ri: lines.put(
+                    (ri, toks))),
                 top_k=top_k, top_p=top_p, eos=eos)
             fut.add_done_callback(lambda _: lines.put(None))
             futs.append(fut)
@@ -554,6 +809,8 @@ class LlmServer:
                 if item is None:
                     open_rows -= 1
                     continue
+                if token_count is not None:
+                    token_count[0] += len(item[1])
                 write({'row': item[0], 'tokens': item[1]})
             for fut in futs:
                 fut.result()  # raises if the engine failed the request
@@ -563,6 +820,7 @@ class LlmServer:
             # line is best-effort; the requests run on in the engine.
             with contextlib.suppress(Exception):
                 write({'error': str(e)})
+        self._observe_serving(rec, qos_class)
 
     # -- HTTP ------------------------------------------------------------------
 
@@ -570,8 +828,7 @@ class LlmServer:
                    ) -> http.server.ThreadingHTTPServer:
         """A bound (not yet serving) HTTP server for this replica;
         ``port`` 0 picks a free one (``httpd.server_address[1]``)."""
-        httpd = http.server.ThreadingHTTPServer((host, port), _Handler)
-        httpd.daemon_threads = True
+        httpd = _HttpServer((host, port), _Handler)
         httpd.llm = self
         return httpd
 
@@ -592,20 +849,49 @@ class LlmServer:
                          daemon=True).start()
 
 
+class _HttpServer(http.server.ThreadingHTTPServer):
+    daemon_threads = True
+    # The listen backlog: a flood of connections (a QoS overload) must
+    # reach admission, to be queued or shed, not be reset by the kernel
+    # (the standard library's default is 5; aiohttp's, the JAX
+    # replica's server, 128).
+    request_queue_size = 128
+
+
 class _Handler(http.server.BaseHTTPRequestHandler):
     server_version = 'skypilot-tpu-torch'
 
-    def _reply(self, status: int, payload: Dict[str, Any]) -> None:
+    def _reply(self, status: int, payload: Dict[str, Any],
+               headers: Optional[Dict[str, str]] = None) -> None:
         data = json.dumps(payload).encode()
         self.send_response(status)
         self.send_header('Content-Type', 'application/json')
         self.send_header('Content-Length', str(len(data)))
+        for name, value in (headers or {}).items():
+            self.send_header(name, value)
         self.end_headers()
         self.wfile.write(data)
 
     def do_GET(self):  # noqa: N802 -- http.server's name
-        if self.path.split('?', 1)[0] == '/health':
-            self._reply(*self.server.llm.health())
+        path, _, query = self.path.partition('?')
+        llm = self.server.llm
+        if path == '/health':
+            self._reply(*llm.health())
+        elif path in ('/metrics', '/debug/profile'):
+            # The scrape token gates both (SKYTPU_METRICS_TOKEN; unset =
+            # open), as on the JAX replica.
+            if not users_lib.metrics_scrape_allowed(self.headers):
+                self._reply(401, {'error': 'unauthorized'})
+            elif path == '/debug/profile':
+                self._reply(200, profiler.debug_payload(
+                    dict(urllib.parse.parse_qsl(query)), llm.device))
+            else:
+                data = llm.metrics()
+                self.send_response(200)
+                self.send_header('Content-Type', metrics_lib.CONTENT_TYPE)
+                self.send_header('Content-Length', str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
         else:
             self._reply(404, {'error': f'no route {self.path}'})
 
@@ -632,9 +918,11 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             self.wfile.write(json.dumps(line).encode() + b'\n')
             self.wfile.flush()
 
-        status, payload = self.server.llm.generate(body, write)
+        reply_headers: Dict[str, str] = {}
+        status, payload = self.server.llm.generate(body, write, self.headers,
+                                                   reply_headers)
         if payload is not None:
-            self._reply(status, payload)
+            self._reply(status, payload, reply_headers)
 
     def log_message(self, format, *args):  # noqa: A002 -- base signature
         del format, args  # quiet: one line per request is noise here
@@ -695,7 +983,33 @@ def build_parser() -> argparse.ArgumentParser:
                              'in flight so host bookkeeping overlaps '
                              'device compute (default on; off = serial '
                              'engine; also via SKYTPU_LLM_PIPELINE)')
+    parser.add_argument('--qos', default=None, choices=('on', 'off'),
+                        help='QoS admission control: priority classes '
+                             '(interactive/standard/batch), per-tenant '
+                             'token-bucket quotas, and overload '
+                             'shedding with 429+Retry-After (default '
+                             'off; also via SKYTPU_QOS; knobs: '
+                             'SKYTPU_QOS_WEIGHTS/_MAX_QUEUE/_TTL_S/'
+                             '_TENANT_RPS/_TENANT_TPS/_TENANT_LIMITS/'
+                             '_MAX_INFLIGHT)')
     return parser
+
+
+def check_knobs(model: str, engine: Optional[str],
+                qos: Optional[str]) -> str:
+    """The replica's cheap checks, before anything costs time: the model
+    preset, the engine (returned, ``SKYTPU_LLM_ENGINE`` applied) and the
+    QoS switch."""
+    if model not in llama.PRESETS:
+        raise ValueError(f'Unknown model {model!r}; one of '
+                         f'{sorted(llama.PRESETS)}')
+    engine = engine or os.environ.get('SKYTPU_LLM_ENGINE', 'continuous')
+    if engine not in ('continuous', 'off'):
+        raise ValueError(f"Unknown engine {engine!r}; 'continuous' "
+                         "or 'off'")
+    if qos not in (None, 'on', 'off'):
+        raise ValueError(f"Unknown qos {qos!r}; 'on' or 'off'")
+    return engine
 
 
 def server_from_args(args: argparse.Namespace, device=None) -> LlmServer:
@@ -707,13 +1021,31 @@ def server_from_args(args: argparse.Namespace, device=None) -> LlmServer:
                      prefix_cache=args.prefix_cache, pipeline=args.pipeline,
                      kv_blocks=args.kv_blocks,
                      prefix_share=args.prefix_share,
-                     draft_model=args.draft_model, device=device)
+                     draft_model=args.draft_model, qos=args.qos,
+                     device=device)
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> None:
-    """Serve until SIGTERM/SIGINT; ``device`` None = CUDA."""
+    """Boot as the JAX replica does, marking the cold-start ledger, then
+    serve until SIGTERM/SIGINT; ``device`` None = CUDA. A warm-up that
+    reports an error fails the boot."""
+    profiler.mark('imports')
     args = build_parser().parse_args(argv)
+    check_knobs(args.model, args.engine, args.qos)
+    _build.compile_cache()  # before any kernel library is built or loaded
+    cuda_client_guard.init_backend_guarded(
+        None if device is None else torch.device(device).type)
     server = server_from_args(args, device=device)
+    if warmup_lib.enabled():
+        server._warming = True  # noqa: SLF001 -- the replica's own boot
+        try:
+            server.warmup_report = warmup_lib.run(server)
+        finally:
+            server._warming = False  # noqa: SLF001
+        if 'error' in server.warmup_report:
+            server.stop()
+            raise RuntimeError(f'warm-up failed: '
+                               f'{server.warmup_report["error"]}')
     httpd = server.make_httpd(args.host, args.port)
 
     def _graceful(*_):

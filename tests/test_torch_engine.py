@@ -849,7 +849,7 @@ def test_unported_methods_and_bad_options(weights):
 
 def test_profiled_counts_calls_and_times_first_shapes(monkeypatch):
     ledger = port_profiler.Ledger()
-    fn = port_profiler.profiled('engine.test', lambda x: x * 2, ledger)
+    fn = port_profiler.profiled('engine.chunk', lambda x: x * 2, ledger)
     monkeypatch.setenv('SKYTPU_PROFILE', '0')
     assert fn(torch.ones(2)).tolist() == [2.0, 2.0]
     assert ledger.snapshot() == {'enabled': False}
@@ -857,12 +857,13 @@ def test_profiled_counts_calls_and_times_first_shapes(monkeypatch):
     fn(torch.ones(2))
     fn(torch.ones(2))
     fn(torch.ones(3))
-    prog = ledger.snapshot()['programs']['engine.test']
-    assert prog['calls'] == 4
+    snap = ledger.snapshot()
+    prog = snap['compile']['engine.chunk']
+    assert snap['calls']['engine.chunk'] == 4
     assert sorted(prog['shapes']) == ['float32[2]', 'float32[3]']
-    assert prog['first_call_ms'] >= 0.0
+    assert prog['compiles'] == 2 and prog['compile_ms'] >= 0.0
     ledger.reset()
-    assert ledger.snapshot()['programs']['engine.test']['calls'] == 0
+    assert ledger.snapshot()['calls']['engine.chunk'] == 0
 
 
 def test_tree_nbytes_and_logical_memory_match_jax(monkeypatch):

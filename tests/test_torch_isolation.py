@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``skypilot_tpu_torch``
 (``ckpt/`` and ``observability/`` included) loads neither JAX nor anything
 of ``skypilot_tpu``, nor ``ml_dtypes`` or ``orbax``, which come with JAX
-and which a CUDA host of the port need not have; no source of it (nor
+and which a CUDA host of the port need not have, nor
+``prometheus_client`` (the port writes its scrape by hand); no source of it (nor
 ``chip_smoke.py``) imports any of them, and its entry points refuse to
 run without CUDA unless asked for the CPU by name."""
 import ast
@@ -22,7 +23,7 @@ from skypilot_tpu_torch.utils import device as device_lib
 PKG = pathlib.Path(skypilot_tpu_torch.__file__).resolve().parent
 REPO = PKG.parent
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'skypilot_tpu', 'ml_dtypes',
-             'orbax')
+             'orbax', 'prometheus_client')
 
 _IMPORT_ALL = r'''
 import importlib, importlib.abc, pkgutil, sys
@@ -65,7 +66,9 @@ def test_importing_every_module_loads_no_jax_and_no_skypilot_tpu():
                 'observability.train_telemetry', 'models.paged',
                 'serve.kv_tiers', 'utils.prefix_affinity',
                 'utils.atomic_io', 'models.lora', 'models.speculative',
-                'parallel.mesh'):
+                'parallel.mesh', 'serve.qos', 'serve.metrics',
+                'serve.warmup', 'utils.cuda_client_guard', 'utils.users',
+                'observability.profiler'):
         assert 'skypilot_tpu_torch.' + sub in walked, sub
 
 

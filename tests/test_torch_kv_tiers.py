@@ -15,6 +15,7 @@ float32 pool's chains quarantine there and promote here.
 """
 import dataclasses
 import os
+import threading
 import time
 
 import jax
@@ -501,3 +502,48 @@ def test_bf16_pool_tier_counters_equal_jax(tmp_path, monkeypatch):
     for toks in res['port'][0]:
         assert len(toks) == 6 and all(0 <= t < pcfg.vocab_size
                                       for t in toks)
+
+
+def test_saturated_demote_queue_keeps_hot_chains(weights, monkeypatch):
+    """Evictions that come while the demote queue is saturated (here a
+    bound of 1 and a tier worker held back): a one-shot chain is refused
+    but a chain that served a share hit is still taken, so a later
+    request promotes it. A cold chain's KV is recomputed, a hot one's
+    never is; the tokens equal the solo oracle either way."""
+    monkeypatch.setattr(kv_tiers, '_DEMOTE_QUEUE_MAX', 1)
+    gate = threading.Event()
+    work = kv_tiers.KVTiers._worker  # noqa: SLF001
+
+    def held(self):
+        gate.wait(60)
+        work(self)
+    monkeypatch.setattr(kv_tiers.KVTiers, '_worker', held)
+    monkeypatch.setenv('SKYTPU_KV_HOST_BYTES', str(1 << 28))
+    monkeypatch.delenv('SKYTPU_KV_SPILL_DIR', raising=False)
+    pp = weights[1]
+    eng = port_engine.ContinuousEngine(
+        pp, PORT_CFG, slots=4, max_len=64, chunk_steps=2,
+        kv_layout='paged', kv_blocks=5, device='cpu')
+    rows = [HEADS[1] + [5, 6, 7, 8],   # cold, evicted first: queued
+            HEADS[0] + [5, 6, 7, 8],
+            HEADS[0] + [9, 9, 9],      # shares HEADS[0]'s block: hot
+            HEADS[2] + [5, 6, 7, 8],   # evicts HEADS[1] (queue empty)
+            HEADS[3] + [5, 6, 7, 8],   # evicts HEADS[0], queue saturated
+            HEADS[4] + [5, 6, 7, 8]]   # evicts HEADS[2], queue saturated
+    try:
+        out = [eng.submit(r, 6).result(timeout=300) for r in rows]
+        assert eng.stats()['kv_tiers']['demotes'] == 0  # worker held
+        gate.set()
+        assert eng._kv_tiers.quiesce(30)  # noqa: SLF001
+        mid = eng.stats()['kv_tiers']
+        again = [HEADS[0] + [7, 7, 7], HEADS[2] + [7, 7, 7]]
+        out += [eng.submit(r, 6).result(timeout=300) for r in again]
+        assert eng._kv_tiers.quiesce(30)  # noqa: SLF001
+        tiers = eng.stats()['kv_tiers']
+    finally:
+        gate.set()
+        eng.stop()
+    assert out == [_solo(pp, r, 6) for r in rows + again]
+    assert mid['demotes'] == 2, mid  # HEADS[1] and HEADS[0], not HEADS[2]
+    assert tiers['promotes'] == 1, tiers  # HEADS[0]'s block only
+    assert tiers['corrupt'] == 0 and tiers['dropped'] == 0, tiers
