@@ -17,9 +17,11 @@ Phases (any failure exits non-zero):
    (M=48, group 1) and a group that is no power of two (3), and the
    continuous engine's decode batch (B=16, M=1024, lengths 0, 1, M and
    past M, as free slots' junk rows reach), the serve-llama recipe's
-   (llama3-1b: B=16, Hq 32, Hkv 8, D=64, M=2048, the same lengths) and
-   the speculative engine's draft (bench-draft: B=16, Hq 8, Hkv 8, D=64,
-   M=1024, the same lengths), bf16 and int8 caches, bf16 and fp32
+   (llama3-1b: B=16, Hq 32, Hkv 8, D=64, M=2048, the same lengths), the
+   speculative engine's draft (bench-draft: B=16, Hq 8, Hkv 8, D=64,
+   M=1024, the same lengths) and serve-disagg's decode replica (bench-1b:
+   B=16, Hq 16, Hkv 8, D=128, M=2048, the same lengths), bf16 and int8
+   caches, bf16 and fp32
    queries. Tolerances: bf16 2e-2 (bf16 output
    rounding, sums in another order), fp32 1e-4. Every case is also held
    against ``flash_decode_split_reference`` at the kernel's own chunk
@@ -262,15 +264,42 @@ Phases (any failure exits non-zero):
    (``no_device``, the diagnosis names the missing device), and held at
    ``python-started`` past a 1 s phase deadline (a timeout naming it,
    inside 60 s).
-17. Summary: the card's name and power limit again, one JSON line of
+17. serve-disagg, bench-1b: three replicas in this process, each
+   ``make_httpd`` on its own port, with the same options: colocated (the
+   reference), ``role='prefill'`` and ``role='decode'``. The script runs
+   the load balancer's legs itself over HTTP: ``/v1/kv/export`` ->
+   ``/v1/kv/prepare`` -> ``/v1/kv/fetch?skip_blocks=`` ->
+   ``/v1/kv/import?stream=1``. 17a (``--kv-layout paged``, blocks of 16,
+   max_len 2048, bf16 + bf16 KV, sharing on): 4 lone greedy requests
+   (prompts 17, 128, 300, 1,984, 64 new) colocated and through the
+   handoff, byte-identical; the decode replica's installed blocks, read
+   back through ``paged._export_blocks_impl`` right after the install,
+   equal the exported planes bit for bit at the prompt's positions; K4
+   does not move across an export; then 4 preambles of 256 ids warmed
+   into the decode trie and 16 concurrent handoffs of preamble + 16-200
+   ids (greedy, top-k 50, top-p 0.9): ``skip_blocks`` 16 each, payloads
+   at least 16 blocks' planes smaller, answers whole, greedy ones under
+   the gap rule; K4 = n_layers x chunk_steps x the decode replica's
+   dispatches, with none on the prefill and colocated replicas; /health
+   ``role`` and ``disagg`` and the engines' counters equal the traffic
+   (no fallbacks, no ``import_errors``). 17c: 2 handoffs through a
+   staging directory; a payload with a flipped byte gets 400 (imports
+   unchanged, the next handoff served); a negotiated prefix evicted
+   before its import gets 409 before any line. 17b (slot layout, int8
+   weights + int8 KV, max_len 1024): 4 lone greedy requests (17, 128,
+   300, 900 x 64) with the scale planes, byte-identical; K4 as in 17a.
+   Prints each handoff's export, fetch and import ms, bytes and GB/s,
+   TTFT through the handoff and colocated, decode tok/s and the phase's
+   seconds, each beside the card's name and power limit.
+18. Summary: the card's name and power limit again, one JSON line of
    kernels (K1-K3's launches are phases 6, 10, 12 and 14, K4's phase
-   8's, 13's, 14's, 15's and 16's for the bf16 cache, phases 8's, 9's, 11's and 14's
-   for the int8 cache, each path's count in ``launches_by_path``; K4's
-   times are the engine-shape case of phase 2, K1-K3's the train-s4096
-   shape, each named in ``timed_at``, with the llama-finetune,
-   lora-finetune and train-moe shapes (K1-K3) and the serve-llama and
-   draft shapes (K4) under ``by_shape``), then the last line ``{"ok":
-   true, "device": {...}}``.
+   8's, 13's, 14's, 15's, 16's and 17a's for the bf16 cache, phases 8's,
+   9's, 11's, 14's and 17b's for the int8 cache, each path's count in
+   ``launches_by_path``; K4's times are the engine-shape case of phase 2,
+   K1-K3's the train-s4096 shape, each named in ``timed_at``, with the
+   llama-finetune, lora-finetune and train-moe shapes (K1-K3) and the
+   serve-llama, draft and serve-disagg shapes (K4) under ``by_shape``),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 It exits with an error, printing no result, when CUDA is absent or when
 the ``skypilot_tpu_torch`` package is not beside it.
@@ -319,6 +348,7 @@ CSRC = 'skypilot_tpu_torch/csrc/'
 ENGINE_CASE = 'engine B=16 M=1024'  # K4 at the engine's shape
 LLAMA_CASE = 'llama3-1b B=16 M=2048 D=64'  # K4 at the serve-llama recipe's
 DRAFT_CASE = 'bench-draft B=16 M=1024 D=64'  # K4 at the serve-spec draft's
+DISAGG_CASE = 'bench-1b B=16 M=2048 D=128'  # K4 at serve-disagg's decode batch
 TRAIN_CASE = 'train B=2 S=4096'  # K1-K3 at train-s4096 (BENCH_1B)
 FINETUNE_CASE = 'llama3-1b B=8 S=2048'  # K1-K3 at llama-finetune's shape
 LORA_CASE = 'bench-1b B=16 S=2048'  # K1-K3 at the lora-finetune recipe's
@@ -492,6 +522,11 @@ def kernel_phase(da):
         (DRAFT_CASE, 16, 8, 8, 64, 1024,
          [0, 1, 1024, 1025, 1500, 4096, 2 ** 20]
          + rng.integers(1, 1025, 9).tolist()),
+        # The decode replica's batch in serve-disagg (phase 17a): bench-1b
+        # over max_len 2048.
+        (DISAGG_CASE, 16, 16, 8, 128, 2048,
+         [0, 1, 2048, 2049, 3000, 8192, 2 ** 20]
+         + rng.integers(1, 2049, 9).tolist()),
     ]
     results = {mode: {'max_abs_err': 0.0, 'cases': []} for mode in MODES}
     for mode, (_, quant) in MODES.items():
@@ -550,7 +585,7 @@ def kernel_phase(da):
                                  if k not in ('case', 'dtype')), flush=True)
     for mode in MODES:
         for key, case in (('head', ENGINE_CASE), ('llama', LLAMA_CASE),
-                          ('draft', DRAFT_CASE)):
+                          ('draft', DRAFT_CASE), ('disagg', DISAGG_CASE)):
             results[mode][key] = next(c for c in results[mode]['cases']
                                       if c['case'] == case
                                       and c['dtype'] == 'bfloat16')
@@ -3742,6 +3777,488 @@ def doctor_phase():
           f'({held["diagnosis"]!r})', flush=True)
 
 
+# -- phase 17: serve-disagg, the prefill and decode roles ------------------------
+
+DISAGG_LONE = (17, 128, 300, 1984)   # 17a: lone prompts, DISAGG_NEW new each
+DISAGG_LONE_INT8 = (17, 128, 300, 900)  # 17b (max_len 1024)
+DISAGG_NEW = 64
+DISAGG_PREAMBLE = 256   # 16 blocks of 16
+DISAGG_PREAMBLES = 4
+DISAGG_CONCURRENT = 16
+DISAGG_NEG_NEW = 32
+JSON_CT = {'Content-Type': 'application/json'}
+OCTET_CT = {'Content-Type': 'application/octet-stream'}
+
+
+def _stream_timed(url, path, data, headers):
+    """POST ``data`` to a route that answers NDJSON: (status, lines, seconds
+    to the first line, seconds to the end); a refusal's one JSON body is
+    its only line."""
+    t0 = time.perf_counter()
+    req = urllib.request.Request(f'{url}{path}', data=data,
+                                 headers=headers, method='POST')
+    try:
+        resp = urllib.request.urlopen(req, timeout=600)
+    except urllib.error.HTTPError as e:
+        return e.code, [json.loads(e.read())], None, time.perf_counter() - t0
+    lines, first = [], None
+    with resp:
+        for raw in resp:
+            if raw.strip():
+                first = first or time.perf_counter() - t0
+                lines.append(json.loads(raw))
+    return resp.status, lines, first, time.perf_counter() - t0
+
+
+def _streamed_tokens(status, lines, what):
+    if status != 200 or not lines or lines[-1] != {'done': True} \
+            or any('error' in ln for ln in lines):
+        raise AssertionError(f'{what}: {status} {lines[-2:]}')
+    return [t for ln in lines[:-1] for t in ln['tokens']]
+
+
+def _colocated(url, body):
+    """A streamed /generate on the colocated replica: (tokens, TTFT s)."""
+    status, lines, first, _ = _stream_timed(
+        url, '/generate', json.dumps(dict(body, stream=True)).encode(),
+        JSON_CT)
+    return _streamed_tokens(status, lines, 'colocated'), first
+
+
+def _export_fetch(pre_url, dec_url, body, negotiate=True):
+    """The load balancer's first legs: export, prepare (paged, when the
+    prompt has full blocks), fetch with the negotiated ``skip_blocks``.
+    Returns (import body, its headers, figures); a failed leg raises."""
+    t0 = time.perf_counter()
+    status, _, raw = _http(pre_url, '/v1/kv/export', body, JSON_CT)
+    if status != 200:
+        raise AssertionError(f'export {status}: {raw[:200]!r}')
+    exp = json.loads(raw)
+    fig = {'t0': t0, 'export_ms': (time.perf_counter() - t0) * 1e3,
+           'full_bytes': exp['nbytes'], 'full_blocks': exp['full_blocks'],
+           'skip': 0, 'fetch_ms': 0.0}
+    if 'staging_ref' in exp:
+        fig['bytes'] = exp['nbytes']
+        return (json.dumps({'staging_ref': exp['staging_ref']}).encode(),
+                JSON_CT, fig)
+    if negotiate and exp['full_blocks']:
+        status, _, raw = _http(dec_url, '/v1/kv/prepare',
+                               {'tokens': body['tokens']}, JSON_CT)
+        if status != 200:
+            raise AssertionError(f'prepare {status}: {raw[:200]!r}')
+        fig['skip'] = min(int(json.loads(raw)['skip_blocks']),
+                          exp['full_blocks'])
+    t1 = time.perf_counter()
+    status, _, data = _http(pre_url, f'/v1/kv/fetch?handoff='
+                            f'{exp["handoff"]}&skip_blocks={fig["skip"]}')
+    if status != 200:
+        raise AssertionError(f'fetch {status}: {data[:200]!r}')
+    fig['fetch_ms'] = (time.perf_counter() - t1) * 1e3
+    fig['bytes'] = len(data)
+    return data, OCTET_CT, fig
+
+
+def _handoff(pre_url, dec_url, body, negotiate=True):
+    """export -> prepare -> fetch(skip_blocks) -> import?stream=1, as the
+    load balancer runs them. Returns (tokens, figures): each leg's ms
+    (import: to its first line, i.e. parse, checks, install and the first
+    token), the payload bytes, the handoff rate over fetch + import, TTFT
+    from the export's start, and the decode seconds after the first
+    line. Any failed leg raises: there is no colocated retry here."""
+    return _import_leg(dec_url, *_export_fetch(pre_url, dec_url, body,
+                                               negotiate))
+
+
+def _import_leg(dec_url, data, headers, fig):
+    """The last leg, ``/v1/kv/import?stream=1``: (tokens, figures)."""
+    status, lines, first, end = _stream_timed(
+        dec_url, '/v1/kv/import?stream=1', data, headers)
+    tokens = _streamed_tokens(status, lines, 'import')
+    fig['import_ms'] = first * 1e3
+    fig['ttft_ms'] = (time.perf_counter() - end + first - fig['t0']) * 1e3
+    fig['decode_s'] = end - first
+    fig['gb_s'] = fig['bytes'] / ((fig['fetch_ms'] + fig['import_ms'])
+                                  * 1e6)
+    fig['payload'] = data if headers is OCTET_CT else None
+    return tokens, fig
+
+
+def _words(t):
+    """A device plane's storage, on the host (bf16 as uint16 words)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
+def _prompt_positions(arr, n):
+    """Paged planes [L, nb, H, P, ...] as [L, H, n, ...]: the prompt's
+    positions."""
+    arr = np.swapaxes(np.asarray(arr), 1, 2)
+    l, h, nb, p = arr.shape[:4]
+    return arr.reshape(l, h, nb * p, *arr.shape[4:])[:, :, :n]
+
+
+def _check_installed(disagg_lib, payload, installed, n):
+    """The planes the decode replica installed (read back through
+    ``paged._export_blocks_impl`` at the slot's table, right after the
+    install) equal the planes the prefill replica exported, bit for bit,
+    at the prompt's positions."""
+    _, arrays = disagg_lib.parse(payload)
+    for name, got in zip(('k', 'v', 'k_s', 'v_s'), installed):
+        if got is None:
+            continue
+        sent = arrays[name]
+        sent = getattr(sent, 'words', sent)
+        if not np.array_equal(_prompt_positions(_words(got), n),
+                              _prompt_positions(sent, n)):
+            raise AssertionError(f'installed {name} planes differ from '
+                                 f'the exported ones (prompt {n})')
+
+
+def _disagg_replicas(stack, srv_lib, **kw):
+    """Colocated, prefill and decode bench-1b replicas with the same
+    options (the colocated one is the reference), each on its own port,
+    warmed up: {role: (server, url)}."""
+    out = {}
+    for role in ('colocated', 'prefill', 'decode'):
+        server = srv_lib.LlmServer('bench-1b', role=role, **kw)
+        out[role] = (server, stack.enter_context(_served(server)))
+        _post(out[role][1], {'tokens': [[1] * 8], 'max_new_tokens': 2})
+        _idle(server.engine)
+    return out
+
+
+def _dispatches(servers):
+    return {role: s.engine.stats()['pipeline']['dispatches']
+            for role, (s, _) in servers.items()}
+
+
+def _lone_references(servers, prompts, vocab, seed):
+    """One greedy body (DISAGG_NEW new) per prompt length and the
+    colocated replica's answers: [(body, tokens, TTFT s)]."""
+    colo_srv, colo = servers['colocated']
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in prompts:
+        body = {'tokens': [rng.integers(0, vocab, n).tolist()],
+                'max_new_tokens': DISAGG_NEW}
+        out.append((body, *_colocated(colo, body)))
+    _idle(colo_srv.engine)
+    return out
+
+
+def _lone_handoffs(servers, refs, da, capture=None):
+    """Each reference request through the handoff: tokens byte-identical
+    to colocated; K4's counter does not move across the export and fetch
+    legs (only the prefill replica works then). Returns the figures by
+    prompt length."""
+    (_, pre_url), (dec, dec_url) = servers['prefill'], servers['decode']
+    figs = {}
+    for body, ref, colo_ttft in refs:
+        n = len(body['tokens'][0])
+        _idle(dec.engine)
+        before = da.flash_decode.launches
+        if capture is not None:
+            capture.clear()
+        exported = _export_fetch(pre_url, dec_url, body)
+        if da.flash_decode.launches != before:
+            raise AssertionError(f'flash_decode launched during the export '
+                                 f'of prompt {n}')
+        tokens, fig = _import_leg(dec_url, *exported)
+        if tokens != ref:
+            raise AssertionError(f'prompt {n}: handoff tokens {tokens} '
+                                 f'differ from colocated {ref}')
+        if capture is not None:
+            if len(capture) != 1:
+                raise AssertionError(f'{len(capture)} installs captured')
+            _check_installed(capture.disagg_lib, fig['payload'], capture[0],
+                             n)
+        fig['colo_ttft_ms'] = colo_ttft * 1e3
+        figs[n] = fig
+    return figs
+
+
+class _InstallCapture(list):
+    """Wraps the decode engine's ``paged.import_blocks``: right after each
+    install into its pool, on the engine thread and before any decode
+    chunk, the installed prompt blocks are read back through
+    ``paged._export_blocks_impl`` at the slot's table."""
+
+    def __init__(self, engine_lib, paged_lib, disagg_lib, engine):
+        super().__init__()
+        self.disagg_lib = disagg_lib
+        self._orig = engine_lib._import_blocks  # noqa: SLF001
+        self._paged = paged_lib
+        self._engine = engine
+
+    def __call__(self, pool, k, v, k_s, v_s, blocks, table_row, slot,
+                 length):
+        self._orig(pool, k, v, k_s, v_s, blocks, table_row, slot, length)
+        if pool is self._engine._cache:  # noqa: SLF001
+            nb = -(-int(length) // pool.block)
+            self.append(self._paged._export_blocks_impl(  # noqa: SLF001
+                pool, table_row[:nb]))
+
+
+def _print_figs(label, figs):
+    card = _card()
+    for n, f in figs.items():
+        print(f'  [{card}] {label} prompt {n}: export {f["export_ms"]:.2f} '
+              f'ms, payload {f["bytes"]} B, fetch {f["fetch_ms"]:.2f} ms, '
+              f'import {f["import_ms"]:.2f} ms (to its first line), '
+              f'handoff {f["gb_s"]:.3f} GB/s over fetch + import; TTFT '
+              f'{f["ttft_ms"]:.2f} ms through the handoff, '
+              f'{f["colo_ttft_ms"]:.2f} ms colocated; decode '
+              f'{(DISAGG_NEW - 1) / f["decode_s"]:.1f} tok/s on the decode '
+              'replica', flush=True)
+
+
+def _negotiation_traffic(servers, vocab):
+    """Four 256-id preambles warmed into the decode replica's trie, then 16
+    concurrent handoffs of preamble + 16-200 ids (a third greedy, a third
+    top-k 50, a third top-p 0.9). Returns (bodies, [(tokens, figures)],
+    wall s)."""
+    (_, pre_url), (dec, dec_url) = servers['prefill'], servers['decode']
+    rng = np.random.default_rng(170)
+    heads = [rng.integers(0, vocab, DISAGG_PREAMBLE).tolist()
+             for _ in range(DISAGG_PREAMBLES)]
+    for head in heads:
+        status, body = _post(dec_url, {'tokens': [head + [1, 2, 3]],
+                                       'max_new_tokens': 4})
+        if status != 200:
+            raise AssertionError(f'warm-up {status} {body}')
+    _idle(dec.engine)
+    reqs = []
+    for i in range(DISAGG_CONCURRENT):
+        body = {'tokens': [heads[i % DISAGG_PREAMBLES] + rng.integers(
+            0, vocab, int(rng.integers(16, 201))).tolist()],
+                'max_new_tokens': DISAGG_NEG_NEW}
+        if i % 3 == 1:
+            body.update(temperature=0.8, top_k=50)
+        elif i % 3 == 2:
+            body.update(temperature=1.0, top_p=0.9)
+        reqs.append(body)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(reqs)) as pool:
+        out = list(pool.map(lambda b: _handoff(pre_url, dec_url, b), reqs))
+    return reqs, out, time.perf_counter() - t0
+
+
+def _check_negotiation(servers, gen_lib, vocab, reqs, out, wall):
+    """``skip_blocks`` 16 for each, each payload smaller than the whole one
+    by at least 16 blocks' planes, the answers whole, the greedy ones
+    under the gap rule against ``generate`` on the colocated replica's
+    weights. Returns the window's tok/s."""
+    colo_srv, dec = servers['colocated'][0], servers['decode'][0]
+    cfg = dec.cfg
+    block_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * dec.engine.kv_block
+                   * cfg.head_dim * 2)
+    full = DISAGG_PREAMBLE // dec.engine.kv_block
+    parted = []
+    for body, (tokens, fig) in zip(reqs, out):
+        if fig['skip'] != full:
+            raise AssertionError(f'prepare answered skip_blocks '
+                                 f'{fig["skip"]}, not {full}')
+        if fig['full_bytes'] - fig['bytes'] < full * block_bytes:
+            raise AssertionError(f'payload {fig["bytes"]} B is not {full} '
+                                 f'blocks smaller than {fig["full_bytes"]}')
+        if len(tokens) != DISAGG_NEG_NEW \
+                or not all(0 <= t < vocab for t in tokens):
+            raise AssertionError(f'bad answer {tokens}')
+        if 'temperature' not in body:
+            parted.append(_check_greedy(gen_lib, colo_srv,
+                                        body['tokens'][0], tokens, False))
+    tokens = sum(len(t) for t, _ in out)
+    skipped = sum(f['full_bytes'] - f['bytes'] for _, f in out)
+    print(f'  [{_card()}] 17a negotiation: {len(reqs)} concurrent handoffs '
+          f'on {DISAGG_PREAMBLES} warmed preambles, skip_blocks {full} each, '
+          f'{skipped} payload bytes not sent; {tokens} tokens in {wall:.2f} '
+          f's = {tokens / wall:.1f} tok/s; greedy vs generate(): '
+          f'{sum(p[0] is None for p in parted)} of {len(parted)} equal, '
+          f'parted at {[p for p in parted if p[0] is not None]} (limit '
+          f'{GREEDY_GAP_LIMIT})', flush=True)
+    return tokens / wall
+
+
+def _role_health(servers, want):
+    """/health ``role`` and ``disagg``, and the engines' ``disagg``, agree
+    with the traffic sent: ``want`` {role: {counter: value}}, the engine's
+    ``import_errors`` and ``queued_imports`` among them."""
+    for role, (_, url) in servers.items():
+        body = _get(url, '/health')
+        eng = body['engine']['disagg']
+        if body['role'] != role:
+            raise AssertionError(f'{role} replica reports {body["role"]}')
+        for key, value in want[role].items():
+            got = (eng if key in ('import_errors', 'queued_imports')
+                   else body['disagg'])[key]
+            if got != value:
+                raise AssertionError(f'{role} /health {key} {got}, expected '
+                                     f'{value}: {body["disagg"]} {eng}')
+        if (eng['exports'], eng['imports']) != (body['disagg']['exports'],
+                                                body['disagg']['imports']):
+            raise AssertionError(f'{role}: engine {eng} against replica '
+                                 f'{body["disagg"]}')
+
+
+def _transports_and_failures(servers, vocab):
+    """17c: two handoffs through a staging directory (the replicas'
+    ``staging_dir``, which ``SKYTPU_DISAGG_STAGING`` sets at construction),
+    a payload with one byte flipped (400, no import, the next handoff
+    served), and a negotiated prefix evicted from the decode replica's
+    trie before the import (409, before any line). Returns the exports
+    and imports it made."""
+    colo = servers['colocated'][1]
+    (pre, pre_url), (dec, dec_url) = servers['prefill'], servers['decode']
+    rng = np.random.default_rng(171)
+    staging = tempfile.mkdtemp(prefix='skytpu-staging-')
+    pre.staging_dir = dec.staging_dir = staging
+    try:
+        for n in (40, 300):
+            body = {'tokens': [rng.integers(0, vocab, n).tolist()],
+                    'max_new_tokens': 16}
+            tokens, fig = _handoff(pre_url, dec_url, body)
+            if fig['payload'] is not None \
+                    or tokens != _colocated(colo, body)[0]:
+                raise AssertionError(f'staged handoff of prompt {n}')
+        staged = len(os.listdir(staging))
+    finally:
+        pre.staging_dir = dec.staging_dir = None
+        shutil.rmtree(staging, ignore_errors=True)
+    if staged != 2:
+        raise AssertionError(f'{staged} staged payloads, expected 2')
+    body = {'tokens': [rng.integers(0, vocab, 60).tolist()],
+            'max_new_tokens': 8}
+    data, _, _ = _export_fetch(pre_url, dec_url, body)
+    bad = bytearray(data)
+    bad[-100] ^= 0x01
+    imports = dec.engine.imports
+    status, lines, _, _ = _stream_timed(dec_url, '/v1/kv/import?stream=1',
+                                        bytes(bad), OCTET_CT)
+    if status != 400 or 'crc32' not in lines[0].get('error', ''):
+        raise AssertionError(f'corrupt payload answered {status} {lines}')
+    if dec.engine.imports != imports:
+        raise AssertionError('a corrupt payload reached the engine')
+    tokens, _ = _handoff(pre_url, dec_url, body)
+    if tokens != _colocated(colo, body)[0]:
+        raise AssertionError('the handoff after a corrupt one differs')
+    head = rng.integers(0, vocab, DISAGG_PREAMBLE).tolist()
+    _post(dec_url, {'tokens': [head + [5]], 'max_new_tokens': 2})
+    _idle(dec.engine)
+    body = {'tokens': [head + [6, 7, 8]], 'max_new_tokens': 8}
+    data, headers, fig = _export_fetch(pre_url, dec_url, body)
+    eng = dec.engine
+    with eng._lock:  # noqa: SLF001 -- evict as the allocator does
+        pairs = eng._trie.evict_nodes(eng._trie.reclaimable)  # noqa: SLF001
+        eng._free_blocks.extend(b for b, _ in pairs)  # noqa: SLF001
+        eng.share_evictions += len(pairs)
+    status, lines, _, _ = _stream_timed(dec_url, '/v1/kv/import?stream=1',
+                                        data, headers)
+    full = DISAGG_PREAMBLE // eng.kv_block
+    if fig['skip'] != full or status != 409:
+        raise AssertionError(f'evicted prefix (skip {fig["skip"]}) answered '
+                             f'{status} {lines}')
+    print(f'  [{_card()}] 17c: 2 staged handoffs equal colocated; a flipped '
+          f'byte: 400, imports unchanged, the next handoff served; '
+          f'{len(pairs)} blocks evicted under a negotiated prefix of {full}: '
+          f'409 before any line ({lines[0]["error"][:60]})', flush=True)
+    return {'exports': 5, 'imports': 3}
+
+
+def disagg_phase(srv_lib, gen_lib, engine_lib, paged_lib, disagg_lib, da):
+    """Phase 17 (see the module docstring). Returns the K4 launches of the
+    handoff traffic of 17a (bf16 cache) and 17b (int8 cache)."""
+    t_phase = time.perf_counter()
+    launches = {}
+    with contextlib.ExitStack() as stack:
+        servers = _disagg_replicas(stack, srv_lib, max_len=2048,
+                                   kv_layout='paged', prefix_share='on')
+        cfg = servers['decode'][0].cfg
+        dec = servers['decode'][0].engine
+        refs = _lone_references(servers, DISAGG_LONE, cfg.vocab_size, 17)
+        d0 = _dispatches(servers)
+        da.flash_decode.launches = 0
+        capture = _InstallCapture(engine_lib, paged_lib, disagg_lib, dec)
+        with unittest.mock.patch.object(engine_lib, '_import_blocks',
+                                        capture):
+            figs = _lone_handoffs(servers, refs, da, capture)
+        neg = _negotiation_traffic(servers, cfg.vocab_size)
+        _idle(dec)
+        launches['bf16'] = da.flash_decode.launches
+        d1 = _dispatches(servers)
+        _check_dispatches('17a', launches['bf16'], d0, d1, cfg, dec)
+        tok_s = _check_negotiation(servers, gen_lib, cfg.vocab_size, *neg)
+        _print_figs('17a paged bf16', figs)
+        n17a = len(DISAGG_LONE) + DISAGG_CONCURRENT
+        _role_health(servers, {
+            'prefill': {'exports': n17a, 'imports': 0, 'parked': 0,
+                        'fallbacks_served': 0},
+            'decode': {'exports': 0, 'imports': n17a, 'import_rejects': 0,
+                       'import_errors': 0, 'fallbacks_served': 0,
+                       'queued_imports': 0},
+            'colocated': {'exports': 0, 'imports': 0,
+                          'fallbacks_served': 0}})
+        print(f'  17a: {len(DISAGG_LONE)} lone handoffs byte-identical to '
+              f'colocated, installed planes = exported planes bit for bit; '
+              f'flash_decode launches {launches["bf16"]} = n_layers x '
+              f'chunk_steps x {d1["decode"] - d0["decode"]} decode-replica '
+              f'dispatches, none on the prefill replica; 16 concurrent '
+              f'handoffs: {tok_s:.1f} tok/s', flush=True)
+        _phase('  17a done')
+        more = _transports_and_failures(servers, cfg.vocab_size)
+        _role_health(servers, {
+            'prefill': {'exports': n17a + more['exports'], 'parked': 0},
+            'decode': {'imports': n17a + more['imports'],
+                       'import_rejects': 2, 'import_errors': 1,
+                       'fallbacks_served': 0},
+            'colocated': {'exports': 0, 'imports': 0}})
+        _phase('  17c done')
+    torch.cuda.empty_cache()
+    with contextlib.ExitStack() as stack:
+        servers = _disagg_replicas(stack, srv_lib, max_len=1024,
+                                   quantize='int8', kv_cache='int8')
+        dec = servers['decode'][0].engine
+        refs = _lone_references(servers, DISAGG_LONE_INT8, cfg.vocab_size,
+                                172)
+        d0 = _dispatches(servers)
+        da.flash_decode.launches = 0
+        figs = _lone_handoffs(servers, refs, da)
+        _idle(dec)
+        launches['int8'] = da.flash_decode.launches
+        _check_dispatches('17b', launches['int8'], d0, _dispatches(servers),
+                          cfg, dec)
+        _, arrays = disagg_lib.parse(figs[DISAGG_LONE_INT8[0]]['payload'])
+        if set(arrays) != {'k', 'v', 'k_s', 'v_s'} \
+                or arrays['k'].dtype != np.int8:
+            raise AssertionError(f'int8 payload planes {set(arrays)}')
+        _print_figs('17b slot int8', figs)
+        print(f'  17b: {len(DISAGG_LONE_INT8)} lone handoffs carrying the '
+              f'scale planes, byte-identical to colocated; flash_decode '
+              f'launches {launches["int8"]} = n_layers x chunk_steps x '
+              f'decode-replica dispatches', flush=True)
+    torch.cuda.empty_cache()
+    print(f'  [{_card()}] phase 17: {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+    return launches
+
+
+def _check_dispatches(label, launches, d0, d1, cfg, dec):
+    """K4 launched n_layers x chunk_steps x the decode replica's dispatches
+    in the window, and neither the prefill nor the colocated replica
+    dispatched a decode chunk in it."""
+    dec_d = d1['decode'] - d0['decode']
+    expected = cfg.n_layers * dec.chunk_steps * dec_d
+    if launches != expected or not dec_d \
+            or d1['prefill'] != d0['prefill'] \
+            or d1['colocated'] != d0['colocated']:
+        raise AssertionError(
+            f'{label}: flash_decode launched {launches} times over {dec_d} '
+            f'decode-replica chunks (expected {expected}); prefill replica '
+            f'{d1["prefill"] - d0["prefill"]} chunks, colocated '
+            f'{d1["colocated"] - d0["colocated"]}')
+
+
 def _build_all(libs):
     """One nvcc per kernel library, all started together; prints each
     kernel's registers, any spills, and any wgmma the compiler had to
@@ -3768,11 +4285,13 @@ def main() -> int:
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.models import lora as lora_lib
     from skypilot_tpu_torch.models import moe as moe_lib
+    from skypilot_tpu_torch.models import paged as paged_lib
     from skypilot_tpu_torch.models import quantization as quant_lib
     from skypilot_tpu_torch.observability import blackbox
     from skypilot_tpu_torch.observability import trace as trace_lib
     from skypilot_tpu_torch.ops import attention as fa
     from skypilot_tpu_torch.ops import decode_attention as da
+    from skypilot_tpu_torch.serve import disagg as disagg_lib
     from skypilot_tpu_torch.serve import llm_server as srv_lib
     from skypilot_tpu_torch.serve import metrics as metrics_lib
     from skypilot_tpu_torch.serve import warmup as warmup_lib
@@ -3871,7 +4390,7 @@ def main() -> int:
               f'tok/s, {engine_figs[mode]["step_ms"]:.2f} ms', flush=True)
 
     for mode in MODES:
-        for case in (LLAMA_CASE, DRAFT_CASE):
+        for case in (LLAMA_CASE, DRAFT_CASE, DISAGG_CASE):
             row = next(c for c in kernels[mode]['cases']
                        if c['case'] == case and c['dtype'] == 'bfloat16')
             print(f'  flash_decode[{mode} cache] at {case}: ms {row["ms"]}'
@@ -3902,7 +4421,16 @@ def main() -> int:
     finally:
         shutil.rmtree(kernel_cache, ignore_errors=True)
 
-    _phase('phase 17: summary')
+    _phase('phase 17: serve-disagg (bench-1b): colocated, prefill and decode '
+           'replicas, the export -> prepare -> fetch -> import legs over '
+           'HTTP; 17a paged bf16, 17c transports and failures, 17b slot '
+           'int8')
+    disagg = disagg_phase(srv_lib, gen_lib, engine_lib, paged_lib,
+                          disagg_lib, da)
+    by_path['bf16']['phase 17 serve-disagg'] = disagg['bf16']
+    by_path['int8']['phase 17 serve-disagg int8'] = disagg['int8']
+
+    _phase('phase 18: summary')
     print(_card(), flush=True)  # again here, where the output's tail has it
     entries = []
     for name, (replaces, _, source) in FLASH.items():
@@ -3928,7 +4456,8 @@ def main() -> int:
             'by_shape': {case: {k: kernels[mode][key][k] for k in (
                 'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')}
                 for key, case in (('llama', LLAMA_CASE),
-                                  ('draft', DRAFT_CASE))}})
+                                  ('draft', DRAFT_CASE),
+                                  ('disagg', DISAGG_CASE))}})
     print(json.dumps({'kernels': entries}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -101,10 +101,26 @@ ones keep streaming.
 A chunk is K eager forward calls (JAX runs one compiled ``lax.scan``),
 so the engine is bound by the host's time to issue them.
 
-Not ported yet; each raises ``NotImplementedError`` at construction: a
-mesh, and the prefill/decode roles (with ``submit_prefill``,
-``submit_import``, ``probe_chain`` and ``resolve_chains``). The JAX
-engine's black-box and trace records are not ported either.
+* Disaggregated prefill/decode (``role``, ``SKYTPU_LLM_ROLE``;
+  ``serve/disagg.py`` is the wire format): ``submit_prefill`` admits an
+  EXPORT, prefilled like any request (its reservation and write limit
+  cover the prompt alone, so no decode chunk writes its row) and retired
+  at its first token: the future resolves to a ``PrefillHandoff`` of host
+  planes, gathered from the pool (paged, through ``paged.export_blocks``
+  over a pow2-padded table) or from the prefill cache (slot layout), and
+  read through ``_HostCopy``, the export's one designed wait, outside the
+  lock. A loop turn whose slots hold only exports runs no decode chunk.
+  ``submit_import`` validates the planes' shapes before it queues (a
+  fault on the engine thread would fail every request in flight); the
+  loop installs queued imports first (``_admit_imports``), FIFO, each
+  when a slot and its full block reservation are free, the planes going
+  to the device through ``_to_device``. Leading blocks the share trie
+  already holds install as references (``probe_chain`` answers how many);
+  a negotiated block that was evicted fails that import alone
+  (``KVImportError``). Every role still serves ``submit``.
+
+Not ported yet; it raises ``NotImplementedError`` at construction: a
+mesh.
 """
 from __future__ import annotations
 
@@ -120,6 +136,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.ckpt import manifest as manifest_lib
 from skypilot_tpu_torch.models import generate as gen_lib
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models import paged as paged_lib
@@ -150,6 +167,14 @@ class _Request:
     top_k: int = 0        # 0 = off
     top_p: float = 1.0    # >= 1 = off
     eos: Optional[frozenset] = None  # stop ids; None = run to max_new
+    # Disaggregated serving (serve/disagg.py): an EXPORT is the prefill
+    # role's admission; it prefills normally, then retires at its first
+    # token, the future resolving to a PrefillHandoff. ``export_src``
+    # keeps the slot layout's source (prefill cache, row index) from the
+    # prefill to the drain that gathers it; paged exports gather from
+    # the pool instead.
+    export: bool = False
+    export_src: Optional[tuple] = None
     # Times this request parked on a background spill fetch (KV tiers);
     # after two it is admitted as a plain miss.
     tier_parks: int = 0
@@ -217,6 +242,85 @@ class _Inflight:
     reqs: List[Optional[_Request]]
     toks: _HostCopy
     steps: int
+
+
+@dataclasses.dataclass
+class PrefillHandoff:
+    """One prompt's computed KV state, host-side, ready to transfer to a
+    decode-role engine (the handoff unit of ``serve/disagg.py``).
+
+    Paged layout: ``k``/``v`` are [L, nb, Hkv, P, D] in pool block layout
+    (block i covers prompt positions [i*P, (i+1)*P)); positions of the
+    last block past ``prompt_len`` carry junk that is never attended. The
+    full-block chain (the trie keys) follows from ``row`` and ``block``,
+    which is what lets shared prefixes transfer as references. Slot
+    layout: ``k``/``v`` are [L, 1, Hkv, prompt_len, D]. Scale planes
+    (``k_s``/``v_s``, float32) are present iff the KV cache is int8. A
+    bf16 plane is a ``ckpt.manifest.RawArray`` of its uint16 words."""
+    row: List[int]
+    first: int
+    max_new: int
+    temperature: float
+    top_k: int
+    top_p: float
+    eos: Optional[frozenset]
+    layout: str
+    prompt_len: int
+    block: int = 0
+    n_blocks: int = 0
+    k: Optional[object] = None
+    v: Optional[object] = None
+    k_s: Optional[np.ndarray] = None
+    v_s: Optional[np.ndarray] = None
+
+    @property
+    def full_blocks(self) -> int:
+        """Blocks fully covered by the prompt: the shareable chain."""
+        return self.prompt_len // self.block if self.block else 0
+
+
+@dataclasses.dataclass
+class _ImportEntry:
+    """A decode-role admission waiting for a slot and blocks: the
+    imported prompt planes plus the request state (its first token was
+    sampled by the prefill side). ``block_start`` is the index of the
+    first prompt block present in the planes; earlier blocks were
+    negotiated away as local trie references."""
+    req: _Request
+    first: int
+    layout: str
+    block_start: int = 0
+    k: Optional[object] = None
+    v: Optional[object] = None
+    k_s: Optional[np.ndarray] = None
+    v_s: Optional[np.ndarray] = None
+
+
+class KVImportError(RuntimeError):
+    """A transferred handoff could not be installed (blocks negotiated
+    away as shared references were evicted between the prepare round
+    trip and the import). The replica answers 409 and the load balancer
+    falls back to colocated serving."""
+
+
+def _plane_words(arr):
+    """(host array, torch dtype for ``_to_device``) of a handoff plane: a
+    bf16 ``RawArray`` gives its uint16 words and ``torch.bfloat16``."""
+    if isinstance(arr, manifest_lib.RawArray):
+        if arr.dtype != 'bfloat16':
+            raise ValueError(f'handoff plane dtype {arr.dtype!r} has no '
+                             'torch counterpart')
+        return arr.words, torch.bfloat16
+    return np.asarray(arr), None
+
+
+def _host_plane(copy: '_HostCopy', dtype: torch.dtype):
+    """A plane read off the device: bf16 as a ``RawArray`` of its words
+    under JAX's dtype name, any other type as the numpy array."""
+    host = copy.numpy()
+    if dtype == torch.bfloat16:
+        return manifest_lib.RawArray(host, 'bfloat16')
+    return host
 
 
 # Idle engine pacing: the loop parks in _wake.wait(_IDLE_WAIT_S) when no
@@ -460,7 +564,7 @@ _store_prefix = profiler.profiled('engine.store_prefix', _store_prefix_impl)
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f'{what} is not ported yet: skypilot_tpu_torch serves the '
-        "continuous engine on one device, without a mesh or roles")
+        "continuous engine on one device, without a mesh")
 
 
 def check_options(*, kv_layout: Optional[str] = None,
@@ -505,8 +609,6 @@ def check_options(*, kv_layout: Optional[str] = None,
     if role not in ('colocated', 'prefill', 'decode'):
         raise ValueError(f'Unknown engine role {role!r}; '
                          "'colocated', 'prefill' or 'decode'")
-    if role != 'colocated':
-        raise _not_ported(f'the {role!r} role')
     return (kv_layout, max(int(prefix_slots), 0), max(int(prefill_chunk), 0),
             role, prefix_share, kv_tiers)
 
@@ -629,6 +731,9 @@ class ContinuousEngine:
         self._init_device_state()
         self._slot_req: List[Optional[_Request]] = [None] * self.slots
         self._pending: collections.deque = collections.deque()
+        # Decode-role admissions (submit_import), installed FIFO ahead of
+        # local admission.
+        self._pending_imports: collections.deque = collections.deque()
         # [(reqs, firsts on their way to the host)] of prefilled groups.
         self._unfetched: List[tuple] = []
         self._admitting: List[_Request] = []  # mid-prefill group
@@ -665,6 +770,13 @@ class ContinuousEngine:
         self.spec_rounds = 0
         self.spec_proposals = 0
         self.spec_accepted = 0
+        # KV handoff (stats()['disagg']): prefill-role retirements and
+        # decode-role installs, their host ms, and failed installs.
+        self.exports = 0
+        self.imports = 0
+        self.export_ms = 0.0
+        self.import_ms = 0.0
+        self.import_errors = 0
         # Overlap (stats()['pipeline']): host work done while a chunk
         # computes vs host time the device idled with work waiting.
         self.dispatches = 0
@@ -687,17 +799,130 @@ class ContinuousEngine:
         self._wake.set()
         return req.future
 
-    def submit_prefill(self, *args, **kwargs):
-        raise _not_ported('the prefill role (submit_prefill)')
+    def submit_prefill(self, row: List[int], max_new: int,
+                       temperature: float = 0.0, top_k: int = 0,
+                       top_p: float = 1.0,
+                       eos=None) -> concurrent.futures.Future:
+        """Prefill-role admission: compute the prompt's KV, sample the
+        first token and RETIRE; the future resolves with a
+        ``PrefillHandoff`` that a decode-role engine imports
+        (``submit_import``). ``max_new`` only rides the handoff: this
+        engine reserves blocks for the prompt alone. MoE expert capacity
+        couples the rows of a batch, so an MoE model's prompt KV is not
+        batch-independent and is refused, as in the JAX engine; so is a
+        draft, whose cache does not transfer."""
+        if self.cfg.num_experts > 0:
+            raise ValueError('KV handoff requires a dense model (MoE '
+                             'expert capacity is per forward call, so '
+                             'exported prompt KV is not batch-'
+                             'independent)')
+        if self.draft_cfg is not None:
+            raise ValueError('KV handoff does not compose with '
+                             'speculative decoding (the draft cache '
+                             'does not transfer)')
+        req = self._build_request(row, max_new, temperature, None,
+                                  top_k, top_p, eos, export=True)
+        with self._lock:
+            self._pending.append(req)
+        self.start()
+        self._wake.set()
+        return req.future
 
-    def submit_import(self, *args, **kwargs):
-        raise _not_ported('the decode role (submit_import)')
+    def submit_import(self, row: List[int], max_new: int, first: int,
+                      *, temperature: float = 0.0, top_k: int = 0,
+                      top_p: float = 1.0, eos=None, on_tokens=None,
+                      layout: str = 'paged', block_start: int = 0,
+                      k=None, v=None, k_s=None,
+                      v_s=None) -> concurrent.futures.Future:
+        """Decode-role admission of an imported prompt: install the
+        transferred planes (paged: block scatter and table install; slot:
+        a row insert), emit ``first`` as the request's first token and
+        decode on. Queues like local admission until a slot and the full
+        block reservation are free. The planes' shapes are checked HERE:
+        an install that raised on the engine thread would fail every
+        request in flight (``_fail_everything``), and crc32 covers plane
+        bytes only, not the header's shapes."""
+        if layout != self.kv_layout:
+            raise ValueError(f'handoff layout {layout!r} does not match '
+                             f'engine kv_layout {self.kv_layout!r}')
+        if self.cfg.num_experts > 0 or self.draft_cfg is not None:
+            raise ValueError('KV handoff requires a dense, '
+                             'non-speculative engine')
+        if ((k_s is not None) != self.kv_quantize) and k is not None:
+            raise ValueError('handoff KV quantization does not match '
+                             'the engine kv_cache mode')
+        cfg = self.cfg
+        if self.kv_layout == 'paged':
+            p = self.kv_block
+            nb_prompt = -(-len(row) // p)
+            nb_present = nb_prompt - int(block_start)
+            if nb_present < 0:
+                raise ValueError(
+                    f'handoff block_start {block_start} exceeds the '
+                    f'prompt chain ({nb_prompt} blocks)')
+            want = (cfg.n_layers, nb_present, cfg.n_kv_heads, p,
+                    cfg.head_dim)
+        else:
+            nb_present = 1  # one dense record, exact prompt width
+            want = (cfg.n_layers, 1, cfg.n_kv_heads, len(row),
+                    cfg.head_dim)
+        if nb_present > 0:  # == 0: full local prefix share, no planes
+            if k is None or v is None \
+                    or tuple(k.shape) != want or tuple(v.shape) != want:
+                raise ValueError(
+                    f'handoff k/v planes must be {want}, got '
+                    f'{None if k is None else tuple(k.shape)} / '
+                    f'{None if v is None else tuple(v.shape)}')
+            if self.kv_quantize and (
+                    k_s is None or v_s is None
+                    or tuple(k_s.shape) != want[:-1]
+                    or tuple(v_s.shape) != want[:-1]):
+                raise ValueError(
+                    f'handoff k_s/v_s scale planes must be {want[:-1]}')
+            for arr in (k, v):
+                _plane_words(arr)  # a dtype torch lacks raises here
+        req = self._build_request(row, max_new, temperature, on_tokens,
+                                  top_k, top_p, eos)
+        entry = _ImportEntry(req=req, first=int(first), layout=layout,
+                             block_start=int(block_start),
+                             k=k, v=v, k_s=k_s, v_s=v_s)
+        with self._lock:
+            self._pending_imports.append(entry)
+        self.start()
+        self._wake.set()
+        return req.future
 
     def probe_chain(self, row: List[int]) -> int:
-        raise _not_ported('the KV handoff of the roles (probe_chain)')
+        """How many leading FULL prompt blocks of ``row`` this engine's
+        share trie already holds: the handoff negotiation's answer, which
+        lets the transfer skip those blocks' bytes. Touches the matched
+        nodes (LRU refresh) so that eviction is unlikely to race the
+        import that follows; a race that still loses fails the import,
+        and the load balancer falls back."""
+        if self._trie is None:
+            return 0
+        p = self.kv_block
+        with self._lock:
+            nodes, _, _ = self._trie.match(row, limit=(len(row) // p) * p)
+            for nd in nodes:
+                self._trie.touch(nd)
+        return len(nodes)
 
-    def resolve_chains(self, digests):
-        raise _not_ported('the KV handoff of the roles (resolve_chains)')
+    def resolve_chains(self, digests: List[bytes]) -> List[List[int]]:
+        """Token rows for the advert chain digests this engine's trie
+        still holds (``BlockTrie.resolve_chains``), longest first, plus,
+        with KV tiers, those the host and spill tiers hold. Empty when
+        sharing is off. The remediation pre-warm replays them through the
+        export/import path so that a successor's trie starts hot."""
+        if self._trie is None:
+            return []
+        with self._lock:
+            rows = self._trie.resolve_chains(digests)
+        if self._kv_tiers is not None:
+            missing = [d for d in digests if d not in rows]
+            if missing:
+                rows.update(self._kv_tiers.resolve_rows(missing))
+        return sorted(rows.values(), key=len, reverse=True)
 
     def prefix_summary(self) -> Optional[dict]:
         """Bounded resident-chain summary for prefix-affinity routing
@@ -719,16 +944,19 @@ class ContinuousEngine:
         return summ
 
     def _build_request(self, row, max_new, temperature, on_tokens,
-                       top_k, top_p, eos) -> _Request:
-        if len(row) + max_new > self._submit_max:
+                       top_k, top_p, eos, export: bool = False) -> _Request:
+        # An export retires at its first token: it is checked against the
+        # prompt's footprint (max_new is spent downstream).
+        budget = 1 if export else max_new
+        if len(row) + budget > self._submit_max:
             extra = ('' if self._submit_max == self.max_len else
                      f' (max_len {self.max_len} minus the speculative '
                      f'verify window overhang {self._overhang})')
             raise ValueError(
-                f'prompt ({len(row)}) + max_new ({max_new}) exceeds '
+                f'prompt ({len(row)}) + max_new ({budget}) exceeds '
                 f'engine max_len limit {self._submit_max}{extra}')
-        if self.kv_layout == 'paged' and max_new > 1:
-            need = self._blocks_for(len(row), max_new)
+        if self.kv_layout == 'paged' and (max_new > 1 or export):
+            need = self._blocks_for(len(row), budget)
             if need > self.kv_blocks - 1:
                 # Bigger than the WHOLE pool: it could never be admitted
                 # and would starve everything queued behind it.
@@ -749,7 +977,7 @@ class ContinuousEngine:
         fut.set_running_or_notify_cancel()
         return _Request(list(row), max_new, float(temperature), fut,
                         on_tokens=on_tokens, top_k=int(top_k),
-                        top_p=float(top_p), eos=eos,
+                        top_p=float(top_p), eos=eos, export=export,
                         trace_parent=trace_lib.current())
 
     def start(self) -> None:
@@ -781,21 +1009,22 @@ class ContinuousEngine:
         with self._lock:
             live = bool(self._pending or self._admitting or self._prefilling
                         or self._unfetched or self._tier_waiting
+                        or self._pending_imports
                         or any(r is not None for r in self._slot_req))
         if live:
             self._fail_everything(RuntimeError('engine stopped'))
 
     def busy(self) -> bool:
-        """Requests queued, parked on a tier fetch, prefilling or holding
-        a slot."""
+        """Requests queued (imports too), parked on a tier fetch,
+        prefilling or holding a slot."""
         with self._lock:
             return bool(self._pending or self._admitting or self._prefilling
                         or self._unfetched or self._tier_waiting
+                        or self._pending_imports
                         or any(r is not None for r in self._slot_req))
 
     def stats(self) -> dict:
-        """Counters for /health under the JAX engine's ``stats()`` keys
-        (all but its disaggregation block).
+        """Counters for /health under the JAX engine's ``stats()`` keys.
         ``prefill_tokens`` counts the prompt tokens prefill computed;
         ``prefill_tokens_saved`` those shared blocks or the prefix pool
         skipped (as in the JAX engine, a pool hit seeding a chunked
@@ -821,7 +1050,17 @@ class ContinuousEngine:
             return {
                 'slots': self.slots, 'active_slots': active,
                 'kv_cache': 'int8' if self.kv_quantize else 'bf16',
-                'kv_layout': self.kv_layout, 'role': self.role,
+                'kv_layout': self.kv_layout,
+                # The role and the handoff counters: exports are
+                # prefill-role retirements, imports decode-role installs;
+                # queued_imports is the decode pool's backpressure signal.
+                'role': self.role,
+                'disagg': {'exports': self.exports,
+                           'imports': self.imports,
+                           'export_ms': round(self.export_ms, 3),
+                           'import_ms': round(self.import_ms, 3),
+                           'import_errors': self.import_errors,
+                           'queued_imports': len(self._pending_imports)},
                 'kv_blocks': (None if self.kv_layout != 'paged' else {
                     'total': self.kv_blocks, 'block': self.kv_block,
                     'free': free_blocks, 'usable': self.kv_blocks - 1,
@@ -901,6 +1140,11 @@ class ContinuousEngine:
                     # Prefill advance BEFORE admission: a parked finished
                     # prefill must win a freed slot over younger shorts.
                     self._advance_prefill()
+                    # Imported prompts admit FIRST: their prefill is
+                    # already paid for on the prefill pool. Parked, they
+                    # do not block local admission (a decode replica also
+                    # serves the colocated fallback).
+                    self._admit_imports()
                     self._admit()
                     if self._inflight is not None:
                         # Admission issued while a chunk computes is pure
@@ -920,6 +1164,17 @@ class ContinuousEngine:
                         self._wake.wait(_IDLE_WAIT_S)
                         self._wake.clear()
                         continue
+                    with self._lock:
+                        only_exports = all(r is None or r.export
+                                           for r in self._slot_req)
+                    if only_exports:
+                        # The prefill role's steady state: every occupied
+                        # slot is an export awaiting its drain, so a
+                        # decode chunk over them would be junk. Drain
+                        # (gather and retire them) and admit again.
+                        self._flush_pipeline(quiet=True)
+                        self._drain_firsts()
+                        continue
                     if self.draft_cfg is not None:
                         self._run_spec_round()
                     else:
@@ -938,8 +1193,10 @@ class ContinuousEngine:
                 r for r in self._slot_req if r is not None] + [
                 r for reqs, _ in self._unfetched for r in reqs] + \
                 list(self._admitting) + [p.req for p in self._prefilling] \
+                + [e.req for e in self._pending_imports] \
                 + list(self._tier_waiting)
             self._pending.clear()
+            self._pending_imports.clear()
             self._tier_waiting = []
             self._slot_req = [None] * self.slots
             self._unfetched = []
@@ -969,6 +1226,10 @@ class ContinuousEngine:
         # Share-trie state exists on every layout (None = sharing off).
         self._trie: Optional[paged_lib.BlockTrie] = None
         self._slot_shared: List[list] = [[] for _ in range(self.slots)]
+        # Each paged slot's host copy of its block table row (an export
+        # gathers its blocks through it); None while free.
+        self._slot_table: List[Optional[np.ndarray]] = \
+            [None] * self.slots
         if self.kv_layout == 'paged':
             self._cache = paged_lib.init_pool(
                 self.cfg, self.slots, self.max_len, self.kv_blocks,
@@ -1030,17 +1291,23 @@ class ContinuousEngine:
 
     def _limit_for(self, req: _Request) -> int:
         """A slot's write limit: its row is active while its length is
-        below this (prompt + max_new - 1, plus the spec window)."""
-        return len(req.row) + req.max_new - 1 + self._overhang
+        below this (prompt + max_new - 1, plus the spec window). An
+        export's is its prompt: no decode chunk writes its row."""
+        budget = 1 if req.export else req.max_new
+        return len(req.row) + budget - 1 + self._overhang
 
     def _blocks_needed(self, req: _Request) -> int:
-        return self._blocks_for(len(req.row), req.max_new)
+        # An export retires at its first token: its reservation covers
+        # the prompt, never max_new.
+        return self._blocks_for(len(req.row),
+                                1 if req.export else req.max_new)
 
     def _release_blocks(self, slot: int) -> None:
         """Return a finished slot's owned blocks to the free list and
         drop its references on shared ones: refs-0 blocks park in the
         trie's idle LRU as reusable cache (a detached node's block frees
         for real)."""
+        self._slot_table[slot] = None
         if self.kv_layout != 'paged':
             return
         self._free_blocks.extend(self._slot_blocks[slot])
@@ -1224,11 +1491,11 @@ class ContinuousEngine:
                             if run >= n:
                                 break
                             if (run > 0 and self._trie is not None
-                                    and p.max_new > 1
+                                    and (p.max_new > 1 or p.export)
                                     and self._trie.match(p.row)[0]):
                                 break
                             nb = (self._blocks_needed(p)
-                                  if p.max_new > 1 else 0)
+                                  if p.max_new > 1 or p.export else 0)
                             if nb > avail:
                                 break
                             avail -= nb
@@ -1265,7 +1532,8 @@ class ContinuousEngine:
         None for a miss; ``parked_on_fetch`` is True when the head left
         the queue to wait on a background spill fetch."""
         if (self._trie is None or not self._pending
-                or self._pending[0].max_new <= 1):
+                or (self._pending[0].max_new <= 1
+                    and not self._pending[0].export)):
             return None, False
         head = self._pending[0]
         nodes, partial, plen = self._trie.match(head.row)
@@ -1354,6 +1622,8 @@ class ContinuousEngine:
         table = np.zeros((mb,), np.int32)
         table[:len(nodes)] = [nd.block for nd in nodes]
         table[len(nodes):len(nodes) + len(owned)] = owned
+        with self._lock:
+            self._slot_table[slot] = table.copy()
         if pro:
             tw0 = time.time()
             # Promote: scatter the demoted chain's planes into the first
@@ -1651,6 +1921,9 @@ class ContinuousEngine:
         req = entry.req
         if self.draft_cfg is not None and entry.d_consumed < len(req.row):
             return  # the draft cache is still catching up
+        if req.export:
+            self._finish_long_export(entry)
+            return
         done = (req.max_new == 1
                 or gen_lib.truncate_at_stop([entry.first_host],
                                             req.eos)[1])
@@ -1671,6 +1944,7 @@ class ContinuousEngine:
                         (self.max_len // self.kv_block,), np.int32)
                     table_row[:nb] = blocks
                     self._slot_blocks[free[0]] = list(blocks)
+                    self._slot_table[free[0]] = table_row.copy()
                 slot = free[0]
                 self._slot_req[slot] = req
             self._prefilling.pop(0)
@@ -1699,6 +1973,46 @@ class ContinuousEngine:
                     entry.first, limits, slots)
         if self.draft_cfg is not None:
             _insert_cache(self._d_cache, entry.d_cache, slots)
+
+    def _finish_long_export(self, entry: _Prefilling) -> None:
+        """Export retirement of a chunked long prefill. The slot layout
+        gathers the scratch row directly (no slot at all); paged inserts
+        into pool blocks first, committing the prompt chain so that later
+        sharers and later exports of the same long preamble hit the trie,
+        and gathers back out. Parks (returns without popping) until a
+        slot and the blocks are free, like a normal finish."""
+        req = entry.req
+        if self.kv_layout == 'paged':
+            with self._lock:
+                free = [i for i, r in enumerate(self._slot_req)
+                        if r is None]
+                nb = self._blocks_needed(req)
+                if not free or self._blocks_avail() < nb:
+                    return  # park; retried next iteration
+                blocks = self._alloc_blocks(nb, req.trace_parent)
+                table_row = np.zeros((self.max_len // self.kv_block,),
+                                     np.int32)
+                table_row[:nb] = blocks
+                slot = free[0]
+                self._slot_req[slot] = req
+                self._slot_blocks[slot] = list(blocks)
+                self._slot_table[slot] = table_row.copy()
+            dev = self.device
+            _paged_insert(self._cache, self._last, self._limit, entry.cache,
+                          entry.first,
+                          _to_device(np.asarray([self._limit_for(req)],
+                                                np.int32), dev),
+                          _to_device(table_row[None], dev),
+                          _to_device(np.asarray([slot], np.int64), dev))
+            with self._lock:
+                if self._slot_req[slot] is req:
+                    self._commit_prompt_blocks(slot, req.row, [])
+        else:
+            req.export_src = (entry.cache, 0)
+        with self._lock:
+            self._prefilling.pop(0)
+            self.prefills += 1
+        self._export_and_retire(req, entry.first_host)
 
     def _prefill_group(self, reqs: List[_Request],
                        slots: List[int]) -> None:
@@ -1780,13 +2094,16 @@ class ContinuousEngine:
             tables_host = np.zeros((n, mb), np.int32)
             with self._lock:
                 for i, r in enumerate(reqs):
-                    if r.max_new <= 1:
+                    if r.max_new <= 1 and not r.export:
                         continue  # resolves at prefill: junk-sink row
+                    # An export takes blocks even at max_new 1: the
+                    # handoff gathers from the pool.
                     nb = self._blocks_needed(r)
                     # _admit reserved them
                     blocks = self._alloc_blocks(nb, r.trace_parent)
                     self._slot_blocks[slots[i]] = blocks
                     tables_host[i, :nb] = blocks
+                    self._slot_table[slots[i]] = tables_host[i].copy()
             _paged_insert(self._cache, self._last, self._limit, cache_n,
                           firsts, limits, _to_device(tables_host, dev),
                           slots_d)
@@ -1796,7 +2113,7 @@ class ContinuousEngine:
                 # of these blocks follows their content on the stream).
                 with self._lock:
                     for i, r in enumerate(reqs):
-                        if r.max_new > 1:
+                        if r.max_new > 1 or r.export:
                             self._commit_prompt_blocks(slots[i], rows[i],
                                                        [])
                             self.share_misses += 1
@@ -1827,7 +2144,13 @@ class ContinuousEngine:
             self.prefill_groups += 1
             self._unfetched.append((reqs, _HostCopy(firsts)))
             for i, req in enumerate(reqs):
-                if req.max_new > 1:
+                if req.export and self.kv_layout != 'paged':
+                    # A slot-layout export is gathered straight from the
+                    # prefill cache at the drain: no slot occupancy.
+                    req.export_src = (cache_n, i)
+                elif req.max_new > 1 or req.export:
+                    # Paged exports hold their slot and blocks until the
+                    # drain gathers them out of the pool.
                     self._slot_req[slots[i]] = req
         self._note_prefill_time(t0, had_active)
 
@@ -1840,11 +2163,18 @@ class ContinuousEngine:
             self._unfetched = []
         done: List[_Request] = []
         emitted: List[tuple] = []
+        exports: List[tuple] = []
         for reqs, firsts in batches:
             firsts_host = firsts.numpy()
             with self._lock:
                 for i, req in enumerate(reqs):
                     first = int(firsts_host[i])
+                    if req.export:
+                        # The prefill role's retirement: the first token
+                        # rides the handoff, nothing is emitted, and the
+                        # gather (and its wait) runs outside the lock.
+                        exports.append((req, first))
+                        continue
                     req.tokens.append(first)
                     self.tokens_emitted += 1
                     if req.on_tokens is not None:
@@ -1865,6 +2195,273 @@ class ContinuousEngine:
         for req in done:
             if not req.future.done():
                 req.future.set_result(req.tokens)
+        for req, first in exports:
+            self._export_and_retire(req, first)
+
+    # -- disaggregated prefill/decode handoff (serve/disagg.py) ------------
+
+    def _export_and_retire(self, req: _Request, first: int) -> None:
+        """Resolve an export with its ``PrefillHandoff`` and free its slot
+        and blocks. A failed gather fails THIS request alone; the engine
+        keeps serving."""
+        t0 = time.perf_counter()
+        err = None
+        try:
+            handoff = self._build_handoff(req, first)
+        except Exception as exc:  # noqa: BLE001 -- isolate per request
+            handoff, err = None, exc
+        with self._lock:
+            for si, r in enumerate(self._slot_req):
+                if r is req:
+                    self._slot_req[si] = None
+                    self._release_blocks(si)
+                    break
+            req.export_src = None  # drop the prefill cache's reference
+            self.export_ms += (time.perf_counter() - t0) * 1e3
+            if handoff is not None:
+                self.exports += 1
+        if handoff is None:
+            if not req.future.done():
+                req.future.set_exception(err)
+            return
+        if not req.future.done():
+            req.future.set_result(handoff)
+
+    def _build_handoff(self, req: _Request, first: int) -> PrefillHandoff:
+        """The prompt's planes, read off the device: the slot layout's
+        row of the prefill cache, or the paged slot's blocks through ONE
+        ``paged.export_blocks`` gather over a pow2-padded table. Issued on
+        the stream before the slot's blocks are released, so any later
+        write to them follows the gather; the host copies are pinned and
+        read through ``_HostCopy``, the export's one wait, outside the
+        lock."""
+        n = len(req.row)
+        base = dict(row=list(req.row), first=int(first),
+                    max_new=req.max_new, temperature=req.temperature,
+                    top_k=req.top_k, top_p=req.top_p, eos=req.eos,
+                    prompt_len=n)
+        if self.kv_layout != 'paged':
+            cache_n, i = req.export_src  # kept by _prefill_group
+            planes = [cache_n.k[:, i:i + 1, :, :n],
+                      cache_n.v[:, i:i + 1, :, :n]]   # [L, 1, H, n, D]
+            if cache_n.quantized:
+                planes += [cache_n.k_s[:, i:i + 1, :, :n],
+                           cache_n.v_s[:, i:i + 1, :, :n]]
+            copies = [_HostCopy(t) for t in planes]
+            k, v, k_s, v_s = ([_host_plane(c, t.dtype)
+                               for c, t in zip(copies, planes)]
+                              + [None, None])[:4]
+            return PrefillHandoff(layout='slot', k=k, v=v, k_s=k_s,
+                                  v_s=v_s, **base)
+        p = self.kv_block
+        nb = -(-n // p)
+        with self._lock:
+            slot = next((si for si, r in enumerate(self._slot_req)
+                         if r is req), None)
+            table = self._slot_table[slot] if slot is not None else None
+        if table is None:
+            raise RuntimeError('export request lost its slot before '
+                               'its planes were gathered')
+        nbp = 1
+        while nbp < nb:
+            nbp *= 2  # pow2-padded gather: log2(MB) shapes
+        tbl = np.zeros((nbp,), np.int64)
+        tbl[:nb] = table[:nb]
+        planes = [t[:, :nb] for t in _export_blocks(
+            self._cache, _to_device(tbl, self.device)) if t is not None]
+        copies = [_HostCopy(t) for t in planes]
+        k, v, k_s, v_s = ([_host_plane(c, t.dtype)
+                           for c, t in zip(copies, planes)]
+                          + [None, None])[:4]
+        return PrefillHandoff(layout='paged', block=p, n_blocks=nb,
+                              k=k, v=v, k_s=k_s, v_s=v_s, **base)
+
+    def _admit_imports(self) -> None:
+        """Install queued imported prompts (decode-role admission), FIFO.
+        Each head needs a free slot and its FULL block reservation (prompt
+        + max_new: the decode side owns the generation budget); a head
+        that cannot admit parks the import queue, the decode pool's
+        backpressure (``queued_imports``). The leading chain the share
+        trie holds installs as table REFERENCES; only new blocks
+        scatter. A head whose negotiated references were evicted fails
+        alone with ``KVImportError``."""
+        while True:
+            t0 = time.perf_counter()
+            doomed = None
+            with self._lock:
+                if not self._pending_imports:
+                    return
+                entry = self._pending_imports[0]
+                req = entry.req
+                first_is_eos = gen_lib.truncate_at_stop(
+                    [entry.first], req.eos)[1]
+                trivial = first_is_eos or req.max_new <= 1
+                slot = None
+                nodes: list = []
+                table_row = None
+                if not trivial:
+                    free = [i for i, r in enumerate(self._slot_req)
+                            if r is None]
+                    parked = sum(1 for e in self._prefilling if e.parked)
+                    if len(free) - parked <= 0:
+                        return  # backpressure: the head waits
+                    slot = free[0]
+                    if self.kv_layout == 'paged':
+                        n = len(req.row)
+                        p = self.kv_block
+                        if self._trie is not None:
+                            nodes, _, _ = self._trie.match(
+                                req.row, limit=(n // p) * p)
+                        if len(nodes) < entry.block_start:
+                            # Blocks negotiated away as references were
+                            # evicted between prepare and import.
+                            self._pending_imports.popleft()
+                            self.import_errors += 1
+                            doomed = req
+                        else:
+                            need = (self._blocks_for(n, req.max_new)
+                                    - len(nodes))
+                            pinned = sum(1 for nd in nodes
+                                         if nd.refs == 0)
+                            if self._blocks_avail() - pinned < need:
+                                return  # backpressure: the head waits
+                            for nd in nodes:
+                                self._trie.acquire(nd)
+                            owned = self._alloc_blocks(need,
+                                                       req.trace_parent)
+                            table_row = np.zeros(
+                                (self.max_len // p,), np.int32)
+                            table_row[:len(nodes)] = [nd.block
+                                                      for nd in nodes]
+                            table_row[len(nodes):len(nodes) + len(owned)] \
+                                = owned
+                            self._slot_blocks[slot] = list(owned)
+                            self._slot_shared[slot] = list(nodes)
+                            self._slot_table[slot] = table_row.copy()
+                    if doomed is None:
+                        self._slot_req[slot] = req
+                        self._pending_imports.popleft()
+                else:
+                    self._pending_imports.popleft()
+            if doomed is not None:
+                if not doomed.future.done():
+                    doomed.future.set_exception(KVImportError(
+                        'handoff blocks negotiated as shared references '
+                        'were evicted before import'))
+                continue
+            if trivial:
+                req.tokens.append(entry.first)
+                with self._lock:
+                    self.tokens_emitted += 1
+                    self.imports += 1
+                if req.on_tokens is not None:
+                    self._fire_callbacks([(req, [entry.first])])
+                if not req.future.done():
+                    req.future.set_result(req.tokens)
+                continue
+            # The device install runs outside the lock: submit() must not
+            # wait on it.
+            if self.kv_layout == 'paged':
+                self._install_import_paged(entry, slot, nodes, table_row)
+            else:
+                self._install_import_dense(entry, slot)
+            with self._lock:
+                if self._slot_req[slot] is req:
+                    self._commit_prompt_blocks(slot, req.row, nodes)
+                if self._trie is not None:
+                    if nodes:
+                        self.share_hits += 1
+                        self.share_hit_tokens += len(nodes) * self.kv_block
+                    else:
+                        self.share_misses += 1
+                req.tokens.append(entry.first)
+                self.tokens_emitted += 1
+                self.imports += 1
+                self.import_ms += (time.perf_counter() - t0) * 1e3
+            if req.on_tokens is not None:
+                self._fire_callbacks([(req, [entry.first])])
+
+    def _install_import_paged(self, entry: _ImportEntry, slot: int,
+                              nodes: list, table_row: np.ndarray) -> None:
+        """Scatter the transferred prompt blocks into the pool and install
+        the slot's table, length, last token and write limit: one
+        ``paged.import_blocks`` over a pow2-padded block list (padding
+        and, when the whole chain is shared, the one zero block land in
+        the junk sink). Blocks below the local share point install as
+        references; their transferred bytes, if any, are ignored."""
+        req = entry.req
+        n = len(req.row)
+        p = self.kv_block
+        dev = self.device
+        nb_prompt = -(-n // p)
+        start = max(len(nodes), entry.block_start)
+        ids = table_row[start:nb_prompt]
+        nbp = 1
+        while nbp < max(len(ids), 1):
+            nbp *= 2
+        blocks = np.zeros((nbp,), np.int64)  # pad -> junk sink
+        blocks[:len(ids)] = ids
+        cfg = self.cfg
+        shp = (cfg.n_layers, nbp, cfg.n_kv_heads, p, cfg.head_dim)
+        lo = start - entry.block_start
+        hi = nb_prompt - entry.block_start
+        # The pool's dtype, not the entry's: a handoff whose whole chain
+        # is shared carries no planes at all.
+        kdt = self._cache.k.dtype
+        on_dev = []
+        for name in ('k', 'v', 'k_s', 'v_s'):
+            if name in ('k_s', 'v_s') and not self.kv_quantize:
+                on_dev.append(None)
+                continue
+            src = getattr(entry, name) if len(ids) else None
+            if src is None:
+                tdt = kdt if name in ('k', 'v') else torch.float32
+                pad = np.zeros(shp if name in ('k', 'v') else shp[:-1],
+                               _host_dtype(tdt))
+            else:
+                words, tdt = _plane_words(src)
+                pad = np.zeros((shp if name in ('k', 'v') else shp[:-1]),
+                               words.dtype)
+                pad[:, :len(ids)] = words[:, lo:hi]
+            t = _to_device(pad, dev, tdt if tdt == torch.bfloat16 else None)
+            want = kdt if name in ('k', 'v') else torch.float32
+            on_dev.append(t if t.dtype == want else t.to(want))
+        _import_blocks(self._cache, *on_dev, _to_device(blocks, dev),
+                       _to_device(table_row, dev), slot, n)
+        self._last[slot] = entry.first
+        self._limit[slot] = self._limit_for(req)
+
+    def _install_import_dense(self, entry: _ImportEntry,
+                              slot: int) -> None:
+        """Slot-layout install: a 1-row prefill cache rebuilt from the
+        transferred planes, inserted like a local prefill's row."""
+        req = entry.req
+        n = len(req.row)
+        dev = self.device
+        w = min(prompt_bucket(n), self.max_len)
+        kdt = self._cache.k.dtype
+        tensors = {}
+        for name in ('k', 'v', 'k_s', 'v_s'):
+            src = getattr(entry, name)
+            if src is None:
+                tensors[name] = None
+                continue
+            words, tdt = _plane_words(src)
+            pad = np.zeros(words.shape[:3] + (w,) + words.shape[4:],
+                           words.dtype)
+            pad[:, :, :, :n] = words
+            t = _to_device(pad, dev, tdt)
+            want = kdt if name in ('k', 'v') else torch.float32
+            tensors[name] = t if t.dtype == want else t.to(want)
+        cache_n = gen_lib.KVCache(
+            k=tensors['k'], v=tensors['v'],
+            lengths=_to_device(np.asarray([n], np.int32), dev),
+            k_s=tensors['k_s'], v_s=tensors['v_s'])
+        _insert(self._cache, self._last, self._limit, cache_n,
+                _to_device(np.asarray([entry.first], np.int32), dev),
+                _to_device(np.asarray([self._limit_for(req)], np.int32),
+                           dev),
+                _to_device(np.asarray([slot], np.int64), dev))
 
     def _run_spec_round(self) -> None:
         """One draft-propose / target-verify round over all slots (spec

@@ -146,6 +146,7 @@ ENV_FLAGS = (
     'SKYTPU_BLACKBOX_KEEP', 'SKYTPU_BLACKBOX_RING',
     'SKYTPU_CKPT_HOLD_FILE', 'SKYTPU_CKPT_HOLD_STEP',
     'SKYTPU_CKPT_READERS', 'SKYTPU_COMPILE_CACHE',
+    'SKYTPU_DISAGG_STAGING', 'SKYTPU_DISAGG_TTL_S',
     'SKYTPU_GUARD_SPARE_MAX_S', 'SKYTPU_KV_FETCH_MAX',
     'SKYTPU_KV_HOST_BYTES', 'SKYTPU_KV_SPILL_DIR', 'SKYTPU_KV_TIERS',
     'SKYTPU_LLM_BATCH_WINDOW_MS', 'SKYTPU_LLM_CHUNK_STEPS',

@@ -60,11 +60,27 @@ the same traced observations are the histograms' exemplars. The
 FLIGHT RECORDER (``observability/blackbox.py``) keeps the engine's edges
 and the drain; every bundle carries this replica's ``/health``.
 
-The KV handoff routes, the prefill/decode roles and tensor parallelism are
-not ported yet. One check is the port's own: token ids outside the
-vocabulary get a 400 (a JAX gather clamps them; a CUDA index fault would
-end the replica's CUDA context), and a body that is not JSON gets a 400
-whose trace carries ``error`` (JAX answers it 500).
+DISAGGREGATED PREFILL/DECODE (``--role``, ``SKYTPU_LLM_ROLE``; the wire
+format is ``serve/disagg.py``'s skytpu-kv/1): a ``prefill`` replica
+answers ``/v1/kv/export`` (prefill, park the handoff for
+``/v1/kv/fetch``, or write it to ``SKYTPU_DISAGG_STAGING``), a ``decode``
+replica ``/v1/kv/prepare`` (how many leading blocks its trie holds) and
+``/v1/kv/import`` (install and decode, buffered or NDJSON with
+``?stream=1``: 400 for bytes that are unusable, 409 for bytes that cannot
+be installed here, before any line). ``/v1/kv/chains`` resolves advert
+digests to prompts. Every role serves ``/generate`` too, the load
+balancer's colocated fallback, which counts ``X-SkyTPU-Disagg-Fallback``.
+QoS gates the export and charges the whole budget there. The
+``serve.kv_export`` and ``serve.kv_import`` roots join the load
+balancer's ``lb.handoff.*`` legs through ``X-SkyTPU-Trace``.
+
+Tensor parallelism is not ported yet. One check is the port's own: token
+ids outside the vocabulary get a 400 (a JAX gather clamps them; a CUDA
+index fault would end the replica's CUDA context), and a body that is not
+JSON gets a 400 whose trace carries ``error`` (JAX answers it 500).
+
+HTTP bodies are read by ``Content-Length`` (a handoff of bench-1b in bf16
+is 73,728 bytes a prompt token); a chunked body gets 411.
 
 HTTP is the standard library's ``ThreadingHTTPServer``. Handler threads
 validate and submit; the engine thread (or the window worker thread)
@@ -73,6 +89,7 @@ runs all device work.
 API (token-level, as the JAX replica, so the shared load balancer can
 drive either):
   GET  /health    -> {"status": "ok", "model": ..., "device": ...,
+                      "role": ..., "disagg": {handoff counters},
                       "queue": {"pending", "overflow", "depth_total"},
                       "engine": {engine stats} (absent with --engine off),
                       "qos": {...} (QoS on), "compile_cache": {...},
@@ -88,6 +105,14 @@ drive either):
                    "temperature": t?, "seed": s?, "top_k": k?,
                    "top_p": p?, "eos_token": id or [ids]?, "stream": b?,
                    "priority": class?, "tenant": id?}
+                  -> {"tokens": [[...]]}, or NDJSON lines when streamed
+  POST /v1/kv/export   {"tokens": [...], "max_new_tokens": N, ...}
+                  -> {"layout", "nbytes", "prompt_len", "full_blocks",
+                      "block", "handoff" or "staging_ref"}
+  GET  /v1/kv/fetch?handoff=ID&skip_blocks=N -> the payload (one-shot)
+  POST /v1/kv/prepare  {"tokens": [...]} -> {"skip_blocks": N}
+  POST /v1/kv/chains   {"digests": [hex...]} -> {"chains": [[...]]}
+  POST /v1/kv/import[?stream=1]  the payload, or {"staging_ref": ref}
                   -> {"tokens": [[...]]}, or NDJSON lines when streamed
 
 Run: ``python -m skypilot_tpu_torch.serve.llm_server --model llama3-1b
@@ -128,6 +153,7 @@ from skypilot_tpu_torch.observability import profiler
 from skypilot_tpu_torch.observability import slo
 from skypilot_tpu_torch.observability import trace as trace_lib
 from skypilot_tpu_torch.ops import _build
+from skypilot_tpu_torch.serve import disagg as disagg_lib
 from skypilot_tpu_torch.serve import metrics as metrics_lib
 from skypilot_tpu_torch.serve import qos as qos_lib
 from skypilot_tpu_torch.serve import warmup as warmup_lib
@@ -200,9 +226,17 @@ class LlmServer:
                  kv_blocks: Optional[int] = None,
                  prefix_share: Optional[str] = None,
                  qos: Optional[str] = None,
-                 qos_opts: Optional[Dict[str, Any]] = None):
+                 qos_opts: Optional[Dict[str, Any]] = None,
+                 role: Optional[str] = None):
         # Cheap knobs first: a typo must not cost the weight init.
         engine = check_knobs(model, engine, qos)
+        # The disaggregated-serving role: 'prefill' replicas are routed
+        # /v1/kv/export, 'decode' replicas /v1/kv/import; every role
+        # still serves /generate (the load balancer's fallback).
+        self.role = role or os.environ.get('SKYTPU_LLM_ROLE', 'colocated')
+        if self.role not in ('colocated', 'prefill', 'decode'):
+            raise ValueError(f'Unknown role {self.role!r}; '
+                             "'colocated', 'prefill' or 'decode'")
         # QoS admission (serve/qos.py), off by default: without it no
         # scheduler exists and the serving path is the ungated one.
         qos_on = qos_lib.enabled(qos)
@@ -231,7 +265,8 @@ class LlmServer:
         if engine == 'continuous':
             engine_lib.check_options(kv_layout=kv_layout,
                                      prefix_slots=prefix_cache,
-                                     draft=self.draft_model is not None)
+                                     draft=self.draft_model is not None,
+                                     role=self.role)
         self.kv_cache = (kv_cache
                          or os.environ.get('SKYTPU_LLM_KV_CACHE', 'bf16'))
         if self.kv_cache not in ('bf16', 'int8'):
@@ -312,7 +347,7 @@ class LlmServer:
                 prefix_share=(None if prefix_share is None
                               else prefix_share == 'on'),
                 draft_params=self.draft_params, draft_cfg=self.draft_cfg,
-                spec_k=self.spec_k, device=self.device)
+                spec_k=self.spec_k, role=self.role, device=self.device)
         self.qos: Optional[qos_lib.QosScheduler] = None
         if qos_on:
             if not qos_opts.get('max_inflight'):
@@ -326,10 +361,21 @@ class LlmServer:
         # Recent TTFTs (seconds) behind /health's ttft_ms, which the SLO
         # engine's serve.ttft_p99 rule reads.
         self._ttft_window: Deque[float] = collections.deque(maxlen=512)
+        # The KV handoff's state: exports parked for their fetch (TTL),
+        # the same-host staging directory, and the byte and second
+        # counters behind /health's disagg and the skytpu_disagg_*
+        # families (updated under _lock: handler threads run
+        # concurrently).
+        self._handoffs = disagg_lib.HandoffRegistry()
+        self.staging_dir = os.environ.get(disagg_lib.STAGING_ENV) or None
+        self.disagg_stats: Dict[str, Any] = {
+            'exports': 0, 'export_bytes': 0, 'export_seconds': 0.0,
+            'imports': 0, 'import_bytes': 0, 'import_seconds': 0.0,
+            'import_rejects': 0, 'fallbacks_served': 0}
         # Incident bundles of this process carry this replica's /health,
         # through a weak reference: the registration must not keep a
         # stopped replica's weights and KV on the card.
-        blackbox.set_process_label('llm_server:colocated')
+        blackbox.set_process_label(f'llm_server:{self.role}')
         health_ref = weakref.WeakMethod(self.health_snapshot)
         blackbox.register_health_provider(
             lambda: None if health_ref() is None else health_ref()())
@@ -359,9 +405,8 @@ class LlmServer:
         return 200, self.health_snapshot()
 
     def health_snapshot(self) -> Dict[str, Any]:
-        """The /health body, under the JAX replica's keys but ``role``,
-        ``disagg`` and ``tp``, which later slices bring, and with the
-        port's ``device``."""
+        """The /health body, under the JAX replica's keys but ``tp``,
+        which a later slice brings, and with the port's ``device``."""
         body: Dict[str, Any] = {
             'status': 'draining' if self.draining else 'ok',
             'model': self.model_name,
@@ -371,7 +416,13 @@ class LlmServer:
             'max_len': self.max_len,
             'draft_model': self.draft_model,
             'batches_served': self.batches_served,
-            'max_batch_seen': self.max_batch_seen}
+            'max_batch_seen': self.max_batch_seen,
+            # The pool role and the replica's handoff accounting, which
+            # the controller mirrors into the skytpu_disagg_* gauges.
+            'role': self.role,
+            'disagg': {**self._disagg_snapshot(),
+                       'parked': len(self._handoffs),
+                       'staging': bool(self.staging_dir)}}
         # depth_total is the controller's routing and scaling signal: the
         # window FIFO, its overflow and the QoS queue.
         queue = {'pending': self._queue.qsize(),
@@ -420,7 +471,16 @@ class LlmServer:
         return metrics_lib.render_serving(
             engine=self.engine.stats() if self.engine is not None else None,
             qos=self.qos.stats() if self.qos is not None else None,
-            openmetrics=openmetrics)
+            disagg=self._disagg_snapshot(), openmetrics=openmetrics)
+
+    def _disagg_snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return dict(self.disagg_stats)
+
+    def _disagg_add(self, **deltas) -> None:
+        with self._lock:
+            for key, d in deltas.items():
+                self.disagg_stats[key] += d
 
     # -- batching worker -----------------------------------------------------
 
@@ -591,6 +651,10 @@ class LlmServer:
         ``X-SkyTPU-Trace-Verdict`` unless the answer was streamed (its
         headers are gone by then)."""
         headers = headers or {}
+        if headers.get('X-SkyTPU-Disagg-Fallback'):
+            # The load balancer re-served this request whole after a
+            # handoff failed: skytpu_disagg_fallback_total counts it.
+            self._disagg_add(fallbacks_served=1)
         tctx = trace_lib.start_trace('serve.generate', headers=headers)
         if not tctx:  # untraced: no further tracing cost
             return self._parse_and_generate(raw, write, headers,
@@ -995,6 +1059,313 @@ class LlmServer:
         stream_span = trace_lib.add_span('serve.stream', rec.t0, time.time())
         self._observe_serving(rec, qos_class, pipe0, parent=stream_span)
 
+    # -- KV handoff (serve/disagg.py) ------------------------------------------
+
+    def _traced(self, name: str, headers: Any, fn: Callable, *args):
+        """``fn(*args)`` inside the root span ``name`` joined to an incoming
+        ``X-SkyTPU-Trace``, counted in flight (the drain waits for it);
+        its status goes on the root."""
+        with self._lock:
+            self._inflight += 1
+        try:
+            tctx = trace_lib.start_trace(name, headers=headers or {})
+            if not tctx:
+                return fn(*args)
+            with tctx:
+                status, payload = fn(*args)
+                trace_lib.set_attr(status=status)
+            return status, payload
+        finally:
+            with self._lock:
+                self._inflight -= 1
+
+    def _parse_handoff_request(self, body: Any) -> tuple:
+        """An export's request: ONE row and the generation ask that rides
+        the handoff. Returns (row, max_new, temperature, top_k, top_p,
+        eos) or raises ValueError with a client-facing message."""
+        if not isinstance(body, dict):
+            raise ValueError('request body must be a JSON object')
+        tokens = body.get('tokens')
+        if not tokens:
+            raise ValueError('tokens required')
+        if isinstance(tokens[0], list):
+            if len(tokens) != 1:
+                raise ValueError('KV handoff carries ONE prompt per '
+                                 'request (the handoff unit is a row)')
+            tokens = tokens[0]
+        row = [int(t) for t in tokens]
+        if not row:
+            raise ValueError('empty token rows not allowed')
+        if any(t < 0 or t >= self.cfg.vocab_size for t in row):
+            raise ValueError(f'token ids must be in [0, '
+                             f'{self.cfg.vocab_size})')
+        max_new = int(body.get('max_new_tokens', 32))
+        if max_new < 1:
+            raise ValueError('max_new_tokens must be >= 1')
+        temperature = float(body.get('temperature', 0.0))
+        top_k = int(body.get('top_k', 0))
+        top_p = float(body.get('top_p', 1.0))
+        if top_k < 0 or not 0.0 < top_p <= 1.0:
+            raise ValueError('top_k must be >= 0 and top_p in (0, 1]')
+        eos = body.get('eos_token')
+        if eos is not None:
+            eos = frozenset([int(eos)] if isinstance(eos, int)
+                            else (int(t) for t in eos))
+        if len(row) + max_new > self.max_len:
+            raise ValueError(f'prompt+max_new_tokens exceeds max_len '
+                             f'{self.max_len}')
+        return row, max_new, temperature, top_k, top_p, eos
+
+    def kv_export(self, raw: bytes, headers: Any = None,
+                  reply_headers: Optional[Dict[str, str]] = None
+                  ) -> Tuple[int, Dict[str, Any]]:
+        """``POST /v1/kv/export``, the prefill role's admission: prefill
+        the prompt, sample its first token and PARK the handoff. The
+        answer carries the negotiation facts (sizes, the shareable chain)
+        and a claim id for ``/v1/kv/fetch``, or, with a staging directory,
+        the ref of the payload already written there."""
+        if self.engine is None:
+            return 400, {'error': 'KV export requires the continuous '
+                                  'engine'}
+        return self._traced('serve.kv_export', headers,
+                            self._kv_export_inner, raw, headers or {},
+                            reply_headers)
+
+    def _kv_export_inner(self, raw: bytes, headers: Any,
+                         reply_headers: Optional[Dict[str, str]]
+                         ) -> Tuple[int, Dict[str, Any]]:
+        try:
+            body = json.loads(raw or b'null')
+            args = self._parse_handoff_request(body)
+        except (ValueError, TypeError) as e:
+            return 400, {'error': str(e)}
+        row, max_new = args[0], args[1]
+        # QoS gates the EXPORT: on a disaggregated fleet the queue forms
+        # here, and the whole generation budget is charged on this side
+        # (the decode pool emits but never meters). A refusal refunds it.
+        ticket = None
+        if self.qos is not None:
+            try:
+                qos_class = qos_lib.classify(body, headers)
+            except ValueError as e:
+                return 400, {'error': str(e)}
+            tenant = qos_lib.resolve_tenant(headers, body)
+            try:
+                ticket = self.qos.submit(
+                    qos_class, tenant, cost=float(len(row)),
+                    est_tokens=float(len(row) * max_new))
+                ticket.granted.result()
+            except qos_lib.ShedError as e:
+                if reply_headers is not None:
+                    reply_headers['Retry-After'] = str(e.retry_after_s)
+                return 429, {'error': str(e), 'qos_class': qos_class,
+                             'shed': True}
+            except qos_lib.QueueTimeout as e:
+                return 504, {'error': str(e), 'qos_class': qos_class}
+        try:
+            status, payload = self._kv_export_admitted(*args)
+        except BaseException:
+            if ticket is not None:
+                self.qos.abandon(ticket)
+            raise
+        if ticket is not None:
+            self.qos.release(ticket, generated_tokens=(
+                max_new if status == 200 else 0))
+        return status, payload
+
+    def _kv_export_admitted(self, row, max_new, temperature, top_k, top_p,
+                            eos) -> Tuple[int, Dict[str, Any]]:
+        t0 = time.time()
+        try:
+            fut = self.engine.submit_prefill(
+                row, max_new, temperature, top_k=top_k, top_p=top_p,
+                eos=eos)
+        except ValueError as e:  # MoE, draft and footprint refusals
+            return 400, {'error': str(e)}
+        try:
+            handoff = fut.result()
+        except Exception as e:  # noqa: BLE001 -- the engine failed it
+            return 500, {'error': f'prefill export failed: {e}'}
+        header = disagg_lib.build_header(handoff, model=self.model_name,
+                                         kv_cache=self.kv_cache)
+        nbytes = disagg_lib.payload_nbytes(header)
+        resp = {'layout': handoff.layout, 'nbytes': nbytes,
+                'prompt_len': handoff.prompt_len,
+                'full_blocks': handoff.full_blocks,
+                'block': handoff.block}
+        if self.staging_dir:
+            # Same-host path: the payload written once into the shared
+            # directory; the decode replica reads it from there.
+            ref, nbytes = disagg_lib.write_staging(self.staging_dir,
+                                                   handoff, header)
+            resp['staging_ref'] = ref
+            resp['nbytes'] = nbytes
+        else:
+            resp['handoff'] = self._handoffs.put(handoff)
+        self._disagg_add(exports=1, export_bytes=nbytes,
+                         export_seconds=time.time() - t0)
+        trace_lib.add_span('serve.prefill', t0, time.time(),
+                           tokens=len(row))
+        trace_lib.set_attr(nbytes=nbytes, prompt_len=len(row),
+                           staged=bool(self.staging_dir))
+        return 200, resp
+
+    def kv_fetch(self, query: Dict[str, str]
+                 ) -> Tuple[int, Any]:
+        """``GET /v1/kv/fetch?handoff=&skip_blocks=``: claim a parked
+        export's payload (bytes), without the plane records of its first
+        ``skip_blocks`` full blocks, which the decode side holds. One-shot:
+        the handoff is consumed whether serialization succeeds or not."""
+        hid = query.get('handoff', '')
+        handoff = self._handoffs.pop(hid)
+        if handoff is None:
+            return 404, {'error': f'unknown or expired handoff {hid!r}'}
+        try:
+            skip = int(query.get('skip_blocks', 0))
+            header = disagg_lib.build_header(
+                handoff, model=self.model_name, kv_cache=self.kv_cache,
+                skip_blocks=skip)
+        except ValueError as e:
+            return 400, {'error': str(e)}
+        return 200, disagg_lib.serialize_bytes(handoff, header)
+
+    def kv_prepare(self, raw: bytes) -> Tuple[int, Dict[str, Any]]:
+        """``POST /v1/kv/prepare``: how many leading FULL prompt blocks
+        this replica's share trie holds, the prefix the transfer skips."""
+        if self.engine is None:
+            return 200, {'skip_blocks': 0}
+        try:
+            body = json.loads(raw or b'null')
+            tokens = body.get('tokens') or []
+            if tokens and isinstance(tokens[0], list):
+                tokens = tokens[0]
+            row = [int(t) for t in tokens]
+        except (ValueError, TypeError, AttributeError):
+            return 400, {'error': 'tokens must be ints'}
+        return 200, {'skip_blocks': self.engine.probe_chain(row)}
+
+    def kv_chains(self, raw: bytes) -> Tuple[int, Dict[str, Any]]:
+        """``POST /v1/kv/chains``: the token rows this replica's trie (and
+        tiers) still hold for advert chain digests, the remediation
+        pre-warm's handshake."""
+        if self.engine is None:
+            return 200, {'chains': []}
+        try:
+            body = json.loads(raw or b'null')
+            digests = [bytes.fromhex(str(h))
+                       for h in (body.get('digests') or [])]
+        except (ValueError, TypeError, AttributeError):
+            return 400, {'error': 'digests must be hex strings'}
+        return 200, {'chains': self.engine.resolve_chains(digests)}
+
+    def kv_import(self, raw: bytes, headers: Any = None,
+                  query: Optional[Dict[str, str]] = None,
+                  write: Optional[Callable] = None
+                  ) -> Tuple[int, Optional[Dict[str, Any]]]:
+        """``POST /v1/kv/import``, the decode role's admission: validate
+        the payload (checksums first: corrupt bytes never reach the
+        device), install it and serve the generation. Buffered, or with
+        ``?stream=1`` NDJSON lines passed to ``write`` as on /generate
+        (then (200, None)). 400: the bytes are unusable; 409: well formed
+        but not installable here, answered before any line."""
+        if self.engine is None:
+            return 400, {'error': 'KV import requires the continuous '
+                                  'engine'}
+        return self._traced('serve.kv_import', headers,
+                            self._kv_import_inner, raw, headers or {},
+                            query or {}, write)
+
+    def _kv_import_inner(self, raw: bytes, headers: Any,
+                         query: Dict[str, str], write: Optional[Callable]
+                         ) -> Tuple[int, Optional[Dict[str, Any]]]:
+        t0 = time.time()
+        try:
+            ctype = str(headers.get('Content-Type') or '')
+            if ctype.startswith('application/json') \
+                    and not raw.startswith(disagg_lib.MAGIC):
+                # Same-host path: the body is a staging ref.
+                body = json.loads(raw)
+                data = disagg_lib.read_staging(
+                    self.staging_dir, str(body.get('staging_ref') or ''))
+            else:
+                data = raw
+            header, arrays = disagg_lib.parse(data)
+            disagg_lib.check_compat(
+                header, model=self.model_name, kv_cache=self.kv_cache,
+                kv_layout=self.engine.kv_layout,
+                kv_block=self.engine.kv_block, max_len=self.max_len)
+            kwargs = disagg_lib.import_kwargs(header, arrays)
+            vocab = self.cfg.vocab_size
+            if any(t < 0 or t >= vocab
+                   for t in kwargs['row'] + [kwargs['first']]):
+                raise ValueError(f'token ids must be in [0, {vocab})')
+        except disagg_lib.DisaggCompatError as e:
+            self._disagg_add(import_rejects=1)
+            return 409, {'error': str(e)}
+        except (disagg_lib.DisaggError, ValueError, TypeError,
+                KeyError, AttributeError) as e:
+            self._disagg_add(import_rejects=1)
+            return 400, {'error': str(e)}
+        stream = query.get('stream') in ('1', 'true')
+        rec = _ChunkRecorder()
+        if stream and write is not None:
+            return self._kv_import_stream(kwargs, len(data), rec, t0, write)
+        try:
+            fut = self.engine.submit_import(on_tokens=rec.cb(0), **kwargs)
+        except ValueError as e:
+            self._disagg_add(import_rejects=1)
+            return 400, {'error': str(e)}
+        try:
+            tokens = fut.result()
+        except Exception as e:  # noqa: BLE001 -- install failed: 409,
+            # so that the load balancer re-serves colocated.
+            self._disagg_add(import_rejects=1)
+            return 409, {'error': f'import install failed: {e}'}
+        self._note_import(len(data), t0, rec)
+        return 200, {'tokens': [list(tokens)]}
+
+    def _note_import(self, nbytes: int, t0: float,
+                     rec: _ChunkRecorder) -> None:
+        self._disagg_add(imports=1, import_bytes=nbytes,
+                         import_seconds=time.time() - t0)
+        self._observe_serving(rec, 'standard', None)
+
+    def _kv_import_stream(self, kwargs: Dict[str, Any], nbytes: int,
+                          rec: _ChunkRecorder, t0: float,
+                          write: Callable
+                          ) -> Tuple[int, Optional[Dict[str, Any]]]:
+        """NDJSON for an imported request, the wire shape of a streamed
+        /generate, so the load balancer pipes it to the client. A doomed
+        import (evicted negotiated blocks) fails at admission, before
+        its first emission: the first line waits for either, so it gets
+        its 409 instead of a broken stream."""
+        lines: 'queue.Queue[Optional[List[int]]]' = queue.Queue()
+        try:
+            fut = self.engine.submit_import(
+                on_tokens=rec.cb(0, lines.put), **kwargs)
+        except ValueError as e:
+            self._disagg_add(import_rejects=1)
+            return 400, {'error': str(e)}
+        fut.add_done_callback(lambda _: lines.put(None))
+        first = lines.get()
+        if first is None:
+            try:
+                fut.result()
+            except Exception as e:  # noqa: BLE001 -- no line sent yet
+                self._disagg_add(import_rejects=1)
+                return 409, {'error': f'import install failed: {e}'}
+        try:
+            while first is not None:
+                write({'row': 0, 'tokens': first})
+                first = lines.get()
+            fut.result()
+            write({'done': True})
+            self._note_import(nbytes, t0, rec)
+        except Exception as e:  # noqa: BLE001 -- mid-stream: in-band
+            with contextlib.suppress(Exception):
+                write({'error': str(e)})
+        return 200, None
+
     # -- HTTP ------------------------------------------------------------------
 
     def make_httpd(self, host: str, port: int
@@ -1037,6 +1408,10 @@ _SCRAPE_ROUTES: Dict[str, Optional[Callable[['LlmServer', Dict[str, str]],
 }
 
 
+_POST_ROUTES = ('/generate', '/v1/kv/export', '/v1/kv/prepare',
+                '/v1/kv/chains', '/v1/kv/import')
+
+
 class _HttpServer(http.server.ThreadingHTTPServer):
     daemon_threads = True
     # The listen backlog: a flood of connections (a QoS overload) must
@@ -1073,6 +1448,14 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         if path == '/health':
             self._reply(*llm.health())
             return
+        if path == '/v1/kv/fetch':
+            status, payload = llm.kv_fetch(
+                dict(urllib.parse.parse_qsl(query)))
+            if isinstance(payload, bytes):
+                self._send(status, payload, 'application/octet-stream')
+            else:
+                self._reply(status, payload)
+            return
         if path not in _SCRAPE_ROUTES:
             self._reply(404, {'error': f'no route {self.path}'})
         elif not users_lib.metrics_scrape_allowed(self.headers):
@@ -1091,11 +1474,26 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                 llm, dict(urllib.parse.parse_qsl(query))))
 
     def do_POST(self):  # noqa: N802 -- http.server's name
-        if self.path.split('?', 1)[0] != '/generate':
+        path, _, query = self.path.partition('?')
+        if path not in _POST_ROUTES:
             self._reply(404, {'error': f'no route {self.path}'})
+            return
+        if 'chunked' in self.headers.get('Transfer-Encoding', '').lower():
+            # Bodies are read by Content-Length; a chunked one would be
+            # misread, so it is refused (and the connection closed).
+            self.close_connection = True
+            self._reply(411, {'error': 'send the body with a '
+                                       'Content-Length, not chunked'})
             return
         length = int(self.headers.get('Content-Length') or 0)
         raw = self.rfile.read(length)
+        llm = self.server.llm
+        if path == '/v1/kv/prepare':
+            self._reply(*llm.kv_prepare(raw))
+            return
+        if path == '/v1/kv/chains':
+            self._reply(*llm.kv_chains(raw))
+            return
         streaming = []
 
         def write(line: Dict[str, Any]) -> None:
@@ -1110,8 +1508,16 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             self.wfile.flush()
 
         reply_headers: Dict[str, str] = {}
-        status, payload = self.server.llm.handle_generate(
-            raw, write, self.headers, reply_headers)
+        if path == '/v1/kv/export':
+            status, payload = llm.kv_export(raw, self.headers,
+                                            reply_headers)
+        elif path == '/v1/kv/import':
+            status, payload = llm.kv_import(
+                raw, self.headers, dict(urllib.parse.parse_qsl(query)),
+                write)
+        else:
+            status, payload = llm.handle_generate(raw, write, self.headers,
+                                                  reply_headers)
         if payload is not None:
             self._reply(status, payload, reply_headers)
 
@@ -1174,6 +1580,16 @@ def build_parser() -> argparse.ArgumentParser:
                              'in flight so host bookkeeping overlaps '
                              'device compute (default on; off = serial '
                              'engine; also via SKYTPU_LLM_PIPELINE)')
+    parser.add_argument('--role', default=None,
+                        choices=('colocated', 'prefill', 'decode'),
+                        help='disaggregated-serving pool role (also via '
+                             'SKYTPU_LLM_ROLE): prefill replicas retire '
+                             'prompts at the first token and export the '
+                             'KV (/v1/kv/export), decode replicas '
+                             'import it and stream (/v1/kv/import); '
+                             'every role still serves /generate for '
+                             'the colocated fallback (default '
+                             'colocated)')
     parser.add_argument('--qos', default=None, choices=('on', 'off'),
                         help='QoS admission control: priority classes '
                              '(interactive/standard/batch), per-tenant '
@@ -1213,14 +1629,14 @@ def server_from_args(args: argparse.Namespace, device=None) -> LlmServer:
                      kv_blocks=args.kv_blocks,
                      prefix_share=args.prefix_share,
                      draft_model=args.draft_model, qos=args.qos,
-                     device=device)
+                     role=args.role, device=device)
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> None:
     """Boot as the JAX replica does, marking the cold-start ledger, then
     serve until SIGTERM/SIGINT; ``device`` None = CUDA. A warm-up that
     reports an error fails the boot. SIGQUIT writes every thread's stack
-    to the recorder's spool (``sigquit-<pid>-llm_server:colocated.txt``)
+    to the recorder's spool (``sigquit-<pid>-llm_server:<role>.txt``)
     without stopping the replica; SIGTERM records ``server.drain``, starts
     the drain, dumps a ``sigterm`` incident bundle, and exits 0 once the
     drain ends."""
@@ -1229,7 +1645,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> None:
     check_knobs(args.model, args.engine, args.qos)
     # SIGQUIT interrogation before the CUDA context: a replica hung in its
     # init is the one an operator most needs to `kill -QUIT`.
-    blackbox.set_process_label('llm_server:colocated')
+    role = args.role or os.environ.get('SKYTPU_LLM_ROLE') or 'colocated'
+    blackbox.set_process_label(f'llm_server:{role}')
     blackbox.install_sigquit()
     _build.compile_cache()  # before any kernel library is built or loaded
     cuda_client_guard.init_backend_guarded(

@@ -27,8 +27,9 @@ replicas' scrapes and compares them).
   engine gauges, ``skytpu_replica_kv_blocks{state}``, the KV-tier gauges,
   ``skytpu_replica_qos_queue_depth{qos_class}``, the profiler's compile,
   device-memory and cold-start gauges (series only while
-  ``SKYTPU_PROFILE`` is on), and the ``skytpu_disagg_*`` families as the
-  JAX replica renders them with no handoffs (cleared, the fallback 0).
+  ``SKYTPU_PROFILE`` is on), and the ``skytpu_disagg_*`` families from
+  the replica's handoff counters (``disagg``; without them cleared, the
+  fallback 0, as JAX renders them).
 
 ``render_serving(..., openmetrics=True)`` writes the OpenMetrics text that
 ``prometheus_client``'s exposition writes for the same registry (the
@@ -423,17 +424,40 @@ def _profile_samples() -> Dict[str, List[Tuple[Dict[str, str], float]]]:
     return s
 
 
+def _disagg_samples(disagg: Optional[Dict[str, Any]]
+                    ) -> Dict[str, List[Tuple[Dict[str, str], float]]]:
+    """The skytpu_disagg_* families from the replica's handoff counters
+    (``LlmServer.disagg_stats``); without them only the fallback total,
+    at 0, as JAX's ``render_serving`` leaves it."""
+    s: Dict[str, List[Tuple[Dict[str, str], float]]] = {
+        'skytpu_disagg_fallback_total': [
+            ({}, float((disagg or {}).get('fallbacks_served') or 0))]}
+    if not disagg:
+        return s
+    for direction in ('export', 'import'):
+        for name, key in (('skytpu_disagg_handoffs', f'{direction}s'),
+                          ('skytpu_disagg_handoff_bytes',
+                           f'{direction}_bytes'),
+                          ('skytpu_disagg_handoff_seconds',
+                           f'{direction}_seconds')):
+            s.setdefault(name, []).append(
+                ({'direction': direction}, float(disagg.get(key) or 0)))
+    return s
+
+
 def render_serving(engine: Optional[Dict[str, Any]] = None,
                    qos: Optional[Dict[str, Any]] = None,
+                   disagg: Optional[Dict[str, Any]] = None,
                    openmetrics: bool = False) -> bytes:
     """The replica's scrape body: the histograms, then every gauge
-    family, from the engine's and the QoS scheduler's stats (None where
-    the replica has none). ``openmetrics`` writes the OpenMetrics
-    exposition, with exemplars on bucket lines and a final ``# EOF``."""
+    family, from the engine's, the QoS scheduler's and the KV handoff's
+    stats (None where the replica has none). ``openmetrics`` writes the
+    OpenMetrics exposition, with exemplars on bucket lines and a final
+    ``# EOF``."""
     samples = _engine_samples(engine)
     samples.update(_profile_samples())
     samples.update(_observability_samples())
-    samples['skytpu_disagg_fallback_total'] = [({}, 0.0)]
+    samples.update(_disagg_samples(disagg))
     for cls, c in ((qos or {}).get('classes') or {}).items():
         if isinstance(c, dict):
             samples.setdefault('skytpu_replica_qos_queue_depth', []).append(

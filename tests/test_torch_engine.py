@@ -761,15 +761,14 @@ def test_chunked_prefill_with_the_prefix_pool(weights):
 
 UNPORTED = {
     'mesh': dict(mesh=object()),
-    'prefill_role': dict(role='prefill'),
-    'decode_role': dict(role='decode'),
 }
-# Refused until the paged layout, block sharing and KV tiers and
-# draft rounds (a draft model, paged or not) were ported; now accepted and
-# resolved as the JAX engine resolves them (block sharing only on the
-# paged layout and without a draft, tiers only with sharing, serial
-# rounds with a draft). 'draft' and 'draft_params' name the pair; a half
-# pair is refused with JAX's ValueError.
+# Refused until the paged layout, block sharing and KV tiers, draft
+# rounds (a draft model, paged or not) and the prefill and decode roles
+# were ported; now accepted and resolved as the JAX engine resolves them
+# (block sharing only on the paged layout and without a draft, tiers only
+# with sharing, serial rounds with a draft; every role still serves
+# submit). 'draft' and 'draft_params' name the pair; a half pair is
+# refused with JAX's ValueError.
 PORTED = {
     'paged': dict(kv_layout='paged'),
     'block_sharing': dict(prefix_share=True),
@@ -777,6 +776,8 @@ PORTED = {
     'draft': dict(draft=True),
     'draft_params': dict(draft=True, kv_layout='paged'),
     'draft_half_pair': dict(draft='half'),
+    'prefill_role': dict(role='prefill'),
+    'decode_role': dict(role='decode'),
 }
 
 
@@ -809,7 +810,8 @@ def test_unported_options_raise_at_construction(weights, name):
     eng = port_engine.ContinuousEngine(pp, PORT_CFG, slots=2, max_len=32,
                                        device='cpu', **pkw)
     try:
-        for attr in ('kv_layout', 'prefix_share', 'pipeline_depth'):
+        for attr in ('kv_layout', 'prefix_share', 'pipeline_depth',
+                     'role'):
             assert getattr(eng, attr) == getattr(jeng, attr), attr
         assert (eng._kv_tiers is None) == (jeng._kv_tiers is None)  # noqa: SLF001
         row = [5, 6, 7]
@@ -822,12 +824,18 @@ def test_unported_methods_and_bad_options(weights):
     _, pp = weights
     eng = port_engine.ContinuousEngine(pp, PORT_CFG, slots=2, max_len=32,
                                        device='cpu')
-    for call in (lambda: eng.submit_prefill([1], 2),
-                 lambda: eng.submit_import([1], 2, 3),
-                 lambda: eng.probe_chain([1]),
-                 lambda: eng.resolve_chains([])):
-        with pytest.raises(NotImplementedError, match='not ported yet'):
-            call()
+    # The roles' methods are ported (tests/test_torch_disagg.py): on a
+    # colocated slot engine an export works, a paged handoff is refused
+    # as JAX refuses it, and sharing is off.
+    try:
+        handoff = eng.submit_prefill([1, 2, 3], 2).result(timeout=120)
+        assert (handoff.layout, handoff.prompt_len) == ('slot', 3)
+        with pytest.raises(ValueError, match='layout'):
+            eng.submit_import([1], 2, 3)
+        assert eng.probe_chain([1]) == 0
+        assert eng.resolve_chains([]) == []
+    finally:
+        eng.stop()
     with pytest.raises(ValueError, match='kv_layout'):
         port_engine.ContinuousEngine(pp, PORT_CFG, kv_layout='dense',
                                      device='cpu')

@@ -35,10 +35,9 @@ from skypilot_tpu_torch.serve import metrics as port_metrics
 from skypilot_tpu_torch.serve import warmup as port_warmup
 
 MAX_LEN = 64
-# /health keys the JAX replica has and later slices bring to the port
-# (ROADMAP.md): the roles' role and disagg, tensor parallelism's tp. The
-# port adds its device.
-LATER_SLICES = {'role', 'disagg', 'tp'}
+# /health keys the JAX replica has and a later slice brings to the port
+# (ROADMAP.md): tensor parallelism's tp. The port adds its device.
+LATER_SLICES = {'tp'}
 PORT_ONLY = {'device'}
 QOS_OPTS = dict(max_inflight=1, max_queue=8, sweep_s=0, tenant_rps=0,
                 tenant_tps=0)
@@ -138,6 +137,8 @@ def test_fleet_readers_read_both_replicas_alike(engine, monkeypatch,
             'pending': 2, 'overflow': 1, 'depth_total': 5}
         assert pbody['ttft_ms'] == jbody['ttft_ms']
         assert set(pbody) - PORT_ONLY == set(jbody) - LATER_SLICES
+        assert pbody['role'] == jbody['role'] == 'colocated'
+        assert pbody['disagg'] == jbody['disagg']
         # F2: no engine, no key (a string there made the readers raise).
         assert ('engine' in pbody) == ('engine' in jbody) == \
             (engine == 'continuous')
@@ -237,6 +238,190 @@ def test_metrics_families_types_and_labels_equal_jax(monkeypatch):
     assert _families(port_metrics.render_serving().decode()) == \
         _families(jax_metrics.render_serving().decode())
     assert set(port_metrics.FAMILY_NAMES) <= set(got)
+
+
+def _disagg_samples(text):
+    return {(s.name, tuple(sorted(s.labels.items()))): s.value
+            for f in text_string_to_metric_families(text)
+            if f.name.startswith('skytpu_disagg_') for s in f.samples}
+
+
+def test_disagg_families_are_filled_as_jax_fills_them():
+    """``render_serving(disagg=...)``: the skytpu_disagg_* samples (by
+    direction, and the fallback total) JAX renders from the same
+    counters; without counters, JAX's cleared families."""
+    from skypilot_tpu.server import metrics as jax_metrics
+    stats = {'exports': 3, 'export_bytes': 12345, 'export_seconds': 0.5,
+             'imports': 2, 'import_bytes': 6789, 'import_seconds': 0.25,
+             'import_rejects': 1, 'fallbacks_served': 4}
+    want = _disagg_samples(jax_metrics.render_serving(
+        disagg=stats).decode())
+    got = _disagg_samples(port_metrics.render_serving(
+        disagg=stats).decode())
+    assert got == want
+    assert got[('skytpu_disagg_handoff_bytes',
+                (('direction', 'import'),))] == 6789
+    assert got[('skytpu_disagg_fallback_total', ())] == 4
+    assert _disagg_samples(port_metrics.render_serving().decode()) == \
+        _disagg_samples(jax_metrics.render_serving().decode()) == {
+            ('skytpu_disagg_fallback_total', ()): 0.0}
+
+
+def _f32_presets(monkeypatch):
+    """float32 TINY as 'tiny-f32' in both packages, so that one set of
+    weights serves both replicas alike."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    from skypilot_tpu.models import llama as jax_llama
+    from skypilot_tpu_torch.models import llama as port_llama
+    monkeypatch.setitem(jax_llama.PRESETS, 'tiny-f32', dataclasses.replace(
+        jax_llama.TINY, dtype=jnp.float32))
+    cfg = dataclasses.replace(port_llama.TINY, dtype=torch.float32)
+    monkeypatch.setitem(port_llama.PRESETS, 'tiny-f32', cfg)
+    return cfg
+
+
+def _handoff_traffic(pre, dec, rows):
+    """Each row exported on ``pre``, fetched and imported on ``dec``
+    (HTTP), then one corrupt import and one fallback-marked /generate."""
+    for row in rows:
+        exp = json.loads(_http(pre, '/v1/kv/export',
+                               {'tokens': [row], 'max_new_tokens': 6},
+                               {'Content-Type': 'application/json'})[2])
+        status, _, data = _http(pre, f'/v1/kv/fetch?handoff='
+                                f'{exp["handoff"]}', timeout=120)
+        assert status == 200
+        req = urllib.request.Request(
+            f'{dec}/v1/kv/import', data=data, method='POST',
+            headers={'Content-Type': 'application/octet-stream'})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            assert r.status == 200
+    req = urllib.request.Request(
+        f'{dec}/v1/kv/import', data=b'SKYTPUKV1garbage', method='POST',
+        headers={'Content-Type': 'application/octet-stream'})
+    try:
+        urllib.request.urlopen(req, timeout=120)
+        raise AssertionError('a corrupt payload was accepted')
+    except urllib.error.HTTPError as e:
+        assert e.code == 400
+    status, _, _ = _http(dec, '/generate',
+                         {'tokens': [rows[0]], 'max_new_tokens': 3},
+                         {'X-SkyTPU-Disagg-Fallback': '1'})
+    assert status == 200
+
+
+def _serve_jax(server):
+    import asyncio
+
+    from aiohttp import web
+
+    from skypilot_tpu.utils import common_utils
+    port = common_utils.find_free_port(27300)
+    started = threading.Event()
+
+    def run():
+        loop = asyncio.new_event_loop()
+        asyncio.set_event_loop(loop)
+        runner = web.AppRunner(server.make_app())
+        loop.run_until_complete(runner.setup())
+        loop.run_until_complete(
+            web.TCPSite(runner, '127.0.0.1', port).start())
+        started.set()
+        loop.run_forever()
+
+    threading.Thread(target=run, daemon=True).start()
+    assert started.wait(30)
+    return f'http://127.0.0.1:{port}'
+
+
+def test_role_and_disagg_equal_jax_after_the_same_traffic(monkeypatch):
+    """A JAX prefill + decode pair and a port pair (float32 TINY, the same
+    weights) take the same handoffs, a corrupt import and a fallback:
+    /health's ``role`` and ``disagg`` agree but for the seconds and for
+    the byte counts, which may differ by the width of the crc32s' decimal
+    digits in each header (the planes' float32 sums differ in their last
+    bits; at most 8 bytes a payload here). The dual-pool autoscaler and
+    the controller's role map read both fleets alike."""
+    import jax
+    import numpy as np
+    from skypilot_tpu.serve import autoscalers, service_spec
+    from skypilot_tpu_torch.models import llama as port_llama
+    cfg = _f32_presets(monkeypatch)
+    monkeypatch.delenv('SKYTPU_DISAGG_STAGING', raising=False)
+    jservers = {role: jax_srv.LlmServer('tiny-f32', max_len=MAX_LEN,
+                                        kv_layout='paged', role=role)
+                for role in ('prefill', 'decode')}
+    weights = port_llama.params_from_numpy(
+        jax.tree.map(np.asarray, jservers['prefill'].params), cfg, 'cpu')
+    pservers = {role: port_srv.LlmServer('tiny-f32', max_len=MAX_LEN,
+                                         kv_layout='paged', role=role,
+                                         device='cpu')
+                for role in ('prefill', 'decode')}
+    for s in pservers.values():
+        s.params = s.engine.params = weights
+    jurls = {role: _serve_jax(s) for role, s in jservers.items()}
+    served = {role: _serve(s) for role, s in pservers.items()}
+    rows = [[(7 * i + 3 * k) % 250 + 1 for i in range(n)]
+            for k, n in enumerate((13, 33, 40))]
+    try:
+        _handoff_traffic(jurls['prefill'], jurls['decode'], rows)
+        _handoff_traffic(served['prefill'][2], served['decode'][2], rows)
+        bodies = {}
+        for role in ('prefill', 'decode'):
+            jbody = json.loads(_http(jurls[role], '/health')[2])
+            pbody = json.loads(_http(served[role][2], '/health')[2])
+            bodies[role] = (jbody, pbody)
+            assert pbody['role'] == jbody['role'] == role
+            jd, pd = dict(jbody['disagg']), dict(pbody['disagg'])
+            assert pd.keys() == jd.keys()
+            for key in ('export_seconds', 'import_seconds'):
+                assert (pd.pop(key) > 0) == (jd.pop(key) > 0), key
+            for key in ('export_bytes', 'import_bytes'):
+                assert abs(pd.pop(key) - jd.pop(key)) <= 8 * len(rows), key
+            assert pd == jd
+            eng_j = jbody['engine']['disagg']
+            eng_p = pbody['engine']['disagg']
+            assert {k: v for k, v in eng_p.items() if not k.endswith('_ms')} \
+                == {k: v for k, v in eng_j.items() if not k.endswith('_ms')}
+        assert bodies['decode'][1]['disagg']['imports'] == 3
+        assert bodies['decode'][1]['disagg']['fallbacks_served'] == 1
+        # The controller's role map and the dual-pool autoscaler.
+        policy = service_spec.ReplicaPolicy.from_config(
+            {'disagg': {'prefill': {'min_replicas': 1, 'max_replicas': 3},
+                        'decode': {'min_replicas': 1, 'max_replicas': 4}},
+             'target_queue_per_replica': 2,
+             'target_decode_tok_s_per_replica': 100})
+        decisions = []
+        for which in (0, 1):
+            reps = [{'replica_id': i, 'role': bodies[role][which]['role'],
+                     'status': 'READY', 'endpoint': f'r{i}:80',
+                     'weight': 1.0,
+                     'health': json.dumps(bodies[role][which])}
+                    for i, role in enumerate(('prefill', 'decode'))]
+            assert {r['endpoint']: r.get('role') or 'colocated'
+                    for r in reps} == {'r0:80': 'prefill',
+                                       'r1:80': 'decode'}
+            scaler = autoscalers.make_autoscaler(policy)
+            pools = [
+                [autoscalers.DualPoolAutoscaler._queue_depth(r)  # noqa: SLF001
+                 for r in scaler._pool(reps, role)]  # noqa: SLF001
+                for role in ('prefill', 'decode')]
+            d1 = scaler.evaluate(2, 0, [], now=1000.0, replicas=reps)
+            d2 = scaler.evaluate(2, 0, [], now=1010.0, replicas=reps)
+            decisions.append((pools, (d1.num_prefill, d1.num_decode),
+                              (d2.num_prefill, d2.num_decode)))
+        assert decisions[0] == decisions[1]
+    finally:
+        for httpd, thread, _ in served.values():
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(10)
+        for s in pservers.values():
+            s.stop()
+        for s in jservers.values():
+            if s.engine is not None:
+                s.engine.stop()
 
 
 def test_metrics_and_debug_profile_behind_the_scrape_token(monkeypatch):

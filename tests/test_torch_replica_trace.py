@@ -191,7 +191,7 @@ def test_health_trace_and_routes_behind_the_token(pair, monkeypatch):
     ph = json.loads(_http(pep, '/health')[2])
     assert set(ph['trace']) == set(jh['trace'])
     assert ph['trace'] == port_trace.tail_stats()
-    assert set(ph) - {'device'} == set(jh) - {'role', 'disagg', 'tp'}
+    assert set(ph) - {'device'} == set(jh) - {'tp'}
     for ep in (jep, pep):
         for path in ROUTES:
             assert _http(ep, path)[0] == 200, (ep, path)
@@ -320,3 +320,64 @@ def test_jax_load_balancer_stitches_a_port_replica(monkeypatch):
         httpd.shutdown()
         httpd.server_close()
         server.stop()
+
+
+def test_jax_load_balancer_stitches_the_handoff_legs(monkeypatch):
+    """A JAX LB in front of a port prefill and a port decode replica: one
+    traced request through the handoff stitches into one waterfall, the
+    LB's ``lb.handoff.export``/``fetch``/``import`` legs beside the
+    replicas' ``serve.kv_export`` (with its ``serve.prefill`` child) and
+    ``serve.kv_import`` roots, each root joined to the LB's trace."""
+    servers = {role: port_srv.LlmServer('tiny', max_len=MAX_LEN,
+                                        device='cpu', kv_layout='paged',
+                                        role=role)
+               for role in ('prefill', 'decode')}
+    eps, httpds = {}, []
+    for role, s in servers.items():
+        eps[role], httpd = _serve_port(s)
+        httpds.append(httpd)
+    lb = LoadBalancer(common_utils.find_free_port(25500))
+    lb.set_replicas(list(eps.values()),
+                    roles={ep: role for role, ep in eps.items()})
+    lb.start_in_thread()
+    try:
+        header = jax_trace.make_header()
+        tid = jax_trace.parse_header(header)[0]
+        body = {'tokens': [list(range(1, 40))], 'max_new_tokens': 6}
+        status, headers, raw = _http(f'127.0.0.1:{lb.port}', '/generate',
+                                     body, {jax_trace.TRACE_HEADER: header})
+        assert status == 200, raw
+        assert headers.get('X-SkyTPU-Disagg') == 'remote'
+        # Both replicas run in this process, so the port's tracer holds
+        # both fragments of the journey.
+        spans = {sp['name']: sp for sp in _trace(eps['prefill'],
+                                                 tid)['spans']}
+        assert {'nbytes', 'prompt_len', 'staged', 'status'} <= set(
+            spans['serve.kv_export']['attrs'])
+        assert spans['serve.kv_import']['attrs']['status'] == 200
+        assert spans['serve.kv_import']['attrs']['tokens'] == 6
+        status, _, raw = _http(f'127.0.0.1:{lb.port}',
+                               f'/debug/traces?stitch=1&trace_id={tid}')
+        assert status == 200, raw
+        stitched = json.loads(raw)
+        assert sorted(stitched['stitched_from']) == sorted(eps.values())
+        tr = stitched['traces'][0]
+        by_id = {s['span_id']: s for s in tr['spans']}
+        names = collections.Counter(s['name'] for s in tr['spans'])
+        for name in ('lb.request', 'lb.handoff.export', 'lb.handoff.fetch',
+                     'lb.handoff.import', 'serve.kv_export',
+                     'serve.kv_import', 'serve.prefill', 'serve.decode'):
+            assert names[name] >= 1, (name, names)
+        for root in ('serve.kv_export', 'serve.kv_import'):
+            span = next(s for s in tr['spans'] if s['name'] == root)
+            assert by_id[span['parent_id']]['name'].startswith('lb.'), span
+        prefill = [s for s in tr['spans'] if s['name'] == 'serve.prefill']
+        assert {by_id[s['parent_id']]['name'] for s in prefill} == {
+            'serve.kv_export', 'serve.kv_import'}
+    finally:
+        lb.stop()
+        for httpd in httpds:
+            httpd.shutdown()
+            httpd.server_close()
+        for s in servers.values():
+            s.stop()
