@@ -3825,7 +3825,7 @@ def _colocated(url, body):
     return _streamed_tokens(status, lines, 'colocated'), first
 
 
-def _export_fetch(pre_url, dec_url, body, negotiate=True):
+def _export_fetch(pre_url, dec_url, body):
     """The load balancer's first legs: export, prepare (paged, when the
     prompt has full blocks), fetch with the negotiated ``skip_blocks``.
     Returns (import body, its headers, figures); a failed leg raises."""
@@ -3841,7 +3841,7 @@ def _export_fetch(pre_url, dec_url, body, negotiate=True):
         fig['bytes'] = exp['nbytes']
         return (json.dumps({'staging_ref': exp['staging_ref']}).encode(),
                 JSON_CT, fig)
-    if negotiate and exp['full_blocks']:
+    if exp['full_blocks']:
         status, _, raw = _http(dec_url, '/v1/kv/prepare',
                                {'tokens': body['tokens']}, JSON_CT)
         if status != 200:
@@ -3858,15 +3858,14 @@ def _export_fetch(pre_url, dec_url, body, negotiate=True):
     return data, OCTET_CT, fig
 
 
-def _handoff(pre_url, dec_url, body, negotiate=True):
+def _handoff(pre_url, dec_url, body):
     """export -> prepare -> fetch(skip_blocks) -> import?stream=1, as the
     load balancer runs them. Returns (tokens, figures): each leg's ms
     (import: to its first line, i.e. parse, checks, install and the first
     token), the payload bytes, the handoff rate over fetch + import, TTFT
     from the export's start, and the decode seconds after the first
     line. Any failed leg raises: there is no colocated retry here."""
-    return _import_leg(dec_url, *_export_fetch(pre_url, dec_url, body,
-                                               negotiate))
+    return _import_leg(dec_url, *_export_fetch(pre_url, dec_url, body))
 
 
 def _import_leg(dec_url, data, headers, fig):

@@ -2407,24 +2407,22 @@ class ContinuousEngine:
         hi = nb_prompt - entry.block_start
         # The pool's dtype, not the entry's: a handoff whose whole chain
         # is shared carries no planes at all.
-        kdt = self._cache.k.dtype
         on_dev = []
         for name in ('k', 'v', 'k_s', 'v_s'):
-            if name in ('k_s', 'v_s') and not self.kv_quantize:
+            scale = name in ('k_s', 'v_s')
+            if scale and not self.kv_quantize:
                 on_dev.append(None)
                 continue
+            want = torch.float32 if scale else self._cache.k.dtype
             src = getattr(entry, name) if len(ids) else None
             if src is None:
-                tdt = kdt if name in ('k', 'v') else torch.float32
-                pad = np.zeros(shp if name in ('k', 'v') else shp[:-1],
-                               _host_dtype(tdt))
+                pad = np.zeros(shp[:-1] if scale else shp, _host_dtype(want))
+                tdt = want
             else:
                 words, tdt = _plane_words(src)
-                pad = np.zeros((shp if name in ('k', 'v') else shp[:-1]),
-                               words.dtype)
+                pad = np.zeros(shp[:-1] if scale else shp, words.dtype)
                 pad[:, :len(ids)] = words[:, lo:hi]
-            t = _to_device(pad, dev, tdt if tdt == torch.bfloat16 else None)
-            want = kdt if name in ('k', 'v') else torch.float32
+            t = _to_device(pad, dev, tdt)
             on_dev.append(t if t.dtype == want else t.to(want))
         _import_blocks(self._cache, *on_dev, _to_device(blocks, dev),
                        _to_device(table_row, dev), slot, n)
@@ -2514,8 +2512,8 @@ class ContinuousEngine:
             self.chunks_run += 1
             for i, req in enumerate(reqs):
                 if req is None or self._slot_req[i] is not req \
-                        or req.future.done():
-                    continue  # a free slot's junk
+                        or req.future.done() or req.export:
+                    continue  # a free slot's junk, or an export's
                 if req.temperature == 0.0:
                     a = 0
                     while a < k and props_h[i, a] == tgt_h[i, a]:
@@ -2660,10 +2658,11 @@ class ContinuousEngine:
             self.chunks_run += 1
             for i, req in enumerate(flight.reqs):
                 if req is None or self._slot_req[i] is not req \
-                        or req.future.done():
+                        or req.future.done() or req.export:
                     # Stale snapshot entry: the slot was freed (possibly
                     # reused) since dispatch; appending would mutate a
-                    # list already handed to the future.
+                    # list already handed to the future. An export's row
+                    # is inactive and its drain retires it.
                     continue
                 take = min(req.max_new - len(req.tokens), flight.steps)
                 new = [int(t) for t in toks_host[:take, i]]

@@ -571,3 +571,34 @@ def test_roles_are_options_of_the_engine(weights):
             jeng.stop()
     finally:
         eng.stop()
+
+
+@pytest.mark.parametrize('layout', ['slot', 'paged'])
+def test_exports_beside_colocated_traffic_on_one_engine(weights, layout):
+    """A prefill replica also serves the load balancer's colocated
+    fallback: exports and decoding requests queued together share the
+    prefill groups and the decode chunks, and each comes out as alone."""
+    colo = _mk('port', weights, kv_layout=layout)
+    pre = _mk('port', weights, 'prefill', kv_layout=layout)
+    dec = _mk('port', weights, 'decode', kv_layout=layout)
+    try:
+        rows = [_row(n, salt + 20) for n, _, salt in CASES]
+        want = [colo.submit(r, 10).result(timeout=300) for r in rows]
+        reqs = [pre._build_request(r, 10, 0.0, None, 0, 1.0, None,  # noqa: SLF001
+                                   export=i % 2 == 0)
+                for i, r in enumerate(rows + rows)]
+        with pre._lock:  # noqa: SLF001 -- one batch, one look
+            pre._pending.extend(reqs)  # noqa: SLF001
+        pre.start()
+        pre._wake.set()  # noqa: SLF001
+        for i, req in enumerate(reqs):
+            out = req.future.result(timeout=300)
+            if req.export:
+                data = pd.serialize_bytes(out, pd.build_header(
+                    out, model='tiny', kv_cache='bf16'))
+                out = _import(pd, dec, data)
+            assert out == want[i % len(rows)], i
+        assert pre.exports == 3
+        assert pre.stats()['pipeline']['dispatches'] > 0
+    finally:
+        _stop(colo, pre, dec)
