@@ -258,6 +258,19 @@ def test_route_status_codes(fleet):
         status, _, raw = _http(dec_ep, path, data,
                                {'Content-Type': 'application/octet-stream'})
         assert status == 409, raw
+    # A negotiated prefix the decode trie does not hold: the streamed
+    # import fails at admission and answers 409 before any line.
+    exp = json.loads(_http(pre_ep, '/v1/kv/export', body)[2])
+    status, _, data = _http(pre_ep, f'/v1/kv/fetch?handoff='
+                            f'{exp["handoff"]}&skip_blocks=2')
+    assert status == 200
+    errors = servers['decode'].engine.import_errors
+    status, hdrs, raw = _http(dec_ep, '/v1/kv/import?stream=1', data,
+                              {'Content-Type': 'application/octet-stream'})
+    assert status == 409, raw
+    assert 'evicted' in json.loads(raw)['error']
+    assert hdrs['Content-Type'] == 'application/json'
+    assert servers['decode'].engine.import_errors == errors + 1
     conn = http.client.HTTPConnection(*dec_ep.split(':'))
     conn.putrequest('POST', '/v1/kv/import')
     conn.putheader('Transfer-Encoding', 'chunked')
@@ -450,3 +463,29 @@ def test_mixed_fleet_hands_off_across_packages(prefill_pkg, monkeypatch):
         for s in jservers.values():
             if s.engine is not None:
                 s.engine.stop()
+
+
+def test_role_flag_and_the_recorders_process_label(monkeypatch):
+    """``--role`` parses into the replica (``SKYTPU_LLM_ROLE`` when it is
+    absent), and the recorder's bundles carry ``llm_server:<role>``."""
+    from skypilot_tpu_torch.observability import blackbox
+    args = port_srv.build_parser().parse_args(
+        ['--model', 'tiny', '--max-len', '64', '--role', 'decode'])
+    assert args.role == 'decode'
+    with pytest.raises(SystemExit):
+        port_srv.build_parser().parse_args(['--role', 'router'])
+    server = port_srv.server_from_args(args, device='cpu')
+    try:
+        assert server.role == server.engine.role == 'decode'
+        assert blackbox._PROC == 'llm_server:decode'  # noqa: SLF001
+        assert server.health()[1]['role'] == 'decode'
+    finally:
+        server.stop()
+    monkeypatch.setenv('SKYTPU_LLM_ROLE', 'prefill')
+    server = port_srv.LlmServer('tiny', max_len=64, device='cpu')
+    try:
+        assert server.role == server.engine.role == 'prefill'
+    finally:
+        server.stop()
+    with pytest.raises(ValueError, match='role'):
+        port_srv.LlmServer('tiny', max_len=64, role='router', device='cpu')
