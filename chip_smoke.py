@@ -5,7 +5,9 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero):
+Phases (any failure exits non-zero; phases 13 and 14b-14c serve
+bench-1b and moe-8x1b at ``SERVE_LAYERS`` (9) of their 18 layers,
+widths untouched, so that phase 18 fits the script's time limit):
 
 1. Build: compiles both kernel libraries of ``skypilot_tpu_torch/csrc``
    (flash-decode K4, flash-attention K1-K3), one nvcc each, started
@@ -17,7 +19,9 @@ Phases (any failure exits non-zero):
    (M=48, group 1) and a group that is no power of two (3), and the
    continuous engine's decode batch (B=16, M=1024, lengths 0, 1, M and
    past M, as free slots' junk rows reach), the serve-llama recipe's
-   (llama3-1b: B=16, Hq 32, Hkv 8, D=64, M=2048, the same lengths), the
+   (llama3-1b: B=16, Hq 32, Hkv 8, D=64, M=2048, the same lengths), one
+   tensor-parallel rank's (phase 18: bench-1b at tp 2, Hq 8 Hkv 4 M=1024;
+   llama3-8b at tp 8, Hq 4 Hkv 1 M=2048), the
    speculative engine's draft (bench-draft: B=16, Hq 8, Hkv 8, D=64,
    M=1024, the same lengths) and serve-disagg's decode replica (bench-1b:
    B=16, Hq 16, Hkv 8, D=128, M=2048, the same lengths), bf16 and int8
@@ -284,25 +288,60 @@ Phases (any failure exits non-zero):
    ``role`` and ``disagg`` and the engines' counters equal the traffic
    (no fallbacks, no ``import_errors``). 17c: 2 handoffs through a
    staging directory; a payload with a flipped byte gets 400 (imports
-   unchanged, the next handoff served); a negotiated prefix evicted
+   unchanged, the next handoff served: equal to colocated, or else each
+   parts from a direct ``generate`` only where its top-2 logit gap is
+   under GREEDY_GAP_LIMIT, its position and gap printed); a negotiated
+   prefix evicted
    before its import gets 409 before any line. 17b (slot layout, int8
    weights + int8 KV, max_len 1024): 4 lone greedy requests (17, 128,
    300, 900 x 64) with the scale planes, byte-identical; K4 as in 17a.
    Prints each handoff's export, fetch and import ms, bytes and GB/s,
    TTFT through the handoff and colocated, decode tok/s and the phase's
    seconds, each beside the card's name and power limit.
-18. Summary: the card's name and power limit again, one JSON line of
+18. serve-tp: tensor-parallel serving, every rank a process on the one
+   card (NCCL refuses two ranks on one device, checked first; the ranks
+   reduce through gloo staged through host memory). 18a: ``python -m
+   skypilot_tpu_torch.serve.llm_server --model bench-1b --tp 2`` (rank 0
+   starts its follower): /health ``tp`` 2 and ``tp_backend`` gloo, a
+   seeded request refused with a 400 in JAX's words, 4 lone greedy
+   requests (17, 128, 300, 900 x 64), 16 concurrent mixed ones whole, the
+   stream = the request not streamed, SIGTERM drains both ranks to exit
+   0; each rank's K4 calls = 18 x chunk_steps x dispatches at Hkv 4; the
+   lone answers against a tp 1 replica of the same seed under the gap
+   rule; the ranks' weight bytes sum to tp 1's plus the replicated
+   norms' copies, neither holding the whole model. 18b: the
+   serve-multihost recipe's command (``python -m
+   skypilot_tpu_torch.serve.spmd --model llama3-8b --max-len 2048 --tp 8
+   --quantize int8 --kv-cache int8``) as two hosts of four ranks under
+   the gang launcher's env, full width and depth: a stop before the first
+   request exits all eight ranks 0; then 4 greedy requests sent together
+   (17, 128, 300, 900 x 16, decoded one step a chunk: eight ranks share
+   the card) against a tp 1 llama3-8b int8 replica under the gap rule,
+   K4 int8 at Hkv 1 on every rank. In both, every rank prints the crc32
+   of every token it sampled (free slots' included), and the phase fails
+   unless all ranks' are equal. Prints tok/s, host ms a decode step,
+   collectives a step and their host ms, the backend, the ranks' peak
+   memory, each beside the card's name and power limit. K4 at both shard
+   shapes is held to its plain version in phase 2.
+19. Summary: the card's name and power limit again, one JSON line of
    kernels (K1-K3's launches are phases 6, 10, 12 and 14, K4's phase
-   8's, 13's, 14's, 15's, 16's and 17a's for the bf16 cache, phases 8's,
-   9's, 11's, 14's and 17b's for the int8 cache, each path's count in
-   ``launches_by_path``; K4's times are the engine-shape case of phase 2,
-   K1-K3's the train-s4096 shape, each named in ``timed_at``, with the
+   8's, 13's, 14's, 15's, 16's, 17a's and 18a's for the bf16 cache,
+   phases 8's, 9's, 11's, 14's, 17b's and 18b's for the int8 cache, each
+   path's count in ``launches_by_path``, 18's summed over the ranks;
+   K4's times are the engine-shape case of phase 2, K1-K3's the
+   train-s4096 shape, each named in ``timed_at``, with the
    llama-finetune, lora-finetune and train-moe shapes (K1-K3) and the
-   serve-llama, draft and serve-disagg shapes (K4) under ``by_shape``),
-   then the last line ``{"ok": true, "device": {...}}``.
+   serve-llama, draft, serve-disagg and per-rank tp shapes (K4) under
+   ``by_shape``), then the last line ``{"ok": true, "device": {...}}``.
 
 It exits with an error, printing no result, when CUDA is absent or when
 the ``skypilot_tpu_torch`` package is not beside it.
+
+``python3 chip_smoke.py --nccl`` runs, on a machine with four cards, phase
+18's checks over NCCL with one rank a card: K4 at the tp 4 shards (Hkv 2)
+against its plain version, bench-1b at ``--tp 4`` on one host, and the
+serve-multihost recipe at ``--tp 4`` as two hosts of two cards each
+(``CUDA_VISIBLE_DEVICES`` splits them, as two machines would).
 """
 import collections
 import concurrent.futures
@@ -349,6 +388,9 @@ ENGINE_CASE = 'engine B=16 M=1024'  # K4 at the engine's shape
 LLAMA_CASE = 'llama3-1b B=16 M=2048 D=64'  # K4 at the serve-llama recipe's
 DRAFT_CASE = 'bench-draft B=16 M=1024 D=64'  # K4 at the serve-spec draft's
 DISAGG_CASE = 'bench-1b B=16 M=2048 D=128'  # K4 at serve-disagg's decode batch
+# K4 per head shard (phase 18): bench-1b at tp 2, llama3-8b at tp 8.
+TP2_CASE = 'bench-1b tp2 B=16 Hq=8 Hkv=4 M=1024'
+TP8_CASE = 'llama3-8b tp8 B=16 Hq=4 Hkv=1 M=2048'
 TRAIN_CASE = 'train B=2 S=4096'  # K1-K3 at train-s4096 (BENCH_1B)
 FINETUNE_CASE = 'llama3-1b B=8 S=2048'  # K1-K3 at llama-finetune's shape
 LORA_CASE = 'bench-1b B=16 S=2048'  # K1-K3 at the lora-finetune recipe's
@@ -367,6 +409,10 @@ RECIPE = dict(max_len=2048, quantize='int8', kv_cache='int8')
 # Phases 9 and 11 serve llama3-1b at full width and RECIPE_LAYERS of its 16
 # layers, so that the whole script stays well inside its time limit.
 RECIPE_LAYERS = 8
+# Phases 13 and 14b-14c serve bench-1b and moe-8x1b at
+# SERVE_LAYERS of their 18 layers, widths untouched, to make room for
+# phase 18 (serve-tp) inside the script's time limit.
+SERVE_LAYERS = 9
 # A greedy engine stream may part from a direct generate() only where the
 # direct path's two largest logits were closer than this: the engine's
 # prefill group and 16-slot decode batch are other GEMM shapes, and bf16
@@ -527,6 +573,14 @@ def kernel_phase(da):
         (DISAGG_CASE, 16, 16, 8, 128, 2048,
          [0, 1, 2048, 2049, 3000, 8192, 2 ** 20]
          + rng.integers(1, 2049, 9).tolist()),
+        # One rank's decode batch under tensor parallelism (phase 18): its
+        # shard of the heads, the kernel launched per head shard.
+        (TP2_CASE, 16, 8, 4, 128, 1024,
+         [0, 1, 1024, 1025, 1500, 4096, 2 ** 20]
+         + rng.integers(1, 1025, 9).tolist()),
+        (TP8_CASE, 16, 4, 1, 128, 2048,
+         [0, 1, 2048, 2049, 3000, 8192, 2 ** 20]
+         + rng.integers(1, 2049, 9).tolist()),
     ]
     results = {mode: {'max_abs_err': 0.0, 'cases': []} for mode in MODES}
     for mode, (_, quant) in MODES.items():
@@ -585,7 +639,8 @@ def kernel_phase(da):
                                  if k not in ('case', 'dtype')), flush=True)
     for mode in MODES:
         for key, case in (('head', ENGINE_CASE), ('llama', LLAMA_CASE),
-                          ('draft', DRAFT_CASE), ('disagg', DISAGG_CASE)):
+                          ('draft', DRAFT_CASE), ('disagg', DISAGG_CASE),
+                          ('tp2', TP2_CASE), ('tp8', TP8_CASE)):
             results[mode][key] = next(c for c in results[mode]['cases']
                                       if c['case'] == case
                                       and c['dtype'] == 'bfloat16')
@@ -4101,13 +4156,28 @@ def _role_health(servers, want):
                                  f'{body["disagg"]}')
 
 
-def _transports_and_failures(servers, vocab):
+def _held_to_colocated(gen_lib, colo_server, body, got, want):
+    """A handoff's greedy answer ``got`` equals the colocated ``want``, or
+    each parts from a direct ``generate`` where its top-2 logit gap is
+    below GREEDY_GAP_LIMIT (``_check_greedy``, which raises otherwise).
+    Returns None when equal, else (where the two part, [(parting
+    position, gap) of got, of want])."""
+    if got == want:
+        return None
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    return j, [_check_greedy(gen_lib, colo_server, body['tokens'][0], t,
+                             False) for t in (got, want)]
+
+
+def _transports_and_failures(servers, vocab, gen_lib):
     """17c: two handoffs through a staging directory (the replicas'
     ``staging_dir``, which ``SKYTPU_DISAGG_STAGING`` sets at construction),
     a payload with one byte flipped (400, no import, the next handoff
-    served), and a negotiated prefix evicted from the decode replica's
-    trie before the import (409, before any line). Returns the exports
-    and imports it made."""
+    served: equal to colocated, or parted under the gap rule), and a
+    negotiated prefix evicted from the decode replica's trie before the
+    import (409, before any line). Returns the exports and imports it
+    made."""
     colo = servers['colocated'][1]
     (pre, pre_url), (dec, dec_url) = servers['prefill'], servers['decode']
     rng = np.random.default_rng(171)
@@ -4140,8 +4210,8 @@ def _transports_and_failures(servers, vocab):
     if dec.engine.imports != imports:
         raise AssertionError('a corrupt payload reached the engine')
     tokens, _ = _handoff(pre_url, dec_url, body)
-    if tokens != _colocated(colo, body)[0]:
-        raise AssertionError('the handoff after a corrupt one differs')
+    after = _held_to_colocated(gen_lib, servers['colocated'][0], body,
+                               tokens, _colocated(colo, body)[0])
     head = rng.integers(0, vocab, DISAGG_PREAMBLE).tolist()
     _post(dec_url, {'tokens': [head + [5]], 'max_new_tokens': 2})
     _idle(dec.engine)
@@ -4159,7 +4229,8 @@ def _transports_and_failures(servers, vocab):
         raise AssertionError(f'evicted prefix (skip {fig["skip"]}) answered '
                              f'{status} {lines}')
     print(f'  [{_card()}] 17c: 2 staged handoffs equal colocated; a flipped '
-          f'byte: 400, imports unchanged, the next handoff served; '
+          f'byte: 400, imports unchanged, the next handoff served ('
+          f'{"equal to colocated" if after is None else after}); '
           f'{len(pairs)} blocks evicted under a negotiated prefix of {full}: '
           f'409 before any line ({lines[0]["error"][:60]})', flush=True)
     return {'exports': 5, 'imports': 3}
@@ -4205,7 +4276,7 @@ def disagg_phase(srv_lib, gen_lib, engine_lib, paged_lib, disagg_lib, da):
               f'dispatches, none on the prefill replica; 16 concurrent '
               f'handoffs: {tok_s:.1f} tok/s', flush=True)
         _phase('  17a done')
-        more = _transports_and_failures(servers, cfg.vocab_size)
+        more = _transports_and_failures(servers, cfg.vocab_size, gen_lib)
         _role_health(servers, {
             'prefill': {'exports': n17a + more['exports'], 'parked': 0},
             'decode': {'imports': n17a + more['imports'],
@@ -4240,6 +4311,544 @@ def disagg_phase(srv_lib, gen_lib, engine_lib, paged_lib, disagg_lib, da):
     print(f'  [{_card()}] phase 17: {time.perf_counter() - t_phase:.1f} s',
           flush=True)
     return launches
+
+
+# -- phase 18: tensor-parallel serving (serve-tp) -----------------------------
+
+TP_SERVER = [sys.executable, '-m', 'skypilot_tpu_torch.serve.llm_server']
+TP_SPMD = [sys.executable, '-m', 'skypilot_tpu_torch.serve.spmd']
+# 18a: bench-1b at tp 2, the replica's defaults (engine, slot layout, bf16,
+# 16 slots, max_len 1024); rank 0 starts its follower.
+TP_BENCH_ARGV = ['--model', 'bench-1b', '--tp', '2']
+# 18b: the serve-multihost recipe's command
+# (examples/llm/serve-multihost/serve.yaml), as two hosts of four ranks.
+TP_RECIPE_ARGV = ['--model', 'llama3-8b', '--max-len', '2048', '--tp', '8',
+                  '--quantize', 'int8', '--kv-cache', 'int8']
+TP_HOSTS = 2
+TP_LONE = (17, 128, 300, 900)  # greedy prompts, TP_NEW new ids each
+TP_NEW = 64
+# 18b sends its four greedy requests together, decoded one step a chunk:
+# its eight ranks share the one card, and each of a step's 66 collectives
+# waits for the card's time slice (2.3-2.8 s a step, PERF.md §5), so the
+# four share their steps.
+TP8_NEW = 16
+TP8_CHUNK = 1
+TP_UP_S = 600      # spawn to a healthy head
+TP_EXIT_S = 180    # SIGTERM to every rank's exit
+TP_SEEDED_ERROR = ('seeded sampling is unavailable with '
+                   'SKYTPU_DECODE_KERNEL=pallas on a --tp > 1 replica')
+_NCCL_PAIR = r'''
+import datetime, sys, torch, torch.distributed as dist
+torch.cuda.set_device(0)
+dist.init_process_group('nccl', init_method=sys.argv[1], world_size=2,
+                        rank=int(sys.argv[2]),
+                        timeout=datetime.timedelta(seconds=60))
+x = torch.ones(4, device='cuda')
+dist.all_reduce(x)
+torch.cuda.synchronize()
+print('NCCL_PAIR_OK', flush=True)
+'''
+
+
+def _nccl_refusal():
+    """Two NCCL ranks on the one card: NCCL refuses them (so ranks that
+    share a card reduce through gloo). Returns NCCL's line."""
+    tmp = tempfile.mkdtemp(prefix='skytpu-nccl-')
+    procs = [subprocess.Popen(
+        [sys.executable, '-c', _NCCL_PAIR, f'file://{tmp}/rendezvous',
+         str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=180)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    text = '\n'.join(outs)
+    line = next((ln for ln in text.splitlines() if 'Duplicate GPU' in ln),
+                None)
+    if line is None or 'NCCL_PAIR_OK' in text:
+        raise AssertionError(f'two NCCL ranks on one card were not refused '
+                             f'as expected:\n{text[-3000:]}')
+    return line.strip()
+
+
+def _rank_summaries(paths, world):
+    """The ``tp-rank-summary`` lines of every rank, by rank."""
+    found = {}
+    for path in paths:
+        with open(path, encoding='utf-8', errors='replace') as f:
+            for m in re.findall(r'tp-rank-summary (\{[^{}]*\})', f.read()):
+                summ = json.loads(m)
+                found[summ['rank']] = summ
+    if sorted(found) != list(range(world)):
+        raise AssertionError(f'rank summaries of {sorted(found)}, not of '
+                             f'all {world} ranks')
+    return [found[r] for r in range(world)]
+
+
+def _tp_replica(argv, hosts, log_dir, label, host_env=None, **env_vars):
+    """Start the replica's host processes (one: ``llm_server --tp``, which
+    starts its followers; more: ``serve.spmd`` under the gang launcher's
+    env; ``host_env``: each host's own variables) and wait for the head's
+    /health. Returns (procs, logs, url, seconds to healthy)."""
+    port = _free_port()
+    # Each rank's SIGQUIT stacks land here (``_tp_stacks``).
+    env = dict(os.environ, SKYTPU_BLACKBOX_DIR=os.path.join(
+        log_dir, 'blackbox'), **env_vars)
+    if hosts > 1:
+        env.update(JAX_COORDINATOR_ADDRESS=f'127.0.0.1:{_free_port()}',
+                   JAX_NUM_PROCESSES=str(hosts))
+    procs, logs = [], []
+    t0 = time.monotonic()
+    for h in range(hosts):
+        logs.append(os.path.join(log_dir, f'{label}-host{h}.log'))
+        with open(logs[-1], 'w') as log:
+            procs.append(subprocess.Popen(
+                (TP_SPMD if hosts > 1 else TP_SERVER) + argv
+                + ['--host', '127.0.0.1', '--port', str(port)],
+                env=dict(env, **(host_env[h] if host_env else {}),
+                         **({'JAX_PROCESS_ID': str(h)} if hosts > 1
+                            else {})),
+                stdout=log, stderr=subprocess.STDOUT))
+    url = f'http://127.0.0.1:{port}'
+    while True:
+        for h, proc in enumerate(procs):
+            if proc.poll() is not None:
+                time.sleep(2)  # the other hosts' last words
+                _tp_kill(procs)
+                raise AssertionError(f'{label}: host {h} exited '
+                                     f'{proc.returncode} before /health '
+                                     f'answered:\n{_tp_logs(logs)}')
+        if time.monotonic() - t0 > TP_UP_S:
+            raise AssertionError(f'{label}: no /health in {TP_UP_S} s')
+        try:
+            if _http(url, '/health', timeout=5)[0] == 200:
+                return procs, logs, url, time.monotonic() - t0
+        except OSError:
+            pass
+        time.sleep(0.2)
+
+
+def _tp_stop(procs, logs, label, world):
+    """SIGTERM to the head: every host process exits 0 (the head drains
+    and broadcasts stop) within TP_EXIT_S. Returns the rank summaries and
+    the seconds it took."""
+    t0 = time.monotonic()
+    procs[0].send_signal(signal.SIGTERM)
+    try:
+        for h, proc in enumerate(procs):
+            try:
+                code = proc.wait(max(TP_EXIT_S - (time.monotonic() - t0),
+                                     1))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(
+                    f'{label}: host {h} still running {TP_EXIT_S} s after '
+                    f'SIGTERM:\n{_tp_logs(logs)}\n{_tp_stacks(procs, logs)}'
+                ) from None
+            if code != 0:
+                raise AssertionError(f'{label}: host {h} exited {code} '
+                                     'after SIGTERM, not a clean drain:\n'
+                                     + _tp_logs(logs))
+    finally:
+        _tp_kill(procs)
+    return _rank_summaries(logs, world), time.monotonic() - t0
+
+
+def _tp_logs(logs):
+    """Each host's first error lines and its last lines."""
+    out = []
+    for path in logs:
+        with open(path, encoding='utf-8', errors='replace') as f:
+            lines = f.read().splitlines()
+        errors = [ln for ln in lines if 'Error' in ln or 'error' in ln]
+        out.append(f'--- {os.path.basename(path)}: first errors\n'
+                   + '\n'.join(errors[:8]) + '\n--- last lines\n'
+                   + '\n'.join(lines[-15:]))
+    return '\n'.join(out)[-12000:]
+
+
+def _tp_stacks(procs, logs):
+    """SIGQUIT to every rank still running (the host processes and the
+    ranks they spawned): each writes its threads' stacks to the
+    recorder's spool beside the logs. Returns the stacks' tails."""
+    pids = []
+    for proc in procs:
+        if proc.poll() is None:
+            pids.append(proc.pid)
+            try:
+                with open(f'/proc/{proc.pid}/task/{proc.pid}/children',
+                          encoding='utf-8') as f:
+                    pids += [int(p) for p in f.read().split()]
+            except OSError:
+                pass
+    for pid in pids:
+        try:
+            os.kill(pid, signal.SIGQUIT)
+        except OSError:
+            pass
+    time.sleep(5)
+    spool = os.path.join(os.path.dirname(logs[0]), 'blackbox')
+    out = []
+    for name in sorted(os.listdir(spool)) if os.path.isdir(spool) else []:
+        if name.startswith('sigquit-'):
+            with open(os.path.join(spool, name), encoding='utf-8',
+                      errors='replace') as f:
+                out.append(f'--- {name}\n{f.read()[-2500:]}')
+    return '\n'.join(out)[-10000:] or f'no stacks from {pids}'
+
+
+def _tp_kill(procs):
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _check_rank_launches(label, summaries, cfg, chunk_steps,
+                         backend='gloo'):
+    """Each rank ran the same dispatches, sampled the same tokens (the
+    digest of every token it read back, free slots' included) and
+    launched K4 n_layers x chunk_steps x dispatches times, per head
+    shard, over ``backend`` (gloo: staged through host memory). Returns
+    the launches per rank."""
+    dispatches = {s['dispatches'] for s in summaries}
+    digests = {s['sampled_digest'] for s in summaries}
+    if len(digests) != 1 or 0 in digests:
+        raise AssertionError(f'{label}: the ranks sampled different tokens '
+                             f'(digests by rank '
+                             f'{[s["sampled_digest"] for s in summaries]})')
+    for s in summaries:
+        want = cfg.n_layers * chunk_steps * s['dispatches']
+        if s['flash_decode_launches'] != want or not s['dispatches'] \
+                or len(dispatches) != 1 or s['backend'] != backend \
+                or s['staged'] != (backend == 'gloo'):
+            raise AssertionError(f'{label}: rank {s["rank"]} {s} (K4 '
+                                 f'expected {want}, dispatches across '
+                                 f'ranks {sorted(dispatches)})')
+    return [s['flash_decode_launches'] for s in summaries]
+
+
+def _lone_greedy(url, prompts, new, together=False):
+    """Greedy answers to ``prompts``, one request at a time, or all sent
+    at once (``together``)."""
+    reqs = [{'tokens': [p], 'max_new_tokens': new} for p in prompts]
+    answers = (_post_all(url, reqs) if together
+               else [_post(url, r) for r in reqs])
+    for code, body in answers:
+        if code != 200 or len(body['tokens'][0]) != new:
+            raise AssertionError(f'greedy request answered {code} {body}')
+    return [body['tokens'][0] for _, body in answers]
+
+
+def _tp_reference(srv_lib, gen_lib, model, prompts, outs, kv_int8, **kw):
+    """A tp 1 replica of the same seed (window path only: its weights and
+    ``generate``): each tp answer equals its direct generation or parts
+    from it where the top-2 logit gap is below GREEDY_GAP_LIMIT (TP
+    reorders sums). Returns (its parameter bytes, the replicated leaves'
+    bytes, the partings)."""
+    from skypilot_tpu_torch.models import quantization as quant_lib
+    from skypilot_tpu_torch.observability import profiler
+    from skypilot_tpu_torch.parallel import sharding as sharding_lib
+    server = srv_lib.LlmServer(model, engine='off', **kw)
+    try:
+        parts = [_check_greedy(gen_lib, server, p, got, kv_int8)
+                 for p, got in zip(prompts, outs)]
+        # Leaves no rule splits over the tensor axis: the norms, and the
+        # scales of the row-split int8 weights.
+        rules = sharding_lib.ShardingRules()
+        replicated = []
+        sharding_lib.map_logical(
+            lambda la, leaf: replicated.append(leaf)
+            if 'tensor' not in rules.mesh_axes(la) else None,
+            quant_lib.logical_axes_for(server.params, server.cfg),
+            server.params)
+        replicated = profiler.tree_nbytes(replicated)
+        whole = profiler.tree_nbytes(server.params)
+    finally:
+        server.stop()
+        del server
+        torch.cuda.empty_cache()
+    return whole, replicated, parts
+
+
+def _check_param_bytes(label, summaries, whole, replicated):
+    """The ranks' weight bytes sum to the tp 1 replica's plus the
+    replicated leaves' extra copies, and no rank holds the whole model."""
+    per_rank = [s['param_bytes'] for s in summaries]
+    want = whole + (len(per_rank) - 1) * replicated
+    if sum(per_rank) != want or max(per_rank) >= whole:
+        raise AssertionError(f'{label}: ranks hold {per_rank} bytes of '
+                             f'weights (sum {sum(per_rank)}, expected '
+                             f'{want}; tp 1 holds {whole})')
+    return per_rank
+
+
+def _tp_figs(label, summaries, boot_s, stop_s, steps, wall, tokens,
+             backend, chunk_steps):
+    """The window's tok/s and host ms a decode step; each rank's
+    collectives and their host ms over its life, per decode step of its
+    life (prefills and start-up included)."""
+    card = _card()
+    life = [s['dispatches'] * chunk_steps for s in summaries]
+    coll = [round(s['collectives'] / n, 1)
+            for s, n in zip(summaries, life)]
+    coll_ms = [round(s['collective_s'] * 1e3 / n, 2)
+               for s, n in zip(summaries, life)]
+    print(f'  [{card}] {label}: {tokens / wall:.2f} tok/s over {wall:.2f} '
+          f's ({tokens} tokens), {wall * 1e3 / steps:.2f} host ms a decode '
+          f'step ({steps} steps); collectives by rank {coll} a decode step '
+          f'of its life ({life[0]} steps), {coll_ms} host ms of them a '
+          f'step; backend {backend}; peak memory by rank '
+          f'{[s["peak_bytes"] for s in summaries]} B; healthy '
+          f'{boot_s:.1f} s after spawn, every rank out {stop_s:.1f} s '
+          'after SIGTERM', flush=True)
+
+
+def _tp_traffic(vocab):
+    """16 concurrent requests (prompts 17-300, max_new 8-64, a third
+    greedy, a third top-k 50, a third top-p 0.9) and one to stream."""
+    rng = np.random.default_rng(18)
+    reqs = []
+    for i in range(16):
+        body = {'tokens': [rng.integers(0, vocab, int(
+                    rng.integers(17, 301))).tolist()],
+                'max_new_tokens': int(rng.integers(8, 65))}
+        if i % 3 == 1:
+            body.update(temperature=0.8, top_k=50)
+        elif i % 3 == 2:
+            body.update(temperature=1.0, top_p=0.9)
+        reqs.append(body)
+    stream_req = {'tokens': [rng.integers(0, vocab, 40).tolist()],
+                  'max_new_tokens': 40}
+    return reqs, stream_req
+
+
+def _with_tp(argv, tp):
+    i = argv.index('--tp')
+    return argv[:i + 1] + [str(tp)] + argv[i + 2:]
+
+
+def tp_bench_phase(srv_lib, gen_lib, llama, log_dir, tp=2, backend='gloo',
+                   label='18a'):
+    """18a: ``llm_server --model bench-1b --tp 2`` (rank 0 starts its
+    follower): /health ``tp`` 2 over gloo, a seeded request refused in
+    JAX's words, 4 lone greedy requests, 16 concurrent mixed ones whole,
+    the stream = the request not streamed, SIGTERM drains both ranks to
+    exit 0; K4 on each rank = n_layers x chunk_steps x dispatches; every
+    rank samples the same tokens; the lone answers against a tp 1
+    replica of the same seed under the gap rule; the ranks' weight
+    bytes. ``tp`` and ``backend``: the same checks at another degree and
+    over another backend (``--nccl``). Returns K4's launches per rank."""
+    cfg = llama.PRESETS['bench-1b']
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in TP_LONE]
+    procs, logs, url, boot_s = _tp_replica(_with_tp(TP_BENCH_ARGV, tp), 1,
+                                           log_dir, label)
+    try:
+        health = json.loads(_http(url, '/health')[2])
+        if (health['tp'], health['tp_backend']) != (tp, backend):
+            raise AssertionError(f'{label} /health tp {health["tp"]} '
+                                 f'{health["tp_backend"]}')
+        code, _, body = _http(url, '/generate', {
+            'tokens': [[1, 2, 3]], 'max_new_tokens': 4, 'temperature': 0.8,
+            'seed': 1})
+        if code != 400 or json.loads(body)['error'] != TP_SEEDED_ERROR:
+            raise AssertionError(f'{label} seeded request: {code} {body}')
+        lone = _lone_greedy(url, prompts, TP_NEW)
+        reqs, stream_req = _tp_traffic(cfg.vocab_size)
+        d0 = json.loads(_http(url, '/health')[2])['engine']['pipeline'][
+            'dispatches']
+        t0 = time.monotonic()
+        answers = _post_all(url, reqs)
+        wall = time.monotonic() - t0
+        eng = json.loads(_http(url, '/health')[2])['engine']
+        steps = (eng['pipeline']['dispatches'] - d0) * eng['chunk_steps']
+        _check_answers(reqs, answers, cfg.vocab_size)
+        _check_stream(url, stream_req, *_post_stream(url, stream_req))
+        summaries, stop_s = _tp_stop(procs, logs, label, tp)
+    finally:
+        _tp_kill(procs)
+    launches = _check_rank_launches(label, summaries, cfg,
+                                    eng['chunk_steps'], backend)
+    whole, replicated, parts = _tp_reference(
+        srv_lib, gen_lib, 'bench-1b', prompts, lone, False, max_len=1024)
+    per_rank = _check_param_bytes(label, summaries, whole, replicated)
+    _tp_figs(f'{label} bench-1b tp {tp}, 16 concurrent', summaries, boot_s,
+             stop_s, steps, wall, sum(r['max_new_tokens'] for r in reqs),
+             health['tp_backend'], eng['chunk_steps'])
+    print(f'  {label}: lone greedy {TP_LONE} x {TP_NEW} against tp 1: '
+          f'partings (position, top-2 gap) {parts}; weights by rank '
+          f'{per_rank} B, tp 1 {whole} B, replicated leaves {replicated} B; '
+          f'K4 launches by rank {launches} (Hkv {cfg.n_kv_heads // tp} per '
+          f'rank); sampled digest {summaries[0]["sampled_digest"]} on every '
+          'rank', flush=True)
+    return launches
+
+
+def tp_recipe_phase(srv_lib, gen_lib, llama, log_dir, tp=8,
+                    backend='gloo', label='18b', host_env=None):
+    """18b: the serve-multihost recipe's command through ``serve.spmd`` as
+    two hosts of four ranks each under the gang launcher's env, all eight
+    on the one card: a stop before the first request exits every rank 0;
+    then 4 greedy requests sent together agree with a tp 1 llama3-8b int8
+    replica under the gap rule, every rank samples the same tokens, and
+    K4 int8 runs at Hkv 1 on every rank. ``tp``, ``backend`` and
+    ``host_env`` (each host's variables): the same checks at another
+    degree, over another backend, with each host's own cards
+    (``--nccl``). Returns K4's launches per rank."""
+    cfg = llama.PRESETS['llama3-8b']
+    argv = _with_tp(TP_RECIPE_ARGV, tp)
+    chunk = {'SKYTPU_LLM_CHUNK_STEPS': str(TP8_CHUNK)}
+    procs, logs, url, boot0_s = _tp_replica(argv, TP_HOSTS, log_dir,
+                                            f'{label}-stop', host_env,
+                                            **chunk)
+    try:
+        stop_first, stop0_s = _tp_stop(procs, logs, f'{label} stop before '
+                                       'the first request', tp)
+    finally:
+        _tp_kill(procs)
+    _phase(f'  {label} stop before the first request: healthy after '
+           f'{boot0_s:.1f} s')
+    if any(s['dispatches'] for s in stop_first):
+        raise AssertionError(f'{label}: a replica stopped before any '
+                             f'request dispatched {stop_first}')
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in TP_LONE]
+    procs, logs, url, boot_s = _tp_replica(argv, TP_HOSTS, log_dir, label,
+                                           host_env, **chunk)
+    try:
+        health = json.loads(_http(url, '/health')[2])
+        if (health['tp'], health['tp_backend']) != (tp, backend):
+            raise AssertionError(f'{label} /health tp {health["tp"]} '
+                                 f'{health["tp_backend"]}')
+        _phase(f'  {label} healthy after {boot_s:.1f} s')
+        t0 = time.monotonic()
+        greedy = _lone_greedy(url, prompts, TP8_NEW, together=True)
+        wall = time.monotonic() - t0
+        _phase(f'  {label} the 4 greedy requests took {wall:.1f} s')
+        eng = json.loads(_http(url, '/health')[2])['engine']
+        steps = eng['pipeline']['dispatches'] * eng['chunk_steps']
+        summaries, stop_s = _tp_stop(procs, logs, label, tp)
+    finally:
+        _tp_kill(procs)
+    launches = _check_rank_launches(label, summaries, cfg,
+                                    eng['chunk_steps'], backend)
+    _phase(f'  {label} replica done; the tp 1 reference')
+    whole, replicated, parts = _tp_reference(
+        srv_lib, gen_lib, 'llama3-8b', prompts, greedy, True, max_len=2048,
+        quantize='int8', kv_cache='int8')
+    per_rank = _check_param_bytes(label, summaries, whole, replicated)
+    _tp_figs(f'{label} llama3-8b int8 tp {tp} ({TP_HOSTS} hosts x '
+             f'{tp // TP_HOSTS}), 4 greedy at once', summaries, boot_s,
+             stop_s, steps, wall, len(TP_LONE) * TP8_NEW,
+             health['tp_backend'], eng['chunk_steps'])
+    print(f'  {label}: stop before the first request: healthy '
+          f'{boot0_s:.1f} s after spawn, all {tp} ranks out {stop0_s:.1f} s '
+          f'after SIGTERM; greedy {TP_LONE} x {TP8_NEW} at once against tp '
+          f'1: partings (position, top-2 gap) {parts}; weights by rank '
+          f'{per_rank} B, tp 1 {whole} B; K4 int8 launches by rank '
+          f'{launches} (Hkv {cfg.n_kv_heads // tp} per rank); sampled '
+          f'digest {summaries[0]["sampled_digest"]} on every rank',
+          flush=True)
+    return launches
+
+
+def tp_phase(srv_lib, gen_lib, llama):
+    """Phase 18. Returns K4's launches per rank of 18a (bf16) and 18b
+    (int8)."""
+    print(f'  two NCCL ranks on one card: {_nccl_refusal()}', flush=True)
+    log_dir = tempfile.mkdtemp(prefix='skytpu-tp-')
+    try:
+        bench = tp_bench_phase(srv_lib, gen_lib, llama, log_dir)
+        _phase('  18a done')
+        recipe = tp_recipe_phase(srv_lib, gen_lib, llama, log_dir)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    return bench, recipe
+
+
+# --nccl: tensor-parallel serving over NCCL, one rank a card, on a machine
+# with four cards. Two hosts of two cards each, as two machines would see
+# them.
+NCCL_TP = 4
+NCCL_HOSTS = [{'CUDA_VISIBLE_DEVICES': '0,1'}, {'CUDA_VISIBLE_DEVICES': '2,3'}]
+# K4 at one rank's shard: bench-1b and llama3-8b at tp 4 (Hkv 2).
+NCCL_CASES = (('bench-1b tp4 B=16 Hq=4 Hkv=2 M=1024', 16, 4, 2, 128, 1024),
+              ('llama3-8b tp4 B=16 Hq=8 Hkv=2 M=2048', 16, 8, 2, 128, 2048))
+
+
+def _shard_kernels(da):
+    """K4 against its plain version at NCCL_CASES, bf16 and int8 caches,
+    bf16 queries (tolerance 2e-2, as phase 2's bf16)."""
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    rng = np.random.default_rng(4)
+    for label, b, hq, hkv, d, m in NCCL_CASES:
+        lengths = [0, 1, m, m + 1] + rng.integers(1, m + 1, b - 4).tolist()
+        for mode, (_, quant) in MODES.items():
+            args = _make_case(gen, b, hq, hkv, d, m, lengths,
+                              torch.bfloat16, quant)
+            out = da.flash_decode(*args)
+            torch.cuda.synchronize()
+            err = float((out.float() - da.flash_decode_reference(
+                *args).float()).abs().max())
+            if not err <= 2e-2:
+                raise AssertionError(f'flash_decode[{mode}] at {label}: '
+                                     f'max abs err {err}')
+            print(f'  flash_decode[{mode} cache] at {label}: max abs err '
+                  f'{err:.3g} (tolerance 2e-2)', flush=True)
+
+
+def nccl_main() -> int:
+    """``python3 chip_smoke.py --nccl``, on a machine with four cards:
+    18a's checks for bench-1b at ``--tp 4`` on one host and 18b's for the
+    serve-multihost recipe at ``--tp 4`` as two hosts of two cards, every
+    rank on its own card over NCCL (/health ``tp_backend`` nccl, nothing
+    staged through the host), after K4 at their Hkv 2 shard is held to
+    its plain version."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < NCCL_TP:
+        print(f'chip_smoke --nccl: needs {NCCL_TP} CUDA devices',
+              file=sys.stderr)
+        return 2
+    from skypilot_tpu_torch.models import generate as gen_lib
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import decode_attention as da
+    from skypilot_tpu_torch.serve import llm_server as srv_lib
+    cards = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    print(cards, flush=True)
+    print(f'torch {torch.__version__} cuda {torch.version.cuda} '
+          f'nccl {".".join(map(str, torch.cuda.nccl.version()))}',
+          flush=True)
+    _phase('nccl 1: build K4; K4 at the tp 4 shards')
+    _build_all([da])
+    _shard_kernels(da)
+    log_dir = tempfile.mkdtemp(prefix='skytpu-nccl-')
+    try:
+        _phase(f'nccl 2: bench-1b --tp {NCCL_TP}, one host, NCCL')
+        bench = tp_bench_phase(srv_lib, gen_lib, llama, log_dir, NCCL_TP,
+                               'nccl', 'nccl-a')
+        _phase(f'nccl 3: the serve-multihost recipe at --tp {NCCL_TP}, '
+               f'{TP_HOSTS} hosts of {NCCL_TP // TP_HOSTS} cards, NCCL')
+        recipe = tp_recipe_phase(srv_lib, gen_lib, llama, log_dir, NCCL_TP,
+                                 'nccl', 'nccl-b', NCCL_HOSTS)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    print(cards, flush=True)
+    print(json.dumps({'nccl': {'bench-1b tp4 K4 bf16 launches by rank': bench,
+                               'llama3-8b tp4 K4 int8 launches by rank':
+                               recipe}}), flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def _check_dispatches(label, launches, d0, d1, cfg, dec):
@@ -4362,10 +4971,12 @@ def main() -> int:
            '2048, --mesh fsdp=-1, rank 16) through train.run: save, resume')
     lora_launches = lora_phase(llama, fa, train_run, lora_lib, trainer_lib)
 
-    _phase('phase 13: speculative decoding (bench-1b + bench-draft, k 4) '
-           'over HTTP: the engine, the window path, an identical draft')
-    by_path['bf16']['phase 13 serve-spec'] = spec_phase(
-        srv_lib, gen_lib, engine_lib, llama, da, engine_figs['bf16'])
+    _phase(f'phase 13: speculative decoding (bench-1b at {SERVE_LAYERS} of '
+           '18 layers + bench-draft, k 4) over HTTP: the engine, the window '
+           'path, an identical draft')
+    with _cut_depth(llama, 'bench-1b', SERVE_LAYERS):
+        by_path['bf16']['phase 13 serve-spec'] = spec_phase(
+            srv_lib, gen_lib, engine_lib, llama, da, engine_figs['bf16'])
 
     _phase('phase 14: mixture of experts (moe-8x1b): a small MoE model card '
            'against CPU, serving over HTTP through the engine and the window '
@@ -4374,12 +4985,13 @@ def main() -> int:
                     data_lib)
     _phase('  14a done')
     moe_figs = {}
-    for mode, quantize in (('bf16', None), ('int8', 'int8')):
-        by_path[mode]['phase 14 serve-moe'], moe_figs[mode] = \
-            moe_engine_phase(srv_lib, gen_lib, da, quantize, mode)
-    _phase('  14b done')
-    by_path['bf16']['phase 14 window-moe'] = moe_window_phase(
-        srv_lib, gen_lib, da)
+    with _cut_depth(llama, 'moe-8x1b', SERVE_LAYERS):
+        for mode, quantize in (('bf16', None), ('int8', 'int8')):
+            by_path[mode]['phase 14 serve-moe'], moe_figs[mode] = \
+                moe_engine_phase(srv_lib, gen_lib, da, quantize, mode)
+        _phase(f'  14b done (moe-8x1b at {SERVE_LAYERS} of 18 layers)')
+        by_path['bf16']['phase 14 window-moe'] = moe_window_phase(
+            srv_lib, gen_lib, da)
     _phase('  14c done')
     moe_launches = moe_train_phase(llama, fa, train_run, trainer_lib)
     for mode in MODES:
@@ -4389,7 +5001,8 @@ def main() -> int:
               f'tok/s, {engine_figs[mode]["step_ms"]:.2f} ms', flush=True)
 
     for mode in MODES:
-        for case in (LLAMA_CASE, DRAFT_CASE, DISAGG_CASE):
+        for case in (LLAMA_CASE, DRAFT_CASE, DISAGG_CASE, TP2_CASE,
+                     TP8_CASE):
             row = next(c for c in kernels[mode]['cases']
                        if c['case'] == case and c['dtype'] == 'bfloat16')
             print(f'  flash_decode[{mode} cache] at {case}: ms {row["ms"]}'
@@ -4429,7 +5042,14 @@ def main() -> int:
     by_path['bf16']['phase 17 serve-disagg'] = disagg['bf16']
     by_path['int8']['phase 17 serve-disagg int8'] = disagg['int8']
 
-    _phase('phase 18: summary')
+    _phase('phase 18: serve-tp: bench-1b at --tp 2 (18a), the '
+           'serve-multihost recipe (llama3-8b int8, --tp 8 as 2 hosts x 4 '
+           'ranks, 18b), every rank a process on the one card, gloo')
+    tp_bench, tp_recipe = tp_phase(srv_lib, gen_lib, llama)
+    by_path['bf16']['phase 18a serve-tp (2 ranks)'] = sum(tp_bench)
+    by_path['int8']['phase 18b serve-multihost (8 ranks)'] = sum(tp_recipe)
+
+    _phase('phase 19: summary')
     print(_card(), flush=True)  # again here, where the output's tail has it
     entries = []
     for name, (replaces, _, source) in FLASH.items():
@@ -4456,7 +5076,8 @@ def main() -> int:
                 'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')}
                 for key, case in (('llama', LLAMA_CASE),
                                   ('draft', DRAFT_CASE),
-                                  ('disagg', DISAGG_CASE))}})
+                                  ('disagg', DISAGG_CASE),
+                                  ('tp2', TP2_CASE), ('tp8', TP8_CASE))}})
     print(json.dumps({'kernels': entries}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -4465,4 +5086,4 @@ def main() -> int:
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(nccl_main() if sys.argv[1:] == ['--nccl'] else main())

@@ -119,8 +119,20 @@ so the engine is bound by the host's time to issue them.
   a negotiated block that was evicted fails that import alone
   (``KVImportError``). Every role still serves ``submit``.
 
-Not ported yet; it raises ``NotImplementedError`` at construction: a
-mesh.
+* Tensor parallelism (``mesh=``, one process per rank; ``serve/spmd.py``
+  keeps the ranks in lockstep): the weights are this rank's slices
+  (``quantization.shard_params``; a whole tree is sliced here), and the
+  slot layout's cache and int8 scales are born sharded on kv_heads in
+  ``_init_device_state``, at construction and at every
+  ``_fail_everything`` recovery; the slot vectors, the rewind state and
+  the generator stay replicated, so every device decision stays a pure
+  function of the request stream. Every forward passes the mesh to
+  ``forward_cached`` (the decode kernel per head shard). The prefix pool
+  and chunked prefill run sharded too.
+
+Not ported yet under a mesh; each raises ``NotImplementedError`` at
+construction, by name: the paged layout, draft rounds, MoE, the prefill
+and decode roles, and any mesh axis but ``tensor`` (the data axis).
 """
 from __future__ import annotations
 
@@ -131,6 +143,7 @@ import dataclasses
 import os
 import threading
 import time
+import zlib
 from typing import List, Optional
 
 import numpy as np
@@ -428,7 +441,7 @@ def _chunk_impl(cfg: llama.LlamaConfig, k_steps: int, params,
                 temps: Optional[torch.Tensor],
                 top_ks: Optional[torch.Tensor],
                 top_ps: Optional[torch.Tensor],
-                generator: Optional[torch.Generator]):
+                generator: Optional[torch.Generator], mesh=None):
     """K decode steps over ALL slots: returns (cache, last, toks [K, B]).
     ``occupied`` [B] is the host's slot snapshot at dispatch (JAX's
     ``active``). Per-slot sampling params ride as data (temps 0 = greedy,
@@ -441,7 +454,8 @@ def _chunk_impl(cfg: llama.LlamaConfig, k_steps: int, params,
         active = occupied & (cache.lengths < limit)
         logits, cache = gen_lib.forward_cached(params, last[:, None], cache,
                                                cfg, row_lens, active,
-                                               route_rows=occupied)
+                                               route_rows=occupied,
+                                               mesh=mesh)
         last = sampling.sample(logits, temps, generator, top_ks, top_ps)
         toks.append(last)
     return cache, last, torch.stack(toks)
@@ -563,8 +577,8 @@ _store_prefix = profiler.profiled('engine.store_prefix', _store_prefix_impl)
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f'{what} is not ported yet: skypilot_tpu_torch serves the '
-        "continuous engine on one device, without a mesh")
+        f'{what} under a mesh is not ported yet: skypilot_tpu_torch '
+        'serves the slot layout of a dense model on a tensor mesh')
 
 
 def check_options(*, kv_layout: Optional[str] = None,
@@ -594,8 +608,6 @@ def check_options(*, kv_layout: Optional[str] = None,
         prefix_slots = int(os.environ.get('SKYTPU_LLM_PREFIX_CACHE', '0'))
     if prefill_chunk is None:
         prefill_chunk = int(os.environ.get('SKYTPU_LLM_PREFILL_CHUNK', '0'))
-    if mesh is not None:
-        raise _not_ported('a device mesh')
     if prefix_share is None:
         prefix_share = os.environ.get('SKYTPU_LLM_PREFIX_SHARE', '1') != '0'
     prefix_share = (bool(prefix_share) and kv_layout == 'paged'
@@ -609,8 +621,33 @@ def check_options(*, kv_layout: Optional[str] = None,
     if role not in ('colocated', 'prefill', 'decode'):
         raise ValueError(f'Unknown engine role {role!r}; '
                          "'colocated', 'prefill' or 'decode'")
+    if mesh is not None and mesh.size > 1:
+        if mesh.size != mesh.shape['tensor']:
+            raise _not_ported('a mesh axis other than tensor (the data '
+                              'axis)')
+        for refused, what in ((kv_layout == 'paged', 'the paged layout'),
+                              (draft, 'a draft model (speculative rounds)'),
+                              (moe, 'an MoE model'),
+                              (role != 'colocated',
+                               'a prefill or decode role')):
+            if refused:
+                raise _not_ported(what)
     return (kv_layout, max(int(prefix_slots), 0), max(int(prefill_chunk), 0),
             role, prefix_share, kv_tiers)
+
+
+def _local_params(params, cfg: llama.LlamaConfig, mesh):
+    """This rank's slices of ``params`` on ``mesh``: a whole tree is
+    sliced (``quantization.shard_params``), a tree of slices passes."""
+    from skypilot_tpu_torch.models import quantization as quant_lib
+    wq = params['layers']['wq']
+    heads = (wq['q8'] if quant_lib.is_quantized(wq) else wq).shape[2]
+    if heads == cfg.n_heads:
+        return quant_lib.shard_params(params, cfg, mesh)
+    if heads * mesh.shape['tensor'] != cfg.n_heads:
+        raise ValueError(f'wq holds {heads} heads: neither the whole '
+                         f'{cfg.n_heads} nor a {mesh} slice of them')
+    return params
 
 
 class ContinuousEngine:
@@ -672,6 +709,9 @@ class ContinuousEngine:
             mesh=mesh, prefix_share=prefix_share, kv_tiers=kv_tiers,
             role=role, moe=cfg.num_experts > 0)
         self.device = resolve_device(device)
+        self.mesh = gen_lib.tensor_mesh(mesh)
+        if self.mesh is not None:
+            params = _local_params(params, cfg, self.mesh)
         self.params = params
         self.cfg = cfg
         self.slots = slots or int(os.environ.get('SKYTPU_LLM_SLOTS', '16'))
@@ -766,6 +806,9 @@ class ContinuousEngine:
         self.prefill_tokens_saved = 0  # prompt tokens the pool skipped
         self.chunks_run = 0
         self.tokens_emitted = 0
+        # A running crc32 of every sampled token read back, free slots'
+        # included: the ranks of a tensor-parallel replica must agree.
+        self.sampled_digest = 0
         self.peak_active = 0
         self.spec_rounds = 0
         self.spec_proposals = 0
@@ -810,7 +853,10 @@ class ContinuousEngine:
         engine reserves blocks for the prompt alone. MoE expert capacity
         couples the rows of a batch, so an MoE model's prompt KV is not
         batch-independent and is refused, as in the JAX engine; so is a
-        draft, whose cache does not transfer."""
+        draft, whose cache does not transfer. Under a mesh it is not
+        ported (head-only admission would bypass ``serve/spmd.py``'s
+        arrival broadcast)."""
+        self._check_handoff_mesh()
         if self.cfg.num_experts > 0:
             raise ValueError('KV handoff requires a dense model (MoE '
                              'expert capacity is per forward call, so '
@@ -828,6 +874,10 @@ class ContinuousEngine:
         self._wake.set()
         return req.future
 
+    def _check_handoff_mesh(self) -> None:
+        if self.mesh is not None:
+            raise _not_ported('a KV export or import')
+
     def submit_import(self, row: List[int], max_new: int, first: int,
                       *, temperature: float = 0.0, top_k: int = 0,
                       top_p: float = 1.0, eos=None, on_tokens=None,
@@ -842,6 +892,7 @@ class ContinuousEngine:
         an install that raised on the engine thread would fail every
         request in flight (``_fail_everything``), and crc32 covers plane
         bytes only, not the header's shapes."""
+        self._check_handoff_mesh()
         if layout != self.kv_layout:
             raise ValueError(f'handoff layout {layout!r} does not match '
                              f'engine kv_layout {self.kv_layout!r}')
@@ -1136,49 +1187,9 @@ class ContinuousEngine:
         with torch.inference_mode(), self._device_scope():
             while not self._stop:
                 try:
-                    t0 = time.perf_counter()
-                    # Prefill advance BEFORE admission: a parked finished
-                    # prefill must win a freed slot over younger shorts.
-                    self._advance_prefill()
-                    # Imported prompts admit FIRST: their prefill is
-                    # already paid for on the prefill pool. Parked, they
-                    # do not block local admission (a decode replica also
-                    # serves the colocated fallback).
-                    self._admit_imports()
-                    self._admit()
-                    if self._inflight is not None:
-                        # Admission issued while a chunk computes is pure
-                        # overlap: the host work the pipeline hides.
-                        with self._lock:
-                            self.host_overlap_ms += \
-                                (time.perf_counter() - t0) * 1e3
-                    if not any(r is not None for r in self._slot_req):
-                        # Every request of a still-in-flight chunk's
-                        # snapshot is done by now (a live one would hold
-                        # its slot), so the flush only drops junk.
-                        self._flush_pipeline(quiet=True)
-                        self._drain_firsts()  # e.g. all max_new == 1
-                        self._note_decode_quiet()
-                        if self._prefilling:
-                            continue  # keep chunking the long prompt
+                    if self._iterate():
                         self._wake.wait(_IDLE_WAIT_S)
                         self._wake.clear()
-                        continue
-                    with self._lock:
-                        only_exports = all(r is None or r.export
-                                           for r in self._slot_req)
-                    if only_exports:
-                        # The prefill role's steady state: every occupied
-                        # slot is an export awaiting its drain, so a
-                        # decode chunk over them would be junk. Drain
-                        # (gather and retire them) and admit again.
-                        self._flush_pipeline(quiet=True)
-                        self._drain_firsts()
-                        continue
-                    if self.draft_cfg is not None:
-                        self._run_spec_round()
-                    else:
-                        self._run_chunk()
                 except Exception as exc:  # noqa: BLE001 -- fail all waiters
                     # Fail in-flight work, rebuild device state, KEEP
                     # LOOPING: exiting would strand a request submitted
@@ -1186,6 +1197,50 @@ class ContinuousEngine:
                     self._fail_everything(exc)
                     self._wake.wait(0.1)
                     self._wake.clear()
+
+    def _iterate(self) -> bool:
+        """One turn of the loop (a pure function of the queues and the slot
+        state, which ``serve/spmd.py``'s lockstep relies on). Returns True
+        when the engine is idle: no slot holds a request and no long
+        prompt is prefilling."""
+        t0 = time.perf_counter()
+        # Prefill advance BEFORE admission: a parked finished prefill
+        # must win a freed slot over younger shorts.
+        self._advance_prefill()
+        # Imported prompts admit FIRST: their prefill is already paid for
+        # on the prefill pool. Parked, they do not block local admission
+        # (a decode replica also serves the colocated fallback).
+        self._admit_imports()
+        self._admit()
+        if self._inflight is not None:
+            # Admission issued while a chunk computes is pure overlap:
+            # the host work the pipeline hides.
+            with self._lock:
+                self.host_overlap_ms += (time.perf_counter() - t0) * 1e3
+        if not any(r is not None for r in self._slot_req):
+            # Every request of a still-in-flight chunk's snapshot is done
+            # by now (a live one would hold its slot), so the flush only
+            # drops junk.
+            self._flush_pipeline(quiet=True)
+            self._drain_firsts()  # e.g. all max_new == 1
+            self._note_decode_quiet()
+            # Keep chunking a long prompt without waiting.
+            return not self._prefilling
+        with self._lock:
+            only_exports = all(r is None or r.export
+                               for r in self._slot_req)
+        if only_exports:
+            # The prefill role's steady state: every occupied slot is an
+            # export awaiting its drain, so a decode chunk over them would
+            # be junk. Drain (gather and retire them) and admit again.
+            self._flush_pipeline(quiet=True)
+            self._drain_firsts()
+            return False
+        if self.draft_cfg is not None:
+            self._run_spec_round()
+        else:
+            self._run_chunk()
+        return False
 
     def _fail_everything(self, exc: Exception) -> None:
         with self._lock:
@@ -1243,10 +1298,11 @@ class ContinuousEngine:
             if self.prefix_share:
                 self._trie = paged_lib.BlockTrie(self.kv_block)
         else:
+            # Born sharded under a mesh: this rank's kv heads only.
             self._cache = gen_lib.init_cache(self.cfg, self.slots,
                                              self.max_len,
                                              quantize=self.kv_quantize,
-                                             device=dev)
+                                             device=dev, mesh=self.mesh)
         self._last = torch.zeros((self.slots,), dtype=torch.int32,
                                  device=dev)
         # A row is active while lengths < limit (module docstring); a
@@ -1273,7 +1329,7 @@ class ContinuousEngine:
         if self.prefix_slots > 0:
             self._prefix_pool = gen_lib.init_cache(
                 self.cfg, self.prefix_slots, self.max_len,
-                quantize=self.kv_quantize, device=dev)
+                quantize=self.kv_quantize, device=dev, mesh=self.mesh)
             profiler.register_logical(
                 'prefix_pool', profiler.tree_nbytes(self._prefix_pool))
         self._prefix_index.clear()
@@ -1800,7 +1856,8 @@ class ContinuousEngine:
         dev = self.device
         logits, cache1 = _prefill(
             params, _to_device(padded, dev), cache1, cfg,
-            _to_device(np.asarray([len(chunk)], np.int32), dev))
+            _to_device(np.asarray([len(chunk)], np.int32), dev),
+            mesh=self.mesh)
         if params is self.params:  # the draft's chunks do not count
             with self._lock:
                 self.prefill_tokens += len(chunk)
@@ -1885,7 +1942,7 @@ class ContinuousEngine:
             if cache1 is None:
                 cache1 = gen_lib.init_cache(self.cfg, 1, self.max_len,
                                             quantize=self.kv_quantize,
-                                            device=dev)
+                                            device=dev, mesh=self.mesh)
             entry.cache, entry.consumed = cache1, p_hit
             if spec:
                 entry.d_cache = gen_lib.init_cache(
@@ -2071,9 +2128,10 @@ class ContinuousEngine:
         else:
             cache_n = gen_lib.init_cache(self.cfg, n, cache_width,
                                          quantize=self.kv_quantize,
-                                         device=dev)
+                                         device=dev, mesh=self.mesh)
         logits, cache_n = _prefill(self.params, _to_device(padded, dev),
-                                   cache_n, self.cfg, _to_device(lens, dev))
+                                   cache_n, self.cfg, _to_device(lens, dev),
+                                   mesh=self.mesh)
         with self._lock:
             self.prefill_tokens += int(lens.sum())
             self.prefill_tokens_saved += sum(p_lens)
@@ -2166,6 +2224,7 @@ class ContinuousEngine:
         exports: List[tuple] = []
         for reqs, firsts in batches:
             firsts_host = firsts.numpy()
+            self._fold_sampled(firsts_host)
             with self._lock:
                 for i, req in enumerate(reqs):
                     first = int(firsts_host[i])
@@ -2500,6 +2559,7 @@ class ContinuousEngine:
         # every admitted request's list already holding its prefill token.
         self._drain_firsts()
         host = out.numpy()
+        self._fold_sampled(host)
         t0 = time.perf_counter()
         props_h, tgt_h, samp_h = (host[:, :k + 1], host[:, k + 1:2 * k + 2],
                                   host[:, 2 * k + 2])
@@ -2614,11 +2674,13 @@ class ContinuousEngine:
             blackbox.record('engine.bubble', ms=round(bubble_closed_ms, 3),
                             edge='dispatch')
         temps_d, gen, tk, tp = self._sampling_args(temps, top_ks, top_ps)
-        chunk = _paged_chunk if self.kv_layout == 'paged' else _chunk
-        self._cache, self._last, toks = chunk(
-            self.cfg, self.chunk_steps, self.params, self._cache,
-            self._last, self._limit, _to_device(occupied, self.device),
-            temps_d, tk, tp, gen)
+        args = (self.cfg, self.chunk_steps, self.params, self._cache,
+                self._last, self._limit, _to_device(occupied, self.device),
+                temps_d, tk, tp, gen)
+        if self.kv_layout == 'paged':
+            self._cache, self._last, toks = _paged_chunk(*args)
+        else:
+            self._cache, self._last, toks = _chunk(*args, mesh=self.mesh)
         return _Inflight(reqs=reqs, toks=_HostCopy(toks),
                          steps=self.chunk_steps)
 
@@ -2640,6 +2702,10 @@ class ContinuousEngine:
         if self._no_flight_since is None:
             self._no_flight_since = time.perf_counter()
 
+    def _fold_sampled(self, host: np.ndarray) -> None:
+        self.sampled_digest = zlib.crc32(
+            np.ascontiguousarray(host).tobytes(), self.sampled_digest)
+
     def _retire_chunk(self, flight: _Inflight, quiet: bool = False) -> None:
         """Read an issued chunk's tokens and run the host bookkeeping:
         stop-token truncation, streaming callbacks, slot freeing, future
@@ -2651,6 +2717,7 @@ class ContinuousEngine:
         # could be appended).
         self._drain_firsts()
         toks_host = flight.toks.numpy()  # [K, B]
+        self._fold_sampled(toks_host)
         t0 = time.perf_counter()
         done: List[_Request] = []
         emitted: List[tuple] = []

@@ -20,6 +20,21 @@ Every decode step (S=1) on a CUDA tensor runs the flash-decode kernel
 (``ops/decode_attention.py``) in every layer; there is no opt-in and no
 size gate. Prefill (S>1), and everything on the CPU, runs the plain
 einsum path, as the JAX package computes prefill with XLA einsums.
+
+TENSOR PARALLELISM (``forward_cached(..., mesh=)``, one process per rank):
+each rank holds its slices of the weights (``quantization.shard_params``)
+and of the cache (``init_cache(..., mesh=)``), in the Megatron layout that
+JAX's rules imply (``parallel/sharding.py``): ``wq``/``wk``/``wv`` split
+by column on heads and kv_heads, ``w_gate``/``w_up`` on mlp; ``wo`` and
+``w_down`` split by row, each followed by one all-reduce where GSPMD puts
+JAX's (``mm``'s ``reduce``); ``embed`` split on vocab (a masked lookup,
+then an all-reduce, which is exact: one rank holds each row); ``lm_head``
+split on vocab, its float32 logits all-gathered, so every rank samples
+the same logits with the same generator state and the ranks' tokens
+agree; norms replicated. The decode kernel runs per head shard, JAX's
+``generate.kernel_shard_ctx``: each rank calls ``flash_decode`` on its own
+``[B, Hkv/tp, M, D]`` cache and ``[B, Hq/tp, D]`` queries (and int8
+scales), and the cache is never gathered.
 """
 from __future__ import annotations
 
@@ -34,6 +49,8 @@ from skypilot_tpu_torch.models import llama, moe, sampling
 from skypilot_tpu_torch.models.quantization import mm as _mm
 from skypilot_tpu_torch.observability import profiler
 from skypilot_tpu_torch.ops import decode_attention
+from skypilot_tpu_torch.parallel import collectives
+from skypilot_tpu_torch.parallel import sharding as sharding_lib
 
 Params = llama.Params
 
@@ -56,12 +73,19 @@ class KVCache:
         return self.k_s is not None
 
 
+KV_AXES = ('layers', 'batch', 'kv_heads', None, 'head_dim')
+
+
 def init_cache(cfg: llama.LlamaConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None, quantize: bool = False,
-               device=None) -> KVCache:
+               device=None, mesh=None) -> KVCache:
     """Zeroed cache on ``device``; ``quantize=True`` = int8 codes plus
-    float32 per-position scales."""
+    float32 per-position scales. With a tensor-parallel ``mesh`` the
+    buffers are born sharded: this rank's kv heads only."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    if tensor_mesh(mesh) is not None:
+        shape = sharding_lib.local_shape(shape, sharding_lib.logical_sharding(
+            mesh, sharding_lib.ShardingRules(), KV_AXES))
     lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
     if quantize:
         return KVCache(
@@ -85,7 +109,8 @@ def _cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
     already holding this block's keys; ``valid_len`` [B]. At S=1 (a
     decode step, where ``positions == valid_len - 1``) this is
     ``flash_decode``: the kernel on CUDA, its plain version on the CPU.
-    At S>1 it is the einsum path."""
+    At S>1 it is the einsum path. Under tensor parallelism the heads are
+    this rank's shard, so the kernel runs per head shard."""
     if q.shape[1] == 1:
         out = decode_attention.flash_decode(
             q[:, 0], k_cache, v_cache, valid_len.to(torch.int32), k_s, v_s)
@@ -163,10 +188,12 @@ def _qkv_proj(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
 
 
 def _mlp_tail(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
-              token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              token_mask: Optional[torch.Tensor] = None,
+              reduce=None) -> torch.Tensor:
     """Decoder-block back half (post-attention norm + MoE or dense SwiGLU
     MLP), residual included. ``token_mask`` [B, S] (MoE only) keeps
-    padded and junk positions out of expert routing."""
+    padded and junk positions out of expert routing. ``reduce`` sums the
+    row-split ``w_down`` product over the tensor ranks."""
     h = llama.rms_norm(x, layer['mlp_norm'], cfg.norm_eps)
     if cfg.num_experts > 0:
         out, _ = moe.moe_mlp(h, layer['moe'], cfg.num_experts,
@@ -175,7 +202,8 @@ def _mlp_tail(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
         return x + out
     gate = _mm(h, layer['w_gate'], 'bsd,df->bsf')
     up = _mm(h, layer['w_up'], 'bsd,df->bsf')
-    return x + _mm(F.silu(gate) * up, layer['w_down'], 'bsf,fd->bsd')
+    return x + _mm(F.silu(gate) * up, layer['w_down'], 'bsf,fd->bsd',
+                   reduce=reduce)
 
 
 def _cached_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
@@ -184,8 +212,8 @@ def _cached_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
                   valid: torch.Tensor,
                   k_s: Optional[torch.Tensor] = None,
                   v_s: Optional[torch.Tensor] = None,
-                  token_mask: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
+                  token_mask: Optional[torch.Tensor] = None,
+                  reduce=None) -> torch.Tensor:
     """One decoder block writing this block's K/V into the (per-layer
     view of the) cache. x: [B, S, d]; ``cache_lens`` [B] = write
     offsets; ``valid`` [B] = cache_lens + real new tokens per row;
@@ -196,8 +224,8 @@ def _cached_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
     _write_block(k_cache, k_s, k.transpose(1, 2), cache_lens)
     _write_block(v_cache, v_s, v.transpose(1, 2), cache_lens)
     att = _cached_attention(q, k_cache, v_cache, positions, valid, k_s, v_s)
-    x = x + _mm(att, layer['wo'], 'bshk,hkd->bsd')
-    return _mlp_tail(cfg, x, layer, token_mask)
+    x = x + _mm(att, layer['wo'], 'bshk,hkd->bsd', reduce=reduce)
+    return _mlp_tail(cfg, x, layer, token_mask, reduce)
 
 
 def _route_mask(cfg: llama.LlamaConfig, positions: torch.Tensor,
@@ -217,13 +245,37 @@ def _route_mask(cfg: llama.LlamaConfig, positions: torch.Tensor,
     return mask.to(cfg.dtype)
 
 
+def tensor_mesh(mesh):
+    """``mesh`` when its ``tensor`` axis is larger than 1, else None: the
+    sharded serving path splits heads, mlp and vocab over that axis
+    (``engine.check_options`` refuses every other)."""
+    if mesh is None or mesh.shape['tensor'] == 1:
+        return None
+    return mesh
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor, cfg, mesh):
+    """Embedding rows of ``tokens``; on a tensor mesh ``table`` is this
+    rank's vocab slice: rows it does not hold are zero, and the sum over
+    the ranks (exact: one nonzero term) is the lookup."""
+    table = table.to(cfg.dtype)
+    if mesh is None:
+        return table[tokens.long()]
+    n = table.shape[0]
+    ids = tokens.long() - mesh.axis_index('tensor') * n
+    inside = (ids >= 0) & (ids < n)
+    rows = table[ids.clamp(0, n - 1)]
+    return collectives.psum(
+        torch.where(inside[..., None], rows, torch.zeros_like(rows)), mesh)
+
+
 def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
                    cfg: llama.LlamaConfig,
                    row_lens: Optional[torch.Tensor] = None,
                    active_rows: Optional[torch.Tensor] = None,
                    all_logits: bool = False,
                    route_rows: Optional[torch.Tensor] = None,
-                   ) -> Tuple[torch.Tensor, KVCache]:
+                   mesh=None) -> Tuple[torch.Tensor, KVCache]:
     """Run ``tokens`` [B, S] through the model appending to ``cache``
     (in place); returns (float32 logits of each row's LAST REAL position
     [B, vocab], the cache with advanced lengths). Prefill (S = padded
@@ -246,7 +298,13 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
     passes its dispatch snapshot here: a request that finishes mid-chunk
     keeps routing its junk for the rest of the chunk, as in the JAX
     engine, while ``active_rows`` turns its writes off. Expert routing is
-    the one place where rows of a batch affect each other."""
+    the one place where rows of a batch affect each other.
+
+    ``mesh`` (tensor parallelism, module docstring): ``params`` and
+    ``cache`` are this rank's slices; every rank of the tensor axis must
+    call with the same tokens, and all get the same logits."""
+    tp = tensor_mesh(mesh)
+    reduce = None if tp is None else (lambda t: collectives.psum(t, tp))
     b, s = tokens.shape
     dev = tokens.device
     max_len = cache.k.shape[3]
@@ -259,24 +317,27 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
     token_mask = _route_mask(
         cfg, positions, valid, row_lens is None,
         active_rows if route_rows is None else route_rows)
-    x = params['embed'].to(cfg.dtype)[tokens.long()]
+    x = _embed(params['embed'], tokens, cfg, tp)
     for i in range(cfg.n_layers):
         x = _cached_layer(
             cfg, x, llama.layer_params(params['layers'], i), positions,
             cache.k[i], cache.v[i], write_start, valid,
             cache.k_s[i] if cache.quantized else None,
-            cache.v_s[i] if cache.quantized else None, token_mask)
+            cache.v_s[i] if cache.quantized else None, token_mask, reduce)
     x = llama.rms_norm(x, params['final_norm'], cfg.norm_eps)
     new_cache = dataclasses.replace(cache, lengths=valid)
     if all_logits:
-        return (_mm(x, params['lm_head'], 'bsd,dv->bsv',
-                    out_dtype=torch.float32), new_cache)
-    if row_lens is None:
-        last = x[:, -1]
+        logits = _mm(x, params['lm_head'], 'bsd,dv->bsv',
+                     out_dtype=torch.float32)
     else:
-        last = x[torch.arange(b, device=dev), row_lens.long() - 1]
-    logits = _mm(last, params['lm_head'], 'bd,dv->bv',
-                 out_dtype=torch.float32)
+        if row_lens is None:
+            last = x[:, -1]
+        else:
+            last = x[torch.arange(b, device=dev), row_lens.long() - 1]
+        logits = _mm(last, params['lm_head'], 'bd,dv->bv',
+                     out_dtype=torch.float32)
+    if tp is not None:
+        logits = collectives.all_gather(logits, tp, dim=-1)
     return logits, new_cache
 
 

@@ -16,7 +16,9 @@ An MoE model (``num_experts > 0``) takes ``models/moe.py``'s block in
 place of the dense MLP under ``layers/moe``; its balance loss is summed
 over the layers and weighted into ``loss_fn`` as in the JAX package.
 Pipeline stages raise ``NotImplementedError``; sequence parallelism
-needs a mesh, which the port does not have yet.
+is not ported. ``param_logical_axes`` and ``init_params_sharded`` give a
+dense model's serving weights on a tensor-parallel mesh
+(``parallel/``).
 """
 from __future__ import annotations
 
@@ -145,6 +147,92 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         'final_norm': norm_init((d,)),
         'lm_head': dense_init((d, cfg.vocab_size), d),
     }
+
+
+def param_logical_axes(cfg: LlamaConfig) -> Params:
+    """Logical sharding axes matching ``init_params``' tree (leaves are
+    tuples), JAX's ``llama.param_logical_axes``, for dense configs (the
+    MoE block's axes come with sharded training)."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError(
+            'moe_logical_axes is not ported yet: skypilot_tpu_torch shards '
+            'dense models only')
+    return {
+        'embed': ('vocab', 'embed'),
+        'layers': {
+            'attn_norm': ('layers', None),
+            'wq': ('layers', 'embed', 'heads', 'head_dim'),
+            'wk': ('layers', 'embed', 'kv_heads', 'head_dim'),
+            'wv': ('layers', 'embed', 'kv_heads', 'head_dim'),
+            'wo': ('layers', 'heads', 'head_dim', 'embed'),
+            'mlp_norm': ('layers', None),
+            'w_gate': ('layers', 'embed', 'mlp'),
+            'w_up': ('layers', 'embed', 'mlp'),
+            'w_down': ('layers', 'mlp', 'embed'),
+        },
+        'final_norm': (None,),
+        'lm_head': ('embed', 'vocab'),
+    }
+
+
+def init_params_sharded(cfg: LlamaConfig, generator: torch.Generator,
+                        mesh, rules=None, device: DeviceLike = None
+                        ) -> Params:
+    """This rank's slices of ``init_params``' tree on ``mesh``, cut by
+    ``param_logical_axes``: concatenated over the ranks they equal
+    ``init_params``' tensors from the same generator state bit for bit,
+    so a tp=1 and a tp=N replica serve the same weights from one seed.
+    Leaf by leaf, in ``init_params``' draw order, the whole leaf is drawn
+    in float32 (the generator's stream cannot be cut), this rank's slice
+    is kept in ``cfg.dtype`` and the rest freed, so no device holds the
+    whole model. Ranks that share one device take turns, so that only
+    one whole leaf is drawn on it at a time."""
+    from skypilot_tpu_torch.parallel import collectives
+    from skypilot_tpu_torch.parallel import sharding as sharding_lib
+    rules = rules or sharding_lib.ShardingRules()
+    axes = param_logical_axes(cfg)
+    dev = resolve_device(device)
+    d, L = cfg.d_model, cfg.n_layers
+
+    def spec(logical):
+        return sharding_lib.logical_sharding(mesh, rules, logical)
+
+    def norm_init(shape, logical):
+        return torch.ones(sharding_lib.local_shape(shape, spec(logical)),
+                          dtype=cfg.dtype, device=dev)
+
+    def dense_init(shape, fan_in, logical):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        part = sharding_lib.local_slice(w, spec(logical))
+        del w
+        return (part * fan_in ** -0.5).to(cfg.dtype)
+
+    def build() -> Params:
+        la = axes['layers']
+        layers = {
+            'attn_norm': norm_init((L, d), la['attn_norm']),
+            'wq': dense_init((L, d, cfg.n_heads, cfg.head_dim), d, la['wq']),
+            'wk': dense_init((L, d, cfg.n_kv_heads, cfg.head_dim), d,
+                             la['wk']),
+            'wv': dense_init((L, d, cfg.n_kv_heads, cfg.head_dim), d,
+                             la['wv']),
+            'wo': dense_init((L, cfg.n_heads, cfg.head_dim, d),
+                             cfg.n_heads * cfg.head_dim, la['wo']),
+            'mlp_norm': norm_init((L, d), la['mlp_norm']),
+            'w_gate': dense_init((L, d, cfg.d_ff), d, la['w_gate']),
+            'w_up': dense_init((L, d, cfg.d_ff), d, la['w_up']),
+            'w_down': dense_init((L, cfg.d_ff, d), cfg.d_ff, la['w_down']),
+        }
+        return {
+            'embed': dense_init((cfg.vocab_size, d), d,
+                                axes['embed']) * (d ** 0.5),
+            'layers': layers,
+            'final_norm': norm_init((d,), axes['final_norm']),
+            'lm_head': dense_init((d, cfg.vocab_size), d, axes['lm_head']),
+        }
+
+    return collectives.take_turns(mesh, build)
 
 
 def params_from_numpy(tree: Any, cfg: LlamaConfig,

@@ -145,7 +145,7 @@ ENV_FLAGS = (
     'SKYTPU_API_TOKEN', 'SKYTPU_BLACKBOX', 'SKYTPU_BLACKBOX_DIR',
     'SKYTPU_BLACKBOX_KEEP', 'SKYTPU_BLACKBOX_RING',
     'SKYTPU_CKPT_HOLD_FILE', 'SKYTPU_CKPT_HOLD_STEP',
-    'SKYTPU_CKPT_READERS', 'SKYTPU_COMPILE_CACHE',
+    'SKYTPU_CKPT_READERS', 'SKYTPU_COMPILE_CACHE', 'SKYTPU_DECODE_KERNEL',
     'SKYTPU_DISAGG_STAGING', 'SKYTPU_DISAGG_TTL_S',
     'SKYTPU_GUARD_SPARE_MAX_S', 'SKYTPU_KV_FETCH_MAX',
     'SKYTPU_KV_HOST_BYTES', 'SKYTPU_KV_SPILL_DIR', 'SKYTPU_KV_TIERS',
@@ -157,7 +157,7 @@ ENV_FLAGS = (
     'SKYTPU_LLM_PREFILL_BATCH', 'SKYTPU_LLM_PREFILL_CHUNK',
     'SKYTPU_LLM_PREFIX_CACHE', 'SKYTPU_LLM_PREFIX_SHARE',
     'SKYTPU_LLM_QUANTIZE', 'SKYTPU_LLM_ROLE', 'SKYTPU_LLM_SLOTS',
-    'SKYTPU_LLM_SPEC_K', 'SKYTPU_METRICS_TOKEN',
+    'SKYTPU_LLM_SPEC_K', 'SKYTPU_LLM_TP', 'SKYTPU_METRICS_TOKEN',
     'SKYTPU_OAUTH_CLIENT_ID', 'SKYTPU_OAUTH_CLIENT_SECRET',
     'SKYTPU_PEAK_FLOPS', 'SKYTPU_PKG_ROOT', 'SKYTPU_PREFIX_SUMMARY_MAX',
     'SKYTPU_PROBE_HARD_DEADLINE_S', 'SKYTPU_PROBE_HOLD_FILE',

@@ -1,19 +1,34 @@
-"""Logical mesh shape: the port's copy of ``MeshSpec``.
+"""Device mesh over ``torch.distributed``.
 
-Port of ``skypilot_tpu/parallel/mesh.py``'s ``MeshSpec`` and its
-``resolve``, and nothing else of that module: the port trains on one
-device, so ``train.run --mesh`` only checks that a spec resolves to one
-device (``fsdp=-1`` does) and refuses any larger one. Building a device
-mesh over ``torch.distributed`` comes with sharded training.
+Port of ``skypilot_tpu/parallel/mesh.py``. The axes follow the
+MaxText/scaling-book convention: ``data``, ``pipe``, ``fsdp``, ``seq``,
+``expert``, ``tensor`` (innermost, so it rides the fastest links).
 
-The axes follow the MaxText/scaling-book convention: ``data``, ``pipe``,
-``fsdp``, ``seq``, ``expert``, ``tensor``.
+JAX builds one mesh of devices inside one controller process. PyTorch's
+idiom, and NCCL's, is one process per rank, so a ``Mesh`` here is this
+rank's view of the gang: the axis sizes (JAX's ``mesh.shape``), this
+rank's coordinate on each axis, and a process group per axis, from
+``torch.distributed.device_mesh.init_device_mesh`` with ``AXIS_ORDER`` as
+its dim names. Ranks are laid out row-major over ``AXIS_ORDER``, so with
+``num_slices > 1`` each slice is a contiguous block of ranks and the
+``data`` axis, outermost, is the only one that crosses slices (DCN), as
+JAX's hybrid mesh places it.
+
+With no process group initialised the world is one process, and
+``build_mesh`` gives the one-device mesh, so single-device callers do not
+change. The collective backend is chosen by the topology, never as a
+fallback on error (``backend_for``): NCCL where each local rank has a GPU
+of its own, gloo where ranks share a device or run on the CPU; gloo stages
+CUDA tensors through host memory (``parallel/collectives.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
 
 AXIS_ORDER = ('data', 'pipe', 'fsdp', 'seq', 'expert', 'tensor')
 
@@ -48,3 +63,103 @@ class MeshSpec:
     @property
     def axis_names(self) -> Tuple[str, ...]:
         return AXIS_ORDER
+
+
+class Mesh:
+    """This rank's view of a device mesh: ``shape`` (axis -> size, JAX's
+    ``mesh.shape``), ``axis_names``, ``device`` (where this rank
+    computes), ``backend`` (None for one process), and per axis its
+    process group and this rank's index on it."""
+
+    def __init__(self, sizes: Dict[str, int], device: torch.device,
+                 device_mesh=None, backend: Optional[str] = None):
+        self.shape = {a: int(sizes[a]) for a in AXIS_ORDER}
+        self.axis_names = AXIS_ORDER
+        self.device = device
+        self.device_mesh = device_mesh
+        self.backend = backend
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def group(self, axis: str):
+        """The process group of ``axis`` (None on an axis of size 1)."""
+        if self.shape[axis] == 1:
+            return None
+        return self.device_mesh.get_group(axis)
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate on ``axis`` (JAX's ``lax.axis_index``)."""
+        if self.shape[axis] == 1:
+            return 0
+        return int(self.device_mesh.get_local_rank(axis))
+
+    @property
+    def stages_on_host(self) -> bool:
+        """True when collectives on this mesh's device tensors go through
+        host memory (gloo with CUDA tensors)."""
+        return self.backend == 'gloo' and self.device.type == 'cuda'
+
+    def __repr__(self) -> str:
+        sizes = ', '.join(f'{a}={n}' for a, n in self.shape.items() if n > 1)
+        return (f'Mesh({sizes or "one device"}, device={self.device}, '
+                f'backend={self.backend})')
+
+
+def backend_for(device_type: str, local_ranks: int) -> str:
+    """The collective backend a gang's topology calls for: NCCL when the
+    ranks compute on CUDA and every local rank has a GPU of its own, gloo
+    when local ranks share a device or compute on the CPU. NCCL refuses
+    two ranks on one device, so ranks that share a card reduce through
+    gloo (host memory)."""
+    if device_type == 'cuda' and torch.cuda.device_count() >= local_ranks:
+        return 'nccl'
+    return 'gloo'
+
+
+def world_size() -> int:
+    """Ranks in the default process group (1 when none is initialised)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def build_mesh(spec: Optional[MeshSpec] = None, num_slices: int = 1,
+               device=None) -> Mesh:
+    """A mesh with all six logical axes (``AXIS_ORDER``) over the ranks of
+    the default process group; ``device`` (default: CUDA) is where this
+    rank computes. ``num_slices > 1``: the ``data`` axis must be a
+    multiple of num_slices, so inter-slice traffic is data-parallel
+    only."""
+    from skypilot_tpu_torch.utils.device import resolve_device
+    spec = spec or MeshSpec()
+    n = world_size()
+    sizes = spec.resolve(n)
+    if num_slices > 1:
+        if sizes['data'] % num_slices:
+            raise ValueError(
+                f"data axis ({sizes['data']}) must be a multiple of "
+                f'num_slices ({num_slices}) for DCN placement.')
+        if n % num_slices:
+            raise ValueError(f'{n} ranks do not split into {num_slices} '
+                             'slices')
+    dev = resolve_device(device)
+    if n == 1:
+        return Mesh(sizes, dev)
+    from torch.distributed.device_mesh import init_device_mesh
+    backend = dist.get_backend()
+    # The mesh's device type is the collectives' medium: CUDA for NCCL,
+    # the CPU for gloo (whose groups stage CUDA tensors through host
+    # memory).
+    device_mesh = init_device_mesh(
+        'cuda' if backend == 'nccl' else 'cpu',
+        tuple(sizes[a] for a in AXIS_ORDER), mesh_dim_names=AXIS_ORDER)
+    return Mesh(sizes, dev, device_mesh, backend)
+
+
+def single_device_mesh(device=None) -> Mesh:
+    """1-device mesh with all axes size 1: the same code runs on one
+    device and on a gang."""
+    from skypilot_tpu_torch.utils.device import resolve_device
+    return Mesh({a: 1 for a in AXIS_ORDER}, resolve_device(device))

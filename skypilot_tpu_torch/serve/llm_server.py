@@ -74,7 +74,19 @@ QoS gates the export and charges the whole budget there. The
 ``serve.kv_export`` and ``serve.kv_import`` roots join the load
 balancer's ``lb.handoff.*`` legs through ``X-SkyTPU-Trace``.
 
-Tensor parallelism is not ported yet. One check is the port's own: token
+TENSOR PARALLELISM (``--tp N``, ``SKYTPU_LLM_TP``; ``serve/spmd.py``): one
+process per rank. ``main()`` brings the ranks up (rank 0 starts N - 1
+followers with its own argv, or joins the hosts of a multi-host replica
+under the gang launcher's env); rank 0 serves HTTP, every rank holds its
+shard of the weights (initialised and quantized sharded) and of the KV
+cache, and ``SpmdEngine`` keeps them in lockstep. ``/health`` ``tp`` is N
+(``tp_backend`` names the collective backend). As the JAX replica does
+with its decode kernel on (the port's is always on), ``--engine off`` with
+``--tp > 1`` is refused at startup and a seeded request on such a replica
+gets a 400. SIGTERM drains rank 0 and broadcasts stop: every rank exits
+0; a rank that dies makes rank 0 fail its waiters and exit non-zero.
+Each rank prints a ``tp-rank-summary`` JSON line on its way out. One
+check is the port's own: token
 ids outside the vocabulary get a 400 (a JAX gather clamps them; a CUDA
 index fault would end the replica's CUDA context), and a body that is not
 JSON gets a 400 whose trace carries ``error`` (JAX answers it 500).
@@ -135,6 +147,7 @@ import os
 import queue
 import secrets
 import signal
+import sys
 import threading
 import time
 import urllib.parse
@@ -155,7 +168,10 @@ from skypilot_tpu_torch.observability import trace as trace_lib
 from skypilot_tpu_torch.ops import _build
 from skypilot_tpu_torch.serve import disagg as disagg_lib
 from skypilot_tpu_torch.serve import metrics as metrics_lib
+from skypilot_tpu_torch.parallel import collectives
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.serve import qos as qos_lib
+from skypilot_tpu_torch.serve import spmd
 from skypilot_tpu_torch.serve import warmup as warmup_lib
 from skypilot_tpu_torch.utils import cuda_client_guard
 from skypilot_tpu_torch.utils import users as users_lib
@@ -211,6 +227,12 @@ class _Pending:
         return (self.temperature, self.top_k, self.top_p, None)
 
 
+# The handoff's admissions bypass the arrival broadcast that keeps a
+# tensor-parallel replica's ranks in lockstep (serve/spmd.py).
+TP_HANDOFF_ERROR = ('KV export and import are not ported on a --tp > 1 '
+                    'replica yet')
+
+
 class LlmServer:
     """One model replica. ``device`` None = CUDA (raises without a
     card); the tests pass ``device='cpu'``."""
@@ -227,9 +249,16 @@ class LlmServer:
                  prefix_share: Optional[str] = None,
                  qos: Optional[str] = None,
                  qos_opts: Optional[Dict[str, Any]] = None,
-                 role: Optional[str] = None):
+                 role: Optional[str] = None, tp: Optional[int] = None):
         # Cheap knobs first: a typo must not cost the weight init.
         engine = check_knobs(model, engine, qos)
+        self.tp = check_tp(tp, engine)
+        self.world = mesh_lib.world_size()
+        if self.world != max(self.tp, 1):
+            raise ValueError(
+                f'--tp {self.tp} needs {self.tp} ranks in the process '
+                f'group, found {self.world}: start the replica through '
+                'llm_server.main or serve.spmd, which bring them up')
         # The disaggregated-serving role: 'prefill' replicas are routed
         # /v1/kv/export, 'decode' replicas /v1/kv/import; every role
         # still serves /generate (the load balancer's fallback).
@@ -262,11 +291,19 @@ class LlmServer:
         if self.spec_k < 1:
             raise ValueError(f'SKYTPU_LLM_SPEC_K must be >= 1, got '
                              f'{self.spec_k}')
+        self.device = resolve_device(device)
+        # Tensor parallelism: a mesh whose tensor axis spans the ranks;
+        # weights and KV shard by the logical rules (parallel/sharding.py).
+        self.mesh = None
+        if self.tp > 1:
+            self.mesh = mesh_lib.build_mesh(
+                mesh_lib.MeshSpec(fsdp=1, tensor=self.tp), device=self.device)
         if engine == 'continuous':
-            engine_lib.check_options(kv_layout=kv_layout,
-                                     prefix_slots=prefix_cache,
-                                     draft=self.draft_model is not None,
-                                     role=self.role)
+            engine_lib.check_options(
+                kv_layout=kv_layout, prefix_slots=prefix_cache,
+                draft=self.draft_model is not None, role=self.role,
+                mesh=self.mesh,
+                moe=llama.PRESETS[model].num_experts > 0)
         self.kv_cache = (kv_cache
                          or os.environ.get('SKYTPU_LLM_KV_CACHE', 'bf16'))
         if self.kv_cache not in ('bf16', 'int8'):
@@ -303,12 +340,23 @@ class LlmServer:
                     f'draft model {self.draft_model!r} max_seq_len '
                     f'{self.draft_cfg.max_seq_len} < server max_len '
                     f'{self.max_len}')
-        self.device = resolve_device(device)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        self.params = llama.init_params(self.cfg, gen, self.device)
-        if self.quantize:
-            self.params = quant_lib.quantize_params(self.params)
+        if self.mesh is not None:
+            # Born sharded: each rank builds and quantizes its slices
+            # only; the same seed gives the tp=1 replica's weights.
+            self.params = llama.init_params_sharded(self.cfg, gen, self.mesh,
+                                                    device=self.device)
+            if self.quantize:
+                self.params = quant_lib.quantize_params_sharded(
+                    self.params, self.cfg, self.mesh)
+            if self.mesh.stages_on_host:
+                # Ranks share the card: what this rank freed is theirs.
+                torch.cuda.empty_cache()
+        else:
+            self.params = llama.init_params(self.cfg, gen, self.device)
+            if self.quantize:
+                self.params = quant_lib.quantize_params(self.params)
         # The draft's weights from seed + 1, unquantized (as the JAX
         # replica keeps them).
         self.draft_params = None
@@ -339,8 +387,12 @@ class LlmServer:
         self._inflight = 0
         self.engine: Optional[engine_lib.ContinuousEngine] = None
         if engine == 'continuous':
-            self.engine = engine_lib.ContinuousEngine(
+            # Ranks in lockstep take the arrival broadcast.
+            engine_cls = (spmd.SpmdEngine if self.world > 1
+                          else engine_lib.ContinuousEngine)
+            self.engine = engine_cls(
                 self.params, self.cfg, max_len=self.max_len, seed=seed,
+                mesh=self.mesh,
                 kv_quantize=self.kv_cache == 'int8', kv_layout=kv_layout,
                 kv_blocks=self.kv_blocks, prefix_slots=prefix_cache,
                 pipeline=None if pipeline is None else pipeline == 'on',
@@ -405,13 +457,16 @@ class LlmServer:
         return 200, self.health_snapshot()
 
     def health_snapshot(self) -> Dict[str, Any]:
-        """The /health body, under the JAX replica's keys but ``tp``,
-        which a later slice brings, and with the port's ``device``."""
+        """The /health body, under the JAX replica's keys, with the port's
+        ``device`` and ``tp_backend`` (the collective backend of a
+        ``--tp > 1`` replica: ``nccl``, or ``gloo`` where ranks share a
+        card or run on the CPU; None at tp 1)."""
         body: Dict[str, Any] = {
             'status': 'draining' if self.draining else 'ok',
             'model': self.model_name,
             'device': str(self.device),
-            'quantize': self.quantize,
+            'quantize': self.quantize, 'tp': self.tp,
+            'tp_backend': None if self.mesh is None else self.mesh.backend,
             'kv_cache': self.kv_cache,
             'max_len': self.max_len,
             'draft_model': self.draft_model,
@@ -758,6 +813,12 @@ class LlmServer:
                                   f'{self.max_len}'}
         seed = body.get('seed')
         seeded = temperature > 0 and seed is not None
+        if seeded and self.tp > 1:
+            # Seeded requests ride the window path, which cannot shard
+            # the decode kernel (the JAX replica's words, for its kernel).
+            return 400, {'error': 'seeded sampling is unavailable with '
+                                  'SKYTPU_DECODE_KERNEL=pallas on a '
+                                  '--tp > 1 replica'}
         stream = bool(body.get('stream'))
         if stream and (self.engine is None or seeded or write is None):
             return 400, {'error': 'stream requires the continuous engine '
@@ -1127,6 +1188,8 @@ class LlmServer:
         if self.engine is None:
             return 400, {'error': 'KV export requires the continuous '
                                   'engine'}
+        if self.tp > 1:
+            return 400, {'error': TP_HANDOFF_ERROR}
         return self._traced('serve.kv_export', headers,
                             self._kv_export_inner, raw, headers or {},
                             reply_headers)
@@ -1271,6 +1334,8 @@ class LlmServer:
         if self.engine is None:
             return 400, {'error': 'KV import requires the continuous '
                                   'engine'}
+        if self.tp > 1:
+            return 400, {'error': TP_HANDOFF_ERROR}
         return self._traced('serve.kv_import', headers,
                             self._kv_import_inner, raw, headers or {},
                             query or {}, write)
@@ -1547,6 +1612,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="'continuous' (default: the slot engine) or "
                              "'off' (window batching only; also via "
                              'SKYTPU_LLM_ENGINE)')
+    parser.add_argument('--tp', type=int, default=None,
+                        help='tensor-parallel degree: shard weights/KV '
+                             'over N ranks, one process each; rank 0 '
+                             'starts the others (also via SKYTPU_LLM_TP)')
     parser.add_argument('--kv-layout', default=None,
                         choices=('slot', 'paged'),
                         help="the engine's KV layout: 'paged' = block-table "
@@ -1599,6 +1668,10 @@ def build_parser() -> argparse.ArgumentParser:
                              'SKYTPU_QOS_WEIGHTS/_MAX_QUEUE/_TTL_S/'
                              '_TENANT_RPS/_TENANT_TPS/_TENANT_LIMITS/'
                              '_MAX_INFLIGHT)')
+    parser.add_argument('--device', default=None, choices=('cuda', 'cpu'),
+                        help="where the replica computes (default cuda; "
+                             "'cpu' runs it, and its --tp ranks over gloo, "
+                             'on the CPU)')
     return parser
 
 
@@ -1619,6 +1692,21 @@ def check_knobs(model: str, engine: Optional[str],
     return engine
 
 
+def check_tp(tp: Optional[int], engine: str) -> int:
+    """The tensor-parallel degree (``SKYTPU_LLM_TP`` applied). The decode
+    kernel is always on here, and the window path cannot shard it: the
+    JAX replica refuses ``--engine off`` with ``--tp > 1`` when its
+    kernel is on, in these words."""
+    tp = tp or int(os.environ.get('SKYTPU_LLM_TP', '1'))
+    if tp < 1:
+        raise ValueError(f'--tp must be >= 1, got {tp}')
+    if tp > 1 and engine == 'off':
+        raise ValueError('SKYTPU_DECODE_KERNEL=pallas with --tp > 1 '
+                         'requires the continuous engine (the window path '
+                         'cannot shard the kernel)')
+    return tp
+
+
 def server_from_args(args: argparse.Namespace, device=None) -> LlmServer:
     """The replica that ``build_parser``'s ``args`` describe; ``device``
     None = CUDA."""
@@ -1629,29 +1717,113 @@ def server_from_args(args: argparse.Namespace, device=None) -> LlmServer:
                      kv_blocks=args.kv_blocks,
                      prefix_share=args.prefix_share,
                      draft_model=args.draft_model, qos=args.qos,
-                     role=args.role, device=device)
+                     role=args.role, tp=args.tp, device=device)
+
+
+def _rank_summary(server: LlmServer, gang) -> None:
+    """The ``tp-rank-summary`` line a rank prints on its way out: its
+    weights' bytes, the card's peak memory, its collectives and their
+    host seconds, its decode-kernel calls and engine dispatches, and the
+    digest of every token it sampled (equal on every rank)."""
+    from skypilot_tpu_torch.ops import decode_attention
+    cuda = server.device.type == 'cuda'
+    line = 'tp-rank-summary ' + json.dumps({
+        'rank': gang.rank, 'world': gang.world, 'backend': gang.backend,
+        'staged': bool(server.mesh is not None
+                       and server.mesh.stages_on_host),
+        'param_bytes': profiler.tree_nbytes(server.params),
+        'peak_bytes': (torch.cuda.max_memory_allocated(server.device)
+                       if cuda else None),
+        'collectives': collectives.STATS['calls'],
+        'collective_s': round(collectives.STATS['seconds'], 6),
+        'flash_decode_launches': decode_attention.flash_decode.launches,
+        'dispatches': server.engine.dispatches,
+        'broadcasts': server.engine.broadcasts,
+        'sampled_digest': server.engine.sampled_digest})
+    # One write: the ranks of a host share its stdout.
+    sys.stdout.flush()
+    os.write(sys.stdout.fileno(), (line + '\n').encode())
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> None:
     """Boot as the JAX replica does, marking the cold-start ledger, then
-    serve until SIGTERM/SIGINT; ``device`` None = CUDA. A warm-up that
-    reports an error fails the boot. SIGQUIT writes every thread's stack
-    to the recorder's spool (``sigquit-<pid>-llm_server:<role>.txt``)
-    without stopping the replica; SIGTERM records ``server.drain``, starts
-    the drain, dumps a ``sigterm`` incident bundle, and exits 0 once the
-    drain ends."""
+    serve until SIGTERM/SIGINT; ``device`` None = ``--device``, whose
+    default is CUDA. A warm-up that reports an error fails the boot.
+    SIGQUIT writes every thread's stack to the recorder's spool
+    (``sigquit-<pid>-llm_server:<role>.txt``) without stopping the
+    replica; SIGTERM records ``server.drain``, starts the drain, dumps a
+    ``sigterm`` incident bundle, and exits 0 once the drain ends.
+
+    With ``--tp N`` the ranks come up first (``serve/spmd.py``
+    ``maybe_initialize``, under deferred shutdown signals); a follower
+    rank builds the same replica and runs ``spmd.follower_main``, rank 0
+    serves. A failed collective or a follower that exits early ends the
+    process with status 1."""
     profiler.mark('imports')
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    check_knobs(args.model, args.engine, args.qos)
+    if device is None:
+        device = args.device
+    elif args.device is None:
+        argv += ['--device', torch.device(device).type]  # for the followers
+    engine = check_knobs(args.model, args.engine, args.qos)
+    tp = check_tp(args.tp, engine)
     # SIGQUIT interrogation before the CUDA context: a replica hung in its
     # init is the one an operator most needs to `kill -QUIT`.
     role = args.role or os.environ.get('SKYTPU_LLM_ROLE') or 'colocated'
     blackbox.set_process_label(f'llm_server:{role}')
     blackbox.install_sigquit()
     _build.compile_cache()  # before any kernel library is built or loaded
+    device_type = 'cuda' if device is None else torch.device(device).type
+    # The ranks' bring-up is one guarded critical section: a drain landing
+    # mid-init would wedge every rank of the gang.
+    with cuda_client_guard.deferred_signals():
+        gang = spmd.maybe_initialize(tp, device_type, argv)
+    built: List[LlmServer] = []
+
+    def _die(reason: str, fail_waiters: bool = True) -> None:
+        print(f'llm_server: tp rank {gang.rank}: {reason}; exiting 1',
+              file=sys.stderr, flush=True)
+        if fail_waiters and built and built[0].engine is not None:
+            # Off this thread: the engine thread may hold the engine's
+            # lock inside a collective that never returns.
+            threading.Thread(
+                target=built[0].engine._fail_everything,  # noqa: SLF001
+                args=(RuntimeError(reason),), daemon=True).start()
+        for child in gang.children:
+            child.kill()
+        time.sleep(1.0)  # the failed waiters' answers go out
+        os._exit(1)
+
+    if gang is not None:
+        gang.watch_children(_die)
+        device = gang.device  # the rank's own card, by index
+    dev = torch.device('cuda' if device is None else device)
     cuda_client_guard.init_backend_guarded(
-        None if device is None else torch.device(device).type)
+        None if device is None else dev.type, index=dev.index or 0)
     server = server_from_args(args, device=device)
+    built.append(server)
+    if gang is not None:
+        server.engine.on_fatal = lambda exc: _die(str(exc), False)
+        if not gang.is_head:
+            code = 1
+            try:
+                spmd.follower_main(server)
+                code = 0
+            finally:
+                _rank_summary(server, gang)
+                try:
+                    gang.close(spmd.TIMEOUT_S)
+                except collectives.CollectiveError as exc:
+                    print(f'llm_server: tp rank {gang.rank}: {exc}',
+                          file=sys.stderr, flush=True)
+                    code = 1
+                # The follower's process ends here, without the
+                # interpreter's teardown of the rank's C++ state (the
+                # process groups' threads), which can abort the exit.
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os._exit(code)
     if warmup_lib.enabled():
         server._warming = True  # noqa: SLF001 -- the replica's own boot
         try:
@@ -1662,6 +1834,11 @@ def main(argv: Optional[List[str]] = None, device=None) -> None:
             server.stop()
             raise RuntimeError(f'warm-up failed: '
                                f'{server.warmup_report["error"]}')
+    if server.world > 1:
+        # The head's lockstep loop runs from startup: the followers wait
+        # in the arrival collective, and a drain before the first request
+        # must still reach them by the stop broadcast.
+        server.engine.start()
     httpd = server.make_httpd(args.host, args.port)
     dumps: List[threading.Thread] = []
 
@@ -1688,9 +1865,14 @@ def main(argv: Optional[List[str]] = None, device=None) -> None:
         httpd.serve_forever()
     finally:
         httpd.server_close()
-        server.stop()
+        server.stop()  # a gang's stop broadcast: every rank leaves
         for dump in dumps:
             dump.join(30)
+        if gang is not None:
+            _rank_summary(server, gang)
+            codes = gang.close(spmd.TIMEOUT_S)
+            if any(code != 0 for code in codes):
+                raise SystemExit(f'tp followers exited with {codes}')
 
 
 if __name__ == '__main__':

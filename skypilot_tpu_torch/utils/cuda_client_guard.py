@@ -135,12 +135,14 @@ def deferred_signals(
             os.kill(os.getpid(), signum)
 
 
-def init_backend_guarded(platform: Optional[str] = None) -> list:
-    """The devices this process serves from, with the CUDA context of the
-    first one created while shutdown signals are deferred. ``platform``
-    None or 'cuda' = CUDA, which must be there (RuntimeError otherwise);
-    'cpu' = the CPU, which the tests ask for by name. Idempotent: a
-    second call finds the context made.
+def init_backend_guarded(platform: Optional[str] = None,
+                         index: int = 0) -> list:
+    """The devices this process serves from, with the CUDA context of
+    device ``index`` (a tensor-parallel rank's own card) created while
+    shutdown signals are deferred. ``platform`` None or 'cuda' = CUDA,
+    which must be there (RuntimeError otherwise); 'cpu' = the CPU, which
+    the tests ask for by name. Idempotent: a second call finds the
+    context made.
 
     Marks ``backend_init.plugin_discovery`` once the driver and the
     runtime are loaded and ``backend_init.device_enumeration`` once the
@@ -165,6 +167,6 @@ def init_backend_guarded(platform: Optional[str] = None) -> list:
         profiler.mark('backend_init.plugin_discovery')
         devices = [torch.device('cuda', i)
                    for i in range(torch.cuda.device_count())]
-        torch.cuda.synchronize(devices[0])  # creates the primary context
+        torch.cuda.synchronize(devices[index])  # creates its context
         profiler.mark('backend_init.device_enumeration')
         return devices

@@ -558,8 +558,13 @@ def test_roles_are_options_of_the_engine(weights):
         assert port_engine.check_options(role=role)[3] == role
     with pytest.raises(ValueError):
         port_engine.check_options(role='router')
+    # A role under a tensor mesh is not ported yet.
+    from skypilot_tpu_torch.parallel import mesh as port_mesh
+    sizes = {a: 1 for a in port_mesh.AXIS_ORDER}
     with pytest.raises(NotImplementedError):
-        port_engine.check_options(mesh=object())
+        port_engine.check_options(
+            mesh=port_mesh.Mesh(dict(sizes, tensor=2), None),
+            role='decode')
     eng = _mk('port', weights, 'decode', kv_layout='paged')
     try:
         stats = eng.stats()

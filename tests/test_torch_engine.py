@@ -759,8 +759,17 @@ def test_chunked_prefill_with_the_prefix_pool(weights):
 # -- options not ported yet -------------------------------------------------------
 
 
+def _data_mesh():
+    """A mesh with a data axis: the one mesh axis serving does not take
+    yet (tensor parallelism is tests/test_torch_tp.py's)."""
+    from skypilot_tpu_torch.parallel import mesh as port_mesh
+    sizes = {a: 1 for a in port_mesh.AXIS_ORDER}
+    return port_mesh.Mesh(dict(sizes, data=2, tensor=2),
+                          torch.device('cpu'))
+
+
 UNPORTED = {
-    'mesh': dict(mesh=object()),
+    'mesh': dict(mesh=_data_mesh()),
 }
 # Refused until the paged layout, block sharing and KV tiers, draft
 # rounds (a draft model, paged or not) and the prefill and decode roles

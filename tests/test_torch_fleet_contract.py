@@ -36,9 +36,10 @@ from skypilot_tpu_torch.serve import warmup as port_warmup
 
 MAX_LEN = 64
 # /health keys the JAX replica has and a later slice brings to the port
-# (ROADMAP.md): tensor parallelism's tp. The port adds its device.
-LATER_SLICES = {'tp'}
-PORT_ONLY = {'device'}
+# (ROADMAP.md): none since tensor parallelism brought tp. The port adds
+# its device and its collective backend.
+LATER_SLICES = set()
+PORT_ONLY = {'device', 'tp_backend'}
 QOS_OPTS = dict(max_inflight=1, max_queue=8, sweep_s=0, tenant_rps=0,
                 tenant_tps=0)
 

@@ -68,7 +68,9 @@ def test_importing_every_module_loads_no_jax_and_no_skypilot_tpu():
                 'observability.train_telemetry', 'models.paged',
                 'serve.kv_tiers', 'utils.prefix_affinity',
                 'utils.atomic_io', 'models.lora', 'models.speculative',
-                'parallel.mesh', 'serve.qos', 'serve.metrics',
+                'parallel.mesh', 'parallel.sharding',
+                'parallel.collectives', 'serve.spmd', 'serve.qos',
+                'serve.metrics',
                 'serve.warmup', 'utils.cuda_client_guard', 'utils.users',
                 'observability.profiler', 'observability.trace',
                 'observability.blackbox', 'observability.slo',

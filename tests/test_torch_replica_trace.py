@@ -191,7 +191,7 @@ def test_health_trace_and_routes_behind_the_token(pair, monkeypatch):
     ph = json.loads(_http(pep, '/health')[2])
     assert set(ph['trace']) == set(jh['trace'])
     assert ph['trace'] == port_trace.tail_stats()
-    assert set(ph) - {'device'} == set(jh) - {'tp'}
+    assert set(ph) - {'device', 'tp_backend'} == set(jh)
     for ep in (jep, pep):
         for path in ROUTES:
             assert _http(ep, path)[0] == 200, (ep, path)
