@@ -5,9 +5,13 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; phases 13 and 14b-14c serve
-bench-1b and moe-8x1b at ``SERVE_LAYERS`` (9) of their 18 layers,
-widths untouched, so that phase 18 fits the script's time limit):
+Phases (any failure exits non-zero; phases 13, 14b-14c, 16a-16b and 18a
+serve bench-1b and moe-8x1b at ``SERVE_LAYERS`` (9) of their 18 layers, phase
+10 trains llama3-1b at ``RECIPE_LAYERS`` (8) of its 16 (as phases 9 and
+11 serve it), and 18b serves llama3-8b at ``TP8_LAYERS`` (8) of its 32,
+widths untouched, so that phases 18 and 19 fit the script's time limit;
+a ``sitecustomize`` cuts the preset in the subprocesses of phases 10 and
+18):
 
 1. Build: compiles both kernel libraries of ``skypilot_tpu_torch/csrc``
    (flash-decode K4, flash-attention K1-K3), one nvcc each, started
@@ -313,7 +317,9 @@ widths untouched, so that phase 18 fits the script's time limit):
    serve-multihost recipe's command (``python -m
    skypilot_tpu_torch.serve.spmd --model llama3-8b --max-len 2048 --tp 8
    --quantize int8 --kv-cache int8``) as two hosts of four ranks under
-   the gang launcher's env, full width and depth: a stop before the first
+   the gang launcher's env, full width at ``TP8_LAYERS`` (8) of 32
+   layers (a ``sitecustomize`` cuts the preset in every rank): a stop
+   before the first
    request exits all eight ranks 0; then 4 greedy requests sent together
    (17, 128, 300, 900 x 16, decoded one step a chunk: eight ranks share
    the card) against a tp 1 llama3-8b int8 replica under the gap rule,
@@ -322,17 +328,40 @@ widths untouched, so that phase 18 fits the script's time limit):
    unless all ranks' are equal. Prints tok/s, host ms a decode step,
    collectives a step and their host ms, the backend, the ranks' peak
    memory, each beside the card's name and power limit. K4 at both shard
-   shapes is held to its plain version in phase 2.
-19. Summary: the card's name and power limit again, one JSON line of
-   kernels (K1-K3's launches are phases 6, 10, 12 and 14, K4's phase
+   shapes, and at ``--nccl``'s tp 4 shards, is held to its plain version
+   and timed in phase 2.
+19. Sharded training, every rank a process on the one card, gloo staged
+   through the host. 19a: the multislice-train recipe (``python -m
+   skypilot_tpu_torch.train.run --model bench-1b --global-batch-size 32
+   --seq-len 2048 --mesh data=2,fsdp=2``, 3 steps, warmup 1) as two hosts of two
+   ranks under the gang launcher's env (``MEGASCALE_NUM_SLICES`` 2), then
+   the same global batch on one rank in this process: each step's loss
+   within 2e-2 and grad_norm within 1e-2, the gang's final weights (its
+   checkpoint) within 1e-2 in relative L2 and their updates within 0.5,
+   limits that a batch of 16 on one rank (a lost data shard) must
+   exceed; every rank's grad_norm bits equal, K1/K2/K3 = 36/18/18 a
+   step on every rank, a rank's weight bytes half the whole plus the
+   norms. 19b: the lora-finetune recipe on ``--mesh fsdp=2`` (two ranks):
+   2 steps saved, resumed to 4, against 4 uninterrupted: every array of
+   step 4 equal bit for bit, the losses too, the base = the initial
+   weights. 19c: the small fp32 model of phase 5 on
+   ``data=2,fsdp=2,tensor=2``, eight ranks, two steps on the card and on
+   the CPU over the same process group: losses and params within 1e-4.
+   Prints each rank's step ms, collectives a step (calls, bytes, host s
+   by kind), weight bytes and peak memory. K1-K3 at a rank's rows of 19a
+   (B=8, S=2048) are timed in phase 3.
+20. Summary: the card's name and power limit again, one JSON line of
+   kernels (K1-K3's launches are phases 6, 10, 12, 14, 19a and 19b
+   (every rank's), K4's phase
    8's, 13's, 14's, 15's, 16's, 17a's and 18a's for the bf16 cache,
    phases 8's, 9's, 11's, 14's, 17b's and 18b's for the int8 cache, each
    path's count in ``launches_by_path``, 18's summed over the ranks;
    K4's times are the engine-shape case of phase 2, K1-K3's the
    train-s4096 shape, each named in ``timed_at``, with the
-   llama-finetune, lora-finetune and train-moe shapes (K1-K3) and the
-   serve-llama, draft, serve-disagg and per-rank tp shapes (K4) under
-   ``by_shape``), then the last line ``{"ok": true, "device": {...}}``.
+   llama-finetune, lora-finetune, train-moe and one 19a rank's shapes
+   (K1-K3) and the serve-llama, draft, serve-disagg and per-rank tp 2, 8
+   and 4 shapes (K4) under ``by_shape``), then the last line ``{"ok":
+   true, "device": {...}}``.
 
 It exits with an error, printing no result, when CUDA is absent or when
 the ``skypilot_tpu_torch`` package is not beside it.
@@ -341,7 +370,9 @@ the ``skypilot_tpu_torch`` package is not beside it.
 18's checks over NCCL with one rank a card: K4 at the tp 4 shards (Hkv 2)
 against its plain version, bench-1b at ``--tp 4`` on one host, and the
 serve-multihost recipe at ``--tp 4`` as two hosts of two cards each
-(``CUDA_VISIBLE_DEVICES`` splits them, as two machines would).
+(``CUDA_VISIBLE_DEVICES`` splits them, as two machines would), then 19a's
+checks for the multislice-train recipe as two hosts of two cards, a rank
+a card, nothing staged through the host.
 """
 import collections
 import concurrent.futures
@@ -391,10 +422,16 @@ DISAGG_CASE = 'bench-1b B=16 M=2048 D=128'  # K4 at serve-disagg's decode batch
 # K4 per head shard (phase 18): bench-1b at tp 2, llama3-8b at tp 8.
 TP2_CASE = 'bench-1b tp2 B=16 Hq=8 Hkv=4 M=1024'
 TP8_CASE = 'llama3-8b tp8 B=16 Hq=4 Hkv=1 M=2048'
+# ... and at tp 4 (``--nccl``'s shards, timed here on the one card).
+TP4_BENCH_CASE = 'bench-1b tp4 B=16 Hq=4 Hkv=2 M=1024'
+TP4_RECIPE_CASE = 'llama3-8b tp4 B=16 Hq=8 Hkv=2 M=2048'
 TRAIN_CASE = 'train B=2 S=4096'  # K1-K3 at train-s4096 (BENCH_1B)
 FINETUNE_CASE = 'llama3-1b B=8 S=2048'  # K1-K3 at llama-finetune's shape
 LORA_CASE = 'bench-1b B=16 S=2048'  # K1-K3 at the lora-finetune recipe's
 MOE_CASE = 'moe-8x1b B=2 S=2048'  # K1-K3 at train-moe's shape (phase 14d)
+# K1-K3 at one rank's rows of train-multislice (phase 19a: 32 rows over
+# data=2,fsdp=2).
+SHARD_CASE = 'bench-1b rank B=8 S=2048'
 # The int8 ``mm`` on the card against the CPU's. Float32 sums taken in
 # another order differ by up to ~1e-6 of the output's scale: that moves a
 # rounded bf16 output across a rounding boundary now and then (one ulp),
@@ -581,6 +618,12 @@ def kernel_phase(da):
         (TP8_CASE, 16, 4, 1, 128, 2048,
          [0, 1, 2048, 2049, 3000, 8192, 2 ** 20]
          + rng.integers(1, 2049, 9).tolist()),
+        (TP4_BENCH_CASE, 16, 4, 2, 128, 1024,
+         [0, 1, 1024, 1025, 1500, 4096, 2 ** 20]
+         + rng.integers(1, 1025, 9).tolist()),
+        (TP4_RECIPE_CASE, 16, 8, 2, 128, 2048,
+         [0, 1, 2048, 2049, 3000, 8192, 2 ** 20]
+         + rng.integers(1, 2049, 9).tolist()),
     ]
     results = {mode: {'max_abs_err': 0.0, 'cases': []} for mode in MODES}
     for mode, (_, quant) in MODES.items():
@@ -640,7 +683,9 @@ def kernel_phase(da):
     for mode in MODES:
         for key, case in (('head', ENGINE_CASE), ('llama', LLAMA_CASE),
                           ('draft', DRAFT_CASE), ('disagg', DISAGG_CASE),
-                          ('tp2', TP2_CASE), ('tp8', TP8_CASE)):
+                          ('tp2', TP2_CASE), ('tp8', TP8_CASE),
+                          ('tp4a', TP4_BENCH_CASE),
+                          ('tp4b', TP4_RECIPE_CASE)):
             results[mode][key] = next(c for c in results[mode]['cases']
                                       if c['case'] == case
                                       and c['dtype'] == 'bfloat16')
@@ -707,10 +752,11 @@ def attention_phase(fa):
         (FINETUNE_CASE, 8, 32, 8, 2048, 64, bf16, True),
         (LORA_CASE, 16, 16, 8, 2048, 128, bf16, True),
         (MOE_CASE, 2, 16, 8, 2048, 128, bf16, True),
+        (SHARD_CASE, 8, 16, 8, 2048, 128, bf16, True),
     ]
     worst = {name: 0.0 for name in FLASH}
     timed = {TRAIN_CASE: {}, FINETUNE_CASE: {}, LORA_CASE: {},
-             MOE_CASE: {}}
+             MOE_CASE: {}, SHARD_CASE: {}}
     for label, b, hq, hkv, s, d, dtype, causal in cases:
         q, k, v, do = _attn_case(gen, b, hq, hkv, s, d, dtype)
         o, lse = fa.flash_fwd(q, k, v, causal)
@@ -801,7 +847,8 @@ def attention_phase(fa):
                        timed_at=TRAIN_CASE,
                        by_shape={FINETUNE_CASE: timed[FINETUNE_CASE][name],
                                  LORA_CASE: timed[LORA_CASE][name],
-                                 MOE_CASE: timed[MOE_CASE][name]})
+                                 MOE_CASE: timed[MOE_CASE][name],
+                                 SHARD_CASE: timed[SHARD_CASE][name]})
             for name in FLASH}
 
 
@@ -2069,7 +2116,7 @@ def _windows(spool):
             if 'kind' not in r]
 
 
-def _preempt_and_relaunch(manifest, root, env):
+def _preempt_and_relaunch(manifest, root, env, layers=None):
     """The recipe in a subprocess, SIGTERM after the line 'step 4/10',
     then a relaunch to 5 steps. Returns the newest committed step after
     the exit, what the SIGTERM handler reported (durable step or None,
@@ -2077,6 +2124,8 @@ def _preempt_and_relaunch(manifest, root, env):
     here = os.path.dirname(os.path.abspath(__file__))
     spool = os.path.join(root, 'blackbox')
     env = dict(env, PYTHONPATH=here, SKYTPU_BLACKBOX_DIR=spool)
+    if layers is not None:
+        env.update(_depth_env(root, 'llama3-1b', layers))
     bucket = os.path.join(root, 'd3')
     cmd = [sys.executable, '-m', 'skypilot_tpu_torch.train.run',
            *FINETUNE_ARGV, '--save-every', '3', '--ckpt-dir', bucket,
@@ -2137,7 +2186,7 @@ def _preempt_and_relaunch(manifest, root, env):
     return durable, (m.group(1), float(m.group(2))), exit_s, bundle_fig
 
 
-def finetune_phase(llama, fa, train_run, manifest):
+def finetune_phase(llama, fa, train_run, manifest, layers=None):
     """The llama-finetune recipe through train.run with checkpoints: A
     trains 4 steps saving at 2 and 4 (async); B resumes to 6; C runs 6
     uninterrupted with --ckpt-sync, saving at 3 and 6. B's losses and
@@ -2145,7 +2194,8 @@ def finetune_phase(llama, fa, train_run, manifest):
     Then the recipe in a subprocess is preempted and relaunched, and
     every committed step passes a deep verify. Returns K1-K3's launches
     over A, B and C, and the preempted run's sigterm bundle (phase
-    16d)."""
+    16d). ``layers``: llama3-1b at that depth in the subprocesses too
+    (the caller cuts the preset in this one)."""
     root = os.path.abspath(CKPT_DIR)
     shutil.rmtree(root, ignore_errors=True)
     spool = os.path.join(root, 'telemetry')
@@ -2213,7 +2263,7 @@ def finetune_phase(llama, fa, train_run, manifest):
         sub_spool = os.path.join(root, 'telemetry_sub')
         durable, handler, exit_s, bundle_fig = _preempt_and_relaunch(
             manifest, root,
-            dict(os.environ, SKYTPU_TRAIN_TELEMETRY_DIR=sub_spool))
+            dict(os.environ, SKYTPU_TRAIN_TELEMETRY_DIR=sub_spool), layers)
         for rec in _ckpt_records(sub_spool, 'save'):
             print(f'    subprocess save step {rec["step"]}: stall '
                   f'{rec["stall_s"]} s, persist and mirror '
@@ -4333,6 +4383,9 @@ TP_NEW = 64
 # four share their steps.
 TP8_NEW = 16
 TP8_CHUNK = 1
+# 18b serves llama3-8b at TP8_LAYERS of its 32 layers, widths untouched,
+# to make room for phase 19 (each of its checks holds at any depth).
+TP8_LAYERS = 8
 TP_UP_S = 600      # spawn to a healthy head
 TP_EXIT_S = 180    # SIGTERM to every rank's exit
 TP_SEEDED_ERROR = ('seeded sampling is unavailable with '
@@ -4391,15 +4444,35 @@ def _rank_summaries(paths, world):
     return [found[r] for r in range(world)]
 
 
-def _tp_replica(argv, hosts, log_dir, label, host_env=None, **env_vars):
+def _depth_env(log_dir, name, n_layers):
+    """PYTHONPATH for processes (and every rank they spawn) that see
+    ``llama.PRESETS[name]`` at ``n_layers`` layers: a ``sitecustomize``
+    that cuts it when the interpreter starts."""
+    cut = os.path.join(log_dir, f'depth-{n_layers}')
+    os.makedirs(cut, exist_ok=True)
+    with open(os.path.join(cut, 'sitecustomize.py'), 'w') as f:
+        f.write('import dataclasses\n'
+                'from skypilot_tpu_torch.models import llama\n'
+                f'llama.PRESETS[{name!r}] = dataclasses.replace('
+                f'llama.PRESETS[{name!r}], n_layers={n_layers})\n')
+    return {'PYTHONPATH': os.pathsep.join(
+        [cut, os.getcwd(), os.environ.get('PYTHONPATH', '')])}
+
+
+def _tp_replica(argv, hosts, log_dir, label, host_env=None, layers=None,
+                **env_vars):
     """Start the replica's host processes (one: ``llm_server --tp``, which
     starts its followers; more: ``serve.spmd`` under the gang launcher's
-    env; ``host_env``: each host's own variables) and wait for the head's
-    /health. Returns (procs, logs, url, seconds to healthy)."""
+    env; ``host_env``: each host's own variables; ``layers``: the model
+    at that depth in every rank) and wait for the head's /health.
+    Returns (procs, logs, url, seconds to healthy)."""
     port = _free_port()
     # Each rank's SIGQUIT stacks land here (``_tp_stacks``).
     env = dict(os.environ, SKYTPU_BLACKBOX_DIR=os.path.join(
         log_dir, 'blackbox'), **env_vars)
+    if layers is not None:
+        env.update(_depth_env(log_dir, argv[argv.index('--model') + 1],
+                              layers))
     if hosts > 1:
         env.update(JAX_COORDINATOR_ADDRESS=f'127.0.0.1:{_free_port()}',
                    JAX_NUM_PROCESSES=str(hosts))
@@ -4634,7 +4707,7 @@ def _with_tp(argv, tp):
 
 
 def tp_bench_phase(srv_lib, gen_lib, llama, log_dir, tp=2, backend='gloo',
-                   label='18a'):
+                   label='18a', layers=None):
     """18a: ``llm_server --model bench-1b --tp 2`` (rank 0 starts its
     follower): /health ``tp`` 2 over gloo, a seeded request refused in
     JAX's words, 4 lone greedy requests, 16 concurrent mixed ones whole,
@@ -4643,12 +4716,14 @@ def tp_bench_phase(srv_lib, gen_lib, llama, log_dir, tp=2, backend='gloo',
     rank samples the same tokens; the lone answers against a tp 1
     replica of the same seed under the gap rule; the ranks' weight
     bytes. ``tp`` and ``backend``: the same checks at another degree and
-    over another backend (``--nccl``). Returns K4's launches per rank."""
+    over another backend (``--nccl``); ``layers``: bench-1b at that depth
+    in every rank (the caller cuts the preset for the reference). Returns
+    K4's launches per rank."""
     cfg = llama.PRESETS['bench-1b']
     rng = np.random.default_rng(17)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in TP_LONE]
     procs, logs, url, boot_s = _tp_replica(_with_tp(TP_BENCH_ARGV, tp), 1,
-                                           log_dir, label)
+                                           log_dir, label, layers=layers)
     try:
         health = json.loads(_http(url, '/health')[2])
         if (health['tp'], health['tp_backend']) != (tp, backend):
@@ -4691,7 +4766,8 @@ def tp_bench_phase(srv_lib, gen_lib, llama, log_dir, tp=2, backend='gloo',
 
 
 def tp_recipe_phase(srv_lib, gen_lib, llama, log_dir, tp=8,
-                    backend='gloo', label='18b', host_env=None):
+                    backend='gloo', label='18b', host_env=None,
+                    layers=None):
     """18b: the serve-multihost recipe's command through ``serve.spmd`` as
     two hosts of four ranks each under the gang launcher's env, all eight
     on the one card: a stop before the first request exits every rank 0;
@@ -4700,13 +4776,15 @@ def tp_recipe_phase(srv_lib, gen_lib, llama, log_dir, tp=8,
     K4 int8 runs at Hkv 1 on every rank. ``tp``, ``backend`` and
     ``host_env`` (each host's variables): the same checks at another
     degree, over another backend, with each host's own cards
-    (``--nccl``). Returns K4's launches per rank."""
+    (``--nccl``); ``layers``: llama3-8b at that depth in every rank (the
+    caller cuts the preset for the reference). Returns K4's launches per
+    rank."""
     cfg = llama.PRESETS['llama3-8b']
     argv = _with_tp(TP_RECIPE_ARGV, tp)
     chunk = {'SKYTPU_LLM_CHUNK_STEPS': str(TP8_CHUNK)}
     procs, logs, url, boot0_s = _tp_replica(argv, TP_HOSTS, log_dir,
                                             f'{label}-stop', host_env,
-                                            **chunk)
+                                            layers, **chunk)
     try:
         stop_first, stop0_s = _tp_stop(procs, logs, f'{label} stop before '
                                        'the first request', tp)
@@ -4720,7 +4798,7 @@ def tp_recipe_phase(srv_lib, gen_lib, llama, log_dir, tp=8,
     rng = np.random.default_rng(19)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in TP_LONE]
     procs, logs, url, boot_s = _tp_replica(argv, TP_HOSTS, log_dir, label,
-                                           host_env, **chunk)
+                                           host_env, layers, **chunk)
     try:
         health = json.loads(_http(url, '/health')[2])
         if (health['tp'], health['tp_backend']) != (tp, backend):
@@ -4764,9 +4842,13 @@ def tp_phase(srv_lib, gen_lib, llama):
     print(f'  two NCCL ranks on one card: {_nccl_refusal()}', flush=True)
     log_dir = tempfile.mkdtemp(prefix='skytpu-tp-')
     try:
-        bench = tp_bench_phase(srv_lib, gen_lib, llama, log_dir)
+        with _cut_depth(llama, 'bench-1b', SERVE_LAYERS):
+            bench = tp_bench_phase(srv_lib, gen_lib, llama, log_dir,
+                                   layers=SERVE_LAYERS)
         _phase('  18a done')
-        recipe = tp_recipe_phase(srv_lib, gen_lib, llama, log_dir)
+        with _cut_depth(llama, 'llama3-8b', TP8_LAYERS):
+            recipe = tp_recipe_phase(srv_lib, gen_lib, llama, log_dir,
+                                     layers=TP8_LAYERS)
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
     return bench, recipe
@@ -4778,8 +4860,8 @@ def tp_phase(srv_lib, gen_lib, llama):
 NCCL_TP = 4
 NCCL_HOSTS = [{'CUDA_VISIBLE_DEVICES': '0,1'}, {'CUDA_VISIBLE_DEVICES': '2,3'}]
 # K4 at one rank's shard: bench-1b and llama3-8b at tp 4 (Hkv 2).
-NCCL_CASES = (('bench-1b tp4 B=16 Hq=4 Hkv=2 M=1024', 16, 4, 2, 128, 1024),
-              ('llama3-8b tp4 B=16 Hq=8 Hkv=2 M=2048', 16, 8, 2, 128, 2048))
+NCCL_CASES = ((TP4_BENCH_CASE, 16, 4, 2, 128, 1024),
+              (TP4_RECIPE_CASE, 16, 8, 2, 128, 2048))
 
 
 def _shard_kernels(da):
@@ -4817,8 +4899,10 @@ def nccl_main() -> int:
         return 2
     from skypilot_tpu_torch.models import generate as gen_lib
     from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import attention as fa
     from skypilot_tpu_torch.ops import decode_attention as da
     from skypilot_tpu_torch.serve import llm_server as srv_lib
+    from skypilot_tpu_torch.train import run as train_run
     cards = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -4827,8 +4911,8 @@ def nccl_main() -> int:
     print(f'torch {torch.__version__} cuda {torch.version.cuda} '
           f'nccl {".".join(map(str, torch.cuda.nccl.version()))}',
           flush=True)
-    _phase('nccl 1: build K4; K4 at the tp 4 shards')
-    _build_all([da])
+    _phase('nccl 1: build K4 and K1-K3; K4 at the tp 4 shards')
+    _build_all([da, fa])
     _shard_kernels(da)
     log_dir = tempfile.mkdtemp(prefix='skytpu-nccl-')
     try:
@@ -4839,16 +4923,432 @@ def nccl_main() -> int:
                f'{TP_HOSTS} hosts of {NCCL_TP // TP_HOSTS} cards, NCCL')
         recipe = tp_recipe_phase(srv_lib, gen_lib, llama, log_dir, NCCL_TP,
                                  'nccl', 'nccl-b', NCCL_HOSTS)
+        _phase(f'nccl 4: the multislice-train recipe (bench-1b, '
+               f'data=2,fsdp=2) as {MESH_HOSTS} hosts of 2 cards, NCCL')
+        train = mesh_train_phase(llama, train_run, log_dir, 'nccl-19a',
+                                 NCCL_HOSTS)
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
+        shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
     print(cards, flush=True)
     print(json.dumps({'nccl': {'bench-1b tp4 K4 bf16 launches by rank': bench,
                                'llama3-8b tp4 K4 int8 launches by rank':
-                               recipe}}), flush=True)
+                               recipe,
+                               'bench-1b data=2,fsdp=2 K1-K3 launches':
+                               train}}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# -- phase 19: sharded training, every rank a process ----------------------------
+
+TRAIN_RUN = [sys.executable, '-m', 'skypilot_tpu_torch.train.run']
+# 19a: the multislice-train recipe (examples/llm/multislice-train/
+# train.yaml) as two host processes of two ranks; --steps 500 -> 3,
+# fsdp=-1 -> 2 (on one card -1 resolves to the 2 hosts' one card each),
+# and --warmup-steps 100 -> 1, so that steps 2 and 3 take the full
+# learning rate and their updates show in the bf16 weights.
+MESH_TRAIN_ARGV = ['--model', 'bench-1b', '--global-batch-size', '32',
+                   '--seq-len', '2048', '--mesh', 'data=2,fsdp=2',
+                   '--steps', '3', '--warmup-steps', '1', '--log-every', '1']
+MESH_HOSTS = 2
+# 19b: the lora-finetune recipe on --mesh fsdp=2 (its fsdp=-1 is one card
+# here): 2 steps saved, resumed to 4, against 4 uninterrupted.
+MESH_LORA_ARGV = ['--model', 'bench-1b', '--global-batch-size', '16',
+                  '--seq-len', '2048', '--mesh', 'fsdp=2', '--lora-rank',
+                  '16', '--lora-alpha', '32', '--lora-targets',
+                  'wq,wk,wv,wo', '--log-every', '1']
+MESH_CKPT_DIR = '_ckpt_mesh_smoke'  # under the checkout; removed at the end
+MESH_RUN_S = 600
+MESH_LOSS_RTOL = 2e-2    # 19a: a step's loss against one rank's
+MESH_WEIGHT_RTOL = 1e-2  # 19a: ||w - w_one|| / ||w_one|| over the weights
+MESH_NORM_RTOL = 1e-2    # 19a: a step's grad_norm against one rank's
+MESH_UPDATE_RTOL = 0.5   # 19a: ||u - u_one|| / ||u_one||, u = w - w_init
+MESH_HALF_BATCH = 16     # 19a: a wrong gradient, which both limits must catch
+SMALL_MESH = 'data=2,fsdp=2,tensor=2'
+SMALL_MESH_TOL = 1e-4    # 19c: card against CPU, fp32
+
+
+def _train_gang(argv, hosts, log_dir, label, host_env=None):
+    """``python -m skypilot_tpu_torch.train.run argv`` as ``hosts`` host
+    processes (the gang launcher's env when more than one; each spawns its
+    local ranks), each in its own session. Returns the rank summaries in
+    rank order, the logs' text and the wall seconds; raises unless every
+    host exits 0."""
+    env = dict(os.environ)
+    if hosts > 1:
+        env.update(JAX_COORDINATOR_ADDRESS=f'127.0.0.1:{_free_port()}',
+                   JAX_NUM_PROCESSES=str(hosts),
+                   MEGASCALE_NUM_SLICES=str(hosts))
+    procs, logs = [], []
+    t0 = time.monotonic()
+    try:
+        for h in range(hosts):
+            logs.append(os.path.join(log_dir, f'{label}-host{h}.log'))
+            with open(logs[-1], 'a') as log:  # O_APPEND: the host's ranks
+                procs.append(subprocess.Popen(
+                    TRAIN_RUN + argv, stdout=log, stderr=subprocess.STDOUT,
+                    start_new_session=True,
+                    env=dict(env, **(host_env[h] if host_env else {}),
+                             **({'JAX_PROCESS_ID': str(h)} if hosts > 1
+                                else {}))))
+        for proc in procs:
+            proc.wait(max(MESH_RUN_S - (time.monotonic() - t0), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    wall = time.monotonic() - t0
+    texts = [open(path, errors='replace').read() for path in logs]
+    if any(p.returncode for p in procs):
+        raise AssertionError(
+            f'{label}: hosts exited {[p.returncode for p in procs]}:\n'
+            + '\n'.join(t[-4000:] for t in texts))
+    summaries = sorted(
+        (json.loads(m) for t in texts
+         for m in re.findall(r'^\[train\] rank-summary (\{.*\})$', t,
+                             re.MULTILINE)), key=lambda s: s['rank'])
+    return summaries, texts, wall
+
+
+def _step_state(root, step):
+    """A committed step's arrays (host 0's manifest) as CPU tensors."""
+    from skypilot_tpu_torch.ckpt import manifest as manifest_lib
+    from skypilot_tpu_torch.ckpt import snapshot as snapshot_lib
+    path = os.path.join(root, manifest_lib.step_dirname(step))
+    if not manifest_lib.is_committed(path):
+        raise AssertionError(f'{path} is not committed')
+    return {name: snapshot_lib.from_host(arr).clone()
+            for name, arr in manifest_lib.iter_host_arrays(path, 0)}
+
+
+def _check_ranks(label, summaries, world, steps, n_layers):
+    """Every rank ran every step with the same finite losses and the same
+    grad_norm bits, and launched K1/K2/K3 2L / L / L times a step."""
+    if len(summaries) != world:
+        raise AssertionError(f'{label}: {len(summaries)} rank summaries of '
+                             f'{world}')
+    want = {'flash_fwd': 2 * n_layers * steps,
+            'flash_bwd_dq': n_layers * steps,
+            'flash_bwd_dkv': n_layers * steps}
+    for s in summaries:
+        if s['launches'] != want:
+            raise AssertionError(f'{label}: rank {s["rank"]} launched '
+                                 f'{s["launches"]}, expected {want}')
+        if not all(math.isfinite(x) for x in s['losses']) \
+                or len(s['losses']) != steps:
+            raise AssertionError(f'{label}: rank {s["rank"]} losses '
+                                 f'{s["losses"]}')
+    if len({tuple(s['losses']) for s in summaries}) != 1 \
+            or len({tuple(s['grad_norms']) for s in summaries}) != 1:
+        raise AssertionError(f'{label}: ranks disagree: '
+                             + '; '.join(f'{s["losses"]} {s["grad_norms"]}'
+                                         for s in summaries))
+    return want
+
+
+def _rank_figs(label, summaries, steps):
+    for s in summaries:
+        c = s['collectives']
+        kinds = ', '.join(
+            f'{k} {v["calls"] / steps:.1f} calls {v["bytes"] / steps / 1e6:.1f}'
+            f' MB {v["seconds"] / steps:.3f} s' for k, v in
+            sorted(c['by_kind'].items()))
+        print(f'  {label} rank {s["rank"]} ({s["backend"]}, {s["device"]}): '
+              f'step ms {[round(x, 1) for x in s["window_step_ms"]]}; '
+              f'collectives a step {c["calls"] / steps:.1f} calls, '
+              f'{c["bytes"] / steps / 1e6:.1f} MB, '
+              f'{c["seconds"] / steps:.3f} host s ({kinds}); weights '
+              f'{s["weight_bytes"]} B; peak '
+              f'{(s["peak_bytes"] or 0) / 2 ** 30:.2f} GiB', flush=True)
+
+
+def mesh_train_phase(llama, train_run, log_dir, label='19a', host_env=None):
+    """19a: the multislice-train recipe through ``train.run`` on
+    ``data=2,fsdp=2`` as two host processes of two ranks (gloo on one
+    card; NCCL with ``host_env``'s cards), then the same global batch on
+    one rank in this process: every step's loss within MESH_LOSS_RTOL
+    and grad_norm within MESH_NORM_RTOL, the updated weights (the gang's
+    final checkpoint) within MESH_WEIGHT_RTOL in relative L2 and their
+    updates within MESH_UPDATE_RTOL, limits that one rank's run on
+    MESH_HALF_BATCH rows must exceed; equal grad_norm bits on every rank,
+    K1/K2/K3 36/18/18 a step on every rank, and each rank's weight bytes
+    half the whole plus the replicated leaves. Returns the launches of
+    the gang's ranks, summed per kernel."""
+    cfg, steps, world = llama.BENCH_1B, 3, 4
+    ckpt = os.path.abspath(os.path.join(MESH_CKPT_DIR, label))
+    summaries, _, wall = _train_gang(
+        MESH_TRAIN_ARGV + ['--ckpt-dir', ckpt, '--save-every', '1000'],
+        MESH_HOSTS, log_dir, label, host_env)
+    per_rank = _check_ranks(label, summaries, world, steps, cfg.n_layers)
+    shapes = llama.param_shapes(cfg)
+    whole = 2 * sum(math.prod(s) for s in _flat_shapes(shapes))
+    replicated = 2 * sum(math.prod(shapes['layers'][k]) for k in
+                         ('attn_norm', 'mlp_norm')) + 2 * cfg.d_model
+    want_bytes = (whole - replicated) // 2 + replicated
+    if any(s['weight_bytes'] != want_bytes for s in summaries):
+        raise AssertionError(f'{label}: weight bytes by rank '
+                             f'{[s["weight_bytes"] for s in summaries]}, '
+                             f'expected {want_bytes} (whole {whole})')
+    _rank_figs(label, summaries, steps)
+    _phase(f'  {label} gang done in {wall:.1f} s; one rank, same batch')
+    argv = list(MESH_TRAIN_ARGV)
+    i = argv.index('--mesh')
+    del argv[i:i + 2]
+    t0 = time.perf_counter()
+    one = train_run.main(argv)
+    one_s = time.perf_counter() - t0
+    i = argv.index('--global-batch-size')
+    argv[i + 1] = str(MESH_HALF_BATCH)
+    half = train_run.main(argv)  # what a gang that lost a data shard does
+    gang_losses = summaries[0]['losses']
+    rel = [abs(a - b) / abs(b) for a, b in zip(gang_losses, one['losses'])]
+    if not max(rel) <= MESH_LOSS_RTOL:
+        raise AssertionError(f'{label}: losses {gang_losses} against one '
+                             f'rank {one["losses"]}')
+
+    def norms_apart(norms):
+        return max(abs(a - b) / b for a, b in zip(norms, one['grad_norms']))
+    norm_rel = norms_apart(summaries[0]['grad_norms'])
+    half_norm_rel = norms_apart(half['grad_norms'])
+    init = llama.init_params(cfg, torch.Generator(device='cuda')
+                             .manual_seed(0), 'cuda')
+    from skypilot_tpu_torch.ckpt import snapshot as snapshot_lib
+
+    def named(params):
+        return {leaf.name: leaf.value for leaf in
+                snapshot_lib.flatten_named({'params': params})[0]}
+    ref, start, wrong = (named(one['state']['params']), named(init),
+                         named(half['state']['params']))
+    saved = _step_state(ckpt, steps)
+    diff = norm = upd = upd_norm = half_upd = 0.0
+    for name, w in ref.items():
+        got = saved[name].to('cuda').float()
+        w, w0 = w.detach().float(), start[name].float()
+        diff += float(((got - w) ** 2).sum())
+        norm += float((w ** 2).sum())
+        d_ref = w - w0
+        upd += float(((got - w0 - d_ref) ** 2).sum())
+        half_upd += float(((wrong[name].detach().float() - w0 - d_ref)
+                           ** 2).sum())
+        upd_norm += float((d_ref ** 2).sum())
+    del init, start, ref, wrong, saved, one, half
+    torch.cuda.empty_cache()
+    w_rel, u_rel = math.sqrt(diff / norm), math.sqrt(upd / upd_norm)
+    half_u_rel = math.sqrt(half_upd / upd_norm)
+    readings = (f'grad_norm {summaries[0]["grad_norms"]} on every rank, '
+                f'{norm_rel:.3g} relative from one rank\'s (limit '
+                f'{MESH_NORM_RTOL}); weights {w_rel:.3g} relative L2 from '
+                f'one rank (limit {MESH_WEIGHT_RTOL}), their updates '
+                f'{u_rel:.3g} (limit {MESH_UPDATE_RTOL}); a batch of '
+                f'{MESH_HALF_BATCH} on one rank: grad_norm {half_norm_rel:.3g},'
+                f' updates {half_u_rel:.3g} apart')
+    if not (w_rel <= MESH_WEIGHT_RTOL and norm_rel <= MESH_NORM_RTOL
+            and u_rel <= MESH_UPDATE_RTOL):
+        raise AssertionError(f'{label}: {readings}')
+    if not (half_norm_rel > MESH_NORM_RTOL and half_u_rel > MESH_UPDATE_RTOL):
+        raise AssertionError(f'{label}: the limits do not tell a wrong '
+                             f'gradient: {readings}')
+    print(f'  {label} bench-1b on data=2,fsdp=2 ({MESH_HOSTS} hosts x 2 '
+          f'ranks, {summaries[0]["backend"]}): losses {gang_losses}, one '
+          f'rank {[round(x, 6) for x in rel]} relative apart (limit '
+          f'{MESH_LOSS_RTOL}); {readings}; K1/K2/K3 '
+          f'by rank {per_rank} = expected; weights a rank '
+          f'{want_bytes} B = ({whole} - {replicated}) / 2 + {replicated}; '
+          f'gang {wall:.1f} s, one rank {one_s:.1f} s', flush=True)
+    return {k: v * world for k, v in per_rank.items()}
+
+
+def _flat_shapes(tree):
+    if isinstance(tree, dict):
+        return [s for v in tree.values() for s in _flat_shapes(v)]
+    return [tree]
+
+
+def mesh_lora_phase(llama, log_dir, pool):
+    """19b: the lora-finetune recipe through ``train.run`` on ``fsdp=2``
+    (two ranks, one card): A 2 steps saved at 2, B resumed to 4, and C 4
+    steps beside them (on ``pool``); B's step 4 = C's bit for bit
+    (adapters, base, optimizer state), B's losses = C's last two and A's
+    = C's first two, the base = the initial weights bit for bit, K1/K2/K3
+    at B=8 a rank."""
+    cfg, world = llama.BENCH_1B, 2
+    root = os.path.abspath(os.path.join(MESH_CKPT_DIR, '19b'))
+    ab, c = os.path.join(root, 'ab'), os.path.join(root, 'c')
+    uninterrupted = pool.submit(_train_gang, MESH_LORA_ARGV + [
+        '--steps', '4', '--save-every', '4', '--ckpt-dir', c], 1, log_dir,
+        '19b-C')
+    runs, texts = {}, {}
+    for name, extra in (('A', ['--steps', '2', '--save-every', '2',
+                               '--ckpt-dir', ab]),
+                        ('B', ['--steps', '4', '--save-every', '2',
+                               '--ckpt-dir', ab])):
+        runs[name], (texts[name],), wall = _train_gang(
+            MESH_LORA_ARGV + extra, 1, log_dir, f'19b-{name}')
+        _phase(f'  19b {name}: {wall:.1f} s')
+    runs['C'], _, wall = uninterrupted.result()
+    _phase(f'  19b C (beside A and B): {wall:.1f} s')
+    if '[train] resumed from checkpoint step 2' not in texts['B']:
+        raise AssertionError('19b: B did not resume from step 2')
+    _check_ranks('19b C', runs['C'], world, 4, cfg.n_layers)
+    if runs['A'][0]['losses'] != runs['C'][0]['losses'][:2] \
+            or runs['B'][0]['losses'] != runs['C'][0]['losses'][2:]:
+        raise AssertionError(f'19b: losses A {runs["A"][0]["losses"]} B '
+                             f'{runs["B"][0]["losses"]} C '
+                             f'{runs["C"][0]["losses"]}')
+    resumed, straight = _step_state(ab, 4), _step_state(c, 4)
+    if resumed.keys() != straight.keys():
+        raise AssertionError('19b: the two step-4 states differ in names')
+    for name in straight:
+        if not torch.equal(resumed[name], straight[name]):
+            raise AssertionError(f'19b: {name} differs between resumed and '
+                                 'uninterrupted')
+    from skypilot_tpu_torch.ckpt import snapshot as snapshot_lib
+    init = llama.init_params(cfg, torch.Generator(device='cuda')
+                             .manual_seed(0), 'cuda')
+    for leaf in snapshot_lib.flatten_named({'params': init})[0]:
+        if not torch.equal(straight[leaf.name], leaf.value.cpu()):
+            raise AssertionError(f'19b: the base moved: {leaf.name}')
+    adapters = sum(t.numel() for n, t in straight.items()
+                   if n.startswith("['lora']"))
+    del init, resumed, straight
+    torch.cuda.empty_cache()
+    _rank_figs('19b C', runs['C'], 4)
+    print(f'  19b bench-1b LoRA rank 16 on fsdp=2 (2 ranks, '
+          f'{runs["C"][0]["backend"]}): losses {runs["C"][0]["losses"]}; '
+          f'A + B = C bit for bit (every array of step 4: {adapters} '
+          'adapter values, the base, the optimizer state); the base = '
+          'the initial weights bit for bit', flush=True)
+    return {k: v * world for k, v in
+            runs['C'][0]['launches'].items()}
+
+
+_SMALL_MESH_SCRIPT = r"""
+import dataclasses, json, os, sys
+import torch
+from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.parallel import gang as gang_lib
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.train import data as data_lib
+from skypilot_tpu_torch.train import optim, trainer as trainer_lib
+
+gang = gang_lib.initialize(8, 'cuda', sys.argv[1:],
+                           [sys.executable, __file__], '19c')
+card = mesh_lib.build_mesh(mesh_lib.parse_spec(sys.argv[1]),
+                           device=gang.device)
+host = mesh_lib.Mesh(card.shape, torch.device('cpu'), card.device_mesh,
+                     card.backend)
+model = dataclasses.replace(llama.TINY, d_model=128, n_heads=4,
+                            n_kv_heads=2, head_dim=64, d_ff=256,
+                            dtype=torch.float32)
+cfg = trainer_lib.TrainerConfig(model=model, global_batch_size=4,
+                                seq_len=128, warmup_steps=1,
+                                learning_rate=1e-2)
+init = optim.tree_map(lambda t: t.numpy(), llama.init_params(
+    model, torch.Generator().manual_seed(0), 'cpu'))
+runs = {}
+for name, mesh in (('card', card), ('cpu', host)):
+    tr = trainer_lib.Trainer(cfg, mesh=mesh)
+    st = tr.init_state_from_numpy(init)
+    losses = []
+    for b in data_lib.synthetic_batches(4, 128, model.vocab_size, seed=3,
+                                        num_batches=2):
+        st, m = tr.step(st, b)
+        losses.append(float(m['loss']))
+    runs[name] = (losses, [t.cpu() for t in optim.tree_leaves(
+        tr.host_view(st, gang.local)['params'])])
+loss_err = max(abs(a - b) for a, b in zip(runs['card'][0], runs['cpu'][0]))
+param_err = max(float((a - b).abs().max()) for a, b in zip(
+    runs['card'][1], runs['cpu'][1]))
+moved = max(float((a - torch.from_numpy(b)).abs().max()) for a, b in zip(
+    runs['cpu'][1], optim.tree_leaves(init)))
+with open(os.path.join(sys.argv[2], f'small-mesh.{gang.rank}.json'),
+          'w') as f:
+    json.dump({'rank': gang.rank, 'losses': runs['card'][0],
+               'loss_err': loss_err, 'param_err': param_err,
+               'moved': moved}, f)
+gang.close(60)
+sys.stdout.flush()
+os._exit(0)
+"""
+
+
+def small_mesh_phase(log_dir):
+    """19c: the small fp32 model of phase 5 (head_dim 64) on
+    ``data=2,fsdp=2,tensor=2``, eight ranks on the card, two Adafactor
+    steps on the card and then on the CPU over the same process group,
+    from the same weights: losses and gathered params within
+    SMALL_MESH_TOL on every rank."""
+    script = os.path.join(log_dir, 'small_mesh.py')
+    with open(script, 'w') as f:
+        f.write(_SMALL_MESH_SCRIPT)
+    log = os.path.join(log_dir, '19c.log')
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    t0 = time.monotonic()
+    with open(log, 'a') as out:  # O_APPEND: eight ranks write to it
+        proc = subprocess.Popen([sys.executable, script, SMALL_MESH,
+                                 log_dir], stdout=out,
+                                stderr=subprocess.STDOUT, env=env,
+                                start_new_session=True)
+        try:
+            proc.wait(MESH_RUN_S)
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    text = open(log, errors='replace').read()
+    if proc.returncode:
+        raise AssertionError(f'19c exited {proc.returncode}:\n'
+                             f'{text[-4000:]}')
+    ranks = []
+    for r in range(8):
+        path = os.path.join(log_dir, f'small-mesh.{r}.json')
+        if os.path.exists(path):
+            with open(path) as f:
+                ranks.append(json.load(f))
+    bad = [r for r in ranks if not (r['loss_err'] <= SMALL_MESH_TOL
+                                    and r['param_err'] <= SMALL_MESH_TOL
+                                    and r['moved'] > 1e-3)]
+    if len(ranks) != 8 or bad:
+        raise AssertionError(f'19c: {len(ranks)} ranks, off: {bad}')
+    print(f'  19c small fp32 model on {SMALL_MESH} (8 ranks on the card, '
+          f'gloo): losses {ranks[0]["losses"]}; card vs CPU max loss err '
+          f'{max(r["loss_err"] for r in ranks)}, max param err '
+          f'{max(r["param_err"] for r in ranks)} (limits {SMALL_MESH_TOL}) '
+          f'on every rank; weights moved up to {ranks[0]["moved"]}; '
+          f'{time.monotonic() - t0:.1f} s', flush=True)
+
+
+def mesh_phase(llama, train_run):
+    """Phase 19. Returns K1-K3's launches of 19a and 19b, every rank's."""
+    log_dir = tempfile.mkdtemp(prefix='skytpu-mesh-')
+    try:
+        launches = {'phase 19a train-multislice': mesh_train_phase(
+            llama, train_run, log_dir)}
+        _phase('  19a done')
+        # 19b's uninterrupted run and 19c share the card and the host with
+        # 19b's saved and resumed runs: their step times are not 19a's.
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            small = pool.submit(small_mesh_phase, log_dir)
+            launches['phase 19b lora-fsdp'] = mesh_lora_phase(
+                llama, log_dir, pool)
+            _phase('  19b done')
+            small.result()
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+        shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
+    return launches
 
 
 def _check_dispatches(label, launches, d0, d1, cfg, dec):
@@ -4955,10 +5455,12 @@ def main() -> int:
     with _cut_depth(llama, 'llama3-1b', RECIPE_LAYERS):
         by_path['int8']['phase 9 serve-llama'], recipe_figs = recipe_phase(
             srv_lib, gen_lib, da)
-    _phase('phase 10: the llama-finetune recipe (llama3-1b, batch 8, seq '
-           '2048) through train.run: save, resume, preempt')
-    finetune_launches, trainer_bundle = finetune_phase(llama, fa, train_run,
-                                                       ckpt_manifest)
+    _phase(f'phase 10: the llama-finetune recipe (llama3-1b at '
+           f'{RECIPE_LAYERS} of 16 layers, batch 8, seq 2048) through '
+           'train.run: save, resume, preempt')
+    with _cut_depth(llama, 'llama3-1b', RECIPE_LAYERS):
+        finetune_launches, trainer_bundle = finetune_phase(
+            llama, fa, train_run, ckpt_manifest, layers=RECIPE_LAYERS)
 
     _phase(f'phase 11: the paged layout at full width (llama3-1b, '
            f'{RECIPE_LAYERS} of 16 layers, int8 + int8 KV, max_len 2048, '
@@ -5002,7 +5504,7 @@ def main() -> int:
 
     for mode in MODES:
         for case in (LLAMA_CASE, DRAFT_CASE, DISAGG_CASE, TP2_CASE,
-                     TP8_CASE):
+                     TP8_CASE, TP4_BENCH_CASE, TP4_RECIPE_CASE):
             row = next(c for c in kernels[mode]['cases']
                        if c['case'] == case and c['dtype'] == 'bfloat16')
             print(f'  flash_decode[{mode} cache] at {case}: ms {row["ms"]}'
@@ -5020,11 +5522,13 @@ def main() -> int:
         by_path['bf16']['phase 15 serve-qos'] = qos_phase(
             srv_lib, gen_lib, da, metrics_lib, warmup_lib)
 
-        _phase('phase 16: serve-traced (bench-1b): request tracing, the '
+        _phase(f'phase 16: serve-traced (bench-1b, 16a-16b at '
+               f'{SERVE_LAYERS} of 18 layers): request tracing, the '
                'black-box recorder, the /debug routes, OpenMetrics '
                'exemplars, the device doctor')
-        by_path['bf16']['phase 16 serve-traced'] = traced_phase(
-            srv_lib, gen_lib, da, metrics_lib, trace_lib, blackbox)
+        with _cut_depth(llama, 'bench-1b', SERVE_LAYERS):
+            by_path['bf16']['phase 16 serve-traced'] = traced_phase(
+                srv_lib, gen_lib, da, metrics_lib, trace_lib, blackbox)
         _phase('  16a-16b done')
         failure_dump_phase(llama, engine_lib, blackbox)
         sigquit_phase(kernel_cache, llama.PRESETS['bench-1b'].vocab_size)
@@ -5042,21 +5546,31 @@ def main() -> int:
     by_path['bf16']['phase 17 serve-disagg'] = disagg['bf16']
     by_path['int8']['phase 17 serve-disagg int8'] = disagg['int8']
 
-    _phase('phase 18: serve-tp: bench-1b at --tp 2 (18a), the '
-           'serve-multihost recipe (llama3-8b int8, --tp 8 as 2 hosts x 4 '
-           'ranks, 18b), every rank a process on the one card, gloo')
+    _phase(f'phase 18: serve-tp: bench-1b at {SERVE_LAYERS} of 18 layers, '
+           '--tp 2 (18a), the '
+           f'serve-multihost recipe (llama3-8b int8 at {TP8_LAYERS} of 32 '
+           'layers, --tp 8 as 2 hosts x 4 ranks, 18b), every rank a '
+           'process on the one card, gloo')
     tp_bench, tp_recipe = tp_phase(srv_lib, gen_lib, llama)
     by_path['bf16']['phase 18a serve-tp (2 ranks)'] = sum(tp_bench)
     by_path['int8']['phase 18b serve-multihost (8 ranks)'] = sum(tp_recipe)
 
-    _phase('phase 19: summary')
+    _phase('phase 19: sharded training: the multislice-train recipe '
+           '(bench-1b, data=2,fsdp=2 as 2 hosts x 2 ranks, 19a), the '
+           'lora-finetune recipe on fsdp=2 with a resume (19b), a small '
+           'fp32 model on data=2,fsdp=2,tensor=2 card against CPU (19c), '
+           'every rank a process on the one card, gloo')
+    mesh_launches = mesh_phase(llama, train_run)
+
+    _phase('phase 20: summary')
     print(_card(), flush=True)  # again here, where the output's tail has it
     entries = []
     for name, (replaces, _, source) in FLASH.items():
         paths = {'phase 6 train-s4096': train_launches[name],
                  'phase 10 llama-finetune': finetune_launches[name],
                  'phase 12 lora-finetune': lora_launches[name],
-                 'phase 14 train-moe': moe_launches[name]}
+                 'phase 14 train-moe': moe_launches[name],
+                 **{path: n[name] for path, n in mesh_launches.items()}}
         entries.append({
             'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': sum(paths.values()),
@@ -5077,7 +5591,9 @@ def main() -> int:
                 for key, case in (('llama', LLAMA_CASE),
                                   ('draft', DRAFT_CASE),
                                   ('disagg', DISAGG_CASE),
-                                  ('tp2', TP2_CASE), ('tp8', TP8_CASE))}})
+                                  ('tp2', TP2_CASE), ('tp8', TP8_CASE),
+                                  ('tp4a', TP4_BENCH_CASE),
+                                  ('tp4b', TP4_RECIPE_CASE))}})
     print(json.dumps({'kernels': entries}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -30,6 +30,11 @@ Each stage leaves its edge on the flight recorder
 (``observability/blackbox.py``), under JAX's names: ``ckpt.snapshot``,
 ``ckpt.commit``, ``ckpt.mirror``, ``ckpt.emergency`` and ``ckpt.restore``.
 
+A sharded trainer runs one manager per rank: the host's first rank
+writes its host's shards (``writer=True``, the default); the others
+(``writer=False``) only restore, and leave the root's garbage to the
+writer.
+
 Not ported: the orbax compat reader (orbax needs JAX; a directory that
 holds only orbax steps raises ``CheckpointError``).
 """
@@ -71,7 +76,7 @@ class AsyncCheckpointManager:
                  process_index: Optional[int] = None,
                  process_count: Optional[int] = None,
                  barrier: Optional[Callable[[], None]] = None,
-                 telemetry: Any = 'env'):
+                 telemetry: Any = 'env', writer: bool = True):
         self.directory = os.path.abspath(os.path.expanduser(directory))
         self.local_dir = (os.path.abspath(os.path.expanduser(local_dir))
                           if local_dir else None)
@@ -109,6 +114,9 @@ class AsyncCheckpointManager:
         # would self-deadlock. emergency_persist bails out instead —
         # the close() flush is the backstop.
         self._busy_thread: Optional[int] = None
+        self.writer = writer
+        if not writer:
+            return
         if self._host == 0:
             committer.gc_root(self._commit_root, self.max_to_keep)
             if self._mirror_root:
@@ -149,6 +157,9 @@ class AsyncCheckpointManager:
         back-pressure if the previous persist is still in flight."""
         if not self.should_save(step, force):
             return False
+        if not self.writer:
+            raise CheckpointError('save on a manager opened with '
+                                  'writer=False')
         with self._entered():
             return self._save_inner(step, state)
 
@@ -406,8 +417,8 @@ class AsyncCheckpointManager:
     def _quarantine(self, path: str) -> None:
         """A committed-looking step that failed validation is torn or
         bit-rotted: remove it so the next incarnation does not re-read
-        it (rank 0 only; non-fatal on shared-fs races)."""
-        if self._host != 0:
+        it (rank 0's writer only; non-fatal on shared-fs races)."""
+        if self._host != 0 or not self.writer:
             return
         import shutil
         shutil.rmtree(path, ignore_errors=True)

@@ -15,14 +15,30 @@ the card). Remat policies map onto ``torch.utils.checkpoint``.
 An MoE model (``num_experts > 0``) takes ``models/moe.py``'s block in
 place of the dense MLP under ``layers/moe``; its balance loss is summed
 over the layers and weighted into ``loss_fn`` as in the JAX package.
-Pipeline stages raise ``NotImplementedError``; sequence parallelism
-is not ported. ``param_logical_axes`` and ``init_params_sharded`` give a
-dense model's serving weights on a tensor-parallel mesh
-(``parallel/``).
+``param_logical_axes`` and ``init_params_sharded`` give a dense model's
+weights on a mesh (``parallel/``).
+
+With ``mesh=`` (one process per rank, each holding its slices of the
+weights as ``param_logical_axes`` places them) the training forward
+issues the collectives JAX's GSPMD inserts (``llama.py:300-426``): each
+layer's weights are all-gathered over ``fsdp`` inside the layer's
+checkpointed segment (the backward gathers them again and
+reduce-scatters their gradients), q/k/v and gate/up are column-split
+over ``tensor`` and ``wo``/``w_down`` row-split with a ``psum`` before
+the residual add, K1 runs on the rank's rows and head shard, the
+embedding is a masked lookup over the rank's vocab block and a ``psum``,
+and the logits stay vocab-split: the log-sum-exp takes a ``pmax`` and a
+``psum`` of the exps, the gold logit a masked ``psum``. ``loss_fn``
+returns the rank's share of the global mean (its rows' summed loss over
+the global token count), whose gradients summed over the batch axes are
+the global mean's. Pipeline stages, sequence parallelism (``seq``), the
+``expert`` axis and MoE models under a mesh raise
+``NotImplementedError`` (ROADMAP section 1, item 1).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
@@ -156,22 +172,47 @@ def param_logical_axes(cfg: LlamaConfig) -> Params:
     if cfg.num_experts > 0:
         raise NotImplementedError(
             'moe_logical_axes is not ported yet: skypilot_tpu_torch shards '
-            'dense models only')
+            'dense models only (ROADMAP section 1, item 1)')
     return {
         'embed': ('vocab', 'embed'),
-        'layers': {
-            'attn_norm': ('layers', None),
-            'wq': ('layers', 'embed', 'heads', 'head_dim'),
-            'wk': ('layers', 'embed', 'kv_heads', 'head_dim'),
-            'wv': ('layers', 'embed', 'kv_heads', 'head_dim'),
-            'wo': ('layers', 'heads', 'head_dim', 'embed'),
-            'mlp_norm': ('layers', None),
-            'w_gate': ('layers', 'embed', 'mlp'),
-            'w_up': ('layers', 'embed', 'mlp'),
-            'w_down': ('layers', 'mlp', 'embed'),
-        },
+        'layers': dict(DENSE_LAYER_AXES),
         'final_norm': (None,),
         'lm_head': ('embed', 'vocab'),
+    }
+
+
+# The dense layer's logical axes (JAX's ``llama.py:160-178``).
+DENSE_LAYER_AXES = {
+    'attn_norm': ('layers', None),
+    'wq': ('layers', 'embed', 'heads', 'head_dim'),
+    'wk': ('layers', 'embed', 'kv_heads', 'head_dim'),
+    'wv': ('layers', 'embed', 'kv_heads', 'head_dim'),
+    'wo': ('layers', 'heads', 'head_dim', 'embed'),
+    'mlp_norm': ('layers', None),
+    'w_gate': ('layers', 'embed', 'mlp'),
+    'w_up': ('layers', 'embed', 'mlp'),
+    'w_down': ('layers', 'mlp', 'embed'),
+}
+
+
+def param_shapes(cfg: LlamaConfig) -> Params:
+    """The whole shape of every leaf of a dense ``init_params`` tree."""
+    d, L, hd = cfg.d_model, cfg.n_layers, cfg.head_dim
+    return {
+        'embed': (cfg.vocab_size, d),
+        'layers': {
+            'attn_norm': (L, d),
+            'wq': (L, d, cfg.n_heads, hd),
+            'wk': (L, d, cfg.n_kv_heads, hd),
+            'wv': (L, d, cfg.n_kv_heads, hd),
+            'wo': (L, cfg.n_heads, hd, d),
+            'mlp_norm': (L, d),
+            'w_gate': (L, d, cfg.d_ff),
+            'w_up': (L, d, cfg.d_ff),
+            'w_down': (L, cfg.d_ff, d),
+        },
+        'final_norm': (d,),
+        'lm_head': (d, cfg.vocab_size),
     }
 
 
@@ -313,9 +354,26 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.view(*x.shape[:-1], *w.shape[1:])
 
 
-def _qkv(cfg: LlamaConfig, x: torch.Tensor, layer: Params):
+def _column(h: torch.Tensor, mesh) -> torch.Tensor:
+    """A replicated activation entering a column-split product: its
+    gradient is summed over ``tensor``."""
+    if mesh is None:
+        return h
+    from skypilot_tpu_torch.parallel import collectives
+    return collectives.copy_to(h, mesh, 'tensor')
+
+
+def _row(out: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-split product's partial sums, summed over ``tensor``."""
+    if mesh is None:
+        return out
+    from skypilot_tpu_torch.parallel import collectives
+    return collectives.reduce_from(out, mesh, 'tensor')
+
+
+def _qkv(cfg: LlamaConfig, x: torch.Tensor, layer: Params, mesh=None):
     """Attention norm and the q/k/v projections (JAX: 'qkv_proj')."""
-    h = rms_norm(x, layer['attn_norm'], cfg.norm_eps)
+    h = _column(rms_norm(x, layer['attn_norm'], cfg.norm_eps), mesh)
     return (_project(h, layer['wq']), _project(h, layer['wk']),
             _project(h, layer['wv']))
 
@@ -331,29 +389,32 @@ def _attend(cfg: LlamaConfig, q: torch.Tensor, k: torch.Tensor,
 
 
 def _attn_residual(x: torch.Tensor, att: torch.Tensor,
-                   layer: Params) -> torch.Tensor:
+                   layer: Params, mesh=None) -> torch.Tensor:
     """x + att . wo (JAX: 'attn_proj')."""
     wo = layer['wo']
-    return x + att.reshape(*att.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    return x + _row(att.reshape(*att.shape[:2], -1)
+                    @ wo.reshape(-1, wo.shape[-1]), mesh)
 
 
-def _mlp_hidden(cfg: LlamaConfig, x: torch.Tensor, layer: Params):
+def _mlp_hidden(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
+                mesh=None):
     """MLP norm and the gate/up projections."""
-    h = rms_norm(x, layer['mlp_norm'], cfg.norm_eps)
+    h = _column(rms_norm(x, layer['mlp_norm'], cfg.norm_eps), mesh)
     return h @ layer['w_gate'], h @ layer['w_up']
 
 
 def _mlp_down(gate: torch.Tensor, up: torch.Tensor,
-              layer: Params) -> torch.Tensor:
+              layer: Params, mesh=None) -> torch.Tensor:
     """silu(gate) * up . w_down (JAX: 'mlp_down')."""
-    return (F.silu(gate) * up) @ layer['w_down']
+    return _row((F.silu(gate) * up) @ layer['w_down'], mesh)
 
 
-def _mlp(cfg: LlamaConfig, x: torch.Tensor, layer: Params) -> torch.Tensor:
-    return _mlp_down(*_mlp_hidden(cfg, x, layer), layer)
+def _mlp(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
+         mesh=None) -> torch.Tensor:
+    return _mlp_down(*_mlp_hidden(cfg, x, layer, mesh), layer, mesh)
 
 
-def _ffn(cfg: LlamaConfig, x: torch.Tensor, layer: Params
+def _ffn(cfg: LlamaConfig, x: torch.Tensor, layer: Params, mesh=None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The block's back half without its residual: (out, aux). An MoE
     model runs the MLP norm and ``models/moe.py``'s block; the dense MLP's
@@ -362,17 +423,17 @@ def _ffn(cfg: LlamaConfig, x: torch.Tensor, layer: Params
         h = rms_norm(x, layer['mlp_norm'], cfg.norm_eps)
         return moe.moe_mlp(h, layer['moe'], cfg.num_experts,
                            cfg.expert_top_k, cfg.expert_capacity_factor)
-    return _mlp(cfg, x, layer), x.new_zeros((), dtype=torch.float32)
+    return _mlp(cfg, x, layer, mesh), x.new_zeros((), dtype=torch.float32)
 
 
 def _decoder_layer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
-                   positions: torch.Tensor
+                   positions: torch.Tensor, mesh=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder block (``llama.py:217``); returns (x, aux), aux being
     the MoE block's balance loss (0 for the dense MLP)."""
-    att = _attend(cfg, *_qkv(cfg, x, layer), positions)
-    x = _attn_residual(x, att, layer)
-    out, aux = _ffn(cfg, x, layer)
+    att = _attend(cfg, *_qkv(cfg, x, layer, mesh), positions)
+    x = _attn_residual(x, att, layer, mesh)
+    out, aux = _ffn(cfg, x, layer, mesh)
     return x + out, aux
 
 
@@ -380,36 +441,39 @@ def _ckpt(fn: Callable, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
-def _remat_full(cfg, x, layer, positions):
-    return _ckpt(lambda x_: _decoder_layer(cfg, x_, layer, positions), x)
+def _remat_full(cfg, x, layer, positions, mesh=None):
+    return _ckpt(lambda x_: _decoder_layer(cfg, x_, layer, positions, mesh),
+                 x)
 
 
-def _remat_attn(cfg, x, layer, positions):
-    att = _ckpt(lambda x_: _attend(cfg, *_qkv(cfg, x_, layer), positions), x)
+def _remat_attn(cfg, x, layer, positions, mesh=None):
+    att = _ckpt(lambda x_: _attend(cfg, *_qkv(cfg, x_, layer, mesh),
+                                   positions), x)
 
     def rest(x_, att_):
-        x_ = _attn_residual(x_, att_, layer)
-        out, aux = _ffn(cfg, x_, layer)
+        x_ = _attn_residual(x_, att_, layer, mesh)
+        out, aux = _ffn(cfg, x_, layer, mesh)
         return x_ + out, aux
     return _ckpt(rest, x, att)
 
 
-def _remat_heavy(cfg, x, layer, positions):
-    q, k, v = _ckpt(lambda x_: _qkv(cfg, x_, layer), x)
+def _remat_heavy(cfg, x, layer, positions, mesh=None):
+    q, k, v = _ckpt(lambda x_: _qkv(cfg, x_, layer, mesh), x)
     att = _ckpt(lambda *t: _attend(cfg, *t, positions), q, k, v)
-    x = _attn_residual(x, att, layer)
-    out, aux = _ckpt(lambda x_: _ffn(cfg, x_, layer), x)
+    x = _attn_residual(x, att, layer, mesh)
+    out, aux = _ckpt(lambda x_: _ffn(cfg, x_, layer, mesh), x)
     return x + out, aux
 
 
-def _remat_dots(cfg, x, layer, positions):
+def _remat_dots(cfg, x, layer, positions, mesh=None):
     if cfg.num_experts > 0:
         return _remat_heavy(cfg, x, layer, positions)
-    q, k, v = _ckpt(lambda x_: _qkv(cfg, x_, layer), x)
+    q, k, v = _ckpt(lambda x_: _qkv(cfg, x_, layer, mesh), x)
     att = _ckpt(lambda *t: _attend(cfg, *t, positions), q, k, v)
-    x = _attn_residual(x, att, layer)
-    gate, up = _ckpt(lambda x_: _mlp_hidden(cfg, x_, layer), x)
-    return x + _mlp_down(gate, up, layer), x.new_zeros((), dtype=torch.float32)
+    x = _attn_residual(x, att, layer, mesh)
+    gate, up = _ckpt(lambda x_: _mlp_hidden(cfg, x_, layer, mesh), x)
+    return (x + _mlp_down(gate, up, layer, mesh),
+            x.new_zeros((), dtype=torch.float32))
 
 
 # The JAX policies (``llama.py:267``) name the matmul outputs XLA may keep.
@@ -424,7 +488,11 @@ def _remat_dots(cfg, x, layer, positions):
 #          saves (silu(gate), silu(gate) * up).
 # The MoE block is one segment wherever the dense MLP is recomputed (and
 # under 'dots' too, as under 'heavy'). Every policy returns (x, aux), and
-# gradients do not depend on the policy.
+# gradients do not depend on the policy. On a mesh a weight is gathered
+# over fsdp where a segment reads it, so a checkpointed segment gathers
+# again in the backward (JAX's ``jax.checkpoint`` over the gathered
+# params); a weight read outside one ('wo' under heavy and dots, 'w_down'
+# under dots) stays gathered until its gradient is taken.
 REMAT_POLICIES: Dict[str, Callable] = {
     'full': _remat_full,
     'attn': _remat_attn,
@@ -451,9 +519,31 @@ def _unstack(layers: Params) -> list:
             for i in range(n)]
 
 
+class _Gathered:
+    """One layer's weight shards, each gathered over ``fsdp`` where it is
+    read (``collectives.gather_fsdp``: its gradient comes back
+    reduce-scattered)."""
+
+    def __init__(self, layer: Params, mesh, rules):
+        self._layer, self._mesh = layer, mesh
+        self._dims = {
+            name: [d - 1 for d, entry in enumerate(
+                rules.mesh_axes(DENSE_LAYER_AXES[name]))
+                if entry is not None and 'fsdp' in (
+                    (entry,) if isinstance(entry, str) else entry)]
+            for name in layer}
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        from skypilot_tpu_torch.parallel import collectives
+        w = self._layer[name]
+        for dim in self._dims[name]:
+            w = collectives.gather_fsdp(w, self._mesh, dim)
+        return w
+
+
 def _layer_stack(cfg: LlamaConfig, x: torch.Tensor, layers: Params,
                  positions: torch.Tensor, remat: bool,
-                 remat_policy: str = 'full'
+                 remat_policy: str = 'full', mesh=None, rules=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer loop (JAX: ``lax.scan``); returns (x, aux_sum)."""
     if remat and remat_policy not in REMAT_POLICIES:
@@ -461,31 +551,92 @@ def _layer_stack(cfg: LlamaConfig, x: torch.Tensor, layers: Params,
                          f'from {sorted(REMAT_POLICIES)}')
     aux = x.new_zeros((), dtype=torch.float32)
     for layer in _unstack(layers):
+        if mesh is not None:
+            layer = _Gathered(layer, mesh, rules)
         if remat:
-            x, a = REMAT_POLICIES[remat_policy](cfg, x, layer, positions)
+            x, a = REMAT_POLICIES[remat_policy](cfg, x, layer, positions,
+                                                mesh)
         else:
-            x, a = _decoder_layer(cfg, x, layer, positions)
+            x, a = _decoder_layer(cfg, x, layer, positions, mesh)
         aux = aux + a
     return x, aux
 
 
+def check_mesh(cfg: LlamaConfig, mesh) -> None:
+    """Raise ``NotImplementedError`` for what the port does not shard yet:
+    the ``seq``, ``pipe`` and ``expert`` axes, and MoE models."""
+    for axis, what in (('seq', 'sequence parallelism (ring attention)'),
+                       ('pipe', 'pipeline stages'),
+                       ('expert', 'expert parallelism')):
+        if mesh.shape[axis] > 1:
+            raise NotImplementedError(
+                f'{axis}={mesh.shape[axis]}: {what} is not ported yet '
+                '(ROADMAP section 1, item 1)')
+    if cfg.num_experts > 0:
+        raise NotImplementedError(
+            'an MoE model on a mesh is not ported yet (ROADMAP section 1, '
+            'item 1)')
+
+
+def _block_of(mesh, axis: str, size: int) -> Tuple[int, int]:
+    """(start, length) of this rank's block of ``size`` over ``axis``."""
+    n = mesh.shape[axis]
+    return mesh.axis_index(axis) * (size // n), size // n
+
+
+def _embed_sharded(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                   mesh, rules) -> torch.Tensor:
+    """The vocab-split embedding: the table gathered over ``fsdp``, a
+    lookup masked to this rank's vocab block, then a ``psum`` over
+    ``tensor``."""
+    from skypilot_tpu_torch.parallel import collectives
+    spec = rules.mesh_axes(('vocab', 'embed'))
+    emb = params['embed'].to(cfg.dtype)
+    if spec[1] is not None:
+        emb = collectives.gather_fsdp(emb, mesh, 1)
+    if spec[0] is None:
+        return F.embedding(tokens.long(), emb)
+    start, size = _block_of(mesh, spec[0], cfg.vocab_size)
+    ids = tokens.long() - start
+    inside = (ids >= 0) & (ids < size)
+    x = F.embedding(ids.clamp(0, size - 1), emb) * inside[..., None].to(
+        emb.dtype)
+    return collectives.reduce_from(x, mesh, spec[0])
+
+
 def forward_with_aux(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
-                     remat: bool = False, remat_policy: str = 'full'
+                     remat: bool = False, remat_policy: str = 'full',
+                     mesh=None, rules=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, vocab] fp32, aux loss).
 
     The unembedding multiplies float32 copies of x and ``lm_head``: exact
-    for bf16 operands, as JAX's ``preferred_element_type=float32`` is."""
+    for bf16 operands, as JAX's ``preferred_element_type=float32`` is.
+    On a mesh (``rules`` default to JAX's) ``tokens`` are this rank's
+    rows and the logits this rank's vocab block."""
     if cfg.pipeline_stages > 1:
-        raise NotImplementedError('pipeline stages are not ported yet')
+        raise NotImplementedError('pipeline stages are not ported yet '
+                                  '(ROADMAP section 1, item 1)')
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    x = F.embedding(tokens.long(), params['embed'].to(cfg.dtype))
+    if mesh is None:
+        x = F.embedding(tokens.long(), params['embed'].to(cfg.dtype))
+    else:
+        from skypilot_tpu_torch.parallel import collectives
+        from skypilot_tpu_torch.parallel import sharding as sharding_lib
+        check_mesh(cfg, mesh)
+        rules = rules or sharding_lib.ShardingRules()
+        x = _embed_sharded(params, tokens, cfg, mesh, rules)
     x, aux = _layer_stack(cfg, x, params['layers'], positions, remat,
-                          remat_policy)
+                          remat_policy, mesh, rules)
     x = rms_norm(x, params['final_norm'], cfg.norm_eps)
-    return x.float() @ params['lm_head'].float(), aux
+    lm_head = params['lm_head']
+    if mesh is not None:
+        x = _column(x, mesh)
+        if rules.mesh_axes(('embed', 'vocab'))[0] is not None:
+            lm_head = collectives.gather_fsdp(lm_head, mesh, 0)
+    return x.float() @ lm_head.float(), aux
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
@@ -497,18 +648,59 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
 MOE_AUX_WEIGHT = 0.01
 
 
+def _nll_sum_sharded(logits: torch.Tensor, targets: torch.Tensor,
+                     cfg: LlamaConfig, mesh, rules) -> torch.Tensor:
+    """The summed next-token loss of this rank's rows over vocab-split
+    logits: a global log-sum-exp (``pmax`` of the rows' maxima, then a
+    ``psum`` of the exps) and the gold logit as a masked ``psum``."""
+    from skypilot_tpu_torch.parallel import collectives
+    axis = rules.mesh_axes(('embed', 'vocab'))[1]
+    if axis is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
+        return (logz - gold).sum()
+    start, size = _block_of(mesh, axis, cfg.vocab_size)
+    m = collectives.pmax(logits.detach().amax(dim=-1), mesh, axis)
+    sumexp = collectives.reduce_from(
+        torch.exp(logits - m[..., None]).sum(dim=-1), mesh, axis)
+    logz = m + torch.log(sumexp)
+    ids = targets - start
+    inside = (ids >= 0) & (ids < size)
+    gold = torch.gather(logits, -1, ids.clamp(0, size - 1)[..., None])
+    gold = collectives.reduce_from(
+        gold.squeeze(-1) * inside.to(logits.dtype), mesh, axis)
+    return (logz - gold).sum()
+
+
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
-            remat: bool = True, remat_policy: str = 'full'
+            remat: bool = True, remat_policy: str = 'full', mesh=None,
+            rules=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy over tokens[:, 1:] (``llama.py:398``):
     the forward runs on the full sequence and logits[:, :-1] predict
     tokens[:, 1:]. Returns (total, {'loss', 'perplexity'}); an MoE model
     adds ``MOE_AUX_WEIGHT`` times the per-layer mean balance loss to the
-    total and reports that mean as ``moe_aux``."""
+    total and reports that mean as ``moe_aux``.
+
+    On a mesh ``tokens`` are this rank's rows of the global batch and
+    ``total`` is this rank's share of the global mean (its rows' summed
+    loss over the global token count): summed over the batch axes, its
+    gradients are the global mean's. The metrics are the global mean's,
+    equal on every rank."""
     logits, aux = forward_with_aux(params, tokens, cfg, remat=remat,
-                                   remat_policy=remat_policy)
+                                   remat_policy=remat_policy, mesh=mesh,
+                                   rules=rules)
     logits = logits[:, :-1]
     targets = tokens[:, 1:].long()
+    if mesh is not None:
+        from skypilot_tpu_torch.parallel import collectives
+        from skypilot_tpu_torch.parallel import sharding as sharding_lib
+        rules = rules or sharding_lib.ShardingRules()
+        batch = sharding_lib.spec_axes(rules.mesh_axes(('batch',)))
+        count = targets.numel() * math.prod(mesh.shape[a] for a in batch)
+        total = _nll_sum_sharded(logits, targets, cfg, mesh, rules) / count
+        nll = collectives.psum_scalars([total.detach()], [batch], mesh)[0]
+        return total, {'loss': nll, 'perplexity': torch.exp(nll)}
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
     nll = (logz - gold).mean()

@@ -1,7 +1,7 @@
 """LoRA adapters for the llama family: a tree transformation, not module
 surgery.
 
-Port of ``skypilot_tpu/models/lora.py`` for one device. Adapters are a
+Port of ``skypilot_tpu/models/lora.py``. Adapters are a
 separate tree mirroring the targeted weights, stacked over layers like
 the base params (``[L, ...]`` leaves). ``merge`` computes the effective
 weight ``W + (alpha / r) * A @ B`` inside the train step (in float32,
@@ -11,8 +11,12 @@ taken with respect to the adapters only: the base tensors carry no
 optimizer state is adapter-sized.
 
 A carries the target's input dims and a ``rank`` dim, B ``rank`` and the
-output dims. ``lora_logical_axes`` (sharding of the adapters) goes with
-the mesh, which the port does not have yet.
+output dims. On a mesh (``lora_logical_axes``) A keeps the target's input
+axes and B its output axes, ``lora_rank`` replicated, so each rank's
+``A @ B`` is its block of the target's slice and ``merge`` runs on the
+rank's slices; an adapter replicated over ``tensor`` whose target is
+split over it enters the product through ``collectives.copy_to``, so its
+gradient sums the other ranks' blocks.
 """
 from __future__ import annotations
 
@@ -103,6 +107,56 @@ def init_lora(generator: torch.Generator, params: Params, cfg: LoraConfig,
     return adapters
 
 
+def lora_logical_axes(model_cfg, cfg: LoraConfig) -> Params:
+    """Logical sharding axes mirroring ``llama.param_logical_axes``
+    (JAX's ``lora.py:109``): A keeps the target's input axes, B its
+    output axes; ``lora_rank`` replicates."""
+    from skypilot_tpu_torch.models import llama
+    base = llama.param_logical_axes(model_cfg)['layers']
+    _check_targets(base, cfg.targets)
+    return {target: _adapter_axes(target, base[target])
+            for target in sorted(cfg.targets)}
+
+
+def _adapter_axes(target: str, w_axes) -> Params:
+    """A's and B's logical axes for a target whose weight has ``w_axes``
+    (``('layers', *in_axes, *out_axes)``)."""
+    n_in = _TARGET_IN_DIMS[target]
+    return {'a': ('layers',) + tuple(w_axes[1:1 + n_in]) + ('lora_rank',),
+            'b': ('layers', 'lora_rank') + tuple(w_axes[1 + n_in:])}
+
+
+def init_lora_sharded(generator: torch.Generator, model_cfg,
+                      cfg: LoraConfig, mesh, rules,
+                      dtype: torch.dtype = torch.bfloat16,
+                      device: DeviceLike = None) -> Params:
+    """This rank's slices of ``init_lora``'s adapters for the whole
+    model's shapes: the same draws, each A whole and then sliced, so a
+    mesh and one device start from the same adapters."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import sharding as sharding_lib
+    dev = resolve_device(device)
+    shapes = llama.param_shapes(model_cfg)['layers']
+    axes = lora_logical_axes(model_cfg, cfg)
+    adapters: Params = {}
+    for target in sorted(cfg.targets):
+        n_layers, in_shape, out_shape = _split_shape(shapes[target], target)
+        fan_in = int(np.prod(in_shape))
+        a = torch.randn((n_layers, *in_shape, cfg.rank),
+                        generator=generator, dtype=torch.float32,
+                        device=dev)
+        spec = {k: sharding_lib.logical_sharding(mesh, rules, v)
+                for k, v in axes[target].items()}
+        b_shape = sharding_lib.local_shape((n_layers, cfg.rank, *out_shape),
+                                           spec['b'])
+        adapters[target] = {
+            'a': (sharding_lib.local_slice(a, spec['a'])
+                  * fan_in ** -0.5).to(dtype),
+            'b': torch.zeros(b_shape, dtype=dtype, device=dev),
+        }
+    return adapters
+
+
 def lora_from_numpy(tree: Any, device: DeviceLike = None) -> Params:
     """Carry a JAX adapter tree, given as numpy arrays, into the port,
     each leaf in its own dtype (``ml_dtypes``' bfloat16 goes through
@@ -128,17 +182,43 @@ def _delta(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.view(n_layers, *in_shape, *out_shape)
 
 
-def merge(params: Params, adapters: Params, cfg: LoraConfig) -> Params:
+def merge(params: Params, adapters: Params, cfg: LoraConfig, mesh=None,
+          rules=None) -> Params:
     """Effective params: each targeted weight becomes
     ``(W.float() + scale * A@B in float32).to(W.dtype)``; every other
     leaf is the same tensor (same tree, so ``loss_fn``, ``generate`` and
-    checkpointing take it unchanged)."""
+    checkpointing take it unchanged). On a mesh the leaves are this
+    rank's slices (``lora_logical_axes``)."""
     layers = dict(params['layers'])
     for target, ab in adapters.items():
         w = layers[target]
-        delta = _delta(ab['a'].float(), ab['b'].float())
+        a, b = ab['a'], ab['b']
+        if mesh is not None:
+            a, b = _into_split_product(target, a, b, mesh, rules)
+        delta = _delta(a.float(), b.float())
         layers[target] = (w.float() + cfg.scale * delta).to(w.dtype)
     return {**params, 'layers': layers}
+
+
+def _into_split_product(target: str, a: torch.Tensor, b: torch.Tensor,
+                        mesh, rules):
+    """A and B as they enter a product split over ``tensor``: an adapter
+    replicated over the axis whose target is split over it contributes
+    to every rank's block, so its gradient is summed over the axis
+    (``fsdp`` is a batch axis: the trainer sums gradients over it)."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import collectives
+    from skypilot_tpu_torch.parallel import sharding as sharding_lib
+    rules = rules or sharding_lib.ShardingRules()
+    w_axes = llama.DENSE_LAYER_AXES[target]
+    logical = _adapter_axes(target, w_axes)
+    w_split = 'tensor' in sharding_lib.spec_axes(rules.mesh_axes(w_axes))
+    out = []
+    for name, t in (('a', a), ('b', b)):
+        mine = sharding_lib.spec_axes(rules.mesh_axes(logical[name]))
+        out.append(collectives.copy_to(t, mesh, 'tensor')
+                   if w_split and 'tensor' not in mine else t)
+    return out
 
 
 def param_count(adapters: Params) -> int:

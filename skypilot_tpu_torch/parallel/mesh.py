@@ -78,6 +78,10 @@ class Mesh:
         self.device = device
         self.device_mesh = device_mesh
         self.backend = backend
+        # Axis -> its group's shared host memory when collectives stage
+        # through the host (``collectives._Arena``), False for a group
+        # whose ranks do not all run on one machine.
+        self.arenas: Dict[str, object] = {}
 
     @property
     def size(self) -> int:
@@ -125,16 +129,29 @@ def world_size() -> int:
     return 1
 
 
-def build_mesh(spec: Optional[MeshSpec] = None, num_slices: int = 1,
-               device=None) -> Mesh:
-    """A mesh with all six logical axes (``AXIS_ORDER``) over the ranks of
-    the default process group; ``device`` (default: CUDA) is where this
-    rank computes. ``num_slices > 1``: the ``data`` axis must be a
-    multiple of num_slices, so inter-slice traffic is data-parallel
-    only."""
-    from skypilot_tpu_torch.utils.device import resolve_device
-    spec = spec or MeshSpec()
-    n = world_size()
+def parse_spec(text: str) -> MeshSpec:
+    """``"data=2,fsdp=-1"`` -> ``MeshSpec`` (``--mesh``, as JAX's
+    ``train/run.py`` reads it)."""
+    axes = {}
+    for part in text.split(','):
+        k, v = part.split('=')
+        axes[k.strip()] = int(v)
+    return MeshSpec(**axes)
+
+
+def gang_devices(device_type: str) -> int:
+    """The devices a ``-1`` axis resolves against, as JAX resolves it
+    against ``len(jax.devices())``: the gang's host processes
+    (``JAX_NUM_PROCESSES``) times each host's cards (one on the CPU)."""
+    from skypilot_tpu_torch.parallel import gang
+    local = torch.cuda.device_count() if device_type == 'cuda' else 1
+    return gang.host_processes() * max(local, 1)
+
+
+def resolve(spec: MeshSpec, n: int, num_slices: int = 1) -> Dict[str, int]:
+    """``spec``'s axis sizes over ``n`` ranks; ``num_slices > 1``: the
+    ``data`` axis must be a multiple of num_slices, so inter-slice
+    traffic is data-parallel only (JAX's ``mesh.py:73-108`` errors)."""
     sizes = spec.resolve(n)
     if num_slices > 1:
         if sizes['data'] % num_slices:
@@ -144,6 +161,20 @@ def build_mesh(spec: Optional[MeshSpec] = None, num_slices: int = 1,
         if n % num_slices:
             raise ValueError(f'{n} ranks do not split into {num_slices} '
                              'slices')
+    return sizes
+
+
+def build_mesh(spec: Optional[MeshSpec] = None, num_slices: int = 1,
+               device=None) -> Mesh:
+    """A mesh with all six logical axes (``AXIS_ORDER``) over the ranks of
+    the default process group; ``device`` (default: CUDA) is where this
+    rank computes. ``num_slices > 1``: see ``resolve``; the slices are
+    contiguous blocks of ranks, so ``data``, outermost, is the only axis
+    that crosses them."""
+    from skypilot_tpu_torch.utils.device import resolve_device
+    spec = spec or MeshSpec()
+    n = world_size()
+    sizes = resolve(spec, n, num_slices)
     dev = resolve_device(device)
     if n == 1:
         return Mesh(sizes, dev)

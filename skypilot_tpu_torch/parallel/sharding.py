@@ -10,8 +10,11 @@ JAX places a whole array and lets GSPMD insert collectives. Here each
 rank holds its own slice of every leaf: ``shard_pytree`` returns THIS
 rank's slice, cut by the same spec JAX's ``NamedSharding`` would give its
 device, and the model code issues the collectives itself
-(``models/generate.py``). ``constrain`` is then a no-op, as JAX's is
-outside a mesh: a rank's tensor already has the layout its code made.
+(``models/generate.py``, ``models/llama.py``). ``constrain`` is then a
+no-op, as JAX's is outside a mesh: a rank's tensor already has the layout
+its code made. ``batch_rows`` is a rank's block of a global batch under
+``('batch', ...)``: ``data`` major, then ``fsdp``, as ``P(('data',
+'fsdp'))`` orders it; ``gather`` is the inverse of ``local_slice``.
 """
 from __future__ import annotations
 
@@ -114,6 +117,58 @@ def local_slice(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
             size = x.shape[dim] // n
             x = x.narrow(dim, idx * size, size)
     return x.clone(memory_format=torch.contiguous_format)
+
+
+def global_shape(shape: Sequence[int], sharding: NamedSharding
+                 ) -> Tuple[int, ...]:
+    """The whole array's shape, from one rank's slice of it."""
+    return tuple(
+        size * math.prod(sharding.mesh.shape[a] for a in _axes_of(entry))
+        for size, entry in zip(shape, sharding.spec)) + tuple(
+            shape[len(sharding.spec):])
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """The mesh axes a spec shards over, in its dims' order."""
+    return tuple(a for entry in spec for a in _axes_of(entry))
+
+
+def gather(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """The whole array from every rank's slice of it (the inverse of
+    ``local_slice``; a collective over each sharded axis, every rank of
+    the mesh must call it)."""
+    from skypilot_tpu_torch.parallel import collectives
+    for dim, entry in enumerate(sharding.spec):
+        for axis in reversed(_axes_of(entry)):  # minor axis first
+            x = collectives.all_gather(x, sharding.mesh, axis, dim)
+    return x
+
+
+def batch_rows(x: torch.Tensor, mesh, rules: 'ShardingRules'
+               ) -> torch.Tensor:
+    """This rank's block of rows of a global batch ``x`` (dim 0), as
+    ``('batch', ...)`` places it: ``data`` major, then ``fsdp``."""
+    spec = rules.mesh_axes(('batch',) + (None,) * (x.dim() - 1))
+    idx, n = shard_index(mesh, spec[0])
+    if x.shape[0] % n:
+        raise ValueError(f'global batch {x.shape[0]} does not split over '
+                         f'{spec[0]} ({n} shards)')
+    size = x.shape[0] // n
+    return x[idx * size:(idx + 1) * size]
+
+
+def crosses_hosts(mesh, axis: str, local: int) -> bool:
+    """True when ``axis``'s groups span more than one host of ``local``
+    ranks each (ranks are laid out row-major over the mesh's axes, a
+    host's ranks contiguous)."""
+    names = list(mesh.axis_names)
+    stride = math.prod(mesh.shape[a] for a in names[names.index(axis) + 1:])
+    span = stride * mesh.shape[axis]
+    if mesh.shape[axis] == 1:
+        return False
+    # A group is {base + k * stride}; it stays on one host iff each block
+    # of ``span`` ranks lies inside one host's ``local`` ranks.
+    return span > local or local % span != 0
 
 
 def _is_axes(x) -> bool:

@@ -19,18 +19,13 @@ it until the head's next iteration. Only the engine thread issues
 collectives. Followers hold silent twins of the requests; HTTP,
 streaming callbacks and ``/health`` live on the head alone.
 
-The gang (``maybe_initialize``): the gang launcher's env contract
-(``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``,
-the names the JAX package's gang agent sets, ``skypilot_tpu/agent/``) says how many host
-processes there are. Each host process starts ``tp / JAX_NUM_PROCESSES``
-local ranks, itself and the followers it spawns with its own argv, with
-global rank = process_id x local + local_rank; ``--tp N`` with no gang
-env is one host whose rank 0 starts N - 1 followers. The rendezvous is
-the coordinator address over TCP, or a file in a fresh temporary
-directory for one host. The backend follows the topology
-(``parallel/mesh.backend_for``): NCCL where every local rank has its own
-GPU, gloo where ranks share one or run on the CPU; never a fallback on
-error. The whole bring-up runs under ``cuda_client_guard.deferred_signals``
+The gang (``maybe_initialize``, over ``parallel/gang.py``, which sharded
+training shares): the gang launcher's env contract says how many host
+processes there are; each starts ``tp / JAX_NUM_PROCESSES`` local ranks,
+itself and the followers it spawns with its own argv; ``--tp N`` with no
+gang env is one host whose rank 0 starts N - 1 followers. The backend
+follows the topology (``parallel/mesh.backend_for``), never a fallback
+on error. The whole bring-up runs under ``cuda_client_guard.deferred_signals``
 as JAX's does: a drain landing mid-init would wedge every rank.
 
 Failure: a collective that fails (a peer died, or hung past
@@ -54,13 +49,7 @@ under the gang launcher's env (``examples/llm/serve-multihost/serve.yaml``), or
 """
 from __future__ import annotations
 
-import dataclasses
-import datetime
-import os
 import pickle
-import subprocess
-import sys
-import tempfile
 import threading
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -70,207 +59,35 @@ import torch.distributed as dist
 
 from skypilot_tpu_torch.models.engine import ContinuousEngine, _Request
 from skypilot_tpu_torch.parallel import collectives
-from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.parallel import gang as gang_lib
 
-# Set by a host process for the local ranks it spawns (the port's own
-# names: they are not flags of the JAX package).
-LOCAL_RANK_ENV = 'SKYTORCH_TP_LOCAL_RANK'
-RANK_ENV = 'SKYTORCH_TP_RANK'
-INIT_ENV = 'SKYTORCH_TP_INIT'
-# How long a collective, and a rank's leaving, may wait for a peer before
-# the rank counts it lost.
-TIMEOUT_S = 120.0
-# A follower's mark in the store once it has left the gang.
-_LEFT = 'skytorch/left/'
-# How often the head looks at the followers it spawned.
-WATCH_S = 0.5
-
-
-def distributed_env() -> Optional[Tuple[str, int, int]]:
-    """(coordinator, num_processes, process_id) from the gang launcher's
-    env contract, or None when running single-process."""
-    addr = os.environ.get('JAX_COORDINATOR_ADDRESS')
-    n = int(os.environ.get('JAX_NUM_PROCESSES', '1'))
-    if not addr or n <= 1:
-        return None
-    return addr, n, int(os.environ.get('JAX_PROCESS_ID', '0'))
-
-
-@dataclasses.dataclass
-class Gang:
-    """This process's place in the replica's ranks."""
-    rank: int
-    world: int
-    local_rank: int
-    local: int
-    backend: str
-    # Where this rank computes, with its index: the current CUDA device is
-    # per thread, so the engine thread pins this one (``_device_scope``).
-    device: torch.device
-    children: List[subprocess.Popen] = dataclasses.field(
-        default_factory=list)
-    rendezvous_dir: Optional[str] = None
-    store: Optional[dist.Store] = None
-
-    @property
-    def is_head(self) -> bool:
-        return self.rank == 0
-
-    def watch_children(self, on_death: Callable[[str], None]) -> None:
-        """Call ``on_death(reason)`` from a watcher thread when a spawned
-        follower exits before ``release_children``."""
-        def watch():
-            while self.children:
-                for child in list(self.children):
-                    code = child.poll()
-                    if code is not None and child in self.children:
-                        on_death(f'tp follower pid {child.pid} exited '
-                                 f'with {code}')
-                        return
-                time.sleep(WATCH_S)
-        threading.Thread(target=watch, name='tp-followers',
-                         daemon=True).start()
-
-    def close(self, timeout: float) -> List[Optional[int]]:
-        """Leave the gang after the stop broadcast: a barrier (every rank is
-        past its last collective), ``release_children``, then this
-        process's groups are torn down (a group left to the interpreter's
-        exit can abort the process). A follower marks its leaving in the
-        store after its teardown and the head, which hosts the store,
-        waits for every mark before its own: no rank loses the store
-        mid-teardown. NCCL's teardown is collective, so under NCCL every
-        rank tears its groups down right after the barrier, before any
-        waits for another to exit. Returns the spawned followers' exit
-        codes; raises ``CollectiveError`` when a rank is lost on the
-        way."""
-        lost = None
-        try:
-            collectives.barrier()
-        except collectives.CollectiveError as exc:
-            lost = exc
-        together = self.backend == 'nccl'
-        if together and lost is None:
-            dist.destroy_process_group()
-        codes = self.release_children(timeout)
-        if self.is_head:
-            if lost is None:
-                try:
-                    self.store.wait([f'{_LEFT}{r}'
-                                     for r in range(1, self.world)],
-                                    datetime.timedelta(seconds=timeout))
-                except Exception as exc:  # noqa: BLE001 -- a rank is lost
-                    lost = collectives.CollectiveError(
-                        f'tp ranks did not leave: {exc}')
-            if not together:
-                dist.destroy_process_group()
-        else:
-            if not together:
-                dist.destroy_process_group()
-            if lost is None:
-                self.store.set(f'{_LEFT}{self.rank}', b'1')
-        self.store = None
-        if self.rendezvous_dir:
-            for name in os.listdir(self.rendezvous_dir):
-                os.unlink(os.path.join(self.rendezvous_dir, name))
-            os.rmdir(self.rendezvous_dir)
-            self.rendezvous_dir = None
-        if lost is not None:
-            raise lost
-        return codes
-
-    def release_children(self, timeout: float) -> List[Optional[int]]:
-        """Stop watching, wait up to ``timeout`` for the followers to exit,
-        kill any left; returns their exit codes."""
-        children, self.children = self.children, []
-        deadline = time.monotonic() + timeout
-        codes = []
-        for child in children:
-            try:
-                codes.append(child.wait(max(deadline - time.monotonic(), 0)))
-            except subprocess.TimeoutExpired:
-                child.kill()
-                codes.append(child.wait())
-        return codes
-
-
-def _store(init: str, rank: int, world: int) -> dist.Store:
-    """The gang's store: TCP at the coordinator (hosted by rank 0), or a
-    file."""
-    timeout = datetime.timedelta(seconds=TIMEOUT_S)
-    if init.startswith('tcp://'):
-        host, port = init[len('tcp://'):].rsplit(':', 1)
-        return dist.TCPStore(host, int(port), world, rank == 0, timeout)
-    return dist.FileStore(init[len('file://'):], world)
-
-
-def _spawn(argv: Sequence[str], local_rank: int, rank: int,
-           init: str) -> subprocess.Popen:
-    env = dict(os.environ, **{LOCAL_RANK_ENV: str(local_rank),
-                              RANK_ENV: str(rank), INIT_ENV: init})
-    return subprocess.Popen(
-        [sys.executable, '-m', 'skypilot_tpu_torch.serve.spmd', *argv],
-        env=env)
-
-
-def _exit_with_parent() -> None:
-    """A spawned follower ends (status 1) when the host process that
-    started it is gone."""
-    parent = os.getppid()
-
-    def watch():
-        while os.getppid() == parent:
-            time.sleep(WATCH_S)
-        os._exit(1)
-    threading.Thread(target=watch, name='tp-parent', daemon=True).start()
+# The gang lives in ``parallel/gang.py``, shared with sharded training;
+# its names stay importable from here.
+LOCAL_RANK_ENV = gang_lib.LOCAL_RANK_ENV
+RANK_ENV = gang_lib.RANK_ENV
+INIT_ENV = gang_lib.INIT_ENV
+TIMEOUT_S = gang_lib.TIMEOUT_S
+WATCH_S = gang_lib.WATCH_S
+Gang = gang_lib.Gang
+distributed_env = gang_lib.distributed_env
+_store = gang_lib._store  # noqa: SLF001 -- re-exported for callers here
+_exit_with_parent = gang_lib._exit_with_parent  # noqa: SLF001 -- as above
 
 
 def maybe_initialize(tp: int, device_type: str,
                      argv: Sequence[str]) -> Optional[Gang]:
     """Join (and, on a host's first rank, start) the replica's ranks for
     ``--tp tp``; None when the replica is one process. ``argv`` is the
-    replica's command line, which the spawned followers get too. The
-    rank computes on ``Gang.device``: on CUDA, its local rank's card
-    under NCCL and the first card under gloo, by index."""
-    env = distributed_env()
-    if tp <= 1 and env is None:
+    replica's command line, which the spawned followers get too
+    (``python -m skypilot_tpu_torch.serve.spmd``). The rank computes on
+    ``Gang.device``: on CUDA, its local rank's card under NCCL and the
+    first card under gloo, by index."""
+    if tp <= 1 and distributed_env() is None:
         return None
-    n_proc, proc_id = (env[1], env[2]) if env else (1, 0)
-    if tp % n_proc:
-        raise ValueError(f'--tp {tp} does not split over '
-                         f'JAX_NUM_PROCESSES={n_proc} host processes')
-    local = tp // n_proc
-    backend = mesh_lib.backend_for(device_type, local)
-    if env is None or env[0].split(':')[0] in ('127.0.0.1', 'localhost'):
-        # Every rank is on this host: gloo (the arrival broadcast's, and
-        # the model's where ranks share a device) talks over loopback.
-        os.environ.setdefault('GLOO_SOCKET_IFNAME', 'lo')
-    gang = Gang(rank=0, world=tp, local_rank=0, local=local,
-                backend=backend, device=torch.device(device_type))
-    if LOCAL_RANK_ENV in os.environ:
-        gang.local_rank = int(os.environ[LOCAL_RANK_ENV])
-        gang.rank = int(os.environ[RANK_ENV])
-        init = os.environ[INIT_ENV]
-        _exit_with_parent()
-    else:
-        gang.rank = proc_id * local
-        if env is not None:
-            init = f'tcp://{env[0]}'
-        else:
-            gang.rendezvous_dir = tempfile.mkdtemp(prefix='skytpu-tp-')
-            init = f'file://{gang.rendezvous_dir}/rendezvous'
-        gang.children = [_spawn(argv, i, gang.rank + i, init)
-                         for i in range(1, local)]
-    if device_type == 'cuda':
-        # NCCL: each local rank on its own card; gloo: all on the first.
-        gang.device = torch.device(
-            'cuda', gang.local_rank if backend == 'nccl' else 0)
-        torch.cuda.set_device(gang.device)
-    gang.store = _store(init, gang.rank, tp)
-    dist.init_process_group(
-        backend, store=gang.store, world_size=tp, rank=gang.rank,
-        timeout=datetime.timedelta(seconds=TIMEOUT_S),
-        device_id=gang.device if backend == 'nccl' else None)
-    return gang
+    return gang_lib.initialize(
+        tp, device_type, argv,
+        gang_lib.module_command('skypilot_tpu_torch.serve.spmd'),
+        f'--tp {tp}', store=_store, exit_with_parent=_exit_with_parent)
 
 
 def _broadcast_bytes(payload: Optional[bytes], group) -> bytes:

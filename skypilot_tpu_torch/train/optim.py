@@ -22,6 +22,15 @@ optax multiplies a leaf by a Python scalar (a weakly typed JAX scalar) or
 casts a scalar to the leaf's dtype, the port rounds that scalar to the
 leaf's dtype first (``_in``): in bfloat16, ``0.1 * g`` is
 ``bf16(0.1) * g`` in JAX, not ``float(0.1) * g`` as in PyTorch.
+
+On a mesh (``Chain.shard``) each leaf is one rank's slice, and optax's
+reductions over a leaf are GSPMD's over the WHOLE leaf: the factored
+dims are chosen from the whole shape, and every sum over a sharded dim
+(the factored row and column means, the row means' mean, the block RMS
+of updates and of params, the global norm) is taken in float32 on the
+rank's slice and ``psum``med over that dim's mesh axes before it is
+divided and rounded (``_sum_over``). Local means would train another
+model without an error. A replicated leaf is counted once.
 """
 from __future__ import annotations
 
@@ -51,10 +60,63 @@ def tree_leaves(tree: Tree) -> List[torch.Tensor]:
     return [tree]
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
+def paired_leaves(tree: Tree, other: Tree) -> List[Tuple[Any, Any]]:
+    """(leaf, ``other``'s leaf at the same keys) in ``tree``'s order."""
+    out: List[Tuple[Any, Any]] = []
+    tree_map(lambda a, b: out.append((a, b)), tree, other)
+    return out
+
+
+def global_norm(tree: Tree, specs: Tree = None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf (``optax.global_norm``),
-    summed per leaf in the leaf's dtype."""
-    return torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(tree)))
+    summed per leaf in the leaf's dtype. With ``specs`` (a tree of
+    ``NamedSharding``s over ``mesh``) the leaves are slices: each one's
+    float32 sum is ``psum``med over the axes that shard it."""
+    leaves = tree_leaves(tree)
+    if specs is None:
+        return torch.sqrt(sum(torch.sum(g * g) for g in leaves))
+    from skypilot_tpu_torch.parallel import collectives
+    from skypilot_tpu_torch.parallel import sharding as sharding_lib
+    shards = [s for _, s in paired_leaves(tree, specs)]
+    sums = collectives.psum_scalars(
+        [torch.sum(g.float() * g.float()) for g in leaves],
+        [sharding_lib.spec_axes(s.spec) for s in shards], mesh)
+    return torch.sqrt(sum(s.to(g.dtype) for s, g in zip(sums, leaves)))
+
+
+def _block_means(tree: Tree, specs: Tree, mesh) -> List[torch.Tensor]:
+    """Each leaf's mean of squares over the WHOLE leaf, in its dtype, from
+    its slices (one collective per mesh axis for all of them)."""
+    from skypilot_tpu_torch.parallel import collectives
+    from skypilot_tpu_torch.parallel import sharding as sharding_lib
+    leaves, shards = zip(*paired_leaves(tree, specs))
+    sums = collectives.psum_scalars(
+        [torch.sum(x.float() * x.float()) for x in leaves],
+        [sharding_lib.spec_axes(s.spec) for s in shards], mesh)
+    return [(s / float(np.prod(sharding_lib.global_shape(x.shape, sh))))
+            .to(x.dtype) for s, x, sh in zip(sums, leaves, shards)]
+
+
+def _sum_over(x: torch.Tensor, dim: int, entry, mesh) -> torch.Tensor:
+    """float32 sum of ``x`` over ``dim`` (kept), ``psum``med over the mesh
+    axes ``entry`` shards that dim over."""
+    from skypilot_tpu_torch.parallel import collectives
+    s = x.float().sum(dim=dim, keepdim=True)
+    for axis in ((entry,) if isinstance(entry, str) else entry or ()):
+        s = collectives.psum(s, mesh, axis)
+    return s
+
+
+def factored_dims(shape, min_dim_size_to_factor: int = 128) -> Any:
+    """The two largest dims (``factorized._factored_dims``), as (d1, d0)
+    with d0 the largest, or None when the second largest is below
+    ``min_dim_size_to_factor``."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
 
 
 @functools.lru_cache(maxsize=4096)
@@ -106,7 +168,16 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 
 class Transform:
     """optax's GradientTransformation: ``init(params) -> state`` and
-    ``update(updates, state, params) -> (updates, state)``."""
+    ``update(updates, state, params) -> (updates, state)``. After
+    ``shard(mesh, specs)`` the leaves are slices placed by ``specs``."""
+
+    mesh = None
+    specs: Tree = None
+
+    def shard(self, mesh, specs: Tree) -> None:
+        """Update slices of leaves placed by ``specs`` (a tree of
+        ``NamedSharding``s like the params') on ``mesh``."""
+        self.mesh, self.specs = mesh, specs
 
     def init(self, params: Tree) -> Any:
         return ()
@@ -122,6 +193,11 @@ class Chain(Transform):
 
     def init(self, params):
         return [t.init(params) for t in self.transforms]
+
+    def shard(self, mesh, specs):
+        super().shard(mesh, specs)
+        for t in self.transforms:
+            t.shard(mesh, specs)
 
     def update(self, updates, state, params):
         new_state = []
@@ -139,7 +215,7 @@ class ClipByGlobalNorm(Transform):
         self.max_norm = max_norm
 
     def update(self, updates, state, params):
-        g_norm = global_norm(updates)
+        g_norm = global_norm(updates, self.specs, self.mesh)
         keep = g_norm < self.max_norm
         return tree_map(
             lambda t: torch.where(keep, t,
@@ -157,18 +233,17 @@ class ScaleByFactoredRms(Transform):
         self.epsilon = epsilon
 
     def factored_dims(self, shape) -> Any:
-        """The two largest dims (``factorized._factored_dims``), or None
-        when the second largest is below ``min_dim_size_to_factor``."""
-        if len(shape) < 2:
-            return None
-        order = np.argsort(shape)
-        if shape[order[-2]] < self.min_dim:
-            return None
-        return int(order[-2]), int(order[-1])
+        return factored_dims(shape, self.min_dim)
+
+    def _whole(self, p: torch.Tensor, sh) -> Tuple[int, ...]:
+        if sh is None:
+            return tuple(p.shape)
+        from skypilot_tpu_torch.parallel import sharding as sharding_lib
+        return sharding_lib.global_shape(p.shape, sh)
 
     def init(self, params):
-        def leaf(p):
-            dims = self.factored_dims(tuple(p.shape))
+        def leaf(p, sh=None):
+            dims = self.factored_dims(self._whole(p, sh))
             z = lambda shape: torch.zeros(  # noqa: E731
                 shape, dtype=p.dtype, device=p.device)
             if dims is None:
@@ -176,7 +251,9 @@ class ScaleByFactoredRms(Transform):
             d1, d0 = dims
             return {'v_row': z(np.delete(p.shape, d0).tolist()),
                     'v_col': z(np.delete(p.shape, d1).tolist())}
-        return {'count': 0, 'stats': tree_map(leaf, params)}
+        stats = (tree_map(leaf, params) if self.specs is None
+                 else tree_map(leaf, params, self.specs))
+        return {'count': 0, 'stats': stats}
 
     def update(self, updates, state, params):
         f32 = np.float32
@@ -184,26 +261,44 @@ class ScaleByFactoredRms(Transform):
         decay = f32(1) - t ** f32(-self.decay_rate)
         keep, new = float(decay), float(f32(1) - decay)
 
-        def leaf(g, s):
+        def leaf(g, s, sh=None):
             dtype = g.dtype
             grad_sqr = g * g + self.epsilon
-            dims = self.factored_dims(tuple(g.shape))
+            shape = self._whole(g, sh)
+            dims = self.factored_dims(shape)
             if dims is None:
                 v = (keep * s['v'].float() + new * grad_sqr.float()).to(dtype)
                 return g * v ** -0.5, {'v': v}
             d1, d0 = dims
-            v_row = (keep * s['v_row'].float()
-                     + new * grad_sqr.mean(dim=d0).float()).to(dtype)
-            v_col = (keep * s['v_col'].float()
-                     + new * grad_sqr.mean(dim=d1).float()).to(dtype)
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+            if sh is None:
+                row_mean = grad_sqr.mean(dim=d0)
+                col_mean = grad_sqr.mean(dim=d1)
+            else:
+                # Means over the WHOLE leaf's dims: a sharded dim's sum is
+                # psummed over its mesh axes before the division.
+                row_mean = (_sum_over(grad_sqr, d0, sh.spec[d0], self.mesh)
+                            / shape[d0]).to(dtype).squeeze(d0)
+                col_mean = (_sum_over(grad_sqr, d1, sh.spec[d1], self.mesh)
+                            / shape[d1]).to(dtype).squeeze(d1)
+            v_row = (keep * s['v_row'].float()
+                     + new * row_mean.float()).to(dtype)
+            v_col = (keep * s['v_col'].float()
+                     + new * col_mean.float()).to(dtype)
+            if sh is None:
+                row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+            else:
+                row_col_mean = (_sum_over(v_row, reduced_d1, sh.spec[d1],
+                                          self.mesh)
+                                / shape[d1]).to(dtype)
             row_factor = (v_row / row_col_mean) ** -0.5
             col_factor = v_col ** -0.5
             out = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
             return out, {'v_row': v_row, 'v_col': v_col}
 
-        pairs = tree_map(leaf, updates, state['stats'])
+        pairs = (tree_map(leaf, updates, state['stats'])
+                 if self.specs is None else
+                 tree_map(leaf, updates, state['stats'], self.specs))
         is_pair = lambda x: isinstance(x, tuple)  # noqa: E731
         out = _unzip(pairs, 0, is_pair)
         stats = _unzip(pairs, 1, is_pair)
@@ -223,9 +318,14 @@ class ClipByBlockRms(Transform):
         self.threshold = threshold
 
     def update(self, updates, state, params):
+        if self.specs is None:
+            means = iter([torch.mean(u * u) for u in tree_leaves(updates)])
+        else:
+            means = iter(_block_means(updates, self.specs, self.mesh))
+
         def clip(u):
             denom = torch.clamp_min(
-                torch.sqrt(torch.mean(u * u)) / self.threshold, 1.0)
+                torch.sqrt(next(means)) / self.threshold, 1.0)
             return u / denom
         return tree_map(clip, updates), state
 
@@ -253,8 +353,13 @@ class ScaleByParamBlockRms(Transform):
         self.min_scale = min_scale
 
     def update(self, updates, state, params):
+        if self.specs is None:
+            means = iter([torch.mean(p * p) for p in tree_leaves(params)])
+        else:
+            means = iter(_block_means(params, self.specs, self.mesh))
+
         def scale(u, p):
-            rms = torch.sqrt(torch.mean(p * p))
+            rms = torch.sqrt(next(means))
             return u * torch.clamp_min(rms, self.min_scale)
         return tree_map(scale, updates, params), state
 

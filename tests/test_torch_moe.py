@@ -583,7 +583,7 @@ def test_train_run_trains_moe_tiny_and_refuses_the_expert_mesh(capsys):
         port_run.main(['--model', 'moe-tiny', '--mesh', 'fsdp=2,expert=4',
                        '--device', 'cpu'])
     assert exc.value.code == 2
-    assert 'ROADMAP item 9' in capsys.readouterr().err
+    assert 'ROADMAP section 1, item 1' in capsys.readouterr().err
 
 
 # -- the replica --------------------------------------------------------------

@@ -344,14 +344,22 @@ def test_trainer_accounting_and_config_match_jax():
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """Sharded training is ported over data, fsdp and tensor; the seq,
+    pipe and expert axes, and an MoE model on a mesh, raise by name."""
+    import types
+    ones = {a: 1 for a in ('data', 'pipe', 'fsdp', 'seq', 'expert',
+                           'tensor')}
     cfg = port_trainer.TrainerConfig(model=port_llama.TINY)
-    with pytest.raises(NotImplementedError, match='mesh'):
-        port_trainer.Trainer(cfg, device='cpu', mesh=object())
+    for axis in ('seq', 'pipe', 'expert'):
+        mesh = types.SimpleNamespace(shape=dict(ones, **{axis: 2}))
+        with pytest.raises(NotImplementedError, match=f'{axis}=2'):
+            port_trainer.Trainer(cfg, device='cpu', mesh=mesh)
     # MoE is ported: the trainer builds for it, and a mesh stays refused.
     moe = port_trainer.TrainerConfig(model=port_llama.MOE_TINY)
     port_trainer.Trainer(moe, device='cpu')
     with pytest.raises(NotImplementedError, match='mesh'):
-        port_trainer.Trainer(moe, device='cpu', mesh=object())
+        port_trainer.Trainer(moe, device='cpu',
+                             mesh=types.SimpleNamespace(shape=ones))
 
 
 def test_trainer_train_loop_calls_back_every_log_every_steps():
@@ -383,18 +391,19 @@ def test_run_main_trains_on_cpu(capsys):
     assert out['state']['step'] == 3
 
 
-@pytest.mark.parametrize('flag', [['--mesh', 'data=2'],
-                                  ['--num-slices', '2'],
-                                  ['--mesh', 'fsdp=-1,tensor=-1']])
+@pytest.mark.parametrize('flag', [['--mesh', 'pipe=2'],
+                                  ['--mesh', 'seq=2,fsdp=1'],
+                                  ['--mesh', 'expert=-1,fsdp=1']])
 def test_run_main_refuses_unported_flags(flag, capsys):
-    """A mesh over more than one device (or a spec no device count
-    resolves) exits 2; ``--mesh fsdp=-1`` and LoRA are ported
+    """A mesh over the axes not ported yet (pipe, seq, expert) exits 2;
+    data, fsdp and tensor meshes train (tests/test_torch_train_sharded.py
+    and ``..._multihost.py``), as ``--mesh fsdp=-1`` and LoRA do
     (tests/test_torch_lora.py)."""
     with pytest.raises(SystemExit) as exc:
         port_run.main(['--device', 'cpu'] + flag)
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert 'not ported yet' in err and 'ROADMAP item 9' in err
+    assert 'not ported yet' in err and 'ROADMAP section 1, item 1' in err
 
 
 # -- train.run with checkpoints ------------------------------------------------
