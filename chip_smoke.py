@@ -5,13 +5,14 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; phases 13, 14b-14c, 16a-16b and 18a
-serve bench-1b and moe-8x1b at ``SERVE_LAYERS`` (9) of their 18 layers, phase
-10 trains llama3-1b at ``RECIPE_LAYERS`` (8) of its 16 (as phases 9 and
-11 serve it), and 18b serves llama3-8b at ``TP8_LAYERS`` (8) of its 32,
-widths untouched, so that phases 18 and 19 fit the script's time limit;
-a ``sitecustomize`` cuts the preset in the subprocesses of phases 10 and
-18):
+Phases (any failure exits non-zero). Depth cuts, widths untouched, so
+that phases 18 and 19 fit the script's time limit: phases 12, 13,
+14b-14d, 16a-16b, 18a and 19a-19b run bench-1b and moe-8x1b at
+``SERVE_LAYERS`` (9) of their 18 layers; phases 9 and 11 serve llama3-1b
+at ``RECIPE_LAYERS`` (8) of its 16 and phase 10 trains it at
+``FINETUNE_LAYERS`` (4); 18b serves llama3-8b at ``TP8_LAYERS`` (4) of its
+32; 19d trains moe-8x1b at ``MOE_MESH_LAYERS`` (4). A ``sitecustomize``
+cuts the preset in the subprocesses of phases 10, 18 and 19:
 
 1. Build: compiles both kernel libraries of ``skypilot_tpu_torch/csrc``
    (flash-decode K4, flash-attention K1-K3), one nvcc each, started
@@ -131,7 +132,7 @@ a ``sitecustomize`` cuts the preset in the subprocesses of phases 10 and
    ``resumed from checkpoint step 4``. C: 6 steps in a fresh dir with
    ``--ckpt-sync``, saves at 3 and 6. A's losses must equal C's first four,
    B's C's last two, and B's final state C's, bit for bit; K1/K2/K3
-   launches over A, B and C = 2 x 16 / 16 / 16 per step. Then the recipe
+   launches over A, B and C = 2L / L / L per step (L = 4). Then the recipe
    in a subprocess (``--steps 10 --save-every 3``, with
    ``--ckpt-local-dir``) gets SIGTERM after its line ``step 4/10``: exit
    143 with step 3 or later durable; a relaunch with ``--steps 5`` must
@@ -167,9 +168,10 @@ a ``sitecustomize`` cuts the preset in the subprocesses of phases 10 and
    step 4``); C: 6 steps in a fresh dir (sync saves at 3 and 6). A's
    losses equal C's first four, B's C's last two, B's final state C's
    bit for bit; the base after 6 steps equals the initial weights bit
-   for bit; the adapters hold 4,128,768 values; the optimizer state is
-   under half the base's size; K1/K2/K3 launches = 2 x 18 / 18 / 18 per
-   step. Prints step ms, tokens/s, MFU and peak device memory.
+   for bit; the adapters hold 229,376 values a layer; the optimizer
+   state is under half the base's size; K1/K2/K3 launches = 2L / L / L
+   per step (L = 9). Prints step ms, tokens/s, MFU and peak device
+   memory.
 13. Speculative decoding at full width, SKYTPU_LLM_SPEC_K=4:
    ``LlmServer('bench-1b', max_len=1024, draft_model='bench-draft')``
    over HTTP (bf16 + bf16 KV, the engine's defaults) with phase 8's
@@ -207,8 +209,8 @@ a ``sitecustomize`` cuts the preset in the subprocesses of phases 10 and
    ``train.run.main`` with moe-8x1b, global batch 2, seq 2048 (the
    moe-finetune recipe runs batch 16 on ``fsdp=2,expert=8``), Adafactor,
    remat 'full', 3 steps: finite losses and ``moe_aux``, the router and
-   every expert leaf moved, K1 = 2 x 18 x 3, K2 = K3 = 18 x 3; step ms,
-   tokens/s, the printed mfu and the active-parameter share.
+   every expert leaf moved, K1 = 2 x L x 3, K2 = K3 = L x 3 (L = 9);
+   step ms, tokens/s, the printed mfu and the active-parameter share.
 15. The replica's boot and fleet contract, bench-1b. 15a: three fresh
    replicas through ``python -m skypilot_tpu_torch.serve.llm_server
    --model bench-1b`` (subprocesses, SKYTPU_PROFILE=1, one empty
@@ -334,25 +336,41 @@ a ``sitecustomize`` cuts the preset in the subprocesses of phases 10 and
    through the host. 19a: the multislice-train recipe (``python -m
    skypilot_tpu_torch.train.run --model bench-1b --global-batch-size 32
    --seq-len 2048 --mesh data=2,fsdp=2``, 3 steps, warmup 1) as two hosts of two
-   ranks under the gang launcher's env (``MEGASCALE_NUM_SLICES`` 2), then
-   the same global batch on one rank in this process: each step's loss
-   within 2e-2 and grad_norm within 1e-2, the gang's final weights (its
-   checkpoint) within 1e-2 in relative L2 and their updates within 0.5,
-   limits that a batch of 16 on one rank (a lost data shard) must
-   exceed; every rank's grad_norm bits equal, K1/K2/K3 = 36/18/18 a
+   ranks under the gang launcher's env (``MEGASCALE_NUM_SLICES`` 2), and
+   beside it the same global batch on one rank in this process: each
+   step's loss within 2e-2 and grad_norm within 1e-2, the gang's final
+   weights (its checkpoint) within 1e-2 in relative L2 and their updates
+   within 0.5, limits that a batch of 16 on one rank (a lost data shard)
+   must exceed; every rank's grad_norm bits equal, K1/K2/K3 = 2L/L/L a
    step on every rank, a rank's weight bytes half the whole plus the
    norms. 19b: the lora-finetune recipe on ``--mesh fsdp=2`` (two ranks):
    2 steps saved, resumed to 4, against 4 uninterrupted: every array of
    step 4 equal bit for bit, the losses too, the base = the initial
-   weights. 19c: the small fp32 model of phase 5 on
-   ``data=2,fsdp=2,tensor=2``, eight ranks, two steps on the card and on
-   the CPU over the same process group: losses and params within 1e-4.
-   Prints each rank's step ms, collectives a step (calls, bytes, host s
-   by kind), weight bytes and peak memory. K1-K3 at a rank's rows of 19a
-   (B=8, S=2048) are timed in phase 3.
+   weights. 19c: the small fp32 model of phase 5 in one gang of eight
+   ranks on three meshes, JAX's programs A (``data=2,fsdp=2,tensor=2``),
+   B (MoE, 4 experts top-2, 2 pipeline stages of 2 microbatches, on
+   ``pipe=2,expert=2,tensor=2``) and C (``data=2,seq=2,tensor=2``, ring
+   attention), two steps each on the card and on the CPU over the same
+   process group: losses and params within 1e-4 on every rank, K1-K3 8 /
+   4 / 4 a rank for A and B (B: one layer a stage, two microbatches) and
+   none for C (ring attention is an einsum). 19d: the moe-finetune
+   recipe (``--model moe-8x1b --mesh fsdp=2,expert=8 --global-batch-size
+   16``, cut to ``fsdp=2,expert=2``, batch 4, seq 2048, 3 steps, warmup
+   1, saves at 2 and 3) as four ranks, and beside it the same batch on
+   one rank: loss and moe_aux within 2e-2, grad_norm within 1e-2, the
+   weights within 1e-2 and their updates within 0.5, limits one rank on
+   2 rows must exceed; every rank's metric bits equal, K1/K2/K3 2L/L/L a
+   step a rank, a rank's weight bytes its quarter of the experts and half
+   of the rest; the router and every expert of every layer moved; then a
+   relaunch resumed from step 2 writes a step 3 equal to the
+   uninterrupted one bit for bit. Prints each rank's step ms,
+   collectives a step (calls, bytes, host s by kind), weight bytes and
+   peak memory. K1-K3 at a rank's rows of 19a (B=8, S=2048) are timed in
+   phase 3; 19d's ranks run train-moe's shape (B=2, ``MOE_CASE``).
 20. Summary: the card's name and power limit again, one JSON line of
-   kernels (K1-K3's launches are phases 6, 10, 12, 14, 19a and 19b
-   (every rank's), K4's phase
+   kernels (K1-K3's launches are phases 6, 10, 12, 14, 19a, 19b, 19c's
+   programs A and B, and 19d (every rank's; 19c's program C launches
+   none), K4's phase
    8's, 13's, 14's, 15's, 16's, 17a's and 18a's for the bf16 cache,
    phases 8's, 9's, 11's, 14's, 17b's and 18b's for the int8 cache, each
    path's count in ``launches_by_path``, 18's summed over the ranks;
@@ -372,7 +390,12 @@ against its plain version, bench-1b at ``--tp 4`` on one host, and the
 serve-multihost recipe at ``--tp 4`` as two hosts of two cards each
 (``CUDA_VISIBLE_DEVICES`` splits them, as two machines would), then 19a's
 checks for the multislice-train recipe as two hosts of two cards, a rank
-a card, nothing staged through the host.
+a card, nothing staged through the host; then 19d's checks for the
+moe-finetune recipe at all 18 layers on ``fsdp=2,expert=2`` as two hosts
+of two cards (no checkpoint: ``fsdp`` crosses the hosts, whose views of
+a leaf split over it are not whole), and 19c's program B over NCCL on
+``pipe=2,expert=2`` (four ranks, one host), held to one process on the
+rank's card.
 """
 import collections
 import concurrent.futures
@@ -444,8 +467,10 @@ MM_F32_REL_TOL = 1e-5
 # The serve-llama recipe (examples/llm/serve-llama/serve.yaml) on the port.
 RECIPE = dict(max_len=2048, quantize='int8', kv_cache='int8')
 # Phases 9 and 11 serve llama3-1b at full width and RECIPE_LAYERS of its 16
-# layers, so that the whole script stays well inside its time limit.
+# layers, so that the whole script stays well inside its time limit;
+# phase 10 trains it at FINETUNE_LAYERS.
 RECIPE_LAYERS = 8
+FINETUNE_LAYERS = 4
 # Phases 13 and 14b-14c serve bench-1b and moe-8x1b at
 # SERVE_LAYERS of their 18 layers, widths untouched, to make room for
 # phase 18 (serve-tp) inside the script's time limit.
@@ -476,6 +501,22 @@ def _card() -> str:
 
 
 _T0 = time.perf_counter()
+
+
+def _share_bytecode() -> None:
+    """One bytecode cache for this script's processes, removed at exit.
+    Each rank, replica and probe it starts imports torch, and where the
+    interpreter cannot keep bytecode beside torch's sources each process
+    compiles them again: on the card's machine a fresh process's first
+    training step spent ~9 s compiling ``torch._dynamo``, which torch's
+    non-reentrant checkpoint imports (a cProfile of that step: PERF.md
+    section 6)."""
+    import atexit
+    cache = tempfile.mkdtemp(prefix='skytpu-pycache-')
+    atexit.register(shutil.rmtree, cache, True)
+    os.environ['PYTHONPYCACHEPREFIX'] = sys.pycache_prefix = cache
+    os.environ.pop('PYTHONDONTWRITEBYTECODE', None)
+    sys.dont_write_bytecode = False
 
 
 def _phase(title: str) -> None:
@@ -2315,7 +2356,7 @@ LORA_ARGV = ['--model', 'bench-1b', '--global-batch-size', '16',
              '--lora-alpha', '32', '--lora-targets', 'wq,wk,wv,wo',
              '--log-every', '1']
 LORA_CKPT_DIR = '_ckpt_lora_smoke'  # under the checkout; removed at the end
-LORA_ADAPTER_VALUES = 18 * 229_376  # 4,128,768 at rank 16 on BENCH_1B
+LORA_LAYER_VALUES = 229_376  # a layer's adapters at rank 16 on BENCH_1B
 
 
 def lora_phase(llama, fa, train_run, lora_lib, trainer_lib):
@@ -2324,9 +2365,10 @@ def lora_phase(llama, fa, train_run, lora_lib, trainer_lib):
     uninterrupted in a fresh dir (sync saves at 3 and 6). A's losses must
     equal C's first four, B's C's last two, B's final state (adapters,
     optimizer state, base) C's bit for bit; the base after 6 steps equals
-    the initial weights bit for bit; the adapters hold 4,128,768 values
-    and the optimizer state is under half the base's size. Returns K1-K3's
-    launches over A, B and C (2 x 18 / 18 / 18 per step)."""
+    the initial weights bit for bit; the adapters hold 229,376 values a
+    layer (4,128,768 at all 18) and the optimizer state is under half the
+    base's size. Returns K1-K3's launches over A, B and C (2 x L / L / L
+    per step, L the preset's layers)."""
     from skypilot_tpu_torch.ckpt import snapshot
     root = os.path.abspath(LORA_CKPT_DIR)
     shutil.rmtree(root, ignore_errors=True)
@@ -2359,7 +2401,7 @@ def lora_phase(llama, fa, train_run, lora_lib, trainer_lib):
                         '--ckpt-dir', d2])
             launches = {name: getattr(fa.flash_attention, counter)
                         for name, (_, counter, _) in FLASH.items()}
-            layers, steps = llama.BENCH_1B.n_layers, 4 + 2 + 6
+            layers, steps = llama.PRESETS['bench-1b'].n_layers, 4 + 2 + 6
             expected = {'flash_fwd': 2 * layers * steps,
                         'flash_bwd_dq': layers * steps,
                         'flash_bwd_dkv': layers * steps}
@@ -2376,7 +2418,7 @@ def lora_phase(llama, fa, train_run, lora_lib, trainer_lib):
                 raise AssertionError(f'resumed LoRA state differs from the '
                                      f'uninterrupted one in {differ[:8]}')
             # The initial state, as Trainer.init_state(seed=0) draws it.
-            init = llama.init_params(llama.BENCH_1B, torch.Generator(
+            init = llama.init_params(llama.PRESETS['bench-1b'], torch.Generator(
                 device='cuda').manual_seed(0), 'cuda')
             lora0 = lora_lib.init_lora(
                 torch.Generator(device='cuda').manual_seed(
@@ -2398,10 +2440,10 @@ def lora_phase(llama, fa, train_run, lora_lib, trainer_lib):
             opt_values = sum(int(np.prod(lf.shape)) for lf in
                              snapshot.flatten_named(c['state'])[0]
                              if lf.name.startswith("['opt_state']"))
-            if adapter_values != LORA_ADAPTER_VALUES or \
+            if adapter_values != LORA_LAYER_VALUES * layers or \
                     not opt_values < base_values / 2:
                 raise AssertionError(f'adapters {adapter_values} values (want '
-                                     f'{LORA_ADAPTER_VALUES}), optimizer state '
+                                     f'{LORA_LAYER_VALUES * layers}), optimizer state '
                                      f'{opt_values} against base {base_values}')
             b_losses = b['losses']
             del b, c
@@ -2910,9 +2952,9 @@ def moe_window_phase(srv_lib, gen_lib, da):
 def moe_train_phase(llama, fa, train_run, trainer_lib):
     """14d: ``train.run.main`` on moe-8x1b at global batch 2, seq 2048,
     Adafactor, remat 'full', 3 steps: finite losses and ``moe_aux``, the
-    router and every expert leaf moved, K1 = 2 x 18 x 3 and K2 = K3 = 18
-    x 3. Returns the launches."""
-    cfg = llama.MOE_8X1B
+    router and every expert leaf moved, K1 = 2 x L x 3 and K2 = K3 = L x
+    3, L the preset's layers. Returns the launches."""
+    cfg = llama.PRESETS['moe-8x1b']
     steps, layers = MOE_TRAIN_STEPS, cfg.n_layers
     for counter in ('fwd_launches', 'bwd_dq_launches', 'bwd_dkv_launches'):
         setattr(fa.flash_attention, counter, 0)
@@ -4385,7 +4427,7 @@ TP8_NEW = 16
 TP8_CHUNK = 1
 # 18b serves llama3-8b at TP8_LAYERS of its 32 layers, widths untouched,
 # to make room for phase 19 (each of its checks holds at any depth).
-TP8_LAYERS = 8
+TP8_LAYERS = 4
 TP_UP_S = 600      # spawn to a healthy head
 TP_EXIT_S = 180    # SIGTERM to every rank's exit
 TP_SEEDED_ERROR = ('seeded sampling is unavailable with '
@@ -4448,7 +4490,7 @@ def _depth_env(log_dir, name, n_layers):
     """PYTHONPATH for processes (and every rank they spawn) that see
     ``llama.PRESETS[name]`` at ``n_layers`` layers: a ``sitecustomize``
     that cuts it when the interpreter starts."""
-    cut = os.path.join(log_dir, f'depth-{n_layers}')
+    cut = os.path.join(log_dir, f'depth-{name}-{n_layers}')
     os.makedirs(cut, exist_ok=True)
     with open(os.path.join(cut, 'sitecustomize.py'), 'w') as f:
         f.write('import dataclasses\n'
@@ -4897,6 +4939,7 @@ def nccl_main() -> int:
         print(f'chip_smoke --nccl: needs {NCCL_TP} CUDA devices',
               file=sys.stderr)
         return 2
+    _share_bytecode()
     from skypilot_tpu_torch.models import generate as gen_lib
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.ops import attention as fa
@@ -4926,7 +4969,18 @@ def nccl_main() -> int:
         _phase(f'nccl 4: the multislice-train recipe (bench-1b, '
                f'data=2,fsdp=2) as {MESH_HOSTS} hosts of 2 cards, NCCL')
         train = mesh_train_phase(llama, train_run, log_dir, 'nccl-19a',
-                                 NCCL_HOSTS)
+                                 NCCL_HOSTS, llama.BENCH_1B.n_layers)
+        _phase(f'nccl 5: the moe-finetune recipe (moe-8x1b, all 18 layers, '
+               f'fsdp=2,expert=2) as {MESH_HOSTS} hosts of 2 cards, NCCL')
+        moe = moe_mesh_phase(llama, train_run, log_dir, 'nccl-19d',
+                             NCCL_HOSTS, MESH_HOSTS,
+                             llama.MOE_8X1B.n_layers, resume=False)
+        _phase('nccl 6: program B (small MoE, pipe=2,expert=2) over NCCL, '
+               'a card a rank')
+        staged = small_mesh_phase(log_dir, (SMALL_MESHES[1][:1]
+                                            + ('pipe=2,expert=2,fsdp=1',)
+                                            + SMALL_MESHES[1][2:],),
+                                  NCCL_TP, 'nccl-19c')
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
         shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
@@ -4935,7 +4989,9 @@ def nccl_main() -> int:
                                'llama3-8b tp4 K4 int8 launches by rank':
                                recipe,
                                'bench-1b data=2,fsdp=2 K1-K3 launches':
-                               train}}), flush=True)
+                               train,
+                               'moe-8x1b fsdp=2,expert=2 K1-K3 launches':
+                               moe, **staged}}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)
@@ -4967,17 +5023,36 @@ MESH_WEIGHT_RTOL = 1e-2  # 19a: ||w - w_one|| / ||w_one|| over the weights
 MESH_NORM_RTOL = 1e-2    # 19a: a step's grad_norm against one rank's
 MESH_UPDATE_RTOL = 0.5   # 19a: ||u - u_one|| / ||u_one||, u = w - w_init
 MESH_HALF_BATCH = 16     # 19a: a wrong gradient, which both limits must catch
-SMALL_MESH = 'data=2,fsdp=2,tensor=2'
+# 19c: the small fp32 model on three meshes of eight ranks, one gang:
+# JAX's programs A, B and C (``__graft_entry__.dryrun_multichip``), B an
+# MoE model (4 experts, top-2) in 2 pipeline stages of 2 microbatches.
+# (name, mesh, moe) each.
+SMALL_MESHES = (('A', 'data=2,fsdp=2,tensor=2', False),
+                ('B', 'pipe=2,expert=2,tensor=2,fsdp=1', True),
+                ('C', 'data=2,seq=2,tensor=2,fsdp=1', False))
 SMALL_MESH_TOL = 1e-4    # 19c: card against CPU, fp32
+# 19d: the moe-finetune recipe (examples/llm/moe-finetune/moe_finetune.yaml)
+# as four ranks on the one card: --mesh fsdp=2,expert=8 -> fsdp=2,expert=2
+# (sixteen ranks on one card would be sixteen CUDA contexts and a 16-way
+# staging), --global-batch-size 16 -> 4 (two rows a fsdp group), --steps
+# 2000 -> 3, the warm-up 100 -> 1, --save-every 50 -> 2, and moe-8x1b at
+# MOE_MESH_LAYERS of its 18 layers, widths untouched (at 9 the phase took
+# 201 s, of them 75 s the resumed relaunch's restore, step and save of a
+# 7 GB state).
+MOE_MESH_ARGV = ['--model', 'moe-8x1b', '--global-batch-size', '4',
+                 '--seq-len', '2048', '--mesh', 'fsdp=2,expert=2',
+                 '--steps', '3', '--warmup-steps', '1', '--log-every', '1']
+MOE_MESH_LAYERS = 4
+MOE_MESH_HALF = 2        # 19d: a wrong gradient, which the limits must catch
 
 
-def _train_gang(argv, hosts, log_dir, label, host_env=None):
+def _train_gang(argv, hosts, log_dir, label, host_env=None, extra_env=None):
     """``python -m skypilot_tpu_torch.train.run argv`` as ``hosts`` host
     processes (the gang launcher's env when more than one; each spawns its
-    local ranks), each in its own session. Returns the rank summaries in
-    rank order, the logs' text and the wall seconds; raises unless every
-    host exits 0."""
-    env = dict(os.environ)
+    local ranks), each in its own session, with ``extra_env``. Returns the
+    rank summaries in rank order, the logs' text and the wall seconds;
+    raises unless every host exits 0."""
+    env = dict(os.environ, **(extra_env or {}))
     if hosts > 1:
         env.update(JAX_COORDINATOR_ADDRESS=f'127.0.0.1:{_free_port()}',
                    JAX_NUM_PROCESSES=str(hosts),
@@ -5046,11 +5121,11 @@ def _check_ranks(label, summaries, world, steps, n_layers):
                 or len(s['losses']) != steps:
             raise AssertionError(f'{label}: rank {s["rank"]} losses '
                                  f'{s["losses"]}')
-    if len({tuple(s['losses']) for s in summaries}) != 1 \
-            or len({tuple(s['grad_norms']) for s in summaries}) != 1:
+    if any(len({tuple(s[key]) for s in summaries}) != 1
+           for key in ('losses', 'grad_norms', 'moe_aux')):
         raise AssertionError(f'{label}: ranks disagree: '
-                             + '; '.join(f'{s["losses"]} {s["grad_norms"]}'
-                                         for s in summaries))
+                             + '; '.join(f'{s["losses"]} {s["grad_norms"]} '
+                                         f'{s["moe_aux"]}' for s in summaries))
     return want
 
 
@@ -5070,7 +5145,8 @@ def _rank_figs(label, summaries, steps):
               f'{(s["peak_bytes"] or 0) / 2 ** 30:.2f} GiB', flush=True)
 
 
-def mesh_train_phase(llama, train_run, log_dir, label='19a', host_env=None):
+def mesh_train_phase(llama, train_run, log_dir, label='19a', host_env=None,
+                     layers=SERVE_LAYERS):
     """19a: the multislice-train recipe through ``train.run`` on
     ``data=2,fsdp=2`` as two host processes of two ranks (gloo on one
     card; NCCL with ``host_env``'s cards), then the same global batch on
@@ -5080,14 +5156,23 @@ def mesh_train_phase(llama, train_run, log_dir, label='19a', host_env=None):
     updates within MESH_UPDATE_RTOL, limits that one rank's run on
     MESH_HALF_BATCH rows must exceed; equal grad_norm bits on every rank,
     K1/K2/K3 36/18/18 a step on every rank, and each rank's weight bytes
-    half the whole plus the replicated leaves. Returns the launches of
+    half the whole plus the replicated leaves. bench-1b at ``layers``
+    layers; the one-rank runs go beside the gang. Returns the launches of
     the gang's ranks, summed per kernel."""
-    cfg, steps, world = llama.BENCH_1B, 3, 4
+    cfg, steps, world = dataclasses.replace(llama.BENCH_1B,
+                                            n_layers=layers), 3, 4
     ckpt = os.path.abspath(os.path.join(MESH_CKPT_DIR, label))
-    summaries, _, wall = _train_gang(
-        MESH_TRAIN_ARGV + ['--ckpt-dir', ckpt, '--save-every', '1000'],
-        MESH_HOSTS, log_dir, label, host_env)
-    per_rank = _check_ranks(label, summaries, world, steps, cfg.n_layers)
+    with _cut_depth(llama, 'bench-1b', layers), \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        refs = pool.submit(_one_rank_runs, train_run, MESH_TRAIN_ARGV,
+                           MESH_HALF_BATCH)
+        summaries, _, wall = _train_gang(
+            MESH_TRAIN_ARGV + ['--ckpt-dir', ckpt, '--save-every', '1000'],
+            MESH_HOSTS, log_dir, label, host_env,
+            _depth_env(log_dir, 'bench-1b', layers)
+            if layers != llama.BENCH_1B.n_layers else None)
+        one, half, one_s = refs.result()
+    per_rank = _check_ranks(label, summaries, world, steps, layers)
     shapes = llama.param_shapes(cfg)
     whole = 2 * sum(math.prod(s) for s in _flat_shapes(shapes))
     replicated = 2 * sum(math.prod(shapes['layers'][k]) for k in
@@ -5098,72 +5183,237 @@ def mesh_train_phase(llama, train_run, log_dir, label='19a', host_env=None):
                              f'{[s["weight_bytes"] for s in summaries]}, '
                              f'expected {want_bytes} (whole {whole})')
     _rank_figs(label, summaries, steps)
-    _phase(f'  {label} gang done in {wall:.1f} s; one rank, same batch')
-    argv = list(MESH_TRAIN_ARGV)
+    readings = _against_one_rank(label, llama, cfg, one, half,
+                                 MESH_HALF_BATCH, summaries[0],
+                                 _step_state(ckpt, steps))
+    print(f'  {label} bench-1b at {layers} of 18 layers on data=2,fsdp=2 '
+          f'({MESH_HOSTS} hosts x 2 ranks, {summaries[0]["backend"]}): '
+          f'{readings}; K1/K2/K3 by rank {per_rank} = expected; weights a '
+          f'rank {want_bytes} B = ({whole} - {replicated}) / 2 + '
+          f'{replicated}; gang {wall:.1f} s, one rank beside it '
+          f'{one_s:.1f} s', flush=True)
+    return {k: v * world for k, v in per_rank.items()}
+
+
+def _named_params(params):
+    from skypilot_tpu_torch.ckpt import snapshot as snapshot_lib
+    return {leaf.name: leaf.value for leaf in
+            snapshot_lib.flatten_named({'params': params})[0]}
+
+
+def _one_rank_runs(train_run, argv, half_batch):
+    """``train.run.main`` on one rank in this process with ``argv``'s
+    global batch (its ``--mesh`` dropped), then on ``half_batch`` rows
+    (what a gang that lost a data shard computes): (one, half, seconds of
+    both)."""
+    argv = list(argv)
     i = argv.index('--mesh')
     del argv[i:i + 2]
     t0 = time.perf_counter()
     one = train_run.main(argv)
-    one_s = time.perf_counter() - t0
     i = argv.index('--global-batch-size')
-    argv[i + 1] = str(MESH_HALF_BATCH)
-    half = train_run.main(argv)  # what a gang that lost a data shard does
-    gang_losses = summaries[0]['losses']
-    rel = [abs(a - b) / abs(b) for a, b in zip(gang_losses, one['losses'])]
-    if not max(rel) <= MESH_LOSS_RTOL:
-        raise AssertionError(f'{label}: losses {gang_losses} against one '
-                             f'rank {one["losses"]}')
+    argv[i + 1] = str(half_batch)
+    half = train_run.main(argv)
+    return one, half, time.perf_counter() - t0
 
-    def norms_apart(norms):
-        return max(abs(a - b) / b for a, b in zip(norms, one['grad_norms']))
-    norm_rel = norms_apart(summaries[0]['grad_norms'])
-    half_norm_rel = norms_apart(half['grad_norms'])
-    init = llama.init_params(cfg, torch.Generator(device='cuda')
-                             .manual_seed(0), 'cuda')
-    from skypilot_tpu_torch.ckpt import snapshot as snapshot_lib
 
-    def named(params):
-        return {leaf.name: leaf.value for leaf in
-                snapshot_lib.flatten_named({'params': params})[0]}
-    ref, start, wrong = (named(one['state']['params']), named(init),
-                         named(half['state']['params']))
-    saved = _step_state(ckpt, steps)
-    diff = norm = upd = upd_norm = half_upd = 0.0
-    for name, w in ref.items():
-        got = saved[name].to('cuda').float()
-        w, w0 = w.detach().float(), start[name].float()
-        diff += float(((got - w) ** 2).sum())
-        norm += float((w ** 2).sum())
-        d_ref = w - w0
-        upd += float(((got - w0 - d_ref) ** 2).sum())
-        half_upd += float(((wrong[name].detach().float() - w0 - d_ref)
-                           ** 2).sum())
-        upd_norm += float((d_ref ** 2).sum())
-    del init, start, ref, wrong, saved, one, half
+def _against_one_rank(label, llama, cfg, one, half, half_batch, gang,
+                      saved):
+    """The gang's run (``gang``: a rank's summary; ``saved``: its final
+    weights, whole, or None) against ``_one_rank_runs``' ``one`` on the
+    same batch: each step's loss within MESH_LOSS_RTOL, grad_norm within
+    MESH_NORM_RTOL and an MoE model's moe_aux within MESH_LOSS_RTOL; the
+    weights within MESH_WEIGHT_RTOL in relative L2 and their updates
+    within MESH_UPDATE_RTOL. ``half`` (``half_batch`` rows) must exceed
+    the grad_norm and update limits (without ``saved``: the loss or
+    grad_norm limit). Returns the readings."""
+
+    def apart(key, run):
+        return max(abs(a - b) / abs(b) for a, b in zip(run[key], one[key]))
+    loss_rel = apart('losses', gang)
+    norm_rel = apart('grad_norms', gang)
+    half_loss_rel = apart('losses', half)
+    half_norm_rel = apart('grad_norms', half)
+    readings = (f'losses {gang["losses"]}, one rank {loss_rel:.3g} relative '
+                f'apart (limit {MESH_LOSS_RTOL}); grad_norm '
+                f'{gang["grad_norms"]} on every rank, {norm_rel:.3g} '
+                f'relative from one rank\'s (limit {MESH_NORM_RTOL})')
+    ok = loss_rel <= MESH_LOSS_RTOL and norm_rel <= MESH_NORM_RTOL
+    if one['moe_aux']:
+        aux_rel = apart('moe_aux', gang)
+        readings += (f'; moe_aux {gang["moe_aux"]}, {aux_rel:.3g} relative '
+                     f'from one rank\'s (limit {MESH_LOSS_RTOL})')
+        ok = ok and aux_rel <= MESH_LOSS_RTOL
+    caught = half_norm_rel > MESH_NORM_RTOL or half_loss_rel > MESH_LOSS_RTOL
+    readings += (f'; a batch of {half_batch} on one rank: loss '
+                 f'{half_loss_rel:.3g}, grad_norm {half_norm_rel:.3g} apart')
+    if saved is not None:
+        init = llama.init_params(cfg, torch.Generator(device='cuda')
+                                 .manual_seed(0), 'cuda')
+        ref, start, wrong = (_named_params(one['state']['params']),
+                             _named_params(init),
+                             _named_params(half['state']['params']))
+        diff = norm = upd = upd_norm = half_upd = 0.0
+        for name, w in ref.items():
+            got = saved[name].to('cuda').float()
+            w, w0 = w.detach().float(), start[name].float()
+            diff += float(((got - w) ** 2).sum())
+            norm += float((w ** 2).sum())
+            d_ref = w - w0
+            upd += float(((got - w0 - d_ref) ** 2).sum())
+            half_upd += float(((wrong[name].detach().float() - w0 - d_ref)
+                               ** 2).sum())
+            upd_norm += float((d_ref ** 2).sum())
+        del init, start, ref, wrong
+        w_rel, u_rel = math.sqrt(diff / norm), math.sqrt(upd / upd_norm)
+        half_u_rel = math.sqrt(half_upd / upd_norm)
+        readings += (f', updates {half_u_rel:.3g} apart; weights '
+                     f'{w_rel:.3g} relative L2 from one rank (limit '
+                     f'{MESH_WEIGHT_RTOL}), their updates {u_rel:.3g} (limit '
+                     f'{MESH_UPDATE_RTOL})')
+        ok = ok and w_rel <= MESH_WEIGHT_RTOL and u_rel <= MESH_UPDATE_RTOL
+        caught = half_norm_rel > MESH_NORM_RTOL and \
+            half_u_rel > MESH_UPDATE_RTOL
     torch.cuda.empty_cache()
-    w_rel, u_rel = math.sqrt(diff / norm), math.sqrt(upd / upd_norm)
-    half_u_rel = math.sqrt(half_upd / upd_norm)
-    readings = (f'grad_norm {summaries[0]["grad_norms"]} on every rank, '
-                f'{norm_rel:.3g} relative from one rank\'s (limit '
-                f'{MESH_NORM_RTOL}); weights {w_rel:.3g} relative L2 from '
-                f'one rank (limit {MESH_WEIGHT_RTOL}), their updates '
-                f'{u_rel:.3g} (limit {MESH_UPDATE_RTOL}); a batch of '
-                f'{MESH_HALF_BATCH} on one rank: grad_norm {half_norm_rel:.3g},'
-                f' updates {half_u_rel:.3g} apart')
-    if not (w_rel <= MESH_WEIGHT_RTOL and norm_rel <= MESH_NORM_RTOL
-            and u_rel <= MESH_UPDATE_RTOL):
+    if not ok:
         raise AssertionError(f'{label}: {readings}')
-    if not (half_norm_rel > MESH_NORM_RTOL and half_u_rel > MESH_UPDATE_RTOL):
+    if not caught:
         raise AssertionError(f'{label}: the limits do not tell a wrong '
                              f'gradient: {readings}')
-    print(f'  {label} bench-1b on data=2,fsdp=2 ({MESH_HOSTS} hosts x 2 '
-          f'ranks, {summaries[0]["backend"]}): losses {gang_losses}, one '
-          f'rank {[round(x, 6) for x in rel]} relative apart (limit '
-          f'{MESH_LOSS_RTOL}); {readings}; K1/K2/K3 '
-          f'by rank {per_rank} = expected; weights a rank '
-          f'{want_bytes} B = ({whole} - {replicated}) / 2 + {replicated}; '
-          f'gang {wall:.1f} s, one rank {one_s:.1f} s', flush=True)
-    return {k: v * world for k, v in per_rank.items()}
+    return readings
+
+
+def _local_bytes(llama, cfg, sizes):
+    """(a rank's weight bytes, its expert bytes, the whole model's expert
+    bytes) on a mesh of axis ``sizes`` under the default rules (the MoE
+    router float32, every other leaf ``cfg.dtype``)."""
+    from skypilot_tpu_torch.parallel import sharding as sharding_lib
+
+    class _Shape:
+        shape = {a: sizes.get(a, 1) for a in (
+            'data', 'pipe', 'fsdp', 'seq', 'expert', 'tensor')}
+    rules = sharding_lib.ShardingRules()
+    size = torch.tensor([], dtype=cfg.dtype).element_size()
+    out = [0, 0, 0]
+
+    def walk(shapes, axes, name):
+        if isinstance(shapes, dict):
+            for k in shapes:
+                walk(shapes[k], axes[k], k)
+            return
+        local = math.prod(sharding_lib.local_shape(
+            shapes, sharding_lib.NamedSharding(_Shape,
+                                               rules.mesh_axes(axes))))
+        width = 4 if name == 'router' else size
+        out[0] += local * width
+        if name.startswith('we_'):
+            out[1] += local * width
+            out[2] += math.prod(shapes) * width
+    walk(llama.param_shapes(cfg), llama.param_logical_axes(cfg), '')
+    return tuple(out)
+
+
+def moe_mesh_phase(llama, train_run, log_dir, label='19d', host_env=None,
+                   hosts=1, layers=MOE_MESH_LAYERS, resume=True):
+    """19d: the moe-finetune recipe through ``train.run`` on
+    ``fsdp=2,expert=2`` (four ranks: one host on the one card over gloo,
+    or ``hosts`` hosts of ``host_env``'s cards), moe-8x1b at ``layers``
+    layers, global batch 4, 3 steps, against the same batch on one rank in
+    this process (``_against_one_rank``: loss, moe_aux, grad_norm and,
+    with ``resume``, the final weights); every rank's metrics' bits equal,
+    K1/K2/K3 2L / L / L a step on every rank, a rank's weight bytes those
+    of its quarter of the experts and half of the rest (the router
+    float32). With ``resume`` (checkpoints at 2 and 3): the router and
+    every expert of every layer moved, and a relaunch resumed from step 2
+    writes a step 3 equal to the uninterrupted one bit for bit. Returns
+    K1-K3's launches, every rank's."""
+    cfg = dataclasses.replace(llama.MOE_8X1B, n_layers=layers)
+    steps, world = 3, 4
+    env = (_depth_env(log_dir, 'moe-8x1b', layers)
+           if layers != llama.MOE_8X1B.n_layers else {})
+    argv = list(MOE_MESH_ARGV)
+    root = os.path.abspath(os.path.join(MESH_CKPT_DIR, label))
+    side = root + '-uninterrupted'
+    for path in (root, side):
+        shutil.rmtree(path, ignore_errors=True)
+    if resume:
+        argv += ['--ckpt-dir', root, '--save-every', '2']
+    with _cut_depth(llama, 'moe-8x1b', layers), \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        refs = pool.submit(_one_rank_runs, train_run, MOE_MESH_ARGV,
+                           MOE_MESH_HALF)
+        summaries, _, wall = _train_gang(argv, hosts, log_dir, label,
+                                         host_env, env)
+        one, half, one_s = refs.result()
+    per_rank = _check_ranks(label, summaries, world, steps, layers)
+    want_bytes, expert_bytes, experts = _local_bytes(
+        llama, cfg, {'fsdp': 2, 'expert': 2})
+    if any(s['weight_bytes'] != want_bytes for s in summaries) \
+            or 4 * expert_bytes != experts:
+        raise AssertionError(f'{label}: weight bytes by rank '
+                             f'{[s["weight_bytes"] for s in summaries]}, '
+                             f'expected {want_bytes} with {expert_bytes} '
+                             f'of the experts\' {experts}')
+    _rank_figs(label, summaries, steps)
+    _phase(f'  {label} gang done in {wall:.1f} s')
+    saved = _step_state(root, steps) if resume else None
+    readings = _against_one_rank(label, llama, cfg, one, half,
+                                 MOE_MESH_HALF, summaries[0], saved)
+    del one, half
+    launches = {k: v * world for k, v in per_rank.items()}
+    note = ''
+    if resume:
+        init = _named_params(llama.init_params(
+            cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda'))
+        still = []
+        for name, w0 in init.items():
+            if "['moe']" not in name:
+                continue
+            w, w0 = saved[name], w0.cpu()
+            # Per layer, and per expert of the expert leaves ([L, E, ...]).
+            parts = [(i,) if 'router' in name else (i, e)
+                     for i in range(layers) for e in range(
+                         1 if 'router' in name else cfg.num_experts)]
+            still += [f'{name}{list(ix)}' for ix in parts
+                      if torch.equal(w[ix], w0[ix])]
+        del init
+        torch.cuda.empty_cache()
+        if still:
+            raise AssertionError(f'{label}: unchanged after {steps} steps: '
+                                 f'{still[:8]}')
+        os.makedirs(side)
+        from skypilot_tpu_torch.ckpt import manifest as manifest_lib
+        os.rename(os.path.join(root, manifest_lib.step_dirname(steps)),
+                  os.path.join(side, manifest_lib.step_dirname(steps)))
+        again, texts, r_wall = _train_gang(argv, hosts, log_dir,
+                                           f'{label}-resume', host_env, env)
+        if '[train] resumed from checkpoint step 2' not in texts[0]:
+            raise AssertionError(f'{label}: the relaunch did not resume '
+                                 'from step 2')
+        if again[0]['losses'] != summaries[0]['losses'][2:]:
+            raise AssertionError(f'{label}: resumed step 3 loss '
+                                 f'{again[0]["losses"]}, uninterrupted '
+                                 f'{summaries[0]["losses"]}')
+        resumed, straight = _step_state(root, steps), _step_state(side, steps)
+        if resumed.keys() != straight.keys() or not all(
+                torch.equal(resumed[n], straight[n]) for n in straight):
+            raise AssertionError(f'{label}: the resumed step 3 differs from '
+                                 'the uninterrupted one')
+        for k, v in _check_ranks(f'{label} resumed', again, world, 1,
+                                 layers).items():
+            launches[k] += v * world
+        note = (f'; the router and all {cfg.num_experts} experts of every '
+                f'layer moved; resumed from step 2: step 3 = the '
+                f'uninterrupted step 3 bit for bit ({len(straight)} arrays, '
+                f'{r_wall:.1f} s)')
+        del resumed, straight, saved
+    print(f'  {label} moe-8x1b at {layers} of 18 layers on fsdp=2,expert=2 '
+          f'({hosts} host(s), {summaries[0]["backend"]}): {readings}; '
+          f'K1/K2/K3 by rank {per_rank} = expected; weights a rank '
+          f'{want_bytes} B, of them experts {expert_bytes} B = a quarter of '
+          f'{experts} B{note}; gang {wall:.1f} s, one rank beside it '
+          f'{one_s:.1f} s', flush=True)
+    return launches
 
 
 def _flat_shapes(tree):
@@ -5172,32 +5422,33 @@ def _flat_shapes(tree):
     return [tree]
 
 
-def mesh_lora_phase(llama, log_dir, pool):
+def mesh_lora_phase(llama, log_dir, pool, layers=SERVE_LAYERS):
     """19b: the lora-finetune recipe through ``train.run`` on ``fsdp=2``
-    (two ranks, one card): A 2 steps saved at 2, B resumed to 4, and C 4
-    steps beside them (on ``pool``); B's step 4 = C's bit for bit
-    (adapters, base, optimizer state), B's losses = C's last two and A's
-    = C's first two, the base = the initial weights bit for bit, K1/K2/K3
-    at B=8 a rank."""
-    cfg, world = llama.BENCH_1B, 2
+    (two ranks, one card), bench-1b at ``layers`` layers: A 2 steps saved
+    at 2, B resumed to 4, and C 4 steps beside them (on ``pool``); B's
+    step 4 = C's bit for bit (adapters, base, optimizer state), B's
+    losses = C's last two and A's = C's first two, the base = the initial
+    weights bit for bit, K1/K2/K3 at B=8 a rank."""
+    cfg, world = dataclasses.replace(llama.BENCH_1B, n_layers=layers), 2
+    env = _depth_env(log_dir, 'bench-1b', layers)
     root = os.path.abspath(os.path.join(MESH_CKPT_DIR, '19b'))
     ab, c = os.path.join(root, 'ab'), os.path.join(root, 'c')
     uninterrupted = pool.submit(_train_gang, MESH_LORA_ARGV + [
         '--steps', '4', '--save-every', '4', '--ckpt-dir', c], 1, log_dir,
-        '19b-C')
+        '19b-C', None, env)
     runs, texts = {}, {}
     for name, extra in (('A', ['--steps', '2', '--save-every', '2',
                                '--ckpt-dir', ab]),
                         ('B', ['--steps', '4', '--save-every', '2',
                                '--ckpt-dir', ab])):
         runs[name], (texts[name],), wall = _train_gang(
-            MESH_LORA_ARGV + extra, 1, log_dir, f'19b-{name}')
+            MESH_LORA_ARGV + extra, 1, log_dir, f'19b-{name}', None, env)
         _phase(f'  19b {name}: {wall:.1f} s')
     runs['C'], _, wall = uninterrupted.result()
     _phase(f'  19b C (beside A and B): {wall:.1f} s')
     if '[train] resumed from checkpoint step 2' not in texts['B']:
         raise AssertionError('19b: B did not resume from step 2')
-    _check_ranks('19b C', runs['C'], world, 4, cfg.n_layers)
+    _check_ranks('19b C', runs['C'], world, 4, layers)
     if runs['A'][0]['losses'] != runs['C'][0]['losses'][:2] \
             or runs['B'][0]['losses'] != runs['C'][0]['losses'][2:]:
         raise AssertionError(f'19b: losses A {runs["A"][0]["losses"]} B '
@@ -5221,7 +5472,8 @@ def mesh_lora_phase(llama, log_dir, pool):
     del init, resumed, straight
     torch.cuda.empty_cache()
     _rank_figs('19b C', runs['C'], 4)
-    print(f'  19b bench-1b LoRA rank 16 on fsdp=2 (2 ranks, '
+    print(f'  19b bench-1b at {layers} of 18 layers, LoRA rank 16 on fsdp=2 '
+          f'(2 ranks, '
           f'{runs["C"][0]["backend"]}): losses {runs["C"][0]["losses"]}; '
           f'A + B = C bit for bit (every array of step 4: {adapters} '
           'adapter values, the base, the optimizer state); the base = '
@@ -5234,69 +5486,104 @@ _SMALL_MESH_SCRIPT = r"""
 import dataclasses, json, os, sys
 import torch
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.ops import attention
 from skypilot_tpu_torch.parallel import gang as gang_lib
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.train import data as data_lib
 from skypilot_tpu_torch.train import optim, trainer as trainer_lib
 
-gang = gang_lib.initialize(8, 'cuda', sys.argv[1:],
-                           [sys.executable, __file__], '19c')
-card = mesh_lib.build_mesh(mesh_lib.parse_spec(sys.argv[1]),
-                           device=gang.device)
-host = mesh_lib.Mesh(card.shape, torch.device('cpu'), card.device_mesh,
-                     card.backend)
-model = dataclasses.replace(llama.TINY, d_model=128, n_heads=4,
+world, programs, out_dir, label = (int(sys.argv[1]), json.loads(sys.argv[2]),
+                                   sys.argv[3], sys.argv[4])
+gang = gang_lib.initialize(world, 'cuda', sys.argv[1:],
+                           [sys.executable, __file__], label)
+fa = attention.flash_attention
+dense = dataclasses.replace(llama.TINY, d_model=128, n_heads=4,
                             n_kv_heads=2, head_dim=64, d_ff=256,
                             dtype=torch.float32)
-cfg = trainer_lib.TrainerConfig(model=model, global_batch_size=4,
-                                seq_len=128, warmup_steps=1,
-                                learning_rate=1e-2)
-init = optim.tree_map(lambda t: t.numpy(), llama.init_params(
-    model, torch.Generator().manual_seed(0), 'cpu'))
-runs = {}
-for name, mesh in (('card', card), ('cpu', host)):
-    tr = trainer_lib.Trainer(cfg, mesh=mesh)
-    st = tr.init_state_from_numpy(init)
-    losses = []
-    for b in data_lib.synthetic_batches(4, 128, model.vocab_size, seed=3,
-                                        num_batches=2):
-        st, m = tr.step(st, b)
-        losses.append(float(m['loss']))
-    runs[name] = (losses, [t.cpu() for t in optim.tree_leaves(
-        tr.host_view(st, gang.local)['params'])])
-loss_err = max(abs(a - b) for a, b in zip(runs['card'][0], runs['cpu'][0]))
-param_err = max(float((a - b).abs().max()) for a, b in zip(
-    runs['card'][1], runs['cpu'][1]))
-moved = max(float((a - torch.from_numpy(b)).abs().max()) for a, b in zip(
-    runs['cpu'][1], optim.tree_leaves(init)))
-with open(os.path.join(sys.argv[2], f'small-mesh.{gang.rank}.json'),
-          'w') as f:
-    json.dump({'rank': gang.rank, 'losses': runs['card'][0],
-               'loss_err': loss_err, 'param_err': param_err,
-               'moved': moved}, f)
+report = {'rank': gang.rank, 'backend': gang.backend}
+for name, spec, moe in programs:
+    model = dense if not moe else dataclasses.replace(
+        dense, num_experts=4, expert_top_k=2, pipeline_stages=2,
+        pipeline_microbatches=2)
+    card = mesh_lib.build_mesh(mesh_lib.parse_spec(spec), device=gang.device)
+    # The reference: the same process group on the CPU (gloo), or one
+    # process on this rank's card (a NCCL group has no CPU medium).
+    ref = (mesh_lib.Mesh(card.shape, torch.device('cpu'), card.device_mesh,
+                         card.backend) if gang.backend == 'gloo' else None)
+    cfg = trainer_lib.TrainerConfig(model=model, global_batch_size=4,
+                                    seq_len=128, warmup_steps=1,
+                                    learning_rate=1e-2)
+    init = optim.tree_map(lambda t: t.numpy(), llama.init_params(
+        model, torch.Generator().manual_seed(0), 'cpu'))
+    runs = {}
+    for where, mesh in (('card', card), ('ref', ref)):
+        for counter in ('fwd_launches', 'bwd_dq_launches',
+                        'bwd_dkv_launches'):
+            setattr(fa, counter, 0)
+        tr = (trainer_lib.Trainer(cfg, mesh=mesh) if mesh is not None
+              else trainer_lib.Trainer(cfg, device=gang.device))
+        st = tr.init_state_from_numpy(init)
+        losses = []
+        for b in data_lib.synthetic_batches(4, 128, model.vocab_size,
+                                            seed=3, num_batches=2):
+            st, m = tr.step(st, b)
+            losses.append(float(m['loss']))
+        whole = st if mesh is None else tr.host_view(st, gang.local)
+        runs[where] = (losses, [t.detach().cpu() for t in
+                                optim.tree_leaves(whole['params'])])
+        if where == 'card':
+            launches = {'flash_fwd': fa.fwd_launches,
+                        'flash_bwd_dq': fa.bwd_dq_launches,
+                        'flash_bwd_dkv': fa.bwd_dkv_launches}
+    report[name] = {
+        'losses': runs['card'][0], 'launches': launches,
+        'loss_err': max(abs(a - b) for a, b in zip(runs['card'][0],
+                                                   runs['ref'][0])),
+        'param_err': max(float((a - b).abs().max()) for a, b in zip(
+            runs['card'][1], runs['ref'][1])),
+        'moved': max(float((a - torch.from_numpy(b)).abs().max())
+                     for a, b in zip(runs['ref'][1],
+                                     optim.tree_leaves(init)))}
+with open(os.path.join(out_dir, f'{label}.{gang.rank}.json'), 'w') as f:
+    json.dump(report, f)
 gang.close(60)
 sys.stdout.flush()
 os._exit(0)
 """
 
 
-def small_mesh_phase(log_dir):
-    """19c: the small fp32 model of phase 5 (head_dim 64) on
-    ``data=2,fsdp=2,tensor=2``, eight ranks on the card, two Adafactor
-    steps on the card and then on the CPU over the same process group,
-    from the same weights: losses and gathered params within
-    SMALL_MESH_TOL on every rank."""
+def _small_launches(spec, moe):
+    """K1-K3 a rank launches in 19c's two steps of the small model (2
+    layers): dense 2 x 2 / 2 / 2 a step; program B's pipeline 1 layer a
+    stage over 2 microbatches, the same; program C none (ring attention
+    is an einsum)."""
+    if 'seq=2' in spec:
+        return {'flash_fwd': 0, 'flash_bwd_dq': 0, 'flash_bwd_dkv': 0}
+    per_step = 2 if not moe else 1 * 2  # layers, or a stage's x micro
+    return {'flash_fwd': 2 * per_step * 2, 'flash_bwd_dq': per_step * 2,
+            'flash_bwd_dkv': per_step * 2}
+
+
+def small_mesh_phase(log_dir, programs=SMALL_MESHES, world=8, label='19c'):
+    """19c: the small fp32 model of phase 5 (head_dim 64) on each of
+    ``programs``' meshes, ``world`` ranks in one gang on the card (gloo)
+    or a card a rank (NCCL), two Adafactor steps on the card and then,
+    from the same weights, on the CPU over the same process group
+    (gloo), or in one process on the rank's card (NCCL): losses and
+    gathered params within SMALL_MESH_TOL on every rank, the weights
+    moved, K1-K3 as ``_small_launches`` says. Returns the launches, all
+    ranks' summed, by program."""
     script = os.path.join(log_dir, 'small_mesh.py')
     with open(script, 'w') as f:
         f.write(_SMALL_MESH_SCRIPT)
-    log = os.path.join(log_dir, '19c.log')
+    log = os.path.join(log_dir, f'{label}.log')
     env = dict(os.environ, PYTHONPATH=os.getcwd())
     t0 = time.monotonic()
-    with open(log, 'a') as out:  # O_APPEND: eight ranks write to it
-        proc = subprocess.Popen([sys.executable, script, SMALL_MESH,
-                                 log_dir], stdout=out,
-                                stderr=subprocess.STDOUT, env=env,
-                                start_new_session=True)
+    with open(log, 'a') as out:  # O_APPEND: the ranks write to it
+        proc = subprocess.Popen([sys.executable, script, str(world),
+                                 json.dumps(programs), log_dir, label],
+                                stdout=out, stderr=subprocess.STDOUT,
+                                env=env, start_new_session=True)
         try:
             proc.wait(MESH_RUN_S)
         except subprocess.TimeoutExpired:
@@ -5309,29 +5596,46 @@ def small_mesh_phase(log_dir):
             proc.wait()
     text = open(log, errors='replace').read()
     if proc.returncode:
-        raise AssertionError(f'19c exited {proc.returncode}:\n'
+        raise AssertionError(f'{label} exited {proc.returncode}:\n'
                              f'{text[-4000:]}')
     ranks = []
-    for r in range(8):
-        path = os.path.join(log_dir, f'small-mesh.{r}.json')
+    for r in range(world):
+        path = os.path.join(log_dir, f'{label}.{r}.json')
         if os.path.exists(path):
             with open(path) as f:
                 ranks.append(json.load(f))
-    bad = [r for r in ranks if not (r['loss_err'] <= SMALL_MESH_TOL
-                                    and r['param_err'] <= SMALL_MESH_TOL
-                                    and r['moved'] > 1e-3)]
-    if len(ranks) != 8 or bad:
-        raise AssertionError(f'19c: {len(ranks)} ranks, off: {bad}')
-    print(f'  19c small fp32 model on {SMALL_MESH} (8 ranks on the card, '
-          f'gloo): losses {ranks[0]["losses"]}; card vs CPU max loss err '
-          f'{max(r["loss_err"] for r in ranks)}, max param err '
-          f'{max(r["param_err"] for r in ranks)} (limits {SMALL_MESH_TOL}) '
-          f'on every rank; weights moved up to {ranks[0]["moved"]}; '
-          f'{time.monotonic() - t0:.1f} s', flush=True)
+    if len(ranks) != world:
+        raise AssertionError(f'{label}: {len(ranks)} ranks of {world}')
+    launches = {}
+    for name, spec, moe in programs:
+        want = _small_launches(spec, moe)
+        bad = [r['rank'] for r in ranks
+               if not (r[name]['loss_err'] <= SMALL_MESH_TOL
+                       and r[name]['param_err'] <= SMALL_MESH_TOL
+                       and r[name]['moved'] > 1e-3
+                       and r[name]['launches'] == want)]
+        if bad:
+            raise AssertionError(f'{label} program {name} on {spec}: ranks '
+                                 f'{bad} off: {[r[name] for r in ranks]}')
+        launches[f'phase {label} program {name} ({spec})'] = {
+            k: v * world for k, v in want.items()}
+        print(f'  {label} program {name}: small fp32 '
+              f'{"MoE, 2 stages x 2 microbatches" if moe else "dense"} '
+              f'model on {spec} ({world} ranks, {ranks[0]["backend"]}): '
+              f'losses {ranks[0][name]["losses"]}; card vs '
+              f'{"CPU" if ranks[0]["backend"] == "gloo" else "one process"}'
+              f' max loss err {max(r[name]["loss_err"] for r in ranks)}, '
+              f'max param err {max(r[name]["param_err"] for r in ranks)} '
+              f'(limits {SMALL_MESH_TOL}) on every rank; weights moved up '
+              f'to {ranks[0][name]["moved"]}; K1/K2/K3 a rank {want}',
+              flush=True)
+    print(f'  {label}: {time.monotonic() - t0:.1f} s', flush=True)
+    return launches
 
 
 def mesh_phase(llama, train_run):
-    """Phase 19. Returns K1-K3's launches of 19a and 19b, every rank's."""
+    """Phase 19. Returns K1-K3's launches of 19a-19d, every rank's, by
+    path."""
     log_dir = tempfile.mkdtemp(prefix='skytpu-mesh-')
     try:
         launches = {'phase 19a train-multislice': mesh_train_phase(
@@ -5344,7 +5648,10 @@ def mesh_phase(llama, train_run):
             launches['phase 19b lora-fsdp'] = mesh_lora_phase(
                 llama, log_dir, pool)
             _phase('  19b done')
-            small.result()
+            launches.update(small.result())
+        _phase('  19c done')
+        launches['phase 19d moe-finetune'] = moe_mesh_phase(
+            llama, train_run, log_dir)
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
         shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
@@ -5387,6 +5694,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 2
+    _share_bytecode()
     from skypilot_tpu_torch.ckpt import manifest as ckpt_manifest
     from skypilot_tpu_torch.models import engine as engine_lib
     from skypilot_tpu_torch.models import generate as gen_lib
@@ -5456,11 +5764,11 @@ def main() -> int:
         by_path['int8']['phase 9 serve-llama'], recipe_figs = recipe_phase(
             srv_lib, gen_lib, da)
     _phase(f'phase 10: the llama-finetune recipe (llama3-1b at '
-           f'{RECIPE_LAYERS} of 16 layers, batch 8, seq 2048) through '
+           f'{FINETUNE_LAYERS} of 16 layers, batch 8, seq 2048) through '
            'train.run: save, resume, preempt')
-    with _cut_depth(llama, 'llama3-1b', RECIPE_LAYERS):
+    with _cut_depth(llama, 'llama3-1b', FINETUNE_LAYERS):
         finetune_launches, trainer_bundle = finetune_phase(
-            llama, fa, train_run, ckpt_manifest, layers=RECIPE_LAYERS)
+            llama, fa, train_run, ckpt_manifest, layers=FINETUNE_LAYERS)
 
     _phase(f'phase 11: the paged layout at full width (llama3-1b, '
            f'{RECIPE_LAYERS} of 16 layers, int8 + int8 KV, max_len 2048, '
@@ -5469,9 +5777,12 @@ def main() -> int:
         by_path['int8']['phase 11 serve-paged'] = paged_phase(
             srv_lib, gen_lib, da, recipe_figs[8])
 
-    _phase('phase 12: the lora-finetune recipe (bench-1b, batch 16, seq '
-           '2048, --mesh fsdp=-1, rank 16) through train.run: save, resume')
-    lora_launches = lora_phase(llama, fa, train_run, lora_lib, trainer_lib)
+    _phase(f'phase 12: the lora-finetune recipe (bench-1b at '
+           f'{SERVE_LAYERS} of 18 layers, batch 16, seq 2048, --mesh '
+           'fsdp=-1, rank 16) through train.run: save, resume')
+    with _cut_depth(llama, 'bench-1b', SERVE_LAYERS):
+        lora_launches = lora_phase(llama, fa, train_run, lora_lib,
+                                   trainer_lib)
 
     _phase(f'phase 13: speculative decoding (bench-1b at {SERVE_LAYERS} of '
            '18 layers + bench-draft, k 4) over HTTP: the engine, the window '
@@ -5495,7 +5806,8 @@ def main() -> int:
         by_path['bf16']['phase 14 window-moe'] = moe_window_phase(
             srv_lib, gen_lib, da)
     _phase('  14c done')
-    moe_launches = moe_train_phase(llama, fa, train_run, trainer_lib)
+    with _cut_depth(llama, 'moe-8x1b', SERVE_LAYERS):
+        moe_launches = moe_train_phase(llama, fa, train_run, trainer_lib)
     for mode in MODES:
         print(f'  serve-moe {mode}: {moe_figs[mode]["tok_s"]:.1f} tok/s, '
               f'{moe_figs[mode]["host_ms_per_step"]:.2f} host ms a step; '

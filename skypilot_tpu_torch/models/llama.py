@@ -15,8 +15,9 @@ the card). Remat policies map onto ``torch.utils.checkpoint``.
 An MoE model (``num_experts > 0``) takes ``models/moe.py``'s block in
 place of the dense MLP under ``layers/moe``; its balance loss is summed
 over the layers and weighted into ``loss_fn`` as in the JAX package.
-``param_logical_axes`` and ``init_params_sharded`` give a dense model's
-weights on a mesh (``parallel/``).
+``param_logical_axes`` and ``init_params_sharded`` give a model's
+weights on a mesh (``parallel/``), the MoE block's under
+``moe.moe_logical_axes``.
 
 With ``mesh=`` (one process per rank, each holding its slices of the
 weights as ``param_logical_axes`` places them) the training forward
@@ -31,9 +32,24 @@ and the logits stay vocab-split: the log-sum-exp takes a ``pmax`` and a
 ``psum`` of the exps, the gold logit a masked ``psum``. ``loss_fn``
 returns the rank's share of the global mean (its rows' summed loss over
 the global token count), whose gradients summed over the batch axes are
-the global mean's. Pipeline stages, sequence parallelism (``seq``), the
-``expert`` axis and MoE models under a mesh raise
-``NotImplementedError`` (ROADMAP section 1, item 1).
+the global mean's. The other three axes:
+
+* ``seq``: each rank keeps its block of the positions of its rows (the
+  rows stay whole on the host, so a rank takes its next-token targets
+  from the row, the last block dropping the row's last position), RoPE
+  runs at the global positions and attention goes through
+  ``parallel/ring_attention.py`` (an einsum ring, as in JAX: no flash
+  kernel on this path);
+* ``expert``: the MoE block runs its rank's experts (``models/moe.py``);
+* ``pipe``: the layers run as a GPipe pipeline of one stage a rank
+  (``parallel/pipeline.py``, ``cfg.pipeline_microbatches`` microbatches;
+  a dense preset's ``pipeline_stages`` of 1 is one stage a rank too,
+  which computes JAX's values): stage 0 embeds, the last stage runs the
+  final norm, the unembedding and the loss, and the stages' aux losses
+  are summed over ``pipe``.
+
+``cfg.pipeline_stages > 1`` with no ``pipe`` ranks runs every stage in
+the one process, as JAX does on one device.
 """
 from __future__ import annotations
 
@@ -48,6 +64,8 @@ from torch.utils.checkpoint import checkpoint
 
 from skypilot_tpu_torch.models import moe
 from skypilot_tpu_torch.ops.attention import flash_attention
+from skypilot_tpu_torch.parallel import pipeline as pipe_lib
+from skypilot_tpu_torch.parallel.ring_attention import ring_attention
 from skypilot_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
@@ -167,15 +185,17 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 
 def param_logical_axes(cfg: LlamaConfig) -> Params:
     """Logical sharding axes matching ``init_params``' tree (leaves are
-    tuples), JAX's ``llama.param_logical_axes``, for dense configs (the
-    MoE block's axes come with sharded training)."""
+    tuples), JAX's ``llama.param_logical_axes``: an MoE model's layers
+    hold ``moe.moe_logical_axes`` under ``moe``, each led by
+    ``'layers'``, in place of the dense MLP's."""
+    layers = {k: v for k, v in DENSE_LAYER_AXES.items()
+              if cfg.num_experts == 0 or k not in _DENSE_MLP}
     if cfg.num_experts > 0:
-        raise NotImplementedError(
-            'moe_logical_axes is not ported yet: skypilot_tpu_torch shards '
-            'dense models only (ROADMAP section 1, item 1)')
+        layers['moe'] = {k: ('layers',) + v
+                         for k, v in moe.moe_logical_axes().items()}
     return {
         'embed': ('vocab', 'embed'),
-        'layers': dict(DENSE_LAYER_AXES),
+        'layers': layers,
         'final_norm': (None,),
         'lm_head': ('embed', 'vocab'),
     }
@@ -193,24 +213,30 @@ DENSE_LAYER_AXES = {
     'w_up': ('layers', 'embed', 'mlp'),
     'w_down': ('layers', 'mlp', 'embed'),
 }
+_DENSE_MLP = ('w_gate', 'w_up', 'w_down')
 
 
 def param_shapes(cfg: LlamaConfig) -> Params:
-    """The whole shape of every leaf of a dense ``init_params`` tree."""
-    d, L, hd = cfg.d_model, cfg.n_layers, cfg.head_dim
+    """The whole shape of every leaf of an ``init_params`` tree."""
+    d, L, hd, e = cfg.d_model, cfg.n_layers, cfg.head_dim, cfg.num_experts
+    layers = {
+        'attn_norm': (L, d),
+        'wq': (L, d, cfg.n_heads, hd),
+        'wk': (L, d, cfg.n_kv_heads, hd),
+        'wv': (L, d, cfg.n_kv_heads, hd),
+        'wo': (L, cfg.n_heads, hd, d),
+        'mlp_norm': (L, d),
+    }
+    if e > 0:
+        layers['moe'] = {'router': (L, d, e), 'we_gate': (L, e, d, cfg.d_ff),
+                         'we_up': (L, e, d, cfg.d_ff),
+                         'we_down': (L, e, cfg.d_ff, d)}
+    else:
+        layers.update(w_gate=(L, d, cfg.d_ff), w_up=(L, d, cfg.d_ff),
+                      w_down=(L, cfg.d_ff, d))
     return {
         'embed': (cfg.vocab_size, d),
-        'layers': {
-            'attn_norm': (L, d),
-            'wq': (L, d, cfg.n_heads, hd),
-            'wk': (L, d, cfg.n_kv_heads, hd),
-            'wv': (L, d, cfg.n_kv_heads, hd),
-            'wo': (L, cfg.n_heads, hd, d),
-            'mlp_norm': (L, d),
-            'w_gate': (L, d, cfg.d_ff),
-            'w_up': (L, d, cfg.d_ff),
-            'w_down': (L, cfg.d_ff, d),
-        },
+        'layers': layers,
         'final_norm': (d,),
         'lm_head': (d, cfg.vocab_size),
     }
@@ -242,12 +268,12 @@ def init_params_sharded(cfg: LlamaConfig, generator: torch.Generator,
         return torch.ones(sharding_lib.local_shape(shape, spec(logical)),
                           dtype=cfg.dtype, device=dev)
 
-    def dense_init(shape, fan_in, logical):
+    def dense_init(shape, fan_in, logical, dtype=cfg.dtype):
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=dev)
         part = sharding_lib.local_slice(w, spec(logical))
         del w
-        return (part * fan_in ** -0.5).to(cfg.dtype)
+        return (part * fan_in ** -0.5).to(dtype)
 
     def build() -> Params:
         la = axes['layers']
@@ -261,10 +287,20 @@ def init_params_sharded(cfg: LlamaConfig, generator: torch.Generator,
             'wo': dense_init((L, cfg.n_heads, cfg.head_dim, d),
                              cfg.n_heads * cfg.head_dim, la['wo']),
             'mlp_norm': norm_init((L, d), la['mlp_norm']),
-            'w_gate': dense_init((L, d, cfg.d_ff), d, la['w_gate']),
-            'w_up': dense_init((L, d, cfg.d_ff), d, la['w_up']),
-            'w_down': dense_init((L, cfg.d_ff, d), cfg.d_ff, la['w_down']),
         }
+        if cfg.num_experts > 0:  # ``moe.init_moe_params``' draws
+            e, f, lm = cfg.num_experts, cfg.d_ff, la['moe']
+            layers['moe'] = {
+                'router': dense_init((L, d, e), d, lm['router'],
+                                     torch.float32),
+                'we_gate': dense_init((L, e, d, f), d, lm['we_gate']),
+                'we_up': dense_init((L, e, d, f), d, lm['we_up']),
+                'we_down': dense_init((L, e, f, d), f, lm['we_down'])}
+        else:
+            layers['w_gate'] = dense_init((L, d, cfg.d_ff), d, la['w_gate'])
+            layers['w_up'] = dense_init((L, d, cfg.d_ff), d, la['w_up'])
+            layers['w_down'] = dense_init((L, cfg.d_ff, d), cfg.d_ff,
+                                          la['w_down'])
         return {
             'embed': dense_init((cfg.vocab_size, d), d,
                                 axes['embed']) * (d ** 0.5),
@@ -379,12 +415,16 @@ def _qkv(cfg: LlamaConfig, x: torch.Tensor, layer: Params, mesh=None):
 
 
 def _attend(cfg: LlamaConfig, q: torch.Tensor, k: torch.Tensor,
-            v: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """RoPE and causal flash attention: [B, S, H, D] in and out
-    (JAX: 'attn_out')."""
+            v: torch.Tensor, positions: torch.Tensor, mesh=None
+            ) -> torch.Tensor:
+    """RoPE and causal attention: [B, S, H, D] in and out (JAX:
+    'attn_out'); flash attention, or ring attention over ``seq`` on a
+    mesh whose ``seq`` is split (JAX's ``llama.py:237-240``)."""
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if mesh is not None and mesh.shape['seq'] > 1:
+        return ring_attention(qt, kt, vt, mesh, causal=True).transpose(1, 2)
     return flash_attention(qt, kt, vt, causal=True).transpose(1, 2)
 
 
@@ -417,12 +457,15 @@ def _mlp(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
 def _ffn(cfg: LlamaConfig, x: torch.Tensor, layer: Params, mesh=None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The block's back half without its residual: (out, aux). An MoE
-    model runs the MLP norm and ``models/moe.py``'s block; the dense MLP's
+    model runs the MLP norm and ``models/moe.py``'s block (on a mesh,
+    ``layer`` is a ``_Gathered`` carrying the rules); the dense MLP's
     aux is 0."""
     if cfg.num_experts > 0:
         h = rms_norm(x, layer['mlp_norm'], cfg.norm_eps)
         return moe.moe_mlp(h, layer['moe'], cfg.num_experts,
-                           cfg.expert_top_k, cfg.expert_capacity_factor)
+                           cfg.expert_top_k, cfg.expert_capacity_factor,
+                           mesh=mesh,
+                           rules=None if mesh is None else layer.rules)
     return _mlp(cfg, x, layer, mesh), x.new_zeros((), dtype=torch.float32)
 
 
@@ -431,7 +474,7 @@ def _decoder_layer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder block (``llama.py:217``); returns (x, aux), aux being
     the MoE block's balance loss (0 for the dense MLP)."""
-    att = _attend(cfg, *_qkv(cfg, x, layer, mesh), positions)
+    att = _attend(cfg, *_qkv(cfg, x, layer, mesh), positions, mesh)
     x = _attn_residual(x, att, layer, mesh)
     out, aux = _ffn(cfg, x, layer, mesh)
     return x + out, aux
@@ -448,7 +491,7 @@ def _remat_full(cfg, x, layer, positions, mesh=None):
 
 def _remat_attn(cfg, x, layer, positions, mesh=None):
     att = _ckpt(lambda x_: _attend(cfg, *_qkv(cfg, x_, layer, mesh),
-                                   positions), x)
+                                   positions, mesh), x)
 
     def rest(x_, att_):
         x_ = _attn_residual(x_, att_, layer, mesh)
@@ -459,7 +502,7 @@ def _remat_attn(cfg, x, layer, positions, mesh=None):
 
 def _remat_heavy(cfg, x, layer, positions, mesh=None):
     q, k, v = _ckpt(lambda x_: _qkv(cfg, x_, layer, mesh), x)
-    att = _ckpt(lambda *t: _attend(cfg, *t, positions), q, k, v)
+    att = _ckpt(lambda *t: _attend(cfg, *t, positions, mesh), q, k, v)
     x = _attn_residual(x, att, layer, mesh)
     out, aux = _ckpt(lambda x_: _ffn(cfg, x_, layer, mesh), x)
     return x + out, aux
@@ -467,9 +510,9 @@ def _remat_heavy(cfg, x, layer, positions, mesh=None):
 
 def _remat_dots(cfg, x, layer, positions, mesh=None):
     if cfg.num_experts > 0:
-        return _remat_heavy(cfg, x, layer, positions)
+        return _remat_heavy(cfg, x, layer, positions, mesh)
     q, k, v = _ckpt(lambda x_: _qkv(cfg, x_, layer, mesh), x)
-    att = _ckpt(lambda *t: _attend(cfg, *t, positions), q, k, v)
+    att = _ckpt(lambda *t: _attend(cfg, *t, positions, mesh), q, k, v)
     x = _attn_residual(x, att, layer, mesh)
     gate, up = _ckpt(lambda x_: _mlp_hidden(cfg, x_, layer, mesh), x)
     return (x + _mlp_down(gate, up, layer, mesh),
@@ -522,23 +565,25 @@ def _unstack(layers: Params) -> list:
 class _Gathered:
     """One layer's weight shards, each gathered over ``fsdp`` where it is
     read (``collectives.gather_fsdp``: its gradient comes back
-    reduce-scattered)."""
+    reduce-scattered); the MoE block's leaves come as one dict."""
 
-    def __init__(self, layer: Params, mesh, rules):
-        self._layer, self._mesh = layer, mesh
-        self._dims = {
-            name: [d - 1 for d, entry in enumerate(
-                rules.mesh_axes(DENSE_LAYER_AXES[name]))
-                if entry is not None and 'fsdp' in (
-                    (entry,) if isinstance(entry, str) else entry)]
-            for name in layer}
+    def __init__(self, layer: Params, mesh, rules, axes: Params):
+        self._layer, self._mesh, self.rules, self._axes = (layer, mesh,
+                                                           rules, axes)
 
-    def __getitem__(self, name: str) -> torch.Tensor:
+    def _gather(self, w: torch.Tensor, logical) -> torch.Tensor:
         from skypilot_tpu_torch.parallel import collectives
-        w = self._layer[name]
-        for dim in self._dims[name]:
-            w = collectives.gather_fsdp(w, self._mesh, dim)
+        for d, entry in enumerate(self.rules.mesh_axes(logical)):
+            if entry is not None and 'fsdp' in (
+                    (entry,) if isinstance(entry, str) else entry):
+                w = collectives.gather_fsdp(w, self._mesh, d - 1)
         return w
+
+    def __getitem__(self, name: str):
+        w, logical = self._layer[name], self._axes[name]
+        if isinstance(w, dict):
+            return {k: self._gather(v, logical[k]) for k, v in w.items()}
+        return self._gather(w, logical)
 
 
 def _layer_stack(cfg: LlamaConfig, x: torch.Tensor, layers: Params,
@@ -550,9 +595,10 @@ def _layer_stack(cfg: LlamaConfig, x: torch.Tensor, layers: Params,
         raise ValueError(f'Unknown remat_policy {remat_policy!r}; choose '
                          f'from {sorted(REMAT_POLICIES)}')
     aux = x.new_zeros((), dtype=torch.float32)
+    axes = None if mesh is None else param_logical_axes(cfg)['layers']
     for layer in _unstack(layers):
         if mesh is not None:
-            layer = _Gathered(layer, mesh, rules)
+            layer = _Gathered(layer, mesh, rules, axes)
         if remat:
             x, a = REMAT_POLICIES[remat_policy](cfg, x, layer, positions,
                                                 mesh)
@@ -562,20 +608,23 @@ def _layer_stack(cfg: LlamaConfig, x: torch.Tensor, layers: Params,
     return x, aux
 
 
-def check_mesh(cfg: LlamaConfig, mesh) -> None:
-    """Raise ``NotImplementedError`` for what the port does not shard yet:
-    the ``seq``, ``pipe`` and ``expert`` axes, and MoE models."""
-    for axis, what in (('seq', 'sequence parallelism (ring attention)'),
-                       ('pipe', 'pipeline stages'),
-                       ('expert', 'expert parallelism')):
-        if mesh.shape[axis] > 1:
-            raise NotImplementedError(
-                f'{axis}={mesh.shape[axis]}: {what} is not ported yet '
-                '(ROADMAP section 1, item 1)')
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            'an MoE model on a mesh is not ported yet (ROADMAP section 1, '
-            'item 1)')
+def check_mesh(cfg: LlamaConfig, sizes: Dict[str, int]) -> None:
+    """Raise ``ValueError`` where ``cfg`` does not split over a mesh of
+    axis ``sizes``: the layers over ``pipe`` (JAX's ``split_stages``
+    error), one stage a ``pipe`` rank, the experts over ``expert``."""
+    if cfg.num_experts and cfg.num_experts % sizes['expert']:
+        raise ValueError(f'{cfg.num_experts} experts do not split over '
+                         f'expert ({sizes["expert"]} shards)')
+    pipe = sizes['pipe']
+    if pipe > 1:
+        if cfg.n_layers % pipe:
+            raise ValueError(
+                f'{cfg.n_layers} layers not divisible by {pipe} stages')
+        if cfg.pipeline_stages not in (1, pipe):
+            raise ValueError(
+                f'pipeline_stages={cfg.pipeline_stages} over pipe={pipe}: '
+                'a pipe rank runs one stage, so the stages must be 1 or '
+                'the pipe axis')
 
 
 def _block_of(mesh, axis: str, size: int) -> Tuple[int, int]:
@@ -604,35 +653,87 @@ def _embed_sharded(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     return collectives.reduce_from(x, mesh, spec[0])
 
 
+def _seq_block(mesh, s: int) -> Tuple[int, int]:
+    """(start, length) of this rank's block of ``s`` positions over
+    ``seq``."""
+    if mesh is None or mesh.shape['seq'] == 1:
+        return 0, s
+    if s % mesh.shape['seq']:
+        raise ValueError(f'sequence length {s} does not split over seq '
+                         f'({mesh.shape["seq"]} shards)')
+    return _block_of(mesh, 'seq', s)
+
+
+def _hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            remat: bool, remat_policy: str, mesh, rules
+            ) -> Tuple[torch.Tensor, torch.Tensor, bool]:
+    """The embedding and the layers: (x [B, S_loc, D], aux, head), head
+    False on a ``pipe`` stage before the last (whose x is zeros)."""
+    b, s = tokens.shape
+    start, s_loc = _seq_block(mesh, s)
+    tokens = tokens[:, start:start + s_loc]
+    positions = (start + torch.arange(s_loc, dtype=torch.int32,
+                                      device=tokens.device)).expand(b, s_loc)
+    pipe = 1 if mesh is None else mesh.shape['pipe']
+    stage = 0 if mesh is None else mesh.axis_index('pipe')
+    if stage > 0:  # the microbatches enter at stage 0
+        x = torch.zeros((b, s_loc, cfg.d_model), dtype=cfg.dtype,
+                        device=tokens.device)
+    elif mesh is None:
+        x = F.embedding(tokens.long(), params['embed'].to(cfg.dtype))
+    else:
+        x = _embed_sharded(params, tokens, cfg, mesh, rules)
+    n_stages = pipe if pipe > 1 else cfg.pipeline_stages
+    if n_stages == 1:
+        x, aux = _layer_stack(cfg, x, params['layers'], positions, remat,
+                              remat_policy, mesh, rules)
+        return x, aux, True
+    n_micro = max(cfg.pipeline_microbatches, 1)
+    if b % n_micro:
+        raise ValueError(f'batch {b} not divisible by {n_micro} '
+                         'microbatches')
+    mb_positions = positions[:b // n_micro]
+
+    def stage_fn(layers, x_mb):
+        return _layer_stack(cfg, x_mb, layers, mb_positions, remat,
+                            remat_policy, mesh, rules)
+
+    layers = (params['layers'] if pipe > 1
+              else pipe_lib.split_stages(params['layers'], n_stages))
+    out, aux = pipe_lib.pipeline_apply(
+        stage_fn, layers, x.reshape(n_micro, b // n_micro, s_loc, -1),
+        num_stages=n_stages, mesh=mesh if pipe > 1 else None)
+    if pipe > 1:
+        from skypilot_tpu_torch.parallel import collectives
+        aux = collectives.reduce_from(aux, mesh, 'pipe')
+    # Summed over microbatches x stages: per microbatch, as one pass's.
+    return (out.reshape(b, s_loc, -1), aux / n_micro,
+            pipe == 1 or stage == pipe - 1)
+
+
 def forward_with_aux(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
                      remat: bool = False, remat_policy: str = 'full',
                      mesh=None, rules=None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     ) -> Tuple[Any, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, vocab] fp32, aux loss).
 
     The unembedding multiplies float32 copies of x and ``lm_head``: exact
     for bf16 operands, as JAX's ``preferred_element_type=float32`` is.
     On a mesh (``rules`` default to JAX's) ``tokens`` are this rank's
-    rows and the logits this rank's vocab block."""
-    if cfg.pipeline_stages > 1:
-        raise NotImplementedError('pipeline stages are not ported yet '
-                                  '(ROADMAP section 1, item 1)')
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device).expand(b, s)
-    if mesh is None:
-        x = F.embedding(tokens.long(), params['embed'].to(cfg.dtype))
-    else:
-        from skypilot_tpu_torch.parallel import collectives
+    rows, whole, and the logits are this rank's vocab block at its block
+    of positions (``seq``); on a ``pipe`` stage before the last they are
+    None (only the last stage unembeds)."""
+    if mesh is not None:
         from skypilot_tpu_torch.parallel import sharding as sharding_lib
-        check_mesh(cfg, mesh)
         rules = rules or sharding_lib.ShardingRules()
-        x = _embed_sharded(params, tokens, cfg, mesh, rules)
-    x, aux = _layer_stack(cfg, x, params['layers'], positions, remat,
-                          remat_policy, mesh, rules)
+    x, aux, head = _hidden(params, tokens, cfg, remat, remat_policy, mesh,
+                           rules)
+    if not head:
+        return None, aux
     x = rms_norm(x, params['final_norm'], cfg.norm_eps)
     lm_head = params['lm_head']
     if mesh is not None:
+        from skypilot_tpu_torch.parallel import collectives
         x = _column(x, mesh)
         if rules.mesh_axes(('embed', 'vocab'))[0] is not None:
             lm_head = collectives.gather_fsdp(lm_head, mesh, 0)
@@ -682,32 +783,48 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     adds ``MOE_AUX_WEIGHT`` times the per-layer mean balance loss to the
     total and reports that mean as ``moe_aux``.
 
-    On a mesh ``tokens`` are this rank's rows of the global batch and
-    ``total`` is this rank's share of the global mean (its rows' summed
-    loss over the global token count): summed over the batch axes, its
-    gradients are the global mean's. The metrics are the global mean's,
+    On a mesh ``tokens`` are this rank's rows of the global batch, whole,
+    and ``total`` is this rank's share of the global mean (its summed
+    loss over the global token count, B x (S - 1)): summed over the
+    batch axes, ``seq`` and ``pipe``, its gradients are the global
+    mean's. A ``seq`` block's targets are the row's next tokens, across
+    the block's end; the last block drops the row's last position. A
+    ``pipe`` stage before the last has no share of the loss, but its
+    total still reaches the pipeline, so that its backward (and the
+    stage's permutes) runs. The MoE aux term is whole on every rank
+    (its sums are ``reduce_from``s). The metrics are the global ones,
     equal on every rank."""
     logits, aux = forward_with_aux(params, tokens, cfg, remat=remat,
                                    remat_policy=remat_policy, mesh=mesh,
                                    rules=rules)
-    logits = logits[:, :-1]
-    targets = tokens[:, 1:].long()
-    if mesh is not None:
+    if mesh is None:
+        logits = logits[:, :-1]
+        targets = tokens[:, 1:].long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
+        nll = (logz - gold).mean()
+        metrics = {'loss': nll, 'perplexity': torch.exp(nll)}
+        total = nll
+    else:
         from skypilot_tpu_torch.parallel import collectives
         from skypilot_tpu_torch.parallel import sharding as sharding_lib
         rules = rules or sharding_lib.ShardingRules()
         batch = sharding_lib.spec_axes(rules.mesh_axes(('batch',)))
-        count = targets.numel() * math.prod(mesh.shape[a] for a in batch)
-        total = _nll_sum_sharded(logits, targets, cfg, mesh, rules) / count
-        nll = collectives.psum_scalars([total.detach()], [batch], mesh)[0]
-        return total, {'loss': nll, 'perplexity': torch.exp(nll)}
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
-    nll = (logz - gold).mean()
-    metrics = {'loss': nll, 'perplexity': torch.exp(nll)}
-    total = nll
+        b, s = tokens.shape
+        count = b * (s - 1) * math.prod(mesh.shape[a] for a in batch)
+        if logits is None:
+            total = aux * 0.0
+        else:
+            start, s_loc = _seq_block(mesh, s)
+            targets = tokens[:, start + 1:start + s_loc + 1].long()
+            logits = logits[:, :targets.shape[1]]
+            total = _nll_sum_sharded(logits, targets, cfg, mesh,
+                                     rules) / count
+        nll = collectives.psum_scalars([total.detach()],
+                                       [batch + ('seq', 'pipe')], mesh)[0]
+        metrics = {'loss': nll, 'perplexity': torch.exp(nll)}
     if cfg.num_experts > 0:
         aux_mean = aux / cfg.n_layers
-        total = nll + MOE_AUX_WEIGHT * aux_mean
+        total = total + MOE_AUX_WEIGHT * aux_mean
         metrics['moe_aux'] = aux_mean
     return total, metrics

@@ -15,8 +15,9 @@ reduce-scatter backward: an fsdp shard of a parameter), ``copy_to``
 column-split product), ``reduce_from`` (``psum`` forward, identity
 backward: a row-split product's partial sums) and ``psum_grads`` (the
 gradient all-reduce over the batch axes) are JAX's transpose rules for
-the collectives GSPMD would insert. On an axis of size 1 each returns its
-input.
+the collectives GSPMD would insert, and ``rotate`` (a ring permute whose
+gradient takes the inverse rotation: ring attention's K/V hop) is
+``ppermute``'s. On an axis of size 1 each returns its input.
 
 On a gloo mesh whose ranks compute on CUDA (``Mesh.stages_on_host``)
 every collective stages through host memory, and the copies wait for
@@ -246,9 +247,10 @@ def all_gather(x: torch.Tensor, mesh, axis: str = 'tensor',
     return _timed(f'all_gather over {axis}', run, 'all_gather', _nbytes(x))
 
 
-def ppermute_ring(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """Shard j receives shard (j - 1) % n's ``x`` (JAX's ``ppermute`` with
-    pairs (j, j + 1))."""
+def ppermute_ring(x: torch.Tensor, mesh, axis: str,
+                  shift: int = 1) -> torch.Tensor:
+    """Shard j receives shard (j - shift) % n's ``x`` (JAX's ``ppermute``
+    with pairs (j, j + shift)); ``shift=-1`` is the inverse rotation."""
     group = mesh.group(axis)
     if group is None:
         return x
@@ -257,15 +259,17 @@ def ppermute_ring(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 
     def run():
         out = _shared(x, mesh, axis, lambda slots, arena: slots(
-            (j - 1) % n).view(x.dtype).view(x.shape))
+            (j - shift) % n).view(x.dtype).view(x.shape))
         if out is not None:
             return out
         y = _to_medium(x, mesh)
         out = torch.empty_like(y)
         ops = [dist.P2POp(dist.isend, y,
-                          dist.get_global_rank(group, (j + 1) % n), group),
+                          dist.get_global_rank(group, (j + shift) % n),
+                          group),
                dist.P2POp(dist.irecv, out,
-                          dist.get_global_rank(group, (j - 1) % n), group)]
+                          dist.get_global_rank(group, (j - shift) % n),
+                          group)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return out.to(x.device)
@@ -346,6 +350,21 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
+class _Rotate(torch.autograd.Function):
+    """``ppermute_ring`` forward; the inverse rotation of the gradient
+    backward, which brings it back to the rank that sent the value."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return ppermute_ring(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ppermute_ring(g.contiguous(), ctx.mesh, ctx.axis,
+                             shift=-1), None, None
+
+
 def gather_fsdp(x: torch.Tensor, mesh, dim: int,
                 axis: str = 'fsdp') -> torch.Tensor:
     """A parameter's shard gathered along ``dim`` over ``axis`` for use;
@@ -372,13 +391,22 @@ def reduce_from(x: torch.Tensor, mesh, axis: str = 'tensor') -> torch.Tensor:
     return _ReduceFrom.apply(x, mesh, axis)
 
 
+def rotate(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Shard j receives shard j - 1's ``x`` around ``axis``'s ring, and
+    the gradient goes back the other way (ring attention's K/V hop)."""
+    if mesh is None or mesh.group(axis) is None:
+        return x
+    return _Rotate.apply(x, mesh, axis)
+
+
 def psum_grads(grads: Sequence[torch.Tensor], axes: Sequence[Sequence[str]],
                mesh) -> List[torch.Tensor]:
     """Each gradient summed over its mesh axes (``axes[i]`` for
-    ``grads[i]``): the data-parallel all-reduce, one collective per axis
-    and dtype over the gradients flattened together."""
+    ``grads[i]``): the data-parallel all-reduce (and the sums over
+    ``seq`` and ``pipe``), one collective per axis and dtype over the
+    gradients flattened together."""
     out = list(grads)
-    for axis in ('fsdp', 'data'):
+    for axis in ('fsdp', 'data', 'seq', 'pipe'):
         if mesh.group(axis) is None:
             continue
         by_dtype: Dict[torch.dtype, List[int]] = {}

@@ -1,0 +1,192 @@
+"""Pipeline parallelism: the GPipe schedule over stages of the layer stack.
+
+Port of ``skypilot_tpu/parallel/pipeline.py``. The layers split into
+``S`` contiguous stages (``split_stages``); ``M`` microbatches go
+through them in ``M + S - 1`` ticks, and at tick ``i`` stage ``s``
+holds microbatch ``i - s`` (valid when ``0 <= i - s < M``). The stages'
+aux losses are summed over the valid (stage, microbatch) pairs only, so
+a regulariser such as MoE's balance loss stays exact.
+
+``pipeline_apply`` has two forms:
+
+* One process (no mesh, or a mesh whose ``pipe`` is 1): every stage's
+  layers are here, stacked on a leading stage dim, and each tick runs
+  the valid stages one after another (JAX vmaps them). Plain autograd
+  differentiates it; the results are JAX's on one device.
+* Ranks over ``pipe``: each rank holds only its stage's layers and
+  runs them at its valid ticks. After each tick but the last, every rank
+  hands its output to the next stage (``collectives.ppermute_ring`` over
+  ``pipe``, JAX's roll of the stage dim); a bubble tick computes nothing
+  but still sends (zeros), so every rank issues the same collectives in
+  the same order. The schedule is one ``torch.autograd.Function``: the
+  forward keeps each valid tick's graph, and the backward walks the
+  ticks in reverse, takes each tick's gradients from its graph and
+  sends the gradient of the tick's input back to the stage before it
+  (the inverse rotation). Stage 0's inputs (the microbatches) and the
+  last stage's outputs are real on those ranks; elsewhere the outputs
+  are zeros and the microbatches only give the shapes.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+import torch
+
+from skypilot_tpu_torch.parallel import collectives
+
+StageFn = Callable[[Any, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _tree_map(fn: Callable, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree: Any) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _rebuild(tree: Any, leaves) -> Any:
+    it = iter(leaves)
+    return _tree_map(lambda _: next(it), tree)
+
+
+def split_stages(stacked_params: Any, num_stages: int) -> Any:
+    """Layer-stacked leaves ``[L, ...]`` -> ``[S, L // S, ...]``: layer l
+    lands on stage ``l // (L // S)``, contiguous layers per stage."""
+
+    def reshape(p):
+        length = p.shape[0]
+        if length % num_stages:
+            raise ValueError(
+                f'{length} layers not divisible by {num_stages} stages')
+        return p.reshape((num_stages, length // num_stages)
+                         + tuple(p.shape[1:]))
+
+    return _tree_map(reshape, stacked_params)
+
+
+def _valid(stage: int, tick: int, num_micro: int) -> bool:
+    return stage <= tick < stage + num_micro
+
+
+def pipeline_apply(stage_fn: StageFn, stage_params: Any,
+                   microbatches: torch.Tensor, *, num_stages: int,
+                   mesh=None, axis: str = 'pipe'
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run ``microbatches`` ``[M, mb, ...]`` through the stages; returns
+    ``(outputs [M, mb, ...], aux)``, ``aux`` the float32 sum of
+    ``stage_fn``'s aux over the valid (stage, microbatch) pairs.
+
+    ``stage_fn(params, x_mb) -> (y_mb, aux_scalar)`` applies one stage's
+    layers to one microbatch. With no ``pipe`` ranks, ``stage_params``
+    carries a leading stage dim on every leaf (``split_stages``). Over
+    ``pipe`` ranks (``mesh.shape[axis] == num_stages``) it is this rank's
+    stage's tree, the outputs are real on the last stage (zeros
+    elsewhere) and ``aux`` is this stage's sum; every rank of the axis
+    must call it."""
+    if mesh is None or mesh.shape[axis] == 1:
+        return _local(stage_fn, stage_params, microbatches, num_stages)
+    if mesh.shape[axis] != num_stages:
+        raise ValueError(f'{num_stages} stages over {axis}='
+                         f'{mesh.shape[axis]} ranks: a rank holds one stage')
+    return _Pipeline.apply(stage_fn, stage_params, mesh, axis, microbatches,
+                           *_leaves(stage_params))
+
+
+def _local(stage_fn: StageFn, stage_params: Any,
+           microbatches: torch.Tensor, num_stages: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every stage in this process: JAX's scan of ticks, the stages of a
+    tick one after another and bubbles skipped."""
+    num_micro = microbatches.shape[0]
+    stages = [_tree_map(lambda p, s=s: p[s], stage_params)
+              for s in range(num_stages)]
+    buffer: List[Any] = [None] * num_stages
+    outputs: List[Any] = [None] * num_micro
+    aux = microbatches.new_zeros((), dtype=torch.float32)
+    for i in range(num_micro + num_stages - 1):
+        buffer[0] = microbatches[min(i, num_micro - 1)]
+        out: List[Any] = [None] * num_stages
+        tick_aux = None
+        for s in range(num_stages):
+            if _valid(s, i, num_micro):
+                out[s], a = stage_fn(stages[s], buffer[s])
+                tick_aux = a if tick_aux is None else tick_aux + a
+        aux = aux + tick_aux
+        if i >= num_stages - 1:
+            outputs[i - (num_stages - 1)] = out[-1]
+        buffer = [out[-1]] + out[:-1]  # stage s's output feeds stage s + 1
+    return torch.stack(outputs), aux
+
+
+class _Pipeline(torch.autograd.Function):
+    """The GPipe schedule over ``pipe`` ranks (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, stage_fn: StageFn, tree: Any, mesh, axis: str,
+                microbatches: torch.Tensor, *leaves):
+        p, n = mesh.axis_index(axis), mesh.shape[axis]
+        num_micro = microbatches.shape[0]
+        ticks = num_micro + n - 1
+        params = [t.detach().requires_grad_(t.requires_grad) for t in leaves]
+        tree = _rebuild(tree, params)
+        outputs = torch.zeros_like(microbatches)
+        aux = microbatches.new_zeros((), dtype=torch.float32)
+        saved = {}
+        received = None
+        with torch.enable_grad():
+            for i in range(ticks):
+                if _valid(p, i, num_micro):
+                    src = (microbatches[i].detach() if p == 0
+                           else received)
+                    x = src.detach().requires_grad_(True)
+                    y, a = stage_fn(tree, x)
+                    saved[i] = (x, y, a)
+                    out = y.detach()
+                    aux = aux + a.detach().float()
+                    if p == n - 1:
+                        outputs[i - (n - 1)] = out
+                else:  # a bubble: nothing to compute, zeros to send
+                    out = torch.zeros_like(microbatches[0])
+                if i < ticks - 1:
+                    received = collectives.ppermute_ring(out, mesh, axis)
+        ctx.mesh, ctx.axis, ctx.saved, ctx.params = mesh, axis, saved, params
+        return outputs, aux
+
+    @staticmethod
+    def backward(ctx, g_outputs, g_aux):
+        mesh, axis, saved, params = ctx.mesh, ctx.axis, ctx.saved, ctx.params
+        p, n = mesh.axis_index(axis), mesh.shape[axis]
+        ticks = g_outputs.shape[0] + n - 1
+        trainable = [t for t in params if t.requires_grad]
+        g_micro = torch.zeros_like(g_outputs)
+        zero = torch.zeros_like(g_outputs[0])
+        g_send = zero
+        for i in reversed(range(ticks)):
+            # The gradient of this tick's output: the next stage's input
+            # gradient at tick i + 1 (the inverse of the tick's hand-over),
+            # or the loss's on the last stage.
+            g_out = (collectives.ppermute_ring(g_send, mesh, axis, shift=-1)
+                     if i < ticks - 1 else zero)
+            g_send = zero
+            if i not in saved:
+                continue
+            x, y, a = saved.pop(i)
+            if p == n - 1:
+                g_out = g_outputs[i - (n - 1)]
+            outs, grads = [y], [g_out]
+            if a.requires_grad:
+                outs.append(a)
+                grads.append(g_aux.to(a.dtype))
+            torch.autograd.backward(outs, grads, inputs=[x] + trainable)
+            if p == 0:  # stage 0's input is the microbatch, not a receipt
+                g_micro[i] = x.grad
+            else:
+                g_send = x.grad
+        ctx.saved = None
+        return (None, None, None, None, g_micro, *[
+            t.grad if t.requires_grad else None for t in params])

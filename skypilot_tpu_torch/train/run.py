@@ -49,11 +49,17 @@ before; an explicit spec may place several ranks on one card, whose
 collectives then go through gloo, staged through the host. Rank 0 prints
 JAX's ``[train] mesh {...} over N slice(s)`` line. Every rank draws the
 global synthetic batch of step i (seed i) and keeps its rows, so a mesh
-trains on the one-device run's tokens. A spec that does not divide the
-ranks raises JAX's ``ValueError``; the axes not ported yet (``pipe``,
-``seq``, ``expert``) exit with code 2, each by name. Under a mesh every
+trains on the one-device run's tokens. Every axis trains: ``data``,
+``fsdp`` and ``tensor``, ``seq`` (ring attention), ``expert`` (an MoE
+model's experts split over it, as the moe-finetune recipe's ``--mesh
+"fsdp=2,expert=8"`` asks) and ``pipe`` (one pipeline stage a rank,
+``cfg.pipeline_microbatches`` microbatches). A spec that does not divide
+the ranks, or a model, batch or sequence that does not split over the
+mesh, raises JAX's ``ValueError`` before any rank starts. Under a mesh
+every
 rank prints a ``[train] rank-summary {json}`` line at the end (losses,
-``grad_norm``, kernel launches, weight bytes, peak memory, collectives),
+``grad_norm``, an MoE model's ``moe_aux``, kernel launches, weight
+bytes, peak memory, collectives),
 and SIGTERM reaches every rank of a host: the host's first rank persists
 (with ``--ckpt-dir``) and every rank exits 143. Every ``--log-every``
 steps it prints
@@ -214,17 +220,30 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-# The mesh axes the port does not train over yet (ROADMAP section 1, item 1).
-_UNPORTED_AXES = {'pipe': 'pipeline stages',
-                  'seq': 'sequence parallelism (ring attention)',
-                  'expert': 'expert parallelism'}
+def _config(args):
+    """The run's ``TrainerConfig``."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    lora_cfg = None
+    if args.lora_rank > 0:
+        from skypilot_tpu_torch.models import lora as lora_lib
+        lora_cfg = lora_lib.LoraConfig(
+            rank=args.lora_rank, alpha=args.lora_alpha,
+            targets=tuple(t.strip()
+                          for t in args.lora_targets.split(',') if t.strip()))
+    return trainer_lib.TrainerConfig(
+        model=llama.PRESETS[args.model],
+        global_batch_size=args.global_batch_size, seq_len=args.seq_len,
+        optimizer=args.optimizer, accum_steps=args.accum_steps,
+        total_steps=args.total_steps, warmup_steps=args.warmup_steps,
+        remat=True, remat_policy=args.remat_policy, lora=lora_cfg)
 
 
-def _plan_mesh(parser: argparse.ArgumentParser, args):
+def _plan_mesh(parser: argparse.ArgumentParser, args, cfg=None):
     """(axis sizes, num_slices, ranks) of the ``--mesh`` / ``--num-slices``
-    request, or None without one (JAX's ``run.py:125-143``). Exits 2 for
-    the axes not ported yet; a spec that does not divide raises JAX's
-    ``ValueError``."""
+    request, or None without one (JAX's ``run.py:125-143``). A spec that
+    does not divide, or a ``cfg`` (default: ``args``' own) that does not
+    split over it (``trainer.check_mesh``), raises JAX's ``ValueError``."""
     from skypilot_tpu_torch.parallel import mesh as mesh_lib
     num_slices = args.num_slices
     if num_slices is None:
@@ -236,12 +255,6 @@ def _plan_mesh(parser: argparse.ArgumentParser, args):
         spec = mesh_lib.parse_spec(text)
     except (TypeError, ValueError) as e:
         parser.exit(2, f'--mesh {text}: {e}\n')
-    for axis, what in _UNPORTED_AXES.items():
-        if getattr(spec, axis) != 1:
-            parser.exit(2, f'--mesh {text}: {axis}={getattr(spec, axis)}: '
-                           f'{what} is not ported yet (ROADMAP section 1, '
-                           'item 1); the port trains over data, fsdp and '
-                           'tensor\n')
     sizes = spec.__dict__
     if -1 in sizes.values():
         from skypilot_tpu_torch.utils.device import resolve_device
@@ -250,11 +263,14 @@ def _plan_mesh(parser: argparse.ArgumentParser, args):
         ranks = 1
         for n in sizes.values():
             ranks *= n
-    return mesh_lib.resolve(spec, ranks, num_slices), num_slices, ranks
+    sizes = mesh_lib.resolve(spec, ranks, num_slices)
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    trainer_lib.check_mesh(cfg or _config(args), sizes)
+    return sizes, num_slices, ranks
 
 
-def _rank_summary(gang, trainer, state, losses, grad_norms, windows,
-                  loop_stats) -> str:
+def _rank_summary(gang, trainer, state, losses, grad_norms, moe_aux,
+                  windows, loop_stats) -> str:
     """The rank's figures as one JSON line (ranks share stdout); the
     collectives are the step loop's (its saves included)."""
     from skypilot_tpu_torch.ops import attention
@@ -266,7 +282,7 @@ def _rank_summary(gang, trainer, state, losses, grad_norms, windows,
     return json.dumps({
         'rank': gang.rank, 'world': gang.world, 'host': gang.host,
         'backend': gang.backend, 'device': str(dev),
-        'losses': losses, 'grad_norms': grad_norms,
+        'losses': losses, 'grad_norms': grad_norms, 'moe_aux': moe_aux,
         'window_step_ms': windows,
         'launches': {'flash_fwd': fa.fwd_launches,
                      'flash_bwd_dq': fa.bwd_dq_launches,
@@ -279,7 +295,8 @@ def _rank_summary(gang, trainer, state, losses, grad_norms, windows,
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     parser = build_parser()
     args = parser.parse_args(argv)
-    plan = _plan_mesh(parser, args)
+    cfg = _config(args)
+    plan = _plan_mesh(parser, args, cfg)
     gang = mesh = None
     if plan is not None and plan[2] > 1:
         from skypilot_tpu_torch.parallel import gang as gang_lib
@@ -296,7 +313,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if plan is not None and (gang is None or gang.is_head):
         print(f'[train] mesh {plan[0]} over {plan[1]} slice(s)', flush=True)
     try:
-        return _train(args, gang, mesh)
+        return _train(args, cfg, gang, mesh)
     except BaseException:
         if gang is not None:
             # The ranks this process spawned cannot go on without it.
@@ -305,26 +322,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         raise
 
 
-def _train(args, gang, mesh) -> Dict[str, Any]:
-    from skypilot_tpu_torch.models import llama
+def _train(args, cfg, gang, mesh) -> Dict[str, Any]:
     from skypilot_tpu_torch.observability import train_telemetry
     from skypilot_tpu_torch.ops import attention
     from skypilot_tpu_torch.train import data as data_lib
     from skypilot_tpu_torch.train import trainer as trainer_lib
 
-    lora_cfg = None
-    if args.lora_rank > 0:
-        from skypilot_tpu_torch.models import lora as lora_lib
-        lora_cfg = lora_lib.LoraConfig(
-            rank=args.lora_rank, alpha=args.lora_alpha,
-            targets=tuple(t.strip()
-                          for t in args.lora_targets.split(',') if t.strip()))
-    cfg = trainer_lib.TrainerConfig(
-        model=llama.PRESETS[args.model],
-        global_batch_size=args.global_batch_size, seq_len=args.seq_len,
-        optimizer=args.optimizer, accum_steps=args.accum_steps,
-        total_steps=args.total_steps, warmup_steps=args.warmup_steps,
-        remat=True, remat_policy=args.remat_policy, lora=lora_cfg)
+    lora_cfg = cfg.lora
     trainer = trainer_lib.Trainer(cfg, device=args.device, mesh=mesh)
     dev = trainer.device
     on_card = dev.type == 'cuda'
@@ -472,17 +476,21 @@ def _train(args, gang, mesh) -> Dict[str, Any]:
                           if prev_handler is not None else signal.SIG_DFL)
     losses = torch.stack(losses).tolist() if losses else []
     grad_norms = torch.stack(grad_norms).tolist() if grad_norms else []
+    moe_aux = torch.stack(moe_aux).tolist() if moe_aux else []
     if gang is not None:
         summary = _rank_summary(gang, trainer, state, losses, grad_norms,
-                                windows, loop_stats)
-        print(f'[train] rank-summary {summary}', flush=True)
+                                moe_aux, windows, loop_stats)
+        # One write: the ranks of a host share its stdout.
+        sys.stdout.flush()
+        os.write(sys.stdout.fileno(),
+                 f'[train] rank-summary {summary}\n'.encode())
         from skypilot_tpu_torch.parallel import gang as gang_lib
         gang.close(gang_lib.TIMEOUT_S)
     if head:
         print('[train] done', flush=True)
     return {'losses': losses,
             'grad_norms': grad_norms,
-            'moe_aux': torch.stack(moe_aux).tolist() if moe_aux else [],
+            'moe_aux': moe_aux,
             'start_step': start_step, 'window_step_ms': windows,
             'state': state}
 

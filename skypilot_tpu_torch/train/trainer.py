@@ -14,15 +14,24 @@ holds this rank's slices of every leaf, placed by
 ``rules`` (JAX's by default): ``init_state`` draws whole leaves and keeps
 the slices, so a mesh starts from the one-device weights of the same
 seed; the optimizer state mirrors the slices. ``step`` takes the GLOBAL
-batch and keeps this rank's rows (``sharding.batch_rows``); the loss
-runs the sharded forward (``llama.loss_fn(mesh=)``), each gradient is
-summed over ``data`` and, for a leaf not split over ``fsdp`` (whose
-gathers reduce-scatter it already), over ``fsdp`` too; the optimizer's
-reductions are global (``optim.Chain.shard``). The metrics, ``grad_norm``
-included, are the global ones, equal on every rank. ``host_view`` and
-``load_host_view`` carry a state to and from whole arrays (checkpoints).
-The ``seq``, ``pipe`` and ``expert`` axes and MoE models under a mesh
-raise ``NotImplementedError``.
+batch and keeps this rank's rows (``sharding.batch_rows``; under a
+pipeline its block of each microbatch, so that a microbatch is JAX's
+rows), whole: a ``seq`` rank keeps its block of positions inside the
+forward. The loss runs the sharded forward (``llama.loss_fn(mesh=)``,
+over every axis: ``data``, ``fsdp``, ``tensor``, ring attention over
+``seq``, the MoE experts over ``expert``, one pipeline stage a ``pipe``
+rank). Each gradient is summed over ``data`` and ``seq`` (a rank's rows
+and positions), over ``fsdp`` unless its leaf is split there (whose
+gathers reduce-scatter it already), and over ``pipe`` unless its leaf is
+split there (the embedding, the final norm and the head: only the stage
+that uses one has a gradient for it); never over ``expert`` or
+``tensor``, whose values enter split work through ``copy_to`` and come
+back summed. The optimizer's reductions are global (``optim.Chain.shard``
+counts each element once). The metrics, ``grad_norm`` included, are the
+global ones, equal on every rank. ``host_view`` and ``load_host_view``
+carry a state to and from whole arrays (checkpoints), leaves split over
+``pipe`` and ``expert`` included. ``check_mesh`` raises JAX's
+``ValueError`` for a config that does not split over the mesh.
 
 The state is ``{'step': int, 'params': tree, 'opt_state': ...}``; the
 trainable leaves carry ``requires_grad`` and are updated in place (JAX
@@ -109,9 +118,9 @@ class Trainer:
             self.rules = None
             return
         from skypilot_tpu_torch.parallel import sharding as sharding_lib
-        llama.check_mesh(cfg.model, mesh)
         self.device = mesh.device
         self.rules = rules or sharding_lib.ShardingRules()
+        check_mesh(cfg, mesh.shape, self.rules)
         self.param_shardings = sharding_lib.sharding_tree(
             llama.param_logical_axes(cfg.model), mesh, self.rules)
         self.lora_shardings = None
@@ -215,7 +224,11 @@ class Trainer:
                                           remat=cfg.remat,
                                           remat_policy=cfg.remat_policy,
                                           mesh=mesh, rules=self.rules)
-            grads = torch.autograd.grad(loss, leaves)
+            # A pipe stage does not use every leaf (the embedding is stage
+            # 0's, the head the last stage's): its gradient there is 0.
+            staged = mesh is not None and mesh.shape['pipe'] > 1
+            grads = torch.autograd.grad(loss, leaves, allow_unused=staged,
+                                        materialize_grads=staged)
             return {k: v.detach() for k, v in metrics.items()}, grads
 
         a = cfg.accum_steps
@@ -247,15 +260,20 @@ class Trainer:
         return optim.tree_map(lambda _: next(it), trainable), metrics
 
     def _rows(self, tokens: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of a global batch, on its device."""
+        """This rank's rows of a global batch, on its device: under a
+        pipeline, its block of each microbatch in turn."""
         from skypilot_tpu_torch.parallel import sharding as sharding_lib
-        return sharding_lib.batch_rows(tokens, self.mesh, self.rules).to(
-            self.device)
+        micro = _microbatches(self.cfg.model, self.mesh.shape)
+        groups = tokens.reshape(micro, tokens.shape[0] // micro,
+                                *tokens.shape[1:])
+        return torch.cat([sharding_lib.batch_rows(g, self.mesh, self.rules)
+                          for g in groups]).to(self.device)
 
     def _sum_over_batch(self, state, grads):
-        """On a mesh: each gradient summed over ``data``, and over ``fsdp``
-        where its leaf is not split over ``fsdp`` (the gathers of a split
-        leaf reduce-scatter its gradient over ``fsdp`` already)."""
+        """On a mesh: each gradient summed over ``data`` and ``seq``, and
+        over ``fsdp`` and ``pipe`` where its leaf is not split there (the
+        gathers of an fsdp-split leaf reduce-scatter its gradient
+        already; a pipe-split leaf is its stage's own)."""
         if self.mesh is None:
             return grads
         from skypilot_tpu_torch.parallel import collectives
@@ -264,8 +282,9 @@ class Trainer:
         shards = [s for _, s in optim.paired_leaves(
             state['params'] if self.cfg.lora is None else state['lora'],
             trainable)]
-        axes = [('data',) if 'fsdp' in sharding_lib.spec_axes(s.spec)
-                else ('data', 'fsdp') for s in shards]
+        axes = [tuple(a for a in ('data', 'fsdp', 'seq', 'pipe')
+                      if a not in sharding_lib.spec_axes(s.spec))
+                for s in shards]
         return collectives.psum_grads(list(grads), axes, self.mesh)
 
     def step(self, state: Dict[str, Any], tokens: Any
@@ -390,6 +409,40 @@ class Trainer:
             if callback is not None and (i + 1) % log_every == 0:
                 callback(i + 1, {k: float(v) for k, v in metrics.items()})
         return state, metrics
+
+
+def _microbatches(model: llama.LlamaConfig, sizes: Dict[str, int]) -> int:
+    """The pipeline's microbatches (1 without one)."""
+    if sizes['pipe'] > 1 or model.pipeline_stages > 1:
+        return max(model.pipeline_microbatches, 1)
+    return 1
+
+
+def check_mesh(cfg: TrainerConfig, sizes: Dict[str, int],
+               rules=None) -> None:
+    """JAX's ``ValueError`` where ``cfg`` does not split over a mesh of
+    axis ``sizes``: the layers over ``pipe`` (``llama.check_mesh``), a
+    step's batch into the pipeline's microbatches (JAX's words) and each
+    of those over the batch axes, the sequence over ``seq``. Other
+    dims that do not split (heads, experts, vocab) raise when the
+    weights are placed (``sharding.local_shape``)."""
+    from skypilot_tpu_torch.parallel import sharding as sharding_lib
+    rules = rules or sharding_lib.ShardingRules()
+    llama.check_mesh(cfg.model, sizes)
+    batch = sharding_lib.spec_axes(rules.mesh_axes(('batch',)))
+    shards = int(np.prod([sizes[a] for a in batch]))
+    rows = cfg.global_batch_size // cfg.accum_steps
+    micro = _microbatches(cfg.model, sizes)
+    if rows % micro:
+        raise ValueError(f'batch {rows} not divisible by {micro} '
+                         'microbatches')
+    if rows // micro % shards:
+        raise ValueError(f'global batch {rows} does not split over {batch} '
+                         f'({shards} shards) in each of {micro} '
+                         'microbatch(es)')
+    if cfg.seq_len % sizes['seq']:
+        raise ValueError(f'sequence length {cfg.seq_len} does not split '
+                         f'over seq ({sizes["seq"]} shards)')
 
 
 def _zip_map(fn: Callable, tree: Any, *rest: Any) -> Any:

@@ -571,6 +571,10 @@ def test_trainer_matches_jax_trainer(tight, variant):
 
 
 def test_train_run_trains_moe_tiny_and_refuses_the_expert_mesh(capsys):
+    """moe-tiny trains through ``train.run``; an expert mesh trains too
+    (tests/test_torch_train_axes.py), and the one refusal left is JAX's
+    ``ValueError`` for experts that do not split over the axis, raised
+    before any rank starts."""
     out = port_run.main(['--model', 'moe-tiny', '--global-batch-size', '2',
                          '--seq-len', '32', '--steps', '3',
                          '--warmup-steps', '1', '--log-every', '1',
@@ -579,11 +583,11 @@ def test_train_run_trains_moe_tiny_and_refuses_the_expert_mesh(capsys):
     assert all(np.isfinite(out['losses'] + out['moe_aux']))
     printed = capsys.readouterr().out
     assert 'B active' in printed and 'moe_aux=' in printed
-    with pytest.raises(SystemExit) as exc:
-        port_run.main(['--model', 'moe-tiny', '--mesh', 'fsdp=2,expert=4',
+    with pytest.raises(ValueError, match='4 experts do not split over '
+                                         'expert'):
+        port_run.main(['--model', 'moe-tiny', '--mesh', 'fsdp=2,expert=8',
                        '--device', 'cpu'])
-    assert exc.value.code == 2
-    assert 'ROADMAP section 1, item 1' in capsys.readouterr().err
+    assert 'rank-summary' not in capsys.readouterr().out
 
 
 # -- the replica --------------------------------------------------------------

@@ -203,15 +203,28 @@ def test_unported_model_features_raise():
                                     'cpu')
     tokens = torch.zeros((1, 8), dtype=torch.int32)
     # MoE is ported: an MoE model's forward runs (tests/test_torch_moe.py
-    # holds it against JAX's); pipeline stages still raise.
+    # holds it against JAX's). Pipeline stages are ported: on one device
+    # they give the unpipelined forward's logits
+    # (tests/test_torch_parallel_axes.py holds them against JAX's), and
+    # JAX's errors remain for stages or microbatches that do not divide.
     moe_cfg = dataclasses.replace(cfg, num_experts=4)
     moe_params = port_llama.init_params(
         moe_cfg, torch.Generator().manual_seed(0), 'cpu')
     assert port_llama.forward(moe_params, tokens, moe_cfg).shape == \
         (1, 8, cfg.vocab_size)
-    with pytest.raises(NotImplementedError):
+    torch.testing.assert_close(
+        port_llama.forward(params, tokens.expand(2, 8),
+                           dataclasses.replace(cfg, pipeline_stages=2,
+                                               pipeline_microbatches=2)),
+        port_llama.forward(params, tokens.expand(2, 8), cfg),
+        rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match='not divisible by 3 stages'):
         port_llama.forward(params, tokens,
-                           dataclasses.replace(cfg, pipeline_stages=2))
+                           dataclasses.replace(cfg, pipeline_stages=3))
+    with pytest.raises(ValueError, match='not divisible by 2 microbatches'):
+        port_llama.forward(params, tokens,
+                           dataclasses.replace(cfg, pipeline_stages=2,
+                                               pipeline_microbatches=2))
     with pytest.raises(ValueError, match='remat_policy'):
         port_llama.loss_fn(params, tokens, cfg, remat_policy='bogus')
 
@@ -344,22 +357,42 @@ def test_trainer_accounting_and_config_match_jax():
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """Sharded training is ported over data, fsdp and tensor; the seq,
-    pipe and expert axes, and an MoE model on a mesh, raise by name."""
+    """Every axis is ported (tests/test_torch_train_axes.py trains over
+    pipe, seq and expert against JAX): a mesh is refused only where the
+    config does not split over it, with JAX's ``ValueError``. The
+    meshes here carry shapes only; nothing runs on them."""
     import types
     ones = {a: 1 for a in ('data', 'pipe', 'fsdp', 'seq', 'expert',
                            'tensor')}
-    cfg = port_trainer.TrainerConfig(model=port_llama.TINY)
-    for axis in ('seq', 'pipe', 'expert'):
-        mesh = types.SimpleNamespace(shape=dict(ones, **{axis: 2}))
-        with pytest.raises(NotImplementedError, match=f'{axis}=2'):
-            port_trainer.Trainer(cfg, device='cpu', mesh=mesh)
-    # MoE is ported: the trainer builds for it, and a mesh stays refused.
-    moe = port_trainer.TrainerConfig(model=port_llama.MOE_TINY)
+
+    def mesh(**sizes):
+        return types.SimpleNamespace(shape=dict(ones, **sizes),
+                                     device=torch.device("cpu"))
+    cfg = port_trainer.TrainerConfig(model=port_llama.TINY,
+                                     global_batch_size=4, seq_len=128)
+    for sizes, match in ((dict(pipe=4), '2 layers not divisible by 4 '
+                                        'stages'),
+                         (dict(seq=3), 'sequence length 128 does not '
+                                       'split over seq'),
+                         (dict(data=8), 'global batch 4 does not split')):
+        with pytest.raises(ValueError, match=match):
+            port_trainer.Trainer(cfg, device='cpu', mesh=mesh(**sizes))
+    staged = dataclasses.replace(port_llama.TINY, pipeline_stages=2,
+                                 pipeline_microbatches=3)
+    with pytest.raises(ValueError, match='batch 4 not divisible by 3 '
+                                         'microbatches'):
+        port_trainer.Trainer(dataclasses.replace(cfg, model=staged),
+                             device='cpu', mesh=mesh(pipe=2))
+    # MoE trains on one device and on a mesh whose expert axis splits
+    # its 4 experts (the shardings are built; 3 does not split them).
+    moe = dataclasses.replace(cfg, model=port_llama.MOE_TINY)
     port_trainer.Trainer(moe, device='cpu')
-    with pytest.raises(NotImplementedError, match='mesh'):
-        port_trainer.Trainer(moe, device='cpu',
-                             mesh=types.SimpleNamespace(shape=ones))
+    tr = port_trainer.Trainer(moe, device='cpu', mesh=mesh(expert=2))
+    assert tr.param_shardings['layers']['moe']['we_gate'].spec == \
+        ('pipe', 'expert', 'fsdp', 'tensor')
+    with pytest.raises(ValueError, match='4 experts do not split over '
+                                         'expert'):
+        port_trainer.Trainer(moe, device='cpu', mesh=mesh(expert=3))
 
 
 def test_trainer_train_loop_calls_back_every_log_every_steps():
@@ -391,19 +424,39 @@ def test_run_main_trains_on_cpu(capsys):
     assert out['state']['step'] == 3
 
 
-@pytest.mark.parametrize('flag', [['--mesh', 'pipe=2'],
-                                  ['--mesh', 'seq=2,fsdp=1'],
-                                  ['--mesh', 'expert=-1,fsdp=1']])
+@pytest.mark.parametrize('flag', [
+    (['--mesh', 'pipe=4,fsdp=1'], '2 layers not divisible by 4 stages'),
+    (['--mesh', 'seq=2,fsdp=1', '--seq-len', '33'],
+     'sequence length 33 does not split over seq'),
+    (['--mesh', 'expert=3,fsdp=1', '--model', 'moe-tiny'],
+     '4 experts do not split over expert')])
 def test_run_main_refuses_unported_flags(flag, capsys):
-    """A mesh over the axes not ported yet (pipe, seq, expert) exits 2;
-    data, fsdp and tensor meshes train (tests/test_torch_train_sharded.py
-    and ``..._multihost.py``), as ``--mesh fsdp=-1`` and LoRA do
-    (tests/test_torch_lora.py)."""
-    with pytest.raises(SystemExit) as exc:
-        port_run.main(['--device', 'cpu'] + flag)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert 'not ported yet' in err and 'ROADMAP section 1, item 1' in err
+    """Every mesh axis trains now (pipe, seq and expert in
+    tests/test_torch_train_axes.py; data, fsdp and tensor in
+    tests/test_torch_train_sharded.py and ``..._multihost.py``). What
+    ``train.run`` still refuses is a model, sequence or expert count
+    that does not split over the mesh: JAX's ``ValueError``, raised
+    before any rank starts."""
+    argv, match = flag
+    with pytest.raises(ValueError, match=match):
+        port_run.main(['--device', 'cpu'] + argv)
+    assert 'rank-summary' not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize('model,mesh', [
+    ('moe-8x1b', 'fsdp=2,expert=8'),  # the moe-finetune recipe's mesh
+    ('bench-1b', 'pipe=2,fsdp=1'), ('bench-1b', 'seq=2,fsdp=1')])
+def test_run_plans_the_new_axes(model, mesh):
+    """The moe-finetune recipe's ``--mesh`` and the pipe and seq axes,
+    which exited 2 before, plan a gang (no rank starts here)."""
+    args = port_run.build_parser().parse_args(
+        ['--model', model, '--mesh', mesh, '--global-batch-size', '16',
+         '--seq-len', '2048'])
+    sizes, slices, ranks = port_run._plan_mesh(  # noqa: SLF001
+        port_run.build_parser(), args, port_run._config(args))  # noqa: SLF001
+    want = dict(p.split('=') for p in mesh.split(','))
+    assert all(sizes[a] == int(n) for a, n in want.items())
+    assert slices == 1 and ranks == int(np.prod(list(sizes.values())))
 
 
 # -- train.run with checkpoints ------------------------------------------------

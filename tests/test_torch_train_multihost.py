@@ -173,11 +173,15 @@ def test_cli_trains_on_the_mesh_and_leaves_no_rank_behind(tmp_path):
 
 @pytest.mark.parametrize('axis', ['pipe', 'seq', 'expert'])
 def test_unported_axes_exit_2_by_name(axis, capsys):
-    with pytest.raises(SystemExit) as exc:
-        port_run.main(['--model', 'tiny', '--mesh', f'{axis}=2,fsdp=1',
-                       '--device', 'cpu'])
-    assert exc.value.code == 2
-    assert f'{axis}=2' in capsys.readouterr().err
+    """The pipe, seq and expert axes, which exited 2 by name before, are
+    ported: each plans a gang of two ranks (none starts here; they train
+    in tests/test_torch_train_axes.py), and nothing is refused."""
+    parser = port_run.build_parser()
+    sizes, slices, ranks = port_run._plan_mesh(  # noqa: SLF001
+        parser, parser.parse_args(['--model', 'tiny', '--mesh',
+                                   f'{axis}=2,fsdp=1', '--device', 'cpu']))
+    assert (sizes[axis], slices, ranks) == (2, 1, 2)
+    assert capsys.readouterr().err == ''
 
 
 @pytest.mark.parametrize('spec,slices,n,env', [
