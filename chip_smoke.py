@@ -2682,7 +2682,7 @@ def _router_gaps(moe_lib):
     mlp, gaps = moe_lib.moe_mlp, []
 
     def recording(x, params, num_experts, top_k, capacity_factor,
-                  token_mask=None):
+                  token_mask=None, **mesh):
         with torch.no_grad():
             probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
                                   @ params['router'], dim=-1)
@@ -2693,7 +2693,7 @@ def _router_gaps(moe_lib):
             if gap.numel():
                 gaps.append(gap.min())
         return mlp(x, params, num_experts, top_k, capacity_factor,
-                   token_mask=token_mask)
+                   token_mask=token_mask, **mesh)
 
     moe_lib.moe_mlp = recording
     try:
