@@ -5162,16 +5162,14 @@ def mesh_train_phase(llama, train_run, log_dir, label='19a', host_env=None,
     cfg, steps, world = dataclasses.replace(llama.BENCH_1B,
                                             n_layers=layers), 3, 4
     ckpt = os.path.abspath(os.path.join(MESH_CKPT_DIR, label))
-    with _cut_depth(llama, 'bench-1b', layers), \
-            concurrent.futures.ThreadPoolExecutor(1) as pool:
-        refs = pool.submit(_one_rank_runs, train_run, MESH_TRAIN_ARGV,
-                           MESH_HALF_BATCH)
-        summaries, _, wall = _train_gang(
-            MESH_TRAIN_ARGV + ['--ckpt-dir', ckpt, '--save-every', '1000'],
+    with _cut_depth(llama, 'bench-1b', layers):
+        (summaries, _, wall), (one, half, one_s) = _gang_and_one_rank(
+            train_run, MESH_TRAIN_ARGV + ['--ckpt-dir', ckpt,
+                                          '--save-every', '1000'],
             MESH_HOSTS, log_dir, label, host_env,
             _depth_env(log_dir, 'bench-1b', layers)
-            if layers != llama.BENCH_1B.n_layers else None)
-        one, half, one_s = refs.result()
+            if layers != llama.BENCH_1B.n_layers else None,
+            MESH_TRAIN_ARGV, MESH_HALF_BATCH)
     per_rank = _check_ranks(label, summaries, world, steps, layers)
     shapes = llama.param_shapes(cfg)
     whole = 2 * sum(math.prod(s) for s in _flat_shapes(shapes))
@@ -5190,8 +5188,8 @@ def mesh_train_phase(llama, train_run, log_dir, label='19a', host_env=None,
           f'({MESH_HOSTS} hosts x 2 ranks, {summaries[0]["backend"]}): '
           f'{readings}; K1/K2/K3 by rank {per_rank} = expected; weights a '
           f'rank {want_bytes} B = ({whole} - {replicated}) / 2 + '
-          f'{replicated}; gang {wall:.1f} s, one rank beside it '
-          f'{one_s:.1f} s', flush=True)
+          f'{replicated}; gang {wall:.1f} s, one rank {one_s:.1f} s',
+          flush=True)
     return {k: v * world for k, v in per_rank.items()}
 
 
@@ -5199,6 +5197,20 @@ def _named_params(params):
     from skypilot_tpu_torch.ckpt import snapshot as snapshot_lib
     return {leaf.name: leaf.value for leaf in
             snapshot_lib.flatten_named({'params': params})[0]}
+
+
+def _gang_and_one_rank(train_run, argv, hosts, log_dir, label, host_env,
+                       extra_env, one_argv, half_batch):
+    """``_train_gang``'s result and ``_one_rank_runs``': beside each other
+    when the gang shares the one card (gloo), after it with a card a rank
+    (``host_env``), where the gang's step times are measured alone."""
+    if host_env is not None:
+        gang = _train_gang(argv, hosts, log_dir, label, host_env, extra_env)
+        return gang, _one_rank_runs(train_run, one_argv, half_batch)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        refs = pool.submit(_one_rank_runs, train_run, one_argv, half_batch)
+        gang = _train_gang(argv, hosts, log_dir, label, host_env, extra_env)
+        return gang, refs.result()
 
 
 def _one_rank_runs(train_run, argv, half_batch):
@@ -5331,20 +5343,18 @@ def moe_mesh_phase(llama, train_run, log_dir, label='19d', host_env=None,
     steps, world = 3, 4
     env = (_depth_env(log_dir, 'moe-8x1b', layers)
            if layers != llama.MOE_8X1B.n_layers else {})
-    argv = list(MOE_MESH_ARGV)
+    # One slice: the gang launcher's MEGASCALE_NUM_SLICES counts hosts.
+    argv = MOE_MESH_ARGV + ['--num-slices', '1']
     root = os.path.abspath(os.path.join(MESH_CKPT_DIR, label))
     side = root + '-uninterrupted'
     for path in (root, side):
         shutil.rmtree(path, ignore_errors=True)
     if resume:
         argv += ['--ckpt-dir', root, '--save-every', '2']
-    with _cut_depth(llama, 'moe-8x1b', layers), \
-            concurrent.futures.ThreadPoolExecutor(1) as pool:
-        refs = pool.submit(_one_rank_runs, train_run, MOE_MESH_ARGV,
-                           MOE_MESH_HALF)
-        summaries, _, wall = _train_gang(argv, hosts, log_dir, label,
-                                         host_env, env)
-        one, half, one_s = refs.result()
+    with _cut_depth(llama, 'moe-8x1b', layers):
+        (summaries, _, wall), (one, half, one_s) = _gang_and_one_rank(
+            train_run, argv, hosts, log_dir, label, host_env, env,
+            MOE_MESH_ARGV, MOE_MESH_HALF)
     per_rank = _check_ranks(label, summaries, world, steps, layers)
     want_bytes, expert_bytes, experts = _local_bytes(
         llama, cfg, {'fsdp': 2, 'expert': 2})
@@ -5411,8 +5421,8 @@ def moe_mesh_phase(llama, train_run, log_dir, label='19d', host_env=None,
           f'({hosts} host(s), {summaries[0]["backend"]}): {readings}; '
           f'K1/K2/K3 by rank {per_rank} = expected; weights a rank '
           f'{want_bytes} B, of them experts {expert_bytes} B = a quarter of '
-          f'{experts} B{note}; gang {wall:.1f} s, one rank beside it '
-          f'{one_s:.1f} s', flush=True)
+          f'{experts} B{note}; gang {wall:.1f} s, one rank {one_s:.1f} s',
+          flush=True)
     return launches
 
 
