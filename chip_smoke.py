@@ -336,8 +336,8 @@ cuts the preset in the subprocesses of phases 10, 18 and 19:
    through the host. 19a: the multislice-train recipe (``python -m
    skypilot_tpu_torch.train.run --model bench-1b --global-batch-size 32
    --seq-len 2048 --mesh data=2,fsdp=2``, 3 steps, warmup 1) as two hosts of two
-   ranks under the gang launcher's env (``MEGASCALE_NUM_SLICES`` 2), and
-   beside it the same global batch on one rank in this process: each
+   ranks under the gang launcher's env (``MEGASCALE_NUM_SLICES`` 2), then
+   the same global batch on one rank in this process: each
    step's loss within 2e-2 and grad_norm within 1e-2, the gang's final
    weights (its checkpoint) within 1e-2 in relative L2 and their updates
    within 0.5, limits that a batch of 16 on one rank (a lost data shard)
@@ -346,8 +346,8 @@ cuts the preset in the subprocesses of phases 10, 18 and 19:
    norms. 19b: the lora-finetune recipe on ``--mesh fsdp=2`` (two ranks):
    2 steps saved, resumed to 4, against 4 uninterrupted: every array of
    step 4 equal bit for bit, the losses too, the base = the initial
-   weights. 19c: the small fp32 model of phase 5 in one gang of eight
-   ranks on three meshes, JAX's programs A (``data=2,fsdp=2,tensor=2``),
+   weights. 19c (beside 19d): the small fp32 model of phase 5 in one gang
+   of eight ranks on three meshes, JAX's programs A (``data=2,fsdp=2,tensor=2``),
    B (MoE, 4 experts top-2, 2 pipeline stages of 2 microbatches, on
    ``pipe=2,expert=2,tensor=2``) and C (``data=2,seq=2,tensor=2``, ring
    attention), two steps each on the card and on the CPU over the same
@@ -5157,8 +5157,9 @@ def mesh_train_phase(llama, train_run, log_dir, label='19a', host_env=None,
     MESH_HALF_BATCH rows must exceed; equal grad_norm bits on every rank,
     K1/K2/K3 36/18/18 a step on every rank, and each rank's weight bytes
     half the whole plus the replicated leaves. bench-1b at ``layers``
-    layers; the one-rank runs go beside the gang. Returns the launches of
-    the gang's ranks, summed per kernel."""
+    layers; the one-rank runs come after the gang (at batch 32 they take
+    most of the card). Returns the launches of the gang's ranks, summed
+    per kernel."""
     cfg, steps, world = dataclasses.replace(llama.BENCH_1B,
                                             n_layers=layers), 3, 4
     ckpt = os.path.abspath(os.path.join(MESH_CKPT_DIR, label))
@@ -5169,7 +5170,7 @@ def mesh_train_phase(llama, train_run, log_dir, label='19a', host_env=None,
             MESH_HOSTS, log_dir, label, host_env,
             _depth_env(log_dir, 'bench-1b', layers)
             if layers != llama.BENCH_1B.n_layers else None,
-            MESH_TRAIN_ARGV, MESH_HALF_BATCH)
+            MESH_TRAIN_ARGV, MESH_HALF_BATCH, beside=False)
     per_rank = _check_ranks(label, summaries, world, steps, layers)
     shapes = llama.param_shapes(cfg)
     whole = 2 * sum(math.prod(s) for s in _flat_shapes(shapes))
@@ -5200,11 +5201,12 @@ def _named_params(params):
 
 
 def _gang_and_one_rank(train_run, argv, hosts, log_dir, label, host_env,
-                       extra_env, one_argv, half_batch):
+                       extra_env, one_argv, half_batch, beside):
     """``_train_gang``'s result and ``_one_rank_runs``': beside each other
-    when the gang shares the one card (gloo), after it with a card a rank
-    (``host_env``), where the gang's step times are measured alone."""
-    if host_env is not None:
+    when ``beside`` (the one card has room for both), else one after the
+    other (and always with a card a rank, ``host_env``, where the gang's
+    step times are measured alone)."""
+    if host_env is not None or not beside:
         gang = _train_gang(argv, hosts, log_dir, label, host_env, extra_env)
         return gang, _one_rank_runs(train_run, one_argv, half_batch)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -5354,7 +5356,7 @@ def moe_mesh_phase(llama, train_run, log_dir, label='19d', host_env=None,
     with _cut_depth(llama, 'moe-8x1b', layers):
         (summaries, _, wall), (one, half, one_s) = _gang_and_one_rank(
             train_run, argv, hosts, log_dir, label, host_env, env,
-            MOE_MESH_ARGV, MOE_MESH_HALF)
+            MOE_MESH_ARGV, MOE_MESH_HALF, beside=True)
     per_rank = _check_ranks(label, summaries, world, steps, layers)
     want_bytes, expert_bytes, experts = _local_bytes(
         llama, cfg, {'fsdp': 2, 'expert': 2})
@@ -5647,21 +5649,23 @@ def mesh_phase(llama, train_run):
     """Phase 19. Returns K1-K3's launches of 19a-19d, every rank's, by
     path."""
     log_dir = tempfile.mkdtemp(prefix='skytpu-mesh-')
+    torch.cuda.empty_cache()  # the ranks share the card with this process
     try:
         launches = {'phase 19a train-multislice': mesh_train_phase(
             llama, train_run, log_dir)}
         _phase('  19a done')
-        # 19b's uninterrupted run and 19c share the card and the host with
-        # 19b's saved and resumed runs: their step times are not 19a's.
+        # 19b's uninterrupted run goes beside its saved and resumed runs,
+        # and 19c beside 19d: their step times are not a lone gang's.
         with concurrent.futures.ThreadPoolExecutor(2) as pool:
-            small = pool.submit(small_mesh_phase, log_dir)
             launches['phase 19b lora-fsdp'] = mesh_lora_phase(
                 llama, log_dir, pool)
-            _phase('  19b done')
+        _phase('  19b done')
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            small = pool.submit(small_mesh_phase, log_dir)
+            launches['phase 19d moe-finetune'] = moe_mesh_phase(
+                llama, train_run, log_dir)
+            _phase('  19d done')
             launches.update(small.result())
-        _phase('  19c done')
-        launches['phase 19d moe-finetune'] = moe_mesh_phase(
-            llama, train_run, log_dir)
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
         shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
