@@ -1,6 +1,6 @@
 """Parallelism primitives over ``torch.distributed``: mesh construction,
-sharding rules and collectives (port of ``skypilot_tpu/parallel/``;
-pipeline stages and ring attention are not ported yet)."""
+sharding rules, collectives, pipeline stages and ring attention (port of
+``skypilot_tpu/parallel/``)."""
 from skypilot_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 from skypilot_tpu_torch.parallel.sharding import (ShardingRules,
                                                   logical_sharding,

@@ -423,9 +423,9 @@ def check_mesh(cfg: TrainerConfig, sizes: Dict[str, int],
     """JAX's ``ValueError`` where ``cfg`` does not split over a mesh of
     axis ``sizes``: the layers over ``pipe`` (``llama.check_mesh``), a
     step's batch into the pipeline's microbatches (JAX's words) and each
-    of those over the batch axes, the sequence over ``seq``. Other
-    dims that do not split (heads, experts, vocab) raise when the
-    weights are placed (``sharding.local_shape``)."""
+    of those over the batch axes, the sequence over ``seq``, the experts
+    over ``expert``. Other dims that do not split (heads, vocab) raise
+    when the weights are placed (``sharding.local_shape``)."""
     from skypilot_tpu_torch.parallel import sharding as sharding_lib
     rules = rules or sharding_lib.ShardingRules()
     llama.check_mesh(cfg.model, sizes)
