@@ -6,13 +6,14 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero). Depth cuts, widths untouched, so
-that phases 18 and 19 fit the script's time limit: phases 12, 13,
-14b-14d, 16a-16b, 18a and 19a-19b run bench-1b and moe-8x1b at
-``SERVE_LAYERS`` (9) of their 18 layers; phases 9 and 11 serve llama3-1b
-at ``RECIPE_LAYERS`` (8) of its 16 and phase 10 trains it at
-``FINETUNE_LAYERS`` (4); 18b serves llama3-8b at ``TP8_LAYERS`` (4) of its
-32; 19d trains moe-8x1b at ``MOE_MESH_LAYERS`` (4). A ``sitecustomize``
-cuts the preset in the subprocesses of phases 10, 18 and 19:
+that phases 18 and 19 fit the script's time limit: phases 7-8, 12-14,
+16a-16b, 18a, 18c-18e and 19a-19b run bench-1b and moe-8x1b at
+``SERVE_LAYERS`` (4) of their 18 layers; phases 9 and 11 serve
+llama3-1b at ``RECIPE_LAYERS`` (4) of its 16 and phase 10 trains it at
+``FINETUNE_LAYERS`` (4); 18b serves llama3-8b at ``TP8_LAYERS`` (4) of
+its 32; 19d trains moe-8x1b at ``MOE_MESH_LAYERS`` (4). Phase 6 trains
+bench-1b, phase 15 boots it and phase 17 serves it at all 18 layers. A
+``sitecustomize`` cuts the preset in the subprocesses of phases 10, 18 and 19:
 
 1. Build: compiles both kernel libraries of ``skypilot_tpu_torch/csrc``
    (flash-decode K4, flash-attention K1-K3), one nvcc each, started
@@ -306,20 +307,24 @@ cuts the preset in the subprocesses of phases 10, 18 and 19:
    seconds, each beside the card's name and power limit.
 18. serve-tp: tensor-parallel serving, every rank a process on the one
    card (NCCL refuses two ranks on one device, checked first; the ranks
-   reduce through gloo staged through host memory). 18a: ``python -m
+   reduce through gloo staged through host memory). 18a and 18b run side
+   by side, then 18c, 18d and 18e (``_side_by_side``: each waits on its
+   ranks' startup and the host more than on the card; their speeds are
+   not those of a replica alone). 18a: ``python -m
    skypilot_tpu_torch.serve.llm_server --model bench-1b --tp 2`` (rank 0
    starts its follower): /health ``tp`` 2 and ``tp_backend`` gloo, a
    seeded request refused with a 400 in JAX's words, 4 lone greedy
    requests (17, 128, 300, 900 x 64), 16 concurrent mixed ones whole, the
    stream = the request not streamed, SIGTERM drains both ranks to exit
-   0; each rank's K4 calls = 18 x chunk_steps x dispatches at Hkv 4; the
+   0; each rank's K4 calls = n_layers x chunk_steps x dispatches at Hkv
+   4; the
    lone answers against a tp 1 replica of the same seed under the gap
    rule; the ranks' weight bytes sum to tp 1's plus the replicated
    norms' copies, neither holding the whole model. 18b: the
    serve-multihost recipe's command (``python -m
    skypilot_tpu_torch.serve.spmd --model llama3-8b --max-len 2048 --tp 8
    --quantize int8 --kv-cache int8``) as two hosts of four ranks under
-   the gang launcher's env, full width at ``TP8_LAYERS`` (8) of 32
+   the gang launcher's env, full width at ``TP8_LAYERS`` (4) of 32
    layers (a ``sitecustomize`` cuts the preset in every rank): a stop
    before the first
    request exits all eight ranks 0; then 4 greedy requests sent together
@@ -331,7 +336,36 @@ cuts the preset in the subprocesses of phases 10, 18 and 19:
    collectives a step and their host ms, the backend, the ranks' peak
    memory, each beside the card's name and power limit. K4 at both shard
    shapes, and at ``--nccl``'s tp 4 shards, is held to its plain version
-   and timed in phase 2.
+   and timed in phase 2. Then every option at tp 2, the decode kernel
+   per head shard in each. 18c: ``--model bench-1b --tp 2 --kv-layout
+   paged --role decode --kv-blocks 257`` (256 usable blocks of 16, a
+   quarter of the slot layout's positions), sharing and KV tiers on
+   (``SKYTPU_KV_HOST_BYTES`` about 17 whole-head blocks, a temporary
+   spill directory):
+   a warm-up of 4 preambles of 256 ids, 16 concurrent requests of a
+   preamble + 16-200 ids x 32 new (a third greedy, top-k 50, top-p
+   0.9), 8 new preambles x 2, the first 4 preambles again (greedy, served
+   from share hits and promoted blocks: equal a direct ``generate`` of
+   the tp 1 replica below or part under the gap rule), every answer
+   whole and the head's block accounts reconciled after each drain;
+   share hits, evictions, demotes and spills >= 1, fetches + promotes
+   >= 1, none corrupt; then 4 handoffs (17, 128, 300, 900 x 64, greedy)
+   from a tp 1 ``--role prefill`` paged bf16 replica of the same seed in
+   this process over the ``/v1/kv/*`` legs, /health ``role`` decode, 4
+   imports and no fallback, the answers (and the tp 1 replica's own)
+   equal a direct ``generate`` or part under the gap rule; every rank's
+   block accounts (reconciled), share counters and tier decisions equal.
+   18d: ``--model bench-1b --tp 2 --draft-model bench-draft``
+   (``SKYTPU_LLM_SPEC_K`` 4): phase 8's traffic, 4 lone greedy requests
+   against a tp 1 replica without a draft under the gap rule, rounds > 0,
+   the speculative counters equal on both ranks, K4 = 4 draft layers x 5
+   x rounds a rank at the draft's shard (Hq 4, Hkv 4, D 64). 18e:
+   ``--model moe-8x1b --tp 2`` at ``SERVE_LAYERS`` (4) of 18 layers:
+   phase 8's traffic and a lone greedy request against a tp 1 moe-8x1b
+   replica under the gap rule, the ranks' weight bytes tp 1's split in
+   two plus the router's and norms' copies, K4 = 4 x 8 x dispatches a
+   rank. In all three the digests are equal and SIGTERM exits every
+   rank 0.
 19. Sharded training, every rank a process on the one card, gloo staged
    through the host. 19a: the multislice-train recipe (``python -m
    skypilot_tpu_torch.train.run --model bench-1b --global-batch-size 32
@@ -371,14 +405,16 @@ cuts the preset in the subprocesses of phases 10, 18 and 19:
    kernels (K1-K3's launches are phases 6, 10, 12, 14, 19a, 19b, 19c's
    programs A and B, and 19d (every rank's; 19c's program C launches
    none), K4's phase
-   8's, 13's, 14's, 15's, 16's, 17a's and 18a's for the bf16 cache,
+   8's, 13's, 14's, 15's, 16's, 17a's and 18a's, 18c's, 18d's and 18e's
+   for the bf16 cache,
    phases 8's, 9's, 11's, 14's, 17b's and 18b's for the int8 cache, each
    path's count in ``launches_by_path``, 18's summed over the ranks;
    K4's times are the engine-shape case of phase 2, K1-K3's the
    train-s4096 shape, each named in ``timed_at``, with the
    llama-finetune, lora-finetune, train-moe and one 19a rank's shapes
    (K1-K3) and the serve-llama, draft, serve-disagg and per-rank tp 2, 8
-   and 4 shapes (K4) under ``by_shape``), then the last line ``{"ok":
+   and 4 shapes and the draft's tp 2 shard (K4) under ``by_shape``),
+   then the last line ``{"ok":
    true, "device": {...}}``.
 
 It exits with an error, printing no result, when CUDA is absent or when
@@ -395,12 +431,15 @@ moe-finetune recipe at all 18 layers on ``fsdp=2,expert=2`` as two hosts
 of two cards (no checkpoint: ``fsdp`` crosses the hosts, whose views of
 a leaf split over it are not whole), and 19c's program B over NCCL on
 ``pipe=2,expert=2`` (four ranks, one host), held to one process on the
-rank's card.
+rank's card; last, 18c at ``--tp 4`` on one host (the KV tiers' and
+handoffs' gathers and scatters to the head on the model's NCCL groups
+beside the gloo arrival broadcast).
 """
 import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -448,6 +487,8 @@ TP8_CASE = 'llama3-8b tp8 B=16 Hq=4 Hkv=1 M=2048'
 # ... and at tp 4 (``--nccl``'s shards, timed here on the one card).
 TP4_BENCH_CASE = 'bench-1b tp4 B=16 Hq=4 Hkv=2 M=1024'
 TP4_RECIPE_CASE = 'llama3-8b tp4 B=16 Hq=8 Hkv=2 M=2048'
+# ... and the draft's shard under tp 2 (phase 18d: bench-draft, group 1).
+DRAFT_TP2_CASE = 'bench-draft tp2 B=16 Hq=4 Hkv=4 M=1024 D=64'
 TRAIN_CASE = 'train B=2 S=4096'  # K1-K3 at train-s4096 (BENCH_1B)
 FINETUNE_CASE = 'llama3-1b B=8 S=2048'  # K1-K3 at llama-finetune's shape
 LORA_CASE = 'bench-1b B=16 S=2048'  # K1-K3 at the lora-finetune recipe's
@@ -469,12 +510,12 @@ RECIPE = dict(max_len=2048, quantize='int8', kv_cache='int8')
 # Phases 9 and 11 serve llama3-1b at full width and RECIPE_LAYERS of its 16
 # layers, so that the whole script stays well inside its time limit;
 # phase 10 trains it at FINETUNE_LAYERS.
-RECIPE_LAYERS = 8
+RECIPE_LAYERS = 4
 FINETUNE_LAYERS = 4
-# Phases 13 and 14b-14c serve bench-1b and moe-8x1b at
-# SERVE_LAYERS of their 18 layers, widths untouched, to make room for
-# phase 18 (serve-tp) inside the script's time limit.
-SERVE_LAYERS = 9
+# Phases 7-8, 12-14 and 16a-16b, 18a, 18c-18e and 19a-19b run bench-1b
+# and moe-8x1b at SERVE_LAYERS of their 18 layers, widths untouched, to
+# make room for phases 18-19 inside the script's time limit.
+SERVE_LAYERS = 4
 # A greedy engine stream may part from a direct generate() only where the
 # direct path's two largest logits were closer than this: the engine's
 # prefill group and 16-slot decode batch are other GEMM shapes, and bf16
@@ -665,6 +706,11 @@ def kernel_phase(da):
         (TP4_RECIPE_CASE, 16, 8, 2, 128, 2048,
          [0, 1, 2048, 2049, 3000, 8192, 2 ** 20]
          + rng.integers(1, 2049, 9).tolist()),
+        # The draft's decode batch on one rank of the speculative replica
+        # at tp 2 (phase 18d): bench-draft's heads halved, group 1.
+        (DRAFT_TP2_CASE, 16, 4, 4, 64, 1024,
+         [0, 1, 1024, 1025, 1500, 4096, 2 ** 20]
+         + rng.integers(1, 1025, 9).tolist()),
     ]
     results = {mode: {'max_abs_err': 0.0, 'cases': []} for mode in MODES}
     for mode, (_, quant) in MODES.items():
@@ -726,7 +772,8 @@ def kernel_phase(da):
                           ('draft', DRAFT_CASE), ('disagg', DISAGG_CASE),
                           ('tp2', TP2_CASE), ('tp8', TP8_CASE),
                           ('tp4a', TP4_BENCH_CASE),
-                          ('tp4b', TP4_RECIPE_CASE)):
+                          ('tp4b', TP4_RECIPE_CASE),
+                          ('draft_tp2', DRAFT_TP2_CASE)):
             results[mode][key] = next(c for c in results[mode]['cases']
                                       if c['case'] == case
                                       and c['dtype'] == 'bfloat16')
@@ -4492,11 +4539,15 @@ def _depth_env(log_dir, name, n_layers):
     that cuts it when the interpreter starts."""
     cut = os.path.join(log_dir, f'depth-{name}-{n_layers}')
     os.makedirs(cut, exist_ok=True)
-    with open(os.path.join(cut, 'sitecustomize.py'), 'w') as f:
+    # Whole or not at all: phases side by side may write it at once while
+    # a rank of either starts.
+    fd, tmp = tempfile.mkstemp(dir=cut)
+    with os.fdopen(fd, 'w') as f:
         f.write('import dataclasses\n'
                 'from skypilot_tpu_torch.models import llama\n'
                 f'llama.PRESETS[{name!r}] = dataclasses.replace('
                 f'llama.PRESETS[{name!r}], n_layers={n_layers})\n')
+    os.replace(tmp, os.path.join(cut, 'sitecustomize.py'))
     return {'PYTHONPATH': os.pathsep.join(
         [cut, os.getcwd(), os.environ.get('PYTHONPATH', '')])}
 
@@ -4878,22 +4929,406 @@ def tp_recipe_phase(srv_lib, gen_lib, llama, log_dir, tp=8,
     return launches
 
 
+# 18c: bench-1b at tp 2 on the paged layout as a decode replica, block
+# sharing and the KV tiers on: a pool of 256 usable blocks (4,096
+# positions, a quarter of the slot layout's 16 x 1024), a host tier of
+# about 17 whole-head bf16 blocks (10 MB at 9 layers, where a block is
+# 589,824 bytes, scaled to the depth served) and a temporary spill
+# directory.
+TP_PAGED_ARGV = ['--model', 'bench-1b', '--tp', '2', '--kv-layout', 'paged',
+                 '--role', 'decode', '--kv-blocks', '257', '--max-len',
+                 '1024']
+TP_PAGED_HOST_BYTES = 10_000_000  # at 9 layers
+TP_PAGED_NEW = 32
+TP_QUIET_S = 0.5  # the head's tier counters unchanged this long: quiet
+# 18d: bench-1b with bench-draft at tp 2 (k SPEC_K), the slot layout.
+TP_SPEC_ARGV = ['--model', 'bench-1b', '--tp', '2', '--draft-model',
+                'bench-draft']
+# 18e: moe-8x1b at tp 2, at SERVE_LAYERS of its 18 layers.
+TP_MOE_ARGV = ['--model', 'moe-8x1b', '--tp', '2']
+
+
+def _health(url):
+    return json.loads(_http(url, '/health')[2])
+
+
+def _tp_drained(url):
+    """The head's /health once its engine is drained (no request queued,
+    prefilling, parked on a tier fetch or holding a slot) and its KV tier
+    thread quiet (the tier counters unchanged for TP_QUIET_S)."""
+    deadline = time.monotonic() + 300
+    last = None
+    while time.monotonic() < deadline:
+        health = _health(url)
+        eng = health['engine']
+        tiers = eng['kv_tiers'] or {}
+        busy = (eng['active_slots'] or eng['queued'] or eng['prefilling']
+                or tiers.get('waiting')
+                or eng['disagg']['queued_imports'])
+        now = {k: v for k, v in tiers.items() if k not in (
+            'demote_ms', 'promote_ms')}
+        if not busy and now == last:
+            return health
+        last = None if busy else now
+        time.sleep(TP_QUIET_S)
+    raise AssertionError(f'the replica did not drain: {health}')
+
+
+def _tp_reconciled(label, what, health):
+    """The head's block accounts after a drain: nothing owned or
+    referenced, used == cached, free + cached == usable, and the host and
+    spilled counts equal the tier's own."""
+    eng = health['engine']
+    kb, tiers = eng['kv_blocks'], eng['kv_tiers']
+    if (kb['owned'] or kb['shared'] or kb['used'] != kb['cached']
+            or kb['free'] + kb['cached'] != kb['usable']
+            or kb['host'] != tiers['host_blocks']
+            or kb['spilled'] != tiers['spilled_blocks']):
+        raise AssertionError(f'{label} {what}: block accounts do not '
+                             f'reconcile: {kb} {tiers}')
+    return kb
+
+
+def _ranks_agree(label, summaries, keys):
+    """Every rank holds the same engine state under ``keys`` (its rank
+    summary's block accounts, counters and tier decisions)."""
+    for key in keys:
+        values = [s[key] for s in summaries]
+        if any(v != values[0] for v in values):
+            raise AssertionError(f'{label}: the ranks disagree on {key}: '
+                                 f'{values}')
+
+
+def _with_logs(label, logs, exc):
+    """An AssertionError for a failure while a replica ran: what failed
+    (an HTTP error's body too) and each host's first errors and last
+    lines."""
+    what = repr(exc)
+    if isinstance(exc, urllib.error.HTTPError):
+        what += f' {exc.read()[:2000]!r}'
+    return AssertionError(f'{label}: {what}\n{_tp_logs(logs)}')
+
+
+def _tp_paged_traffic(vocab):
+    """18c's requests, from a numpy seed: a warm-up of 4 preambles of 256
+    ids (each with 16 more), 16 concurrent requests of a preamble and
+    16-200 ids (a third greedy, a third top-k 50, a third top-p 0.9), 8
+    new preambles twice each, then the first 4 preambles again, each
+    TP_PAGED_NEW new; and the 4 handoff prompts (TP_LONE)."""
+    rng = np.random.default_rng(21)
+    pre = [rng.integers(0, vocab, 256).tolist() for _ in range(4)]
+    fresh = [rng.integers(0, vocab, 256).tolist() for _ in range(8)]
+
+    def body(head, i, lo=16, hi=201):
+        req = {'tokens': [head + rng.integers(0, vocab, int(
+                   rng.integers(lo, hi))).tolist()],
+               'max_new_tokens': TP_PAGED_NEW}
+        if i % 3 == 1:
+            req.update(temperature=0.8, top_k=50)
+        elif i % 3 == 2:
+            req.update(temperature=1.0, top_p=0.9)
+        return req
+    rounds = (('warm-up', [body(p, 0, 16, 17) for p in pre]),
+              ('window', [body(pre[i % 4], i) for i in range(16)]),
+              ('new preambles', [body(fresh[i % 8], i) for i in range(16)]),
+              ('preambles again', [body(p, 0, 40, 41) for p in pre]))
+    handoffs = [rng.integers(0, vocab, n).tolist() for n in TP_LONE]
+    return rounds, handoffs
+
+
+def tp_paged_phase(srv_lib, gen_lib, llama, log_dir, tp=2, backend='gloo',
+                   label='18c', layers=None):
+    """18c: ``llm_server --model bench-1b --tp 2 --kv-layout paged --role
+    decode --kv-blocks 257`` with block sharing and the KV tiers on (a
+    10 MB host tier and a spill directory; the tier on the head, whole).
+    Four rounds of traffic (``_tp_paged_traffic``): every answer whole,
+    share hits, evictions demoted and spilled, the preambles asked again
+    fetched or promoted with nothing corrupt, the head's block accounts
+    reconciled after each drain; the last round's greedy answers equal a
+    direct ``generate`` of the tp 1 replica below or part where its top-2
+    gap < GREEDY_GAP_LIMIT. Then 4 handoffs from a tp 1 prefill
+    replica (paged bf16, the same seed) in this process over the
+    ``/v1/kv/*`` legs: /health ``role`` decode, 4 imports, no fallback;
+    the answers, and the tp 1 replica's own for the same prompts, equal a
+    direct ``generate`` or part where its top-2 gap < GREEDY_GAP_LIMIT.
+    SIGTERM exits every rank 0; every rank's block accounts (reconciled),
+    share counters, tier decisions and digest are equal, and its K4 calls
+    n_layers x chunk_steps x dispatches at its shard. Returns K4's
+    launches per rank."""
+    cfg = llama.PRESETS['bench-1b']
+    vocab = cfg.vocab_size
+    rounds, prompts = _tp_paged_traffic(vocab)
+    spill = tempfile.mkdtemp(prefix='kvspill-', dir=log_dir)
+    procs, logs, url, boot_s = _tp_replica(
+        _with_tp(TP_PAGED_ARGV, tp), 1, log_dir, label, layers=layers,
+        SKYTPU_KV_HOST_BYTES=str(TP_PAGED_HOST_BYTES * cfg.n_layers // 9),
+        SKYTPU_KV_SPILL_DIR=spill)
+    figs, kbs = {}, {}
+    try:
+        health = _health(url)
+        if (health['tp'], health['tp_backend'], health['role']) != (
+                tp, backend, 'decode'):
+            raise AssertionError(f'{label} /health {health["tp"]} '
+                                 f'{health["tp_backend"]} {health["role"]}')
+        pre_srv = srv_lib.LlmServer('bench-1b', role='prefill',
+                                    kv_layout='paged', max_len=1024)
+        with _served(pre_srv) as pre_url:
+            for name, reqs in rounds:
+                d0 = health['engine']['pipeline']['dispatches']
+                t0 = time.monotonic()
+                answers = _post_all(url, reqs)
+                wall = time.monotonic() - t0
+                _check_answers(reqs, answers, vocab)
+                last = (reqs, answers)
+                health = _tp_drained(url)
+                kbs[name] = _tp_reconciled(label, name, health)
+                figs[name] = {
+                    'wall_s': round(wall, 3),
+                    'dispatches': health['engine']['pipeline']['dispatches']
+                    - d0, 'tokens': sum(r['max_new_tokens'] for r in reqs)}
+            _phase(f'  {label} traffic done')
+            handoff_figs, got = {}, []
+            for p in prompts:
+                tokens, fig = _handoff(pre_url, url, {
+                    'tokens': [p], 'max_new_tokens': TP_NEW})
+                got.append(tokens)
+                handoff_figs[len(p)] = fig
+            health = _tp_drained(url)
+            kbs['handoffs'] = _tp_reconciled(label, 'handoffs', health)
+            colo = [_post(pre_url, {'tokens': [p], 'max_new_tokens': TP_NEW}
+                          )[1]['tokens'][0] for p in prompts]
+            parts = [_check_greedy(gen_lib, pre_srv, p, g, False)
+                     for p, g in zip(prompts, got)]
+            colo_parts = [_check_greedy(gen_lib, pre_srv, p, c, False)
+                          for p, c in zip(prompts, colo)]
+            # The last round (greedy) was served from share hits and
+            # promoted blocks: the heads the tier gathered and scattered.
+            again_parts = [_check_greedy(gen_lib, pre_srv, r['tokens'][0],
+                                         a[1]['tokens'][0], False)
+                           for r, a in zip(*last)]
+        # The tp 1 replica's weights and pool leave the card now: the
+        # phases after this one (--nccl's 19d on one rank) need it whole.
+        del pre_srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = health['engine']
+        tiers, share = eng['kv_tiers'], eng['prefix_share']
+        if (share['hits'] < 1 or share['evictions'] < 1
+                or tiers['demotes'] < 1 or tiers['spills'] < 1
+                or tiers['fetches'] + tiers['promotes'] < 1
+                or tiers['corrupt'] or tiers['quarantined']):
+            raise AssertionError(f'{label}: sharing and tiers under '
+                                 f'pressure: {share} {tiers}')
+        disagg = health['disagg']
+        if (health['role'], disagg['imports'],
+                disagg['fallbacks_served']) != ('decode', len(prompts), 0):
+            raise AssertionError(f'{label} /health role {health["role"]} '
+                                 f'disagg {disagg}')
+        summaries, stop_s = _tp_stop(procs, logs, label, tp)
+    except (AssertionError, OSError, KeyError) as exc:
+        raise _with_logs(label, logs, exc) from exc
+    finally:
+        _tp_kill(procs)
+        shutil.rmtree(spill, ignore_errors=True)
+    launches = _check_rank_launches(label, summaries, cfg,
+                                    eng['chunk_steps'], backend)
+    _ranks_agree(label, summaries, ('kv_blocks', 'share', 'tier_counts',
+                                    'disagg', 'prefill_tokens'))
+    free, owned, shared, cached = summaries[0]['kv_blocks']
+    if owned or shared or free + cached != eng['kv_blocks']['usable']:
+        raise AssertionError(f'{label}: the ranks\' accounts at exit '
+                             f'{summaries[0]["kv_blocks"]}')
+    card = _card()
+    for name, f in figs.items():
+        print(f'  [{card}] {label} {name}: {f["tokens"]} tokens in '
+              f'{f["wall_s"]} s = {f["tokens"] / f["wall_s"]:.1f} tok/s, '
+              f'{f["dispatches"]} dispatches; blocks after the drain '
+              f'{kbs[name]}', flush=True)
+    for n, f in handoff_figs.items():
+        print(f'  [{card}] {label} handoff (tp 1 prefill -> tp {tp} decode)'
+              f' prompt {n}: export {f["export_ms"]:.2f} ms, payload '
+              f'{f["bytes"]} B ({f["skip"]} blocks skipped), fetch '
+              f'{f["fetch_ms"]:.2f} ms, import {f["import_ms"]:.2f} ms (to '
+              f'its first line), TTFT {f["ttft_ms"]:.2f} ms, decode '
+              f'{(TP_NEW - 1) / f["decode_s"]:.1f} tok/s', flush=True)
+    print(f'  {label}: share {share}; tiers {tiers}; tier decisions '
+          f'(evicted, promoted, parked, fetches done) '
+          f'{summaries[0]["tier_counts"]} on every rank; the preambles '
+          f'again against generate(): partings {again_parts}; handoffs '
+          f'{TP_LONE} x {TP_NEW} against generate(): partings (position, '
+          f'top-2 gap) {parts}, the tp 1 paged replica\'s own {colo_parts},'
+          f' equal to it {sum(a == b for a, b in zip(got, colo))} of '
+          f'{len(got)}; K4 launches by rank {launches} (Hkv '
+          f'{cfg.n_kv_heads // tp} per rank); healthy {boot_s:.1f} s after '
+          f'spawn, every rank out {stop_s:.1f} s after SIGTERM',
+          flush=True)
+    return launches
+
+
+def tp_spec_phase(srv_lib, gen_lib, llama, log_dir, label='18d',
+                  layers=None):
+    """18d: ``llm_server --model bench-1b --tp 2 --draft-model
+    bench-draft`` (k SPEC_K, slot layout, bf16): phase 8's 24 concurrent
+    requests whole and its stream = the request not streamed, then 4 lone
+    greedy requests equal a tp 1 replica without a draft or part where its
+    top-2 gap < GREEDY_GAP_LIMIT; rounds > 0; every rank's speculative
+    counters and digest equal, and its K4 calls = the draft's layers x
+    (k + 1) x rounds at the draft's shard (B=16, Hq 4, Hkv 4, D 64): the
+    target's verify is the k+1-position einsum. Returns K4's launches per
+    rank."""
+    cfg, d_cfg = llama.PRESETS['bench-1b'], llama.PRESETS['bench-draft']
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in TP_LONE]
+    procs, logs, url, boot_s = _tp_replica(
+        TP_SPEC_ARGV, 1, log_dir, label, layers=layers,
+        SKYTPU_LLM_SPEC_K=str(SPEC_K))
+    try:
+        health = _health(url)
+        if (health['tp'], health['draft_model']) != (2, 'bench-draft'):
+            raise AssertionError(f'{label} /health {health}')
+        reqs, stream_req = _engine_traffic(cfg.vocab_size)
+        t0 = time.monotonic()
+        answers = _post_all(url, reqs)
+        wall = time.monotonic() - t0
+        _check_answers(reqs, answers, cfg.vocab_size)
+        _check_stream(url, stream_req, *_post_stream(url, stream_req))
+        # Sent together: with random weights the draft accepts nothing,
+        # so each lone request would take TP_NEW rounds of its own.
+        lone = _lone_greedy(url, prompts, TP_NEW, together=True)
+        spec = _health(url)['engine']['speculative']
+        summaries, stop_s = _tp_stop(procs, logs, label, 2)
+    except (AssertionError, OSError, KeyError) as exc:
+        raise _with_logs(label, logs, exc) from exc
+    finally:
+        _tp_kill(procs)
+    _ranks_agree(label, summaries, ('sampled_digest', 'speculative',
+                                    'dispatches'))
+    rounds = summaries[0]['speculative'][0]
+    if not rounds or rounds != spec['rounds']:
+        raise AssertionError(f'{label}: rounds {summaries[0]} {spec}')
+    want = d_cfg.n_layers * (SPEC_K + 1) * rounds
+    launches = [s['flash_decode_launches'] for s in summaries]
+    if launches != [want] * 2:
+        raise AssertionError(f'{label}: K4 launched {launches} times by '
+                             f'rank; expected {want} (draft layers x (k + '
+                             f'1) x rounds)')
+    _, _, parts = _tp_reference(srv_lib, gen_lib, 'bench-1b', prompts,
+                                lone, False, max_len=1024)
+    tokens = sum(r['max_new_tokens'] for r in reqs)
+    print(f'  [{_card()}] {label} bench-1b + bench-draft tp 2, k {SPEC_K}:'
+          f' {tokens} tokens of 24 concurrent requests in {wall:.2f} s = '
+          f'{tokens / wall:.1f} tok/s; speculative {spec}; lone greedy '
+          f'{TP_LONE} x {TP_NEW} against tp 1 without a draft: partings '
+          f'(position, top-2 gap) {parts}; K4 launches by rank {launches} '
+          f'= {d_cfg.n_layers} x {SPEC_K + 1} x {rounds} rounds (Hq '
+          f'{d_cfg.n_heads // 2}, Hkv {d_cfg.n_kv_heads // 2} per rank); '
+          f'healthy {boot_s:.1f} s after spawn, every rank out '
+          f'{stop_s:.1f} s after SIGTERM', flush=True)
+    return launches
+
+
+def tp_moe_phase(srv_lib, gen_lib, llama, log_dir, label='18e',
+                 layers=None):
+    """18e: ``llm_server --model moe-8x1b --tp 2`` (bf16 + bf16 KV):
+    phase 8's 24 concurrent requests whole and its stream, then a lone
+    greedy request equal to a tp 1 moe-8x1b replica or parted where its
+    top-2 gap < GREEDY_GAP_LIMIT; the ranks' weight bytes sum to tp 1's
+    plus the replicated leaves' copies (the router, the norms) with no
+    rank holding the whole model, so each rank holds half of every
+    expert's mlp columns; digests equal; K4 = n_layers x chunk_steps x
+    dispatches a rank. Returns K4's launches per rank."""
+    cfg = llama.PRESETS['moe-8x1b']
+    rng = np.random.default_rng(24)
+    prompt = rng.integers(0, cfg.vocab_size, 128).tolist()
+    procs, logs, url, boot_s = _tp_replica(TP_MOE_ARGV, 1, log_dir, label,
+                                           layers=layers)
+    try:
+        if _health(url)['tp'] != 2:
+            raise AssertionError(f'{label} /health tp')
+        reqs, stream_req = _engine_traffic(cfg.vocab_size)
+        t0 = time.monotonic()
+        answers = _post_all(url, reqs)
+        wall = time.monotonic() - t0
+        _check_answers(reqs, answers, cfg.vocab_size)
+        _check_stream(url, stream_req, *_post_stream(url, stream_req))
+        lone = _lone_greedy(url, [prompt], TP_NEW)
+        eng = _health(url)['engine']
+        summaries, stop_s = _tp_stop(procs, logs, label, 2)
+    except (AssertionError, OSError, KeyError) as exc:
+        raise _with_logs(label, logs, exc) from exc
+    finally:
+        _tp_kill(procs)
+    launches = _check_rank_launches(label, summaries, cfg,
+                                    eng['chunk_steps'])
+    whole, replicated, parts = _tp_reference(
+        srv_lib, gen_lib, 'moe-8x1b', [prompt], lone, False, max_len=1024)
+    per_rank = _check_param_bytes(label, summaries, whole, replicated)
+    tokens = sum(r['max_new_tokens'] for r in reqs)
+    print(f'  [{_card()}] {label} moe-8x1b tp 2 at {cfg.n_layers} of 18 '
+          f'layers: {tokens} tokens of 24 concurrent requests in '
+          f'{wall:.2f} s = {tokens / wall:.1f} tok/s, pipeline depth '
+          f'{eng["pipeline"]["pipeline_depth"]}; lone greedy 128 x '
+          f'{TP_NEW} against tp 1: parting (position, top-2 gap) {parts}; '
+          f'weights by rank {per_rank} B, tp 1 {whole} B, replicated '
+          f'leaves {replicated} B; K4 launches by rank {launches}; healthy '
+          f'{boot_s:.1f} s after spawn, every rank out {stop_s:.1f} s '
+          'after SIGTERM', flush=True)
+    return launches
+
+
 def tp_phase(srv_lib, gen_lib, llama):
     """Phase 18. Returns K4's launches per rank of 18a (bf16) and 18b
     (int8)."""
     print(f'  two NCCL ranks on one card: {_nccl_refusal()}', flush=True)
     log_dir = tempfile.mkdtemp(prefix='skytpu-tp-')
     try:
-        with _cut_depth(llama, 'bench-1b', SERVE_LAYERS):
-            bench = tp_bench_phase(srv_lib, gen_lib, llama, log_dir,
-                                   layers=SERVE_LAYERS)
-        _phase('  18a done')
-        with _cut_depth(llama, 'llama3-8b', TP8_LAYERS):
-            recipe = tp_recipe_phase(srv_lib, gen_lib, llama, log_dir,
-                                     layers=TP8_LAYERS)
+        with _cut_depth(llama, 'bench-1b', SERVE_LAYERS), \
+                _cut_depth(llama, 'llama3-8b', TP8_LAYERS):
+            bench, recipe = _side_by_side('18a-18b', {
+                '18a': lambda: tp_bench_phase(srv_lib, gen_lib, llama,
+                                              log_dir, layers=SERVE_LAYERS),
+                '18b': lambda: tp_recipe_phase(srv_lib, gen_lib, llama,
+                                               log_dir, layers=TP8_LAYERS)})
+        more = tp_options_phase(srv_lib, gen_lib, llama, log_dir)
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
-    return bench, recipe
+    return bench, recipe, more
+
+
+def _side_by_side(what, jobs):
+    """Run ``jobs`` (label -> callable) at once, each on a thread of its
+    own, so that the script's time limit holds them all: phases whose
+    replicas are processes of their own, which wait on their ranks'
+    startup and on the host more than on the card. Returns their results
+    in order once all have ended, or raises the first failure then."""
+    t0 = time.perf_counter()
+
+    def timed(label, job):
+        t1 = time.perf_counter()
+        out = job()
+        _phase(f'  {label} done ({time.perf_counter() - t1:.1f} s)')
+        return out
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = [pool.submit(timed, label, job)
+                   for label, job in jobs.items()]
+    out = [f.result() for f in futures]
+    _phase(f'  {what} side by side: {time.perf_counter() - t0:.1f} s')
+    return out
+
+
+def tp_options_phase(srv_lib, gen_lib, llama, log_dir):
+    """18c-18e side by side: the paged layout with sharing, tiers and the
+    decode role, a draft, and an MoE model on a tp 2 replica each.
+    Returns K4's launches per rank of each."""
+    with _cut_depth(llama, 'bench-1b', SERVE_LAYERS), \
+            _cut_depth(llama, 'moe-8x1b', SERVE_LAYERS):
+        out = _side_by_side('18c-18e', {
+            label: lambda phase=phase: phase(srv_lib, gen_lib, llama,
+                                             log_dir, layers=SERVE_LAYERS)
+            for label, phase in (('18c', tp_paged_phase),
+                                 ('18d', tp_spec_phase),
+                                 ('18e', tp_moe_phase))})
+    return dict(zip(('18c', '18d', '18e'), out))
 
 
 # --nccl: tensor-parallel serving over NCCL, one rank a card, on a machine
@@ -4930,8 +5365,11 @@ def _shard_kernels(da):
 
 def nccl_main() -> int:
     """``python3 chip_smoke.py --nccl``, on a machine with four cards:
-    18a's checks for bench-1b at ``--tp 4`` on one host and 18b's for the
-    serve-multihost recipe at ``--tp 4`` as two hosts of two cards, every
+    18a's checks for bench-1b at ``--tp 4`` on one host, 18b's for the
+    serve-multihost recipe at ``--tp 4`` as two hosts of two cards and
+    18c's (the paged decode replica, its tiers' gathers and scatters to
+    the head on the model's NCCL groups beside the gloo arrival
+    broadcast) at ``--tp 4`` on one host, every
     rank on its own card over NCCL (/health ``tp_backend`` nccl, nothing
     staged through the host), after K4 at their Hkv 2 shard is held to
     its plain version."""
@@ -4981,6 +5419,11 @@ def nccl_main() -> int:
                                             + ('pipe=2,expert=2,fsdp=1',)
                                             + SMALL_MESHES[1][2:],),
                                   NCCL_TP, 'nccl-19c')
+        # Last: its tp 1 prefill replica runs in this process, on card 0.
+        _phase(f'nccl 7: 18c at --tp {NCCL_TP} (bench-1b, paged, sharing '
+               'and tiers on, the decode role), one host, NCCL')
+        paged = tp_paged_phase(srv_lib, gen_lib, llama, log_dir, NCCL_TP,
+                               'nccl', 'nccl-c')
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
         shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
@@ -4988,6 +5431,8 @@ def nccl_main() -> int:
     print(json.dumps({'nccl': {'bench-1b tp4 K4 bf16 launches by rank': bench,
                                'llama3-8b tp4 K4 int8 launches by rank':
                                recipe,
+                               'bench-1b tp4 paged K4 bf16 launches by '
+                               'rank': paged,
                                'bench-1b data=2,fsdp=2 K1-K3 launches':
                                train,
                                'moe-8x1b fsdp=2,expert=2 K1-K3 launches':
@@ -5758,16 +6203,19 @@ def main() -> int:
     _phase('phase 6: training bench-1b at seq 4096 through train.run')
     train_launches = train_phase(llama, fa, train_run)
 
-    _phase('phase 7: serving bench-1b over HTTP, window path (--engine off)')
-    for quantize, kv_cache in ((None, 'bf16'), ('int8', 'int8')):
-        serving_phase(srv_lib, gen_lib, da, quantize, kv_cache)
+    _phase(f'phase 7: serving bench-1b ({SERVE_LAYERS} of 18 layers) over '
+           'HTTP, window path (--engine off)')
+    with _cut_depth(llama, 'bench-1b', SERVE_LAYERS):
+        for quantize, kv_cache in ((None, 'bf16'), ('int8', 'int8')):
+            serving_phase(srv_lib, gen_lib, da, quantize, kv_cache)
 
-    _phase('phase 8: serving bench-1b over HTTP, the default continuous '
-           'engine')
+    _phase(f'phase 8: serving bench-1b ({SERVE_LAYERS} of 18 layers) over '
+           'HTTP, the default continuous engine')
     launches, engine_figs = {}, {}
-    for mode, quantize in (('bf16', None), ('int8', 'int8')):
-        launches[mode], engine_figs[mode] = engine_phase(
-            srv_lib, gen_lib, engine_lib, da, quantize, mode)
+    with _cut_depth(llama, 'bench-1b', SERVE_LAYERS):
+        for mode, quantize in (('bf16', None), ('int8', 'int8')):
+            launches[mode], engine_figs[mode] = engine_phase(
+                srv_lib, gen_lib, engine_lib, da, quantize, mode)
 
     _phase(f'phase 9: the serve-llama recipe (llama3-1b, {RECIPE_LAYERS} of '
            '16 layers, int8 + int8 KV, prefix pool 8, max_len 2048) over '
@@ -5830,7 +6278,8 @@ def main() -> int:
 
     for mode in MODES:
         for case in (LLAMA_CASE, DRAFT_CASE, DISAGG_CASE, TP2_CASE,
-                     TP8_CASE, TP4_BENCH_CASE, TP4_RECIPE_CASE):
+                     TP8_CASE, TP4_BENCH_CASE, TP4_RECIPE_CASE,
+                     DRAFT_TP2_CASE):
             row = next(c for c in kernels[mode]['cases']
                        if c['case'] == case and c['dtype'] == 'bfloat16')
             print(f'  flash_decode[{mode} cache] at {case}: ms {row["ms"]}'
@@ -5875,11 +6324,19 @@ def main() -> int:
     _phase(f'phase 18: serve-tp: bench-1b at {SERVE_LAYERS} of 18 layers, '
            '--tp 2 (18a), the '
            f'serve-multihost recipe (llama3-8b int8 at {TP8_LAYERS} of 32 '
-           'layers, --tp 8 as 2 hosts x 4 ranks, 18b), every rank a '
+           'layers, --tp 8 as 2 hosts x 4 ranks, 18b), then at tp 2 the '
+           'paged decode replica with sharing and tiers (18c), a draft '
+           f'(18d), moe-8x1b at {SERVE_LAYERS} layers (18e); every rank a '
            'process on the one card, gloo')
-    tp_bench, tp_recipe = tp_phase(srv_lib, gen_lib, llama)
+    tp_bench, tp_recipe, tp_more = tp_phase(srv_lib, gen_lib, llama)
     by_path['bf16']['phase 18a serve-tp (2 ranks)'] = sum(tp_bench)
     by_path['int8']['phase 18b serve-multihost (8 ranks)'] = sum(tp_recipe)
+    by_path['bf16']['phase 18c serve-tp-paged (2 ranks)'] = sum(
+        tp_more['18c'])
+    by_path['bf16']['phase 18d serve-tp-spec (2 ranks)'] = sum(
+        tp_more['18d'])
+    by_path['bf16']['phase 18e serve-tp-moe (2 ranks)'] = sum(
+        tp_more['18e'])
 
     _phase('phase 19: sharded training: the multislice-train recipe '
            '(bench-1b, data=2,fsdp=2 as 2 hosts x 2 ranks, 19a), the '
@@ -5919,7 +6376,8 @@ def main() -> int:
                                   ('disagg', DISAGG_CASE),
                                   ('tp2', TP2_CASE), ('tp8', TP8_CASE),
                                   ('tp4a', TP4_BENCH_CASE),
-                                  ('tp4b', TP4_RECIPE_CASE))}})
+                                  ('tp4b', TP4_RECIPE_CASE),
+                                  ('draft_tp2', DRAFT_TP2_CASE))}})
     print(json.dumps({'kernels': entries}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

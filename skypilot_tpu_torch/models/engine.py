@@ -121,18 +121,24 @@ so the engine is bound by the host's time to issue them.
 
 * Tensor parallelism (``mesh=``, one process per rank; ``serve/spmd.py``
   keeps the ranks in lockstep): the weights are this rank's slices
-  (``quantization.shard_params``; a whole tree is sliced here), and the
-  slot layout's cache and int8 scales are born sharded on kv_heads in
-  ``_init_device_state``, at construction and at every
-  ``_fail_everything`` recovery; the slot vectors, the rewind state and
-  the generator stay replicated, so every device decision stays a pure
-  function of the request stream. Every forward passes the mesh to
-  ``forward_cached`` (the decode kernel per head shard). The prefix pool
-  and chunked prefill run sharded too.
-
-Not ported yet under a mesh; each raises ``NotImplementedError`` at
-construction, by name: the paged layout, draft rounds, MoE, the prefill
-and decode roles, and any mesh axis but ``tensor`` (the data axis).
+  (``quantization.shard_params``; a whole tree is sliced here, the
+  draft's by the same rules), and the caches are born sharded on
+  kv_heads in ``_init_device_state``, at construction and at every
+  ``_fail_everything`` recovery: the slot layout's cache, the paged
+  pool, the draft's cache and their int8 scales. The slot vectors, the
+  block tables, the rewind state, the generator and all host accounting
+  (free list, trie, LRU) stay whole on every rank, so every device
+  decision stays a pure function of the request stream. Every forward
+  passes the mesh (``forward_cached``, ``paged.forward_paged``, the MoE
+  block; the decode kernel per head shard). The KV tiers live on the
+  head alone, whole, in JAX's layout: a demote gathers every rank's
+  heads of the evicted blocks there (``_heads_to_head``), a promote
+  scatters them back (``_heads_from_head``), and each tier answer that
+  shapes a device decision comes from the head (``_decide``). An export
+  gathers its planes to the head likewise, and an import's planes go
+  from the head to each rank when it admits. A mesh axis other than
+  ``tensor`` (the data axis) raises ``NotImplementedError`` at
+  construction, by name.
 """
 from __future__ import annotations
 
@@ -160,6 +166,7 @@ from skypilot_tpu_torch.models import sampling
 from skypilot_tpu_torch.observability import blackbox
 from skypilot_tpu_torch.observability import profiler
 from skypilot_tpu_torch.observability import trace as trace_lib
+from skypilot_tpu_torch.parallel import collectives
 from skypilot_tpu_torch.utils import prefix_affinity as affinity_lib
 from skypilot_tpu_torch.utils.device import resolve_device
 
@@ -314,6 +321,15 @@ class KVImportError(RuntimeError):
     away as shared references were evicted between the prepare round
     trip and the import). The replica answers 409 and the load balancer
     falls back to colocated serving."""
+
+
+def _chain_row(node) -> List[int]:
+    """The token row of a trie node's whole chain, root to node."""
+    parts = []
+    while node is not None:
+        parts.append(node.key)
+        node = node.parent
+    return [t for key in reversed(parts) for t in key]
 
 
 def _plane_words(arr):
@@ -480,7 +496,7 @@ def _paged_chunk_impl(cfg: llama.LlamaConfig, k_steps: int, params,
                       temps: Optional[torch.Tensor],
                       top_ks: Optional[torch.Tensor],
                       top_ps: Optional[torch.Tensor],
-                      generator: Optional[torch.Generator]):
+                      generator: Optional[torch.Generator], mesh=None):
     """K decode steps over the PAGED pool: the twin of ``_chunk_impl``
     with ``paged.forward_paged`` in place of ``forward_cached``. Rows not
     active (``occupied`` ANDed with ``lengths < limit`` at every step)
@@ -494,7 +510,8 @@ def _paged_chunk_impl(cfg: llama.LlamaConfig, k_steps: int, params,
         active = (occupied if cfg.num_experts > 0
                   else occupied & (cache.lengths < limit))
         logits, cache = paged_lib.forward_paged(params, last[:, None],
-                                                cache, cfg, active)
+                                                cache, cfg, active,
+                                                mesh=mesh)
         last = sampling.sample(logits, temps, generator, top_ks, top_ps)
         toks.append(last)
     return cache, last, torch.stack(toks)
@@ -513,7 +530,7 @@ def _spec_impl(t_cfg: llama.LlamaConfig, d_cfg: llama.LlamaConfig, k: int,
                occupied: torch.Tensor, temps: Optional[torch.Tensor],
                top_ks: Optional[torch.Tensor],
                top_ps: Optional[torch.Tensor],
-               generator: Optional[torch.Generator]):
+               generator: Optional[torch.Generator], mesh=None):
     """One speculative round over ALL slots. Returns (t_cache, d_cache,
     out [B, 2k+3] int32 = props [B, k+1] | tgt [B, k+1] | samp [B]) with
     BOTH caches advanced k+1 positions (the host rolls back per row).
@@ -523,7 +540,10 @@ def _spec_impl(t_cfg: llama.LlamaConfig, d_cfg: llama.LlamaConfig, k: int,
     p1..pk] in one forward with per-position logits; ``samp`` is drawn
     from the verify's position-0 logits with each row's sampling params,
     so for a sampled row a round is one plain decode step. A row is
-    active while ``occupied`` and its length is below ``limit``."""
+    active while ``occupied`` and its length is below ``limit``. Under a
+    tensor ``mesh`` both models' forwards run sharded (the draft's k+1
+    steps run the decode kernel on its head shard) and every rank holds
+    the whole logits, so the proposals and the verdicts agree."""
     b = last.shape[0]
     ones = torch.ones((b,), dtype=torch.int32, device=last.device)
     props = []
@@ -531,7 +551,8 @@ def _spec_impl(t_cfg: llama.LlamaConfig, d_cfg: llama.LlamaConfig, k: int,
     for _ in range(k + 1):
         active = occupied & (d_cache.lengths < limit)
         logits, d_cache = gen_lib.forward_cached(d_params, tok[:, None],
-                                                 d_cache, d_cfg, ones, active)
+                                                 d_cache, d_cfg, ones, active,
+                                                 mesh=mesh)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         props.append(tok)
     props = torch.stack(props, dim=1)  # [B, k+1]
@@ -540,10 +561,11 @@ def _spec_impl(t_cfg: llama.LlamaConfig, d_cfg: llama.LlamaConfig, k: int,
     if isinstance(t_cache, gen_lib.KVCache):
         logits_all, t_cache = gen_lib.forward_cached(
             t_params, window, t_cache, t_cfg, (k + 1) * ones, active,
-            all_logits=True)
+            all_logits=True, mesh=mesh)
     else:  # paged target: multi-position block writes, lengths rewind
         logits_all, t_cache = paged_lib.forward_paged(
-            t_params, window, t_cache, t_cfg, active, all_logits=True)
+            t_params, window, t_cache, t_cfg, active, all_logits=True,
+            mesh=mesh)
     tgt = torch.argmax(logits_all, dim=-1).to(torch.int32)  # [B, k+1]
     samp = sampling.sample(logits_all[:, 0], temps, generator, top_ks,
                            top_ps)
@@ -578,7 +600,7 @@ _store_prefix = profiler.profiled('engine.store_prefix', _store_prefix_impl)
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f'{what} under a mesh is not ported yet: skypilot_tpu_torch '
-        'serves the slot layout of a dense model on a tensor mesh')
+        'serves on a tensor mesh only')
 
 
 def check_options(*, kv_layout: Optional[str] = None,
@@ -598,7 +620,9 @@ def check_options(*, kv_layout: Optional[str] = None,
     (``engine.py:680-726`` of the JAX package): expert capacity is per
     forward call, so each would route differently from the monolithic
     prefill. Needs no weights, so a replica checks its flags before it
-    builds them."""
+    builds them. A mesh may split ``tensor`` alone (the ``data`` axis is
+    not ported yet); on it every layout, a draft, MoE and each role
+    serve as on one device."""
     kv_layout = (kv_layout or os.environ.get('SKYTPU_LLM_KV_LAYOUT')
                  or 'slot')
     if kv_layout not in ('slot', 'paged'):
@@ -621,25 +645,23 @@ def check_options(*, kv_layout: Optional[str] = None,
     if role not in ('colocated', 'prefill', 'decode'):
         raise ValueError(f'Unknown engine role {role!r}; '
                          "'colocated', 'prefill' or 'decode'")
-    if mesh is not None and mesh.size > 1:
-        if mesh.size != mesh.shape['tensor']:
-            raise _not_ported('a mesh axis other than tensor (the data '
-                              'axis)')
-        for refused, what in ((kv_layout == 'paged', 'the paged layout'),
-                              (draft, 'a draft model (speculative rounds)'),
-                              (moe, 'an MoE model'),
-                              (role != 'colocated',
-                               'a prefill or decode role')):
-            if refused:
-                raise _not_ported(what)
+    if mesh is not None and mesh.size > 1 \
+            and mesh.size != mesh.shape['tensor']:
+        raise _not_ported('a mesh axis other than tensor (the data axis)')
     return (kv_layout, max(int(prefix_slots), 0), max(int(prefill_chunk), 0),
             role, prefix_share, kv_tiers)
 
 
 def _local_params(params, cfg: llama.LlamaConfig, mesh):
     """This rank's slices of ``params`` on ``mesh``: a whole tree is
-    sliced (``quantization.shard_params``), a tree of slices passes."""
+    sliced (``quantization.shard_params``), a tree of slices passes. The
+    draft rides the same rules, so its heads and kv_heads must divide
+    the tensor axis as the target's do."""
     from skypilot_tpu_torch.models import quantization as quant_lib
+    tp = mesh.shape['tensor']
+    if cfg.n_kv_heads % tp or cfg.n_heads % tp:
+        raise ValueError(f'{cfg.n_heads} heads and {cfg.n_kv_heads} kv '
+                         f'heads do not split over tensor ({tp} shards)')
     wq = params['layers']['wq']
     heads = (wq['q8'] if quant_lib.is_quantized(wq) else wq).shape[2]
     if heads == cfg.n_heads:
@@ -661,6 +683,10 @@ class ContinuousEngine:
     ``_slot_shared[i]`` the trie nodes it holds a reference on; with the
     trie's referenced and idle blocks they partition the usable pool.
     Every method that touches them runs under ``_lock``."""
+
+    # The rank that serves HTTP and owns the KV tiers: every rank of a
+    # single-process engine (``serve/spmd.py`` sets it per rank).
+    _head = True
 
     def __init__(self, params, cfg: llama.LlamaConfig, *,
                  slots: Optional[int] = None, max_len: int = 1024,
@@ -712,6 +738,9 @@ class ContinuousEngine:
         self.mesh = gen_lib.tensor_mesh(mesh)
         if self.mesh is not None:
             params = _local_params(params, cfg, self.mesh)
+            if draft_params is not None:
+                self.draft_params = _local_params(draft_params, draft_cfg,
+                                                  self.mesh)
         self.params = params
         self.cfg = cfg
         self.slots = slots or int(os.environ.get('SKYTPU_LLM_SLOTS', '16'))
@@ -755,11 +784,19 @@ class ContinuousEngine:
         # Bound on the /health prefix advert's entries.
         self._summary_max = max(
             int(os.environ.get('SKYTPU_PREFIX_SUMMARY_MAX', '64')), 0)
+        # KV tiers: one per replica, on its head, holding whole planes in
+        # JAX's layout; the other ranks follow its answers (``_decide``).
+        self._tiers_on = tiers_on
         self._kv_tiers = None
-        if tiers_on:
+        if tiers_on and self._head:
             from skypilot_tpu_torch.serve import kv_tiers as kv_tiers_lib
             self._kv_tiers = kv_tiers_lib.KVTiers.from_env(
                 cfg, self.kv_block, quantized=self.kv_quantize)
+        # The engine's side of the tier decisions, equal on every rank:
+        # evicted blocks gathered for a demote, blocks promoted, requests
+        # parked on a fetch, and fetch completions re-queued.
+        self.tier_counts = {'evicted': 0, 'promoted': 0, 'parked': 0,
+                            'fetches_done': 0}
         # Requests parked on a background spill fetch; its completion
         # re-queues them at the head of _pending.
         self._tier_waiting: List[_Request] = []
@@ -836,11 +873,22 @@ class ContinuousEngine:
                eos=None) -> concurrent.futures.Future:
         req = self._build_request(row, max_new, temperature, on_tokens,
                                   top_k, top_p, eos)
+        self._enqueue(req)
+        return req.future
+
+    def _enqueue(self, req: _Request) -> None:
+        """Queue a built request (a submit, an export) for admission."""
         with self._lock:
             self._pending.append(req)
         self.start()  # idempotent; revives a stop()ped engine
         self._wake.set()
-        return req.future
+
+    def _enqueue_import(self, entry: '_ImportEntry') -> None:
+        """Queue a validated import for ``_admit_imports``."""
+        with self._lock:
+            self._pending_imports.append(entry)
+        self.start()
+        self._wake.set()
 
     def submit_prefill(self, row: List[int], max_new: int,
                        temperature: float = 0.0, top_k: int = 0,
@@ -853,10 +901,8 @@ class ContinuousEngine:
         engine reserves blocks for the prompt alone. MoE expert capacity
         couples the rows of a batch, so an MoE model's prompt KV is not
         batch-independent and is refused, as in the JAX engine; so is a
-        draft, whose cache does not transfer. Under a mesh it is not
-        ported (head-only admission would bypass ``serve/spmd.py``'s
-        arrival broadcast)."""
-        self._check_handoff_mesh()
+        draft, whose cache does not transfer. Under a mesh the planes
+        are gathered to the head, whole, before the future resolves."""
         if self.cfg.num_experts > 0:
             raise ValueError('KV handoff requires a dense model (MoE '
                              'expert capacity is per forward call, so '
@@ -868,15 +914,8 @@ class ContinuousEngine:
                              'does not transfer)')
         req = self._build_request(row, max_new, temperature, None,
                                   top_k, top_p, eos, export=True)
-        with self._lock:
-            self._pending.append(req)
-        self.start()
-        self._wake.set()
+        self._enqueue(req)
         return req.future
-
-    def _check_handoff_mesh(self) -> None:
-        if self.mesh is not None:
-            raise _not_ported('a KV export or import')
 
     def submit_import(self, row: List[int], max_new: int, first: int,
                       *, temperature: float = 0.0, top_k: int = 0,
@@ -891,8 +930,9 @@ class ContinuousEngine:
         block reservation are free. The planes' shapes are checked HERE:
         an install that raised on the engine thread would fail every
         request in flight (``_fail_everything``), and crc32 covers plane
-        bytes only, not the header's shapes."""
-        self._check_handoff_mesh()
+        bytes only, not the header's shapes. The planes carry whole KV
+        heads (JAX's wire format); under a mesh each rank installs its
+        own, which the head scatters when the import admits."""
         if layout != self.kv_layout:
             raise ValueError(f'handoff layout {layout!r} does not match '
                              f'engine kv_layout {self.kv_layout!r}')
@@ -937,11 +977,39 @@ class ContinuousEngine:
         entry = _ImportEntry(req=req, first=int(first), layout=layout,
                              block_start=int(block_start),
                              k=k, v=v, k_s=k_s, v_s=v_s)
-        with self._lock:
-            self._pending_imports.append(entry)
-        self.start()
-        self._wake.set()
+        self._enqueue_import(entry)
         return req.future
+
+    # -- a tensor-parallel replica's head (``serve/spmd.py``) ---------------
+
+    def _decide(self, fn, share=None):
+        """``fn()``: a decision taken from state that only the head holds
+        (the KV tiers). One process answers itself; ``serve/spmd.py``'s
+        head computes it alone and broadcasts it (``share(answer)`` when
+        given: what the other ranks need of it), so that every rank takes
+        it in the same iteration."""
+        del share
+        return fn()
+
+    def _heads_to_head(self, t: torch.Tensor) -> Optional[torch.Tensor]:
+        """A KV plane (heads on dim 2) with every KV head, on the head:
+        under a mesh the ranks' heads are gathered there (a collective of
+        the tensor axis; None on the other ranks)."""
+        if self.mesh is None:
+            return t
+        return collectives.gather_to(t, self.mesh, dim=2)
+
+    def _heads_from_head(self, t: Optional[torch.Tensor], shape: tuple,
+                         dtype: torch.dtype) -> torch.Tensor:
+        """This rank's KV heads of the head's whole plane ``t`` of
+        ``shape`` (heads on dim 2; None on the other ranks): under a mesh
+        the head scatters them (a collective of the tensor axis)."""
+        if self.mesh is None:
+            return t
+        local = list(shape)
+        local[2] //= self.mesh.shape['tensor']
+        return collectives.scatter_from(t, self.mesh, tuple(local), dtype,
+                                        dim=2)
 
     def probe_chain(self, row: List[int]) -> int:
         """How many leading FULL prompt blocks of ``row`` this engine's
@@ -952,12 +1020,17 @@ class ContinuousEngine:
         and the load balancer falls back."""
         if self._trie is None:
             return 0
-        p = self.kv_block
         with self._lock:
-            nodes, _, _ = self._trie.match(row, limit=(len(row) // p) * p)
-            for nd in nodes:
-                self._trie.touch(nd)
-        return len(nodes)
+            return len(self._touch_chain(row))
+
+    def _touch_chain(self, row: List[int]) -> list:
+        """Match ``row``'s full prompt blocks in the trie and refresh
+        their LRU place (caller holds the lock)."""
+        p = self.kv_block
+        nodes, _, _ = self._trie.match(row, limit=(len(row) // p) * p)
+        for nd in nodes:
+            self._trie.touch(nd)
+        return nodes
 
     def resolve_chains(self, digests: List[bytes]) -> List[List[int]]:
         """Token rows for the advert chain digests this engine's trie
@@ -1286,9 +1359,11 @@ class ContinuousEngine:
         self._slot_table: List[Optional[np.ndarray]] = \
             [None] * self.slots
         if self.kv_layout == 'paged':
+            # Born sharded under a mesh, as the slot layout's cache.
             self._cache = paged_lib.init_pool(
                 self.cfg, self.slots, self.max_len, self.kv_blocks,
-                self.kv_block, quantize=self.kv_quantize, device=dev)
+                self.kv_block, quantize=self.kv_quantize, device=dev,
+                mesh=self.mesh)
             # Host-side accounting: block 0 is the junk sink, never
             # allocated; _slot_blocks holds each slot's OWNED blocks,
             # _slot_shared its refcounted trie nodes.
@@ -1320,7 +1395,7 @@ class ContinuousEngine:
             self._d_cache = gen_lib.init_cache(self.draft_cfg, self.slots,
                                                self.max_len,
                                                quantize=self.kv_quantize,
-                                               device=dev)
+                                               device=dev, mesh=self.mesh)
             profiler.register_logical('kv_draft',
                                       profiler.tree_nbytes(self._d_cache))
         # The pool is zero-filled like every cache here: a miss gathers
@@ -1393,7 +1468,7 @@ class ContinuousEngine:
         if len(self._free_blocks) < n and self._trie is not None:
             pairs = self._trie.evict_nodes(n - len(self._free_blocks))
             self.share_evictions += len(pairs)
-            if self._kv_tiers is not None and pairs:
+            if self._tiers_on and pairs:
                 self._demote_evicted(pairs, parent)
             self._free_blocks.extend(b for b, _ in pairs)
         return [self._free_blocks.pop() for _ in range(n)]
@@ -1406,28 +1481,40 @@ class ContinuousEngine:
         the host as ``_HostCopy``s (pinned, non-blocking, an event each):
         the tier thread waits on those events, never on the stream, and
         the engine thread never waits at all. A chain that served a share
-        hit is hot: a saturated queue still takes it (``KVTiers.accepts``)."""
+        hit is hot: a saturated queue still takes it (``KVTiers.accepts``).
+
+        Under a mesh the tier lives on the head: every rank gathers its
+        heads of EVERY evicted block to the head (``_heads_to_head``, a
+        collective, so the gather cannot wait on the head's answers), and
+        the head alone asks ``accepts`` and offers the whole planes."""
         tiers = self._kv_tiers
         items = []
         for blk, node in pairs:
-            if not tiers.accepts(node.chain, hot=node.hits > 0):
+            if self.mesh is None and not tiers.accepts(node.chain,
+                                                       hot=node.hits > 0):
                 continue
-            parts = []
-            cur = node
-            while cur is not None:
-                parts.append(cur.key)
-                cur = cur.parent
-            row = [t for key in reversed(parts) for t in key]
-            items.append((node.chain, row, len(items), blk))
+            items.append((node, len(items), blk))
         if not items:
             return
+        self.tier_counts['evicted'] += len(items)
         nbp = 1
         while nbp < len(items):
             nbp *= 2
         tbl = np.zeros((nbp,), np.int64)  # pad -> junk sink block 0
-        tbl[:len(items)] = [blk for _, _, _, blk in items]
-        planes = _export_blocks(self._cache, _to_device(tbl, self.device))
-        tiers.offer_demote([(d, row, gi) for d, row, gi, _ in items],
+        tbl[:len(items)] = [blk for _, _, blk in items]
+        planes = tuple(
+            None if t is None else self._heads_to_head(t)
+            for t in _export_blocks(self._cache, _to_device(tbl,
+                                                            self.device)))
+        if tiers is None:
+            return  # a follower: its heads went to the head
+        if self.mesh is not None:
+            items = [it for it in items
+                     if tiers.accepts(it[0].chain, hot=it[0].hits > 0)]
+            if not items:
+                return
+        tiers.offer_demote([(node.chain, _chain_row(node), gi)
+                            for node, gi, _ in items],
                            tuple(None if t is None else _HostCopy(t)
                                  for t in planes), parent=parent)
 
@@ -1462,13 +1549,17 @@ class ContinuousEngine:
         (blocks host-resident now, or quarantined). Re-queue every parked
         request at the FRONT of the queue, keeping their FIFO seniority."""
         del digests, ok  # re-matching consults the index afresh
+        self._requeue_tier_waiting()
+        self._wake.set()
+
+    def _requeue_tier_waiting(self) -> None:
         with self._lock:
             if not self._tier_waiting:
                 return
+            self.tier_counts['fetches_done'] += 1
             for req in reversed(self._tier_waiting):
                 self._pending.appendleft(req)
             self._tier_waiting = []
-        self._wake.set()
 
     @staticmethod
     def _fire_callbacks(emitted: List[tuple]) -> None:
@@ -1594,26 +1685,15 @@ class ContinuousEngine:
         head = self._pending[0]
         nodes, partial, plen = self._trie.match(head.row)
         promote: list = []
-        fetch: list = []
-        if self._kv_tiers is not None:
-            promote, fetch = self._tier_consult(head.row, nodes)
-            if fetch and not nodes and not promote and head.tier_parks < 2:
-                # Whole chain cold on disk: park THIS request on a
-                # bounded background fetch (younger requests keep
-                # admitting); completion re-queues it at the head.
-                # Saturation or repeated parks degrade to a plain miss.
-                if self._kv_tiers.request_fetch(fetch,
-                                                self._tier_fetch_done,
-                                                parent=head.trace_parent):
-                    head.tier_parks += 1
-                    self._pending.popleft()
-                    self._tier_waiting.append(head)
-                    return None, True
-            elif fetch:
-                # Partial warmth: admit with what is resident now and
-                # warm the spilled tail for next time.
-                self._kv_tiers.request_fetch(fetch, self._tier_fetch_done,
-                                             parent=head.trace_parent)
+        if self._tiers_on:
+            promote, parked = self._decide(
+                lambda: self._tier_admission(head, nodes))
+            if parked:
+                head.tier_parks += 1
+                self.tier_counts['parked'] += 1
+                self._pending.popleft()
+                self._tier_waiting.append(head)
+                return None, True
         if promote:
             # The promoted chain covers >= one full block past the trie
             # match: more than any partial-tail fork donor could.
@@ -1651,10 +1731,36 @@ class ContinuousEngine:
         # Claim the host-tier entries LAST (validated and popped): a
         # backpressure return above must not have consumed them. A corrupt
         # entry truncates the promoted head; the owned blocks serve the
-        # tail.
-        pro = (self._kv_tiers.take_for_promote(promote) if promote
-               else [])
+        # tail. Under a mesh the other ranks learn only how many blocks
+        # the head promotes, and get their heads of them in
+        # ``_admit_shared``.
+        pro = []
+        if promote:
+            taken = self._decide(
+                lambda: self._kv_tiers.take_for_promote(promote), len)
+            pro = taken if self._head else [None] * taken
+            self.tier_counts['promoted'] += len(pro)
         return (head, slot, nodes, partial, plen, owned, pro), False
+
+    def _tier_admission(self, head: _Request, nodes: list) -> tuple:
+        """The head's tier consult for the queue's head (``_match_head``,
+        under the lock): returns (digests to promote, whether the request
+        parks on a spill fetch), after asking for any fetch."""
+        promote, fetch = self._tier_consult(head.row, nodes)
+        if fetch and not nodes and not promote and head.tier_parks < 2:
+            # Whole chain cold on disk: park THIS request on a bounded
+            # background fetch (younger requests keep admitting);
+            # completion re-queues it at the head. Saturation or repeated
+            # parks degrade to a plain miss.
+            if self._kv_tiers.request_fetch(fetch, self._tier_fetch_done,
+                                            parent=head.trace_parent):
+                return promote, True
+        elif fetch:
+            # Partial warmth: admit with what is resident now and warm
+            # the spilled tail for next time.
+            self._kv_tiers.request_fetch(fetch, self._tier_fetch_done,
+                                         parent=head.trace_parent)
+        return promote, False
 
     def _admit_shared(self, req: _Request, slot: int, nodes: list,
                       partial, plen: int, owned: List[int],
@@ -1695,17 +1801,19 @@ class ContinuousEngine:
             cfg = self.cfg
             shp = (cfg.n_layers, nbp, cfg.n_kv_heads, p, cfg.head_dim)
             kdt = self._cache.k.dtype
-            pads = {'k': np.zeros(shp, _host_dtype(kdt)),
-                    'v': np.zeros(shp, _host_dtype(kdt))}
-            if self.kv_quantize:
-                pads['k_s'] = np.zeros(shp[:-1], np.float32)
-                pads['v_s'] = np.zeros(shp[:-1], np.float32)
-            for j, planes in enumerate(pro):
-                for name, arr in pads.items():
-                    arr[:, j] = planes[name]
-            on_dev = {name: _to_device(arr, dev,
-                                       kdt if name in ('k', 'v') else None)
-                      for name, arr in pads.items()}
+            on_dev = {}
+            for name in ('k', 'v') + (('k_s', 'v_s') if self.kv_quantize
+                                      else ()):
+                code = name in ('k', 'v')
+                dt = kdt if code else torch.float32
+                shape = shp if code else shp[:-1]
+                whole = None
+                if self._head:  # the tier's whole planes; scattered below
+                    arr = np.zeros(shape, _host_dtype(dt))
+                    for j, planes in enumerate(pro):
+                        arr[:, j] = planes[name]
+                    whole = _to_device(arr, dev, dt)
+                on_dev[name] = self._heads_from_head(whole, shape, dt)
             _import_blocks(self._cache, on_dev['k'], on_dev['v'],
                            on_dev.get('k_s'), on_dev.get('v_s'),
                            _to_device(blocks, dev),
@@ -1730,7 +1838,8 @@ class ContinuousEngine:
             self.cfg, self.params, self._cache, _to_device(padded, dev),
             _to_device(table[None], dev), slot,
             _to_device(np.asarray([covered], np.int32), dev),
-            _to_device(np.asarray([len(suffix)], np.int32), dev))
+            _to_device(np.asarray([len(suffix)], np.int32), dev),
+            mesh=self.mesh)
         first = _sample(logits, *self._sampling_args(
             np.asarray([req.temperature], np.float32),
             np.asarray([req.top_k], np.int32),
@@ -1947,7 +2056,7 @@ class ContinuousEngine:
             if spec:
                 entry.d_cache = gen_lib.init_cache(
                     self.draft_cfg, 1, self.max_len,
-                    quantize=self.kv_quantize, device=dev)
+                    quantize=self.kv_quantize, device=dev, mesh=self.mesh)
         logits, entry.cache, entry.consumed = self._prefill_one_chunk(
             self.params, self.cfg, entry.cache, req.row, entry.consumed)
         with self._lock:
@@ -2192,10 +2301,11 @@ class ContinuousEngine:
                 lens_f[i] = len(r)
             d_cache_n = gen_lib.init_cache(self.draft_cfg, n, width_f,
                                            quantize=self.kv_quantize,
-                                           device=dev)
+                                           device=dev, mesh=self.mesh)
             _, d_cache_n = _prefill(self.draft_params,
                                     _to_device(padded_f, dev), d_cache_n,
-                                    self.draft_cfg, _to_device(lens_f, dev))
+                                    self.draft_cfg, _to_device(lens_f, dev),
+                                    mesh=self.mesh)
             _insert_cache(self._d_cache, d_cache_n, slots_d)
         with self._lock:
             self.prefills += n
@@ -2267,6 +2377,8 @@ class ContinuousEngine:
         err = None
         try:
             handoff = self._build_handoff(req, first)
+        except collectives.CollectiveError:
+            raise  # the ranks' lockstep is lost: serve/spmd.py ends it
         except Exception as exc:  # noqa: BLE001 -- isolate per request
             handoff, err = None, exc
         with self._lock:
@@ -2293,7 +2405,10 @@ class ContinuousEngine:
         the stream before the slot's blocks are released, so any later
         write to them follows the gather; the host copies are pinned and
         read through ``_HostCopy``, the export's one wait, outside the
-        lock."""
+        lock. Under a mesh each plane's KV heads are gathered to the head
+        first (a collective of the engine thread), so the handoff carries
+        whole heads, JAX's format; the other ranks' handoffs carry no
+        planes."""
         n = len(req.row)
         base = dict(row=list(req.row), first=int(first),
                     max_new=req.max_new, temperature=req.temperature,
@@ -2306,10 +2421,7 @@ class ContinuousEngine:
             if cache_n.quantized:
                 planes += [cache_n.k_s[:, i:i + 1, :, :n],
                            cache_n.v_s[:, i:i + 1, :, :n]]
-            copies = [_HostCopy(t) for t in planes]
-            k, v, k_s, v_s = ([_host_plane(c, t.dtype)
-                               for c, t in zip(copies, planes)]
-                              + [None, None])[:4]
+            k, v, k_s, v_s = self._host_planes(planes)
             return PrefillHandoff(layout='slot', k=k, v=v, k_s=k_s,
                                   v_s=v_s, **base)
         p = self.kv_block
@@ -2328,12 +2440,20 @@ class ContinuousEngine:
         tbl[:nb] = table[:nb]
         planes = [t[:, :nb] for t in _export_blocks(
             self._cache, _to_device(tbl, self.device)) if t is not None]
-        copies = [_HostCopy(t) for t in planes]
-        k, v, k_s, v_s = ([_host_plane(c, t.dtype)
-                           for c, t in zip(copies, planes)]
-                          + [None, None])[:4]
+        k, v, k_s, v_s = self._host_planes(planes)
         return PrefillHandoff(layout='paged', block=p, n_blocks=nb,
                               k=k, v=v, k_s=k_s, v_s=v_s, **base)
+
+    def _host_planes(self, planes: list) -> list:
+        """(k, v, k_s, v_s) of an export on the host, the scales None
+        for a bf16 cache: each plane's heads gathered to the head, all
+        copies issued before the first read. Nones off the head."""
+        whole = [self._heads_to_head(t) for t in planes]
+        if not self._head:
+            return [None] * 4
+        copies = [_HostCopy(t) for t in whole]
+        return ([_host_plane(c, t.dtype) for c, t in zip(copies, whole)]
+                + [None, None])[:4]
 
     def _admit_imports(self) -> None:
         """Install queued imported prompts (decode-role admission), FIFO.
@@ -2447,7 +2567,9 @@ class ContinuousEngine:
         ``paged.import_blocks`` over a pow2-padded block list (padding
         and, when the whole chain is shared, the one zero block land in
         the junk sink). Blocks below the local share point install as
-        references; their transferred bytes, if any, are ignored."""
+        references; their transferred bytes, if any, are ignored. Under
+        a mesh the head holds the planes (whole heads) and scatters each
+        rank its own."""
         req = entry.req
         n = len(req.row)
         p = self.kv_block
@@ -2473,16 +2595,20 @@ class ContinuousEngine:
                 on_dev.append(None)
                 continue
             want = torch.float32 if scale else self._cache.k.dtype
-            src = getattr(entry, name) if len(ids) else None
-            if src is None:
-                pad = np.zeros(shp[:-1] if scale else shp, _host_dtype(want))
-                tdt = want
-            else:
-                words, tdt = _plane_words(src)
-                pad = np.zeros(shp[:-1] if scale else shp, words.dtype)
-                pad[:, :len(ids)] = words[:, lo:hi]
-            t = _to_device(pad, dev, tdt)
-            on_dev.append(t if t.dtype == want else t.to(want))
+            shape = shp[:-1] if scale else shp
+            t = None
+            if self._head:
+                src = getattr(entry, name) if len(ids) else None
+                if src is None:
+                    pad = np.zeros(shape, _host_dtype(want))
+                    tdt = want
+                else:
+                    words, tdt = _plane_words(src)
+                    pad = np.zeros(shape, words.dtype)
+                    pad[:, :len(ids)] = words[:, lo:hi]
+                t = _to_device(pad, dev, tdt)
+                t = t if t.dtype == want else t.to(want)
+            on_dev.append(self._heads_from_head(t, shape, want))
         _import_blocks(self._cache, *on_dev, _to_device(blocks, dev),
                        _to_device(table_row, dev), slot, n)
         self._last[slot] = entry.first
@@ -2491,25 +2617,31 @@ class ContinuousEngine:
     def _install_import_dense(self, entry: _ImportEntry,
                               slot: int) -> None:
         """Slot-layout install: a 1-row prefill cache rebuilt from the
-        transferred planes, inserted like a local prefill's row."""
+        transferred planes, inserted like a local prefill's row (under a
+        mesh the head scatters each rank its heads of the planes)."""
         req = entry.req
         n = len(req.row)
         dev = self.device
         w = min(prompt_bucket(n), self.max_len)
         kdt = self._cache.k.dtype
+        cfg = self.cfg
         tensors = {}
         for name in ('k', 'v', 'k_s', 'v_s'):
-            src = getattr(entry, name)
-            if src is None:
+            scale = name in ('k_s', 'v_s')
+            if scale and not self.kv_quantize:
                 tensors[name] = None
                 continue
-            words, tdt = _plane_words(src)
-            pad = np.zeros(words.shape[:3] + (w,) + words.shape[4:],
-                           words.dtype)
-            pad[:, :, :, :n] = words
-            t = _to_device(pad, dev, tdt)
-            want = kdt if name in ('k', 'v') else torch.float32
-            tensors[name] = t if t.dtype == want else t.to(want)
+            want = torch.float32 if scale else kdt
+            shape = (cfg.n_layers, 1, cfg.n_kv_heads, w) + (
+                () if scale else (cfg.head_dim,))
+            t = None
+            if self._head:
+                words, tdt = _plane_words(getattr(entry, name))
+                pad = np.zeros(shape, words.dtype)
+                pad[:, :, :, :n] = words
+                t = _to_device(pad, dev, tdt)
+                t = t if t.dtype == want else t.to(want)
+            tensors[name] = self._heads_from_head(t, shape, want)
         cache_n = gen_lib.KVCache(
             k=tensors['k'], v=tensors['v'],
             lengths=_to_device(np.asarray([n], np.int32), dev),
@@ -2552,7 +2684,8 @@ class ContinuousEngine:
         self._cache, self._d_cache, out = _spec(
             self.cfg, self.draft_cfg, k, self.params, self.draft_params,
             self._cache, self._d_cache, self._last, self._limit,
-            _to_device(occupied, self.device), temps_d, tk, tp, gen)
+            _to_device(occupied, self.device), temps_d, tk, tp, gen,
+            mesh=self.mesh)
         # ONE transfer for the round's props, tgt and samp.
         out = _HostCopy(out)
         # First tokens first, while the round computes: emission counts on
@@ -2677,10 +2810,8 @@ class ContinuousEngine:
         args = (self.cfg, self.chunk_steps, self.params, self._cache,
                 self._last, self._limit, _to_device(occupied, self.device),
                 temps_d, tk, tp, gen)
-        if self.kv_layout == 'paged':
-            self._cache, self._last, toks = _paged_chunk(*args)
-        else:
-            self._cache, self._last, toks = _chunk(*args, mesh=self.mesh)
+        chunk = _paged_chunk if self.kv_layout == 'paged' else _chunk
+        self._cache, self._last, toks = chunk(*args, mesh=self.mesh)
         return _Inflight(reqs=reqs, toks=_HostCopy(toks),
                          steps=self.chunk_steps)
 

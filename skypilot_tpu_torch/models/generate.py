@@ -189,16 +189,20 @@ def _qkv_proj(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
 
 def _mlp_tail(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
               token_mask: Optional[torch.Tensor] = None,
-              reduce=None) -> torch.Tensor:
+              reduce=None, mesh=None) -> torch.Tensor:
     """Decoder-block back half (post-attention norm + MoE or dense SwiGLU
     MLP), residual included. ``token_mask`` [B, S] (MoE only) keeps
     padded and junk positions out of expert routing. ``reduce`` sums the
-    row-split ``w_down`` product over the tensor ranks."""
+    row-split ``w_down`` product over the tensor ranks. On a tensor
+    ``mesh`` the MoE block runs ``moe_mlp(mesh=)`` with JAX's rules: each
+    rank holds every expert's slice of the ``mlp`` columns, the tokens
+    are whole on every rank (so capacity and drop order are the one
+    device's), and ``we_down``'s partial sums are summed over ``tensor``."""
     h = llama.rms_norm(x, layer['mlp_norm'], cfg.norm_eps)
     if cfg.num_experts > 0:
         out, _ = moe.moe_mlp(h, layer['moe'], cfg.num_experts,
                              cfg.expert_top_k, cfg.expert_capacity_factor,
-                             token_mask=token_mask)
+                             token_mask=token_mask, mesh=mesh)
         return x + out
     gate = _mm(h, layer['w_gate'], 'bsd,df->bsf')
     up = _mm(h, layer['w_up'], 'bsd,df->bsf')
@@ -213,7 +217,7 @@ def _cached_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
                   k_s: Optional[torch.Tensor] = None,
                   v_s: Optional[torch.Tensor] = None,
                   token_mask: Optional[torch.Tensor] = None,
-                  reduce=None) -> torch.Tensor:
+                  reduce=None, mesh=None) -> torch.Tensor:
     """One decoder block writing this block's K/V into the (per-layer
     view of the) cache. x: [B, S, d]; ``cache_lens`` [B] = write
     offsets; ``valid`` [B] = cache_lens + real new tokens per row;
@@ -225,7 +229,7 @@ def _cached_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
     _write_block(v_cache, v_s, v.transpose(1, 2), cache_lens)
     att = _cached_attention(q, k_cache, v_cache, positions, valid, k_s, v_s)
     x = x + _mm(att, layer['wo'], 'bshk,hkd->bsd', reduce=reduce)
-    return _mlp_tail(cfg, x, layer, token_mask, reduce)
+    return _mlp_tail(cfg, x, layer, token_mask, reduce, mesh)
 
 
 def _route_mask(cfg: llama.LlamaConfig, positions: torch.Tensor,
@@ -323,7 +327,8 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
             cfg, x, llama.layer_params(params['layers'], i), positions,
             cache.k[i], cache.v[i], write_start, valid,
             cache.k_s[i] if cache.quantized else None,
-            cache.v_s[i] if cache.quantized else None, token_mask, reduce)
+            cache.v_s[i] if cache.quantized else None, token_mask, reduce,
+            tp)
     x = llama.rms_norm(x, params['final_norm'], cfg.norm_eps)
     new_cache = dataclasses.replace(cache, lengths=valid)
     if all_logits:

@@ -45,10 +45,13 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from skypilot_tpu_torch.models import llama
-from skypilot_tpu_torch.models.generate import (KVCache, _cached_attention,
+from skypilot_tpu_torch.models.generate import (KV_AXES, KVCache,
+                                                _cached_attention, _embed,
                                                 _mlp_tail, _qkv_proj,
-                                                _quantize_block)
+                                                _quantize_block, tensor_mesh)
 from skypilot_tpu_torch.models.quantization import mm as _mm
+from skypilot_tpu_torch.parallel import collectives
+from skypilot_tpu_torch.parallel import sharding as sharding_lib
 from skypilot_tpu_torch.utils import prefix_affinity as affinity_lib
 
 
@@ -80,12 +83,16 @@ class PagedKVCache:
 
 def init_pool(cfg: llama.LlamaConfig, slots: int, max_len: int,
               n_blocks: int, block: int, quantize: bool = False,
-              device=None) -> PagedKVCache:
+              device=None, mesh=None) -> PagedKVCache:
     """A zeroed pool on ``device``. ``n_blocks`` INCLUDES block 0 (the
     junk sink): usable capacity is ``(n_blocks - 1) * block`` positions.
     ``max_blocks`` per slot covers ``max_len``. The block size must be a
     power of two: prefill widths are power-of-two buckets, and the
-    insert scatters ``width // block`` whole blocks."""
+    insert scatters ``width // block`` whole blocks. With a tensor-parallel
+    ``mesh`` the planes are born sharded on kv_heads (JAX's
+    ``engine.py:1373-1388``): this rank's heads of every block; the
+    tables and lengths stay whole, as the scatters and gathers index
+    those dims only."""
     if block < 1 or block & (block - 1):
         raise ValueError(f'block size must be a power of two, '
                          f'got {block}')
@@ -94,6 +101,9 @@ def init_pool(cfg: llama.LlamaConfig, slots: int, max_len: int,
                          f'block size {block}')
     mb = max_len // block
     shape = (cfg.n_layers, n_blocks, cfg.n_kv_heads, block, cfg.head_dim)
+    if tensor_mesh(mesh) is not None:
+        shape = sharding_lib.local_shape(shape, sharding_lib.logical_sharding(
+            mesh, sharding_lib.ShardingRules(), KV_AXES))
     tables = torch.zeros((slots, mb), dtype=torch.int32, device=device)
     lengths = torch.zeros((slots,), dtype=torch.int32, device=device)
     if quantize:
@@ -211,7 +221,8 @@ def _paged_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer,
                  active_rows: Optional[torch.Tensor],
                  k_s: Optional[torch.Tensor],
                  v_s: Optional[torch.Tensor],
-                 token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 token_mask: Optional[torch.Tensor] = None,
+                 mesh=None) -> torch.Tensor:
     """One decoder block at S >= 1 over the paged pool (per-layer views
     ``[NB, H, P, D]``, written in place). The math is ``generate``'s
     (``_qkv_proj`` / ``_cached_attention`` / ``_mlp_tail``); only the
@@ -219,7 +230,12 @@ def _paged_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer,
     dense layer. Rows not active write the junk sink: within a chunk a
     finishing row stays active and its blocks are released only after
     the chunk is read, so active writes never race a reallocation.
-    ``token_mask`` [B, S]: the positions MoE routes."""
+    ``token_mask`` [B, S]: the positions MoE routes. ``mesh``: the pool
+    planes and the weights are this rank's shards, and the row-split
+    ``wo`` and ``w_down`` products are summed over ``tensor`` before their
+    one rounding, as in ``generate._cached_layer``."""
+    reduce = None if mesh is None else (
+        lambda t: collectives.psum(t, mesh))
     s = x.shape[1]
     positions = lengths[:, None] + torch.arange(
         s, dtype=torch.int32, device=x.device)[None]  # [B, S]
@@ -243,16 +259,16 @@ def _paged_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer,
         lengths + s,
         _view(k_s, tables) if k_s is not None else None,
         _view(v_s, tables) if v_s is not None else None)
-    x = x + _mm(att, layer['wo'], 'bshk,hkd->bsd')
-    return _mlp_tail(cfg, x, layer, token_mask)
+    x = x + _mm(att, layer['wo'], 'bshk,hkd->bsd', reduce=reduce)
+    return _mlp_tail(cfg, x, layer, token_mask, reduce, mesh)
 
 
 def forward_paged(params, tokens: torch.Tensor, cache: PagedKVCache,
                   cfg: llama.LlamaConfig,
                   active_rows: Optional[torch.Tensor] = None,
                   all_logits: bool = False,
-                  logit_index: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, PagedKVCache]:
+                  logit_index: Optional[torch.Tensor] = None,
+                  mesh=None) -> Tuple[torch.Tensor, PagedKVCache]:
     """Run ``tokens`` [B, S] over the paged pool (S=1 decode step; S=W
     padded tail prefill); returns (float32 logits, the cache advanced S,
     sharing the pool). ``all_logits`` returns per-POSITION logits
@@ -262,7 +278,15 @@ def forward_paged(params, tokens: torch.Tensor, cache: PagedKVCache,
     scatter/gather replacing the dense row update. An MoE model routes
     every position of the ``active_rows`` (all rows when None), as at
     ``paged.py:280`` of the JAX package: there is no padding term, as the
-    JAX engine runs MoE through this forward at S = 1 only."""
+    JAX engine runs MoE through this forward at S = 1 only.
+
+    ``mesh`` (tensor parallelism, ``generate.forward_cached``'s):
+    ``params`` and the pool planes are this rank's slices; the embedding
+    is the vocab-split lookup and its ``psum``, the decode kernel runs per
+    head shard on the gathered view, and the vocab-split logits
+    (``all_logits``' too) are all-gathered, so every rank holds them
+    whole."""
+    tp = tensor_mesh(mesh)
     b, s = tokens.shape
     token_mask = None
     if cfg.num_experts > 0:
@@ -270,24 +294,28 @@ def forward_paged(params, tokens: torch.Tensor, cache: PagedKVCache,
         if active_rows is not None:
             mask = mask & active_rows[:, None]
         token_mask = mask.to(cfg.dtype)
-    x = params['embed'].to(cfg.dtype)[tokens.long()]
+    x = _embed(params['embed'], tokens, cfg, tp)
     for i in range(cfg.n_layers):
         x = _paged_layer(
             cfg, x, llama.layer_params(params['layers'], i), cache.lengths,
             cache.tables, cache.k[i], cache.v[i], active_rows,
             cache.k_s[i] if cache.quantized else None,
-            cache.v_s[i] if cache.quantized else None, token_mask)
+            cache.v_s[i] if cache.quantized else None, token_mask, tp)
     x = llama.rms_norm(x, params['final_norm'], cfg.norm_eps)
     new_cache = dataclasses.replace(cache, lengths=cache.lengths + s)
     if all_logits:
-        return (_mm(x, params['lm_head'], 'bsd,dv->bsv',
-                    out_dtype=torch.float32), new_cache)
-    if logit_index is not None:
-        last = x[torch.arange(b, device=x.device), logit_index.long()]
+        logits = _mm(x, params['lm_head'], 'bsd,dv->bsv',
+                     out_dtype=torch.float32)
     else:
-        last = x[:, -1]
-    return (_mm(last, params['lm_head'], 'bd,dv->bv',
-                out_dtype=torch.float32), new_cache)
+        if logit_index is not None:
+            last = x[torch.arange(b, device=x.device), logit_index.long()]
+        else:
+            last = x[:, -1]
+        logits = _mm(last, params['lm_head'], 'bd,dv->bv',
+                     out_dtype=torch.float32)
+    if tp is not None:
+        logits = collectives.all_gather(logits, tp, dim=-1)
+    return logits, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -592,7 +620,7 @@ def _prefill_shared_impl(cfg: llama.LlamaConfig, params,
                          cache: PagedKVCache, tokens: torch.Tensor,
                          table_row: torch.Tensor, slot: int,
                          start: torch.Tensor,
-                         slen: torch.Tensor) -> torch.Tensor:
+                         slen: torch.Tensor, mesh=None) -> torch.Tensor:
     """Suffix prefill DIRECTLY over the pool: the block-share hit path.
     ``tokens`` [1, W] is the padded unshared tail; ``table_row`` [1, MB]
     already points its head at the shared blocks and its tail at owned
@@ -601,11 +629,11 @@ def _prefill_shared_impl(cfg: llama.LlamaConfig, params,
     block gather and scatters the tail's KV straight into the owned
     blocks (no dense scratch row, no insert copy). Installs the table
     and final length at ``slot``, in place, and returns the tail's
-    last-real-token logits [1, V]."""
+    last-real-token logits [1, V] (whole on every rank under ``mesh``)."""
     row_cache = PagedKVCache(k=cache.k, v=cache.v, tables=table_row,
                              lengths=start, k_s=cache.k_s, v_s=cache.v_s)
     logits, _ = forward_paged(params, tokens, row_cache, cfg,
-                              logit_index=slen - 1)
+                              logit_index=slen - 1, mesh=mesh)
     cache.tables[slot] = table_row[0]
     cache.lengths[slot] = start[0] + slen[0]
     return logits

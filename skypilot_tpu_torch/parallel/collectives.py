@@ -8,7 +8,10 @@ for all-reduce over n ranks, busbw = algbw * 2 * (n - 1) / n), which the
 
 JAX's GSPMD inserts the model's collectives itself; the port issues them
 by hand through ``psum``, ``pmax`` and ``all_gather`` here, which the
-sharded forward (``models/generate.py``) and quantization call. Training
+sharded forward (``models/generate.py``) and quantization call;
+``gather_to`` and ``scatter_from`` move KV heads between a serving
+replica's ranks and its head (``models/engine.py``: demotes to the KV
+tiers and exports gather, promotes and imports scatter). Training
 differentiates through them: ``gather_fsdp`` (all-gather forward,
 reduce-scatter backward: an fsdp shard of a parameter), ``copy_to``
 (identity forward, ``psum`` backward: a replicated activation entering a
@@ -169,12 +172,13 @@ def _bytes(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().reshape(-1).view(torch.uint8)
 
 
-def _shared(x: torch.Tensor, mesh, axis: str, read):
+def _shared(x: torch.Tensor, mesh, axis: str, read, write=None):
     """A collective through the group's arena, or None when the mesh does
     not stage through the host or the group spans machines: this rank's
-    ``x`` into its slot, the barrier, then ``read(slots, arena)`` on this
-    rank's device, ``slots(i, start, nbytes)`` giving a device copy of
-    rank i's bytes."""
+    ``x`` into its slot (or ``write(slot)`` fills any slots, ``slot(i)``
+    being rank i's ``x``-sized bytes of this turn), the barrier, then
+    ``read(slots, arena)`` on this rank's device, ``slots(i, start,
+    nbytes)`` giving a device copy of rank i's bytes."""
     if not mesh.stages_on_host:
         return None
     group = mesh.group(axis)
@@ -183,7 +187,10 @@ def _shared(x: torch.Tensor, mesh, axis: str, read):
     if arena is None:
         return None
     half, arena.turn = arena.turn, arena.turn ^ 1
-    arena.slot(half, arena.index, raw.numel()).copy_(raw)
+    if write is None:
+        arena.slot(half, arena.index, raw.numel()).copy_(raw)
+    else:
+        write(lambda i: arena.slot(half, i, raw.numel()))
     dist.barrier(group=group)
 
     def slots(i, start=0, nbytes=raw.numel()):
@@ -245,6 +252,66 @@ def all_gather(x: torch.Tensor, mesh, axis: str = 'tensor',
         dist.all_gather(list(out.unbind(0)), y, group=group)
         return torch.cat(out.unbind(0), dim=dim).to(x.device)
     return _timed(f'all_gather over {axis}', run, 'all_gather', _nbytes(x))
+
+
+def gather_to(x: torch.Tensor, mesh, axis: str = 'tensor', dim: int = -1,
+              dst: int = 0) -> Optional[torch.Tensor]:
+    """The ranks' ``x`` (one shape on every rank) concatenated along
+    ``dim`` in axis order, on rank ``dst`` of ``axis`` alone; None on
+    the others. The serving engine brings its ranks' KV heads to the
+    head this way (a demote, an export)."""
+    group = mesh.group(axis)
+    if group is None:
+        return x
+    n = mesh.shape[axis]
+    mine = mesh.axis_index(axis) == dst
+
+    def run():
+        parts = _shared(x, mesh, axis, lambda slots, arena: [
+            slots(i).view(x.dtype).view(x.shape) for i in range(n)]
+            if mine else [])
+        if parts is not None:
+            return torch.cat(parts, dim=dim) if mine else None
+        y = _to_medium(x, mesh)
+        out = [torch.empty_like(y) for _ in range(n)] if mine else None
+        dist.gather(y, out, dst=dist.get_global_rank(group, dst),
+                    group=group)
+        return torch.cat(out, dim=dim).to(x.device) if mine else None
+    return _timed(f'gather over {axis}', run, 'gather', _nbytes(x))
+
+
+def scatter_from(x: Optional[torch.Tensor], mesh, shape, dtype,
+                 axis: str = 'tensor', dim: int = -1,
+                 src: int = 0) -> torch.Tensor:
+    """Rank ``src``'s ``x`` cut into ``axis``-size blocks along ``dim``:
+    rank i of the axis gets block i, of ``shape`` and ``dtype`` (``x``
+    is None on every rank but ``src``). The inverse of ``gather_to``:
+    the head hands each rank its KV heads (a promote, an import)."""
+    group = mesh.group(axis)
+    if group is None:
+        return x
+    n = mesh.shape[axis]
+    me = mesh.axis_index(axis)
+    out = torch.empty(shape, dtype=dtype, device=mesh.device)
+
+    def run():
+        blocks = (None if me != src else [
+            b.contiguous() for b in x.chunk(n, dim)])
+
+        def write(slot):
+            for i, b in enumerate(blocks or ()):
+                slot(i).copy_(_bytes(b))
+        got = _shared(out, mesh, axis, lambda slots, arena: slots(me).view(
+            dtype).view(shape), write=write)
+        if got is not None:
+            return got
+        medium = (torch.empty_like(out, device='cpu')
+                  if mesh.stages_on_host else out)
+        dist.scatter(medium, None if blocks is None else [
+            b.to(medium.device) for b in blocks],
+            src=dist.get_global_rank(group, src), group=group)
+        return medium.to(mesh.device)
+    return _timed(f'scatter over {axis}', run, 'scatter', _nbytes(out))
 
 
 def ppermute_ring(x: torch.Tensor, mesh, axis: str,
@@ -377,17 +444,20 @@ def gather_fsdp(x: torch.Tensor, mesh, dim: int,
 
 def copy_to(x: torch.Tensor, mesh, axis: str = 'tensor') -> torch.Tensor:
     """``x``, replicated over ``axis``, entering work split over it: the
-    gradient is summed over the axis."""
-    if mesh.group(axis) is None:
+    gradient is summed over the axis. With no gradient to take (serving,
+    under ``torch.inference_mode``) it is ``x`` itself."""
+    if mesh.group(axis) is None or not torch.is_grad_enabled():
         return x
     return _CopyTo.apply(x, mesh, axis)
 
 
 def reduce_from(x: torch.Tensor, mesh, axis: str = 'tensor') -> torch.Tensor:
     """The sum over ``axis`` of partial results (a row-split product), the
-    gradient passed through."""
+    gradient passed through. With no gradient to take it is ``psum``."""
     if mesh.group(axis) is None:
         return x
+    if not torch.is_grad_enabled():
+        return psum(x, mesh, axis)
     return _ReduceFrom.apply(x, mesh, axis)
 
 

@@ -85,6 +85,10 @@ class Gang:
         default_factory=list)
     rendezvous_dir: Optional[str] = None
     store: Optional[dist.Store] = None
+    # Set when ``close`` begins: a follower that leaves after the last
+    # barrier is leaving, not dying (under NCCL it may exit while this
+    # process still tears its groups down).
+    closing: bool = False
 
     @property
     def is_head(self) -> bool:
@@ -101,12 +105,13 @@ class Gang:
 
     def watch_children(self, on_death: Callable[[str], None]) -> None:
         """Call ``on_death(reason)`` from a watcher thread when a spawned
-        follower exits before ``release_children``."""
+        follower exits before ``close`` or ``release_children``."""
         def watch():
-            while self.children:
+            while self.children and not self.closing:
                 for child in list(self.children):
                     code = child.poll()
-                    if code is not None and child in self.children:
+                    if code is not None and child in self.children \
+                            and not self.closing:
                         on_death(f'rank pid {child.pid} exited with '
                                  f'{code}')
                         return
@@ -131,6 +136,7 @@ class Gang:
         down right after the barrier, before any waits for another to
         exit. Returns the spawned followers' exit codes; raises
         ``CollectiveError`` when a rank is lost on the way."""
+        self.closing = True
         lost = None
         try:
             collectives.barrier()

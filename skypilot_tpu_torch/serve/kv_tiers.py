@@ -837,9 +837,11 @@ class KVTiers:
             if len(data) != int(p['nbytes']) or \
                     _crc(data) != int(p['crc32']):
                 return None
-            out[p['name']] = np.frombuffer(
-                data, dtype=_WORDS.get(dtype, np.dtype(dtype))
-            ).reshape(shape)
+            # Not ``_WORDS.get(dtype, np.dtype(dtype))``: its default is
+            # built first, and numpy knows no 'bfloat16' where ml_dtypes
+            # was never imported (the card's machine, a replica's ranks).
+            words = _WORDS[dtype] if dtype in _WORDS else np.dtype(dtype)
+            out[p['name']] = np.frombuffer(data, dtype=words).reshape(shape)
         if want:
             return None  # a required plane is missing
         return out

@@ -79,7 +79,13 @@ process per rank. ``main()`` brings the ranks up (rank 0 starts N - 1
 followers with its own argv, or joins the hosts of a multi-host replica
 under the gang launcher's env); rank 0 serves HTTP, every rank holds its
 shard of the weights (initialised and quantized sharded) and of the KV
-cache, and ``SpmdEngine`` keeps them in lockstep. ``/health`` ``tp`` is N
+cache, and ``SpmdEngine`` keeps them in lockstep. Every option serves
+on such a replica as on one device: the paged layout with block sharing
+and the KV tiers (kept whole on rank 0), a draft model (sharded by the
+target's rules), an MoE model, and the prefill and decode roles, whose
+``/v1/kv/*`` payloads carry whole KV heads (the head gathers the ranks'
+heads at an export and scatters them at an import), so a ``--tp 1`` and
+a ``--tp N`` replica hand off both ways. ``/health`` ``tp`` is N
 (``tp_backend`` names the collective backend). As the JAX replica does
 with its decode kernel on (the port's is always on), ``--engine off`` with
 ``--tp > 1`` is refused at startup and a seeded request on such a replica
@@ -227,12 +233,6 @@ class _Pending:
         return (self.temperature, self.top_k, self.top_p, None)
 
 
-# The handoff's admissions bypass the arrival broadcast that keeps a
-# tensor-parallel replica's ranks in lockstep (serve/spmd.py).
-TP_HANDOFF_ERROR = ('KV export and import are not ported on a --tp > 1 '
-                    'replica yet')
-
-
 class LlmServer:
     """One model replica. ``device`` None = CUDA (raises without a
     card); the tests pass ``device='cpu'``."""
@@ -365,8 +365,14 @@ class LlmServer:
         if self.draft_cfg is not None:
             dgen = torch.Generator(device=self.device)
             dgen.manual_seed(seed + 1)
-            self.draft_params = llama.init_params(self.draft_cfg, dgen,
-                                                  self.device)
+            if self.mesh is not None:
+                # The draft rides the target's mesh by the same rules,
+                # born sharded like it.
+                self.draft_params = llama.init_params_sharded(
+                    self.draft_cfg, dgen, self.mesh, device=self.device)
+            else:
+                self.draft_params = llama.init_params(self.draft_cfg, dgen,
+                                                      self.device)
         profiler.mark('weights_load')
         profiler.register_logical('weights',
                                   profiler.tree_nbytes(self.params))
@@ -1188,8 +1194,6 @@ class LlmServer:
         if self.engine is None:
             return 400, {'error': 'KV export requires the continuous '
                                   'engine'}
-        if self.tp > 1:
-            return 400, {'error': TP_HANDOFF_ERROR}
         return self._traced('serve.kv_export', headers,
                             self._kv_export_inner, raw, headers or {},
                             reply_headers)
@@ -1334,8 +1338,6 @@ class LlmServer:
         if self.engine is None:
             return 400, {'error': 'KV import requires the continuous '
                                   'engine'}
-        if self.tp > 1:
-            return 400, {'error': TP_HANDOFF_ERROR}
         return self._traced('serve.kv_import', headers,
                             self._kv_import_inner, raw, headers or {},
                             query or {}, write)
@@ -1720,6 +1722,30 @@ def server_from_args(args: argparse.Namespace, device=None) -> LlmServer:
                      role=args.role, tp=args.tp, device=device)
 
 
+def _rank_engine_state(engine) -> Dict[str, Any]:
+    """The engine state every rank of a replica must agree on, beside the
+    digest: the paged block accounts (free, owned, shared, cached), the
+    share, speculative and handoff counters, and the engine's side of
+    the KV tier decisions."""
+    st = engine.stats()
+    kb = st['kv_blocks']
+    spec = st['speculative']
+    return {
+        'kv_blocks': None if kb is None else [
+            kb[k] for k in ('free', 'owned', 'shared', 'cached')],
+        'share': [st['prefix_share'][k] for k in (
+            'hits', 'hit_tokens', 'misses', 'commits', 'evictions',
+            'cow_forks')],
+        'speculative': None if spec is None else [
+            spec[k] for k in ('rounds', 'proposals', 'accepted')],
+        'disagg': [st['disagg'][k] for k in ('exports', 'imports',
+                                             'import_errors')],
+        'prefill_tokens': st['prefill_tokens'],
+        # Lists, not objects: the line is one flat JSON object.
+        'tier_counts': [engine.tier_counts[k] for k in (
+            'evicted', 'promoted', 'parked', 'fetches_done')]}
+
+
 def _rank_summary(server: LlmServer, gang) -> None:
     """The ``tp-rank-summary`` line a rank prints on its way out: its
     weights' bytes, the card's peak memory, its collectives and their
@@ -1739,7 +1765,9 @@ def _rank_summary(server: LlmServer, gang) -> None:
         'flash_decode_launches': decode_attention.flash_decode.launches,
         'dispatches': server.engine.dispatches,
         'broadcasts': server.engine.broadcasts,
-        'sampled_digest': server.engine.sampled_digest})
+        'decisions': server.engine.decisions,
+        'sampled_digest': server.engine.sampled_digest,
+        **_rank_engine_state(server.engine)})
     # One write: the ranks of a host share its stdout.
     sys.stdout.flush()
     os.write(sys.stdout.fileno(), (line + '\n').encode())

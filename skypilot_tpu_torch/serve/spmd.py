@@ -19,6 +19,17 @@ it until the head's next iteration. Only the engine thread issues
 collectives. Followers hold silent twins of the requests; HTTP,
 streaming callbacks and ``/health`` live on the head alone.
 
+Everything else the head alone knows reaches the other ranks the same
+way. An export's twin carries its flag; an import's carries its row,
+first token, layout and block start, and its planes stay on the head,
+which scatters each rank its KV heads when the import admits. The trie
+refresh of a ``/v1/kv/prepare`` probe and the completion of a KV tier
+fetch ride the next arrival broadcast. The KV tiers live on the head (a
+worker thread whose progress differs from rank to rank could not answer
+alike), and ``_decide`` broadcasts each of their answers that shapes a
+device decision (a promote, a park on a fetch) at the point of the
+iteration where every rank needs it.
+
 The gang (``maybe_initialize``, over ``parallel/gang.py``, which sharded
 training shares): the gang launcher's env contract says how many host
 processes there are; each starts ``tp / JAX_NUM_PROCESSES`` local ranks,
@@ -52,12 +63,13 @@ from __future__ import annotations
 import pickle
 import threading
 import time
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-from skypilot_tpu_torch.models.engine import ContinuousEngine, _Request
+from skypilot_tpu_torch.models.engine import (ContinuousEngine, _ImportEntry,
+                                              _Request)
 from skypilot_tpu_torch.parallel import collectives
 from skypilot_tpu_torch.parallel import gang as gang_lib
 
@@ -115,16 +127,24 @@ class SpmdEngine(ContinuousEngine):
     ``on_fatal(exc)`` runs on the engine thread after a collective failed
     and every waiter was failed."""
 
-    _GUARDED_BY = {'_incoming': '_incoming_lock'}
+    _GUARDED_BY = {'_incoming': '_incoming_lock',
+                   '_incoming_imports': '_incoming_lock',
+                   '_incoming_touches': '_incoming_lock',
+                   '_fetched': '_incoming_lock'}
 
     def __init__(self, *args, **kw):
         self.rank = dist.get_rank()
         self.world = dist.get_world_size()
+        self._head = self.rank == 0
         self._incoming: List[_Request] = []
+        self._incoming_imports: List[_ImportEntry] = []
+        self._incoming_touches: List[List[int]] = []
+        self._fetched = False
         self._incoming_lock = threading.Lock()
         self.on_fatal: Optional[Callable[[Exception], None]] = None
         self.fatal: Optional[Exception] = None
         self.broadcasts = 0
+        self.decisions = 0
         # The arrival broadcast moves host bytes: a gloo group, the
         # default one unless the model's collectives run on NCCL.
         self._arrival_group = (None if dist.get_backend() == 'gloo'
@@ -133,57 +153,133 @@ class SpmdEngine(ContinuousEngine):
 
     # -- arrival --------------------------------------------------------
 
-    def submit(self, row, max_new, temperature=0.0, on_tokens=None,
-               top_k=0, top_p=1.0, eos=None):
+    def _check_head(self, what: str) -> None:
         if self.rank != 0:
-            raise RuntimeError('submit() is head-only; follower ranks '
+            raise RuntimeError(f'{what} is head-only; follower ranks '
                                'receive requests via the broadcast')
-        # Same validation and construction as the parent, but queued in
-        # _incoming so that arrival stays collective.
-        req = self._build_request(row, max_new, temperature, on_tokens,
-                                  top_k, top_p, eos)
+
+    def _enqueue(self, req: _Request) -> None:
+        # Same validation and construction as the parent (submit and
+        # submit_prefill), but queued in _incoming so that arrival stays
+        # collective.
+        self._check_head('submit()')
         with self._incoming_lock:
             self._incoming.append(req)
         self.start()
         self._wake.set()
-        return req.future
+
+    def _enqueue_import(self, entry: _ImportEntry) -> None:
+        # Validated on the head (submit_import); the planes stay here
+        # and each rank's heads of them are scattered at the install.
+        self._check_head('submit_import()')
+        with self._incoming_lock:
+            self._incoming_imports.append(entry)
+        self.start()
+        self._wake.set()
+
+    def probe_chain(self, row: List[int]) -> int:
+        """The parent's answer, read off the trie without touching it: the
+        LRU refresh rides the next arrival broadcast, so that every rank
+        refreshes the same nodes in the same iteration (eviction order,
+        and with it the block ids, must agree)."""
+        if self._trie is None:
+            return 0
+        p = self.kv_block
+        n = 0
+        with self._lock:
+            kids = self._trie.children
+            for pos in range(0, (len(row) // p) * p, p):
+                node = kids.get(tuple(row[pos:pos + p]))
+                if node is None:
+                    break
+                n += 1
+                kids = node.children
+        with self._incoming_lock:
+            self._incoming_touches.append(list(row))
+        self._wake.set()
+        return n
+
+    def _tier_fetch_done(self, digests, ok) -> None:
+        # The tier thread (the head's): the re-queue of the requests
+        # parked on the fetch rides the next arrival broadcast.
+        del digests, ok
+        with self._incoming_lock:
+            self._fetched = True
+        self._wake.set()
+
+    def _decide(self, fn, share=None):
+        """The head's answer to ``fn()`` on every rank (the parent's
+        ``_decide``): the head computes it and broadcasts
+        ``share(answer)``, or the answer itself; the others receive. A
+        decision that raises on the head raises on every rank alike, so
+        the parent's recovery runs everywhere in step."""
+        self.decisions += 1
+        if self.rank == 0:
+            try:
+                answer = fn()
+                msg = ('ok', share(answer) if share is not None else answer)
+            except Exception as exc:  # noqa: BLE001 -- raised on every rank
+                answer, msg = None, ('error', repr(exc))
+            _broadcast_bytes(pickle.dumps(msg), self._arrival_group)
+        else:
+            msg = pickle.loads(_broadcast_bytes(None, self._arrival_group))
+            answer = msg[1]
+        if msg[0] == 'error':
+            raise RuntimeError(f'the head\'s decision failed: {msg[1]}')
+        return answer
 
     @staticmethod
     def _spec_of(req: _Request) -> dict:
         return {'row': list(req.row), 'max_new': req.max_new,
                 'temperature': req.temperature, 'top_k': req.top_k,
                 'top_p': req.top_p,
-                'eos': sorted(req.eos) if req.eos else None}
+                'eos': sorted(req.eos) if req.eos else None,
+                'export': req.export}
 
-    def _exchange_incoming(self) -> Tuple[bool, List[_Request]]:
+    def _twin(self, s: dict) -> _Request:
+        # The same constructor as submit(): identical validation and the
+        # same uncancellable futures as the head's real objects.
+        return self._build_request(
+            s['row'], s['max_new'], s['temperature'], None, s['top_k'],
+            s['top_p'], frozenset(s['eos']) if s['eos'] else None,
+            export=s['export'])
+
+    def _exchange_incoming(self) -> dict:
         """The per-iteration collective: the head ships (stop?, new request
-        specs); every rank returns the same batch in the same order. The
-        head keeps its real request objects (live futures and streams),
-        followers build silent twins."""
+        specs, new imports without their planes, rows whose trie chains a
+        ``probe_chain`` refreshed, whether a tier fetch completed); every
+        rank returns the same batch in the same order. The head keeps its
+        real request objects (live futures and streams, an import's
+        planes), followers build silent twins."""
         self.broadcasts += 1
         if self.rank == 0:
             with self._incoming_lock:
-                batch = self._incoming
-                self._incoming = []
+                batch, self._incoming = self._incoming, []
+                imports, self._incoming_imports = self._incoming_imports, []
+                touches, self._incoming_touches = self._incoming_touches, []
+                fetched, self._fetched = self._fetched, False
             # Snapshot stop ONCE: returning the live flag instead of the
             # broadcast value would let a stop() landing mid-iteration
             # end the head while followers got stop=False and hang in the
             # next collective.
             stop = self._stop
             _broadcast_bytes(pickle.dumps(
-                {'stop': stop, 'reqs': [self._spec_of(r) for r in batch]}),
+                {'stop': stop, 'reqs': [self._spec_of(r) for r in batch],
+                 'imports': [dict(self._spec_of(e.req), first=e.first,
+                                  layout=e.layout,
+                                  block_start=e.block_start)
+                             for e in imports],
+                 'touches': touches, 'fetched': fetched}),
                 self._arrival_group)
-            return stop, batch
+            return {'stop': stop, 'reqs': batch, 'imports': imports,
+                    'touches': touches, 'fetched': fetched}
         msg = pickle.loads(_broadcast_bytes(None, self._arrival_group))
-        # The same constructor as submit(): identical validation and the same
-        # uncancellable futures as the head's real objects.
-        reqs = [
-            self._build_request(
-                s['row'], s['max_new'], s['temperature'], None,
-                s['top_k'], s['top_p'],
-                frozenset(s['eos']) if s['eos'] else None)
-            for s in msg['reqs']]
-        return msg['stop'], reqs
+        msg['reqs'] = [self._twin(s) for s in msg['reqs']]
+        msg['imports'] = [
+            _ImportEntry(req=self._twin(s), first=s['first'],
+                         layout=s['layout'], block_start=s['block_start'])
+            for s in msg['imports']]
+        return msg
 
     # -- lockstep loop --------------------------------------------------
 
@@ -204,17 +300,27 @@ class SpmdEngine(ContinuousEngine):
         if self.on_fatal is not None:
             self.on_fatal(exc)
 
+    def _arrive(self, msg: dict) -> None:
+        """Apply one arrival batch, identically on every rank."""
+        if msg['fetched']:
+            self._requeue_tier_waiting()
+        with self._lock:
+            self._pending.extend(msg['reqs'])
+            self._pending_imports.extend(msg['imports'])
+            if self._trie is not None:
+                for row in msg['touches']:
+                    self._touch_chain(row)
+
     def _loop(self) -> None:
         with torch.inference_mode(), self._device_scope():
             while True:
                 try:
-                    stop, reqs = self._exchange_incoming()
+                    msg = self._exchange_incoming()
                 except collectives.CollectiveError as exc:
                     self._lost(exc)
                     return
-                with self._lock:
-                    self._pending.extend(reqs)
-                if stop:
+                self._arrive(msg)
+                if msg['stop']:
                     return
                 try:
                     idle = self._iterate()

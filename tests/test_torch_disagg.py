@@ -558,13 +558,14 @@ def test_roles_are_options_of_the_engine(weights):
         assert port_engine.check_options(role=role)[3] == role
     with pytest.raises(ValueError):
         port_engine.check_options(role='router')
-    # A role under a tensor mesh is not ported yet.
+    # A role under a tensor mesh is accepted: the head gathers and
+    # scatters the handoff's whole KV heads (tests/test_torch_tp_disagg.py).
     from skypilot_tpu_torch.parallel import mesh as port_mesh
     sizes = {a: 1 for a in port_mesh.AXIS_ORDER}
-    with pytest.raises(NotImplementedError):
-        port_engine.check_options(
+    for role in ('prefill', 'decode'):
+        assert port_engine.check_options(
             mesh=port_mesh.Mesh(dict(sizes, tensor=2), None),
-            role='decode')
+            role=role)[3] == role
     eng = _mk('port', weights, 'decode', kv_layout='paged')
     try:
         stats = eng.stats()

@@ -19,6 +19,7 @@ import time
 import urllib.error
 import urllib.request
 
+import numpy as np
 import pytest
 import torch
 
@@ -175,14 +176,16 @@ def test_two_process_replica_answers_like_the_sharded_oracle(tmp_path):
                                    'max_new_tokens': 6, 'temperature': 0.9,
                                    'top_p': 0.9})
         assert status == 200 and len(body['tokens'][0]) == 6, body
-        # The handoff's admissions would bypass the arrival broadcast.
-        for route in ('/v1/kv/export', '/v1/kv/import'):
+        # The handoff's routes answer an empty body as on one device
+        # (JAX's codes): 400, the export naming what is missing.
+        for route, error in (('/v1/kv/export', 'tokens required'),
+                             ('/v1/kv/import', None)):
             req = urllib.request.Request(url + route, b'{}')
             with pytest.raises(urllib.error.HTTPError) as err:
                 urllib.request.urlopen(req, timeout=30)
             assert err.value.code == 400
-            assert json.loads(err.value.read())['error'] == \
-                port_srv.TP_HANDOFF_ERROR
+            got = json.loads(err.value.read())['error']
+            assert got == error if error else got
         health = _get(url, '/health')
         assert (health['tp'], health['tp_backend']) == (2, 'gloo')
         assert health['engine']['tokens_emitted'] >= 16
@@ -266,8 +269,12 @@ def test_engine_off_with_tp_is_refused_in_jaxs_words():
 
 
 def test_mesh_refusals_name_what_is_not_ported():
-    """Paged, draft, MoE and the roles under a mesh raise a named
-    NotImplementedError; none runs silently on one rank."""
+    """A mesh axis other than tensor (the data axis) raises a named
+    NotImplementedError. The paged layout, a draft, MoE and both roles
+    were refused on a tensor mesh until they were ported; now they pass
+    ``check_options`` as on one device, and the engine admits an export
+    and an import under a mesh (``tests/test_torch_tp_*.py`` serve them
+    on two ranks)."""
     from skypilot_tpu_torch.models import engine as port_engine
     from skypilot_tpu_torch.parallel import mesh as port_mesh
 
@@ -276,25 +283,33 @@ def test_mesh_refusals_name_what_is_not_ported():
             return 0
     sizes = {a: 1 for a in port_mesh.AXIS_ORDER}
     mesh = port_mesh.Mesh(dict(sizes, tensor=2), None, _Coords(), 'gloo')
-    for kw, what in ((dict(kv_layout='paged'), 'the paged layout'),
-                     (dict(draft=True), 'a draft model'),
-                     (dict(moe=True), 'an MoE model'),
-                     (dict(role='prefill'), 'a prefill or decode role'),
-                     (dict(role='decode'), 'a prefill or decode role')):
-        with pytest.raises(NotImplementedError, match=what):
-            port_engine.check_options(mesh=mesh, **kw)
+    for kw, want in ((dict(kv_layout='paged'), ('paged', 'colocated')),
+                     (dict(draft=True), ('slot', 'colocated')),
+                     (dict(moe=True), ('slot', 'colocated')),
+                     (dict(role='prefill'), ('slot', 'prefill')),
+                     (dict(role='decode'), ('slot', 'decode'))):
+        got = port_engine.check_options(mesh=mesh, **kw)
+        assert (got[0], got[3]) == want
     data = port_mesh.Mesh(dict(sizes, data=2, tensor=2), None, _Coords(),
                           'gloo')
     with pytest.raises(NotImplementedError, match='data axis'):
         port_engine.check_options(mesh=data)
-    # A KV export or import would admit on the head alone.
+    # An export and an import queue under a mesh (a bare engine: the
+    # admissions' checks and queues, no device state).
     eng = port_engine.ContinuousEngine.__new__(port_engine.ContinuousEngine)
     eng.mesh = mesh
-    for call in (lambda: eng.submit_prefill([1, 2], 4),
-                 lambda: eng.submit_import([1, 2], 4, 1, layout='slot')):
-        with pytest.raises(NotImplementedError,
-                           match='a KV export or import'):
-            call()
+    eng.cfg = port_engine.llama.TINY
+    eng.draft_cfg = None
+    eng.kv_layout, eng.kv_quantize, eng.max_len = 'slot', False, 64
+    eng._submit_max, eng._overhang = 64, 0
+    queued = []
+    eng._enqueue = queued.append
+    eng._enqueue_import = queued.append
+    eng.submit_prefill([1, 2], 4)
+    planes = np.zeros((2, 1, 2, 2, 16), np.float32)
+    eng.submit_import([1, 2], 4, 1, layout='slot', k=planes, v=planes)
+    assert [getattr(q, 'export', None) for q in queued] == [True, None]
+    assert queued[1].req.row == [1, 2] and queued[1].first == 1
 
 
 def test_nccl_rank_computes_on_its_own_card(monkeypatch, tmp_path):
@@ -372,3 +387,23 @@ def test_ranks_leave_in_their_backends_order(monkeypatch, backend, order):
                         lambda timeout: seen.append('release') or [0])
     assert gang.close(1.0) == [0]
     assert seen == order
+
+
+def test_followers_leaving_after_the_last_barrier_are_not_a_death():
+    """The head's watcher calls a follower that exits before the gang
+    closes a death (the replica exits 1); once ``Gang.close`` has begun,
+    a follower that exits is leaving: under NCCL every rank tears its
+    groups down right after the last barrier and a follower may exit
+    while the head is still tearing down (``chip_smoke.py --nccl``'s 18c
+    exited 1 after a clean drain this way)."""
+    from skypilot_tpu_torch.parallel import gang as gang_lib
+    for closing, want in ((False, 1), (True, 0)):
+        child = subprocess.Popen([sys.executable, '-c', 'pass'])
+        child.wait(30)
+        g = gang_lib.Gang(rank=0, world=2, local_rank=0, local=2,
+                          backend='nccl', device=torch.device('cpu'),
+                          children=[child], closing=closing)
+        deaths = []
+        g.watch_children(deaths.append)
+        time.sleep(5 * gang_lib.WATCH_S)
+        assert len(deaths) == want, (closing, deaths)

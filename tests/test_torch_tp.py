@@ -87,8 +87,12 @@ def run_gang(tmp_path, world, body, spec=None, inputs=None, env=None,
         f.write(_PRELUDE.format(repo=REPO, spec=spec)
                 + textwrap.dedent(body) + _EPILOGUE)
     init = f'file://{tmp}/rendezvous'
+    # A rank's tiny products gain nothing from a thread per core, and
+    # gangs of several test files at once would oversubscribe the cores.
+    threads = str(max(1, (os.cpu_count() or 1) // (2 * world)))
     child_env = dict(os.environ, CUDA_VISIBLE_DEVICES='',
-                     GLOO_SOCKET_IFNAME='lo', **(env or {}))
+                     GLOO_SOCKET_IFNAME='lo', OMP_NUM_THREADS=threads,
+                     **(env or {}))
     logs, procs = [], []
     try:
         for rank in range(world):
