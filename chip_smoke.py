@@ -7,13 +7,15 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero). Depth cuts, widths untouched, so
 that phases 18 and 19 fit the script's time limit: phases 7-8, 12-14,
-16a-16b, 18a, 18c-18e and 19a-19b run bench-1b and moe-8x1b at
+15b, 16a-16b, 18a, 18c-18f and 19a-19b run bench-1b and moe-8x1b at
 ``SERVE_LAYERS`` (4) of their 18 layers; phases 9 and 11 serve
 llama3-1b at ``RECIPE_LAYERS`` (4) of its 16 and phase 10 trains it at
 ``FINETUNE_LAYERS`` (4); 18b serves llama3-8b at ``TP8_LAYERS`` (4) of
-its 32; 19d trains moe-8x1b at ``MOE_MESH_LAYERS`` (4). Phase 6 trains
-bench-1b, phase 15 boots it and phase 17 serves it at all 18 layers. A
-``sitecustomize`` cuts the preset in the subprocesses of phases 10, 18 and 19:
+its 32; 19d trains moe-8x1b at ``MOE_MESH_LAYERS`` (4) and 19e bench-1b
+at ``STAGE_LAYERS`` (4). Phase 6 trains bench-1b, phase 15a boots it and
+phase 17 serves it at all 18 layers. A ``sitecustomize`` cuts the preset
+in the subprocesses of phases 10, 18 and 19 (18f's ranks cut it
+themselves):
 
 1. Build: compiles both kernel libraries of ``skypilot_tpu_torch/csrc``
    (flash-decode K4, flash-attention K1-K3), one nvcc each, started
@@ -29,8 +31,10 @@ bench-1b, phase 15 boots it and phase 17 serves it at all 18 layers. A
    tensor-parallel rank's (phase 18: bench-1b at tp 2, Hq 8 Hkv 4 M=1024;
    llama3-8b at tp 8, Hq 4 Hkv 1 M=2048), the
    speculative engine's draft (bench-draft: B=16, Hq 8, Hkv 8, D=64,
-   M=1024, the same lengths) and serve-disagg's decode replica (bench-1b:
-   B=16, Hq 16, Hkv 8, D=128, M=2048, the same lengths), bf16 and int8
+   M=1024, the same lengths), serve-disagg's decode replica (bench-1b:
+   B=16, Hq 16, Hkv 8, D=128, M=2048, the same lengths) and one rank's
+   block of the slots on data=2,tensor=2 (phase 18f: B=8, Hq 8, Hkv 4,
+   M=1024, lengths 0, 1, M and past M), bf16 and int8
    caches, bf16 and fp32
    queries. Tolerances: bf16 2e-2 (bf16 output
    rounding, sums in another order), fp32 1e-4. Every case is also held
@@ -365,7 +369,26 @@ bench-1b, phase 15 boots it and phase 17 serves it at all 18 layers. A
    replica under the gap rule, the ranks' weight bytes tp 1's split in
    two plus the router's and norms' copies, K4 = 4 x 8 x dispatches a
    rank. In all three the digests are equal and SIGTERM exits every
-   rank 0.
+   rank 0. 18f (beside 18a-18e): ``serve.spmd.SpmdEngine`` on
+   ``data=2,tensor=2`` (no flag reaches the data axis: the engine's
+   ``mesh=``), four ranks of one gang, bench-1b at ``SERVE_LAYERS``,
+   16 slots, max_len 1024, bf16 + bf16 KV: the slot layout, then the
+   paged layout (blocks of 16, 257 blocks, sharing and tiers on), each
+   with phase 8's 24 requests whole, its stream of 40 adding up to its
+   answer (= the request not streamed, on the slot layout; on the paged
+   one that request is a share hit, another order of sums), and 4 lone
+   greedy requests (17, 128, 300, 900 x 64) against
+   a tp 1 replica under the gap rule; then moe-8x1b (8 of the requests,
+   a lone greedy one against tp 1), bench-1b with bench-draft (the lone
+   requests at once, rounds > 0, against tp 1) and the prefill and
+   decode roles (the lone prompts exported with whole heads and
+   imported: against tp 1 under the gap rule). In every run
+   every rank's digest and engine state are equal and its K4 calls =
+   n_layers x chunk_steps x dispatches (the draft's: its layers x (k+1)
+   x rounds) at its block, B=8 Hq 8 Hkv 4; a slot-layout rank holds a
+   quarter of tp 1's cache; the paged block accounts reconcile and the
+   pools but the junk sink are equal across the data ranks of a tensor
+   index.
 19. Sharded training, every rank a process on the one card, gloo staged
    through the host. 19a: the multislice-train recipe (``python -m
    skypilot_tpu_torch.train.run --model bench-1b --global-batch-size 32
@@ -380,14 +403,16 @@ bench-1b, phase 15 boots it and phase 17 serves it at all 18 layers. A
    norms. 19b: the lora-finetune recipe on ``--mesh fsdp=2`` (two ranks):
    2 steps saved, resumed to 4, against 4 uninterrupted: every array of
    step 4 equal bit for bit, the losses too, the base = the initial
-   weights. 19c (beside 19d): the small fp32 model of phase 5 in one gang
-   of eight ranks on three meshes, JAX's programs A (``data=2,fsdp=2,tensor=2``),
-   B (MoE, 4 experts top-2, 2 pipeline stages of 2 microbatches, on
-   ``pipe=2,expert=2,tensor=2``) and C (``data=2,seq=2,tensor=2``, ring
-   attention), two steps each on the card and on the CPU over the same
-   process group: losses and params within 1e-4 on every rank, K1-K3 8 /
-   4 / 4 a rank for A and B (B: one layer a stage, two microbatches) and
-   none for C (ring attention is an einsum). 19d: the moe-finetune
+   weights. 19a and 19b run side by side. 19c (beside 19d): the small
+   fp32 model of phase 5 in one gang of eight ranks on JAX's programs A
+   (``data=2,fsdp=2,tensor=2``), B (MoE, 4 experts top-2, 2 pipeline
+   stages of 2 microbatches, on ``pipe=2,expert=2,tensor=2``), C
+   (``data=2,seq=2,tensor=2``, ring attention) and B4 (B with 4 layers in
+   4 stages, two a pipe rank), two steps each on the card and on the CPU
+   over the same process group: losses and params within 1e-4 on every
+   rank, K1-K3 8 / 4 / 4 a rank for A and B (B: one layer a stage, two
+   microbatches), 16 / 8 / 8 for B4 and none for C (ring attention is an
+   einsum). 19d: the moe-finetune
    recipe (``--model moe-8x1b --mesh fsdp=2,expert=8 --global-batch-size
    16``, cut to ``fsdp=2,expert=2``, batch 4, seq 2048, 3 steps, warmup
    1, saves at 2 and 3) as four ranks, and beside it the same batch on
@@ -397,23 +422,28 @@ bench-1b, phase 15 boots it and phase 17 serves it at all 18 layers. A
    step a rank, a rank's weight bytes its quarter of the experts and half
    of the rest; the router and every expert of every layer moved; then a
    relaunch resumed from step 2 writes a step 3 equal to the
-   uninterrupted one bit for bit. Prints each rank's step ms,
+   uninterrupted one bit for bit. 19e (beside 19d): bench-1b at
+   ``STAGE_LAYERS`` (4) layers in 4 pipeline stages of 4 microbatches
+   through ``train.run --mesh pipe=2,fsdp=1`` (two stages a rank, global
+   batch 8, seq 2048, 2 steps), then the same batch on one rank: 19a's
+   limits, K1-K3 2 x 8 / 8 / 8 a step a rank. Prints each rank's step ms,
    collectives a step (calls, bytes, host s by kind), weight bytes and
    peak memory. K1-K3 at a rank's rows of 19a (B=8, S=2048) are timed in
    phase 3; 19d's ranks run train-moe's shape (B=2, ``MOE_CASE``).
 20. Summary: the card's name and power limit again, one JSON line of
    kernels (K1-K3's launches are phases 6, 10, 12, 14, 19a, 19b, 19c's
-   programs A and B, and 19d (every rank's; 19c's program C launches
-   none), K4's phase
-   8's, 13's, 14's, 15's, 16's, 17a's and 18a's, 18c's, 18d's and 18e's
-   for the bf16 cache,
+   programs A, B and B4, 19d and 19e (every rank's; 19c's program C
+   launches none), K4's phase
+   8's, 13's, 14's, 15's, 16's, 17a's and 18a's, 18c's, 18d's, 18e's and
+   18f's for the bf16 cache,
    phases 8's, 9's, 11's, 14's, 17b's and 18b's for the int8 cache, each
    path's count in ``launches_by_path``, 18's summed over the ranks;
    K4's times are the engine-shape case of phase 2, K1-K3's the
    train-s4096 shape, each named in ``timed_at``, with the
    llama-finetune, lora-finetune, train-moe and one 19a rank's shapes
    (K1-K3) and the serve-llama, draft, serve-disagg and per-rank tp 2, 8
-   and 4 shapes and the draft's tp 2 shard (K4) under ``by_shape``),
+   and 4 shapes, the draft's tp 2 shard and the data block's (K4) under
+   ``by_shape``),
    then the last line ``{"ok":
    true, "device": {...}}``.
 
@@ -429,11 +459,12 @@ checks for the multislice-train recipe as two hosts of two cards, a rank
 a card, nothing staged through the host; then 19d's checks for the
 moe-finetune recipe at all 18 layers on ``fsdp=2,expert=2`` as two hosts
 of two cards (no checkpoint: ``fsdp`` crosses the hosts, whose views of
-a leaf split over it are not whole), and 19c's program B over NCCL on
-``pipe=2,expert=2`` (four ranks, one host), held to one process on the
-rank's card; last, 18c at ``--tp 4`` on one host (the KV tiers' and
-handoffs' gathers and scatters to the head on the model's NCCL groups
-beside the gloo arrival broadcast).
+a leaf split over it are not whole), 19c's programs B and B4 over NCCL
+on ``pipe=2,expert=2`` (four ranks, one host), held to one process on
+the rank's card, 19e's checks on two cards, and 18f's on four (data=2,
+tensor=2, a card a rank); last, 18c at ``--tp 4`` on one host (the KV
+tiers' and handoffs' gathers and scatters to the head on the model's
+NCCL groups beside the gloo arrival broadcast).
 """
 import collections
 import concurrent.futures
@@ -489,6 +520,9 @@ TP4_BENCH_CASE = 'bench-1b tp4 B=16 Hq=4 Hkv=2 M=1024'
 TP4_RECIPE_CASE = 'llama3-8b tp4 B=16 Hq=8 Hkv=2 M=2048'
 # ... and the draft's shard under tp 2 (phase 18d: bench-draft, group 1).
 DRAFT_TP2_CASE = 'bench-draft tp2 B=16 Hq=4 Hkv=4 M=1024 D=64'
+# ... and one rank's block of the slots on data=2,tensor=2 (phase 18f:
+# bench-1b, 8 of the 16 slots, half the heads).
+DP_CASE = 'bench-1b data2 tp2 B=8 Hq=8 Hkv=4 M=1024'
 TRAIN_CASE = 'train B=2 S=4096'  # K1-K3 at train-s4096 (BENCH_1B)
 FINETUNE_CASE = 'llama3-1b B=8 S=2048'  # K1-K3 at llama-finetune's shape
 LORA_CASE = 'bench-1b B=16 S=2048'  # K1-K3 at the lora-finetune recipe's
@@ -711,6 +745,10 @@ def kernel_phase(da):
         (DRAFT_TP2_CASE, 16, 4, 4, 64, 1024,
          [0, 1, 1024, 1025, 1500, 4096, 2 ** 20]
          + rng.integers(1, 1025, 9).tolist()),
+        # One rank's block of the slots on data=2,tensor=2 (phase 18f):
+        # 8 of bench-1b's 16 slots, half its heads.
+        (DP_CASE, 8, 8, 4, 128, 1024,
+         [0, 1, 1024, 1025, 2 ** 20] + rng.integers(1, 1025, 3).tolist()),
     ]
     results = {mode: {'max_abs_err': 0.0, 'cases': []} for mode in MODES}
     for mode, (_, quant) in MODES.items():
@@ -773,7 +811,7 @@ def kernel_phase(da):
                           ('tp2', TP2_CASE), ('tp8', TP8_CASE),
                           ('tp4a', TP4_BENCH_CASE),
                           ('tp4b', TP4_RECIPE_CASE),
-                          ('draft_tp2', DRAFT_TP2_CASE)):
+                          ('draft_tp2', DRAFT_TP2_CASE), ('dp', DP_CASE)):
             results[mode][key] = next(c for c in results[mode]['cases']
                                       if c['case'] == case
                                       and c['dtype'] == 'bfloat16')
@@ -1717,11 +1755,12 @@ def engine_phase(srv_lib, gen_lib, engine_lib, da, quantize, kv_cache):
 
 
 @contextlib.contextmanager
-def _cut_depth(llama, name, n_layers):
-    """``llama.PRESETS[name]`` at ``n_layers`` layers, its widths
-    untouched, while open."""
+def _cut_depth(llama, name, n_layers, **fields):
+    """``llama.PRESETS[name]`` at ``n_layers`` layers (and ``fields``:
+    its pipeline stages, say), its widths untouched, while open."""
     full = llama.PRESETS[name]
-    llama.PRESETS[name] = dataclasses.replace(full, n_layers=n_layers)
+    llama.PRESETS[name] = dataclasses.replace(full, n_layers=n_layers,
+                                              **fields)
     try:
         yield
     finally:
@@ -4533,11 +4572,13 @@ def _rank_summaries(paths, world):
     return [found[r] for r in range(world)]
 
 
-def _depth_env(log_dir, name, n_layers):
+def _depth_env(log_dir, name, n_layers, **fields):
     """PYTHONPATH for processes (and every rank they spawn) that see
-    ``llama.PRESETS[name]`` at ``n_layers`` layers: a ``sitecustomize``
-    that cuts it when the interpreter starts."""
-    cut = os.path.join(log_dir, f'depth-{name}-{n_layers}')
+    ``llama.PRESETS[name]`` at ``n_layers`` layers (and ``fields``): a
+    ``sitecustomize`` that cuts it when the interpreter starts."""
+    more = ''.join(f', {k}={v!r}' for k, v in sorted(fields.items()))
+    cut = os.path.join(log_dir, f'depth-{name}-{n_layers}' + ''.join(
+        f'-{k}-{v}' for k, v in sorted(fields.items())))
     os.makedirs(cut, exist_ok=True)
     # Whole or not at all: phases side by side may write it at once while
     # a rank of either starts.
@@ -4546,7 +4587,7 @@ def _depth_env(log_dir, name, n_layers):
         f.write('import dataclasses\n'
                 'from skypilot_tpu_torch.models import llama\n'
                 f'llama.PRESETS[{name!r}] = dataclasses.replace('
-                f'llama.PRESETS[{name!r}], n_layers={n_layers})\n')
+                f'llama.PRESETS[{name!r}], n_layers={n_layers}{more})\n')
     os.replace(tmp, os.path.join(cut, 'sitecustomize.py'))
     return {'PYTHONPATH': os.pathsep.join(
         [cut, os.getcwd(), os.environ.get('PYTHONPATH', '')])}
@@ -5277,21 +5318,30 @@ def tp_moe_phase(srv_lib, gen_lib, llama, log_dir, label='18e',
 
 
 def tp_phase(srv_lib, gen_lib, llama):
-    """Phase 18. Returns K4's launches per rank of 18a (bf16) and 18b
-    (int8)."""
+    """Phase 18. 18f's gang runs beside all the others: 18a beside 18b,
+    then 18c-18e beside each other. Returns K4's launches per rank of
+    18a (bf16) and 18b (int8), and of 18c-18f."""
     print(f'  two NCCL ranks on one card: {_nccl_refusal()}', flush=True)
     log_dir = tempfile.mkdtemp(prefix='skytpu-tp-')
+    t0 = time.perf_counter()
     try:
         with _cut_depth(llama, 'bench-1b', SERVE_LAYERS), \
-                _cut_depth(llama, 'llama3-8b', TP8_LAYERS):
+                _cut_depth(llama, 'moe-8x1b', SERVE_LAYERS), \
+                _cut_depth(llama, 'llama3-8b', TP8_LAYERS), \
+                concurrent.futures.ThreadPoolExecutor(1) as pool:
+            data = pool.submit(_side_by_side, '18f', {
+                '18f': lambda: tp_data_phase(srv_lib, gen_lib, llama,
+                                             log_dir)})
             bench, recipe = _side_by_side('18a-18b', {
                 '18a': lambda: tp_bench_phase(srv_lib, gen_lib, llama,
                                               log_dir, layers=SERVE_LAYERS),
                 '18b': lambda: tp_recipe_phase(srv_lib, gen_lib, llama,
                                                log_dir, layers=TP8_LAYERS)})
-        more = tp_options_phase(srv_lib, gen_lib, llama, log_dir)
+            more = tp_options_phase(srv_lib, gen_lib, llama, log_dir)
+            more['18f'] = data.result()[0]
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
+    _phase(f'  18a-18f: {time.perf_counter() - t0:.1f} s')
     return bench, recipe, more
 
 
@@ -5329,6 +5379,383 @@ def tp_options_phase(srv_lib, gen_lib, llama, log_dir):
                                  ('18d', tp_spec_phase),
                                  ('18e', tp_moe_phase))})
     return dict(zip(('18c', '18d', '18e'), out))
+
+
+# 18f: the continuous engine on data=2,tensor=2 (no flag reaches the
+# data axis in serving: ``SpmdEngine(mesh=)`` in a gang, as JAX's
+# ``ContinuousEngine(mesh=)``), every rank a process.
+DP_SPEC = {'data': 2, 'fsdp': 1, 'tensor': 2}
+DP_WORLD = 4
+DP_SLOTS, DP_MAX_LEN = 16, 1024
+DP_RUN_S = 900
+_DATA_SERVE_SCRIPT = r"""
+import dataclasses, json, os, sys, tempfile, time, zlib
+import torch
+from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.ops import decode_attention as da
+from skypilot_tpu_torch.parallel import collectives
+from skypilot_tpu_torch.parallel import gang as gang_lib
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.serve import disagg, llm_server, spmd
+
+world, plan, out_dir, label = (int(sys.argv[1]), json.loads(sys.argv[2]),
+                               sys.argv[3], sys.argv[4])
+for name, n_layers in plan['layers'].items():  # depth cuts, widths whole
+    llama.PRESETS[name] = dataclasses.replace(llama.PRESETS[name],
+                                              n_layers=n_layers)
+gang = gang_lib.initialize(world, 'cuda', sys.argv[1:],
+                           [sys.executable, __file__], label)
+dev = gang.device
+torch.cuda.set_device(dev)
+mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(**plan['mesh']), device=dev)
+kernel = da.flash_decode
+shapes = set()
+
+def recording(q, k, *args, **kw):
+    shapes.add((q.shape[0], q.shape[1], k.shape[1]))
+    return kernel(q, k, *args, **kw)
+# generate.py looks it up at each call, and the wrapper counts its
+# launches on the module's name, so on this one.
+recording.launches = 0
+da.flash_decode = recording
+
+def weights(name, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return llama.init_params_sharded(llama.PRESETS[name], gen, mesh,
+                                     device=dev)
+
+def submit(eng, r, **kw):
+    return eng.submit(r['tokens'][0], r['max_new_tokens'],
+                      temperature=r.get('temperature', 0.0),
+                      top_k=r.get('top_k', 0), top_p=r.get('top_p', 1.0),
+                      **kw)
+
+def drive(eng, run, got):
+    if run.get('reqs'):
+        t0 = time.perf_counter()
+        futs = [submit(eng, r) for r in run['reqs']]
+        got['answers'] = [list(f.result(timeout=900)) for f in futs]
+        got['wall'] = time.perf_counter() - t0
+        lines = []
+        sreq = run['stream']
+        streamed = list(submit(eng, sreq, on_tokens=lambda t: lines.append(
+            list(t))).result(timeout=900))
+        again = list(submit(eng, sreq).result(timeout=900))
+        got['stream'] = [len(lines), sum(lines, []) == streamed,
+                         streamed == again, len(streamed)]
+    if run.get('lone') and not run.get('export'):
+        futs = [eng.submit(p, run['new']) for p in run['lone']]
+        got['lone'] = [list(f.result(timeout=900)) for f in futs]
+    if run.get('export'):
+        # At once, as the slot run sent them: one prefill group of the
+        # same shape, so the planes and first tokens are its bits.
+        futs = [eng.submit_prefill(p, run['new']) for p in run['lone']]
+        got['payloads'] = []
+        for f in futs:
+            h = f.result(timeout=900)
+            got['payloads'].append(disagg.serialize_bytes(
+                h, disagg.build_header(h, model=run['model'],
+                                       kv_cache='bf16')))
+    if run.get('import'):
+        futs = []
+        for data in handoffs:
+            header, arrays = disagg.parse(data)
+            futs.append(eng.submit_import(**disagg.import_kwargs(
+                header, arrays)))
+            got['heads'] = int(arrays['k'].shape[2])
+        got['lone'] = [list(f.result(timeout=900)) for f in futs]
+
+handoffs = []
+records = []
+for run in plan['runs']:
+    t_run = time.perf_counter()
+    os.environ.update(run.get('env', {}))
+    spill = None
+    if run.get('spill'):
+        spill = tempfile.mkdtemp(prefix='kvspill-', dir=out_dir)
+        os.environ['SKYTPU_KV_SPILL_DIR'] = spill
+    params = weights(run['model'], 0)
+    kw = dict(run.get('kw', {}))
+    if run.get('draft'):
+        kw.update(draft_params=weights(run['draft'], 1),
+                  draft_cfg=llama.PRESETS[run['draft']])
+    torch.cuda.empty_cache()
+    collectives.reset_stats()
+    recording.launches = 0
+    shapes.clear()
+    eng = spmd.SpmdEngine(params, llama.PRESETS[run['model']],
+                          slots=plan['slots'], max_len=plan['max_len'],
+                          mesh=mesh, device=dev, **kw)
+    got = {'name': run['name'], 'rank': gang.rank,
+           'coords': [mesh.axis_index('data'), mesh.axis_index('tensor')],
+           'backend': gang.backend,
+           'cache_bytes': sum(t.numel() * t.element_size()
+                              for t in (eng._cache.k, eng._cache.v)),
+           'cache_shape': list(eng._cache.k.shape)}
+    if gang.rank == 0:
+        drive(eng, run, got)
+        if eng._kv_tiers is not None:
+            eng._kv_tiers.quiesce(60)
+            got['tiers'] = eng._kv_tiers.stats()
+        eng.stop()
+    else:
+        eng.start()
+        eng._thread.join()
+    if eng.fatal is not None:
+        raise SystemExit(f'{label} {run["name"]} rank {gang.rank}: '
+                         f'{eng.fatal}')
+    torch.cuda.synchronize(dev)
+    st = eng.stats()
+    got.update(digest=eng.sampled_digest, dispatches=eng.dispatches,
+               k4=recording.launches, shapes=sorted(shapes),
+               state=llm_server._rank_engine_state(eng),
+               kv_blocks=st['kv_blocks'], spec=st['speculative'],
+               collectives=collectives.STATS['calls'],
+               collective_s=collectives.STATS['seconds'],
+               peak=torch.cuda.max_memory_allocated(dev),
+               run_s=time.perf_counter() - t_run)
+    if eng.kv_layout == 'paged':  # block 0 is the junk sink: no request's
+        got['pool_crc'] = zlib.crc32(b''.join(
+            t[:, 1:].contiguous().view(torch.uint8).cpu().numpy().tobytes()
+            for t in (eng._cache.k, eng._cache.v)))
+    if run.get('export') and gang.rank == 0:
+        handoffs = got.pop('payloads')
+    records.append(got)
+    for k in list(run.get('env', {})) + ['SKYTPU_KV_SPILL_DIR']:
+        os.environ.pop(k, None)
+    del eng, params, kw
+    torch.cuda.empty_cache()
+with open(os.path.join(out_dir, f'{label}.{gang.rank}.json'), 'w') as f:
+    json.dump(records, f)
+gang.close(60)
+sys.stdout.flush()
+os._exit(0)
+"""
+
+
+def _dp_plan(llama, layers):
+    """18f's runs: the slot layout, the paged layout (blocks of 16,
+    ``--kv-blocks`` 257, sharing and tiers on), then MoE, a draft and the
+    prefill and decode roles; bench-1b, moe-8x1b at ``layers`` layers."""
+    cfg = llama.PRESETS['bench-1b']
+    reqs, stream = _engine_traffic(cfg.vocab_size)
+    rng = np.random.default_rng(17)
+    lone = [rng.integers(0, cfg.vocab_size, n).tolist() for n in TP_LONE]
+    moe_prompt = np.random.default_rng(24).integers(
+        0, llama.PRESETS['moe-8x1b'].vocab_size, 128).tolist()
+    host = str(TP_PAGED_HOST_BYTES * layers // 9)
+    return {'mesh': DP_SPEC, 'slots': DP_SLOTS, 'max_len': DP_MAX_LEN,
+            'layers': {'bench-1b': layers, 'moe-8x1b': layers},
+            'runs': [
+                {'name': 'slot', 'model': 'bench-1b', 'reqs': reqs,
+                 'stream': stream, 'lone': lone, 'new': TP_NEW},
+                {'name': 'paged', 'model': 'bench-1b', 'reqs': reqs,
+                 'stream': stream, 'lone': lone, 'new': TP_NEW,
+                 'kw': {'kv_layout': 'paged', 'kv_blocks': 257},
+                 'env': {'SKYTPU_KV_HOST_BYTES': host}, 'spill': True},
+                # Run-length cuts (PERF.md section 4): the lone requests
+                # go at once; the options serve 8 of the 24 requests
+                # (MoE), the lone requests alone (a draft), the lone
+                # requests handed off (the roles).
+                {'name': 'moe', 'model': 'moe-8x1b', 'reqs': reqs[:8],
+                 'stream': stream, 'lone': [moe_prompt], 'new': TP_NEW},
+                {'name': 'spec', 'model': 'bench-1b', 'draft': 'bench-draft',
+                 'lone': lone, 'new': TP_NEW,
+                 'env': {'SKYTPU_LLM_SPEC_K': str(SPEC_K)}},
+                {'name': 'prefill', 'model': 'bench-1b', 'export': True,
+                 'lone': lone, 'new': TP_NEW, 'kw': {'role': 'prefill'}},
+                {'name': 'decode', 'model': 'bench-1b', 'import': True,
+                 'kw': {'role': 'decode'}}]}
+
+
+def _dp_gang(plan, log_dir, label, world=DP_WORLD):
+    """``_DATA_SERVE_SCRIPT`` as ``world`` ranks; returns each run's
+    records by rank."""
+    script = os.path.join(log_dir, 'data_serve.py')
+    with open(script, 'w') as f:
+        f.write(_DATA_SERVE_SCRIPT)
+    log = os.path.join(log_dir, f'{label}.log')
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    with open(log, 'a') as out:  # O_APPEND: the ranks write to it
+        proc = subprocess.Popen([sys.executable, script, str(world),
+                                 json.dumps(plan), log_dir, label],
+                                stdout=out, stderr=subprocess.STDOUT,
+                                env=env, start_new_session=True)
+        try:
+            proc.wait(DP_RUN_S)
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    text = open(log, errors='replace').read()
+    if proc.returncode:
+        raise AssertionError(f'{label} exited {proc.returncode}:\n'
+                             f'{text[-6000:]}')
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(log_dir, f'{label}.{r}.json')) as f:
+            ranks.append(json.load(f))
+    return {run['name']: [recs[i] for recs in ranks]
+            for i, run in enumerate(plan['runs'])}
+
+
+def _dp_check(label, name, ranks, cfg, want_k4, shape):
+    """Every rank of run ``name`` read the same tokens and took the same
+    decisions, and launched K4 ``want_k4(rank record)`` times at
+    ``shape`` (B, Hq, Hkv)."""
+    if len({r['digest'] for r in ranks}) != 1 or not ranks[0]['digest']:
+        raise AssertionError(f'{label} {name}: digests by rank '
+                             f'{[r["digest"] for r in ranks]}')
+    if len({json.dumps(r['state'], sort_keys=True) for r in ranks}) != 1:
+        raise AssertionError(f'{label} {name}: rank states '
+                             f'{[r["state"] for r in ranks]}')
+    for r in ranks:
+        want = want_k4(r)
+        if r['k4'] != want or not want or r['shapes'] != [list(shape)]:
+            raise AssertionError(f'{label} {name}: rank {r["rank"]} K4 '
+                                 f'{r["k4"]} at {r["shapes"]}, expected '
+                                 f'{want} at {list(shape)}')
+    return [r['k4'] for r in ranks]
+
+
+def tp_data_phase(srv_lib, gen_lib, llama, log_dir, label='18f',
+                  layers=SERVE_LAYERS, world=DP_WORLD):
+    """18f: ``serve.spmd.SpmdEngine`` on data=2,tensor=2, four ranks in
+    one gang (gloo on the one card; NCCL a card a rank under
+    ``--nccl``), bench-1b at ``layers`` layers, 16 slots, max_len 1024,
+    bf16 + bf16 KV. The slot layout, then the paged layout (blocks of 16,
+    257 blocks, sharing and tiers on), each with phase 8's 24 requests
+    whole, its stream adding up to its answer (= the request not
+    streamed, but on the paged layout, where it is a share hit), and 4
+    lone greedy requests (17, 128, 300, 900 x 64) against a tp 1 replica
+    of the same
+    seed under the gap rule; then moe-8x1b (8 of the requests and a lone
+    greedy one against tp 1), bench-1b with bench-draft (the lone
+    requests at once, rounds > 0, against tp 1) and the prefill and
+    decode roles (the lone prompts exported with whole heads and
+    imported: against tp 1 under the gap rule). In every run
+    every rank's digest and engine state equal and K4 calls = n_layers x
+    chunk_steps x dispatches (the draft's: its layers x (k+1) x rounds)
+    at the rank's block, B=8 Hq 8 Hkv 4 (the draft's Hq 4 Hkv 4); a
+    slot-layout rank holds a quarter of tp 1's cache; the paged block
+    accounts reconcile and the pools (but the junk sink) are equal across
+    the data ranks of one tensor index. Returns K4's launches per rank
+    by run."""
+    cfg = dataclasses.replace(llama.PRESETS['bench-1b'], n_layers=layers)
+    moe_cfg = dataclasses.replace(llama.PRESETS['moe-8x1b'],
+                                  n_layers=layers)
+    d_cfg = llama.PRESETS['bench-draft']
+    plan = _dp_plan(llama, layers)
+    t0 = time.monotonic()
+    runs = _dp_gang(plan, log_dir, label, world)
+    wall = time.monotonic() - t0
+    out = {}
+    b = DP_SLOTS // DP_SPEC['data']
+    shape = (b, cfg.n_heads // 2, cfg.n_kv_heads // 2)
+    chunk = 8  # SKYTPU_LLM_CHUNK_STEPS's default
+    for name in ('slot', 'paged', 'moe', 'decode'):
+        c = moe_cfg if name == 'moe' else cfg
+        out[name] = _dp_check(
+            label, name, runs[name], c,
+            lambda r, c=c: c.n_layers * chunk * r['dispatches'],
+            (b, c.n_heads // 2, c.n_kv_heads // 2))
+    rounds = runs['spec'][0]['spec']['rounds']
+    out['spec'] = _dp_check(
+        label, 'spec', runs['spec'], d_cfg,
+        lambda r: d_cfg.n_layers * (SPEC_K + 1) * rounds,
+        (b, d_cfg.n_heads // 2, d_cfg.n_kv_heads // 2))
+    if any(r['k4'] for r in runs['prefill']):
+        raise AssertionError(f'{label}: the prefill role decoded')
+    head = {name: recs[0] for name, recs in runs.items()}
+    whole = (2 * cfg.n_layers * DP_SLOTS * cfg.n_kv_heads * DP_MAX_LEN
+             * cfg.head_dim * torch.tensor([], dtype=cfg.dtype).element_size())
+    if any(4 * r['cache_bytes'] != whole for r in runs['slot']):
+        raise AssertionError(f'{label}: slot-layout ranks hold '
+                             f'{[r["cache_bytes"] for r in runs["slot"]]} '
+                             f'B of cache, not a quarter of {whole}')
+    for name in ('slot', 'paged', 'moe'):
+        h = head[name]
+        reqs = plan['runs'][[r['name'] for r in plan['runs']].index(name)][
+            'reqs']
+        _check_answers(reqs, [(200, {'tokens': [a]}) for a in h['answers']],
+                       cfg.vocab_size)
+        # The lines add up to the answer; on the paged layout the request
+        # again is a share hit of the stream's committed blocks (another
+        # order of sums), so only the slot layouts repeat it exactly.
+        n_lines, adds_up, same, n = h['stream']
+        if not adds_up or n != 40 or n_lines < 2 \
+                or not (same or name == 'paged'):
+            raise AssertionError(f'{label} {name}: the stream {h["stream"]}')
+    for r in runs['paged']:
+        kb = r['kv_blocks']
+        if kb['owned'] or kb['free'] + kb['cached'] != kb['usable'] \
+                or kb['used'] != kb['cached']:
+            raise AssertionError(f'{label} paged: rank {r["rank"]} blocks '
+                                 f'{kb}')
+    for t in range(DP_SPEC['tensor']):
+        crcs = {r['pool_crc'] for r in runs['paged'] if r['coords'][1] == t}
+        if len(crcs) != 1:
+            raise AssertionError(f'{label} paged: tensor index {t} pools '
+                                 f'differ across data: {crcs}')
+    if head['decode']['heads'] != cfg.n_kv_heads:
+        raise AssertionError(f'{label}: handoffs of '
+                             f'{head["decode"]["heads"]} kv heads')
+    if not rounds:
+        raise AssertionError(f'{label}: no speculative round')
+    prompts = plan['runs'][0]['lone']
+    with _cut_depth(llama, 'bench-1b', layers), \
+            _cut_depth(llama, 'moe-8x1b', layers):
+        server = srv_lib.LlmServer('bench-1b', engine='off', max_len=1024)
+        try:
+            parts = {name: [_check_greedy(gen_lib, server, p, got, False)
+                            for p, got in zip(prompts, head[name]['lone'])]
+                     for name in ('slot', 'paged', 'spec', 'decode')}
+        finally:
+            server.stop()
+            del server
+            torch.cuda.empty_cache()
+        parts['moe'] = _tp_reference(
+            srv_lib, gen_lib, 'moe-8x1b', plan['runs'][2]['lone'],
+            head['moe']['lone'], False, max_len=1024)[2]
+    card = _card()
+    for name in ('slot', 'paged', 'moe'):
+        h = head[name]
+        tokens = sum(len(a) for a in h['answers'])
+        steps = [r['dispatches'] * chunk for r in runs[name]]
+        per_step = [round(r['collectives'] / n, 1)
+                    for r, n in zip(runs[name], steps)]
+        model = 'moe-8x1b' if name == 'moe' else 'bench-1b'
+        print(f'  [{card}] {label} {name} ({model} '
+              f'at {layers} layers, data=2,tensor=2, {world} ranks, '
+              f'{h["backend"]}): {len(h["answers"])} concurrent requests, '
+              f'{tokens} tokens in {h["wall"]:.2f} s = '
+              f'{tokens / h["wall"]:.2f} tok/s; lone greedy against tp 1: '
+              f'partings (position, top-2 gap) {parts[name]}; K4 by rank '
+              f'{out[name]} at B={b} Hq {shape[1]} Hkv {shape[2]}; '
+              f'collectives by rank {per_step} a decode step of its life; '
+              f'peak by rank '
+              f'{[r["peak"] for r in runs[name]]} B; cache by rank '
+              f'{[r["cache_bytes"] for r in runs[name]]} B', flush=True)
+    same = sum(a == b for a, b in zip(head['decode']['lone'],
+                                      head['slot']['lone']))
+    print(f'  {label}: slot-layout cache a rank '
+          f'{runs["slot"][0]["cache_bytes"]} B = tp 1\'s {whole} / 4; paged '
+          f'blocks {head["paged"]["kv_blocks"]}, tiers '
+          f'{head["paged"].get("tiers")}, pools equal across data by '
+          f'tensor index; spec rounds {rounds}, {head["spec"]["spec"]}, '
+          f'partings {parts["spec"]}; handoffs of {TP_LONE} with whole '
+          f'heads ({head["decode"]["heads"]}): partings {parts["decode"]}, '
+          f'{same} of {len(TP_LONE)} = the slot run\'s answers (prefill '
+          f'groups follow arrival); digests equal on every rank in '
+          f'every run; gang {wall:.1f} s, the head\'s seconds by run '
+          f'{ {n: round(recs[0]["run_s"], 1) for n, recs in runs.items()} }',
+          flush=True)
+    return out
 
 
 # --nccl: tensor-parallel serving over NCCL, one rank a card, on a machine
@@ -5415,12 +5842,22 @@ def nccl_main() -> int:
                              llama.MOE_8X1B.n_layers, resume=False)
         _phase('nccl 6: program B (small MoE, pipe=2,expert=2) over NCCL, '
                'a card a rank')
-        staged = small_mesh_phase(log_dir, (SMALL_MESHES[1][:1]
-                                            + ('pipe=2,expert=2,fsdp=1',)
-                                            + SMALL_MESHES[1][2:],),
-                                  NCCL_TP, 'nccl-19c')
+        staged = small_mesh_phase(log_dir, tuple(
+            prog[:1] + ('pipe=2,expert=2,fsdp=1',) + prog[2:]
+            for prog in SMALL_MESHES if prog[0] in ('B', 'B4')),
+            NCCL_TP, 'nccl-19c')
+        _phase('nccl 7: 19e, bench-1b in 4 stages on pipe=2, a card a '
+               'rank')
+        stages = pipe_stage_phase(llama, train_run, log_dir, 'nccl-19e',
+                                  NCCL_HOSTS[:1])
+        _phase('nccl 8: 18f, the engine on data=2,tensor=2 (bench-1b, '
+               f'{SERVE_LAYERS} layers), a card a rank')
+        with _cut_depth(llama, 'bench-1b', SERVE_LAYERS), \
+                _cut_depth(llama, 'moe-8x1b', SERVE_LAYERS):
+            data = tp_data_phase(srv_lib, gen_lib, llama, log_dir,
+                                 'nccl-18f')
         # Last: its tp 1 prefill replica runs in this process, on card 0.
-        _phase(f'nccl 7: 18c at --tp {NCCL_TP} (bench-1b, paged, sharing '
+        _phase(f'nccl 9: 18c at --tp {NCCL_TP} (bench-1b, paged, sharing '
                'and tiers on, the decode role), one host, NCCL')
         paged = tp_paged_phase(srv_lib, gen_lib, llama, log_dir, NCCL_TP,
                                'nccl', 'nccl-c')
@@ -5436,7 +5873,10 @@ def nccl_main() -> int:
                                'bench-1b data=2,fsdp=2 K1-K3 launches':
                                train,
                                'moe-8x1b fsdp=2,expert=2 K1-K3 launches':
-                               moe, **staged}}), flush=True)
+                               moe, 'bench-1b 4 stages on pipe=2 K1-K3 '
+                               'launches': stages,
+                               'data=2,tensor=2 K4 launches by run and '
+                               'rank': data, **staged}}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)
@@ -5470,11 +5910,13 @@ MESH_UPDATE_RTOL = 0.5   # 19a: ||u - u_one|| / ||u_one||, u = w - w_init
 MESH_HALF_BATCH = 16     # 19a: a wrong gradient, which both limits must catch
 # 19c: the small fp32 model on three meshes of eight ranks, one gang:
 # JAX's programs A, B and C (``__graft_entry__.dryrun_multichip``), B an
-# MoE model (4 experts, top-2) in 2 pipeline stages of 2 microbatches.
-# (name, mesh, moe) each.
-SMALL_MESHES = (('A', 'data=2,fsdp=2,tensor=2', False),
-                ('B', 'pipe=2,expert=2,tensor=2,fsdp=1', True),
-                ('C', 'data=2,seq=2,tensor=2,fsdp=1', False))
+# MoE model (4 experts, top-2) in 2 pipeline stages of 2 microbatches;
+# B4 is B with 4 layers in 4 stages, two a pipe rank. (name, mesh, moe,
+# layers, pipeline stages) each.
+SMALL_MESHES = (('A', 'data=2,fsdp=2,tensor=2', False, 2, 1),
+                ('B', 'pipe=2,expert=2,tensor=2,fsdp=1', True, 2, 2),
+                ('C', 'data=2,seq=2,tensor=2,fsdp=1', False, 2, 1),
+                ('B4', 'pipe=2,expert=2,tensor=2,fsdp=1', True, 4, 4))
 SMALL_MESH_TOL = 1e-4    # 19c: card against CPU, fp32
 # 19d: the moe-finetune recipe (examples/llm/moe-finetune/moe_finetune.yaml)
 # as four ranks on the one card: --mesh fsdp=2,expert=8 -> fsdp=2,expert=2
@@ -5636,6 +6078,58 @@ def mesh_train_phase(llama, train_run, log_dir, label='19a', host_env=None,
           f'rank {want_bytes} B = ({whole} - {replicated}) / 2 + '
           f'{replicated}; gang {wall:.1f} s, one rank {one_s:.1f} s',
           flush=True)
+    return {k: v * world for k, v in per_rank.items()}
+
+
+# 19e: several pipeline stages on each pipe rank (no flag: a model's
+# ``pipeline_stages`` with ``Trainer(mesh=)``), bench-1b at full width and
+# STAGE_LAYERS layers in as many stages of STAGE_MICRO microbatches, on
+# pipe=2 (two stages a rank), global batch 8, seq 2048, 2 steps.
+STAGE_LAYERS = 4
+STAGE_MICRO = 4
+STAGE_ARGV = ['--model', 'bench-1b', '--global-batch-size', '8',
+              '--seq-len', '2048', '--mesh', 'pipe=2,fsdp=1', '--steps',
+              '2', '--warmup-steps', '1', '--log-every', '1']
+STAGE_HALF = 4   # 19e: a wrong gradient, which the limits must catch
+
+
+def pipe_stage_phase(llama, train_run, log_dir, label='19e',
+                     host_env=None):
+    """19e: ``train.run`` on ``pipe=2`` as two ranks (gloo on the one
+    card; NCCL with ``host_env``'s cards), bench-1b at STAGE_LAYERS
+    layers in STAGE_LAYERS pipeline stages (two a rank, the schedule's
+    M + S - 1 ticks over all four) of STAGE_MICRO microbatches, 2 steps,
+    then the same batch on one rank in this process (every stage in one
+    process): each step's loss within MESH_LOSS_RTOL, grad_norm within
+    MESH_NORM_RTOL, the final weights within MESH_WEIGHT_RTOL and their
+    update within MESH_UPDATE_RTOL of one rank's, limits that one rank on
+    STAGE_HALF rows must exceed; every rank's grad_norm bits equal and
+    K1/K2/K3 2 x its layers x the microbatches / half that a step.
+    Returns the launches of the gang's ranks, summed per kernel."""
+    fields = dict(pipeline_stages=STAGE_LAYERS,
+                  pipeline_microbatches=STAGE_MICRO)
+    cfg = dataclasses.replace(llama.BENCH_1B, n_layers=STAGE_LAYERS,
+                              **fields)
+    steps, world = 2, 2
+    ckpt = os.path.abspath(os.path.join(MESH_CKPT_DIR, label))
+    with _cut_depth(llama, 'bench-1b', STAGE_LAYERS, **fields):
+        (summaries, _, wall), (one, half, one_s) = _gang_and_one_rank(
+            train_run, STAGE_ARGV + ['--ckpt-dir', ckpt, '--save-every',
+                                     '1000'],
+            1, log_dir, label, host_env,
+            _depth_env(log_dir, 'bench-1b', STAGE_LAYERS, **fields),
+            STAGE_ARGV, STAGE_HALF, beside=False)
+    # A rank runs its layers (half the stack) on every microbatch.
+    per_rank = _check_ranks(label, summaries, world, steps,
+                            STAGE_LAYERS // 2 * STAGE_MICRO)
+    _rank_figs(label, summaries, steps)
+    readings = _against_one_rank(label, llama, cfg, one, half, STAGE_HALF,
+                                 summaries[0], _step_state(ckpt, steps))
+    print(f'  {label} bench-1b at {STAGE_LAYERS} of 18 layers in '
+          f'{STAGE_LAYERS} stages x {STAGE_MICRO} microbatches on pipe=2 '
+          f'(2 stages a rank, {summaries[0]["backend"]}): {readings}; '
+          f'K1/K2/K3 by rank {per_rank} = expected; gang {wall:.1f} s, one '
+          f'rank {one_s:.1f} s', flush=True)
     return {k: v * world for k, v in per_rank.items()}
 
 
@@ -5958,10 +6452,12 @@ dense = dataclasses.replace(llama.TINY, d_model=128, n_heads=4,
                             n_kv_heads=2, head_dim=64, d_ff=256,
                             dtype=torch.float32)
 report = {'rank': gang.rank, 'backend': gang.backend}
-for name, spec, moe in programs:
-    model = dense if not moe else dataclasses.replace(
-        dense, num_experts=4, expert_top_k=2, pipeline_stages=2,
-        pipeline_microbatches=2)
+for name, spec, moe, layers, stages in programs:
+    model = dataclasses.replace(dense, n_layers=layers)
+    if moe:
+        model = dataclasses.replace(
+            model, num_experts=4, expert_top_k=2, pipeline_stages=stages,
+            pipeline_microbatches=2)
     card = mesh_lib.build_mesh(mesh_lib.parse_spec(spec), device=gang.device)
     # The reference: the same process group on the CPU (gloo), or one
     # process on this rank's card (a NCCL group has no CPU medium).
@@ -6009,14 +6505,15 @@ os._exit(0)
 """
 
 
-def _small_launches(spec, moe):
-    """K1-K3 a rank launches in 19c's two steps of the small model (2
-    layers): dense 2 x 2 / 2 / 2 a step; program B's pipeline 1 layer a
-    stage over 2 microbatches, the same; program C none (ring attention
-    is an einsum)."""
+def _small_launches(spec, moe, layers):
+    """K1-K3 a rank launches in 19c's two steps of the small model:
+    dense 2 x layers / layers / layers a step; a pipeline (programs B
+    and B4) its pipe rank's layers over 2 microbatches; program C none
+    (ring attention is an einsum)."""
     if 'seq=2' in spec:
         return {'flash_fwd': 0, 'flash_bwd_dq': 0, 'flash_bwd_dkv': 0}
-    per_step = 2 if not moe else 1 * 2  # layers, or a stage's x micro
+    # The layers, or a pipe rank's layers x the microbatches.
+    per_step = layers if not moe else layers // 2 * 2
     return {'flash_fwd': 2 * per_step * 2, 'flash_bwd_dq': per_step * 2,
             'flash_bwd_dkv': per_step * 2}
 
@@ -6064,8 +6561,8 @@ def small_mesh_phase(log_dir, programs=SMALL_MESHES, world=8, label='19c'):
     if len(ranks) != world:
         raise AssertionError(f'{label}: {len(ranks)} ranks of {world}')
     launches = {}
-    for name, spec, moe in programs:
-        want = _small_launches(spec, moe)
+    for name, spec, moe, layers, stages in programs:
+        want = _small_launches(spec, moe, layers)
         bad = [r['rank'] for r in ranks
                if not (r[name]['loss_err'] <= SMALL_MESH_TOL
                        and r[name]['param_err'] <= SMALL_MESH_TOL
@@ -6077,7 +6574,9 @@ def small_mesh_phase(log_dir, programs=SMALL_MESHES, world=8, label='19c'):
         launches[f'phase {label} program {name} ({spec})'] = {
             k: v * world for k, v in want.items()}
         print(f'  {label} program {name}: small fp32 '
-              f'{"MoE, 2 stages x 2 microbatches" if moe else "dense"} '
+              f'{layers}-layer '
+              + (f'MoE, {stages} stages x 2 microbatches' if moe
+                 else 'dense') + ' '
               f'model on {spec} ({world} ranks, {ranks[0]["backend"]}): '
               f'losses {ranks[0][name]["losses"]}; card vs '
               f'{"CPU" if ranks[0]["backend"] == "gloo" else "one process"}'
@@ -6091,25 +6590,34 @@ def small_mesh_phase(log_dir, programs=SMALL_MESHES, world=8, label='19c'):
 
 
 def mesh_phase(llama, train_run):
-    """Phase 19. Returns K1-K3's launches of 19a-19d, every rank's, by
+    """Phase 19. Returns K1-K3's launches of 19a-19e, every rank's, by
     path."""
     log_dir = tempfile.mkdtemp(prefix='skytpu-mesh-')
     torch.cuda.empty_cache()  # the ranks share the card with this process
     try:
-        launches = {'phase 19a train-multislice': mesh_train_phase(
-            llama, train_run, log_dir)}
-        _phase('  19a done')
-        # 19b's uninterrupted run goes beside its saved and resumed runs,
-        # and 19c beside 19d: their step times are not a lone gang's.
+        # 19a beside 19b (whose uninterrupted run goes beside its saved
+        # and resumed runs), then 19c and 19e beside 19d: their step times
+        # are not a lone gang's. Not 19e beside 19a: 19a's one-rank runs
+        # at batch 32 take most of the card (19e ran out of memory there,
+        # PERF.md section 6).
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            multislice = pool.submit(mesh_train_phase, llama, train_run,
+                                     log_dir)
+            launches = {'phase 19b lora-fsdp': mesh_lora_phase(
+                llama, log_dir, pool)}
+            _phase('  19b done')
+            launches['phase 19a train-multislice'] = multislice.result()
+        _phase(f'  19a-19b side by side: {time.perf_counter() - t0:.1f} s')
         with concurrent.futures.ThreadPoolExecutor(2) as pool:
-            launches['phase 19b lora-fsdp'] = mesh_lora_phase(
-                llama, log_dir, pool)
-        _phase('  19b done')
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
             small = pool.submit(small_mesh_phase, log_dir)
+            stages = pool.submit(pipe_stage_phase, llama, train_run,
+                                 log_dir)
             launches['phase 19d moe-finetune'] = moe_mesh_phase(
                 llama, train_run, log_dir)
             _phase('  19d done')
+            launches['phase 19e pipe-stages'] = stages.result()
+            _phase('  19e done')
             launches.update(small.result())
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
@@ -6279,7 +6787,7 @@ def main() -> int:
     for mode in MODES:
         for case in (LLAMA_CASE, DRAFT_CASE, DISAGG_CASE, TP2_CASE,
                      TP8_CASE, TP4_BENCH_CASE, TP4_RECIPE_CASE,
-                     DRAFT_TP2_CASE):
+                     DRAFT_TP2_CASE, DP_CASE):
             row = next(c for c in kernels[mode]['cases']
                        if c['case'] == case and c['dtype'] == 'bfloat16')
             print(f'  flash_decode[{mode} cache] at {case}: ms {row["ms"]}'
@@ -6294,8 +6802,9 @@ def main() -> int:
     try:
         boot_phase(kernel_cache)
         _phase('  15a done')
-        by_path['bf16']['phase 15 serve-qos'] = qos_phase(
-            srv_lib, gen_lib, da, metrics_lib, warmup_lib)
+        with _cut_depth(llama, 'bench-1b', SERVE_LAYERS):
+            by_path['bf16']['phase 15 serve-qos'] = qos_phase(
+                srv_lib, gen_lib, da, metrics_lib, warmup_lib)
 
         _phase(f'phase 16: serve-traced (bench-1b, 16a-16b at '
                f'{SERVE_LAYERS} of 18 layers): request tracing, the '
@@ -6326,8 +6835,9 @@ def main() -> int:
            f'serve-multihost recipe (llama3-8b int8 at {TP8_LAYERS} of 32 '
            'layers, --tp 8 as 2 hosts x 4 ranks, 18b), then at tp 2 the '
            'paged decode replica with sharing and tiers (18c), a draft '
-           f'(18d), moe-8x1b at {SERVE_LAYERS} layers (18e); every rank a '
-           'process on the one card, gloo')
+           f'(18d), moe-8x1b at {SERVE_LAYERS} layers (18e), and the engine '
+           'on data=2,tensor=2 (18f); every rank a process on the one card, '
+           'gloo')
     tp_bench, tp_recipe, tp_more = tp_phase(srv_lib, gen_lib, llama)
     by_path['bf16']['phase 18a serve-tp (2 ranks)'] = sum(tp_bench)
     by_path['int8']['phase 18b serve-multihost (8 ranks)'] = sum(tp_recipe)
@@ -6337,12 +6847,15 @@ def main() -> int:
         tp_more['18d'])
     by_path['bf16']['phase 18e serve-tp-moe (2 ranks)'] = sum(
         tp_more['18e'])
+    for run, n in tp_more['18f'].items():
+        by_path['bf16'][f'phase 18f serve-dp {run} (4 ranks)'] = sum(n)
 
     _phase('phase 19: sharded training: the multislice-train recipe '
            '(bench-1b, data=2,fsdp=2 as 2 hosts x 2 ranks, 19a), the '
            'lora-finetune recipe on fsdp=2 with a resume (19b), a small '
-           'fp32 model on data=2,fsdp=2,tensor=2 card against CPU (19c), '
-           'every rank a process on the one card, gloo')
+           'fp32 model on four meshes card against CPU (19c), the '
+           'moe-finetune recipe (19d), bench-1b in 4 stages on pipe=2 '
+           '(19e), every rank a process on the one card, gloo')
     mesh_launches = mesh_phase(llama, train_run)
 
     _phase('phase 20: summary')
@@ -6377,7 +6890,8 @@ def main() -> int:
                                   ('tp2', TP2_CASE), ('tp8', TP8_CASE),
                                   ('tp4a', TP4_BENCH_CASE),
                                   ('tp4b', TP4_RECIPE_CASE),
-                                  ('draft_tp2', DRAFT_TP2_CASE))}})
+                                  ('draft_tp2', DRAFT_TP2_CASE),
+                                  ('dp', DP_CASE))}})
     print(json.dumps({'kernels': entries}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -136,8 +136,28 @@ so the engine is bound by the host's time to issue them.
   scatters them back (``_heads_from_head``), and each tier answer that
   shapes a device decision comes from the head (``_decide``). An export
   gathers its planes to the head likewise, and an import's planes go
-  from the head to each rank when it admits. A mesh axis other than
-  ``tensor`` (the data axis) raises ``NotImplementedError`` at
+  from the head to each rank when it admits.
+
+* Data parallelism (a mesh whose ``data`` axis is larger than 1, beside
+  ``tensor``; JAX's rule ``batch -> data``): the weights are whole over
+  ``data``. The slot layout's cache, the prefix pool and the draft's
+  dense cache split their rows over it, each rank holding a contiguous
+  block (``generate.data_rows``) of its kv heads; the paged pool stays
+  whole over ``data`` and split on kv_heads, as in JAX. Host accounting
+  and the slot vectors (last tokens, write limits, the paged tables and
+  lengths) stay whole on every rank. A decode chunk or a spec round runs
+  the rank's block of the rows (the generator draws the whole batch's
+  noise and keeps the block's, so it stays in step on every rank) and
+  all-gathers the block's tokens over ``data``; a paged step also
+  gathers each layer's new K/V, so that every data rank writes every
+  row. A prefill group, a chunked prefill and a share hit's tail run
+  whole on every data rank (the mesh's ``tensor`` view), and each rank
+  inserts only the rows of its block; a prefix-pool hit is summed over
+  ``data`` from the rank that holds it. The KV tiers and the handoffs
+  stay within data index 0's tensor group, whose head is the replica's;
+  what the head scatters there (a promote, an import) is then broadcast
+  over ``data`` to the other ranks of each tensor index. A mesh axis
+  other than ``data`` and ``tensor`` raises ``NotImplementedError`` at
   construction, by name.
 """
 from __future__ import annotations
@@ -389,22 +409,33 @@ def _host_dtype(dtype: torch.dtype) -> np.dtype:
 def _insert_impl(cache: gen_lib.KVCache, last: torch.Tensor,
                  limit: torch.Tensor, cache_n: gen_lib.KVCache,
                  firsts: torch.Tensor, limits_n: torch.Tensor,
-                 slots: torch.Tensor) -> None:
+                 slots: torch.Tensor, owned=None) -> None:
     """Write a prefilled N-row cache into engine slots ``slots`` [N], in
     place: one indexed write per cache tensor. The prefill cache is only
     ``width`` (prompt bucket) positions long and only [0, width) of each
     slot's row is written; what the previous occupant left beyond that is
     never attended (valid-length masking) and later decode writes
-    overwrite it. Sets each slot's length, last token and write limit."""
-    _insert_cache_impl(cache, cache_n, slots)
+    overwrite it. Sets each slot's length, last token and write limit
+    (``owned``: see ``_insert_cache_impl``)."""
+    _insert_cache_impl(cache, cache_n, slots, owned)
     last[slots] = firsts
     limit[slots] = limits_n
 
 
 def _insert_cache_impl(cache: gen_lib.KVCache, cache_n: gen_lib.KVCache,
-                       slots: torch.Tensor) -> None:
+                       slots: torch.Tensor, owned=None) -> None:
     """The cache half of ``_insert_impl``, alone for the DRAFT cache (spec
-    mode), whose committed stream and write limit are the target's."""
+    mode), whose committed stream and write limit are the target's.
+    ``owned`` (the cache holds a block of the slots): (this block's rows
+    to write, the rows of ``cache_n`` they take), or None for every
+    row."""
+    if owned is not None:
+        slots, pick = owned
+        cache_n = gen_lib.KVCache(
+            k=cache_n.k[:, pick], v=cache_n.v[:, pick],
+            lengths=cache_n.lengths[pick],
+            k_s=None if cache_n.k_s is None else cache_n.k_s[:, pick],
+            v_s=None if cache_n.v_s is None else cache_n.v_s[:, pick])
     width = cache_n.k.shape[3]
     cache.k[:, slots, :, :width] = cache_n.k
     cache.v[:, slots, :, :width] = cache_n.v
@@ -415,18 +446,30 @@ def _insert_cache_impl(cache: gen_lib.KVCache, cache_n: gen_lib.KVCache,
 
 
 def _gather_prefix_impl(pool: gen_lib.KVCache, idx: torch.Tensor,
-                        lengths: torch.Tensor,
-                        width: int) -> gen_lib.KVCache:
+                        lengths: torch.Tensor, width: int,
+                        mine: Optional[torch.Tensor] = None,
+                        mesh=None) -> gen_lib.KVCache:
     """A new prefill cache whose row i holds pool row idx[i]'s first
     ``width`` positions, with ``lengths[i]`` valid prefix tokens (0 = a
     miss: the zeros gathered from pool row 0 are never attended, and the
-    suffix write starts at 0). One indexed copy per cache tensor."""
+    suffix write starts at 0). One indexed copy per cache tensor.
+    ``mine`` [N] bool (the pool holds a block of its rows over ``mesh``'s
+    ``data`` axis; ``idx`` are rows of the block): rows held elsewhere
+    are zeros here, and the sum over ``data`` gives every rank every
+    row (one nonzero term each: exact)."""
+
+    def take(arr):
+        out = arr[:, idx, :, :width]
+        if mine is None:
+            return out
+        keep = mine.view(1, -1, *(1,) * (out.dim() - 2))
+        return collectives.psum(torch.where(keep, out,
+                                            torch.zeros_like(out)),
+                                mesh, 'data')
     ks = vs = None
     if pool.quantized:
-        ks = pool.k_s[:, idx, :, :width]
-        vs = pool.v_s[:, idx, :, :width]
-    return gen_lib.KVCache(k=pool.k[:, idx, :, :width],
-                           v=pool.v[:, idx, :, :width],
+        ks, vs = take(pool.k_s), take(pool.v_s)
+    return gen_lib.KVCache(k=take(pool.k), v=take(pool.v),
                            lengths=lengths, k_s=ks, v_s=vs)
 
 
@@ -462,9 +505,15 @@ def _chunk_impl(cfg: llama.LlamaConfig, k_steps: int, params,
     ``occupied`` [B] is the host's slot snapshot at dispatch (JAX's
     ``active``). Per-slot sampling params ride as data (temps 0 = greedy,
     top_ks 0 / top_ps 1 = filters off); ``generator`` None = every row
-    greedy."""
+    greedy. Where ``mesh``'s ``data`` axis splits the slots, the cache is
+    this rank's block of them: the chunk decodes the block and gathers
+    its tokens over ``data``, so ``last`` and ``toks`` are whole."""
     b = last.shape[0]
-    row_lens = torch.ones((b,), dtype=torch.int32, device=last.device)
+    rows = gen_lib.data_rows(mesh, b)
+    last, limit, occupied, temps, top_ks, top_ps = _block(
+        rows, last, limit, occupied, temps, top_ks, top_ps)
+    row_lens = torch.ones((last.shape[0],), dtype=torch.int32,
+                          device=last.device)
     toks = []
     for _ in range(k_steps):
         active = occupied & (cache.lengths < limit)
@@ -472,9 +521,27 @@ def _chunk_impl(cfg: llama.LlamaConfig, k_steps: int, params,
                                                cfg, row_lens, active,
                                                route_rows=occupied,
                                                mesh=mesh)
-        last = sampling.sample(logits, temps, generator, top_ks, top_ps)
+        last = sampling.sample(logits, temps, generator, top_ks, top_ps,
+                               rows, b)
         toks.append(last)
-    return cache, last, torch.stack(toks)
+    return (cache,) + _gather_rows(torch.stack(toks), rows, mesh)
+
+
+def _block(rows: Optional[slice], *vectors):
+    """``vectors`` [B] (None passes) cut to this rank's block of the
+    rows, or whole where ``rows`` is None."""
+    if rows is None:
+        return vectors
+    return tuple(None if v is None else v[rows] for v in vectors)
+
+
+def _gather_rows(toks: torch.Tensor, rows: Optional[slice], mesh) -> tuple:
+    """(last, toks): a chunk's tokens [K, block] gathered whole over
+    ``data``, and the last step's [B] (a copy: the engine writes into
+    it)."""
+    if rows is not None:
+        toks = collectives.all_gather(toks, mesh, 'data', dim=1)
+    return toks[-1].clone(), toks
 
 
 def _paged_insert_impl(pool: paged_lib.PagedKVCache, last: torch.Tensor,
@@ -504,17 +571,24 @@ def _paged_chunk_impl(cfg: llama.LlamaConfig, k_steps: int, params,
     ``occupied``, as in the JAX engine: a row that finishes mid-chunk
     routes its junk for the rest of the chunk, so it must also write and
     read that junk where JAX's does, in its own blocks. MoE dispatches
-    serially, so the chunk is read before those blocks are released."""
+    serially, so the chunk is read before those blocks are released.
+    Where ``mesh``'s ``data`` axis splits the slots, the rank decodes its
+    block of them over the whole pool (``paged.forward_paged``) and
+    gathers the block's tokens over ``data``."""
+    b = last.shape[0]
+    rows = gen_lib.data_rows(mesh, b)
+    mine, temps, top_ks, top_ps = _block(rows, last, temps, top_ks, top_ps)
     toks = []
     for _ in range(k_steps):
         active = (occupied if cfg.num_experts > 0
                   else occupied & (cache.lengths < limit))
-        logits, cache = paged_lib.forward_paged(params, last[:, None],
+        logits, cache = paged_lib.forward_paged(params, mine[:, None],
                                                 cache, cfg, active,
                                                 mesh=mesh)
-        last = sampling.sample(logits, temps, generator, top_ks, top_ps)
-        toks.append(last)
-    return cache, last, torch.stack(toks)
+        mine = sampling.sample(logits, temps, generator, top_ks, top_ps,
+                               rows, b)
+        toks.append(mine)
+    return (cache,) + _gather_rows(torch.stack(toks), rows, mesh)
 
 
 def _rewind_impl(cache, adj: torch.Tensor) -> None:
@@ -543,9 +617,19 @@ def _spec_impl(t_cfg: llama.LlamaConfig, d_cfg: llama.LlamaConfig, k: int,
     active while ``occupied`` and its length is below ``limit``. Under a
     tensor ``mesh`` both models' forwards run sharded (the draft's k+1
     steps run the decode kernel on its head shard) and every rank holds
-    the whole logits, so the proposals and the verdicts agree."""
+    the whole logits, so the proposals and the verdicts agree. Where its
+    ``data`` axis splits the slots, the round runs this rank's block of
+    them (the draft's cache and a dense target's hold the block; a paged
+    target's pool is whole) and ``out`` is gathered over ``data``."""
     b = last.shape[0]
-    ones = torch.ones((b,), dtype=torch.int32, device=last.device)
+    rows = gen_lib.data_rows(mesh, b)
+    paged = not isinstance(t_cache, gen_lib.KVCache)
+    # A paged target's pool, tables and lengths are whole.
+    t_active = occupied & (t_cache.lengths < limit) if paged else None
+    last, limit, occupied, temps, top_ks, top_ps = _block(
+        rows, last, limit, occupied, temps, top_ks, top_ps)
+    ones = torch.ones((last.shape[0],), dtype=torch.int32,
+                      device=last.device)
     props = []
     tok = last
     for _ in range(k + 1):
@@ -557,20 +641,22 @@ def _spec_impl(t_cfg: llama.LlamaConfig, d_cfg: llama.LlamaConfig, k: int,
         props.append(tok)
     props = torch.stack(props, dim=1)  # [B, k+1]
     window = torch.cat([last[:, None], props[:, :k]], dim=1)
-    active = occupied & (t_cache.lengths < limit)
-    if isinstance(t_cache, gen_lib.KVCache):
+    if not paged:
+        active = occupied & (t_cache.lengths < limit)
         logits_all, t_cache = gen_lib.forward_cached(
             t_params, window, t_cache, t_cfg, (k + 1) * ones, active,
             all_logits=True, mesh=mesh)
     else:  # paged target: multi-position block writes, lengths rewind
         logits_all, t_cache = paged_lib.forward_paged(
-            t_params, window, t_cache, t_cfg, active, all_logits=True,
+            t_params, window, t_cache, t_cfg, t_active, all_logits=True,
             mesh=mesh)
     tgt = torch.argmax(logits_all, dim=-1).to(torch.int32)  # [B, k+1]
     samp = sampling.sample(logits_all[:, 0], temps, generator, top_ks,
-                           top_ps)
-    return t_cache, d_cache, torch.cat(
-        [props, tgt, samp.to(torch.int32)[:, None]], dim=1)
+                           top_ps, rows, b)
+    out = torch.cat([props, tgt, samp.to(torch.int32)[:, None]], dim=1)
+    if rows is not None:
+        out = collectives.all_gather(out, mesh, 'data', dim=0)
+    return t_cache, d_cache, out
 
 
 _insert = profiler.profiled('engine.insert', _insert_impl)
@@ -600,7 +686,7 @@ _store_prefix = profiler.profiled('engine.store_prefix', _store_prefix_impl)
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f'{what} under a mesh is not ported yet: skypilot_tpu_torch '
-        'serves on a tensor mesh only')
+        'serves on a data x tensor mesh only')
 
 
 def check_options(*, kv_layout: Optional[str] = None,
@@ -620,9 +706,8 @@ def check_options(*, kv_layout: Optional[str] = None,
     (``engine.py:680-726`` of the JAX package): expert capacity is per
     forward call, so each would route differently from the monolithic
     prefill. Needs no weights, so a replica checks its flags before it
-    builds them. A mesh may split ``tensor`` alone (the ``data`` axis is
-    not ported yet); on it every layout, a draft, MoE and each role
-    serve as on one device."""
+    builds them. A mesh may split ``data`` and ``tensor``; on it every
+    layout, a draft, MoE and each role serve as on one device."""
     kv_layout = (kv_layout or os.environ.get('SKYTPU_LLM_KV_LAYOUT')
                  or 'slot')
     if kv_layout not in ('slot', 'paged'):
@@ -646,8 +731,8 @@ def check_options(*, kv_layout: Optional[str] = None,
         raise ValueError(f'Unknown engine role {role!r}; '
                          "'colocated', 'prefill' or 'decode'")
     if mesh is not None and mesh.size > 1 \
-            and mesh.size != mesh.shape['tensor']:
-        raise _not_ported('a mesh axis other than tensor (the data axis)')
+            and mesh.size != mesh.shape['tensor'] * mesh.shape['data']:
+        raise _not_ported('a mesh axis other than data and tensor')
     return (kv_layout, max(int(prefix_slots), 0), max(int(prefill_chunk), 0),
             role, prefix_share, kv_tiers)
 
@@ -735,7 +820,10 @@ class ContinuousEngine:
             mesh=mesh, prefix_share=prefix_share, kv_tiers=kv_tiers,
             role=role, moe=cfg.num_experts > 0)
         self.device = resolve_device(device)
-        self.mesh = gen_lib.tensor_mesh(mesh)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        # Work each data rank does for the whole batch (prefill) runs on
+        # the mesh's tensor view.
+        self._tp = None if self.mesh is None else self.mesh.only('tensor')
         if self.mesh is not None:
             params = _local_params(params, cfg, self.mesh)
             if draft_params is not None:
@@ -744,6 +832,8 @@ class ContinuousEngine:
         self.params = params
         self.cfg = cfg
         self.slots = slots or int(os.environ.get('SKYTPU_LLM_SLOTS', '16'))
+        # This rank's block of the slots (None: it holds them all).
+        self._rows = gen_lib.data_rows(self.mesh, self.slots)
         self.max_len = min(max_len, cfg.max_seq_len)
         self.chunk_steps = chunk_steps or int(
             os.environ.get('SKYTPU_LLM_CHUNK_STEPS', '8'))
@@ -994,22 +1084,48 @@ class ContinuousEngine:
     def _heads_to_head(self, t: torch.Tensor) -> Optional[torch.Tensor]:
         """A KV plane (heads on dim 2) with every KV head, on the head:
         under a mesh the ranks' heads are gathered there (a collective of
-        the tensor axis; None on the other ranks)."""
+        data index 0's tensor group, which holds what the head needs;
+        None on the other ranks)."""
         if self.mesh is None:
             return t
+        if self.mesh.axis_index('data') != 0:
+            return None
         return collectives.gather_to(t, self.mesh, dim=2)
 
     def _heads_from_head(self, t: Optional[torch.Tensor], shape: tuple,
                          dtype: torch.dtype) -> torch.Tensor:
         """This rank's KV heads of the head's whole plane ``t`` of
         ``shape`` (heads on dim 2; None on the other ranks): under a mesh
-        the head scatters them (a collective of the tensor axis)."""
+        the head scatters them in data index 0's tensor group (a
+        collective of that group), which broadcasts them over ``data``."""
         if self.mesh is None:
             return t
         local = list(shape)
         local[2] //= self.mesh.shape['tensor']
-        return collectives.scatter_from(t, self.mesh, tuple(local), dtype,
-                                        dim=2)
+        local = tuple(local)
+        if self.mesh.axis_index('data') != 0:
+            t = None
+        else:
+            t = collectives.scatter_from(t, self.mesh, local, dtype, dim=2)
+        return collectives.broadcast(t, self.mesh, local, dtype)
+
+    def _owned(self, slots) -> Optional[tuple]:
+        """``_insert_impl``'s ``owned`` for a group bound for ``slots``
+        (host ints): None where this rank holds every slot, else (its
+        block's rows, the group's rows they take) on the device, both
+        empty when none of them is its own."""
+        if self._rows is None:
+            return None
+        lo, hi = self._rows.start, self._rows.stop
+        pick = [i for i, s in enumerate(slots) if lo <= s < hi]
+        dev = self.device
+        return (_to_device(np.asarray([slots[i] - lo for i in pick],
+                                      np.int64), dev),
+                _to_device(np.asarray(pick, np.int64), dev))
+
+    def _own_rows(self, v: torch.Tensor) -> torch.Tensor:
+        """A slot vector [B] cut to this rank's block of the slots."""
+        return v if self._rows is None else v[self._rows]
 
     def probe_chain(self, row: List[int]) -> int:
         """How many leading FULL prompt blocks of ``row`` this engine's
@@ -1839,7 +1955,7 @@ class ContinuousEngine:
             _to_device(table[None], dev), slot,
             _to_device(np.asarray([covered], np.int32), dev),
             _to_device(np.asarray([len(suffix)], np.int32), dev),
-            mesh=self.mesh)
+            mesh=self._tp)
         first = _sample(logits, *self._sampling_args(
             np.asarray([req.temperature], np.float32),
             np.asarray([req.top_k], np.int32),
@@ -1945,10 +2061,41 @@ class ContinuousEngine:
                 slot = self._prefix_free.pop()
             else:
                 _, slot = self._prefix_index.popitem(last=False)  # LRU
-            _store_prefix(self._prefix_pool, cache_n, i, slot, p)
+            self._store_prefix(cache_n, i, slot, p)
             self._prefix_index[key] = slot
             with self._lock:
                 self.prefix_stores += 1
+
+    def _gather_prefix(self, pool_rows: List[int], p_lens: List[int],
+                       width: int) -> gen_lib.KVCache:
+        """``_gather_prefix_impl`` of pool rows ``pool_rows`` (host ints):
+        where the pool holds a block of its rows on each data rank, each
+        row comes from its holder, summed over ``data``."""
+        dev = self.device
+        lens = _to_device(np.asarray(p_lens, np.int32), dev)
+        blk = gen_lib.data_rows(self.mesh, self.prefix_slots)
+        if blk is None:
+            return _gather_prefix(
+                self._prefix_pool,
+                _to_device(np.asarray(pool_rows, np.int64), dev), lens,
+                width)
+        rows = np.asarray(pool_rows, np.int64)
+        mine = (rows >= blk.start) & (rows < blk.stop)
+        return _gather_prefix(
+            self._prefix_pool,
+            _to_device(np.where(mine, rows - blk.start, 0), dev), lens,
+            width, _to_device(mine, dev), self.mesh)
+
+    def _store_prefix(self, cache_n: gen_lib.KVCache, row: int, slot: int,
+                      p: int) -> None:
+        """``_store_prefix_impl`` into pool row ``slot``, on the data rank
+        whose block of the pool holds it."""
+        blk = gen_lib.data_rows(self.mesh, self.prefix_slots)
+        if blk is None:
+            _store_prefix(self._prefix_pool, cache_n, row, slot, p)
+        elif blk.start <= slot < blk.stop:
+            _store_prefix(self._prefix_pool, cache_n, row,
+                          slot - blk.start, p)
 
     def _prefill_one_chunk(self, params, cfg: llama.LlamaConfig,
                            cache1: gen_lib.KVCache, row: List[int],
@@ -1966,7 +2113,7 @@ class ContinuousEngine:
         logits, cache1 = _prefill(
             params, _to_device(padded, dev), cache1, cfg,
             _to_device(np.asarray([len(chunk)], np.int32), dev),
-            mesh=self.mesh)
+            mesh=self._tp)
         if params is self.params:  # the draft's chunks do not count
             with self._lock:
                 self.prefill_tokens += len(chunk)
@@ -2040,23 +2187,20 @@ class ContinuousEngine:
             if cache1 is None and self._prefix_pool is not None:
                 p_hit, pool_row = self._match_prefix(req.row)
                 if p_hit:
-                    cache1 = _gather_prefix(
-                        self._prefix_pool,
-                        _to_device(np.asarray([pool_row], np.int64), dev),
-                        _to_device(np.asarray([p_hit], np.int32), dev),
-                        self.max_len)
+                    cache1 = self._gather_prefix([pool_row], [p_hit],
+                                                 self.max_len)
                     with self._lock:
                         self.prefix_hits += 1
                         self.prefix_hit_tokens += p_hit
             if cache1 is None:
                 cache1 = gen_lib.init_cache(self.cfg, 1, self.max_len,
                                             quantize=self.kv_quantize,
-                                            device=dev, mesh=self.mesh)
+                                            device=dev, mesh=self._tp)
             entry.cache, entry.consumed = cache1, p_hit
             if spec:
                 entry.d_cache = gen_lib.init_cache(
                     self.draft_cfg, 1, self.max_len,
-                    quantize=self.kv_quantize, device=dev, mesh=self.mesh)
+                    quantize=self.kv_quantize, device=dev, mesh=self._tp)
         logits, entry.cache, entry.consumed = self._prefill_one_chunk(
             self.params, self.cfg, entry.cache, req.row, entry.consumed)
         with self._lock:
@@ -2136,9 +2280,10 @@ class ContinuousEngine:
                     self._commit_prompt_blocks(slot, req.row, [])
         else:
             _insert(self._cache, self._last, self._limit, entry.cache,
-                    entry.first, limits, slots)
+                    entry.first, limits, slots, self._owned([slot]))
         if self.draft_cfg is not None:
-            _insert_cache(self._d_cache, entry.d_cache, slots)
+            _insert_cache(self._d_cache, entry.d_cache, slots,
+                          self._owned([slot]))
 
     def _finish_long_export(self, entry: _Prefilling) -> None:
         """Export retirement of a chunked long prefill. The slot layout
@@ -2227,20 +2372,17 @@ class ContinuousEngine:
             top_ps[i] = r.top_p
         hits = sum(1 for p in p_lens if p)
         if hits:
-            cache_n = _gather_prefix(
-                self._prefix_pool,
-                _to_device(np.asarray(pool_rows, np.int64), dev),
-                _to_device(np.asarray(p_lens, np.int32), dev), cache_width)
+            cache_n = self._gather_prefix(pool_rows, p_lens, cache_width)
             with self._lock:
                 self.prefix_hits += hits
                 self.prefix_hit_tokens += sum(p_lens)
         else:
             cache_n = gen_lib.init_cache(self.cfg, n, cache_width,
                                          quantize=self.kv_quantize,
-                                         device=dev, mesh=self.mesh)
+                                         device=dev, mesh=self._tp)
         logits, cache_n = _prefill(self.params, _to_device(padded, dev),
                                    cache_n, self.cfg, _to_device(lens, dev),
-                                   mesh=self.mesh)
+                                   mesh=self._tp)
         with self._lock:
             self.prefill_tokens += int(lens.sum())
             self.prefill_tokens_saved += sum(p_lens)
@@ -2286,7 +2428,7 @@ class ContinuousEngine:
                             self.share_misses += 1
         else:
             _insert(self._cache, self._last, self._limit, cache_n, firsts,
-                    limits, slots_d)
+                    limits, slots_d, self._owned(slots))
         if self.draft_cfg is not None:
             # The draft tracks the same committed stream, so it prefills
             # the FULL rows (the prefix pool stores target KV only; the
@@ -2301,12 +2443,13 @@ class ContinuousEngine:
                 lens_f[i] = len(r)
             d_cache_n = gen_lib.init_cache(self.draft_cfg, n, width_f,
                                            quantize=self.kv_quantize,
-                                           device=dev, mesh=self.mesh)
+                                           device=dev, mesh=self._tp)
             _, d_cache_n = _prefill(self.draft_params,
                                     _to_device(padded_f, dev), d_cache_n,
                                     self.draft_cfg, _to_device(lens_f, dev),
-                                    mesh=self.mesh)
-            _insert_cache(self._d_cache, d_cache_n, slots_d)
+                                    mesh=self._tp)
+            _insert_cache(self._d_cache, d_cache_n, slots_d,
+                          self._owned(slots))
         with self._lock:
             self.prefills += n
             self.prefill_groups += 1
@@ -2650,7 +2793,8 @@ class ContinuousEngine:
                 _to_device(np.asarray([entry.first], np.int32), dev),
                 _to_device(np.asarray([self._limit_for(req)], np.int32),
                            dev),
-                _to_device(np.asarray([slot], np.int64), dev))
+                _to_device(np.asarray([slot], np.int64), dev),
+                self._owned([slot]))
 
     def _run_spec_round(self) -> None:
         """One draft-propose / target-verify round over all slots (spec
@@ -2735,8 +2879,11 @@ class ContinuousEngine:
         # Rollback: both models advanced k+1; each row keeps `committed`.
         dev = self.device
         adj = _to_device(np.int32(k + 1) - committed, dev)
-        _rewind(self._cache, adj)
-        _rewind(self._d_cache, adj)
+        # The paged pool's lengths are whole; the dense caches hold this
+        # rank's block of the slots.
+        _rewind(self._cache, adj if self.kv_layout == 'paged'
+                else self._own_rows(adj))
+        _rewind(self._d_cache, self._own_rows(adj))
         self._last = _to_device(new_last, dev)
         self._fire_callbacks(emitted)
         for req in done:

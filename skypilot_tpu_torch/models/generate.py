@@ -35,6 +35,15 @@ agree; norms replicated. The decode kernel runs per head shard, JAX's
 ``generate.kernel_shard_ctx``: each rank calls ``flash_decode`` on its own
 ``[B, Hkv/tp, M, D]`` cache and ``[B, Hq/tp, D]`` queries (and int8
 scales), and the cache is never gathered.
+
+DATA PARALLELISM (a serving mesh whose ``data`` axis is larger than 1):
+JAX's rule ``batch -> data`` splits the cache's rows, so each rank holds
+a contiguous block of them (``data_rows``) and ``forward_cached`` runs on
+that block: the tokens are the block's, the tensor collectives run in
+the rank's own ``tensor`` group, and the MoE block takes its expert
+capacity over every rank's tokens (``moe_mlp(mesh=)``). Work that every
+rank does for the whole batch (a prefill group) passes the mesh's
+``tensor`` view instead (``Mesh.only``).
 """
 from __future__ import annotations
 
@@ -80,13 +89,14 @@ def init_cache(cfg: llama.LlamaConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None, quantize: bool = False,
                device=None, mesh=None) -> KVCache:
     """Zeroed cache on ``device``; ``quantize=True`` = int8 codes plus
-    float32 per-position scales. With a tensor-parallel ``mesh`` the
-    buffers are born sharded: this rank's kv heads only."""
+    float32 per-position scales. With a sharded ``mesh`` the buffers are
+    born sharded: this rank's kv heads (``tensor``) of its block of the
+    rows (``data``), and the lengths of those rows."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    if tensor_mesh(mesh) is not None:
+    if mesh is not None and mesh.size > 1:
         shape = sharding_lib.local_shape(shape, sharding_lib.logical_sharding(
             mesh, sharding_lib.ShardingRules(), KV_AXES))
-    lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+    lengths = torch.zeros((shape[1],), dtype=torch.int32, device=device)
     if quantize:
         return KVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -197,7 +207,9 @@ def _mlp_tail(cfg: llama.LlamaConfig, x: torch.Tensor, layer: Params,
     ``mesh`` the MoE block runs ``moe_mlp(mesh=)`` with JAX's rules: each
     rank holds every expert's slice of the ``mlp`` columns, the tokens
     are whole on every rank (so capacity and drop order are the one
-    device's), and ``we_down``'s partial sums are summed over ``tensor``."""
+    device's), and ``we_down``'s partial sums are summed over ``tensor``.
+    Where ``data`` splits the rows, the capacity and the drop order are
+    taken over every rank's tokens (``moe_mlp``'s token axes)."""
     h = llama.rms_norm(x, layer['mlp_norm'], cfg.norm_eps)
     if cfg.num_experts > 0:
         out, _ = moe.moe_mlp(h, layer['moe'], cfg.num_experts,
@@ -251,11 +263,29 @@ def _route_mask(cfg: llama.LlamaConfig, positions: torch.Tensor,
 
 def tensor_mesh(mesh):
     """``mesh`` when its ``tensor`` axis is larger than 1, else None: the
-    sharded serving path splits heads, mlp and vocab over that axis
-    (``engine.check_options`` refuses every other)."""
+    sharded serving path splits heads, mlp and vocab over that axis and
+    the slots over ``data`` (``engine.check_options`` refuses every
+    other)."""
     if mesh is None or mesh.shape['tensor'] == 1:
         return None
     return mesh
+
+
+def data_rows(mesh, batch: int) -> Optional[slice]:
+    """This rank's block of a serving batch of ``batch`` rows where the
+    mesh's ``data`` axis splits them (JAX's ``batch -> data``: contiguous
+    blocks in axis order); None where every rank holds them all."""
+    if mesh is None or mesh.shape['data'] == 1:
+        return None
+    n = batch // mesh.shape['data']
+    i = mesh.axis_index('data')
+    return slice(i * n, (i + 1) * n)
+
+
+def _moe_mesh(mesh):
+    """The mesh the MoE block routes over: any sharded mesh (its token
+    axes set the capacity), None on one device."""
+    return mesh if mesh is not None and mesh.size > 1 else None
 
 
 def _embed(table: torch.Tensor, tokens: torch.Tensor, cfg, mesh):
@@ -304,9 +334,11 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
     engine, while ``active_rows`` turns its writes off. Expert routing is
     the one place where rows of a batch affect each other.
 
-    ``mesh`` (tensor parallelism, module docstring): ``params`` and
-    ``cache`` are this rank's slices; every rank of the tensor axis must
-    call with the same tokens, and all get the same logits."""
+    ``mesh`` (tensor and data parallelism, module docstring): ``params``
+    and ``cache`` are this rank's slices; every rank of the tensor axis
+    must call with the same tokens, and all get the same logits. Where
+    ``data`` splits the rows, ``tokens`` and the masks are this rank's
+    block of them, as the cache is."""
     tp = tensor_mesh(mesh)
     reduce = None if tp is None else (lambda t: collectives.psum(t, tp))
     b, s = tokens.shape
@@ -328,7 +360,7 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
             cache.k[i], cache.v[i], write_start, valid,
             cache.k_s[i] if cache.quantized else None,
             cache.v_s[i] if cache.quantized else None, token_mask, reduce,
-            tp)
+            _moe_mesh(mesh))
     x = llama.rms_norm(x, params['final_norm'], cfg.norm_eps)
     new_cache = dataclasses.replace(cache, lengths=valid)
     if all_logits:

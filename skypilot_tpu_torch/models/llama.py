@@ -41,12 +41,14 @@ the global mean's. The other three axes:
   ``parallel/ring_attention.py`` (an einsum ring, as in JAX: no flash
   kernel on this path);
 * ``expert``: the MoE block runs its rank's experts (``models/moe.py``);
-* ``pipe``: the layers run as a GPipe pipeline of one stage a rank
-  (``parallel/pipeline.py``, ``cfg.pipeline_microbatches`` microbatches;
-  a dense preset's ``pipeline_stages`` of 1 is one stage a rank too,
-  which computes JAX's values): stage 0 embeds, the last stage runs the
-  final norm, the unembedding and the loss, and the stages' aux losses
-  are summed over ``pipe``.
+* ``pipe``: the layers run as a GPipe pipeline of ``cfg.pipeline_stages``
+  stages, a multiple of ``pipe``, each rank holding its block of
+  contiguous stages (``parallel/pipeline.py``,
+  ``cfg.pipeline_microbatches`` microbatches; a dense preset's
+  ``pipeline_stages`` of 1 is one stage a rank, which computes JAX's
+  values): stage 0 embeds, the last stage runs the final norm, the
+  unembedding and the loss, and the stages' aux losses are summed over
+  ``pipe``.
 
 ``cfg.pipeline_stages > 1`` with no ``pipe`` ranks runs every stage in
 the one process, as JAX does on one device.
@@ -611,7 +613,10 @@ def _layer_stack(cfg: LlamaConfig, x: torch.Tensor, layers: Params,
 def check_mesh(cfg: LlamaConfig, sizes: Dict[str, int]) -> None:
     """Raise ``ValueError`` where ``cfg`` does not split over a mesh of
     axis ``sizes``: the layers over ``pipe`` (JAX's ``split_stages``
-    error), one stage a ``pipe`` rank, the experts over ``expert``."""
+    error), the stages over ``pipe`` ranks, the experts over ``expert``.
+    JAX also trains stages that are not a multiple of ``pipe`` (GSPMD
+    pads the stage dim, and a stage's layers may then span two devices);
+    a rank here holds whole stages, so it refuses them."""
     if cfg.num_experts and cfg.num_experts % sizes['expert']:
         raise ValueError(f'{cfg.num_experts} experts do not split over '
                          f'expert ({sizes["expert"]} shards)')
@@ -620,11 +625,11 @@ def check_mesh(cfg: LlamaConfig, sizes: Dict[str, int]) -> None:
         if cfg.n_layers % pipe:
             raise ValueError(
                 f'{cfg.n_layers} layers not divisible by {pipe} stages')
-        if cfg.pipeline_stages not in (1, pipe):
+        if cfg.pipeline_stages > 1 and cfg.pipeline_stages % pipe:
             raise ValueError(
                 f'pipeline_stages={cfg.pipeline_stages} over pipe={pipe}: '
-                'a pipe rank runs one stage, so the stages must be 1 or '
-                'the pipe axis')
+                'a pipe rank runs whole stages, so the stages must be 1 '
+                'or a multiple of the pipe axis')
 
 
 def _block_of(mesh, axis: str, size: int) -> Tuple[int, int]:
@@ -683,7 +688,7 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
         x = F.embedding(tokens.long(), params['embed'].to(cfg.dtype))
     else:
         x = _embed_sharded(params, tokens, cfg, mesh, rules)
-    n_stages = pipe if pipe > 1 else cfg.pipeline_stages
+    n_stages = cfg.pipeline_stages if cfg.pipeline_stages > 1 else pipe
     if n_stages == 1:
         x, aux = _layer_stack(cfg, x, params['layers'], positions, remat,
                               remat_policy, mesh, rules)

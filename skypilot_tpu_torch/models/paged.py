@@ -34,6 +34,14 @@ partially matched tail block is forked (``_fork_block_impl``) first.
 Eviction is refcount-aware LRU over idle blocks; the KV tiers
 (``serve/kv_tiers.py``) take the evicted chains' KV through
 ``_export_blocks_impl`` and give it back through ``_import_blocks_impl``.
+
+On a serving mesh the pool splits on kv_heads over ``tensor`` and stays
+WHOLE over ``data`` (JAX's ``engine.py:1376-1386``, ``POOL_AXES``), as do
+the tables and lengths: a block may be shared by rows of different data
+ranks. A decode step computes only the rank's block of the rows
+(``generate.data_rows``), so before the pool write each layer gathers
+the block's new K/V over ``data``, and every data rank writes every row:
+the ranks' pools stay equal.
 """
 from __future__ import annotations
 
@@ -45,14 +53,19 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from skypilot_tpu_torch.models import llama
-from skypilot_tpu_torch.models.generate import (KV_AXES, KVCache,
-                                                _cached_attention, _embed,
-                                                _mlp_tail, _qkv_proj,
-                                                _quantize_block, tensor_mesh)
+from skypilot_tpu_torch.models.generate import (KVCache, _cached_attention,
+                                                _embed, _mlp_tail, _moe_mesh,
+                                                _qkv_proj, _quantize_block,
+                                                data_rows, tensor_mesh)
 from skypilot_tpu_torch.models.quantization import mm as _mm
 from skypilot_tpu_torch.parallel import collectives
 from skypilot_tpu_torch.parallel import sharding as sharding_lib
 from skypilot_tpu_torch.utils import prefix_affinity as affinity_lib
+
+
+# The pool planes' logical axes: blocks are not a batch dim, so ``data``
+# leaves them whole.
+POOL_AXES = ('layers', None, 'kv_heads', None, 'head_dim')
 
 
 @dataclasses.dataclass
@@ -90,9 +103,9 @@ def init_pool(cfg: llama.LlamaConfig, slots: int, max_len: int,
     power of two: prefill widths are power-of-two buckets, and the
     insert scatters ``width // block`` whole blocks. With a tensor-parallel
     ``mesh`` the planes are born sharded on kv_heads (JAX's
-    ``engine.py:1373-1388``): this rank's heads of every block; the
-    tables and lengths stay whole, as the scatters and gathers index
-    those dims only."""
+    ``engine.py:1373-1388``): this rank's heads of every block, whole
+    over ``data``; the tables and lengths stay whole, as the scatters and
+    gathers index those dims only."""
     if block < 1 or block & (block - 1):
         raise ValueError(f'block size must be a power of two, '
                          f'got {block}')
@@ -103,7 +116,7 @@ def init_pool(cfg: llama.LlamaConfig, slots: int, max_len: int,
     shape = (cfg.n_layers, n_blocks, cfg.n_kv_heads, block, cfg.head_dim)
     if tensor_mesh(mesh) is not None:
         shape = sharding_lib.local_shape(shape, sharding_lib.logical_sharding(
-            mesh, sharding_lib.ShardingRules(), KV_AXES))
+            mesh, sharding_lib.ShardingRules(), POOL_AXES))
     tables = torch.zeros((slots, mb), dtype=torch.int32, device=device)
     lengths = torch.zeros((slots,), dtype=torch.int32, device=device)
     if quantize:
@@ -222,7 +235,7 @@ def _paged_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer,
                  k_s: Optional[torch.Tensor],
                  v_s: Optional[torch.Tensor],
                  token_mask: Optional[torch.Tensor] = None,
-                 mesh=None) -> torch.Tensor:
+                 mesh=None, rows: Optional[slice] = None) -> torch.Tensor:
     """One decoder block at S >= 1 over the paged pool (per-layer views
     ``[NB, H, P, D]``, written in place). The math is ``generate``'s
     (``_qkv_proj`` / ``_cached_attention`` / ``_mlp_tail``); only the
@@ -233,34 +246,42 @@ def _paged_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer,
     ``token_mask`` [B, S]: the positions MoE routes. ``mesh``: the pool
     planes and the weights are this rank's shards, and the row-split
     ``wo`` and ``w_down`` products are summed over ``tensor`` before their
-    one rounding, as in ``generate._cached_layer``."""
-    reduce = None if mesh is None else (
-        lambda t: collectives.psum(t, mesh))
+    one rounding, as in ``generate._cached_layer``. ``rows``: ``x`` is
+    this block of the rows (``lengths``, ``tables`` and ``active_rows``
+    are whole); the block's new K/V are gathered over ``data`` and every
+    row is written, so the pools of the data ranks stay equal."""
+    tp = tensor_mesh(mesh)
+    reduce = None if tp is None else (
+        lambda t: collectives.psum(t, tp))
     s = x.shape[1]
-    positions = lengths[:, None] + torch.arange(
+    mine = slice(None) if rows is None else rows
+    positions = lengths[mine, None] + torch.arange(
         s, dtype=torch.int32, device=x.device)[None]  # [B, S]
     q, k, v = _qkv_proj(cfg, x, layer, positions)
     kt = k.transpose(1, 2)  # [B, Hkv, S, D]
     vt = v.transpose(1, 2)
     if k_s is not None:
-        k8, ks_new = _quantize_block(kt)
-        v8, vs_new = _quantize_block(vt)
-        _scatter_multi(k_pool, tables, lengths, k8, active_rows)
-        _scatter_multi(v_pool, tables, lengths, v8, active_rows)
+        new = _quantize_block(kt) + _quantize_block(vt)
+    else:
+        new = (kt.to(k_pool.dtype), None, vt.to(v_pool.dtype), None)
+    if rows is not None:  # every rank writes every row
+        new = tuple(None if t is None else
+                    collectives.all_gather(t, mesh, 'data', dim=0)
+                    for t in new)
+    k_new, ks_new, v_new, vs_new = new
+    _scatter_multi(k_pool, tables, lengths, k_new, active_rows)
+    _scatter_multi(v_pool, tables, lengths, v_new, active_rows)
+    if k_s is not None:
         _scatter_multi_s(k_s, tables, lengths, ks_new, active_rows)
         _scatter_multi_s(v_s, tables, lengths, vs_new, active_rows)
-    else:
-        _scatter_multi(k_pool, tables, lengths, kt.to(k_pool.dtype),
-                       active_rows)
-        _scatter_multi(v_pool, tables, lengths, vt.to(v_pool.dtype),
-                       active_rows)
+    tables = tables[mine]
     att = _cached_attention(
         q, _view(k_pool, tables), _view(v_pool, tables), positions,
-        lengths + s,
+        lengths[mine] + s,
         _view(k_s, tables) if k_s is not None else None,
         _view(v_s, tables) if v_s is not None else None)
     x = x + _mm(att, layer['wo'], 'bshk,hkd->bsd', reduce=reduce)
-    return _mlp_tail(cfg, x, layer, token_mask, reduce, mesh)
+    return _mlp_tail(cfg, x, layer, token_mask, reduce, _moe_mesh(mesh))
 
 
 def forward_paged(params, tokens: torch.Tensor, cache: PagedKVCache,
@@ -284,15 +305,20 @@ def forward_paged(params, tokens: torch.Tensor, cache: PagedKVCache,
     ``params`` and the pool planes are this rank's slices; the embedding
     is the vocab-split lookup and its ``psum``, the decode kernel runs per
     head shard on the gathered view, and the vocab-split logits
-    (``all_logits``' too) are all-gathered, so every rank holds them
-    whole."""
+    (``all_logits``' too) are all-gathered, so every rank of the tensor
+    axis holds them whole. Where the mesh's ``data`` axis splits the
+    rows (``generate.data_rows`` of the tables' rows), ``tokens`` and the
+    logits are this rank's block of them while the tables, lengths and
+    ``active_rows`` stay whole (module docstring)."""
     tp = tensor_mesh(mesh)
+    rows = data_rows(mesh, cache.tables.shape[0])
     b, s = tokens.shape
     token_mask = None
     if cfg.num_experts > 0:
         mask = torch.ones((b, s), dtype=torch.bool, device=tokens.device)
         if active_rows is not None:
-            mask = mask & active_rows[:, None]
+            mine = active_rows if rows is None else active_rows[rows]
+            mask = mask & mine[:, None]
         token_mask = mask.to(cfg.dtype)
     x = _embed(params['embed'], tokens, cfg, tp)
     for i in range(cfg.n_layers):
@@ -300,7 +326,8 @@ def forward_paged(params, tokens: torch.Tensor, cache: PagedKVCache,
             cfg, x, llama.layer_params(params['layers'], i), cache.lengths,
             cache.tables, cache.k[i], cache.v[i], active_rows,
             cache.k_s[i] if cache.quantized else None,
-            cache.v_s[i] if cache.quantized else None, token_mask, tp)
+            cache.v_s[i] if cache.quantized else None, token_mask, mesh,
+            rows)
     x = llama.rms_norm(x, params['final_norm'], cfg.norm_eps)
     new_cache = dataclasses.replace(cache, lengths=cache.lengths + s)
     if all_logits:

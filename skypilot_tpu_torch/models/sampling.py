@@ -58,19 +58,29 @@ def filter_logits(logits: torch.Tensor, top_k: Optional[torch.Tensor],
 def sample(logits: torch.Tensor, temps: torch.Tensor,
            generator: Optional[torch.Generator],
            top_k: Optional[torch.Tensor] = None,
-           top_p: Optional[torch.Tensor] = None) -> torch.Tensor:
+           top_p: Optional[torch.Tensor] = None,
+           rows: Optional[slice] = None, total: int = 0) -> torch.Tensor:
     """[B, V] logits -> [B] int32 ids. Rows with temperature 0 take the
     argmax; the others sample from the filtered, temperature-scaled
     distribution (temperature applies before the nucleus is taken).
     Sampling is argmax(logits + Gumbel noise), the same categorical draw
-    as ``jax.random.categorical``."""
+    as ``jax.random.categorical``.
+
+    ``rows`` (with ``total``): ``logits`` are these rows of a batch of
+    ``total`` (a serving rank's block of the slots). The noise of the
+    whole batch is drawn and the block's rows kept, so every rank's
+    generator stays in step and a row draws what it would in the whole
+    batch."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     if generator is None:
         return greedy
     scaled = logits / torch.clamp_min(temps, 1e-6)[:, None]
     filtered = filter_logits(scaled, top_k, top_p)
-    u = torch.rand(filtered.shape, generator=generator,
-                   dtype=torch.float32, device=filtered.device)
+    shape = filtered.shape if rows is None else (total, filtered.shape[1])
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=filtered.device)
+    if rows is not None:
+        u = u[rows]
     tiny = torch.finfo(torch.float32).tiny
     gumbel = -torch.log(-torch.log(torch.clamp(u, tiny, 1.0)))
     sampled = torch.argmax(filtered + gumbel, dim=-1).to(torch.int32)

@@ -11,7 +11,9 @@ by hand through ``psum``, ``pmax`` and ``all_gather`` here, which the
 sharded forward (``models/generate.py``) and quantization call;
 ``gather_to`` and ``scatter_from`` move KV heads between a serving
 replica's ranks and its head (``models/engine.py``: demotes to the KV
-tiers and exports gather, promotes and imports scatter). Training
+tiers and exports gather, promotes and imports scatter), and
+``broadcast`` hands what the head's ``data`` index received to the other
+``data`` ranks. Training
 differentiates through them: ``gather_fsdp`` (all-gather forward,
 reduce-scatter backward: an fsdp shard of a parameter), ``copy_to``
 (identity forward, ``psum`` backward: a replicated activation entering a
@@ -312,6 +314,31 @@ def scatter_from(x: Optional[torch.Tensor], mesh, shape, dtype,
             src=dist.get_global_rank(group, src), group=group)
         return medium.to(mesh.device)
     return _timed(f'scatter over {axis}', run, 'scatter', _nbytes(out))
+
+
+def broadcast(x: Optional[torch.Tensor], mesh, shape, dtype,
+              axis: str = 'data', src: int = 0) -> torch.Tensor:
+    """Rank ``src``'s ``x`` on every rank of ``axis``, of ``shape`` and
+    ``dtype`` (``x`` is None on the other ranks). A serving replica's
+    head hands the ranks of the other ``data`` indices what it scattered
+    on its own (a promote, an import)."""
+    group = mesh.group(axis)
+    if group is None:
+        return x
+    mine = mesh.axis_index(axis) == src
+    out = (x.contiguous() if mine
+           else torch.empty(shape, dtype=dtype, device=mesh.device))
+
+    def run():
+        got = _shared(out, mesh, axis, lambda slots, arena: slots(
+            src).view(dtype).view(shape))
+        if got is not None:
+            return got
+        medium = _to_medium(out, mesh)
+        dist.broadcast(medium, src=dist.get_global_rank(group, src),
+                       group=group)
+        return medium.to(mesh.device)
+    return _timed(f'broadcast over {axis}', run, 'broadcast', _nbytes(out))
 
 
 def ppermute_ring(x: torch.Tensor, mesh, axis: str,

@@ -99,6 +99,17 @@ class Mesh:
             return 0
         return int(self.device_mesh.get_local_rank(axis))
 
+    def only(self, *axes: str) -> 'Mesh':
+        """This mesh with every axis but ``axes`` at size 1: the view for
+        work that each rank of the other axes does whole (a serving
+        replica's prefill, which every ``data`` rank runs for the whole
+        group). Groups, coordinates and arenas are the mesh's."""
+        view = Mesh({a: (n if a in axes else 1)
+                     for a, n in self.shape.items()},
+                    self.device, self.device_mesh, self.backend)
+        view.arenas = self.arenas
+        return view
+
     @property
     def stages_on_host(self) -> bool:
         """True when collectives on this mesh's device tensors go through

@@ -13,18 +13,23 @@ a regulariser such as MoE's balance loss stays exact.
   layers are here, stacked on a leading stage dim, and each tick runs
   the valid stages one after another (JAX vmaps them). Plain autograd
   differentiates it; the results are JAX's on one device.
-* Ranks over ``pipe``: each rank holds only its stage's layers and
-  runs them at its valid ticks. After each tick but the last, every rank
-  hands its output to the next stage (``collectives.ppermute_ring`` over
-  ``pipe``, JAX's roll of the stage dim); a bubble tick computes nothing
+* Ranks over ``pipe``: ``S = k * pipe`` stages, and rank p holds the
+  layers of stages ``p*k .. p*k + k - 1`` (JAX shards the stage dim over
+  ``pipe``, so a rank's block of the layer stack is its k contiguous
+  stages). At each tick a rank runs its valid stages one after another;
+  its stage j's output feeds its stage j + 1 at the next tick in memory,
+  and only its last stage's output crosses to the next rank: after each
+  tick but the last, every rank hands it over (``collectives.ppermute_ring``
+  over ``pipe``, JAX's roll of the stage dim). A bubble computes nothing
   but still sends (zeros), so every rank issues the same collectives in
   the same order. The schedule is one ``torch.autograd.Function``: the
-  forward keeps each valid tick's graph, and the backward walks the
-  ticks in reverse, takes each tick's gradients from its graph and
-  sends the gradient of the tick's input back to the stage before it
-  (the inverse rotation). Stage 0's inputs (the microbatches) and the
-  last stage's outputs are real on those ranks; elsewhere the outputs
-  are zeros and the microbatches only give the shapes.
+  forward keeps each valid (tick, stage) graph, and the backward walks
+  the ticks in reverse, takes each stage's gradients from its graph and
+  hands the gradient of its input to the stage before it: in memory, or
+  to the previous rank by the inverse rotation. The first stage's
+  inputs (the microbatches) and the last stage's outputs are real on
+  those ranks; elsewhere the outputs are zeros and the microbatches only
+  give the shapes.
 """
 from __future__ import annotations
 
@@ -84,17 +89,19 @@ def pipeline_apply(stage_fn: StageFn, stage_params: Any,
     ``stage_fn(params, x_mb) -> (y_mb, aux_scalar)`` applies one stage's
     layers to one microbatch. With no ``pipe`` ranks, ``stage_params``
     carries a leading stage dim on every leaf (``split_stages``). Over
-    ``pipe`` ranks (``mesh.shape[axis] == num_stages``) it is this rank's
-    stage's tree, the outputs are real on the last stage (zeros
-    elsewhere) and ``aux`` is this stage's sum; every rank of the axis
-    must call it."""
+    ``pipe`` ranks (``num_stages`` a multiple of ``mesh.shape[axis]``) it
+    is this rank's block of the layer stack, the layers of its
+    ``num_stages // pipe`` stages; the outputs are real on the last
+    stage's rank (zeros elsewhere) and ``aux`` is the sum over this
+    rank's stages; every rank of the axis must call it."""
     if mesh is None or mesh.shape[axis] == 1:
         return _local(stage_fn, stage_params, microbatches, num_stages)
-    if mesh.shape[axis] != num_stages:
+    if num_stages % mesh.shape[axis]:
         raise ValueError(f'{num_stages} stages over {axis}='
-                         f'{mesh.shape[axis]} ranks: a rank holds one stage')
+                         f'{mesh.shape[axis]} ranks: each rank holds the '
+                         'same number of stages')
     return _Pipeline.apply(stage_fn, stage_params, mesh, axis, microbatches,
-                           *_leaves(stage_params))
+                           num_stages, *_leaves(stage_params))
 
 
 def _local(stage_fn: StageFn, stage_params: Any,
@@ -128,65 +135,92 @@ class _Pipeline(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, stage_fn: StageFn, tree: Any, mesh, axis: str,
-                microbatches: torch.Tensor, *leaves):
+                microbatches: torch.Tensor, num_stages: int, *leaves):
         p, n = mesh.axis_index(axis), mesh.shape[axis]
+        k = num_stages // n
         num_micro = microbatches.shape[0]
-        ticks = num_micro + n - 1
+        ticks = num_micro + num_stages - 1
         params = [t.detach().requires_grad_(t.requires_grad) for t in leaves]
-        tree = _rebuild(tree, params)
         outputs = torch.zeros_like(microbatches)
         aux = microbatches.new_zeros((), dtype=torch.float32)
         saved = {}
         received = None
+        held: List[Any] = [None] * k  # each local stage's last output
         with torch.enable_grad():
+            # The rank's stages: views of its layers, inside the graph.
+            local = split_stages(_rebuild(tree, params), k)
+            stages = [_tree_map(lambda t, j=j: t[j], local)
+                      for j in range(k)]
             for i in range(ticks):
-                if _valid(p, i, num_micro):
-                    src = (microbatches[i].detach() if p == 0
-                           else received)
+                outs: List[Any] = [None] * k
+                for j in range(k):
+                    s = p * k + j
+                    if not _valid(s, i, num_micro):
+                        continue
+                    if j > 0:  # the rank's previous stage, last tick
+                        src = held[j - 1]
+                    else:
+                        src = (microbatches[i].detach() if p == 0
+                               else received)
                     x = src.detach().requires_grad_(True)
-                    y, a = stage_fn(tree, x)
-                    saved[i] = (x, y, a)
-                    out = y.detach()
+                    y, a = stage_fn(stages[j], x)
+                    saved[i, j] = (x, y, a)
+                    outs[j] = y.detach()
                     aux = aux + a.detach().float()
-                    if p == n - 1:
-                        outputs[i - (n - 1)] = out
-                else:  # a bubble: nothing to compute, zeros to send
-                    out = torch.zeros_like(microbatches[0])
-                if i < ticks - 1:
+                    if s == num_stages - 1:
+                        outputs[i - s] = outs[j]
+                held = outs
+                if i < ticks - 1:  # a bubble sends zeros
+                    out = (outs[-1] if outs[-1] is not None
+                           else torch.zeros_like(microbatches[0]))
                     received = collectives.ppermute_ring(out, mesh, axis)
         ctx.mesh, ctx.axis, ctx.saved, ctx.params = mesh, axis, saved, params
+        ctx.num_stages = num_stages
         return outputs, aux
 
     @staticmethod
     def backward(ctx, g_outputs, g_aux):
         mesh, axis, saved, params = ctx.mesh, ctx.axis, ctx.saved, ctx.params
+        num_stages = ctx.num_stages
         p, n = mesh.axis_index(axis), mesh.shape[axis]
-        ticks = g_outputs.shape[0] + n - 1
+        k = num_stages // n
+        ticks = g_outputs.shape[0] + num_stages - 1
         trainable = [t for t in params if t.requires_grad]
         g_micro = torch.zeros_like(g_outputs)
         zero = torch.zeros_like(g_outputs[0])
         g_send = zero
+        g_held: List[Any] = [None] * k  # each stage's input grad, tick + 1
         for i in reversed(range(ticks)):
-            # The gradient of this tick's output: the next stage's input
-            # gradient at tick i + 1 (the inverse of the tick's hand-over),
-            # or the loss's on the last stage.
-            g_out = (collectives.ppermute_ring(g_send, mesh, axis, shift=-1)
-                     if i < ticks - 1 else zero)
+            # The gradient of the rank's last stage's output: the next
+            # rank's first stage's input gradient at tick i + 1 (the
+            # inverse of the tick's hand-over).
+            g_recv = (collectives.ppermute_ring(g_send, mesh, axis, shift=-1)
+                      if i < ticks - 1 else zero)
             g_send = zero
-            if i not in saved:
-                continue
-            x, y, a = saved.pop(i)
-            if p == n - 1:
-                g_out = g_outputs[i - (n - 1)]
-            outs, grads = [y], [g_out]
-            if a.requires_grad:
-                outs.append(a)
-                grads.append(g_aux.to(a.dtype))
-            torch.autograd.backward(outs, grads, inputs=[x] + trainable)
-            if p == 0:  # stage 0's input is the microbatch, not a receipt
-                g_micro[i] = x.grad
-            else:
-                g_send = x.grad
+            g_in: List[Any] = [None] * k
+            for j in reversed(range(k)):
+                if (i, j) not in saved:
+                    continue
+                x, y, a = saved.pop((i, j))
+                s = p * k + j
+                if s == num_stages - 1:  # the loss's
+                    g_out = g_outputs[i - s]
+                elif j == k - 1:
+                    g_out = g_recv
+                else:  # the rank's next stage's, in memory
+                    g_out = g_held[j + 1]
+                outs, grads = [y], [g_out]
+                if a.requires_grad:
+                    outs.append(a)
+                    grads.append(g_aux.to(a.dtype))
+                torch.autograd.backward(outs, grads, inputs=[x] + trainable)
+                if j > 0:
+                    g_in[j] = x.grad
+                elif p == 0:  # the first stage's input is the microbatch
+                    g_micro[i] = x.grad
+                else:
+                    g_send = x.grad
+            g_held = g_in
         ctx.saved = None
-        return (None, None, None, None, g_micro, *[
+        return (None, None, None, None, g_micro, None, *[
             t.grad if t.requires_grad else None for t in params])

@@ -759,17 +759,18 @@ def test_chunked_prefill_with_the_prefix_pool(weights):
 # -- options not ported yet -------------------------------------------------------
 
 
-def _data_mesh():
-    """A mesh with a data axis: the one mesh axis serving does not take
-    yet (tensor parallelism is tests/test_torch_tp.py's)."""
+def _fsdp_mesh():
+    """A mesh with an fsdp axis: serving takes data and tensor alone
+    (tests/test_torch_tp.py and tests/test_torch_tp_data.py serve on
+    them; the data axis was refused here until it was ported)."""
     from skypilot_tpu_torch.parallel import mesh as port_mesh
     sizes = {a: 1 for a in port_mesh.AXIS_ORDER}
-    return port_mesh.Mesh(dict(sizes, data=2, tensor=2),
+    return port_mesh.Mesh(dict(sizes, fsdp=2, tensor=2),
                           torch.device('cpu'))
 
 
 UNPORTED = {
-    'mesh': dict(mesh=_data_mesh()),
+    'mesh': dict(mesh=_fsdp_mesh()),
 }
 # Refused until the paged layout, block sharing and KV tiers, draft
 # rounds (a draft model, paged or not) and the prefill and decode roles
@@ -794,7 +795,9 @@ PORTED = {
 def test_unported_options_raise_at_construction(weights, name):
     jp, pp = weights
     if name in UNPORTED:
-        with pytest.raises(NotImplementedError, match='not ported yet'):
+        with pytest.raises(NotImplementedError,
+                           match='other than data and tensor under a mesh '
+                                 'is not ported yet'):
             port_engine.ContinuousEngine(pp, PORT_CFG, slots=2, max_len=32,
                                          device='cpu', **UNPORTED[name])
         return
