@@ -55,7 +55,15 @@ themselves):
    shape (llama3-1b: B=8, Hq 32, Hkv 8, D 64, S=2048), the
    lora-finetune recipe's (BENCH_1B: B=16, Hq 16, Hkv 8, D 128,
    S=2048) and train-moe's (moe-8x1b: B=2, Hq 16, Hkv 8, D 128,
-   S=2048). Absolute
+   S=2048), walks of the persistent K1 with more work tiles than SMs, a
+   ragged last round and B*Hq no multiple of the SM count (B=3, Hq 12,
+   Hkv 4, S=1000, D 64; B=5, Hq 16, Hkv 8, S=1537, D 128), and D=64
+   non-causal at a ragged S=1000 (keys past S masked in K1's last key
+   tile, rows past S in K3's 128-row tiles). Each bf16 case
+   prints K1's grid beside the SM count; the library's own account of
+   every bf16 launch (``attention.plan``: blocks, tile, stages, shared
+   memory) must equal ``ops/flash_schedule``'s, which the CPU tests
+   check. Absolute
    tolerances: bf16 o 2e-2,
    grads 5e-2; fp32 1e-4 and 1e-3 (lse always 1e-3). Those are near the
    size of a bf16 value at S=4096, so each of o, dq, dk, dv is also held
@@ -66,8 +74,9 @@ themselves):
    llama-finetune's, lora-finetune's and train-moe's), with TFLOP/s and
    the share of the bound. Fails
    unless every instance of the wgmma bodies of K1, K2 and K3 (12: D
-   64/128, causal or not) shows HGMMA and UTMALDG in the library's SASS
-   and ptxas reports 0 spill bytes for it.
+   64/128, causal or not; two of each body at D=64, whose K1 and K3
+   tiles differ from D=128's) shows HGMMA and UTMALDG in the library's
+   SASS and ptxas reports 0 spill bytes for it.
 4. Serving end to end on a small model (head_dim 64, float32): prefill
    and decode logits on the card (through K4) against the CPU; then the
    continuous engine (4 slots, max_len 48, 7 requests, full and int8 KV)
@@ -422,7 +431,7 @@ themselves):
    step a rank, a rank's weight bytes its quarter of the experts and half
    of the rest; the router and every expert of every layer moved; then a
    relaunch resumed from step 2 writes a step 3 equal to the
-   uninterrupted one bit for bit. 19e (beside 19d): bench-1b at
+   uninterrupted one bit for bit. 19e (after 19d, beside 19c): bench-1b at
    ``STAGE_LAYERS`` (4) layers in 4 pipeline stages of 4 microbatches
    through ``train.run --mesh pipe=2,fsdp=1`` (two stages a rank, global
    batch 8, seq 2048, 2 steps), then the same batch on one rank: 19a's
@@ -490,6 +499,7 @@ import urllib.request
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.ops import flash_schedule
 from skypilot_tpu_torch.utils.device import H100_BF16_DENSE_FLOPS
 
 H100_BYTES_PER_S = 3.35e12        # HBM3, SXM data sheet
@@ -879,6 +889,9 @@ def attention_phase(fa):
         (LORA_CASE, 16, 16, 8, 2048, 128, bf16, True),
         (MOE_CASE, 2, 16, 8, 2048, 128, bf16, True),
         (SHARD_CASE, 8, 16, 8, 2048, 128, bf16, True),
+        ('walk D=64 B=3 S=1000', 3, 12, 4, 1000, 64, bf16, True),
+        ('walk B=5 S=1537', 5, 16, 8, 1537, 128, bf16, True),
+        ('D=64 full S=1000', 2, 8, 2, 1000, 64, bf16, False),
     ]
     worst = {name: 0.0 for name in FLASH}
     timed = {TRAIN_CASE: {}, FINETUNE_CASE: {}, LORA_CASE: {},
@@ -925,7 +938,19 @@ def attention_phase(fa):
         worst['flash_bwd_dq'] = max(worst['flash_bwd_dq'], errs['dq'])
         worst['flash_bwd_dkv'] = max(worst['flash_bwd_dkv'], errs['dk'],
                                      errs['dv'])
+        grid = ''
+        if dtype == bf16:
+            got_plan = {kern: fa.plan(kern, d, b, hq, hkv, s)
+                        for kern in flash_schedule.KERNELS}
+            for kern, got in got_plan.items():
+                want = flash_schedule.plan(kern, d, b, hq, hkv, s, got[1])
+                if got != want:
+                    raise AssertionError(f'{label}: {kern} launches {got}, '
+                                         f'ops/flash_schedule says {want}')
+            grid = (f'K1 grid={got_plan["fwd"][0]} '
+                    f'SMs={got_plan["fwd"][1]} ')
         print(f'  {label:18s} {str(dtype).split(".")[-1]:8s} causal={causal} '
+              + grid
               + ' '.join(f'{k}_err={v:.3g}' for k, v in errs.items())
               + ' ' + ' '.join(f'{k}_tile_rel={v:.3g}'
                                for k, v in rels.items()), flush=True)
@@ -994,17 +1019,20 @@ def check_sm90_bodies(fa):
                  for chunk in fa.sass().split('Function : ')[1:]}
     for body in SM90_BODIES:  # 3 bodies x 4 instances
         names = sorted(f for f in functions if body in f)
-        if len(names) != 4:
+        by_dim = [sum(f'ILi{d}E' in f for f in names) for d in (64, 128)]
+        if len(names) != 4 or by_dim != [2, 2]:
             raise AssertionError(f'{body}: {len(names)} instances in the '
-                                 'SASS, expected 4 (D 64/128, causal or not)')
+                                 f'SASS ({by_dim} at D 64/128), expected 4 '
+                                 '(D 64/128, causal or not)')
         for name in names:
             missing = [op for op in ('HGMMA', 'UTMALDG')
                        if op not in functions[name]]
             if missing or spills.get(name) != 0:
                 raise AssertionError(f'{name}: missing {missing} in SASS, '
                                      f'spill bytes {spills.get(name)}')
-        print(f'  {body}: {len(names)} instances, each with HGMMA and '
-              'UTMALDG in its SASS and 0 spill bytes', flush=True)
+        print(f'  {body}: {len(names)} instances ({by_dim[0]} at D=64, '
+              f'{by_dim[1]} at D=128), each with HGMMA and UTMALDG in its '
+              'SASS and 0 spill bytes', flush=True)
 
 
 def _sdpa_train_ms(q, k, v, do, causal):
@@ -6596,10 +6624,10 @@ def mesh_phase(llama, train_run):
     torch.cuda.empty_cache()  # the ranks share the card with this process
     try:
         # 19a beside 19b (whose uninterrupted run goes beside its saved
-        # and resumed runs), then 19c and 19e beside 19d: their step times
-        # are not a lone gang's. Not 19e beside 19a: 19a's one-rank runs
-        # at batch 32 take most of the card (19e ran out of memory there,
-        # PERF.md section 6).
+        # and resumed runs), then 19c beside 19d and 19e: their step times
+        # are not a lone gang's. 19e after 19d, not beside it or 19a: the
+        # one-rank runs of either take most of the card, and 19e ran out
+        # of memory beside both (PERF.md section 6).
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(3) as pool:
             multislice = pool.submit(mesh_train_phase, llama, train_run,
@@ -6609,14 +6637,13 @@ def mesh_phase(llama, train_run):
             _phase('  19b done')
             launches['phase 19a train-multislice'] = multislice.result()
         _phase(f'  19a-19b side by side: {time.perf_counter() - t0:.1f} s')
-        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
             small = pool.submit(small_mesh_phase, log_dir)
-            stages = pool.submit(pipe_stage_phase, llama, train_run,
-                                 log_dir)
             launches['phase 19d moe-finetune'] = moe_mesh_phase(
                 llama, train_run, log_dir)
             _phase('  19d done')
-            launches['phase 19e pipe-stages'] = stages.result()
+            launches['phase 19e pipe-stages'] = pipe_stage_phase(
+                llama, train_run, log_dir)
             _phase('  19e done')
             launches.update(small.result())
     finally:

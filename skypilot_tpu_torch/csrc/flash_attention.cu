@@ -25,9 +25,8 @@
 // Two bodies of each kernel, chosen by the input type:
 //  * bf16 (training): the products run on the tensor cores with fp32 sums.
 //    All three are in flash_attention_sm90.cuh: TMA rings fed by a producer
-//    warpgroup, wgmma in two consumer warpgroups, 128-row blocks (its header
-//    says more). At the training shape they take 54-60% of their bound
-//    (H100 80GB HBM3, 700 W).
+//    warpgroup, wgmma in two consumer warpgroups, 128-row blocks; K1 is
+//    persistent, one block per SM (its header says more).
 //  * fp32 (tight checks against the plain version, fp32 models): fp32 FMAs
 //    on the CUDA cores, 256 threads per tile, each holding a 4 x 4 sub-tile
 //    of the logits; tensor cores would round fp32 inputs to TF32.
@@ -520,10 +519,11 @@ struct Shape {
 // bf16 runs the tensor-core kernels (sm90::), fp32 the CUDA-core ones.
 template <typename T, int D, bool kCausal>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       void* lse, Shape s, cudaStream_t stream) {
+                       void* lse, void* counter, Shape s,
+                       cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    return sm90::launch_fwd<D, kCausal>(q, k, v, o, lse, s.batch, s.hq, s.hkv,
-                                        s.seq, s.scale, stream);
+    return sm90::launch_fwd<D, kCausal>(q, k, v, o, lse, counter, s.batch,
+                                        s.hq, s.hkv, s.seq, s.scale, stream);
   } else {
     const dim3 grid((s.seq + kTile - 1) / kTile, s.hq, s.batch);
     const int group = s.hq / s.hkv;
@@ -616,18 +616,21 @@ bool valid(Shape s) {
 
 // dtype: 0 = fp32, 1 = bf16 (q, k, v, o, dO, dq). Each returns the
 // cudaError_t of its launch (0 = launched).
+// counter (bf16 only; the fp32 body ignores it): one int32 in device
+// memory, zero, which no other launch uses at the same time; the kernel
+// takes its work tiles from it and leaves it zero.
 extern "C" int skytorch_flash_fwd(int dtype, int causal, const void* q,
                                   const void* k, const void* v, void* o,
-                                  void* lse, int batch, int hq, int hkv,
-                                  int seq, int head_dim, float scale,
-                                  void* stream) {
+                                  void* lse, void* counter, int batch,
+                                  int hq, int hkv, int seq, int head_dim,
+                                  float scale, void* stream) {
   const Shape s{batch, hq, hkv, seq, scale};
   if (!valid(s)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, head_dim, causal, [&](auto t, auto d, auto c) {
     using T = typename decltype(t)::type;
     return launch_fwd<T, decltype(d)::value, decltype(c)::value>(
-        q, k, v, o, lse, s, st);
+        q, k, v, o, lse, counter, s, st);
   });
 }
 
@@ -662,6 +665,24 @@ extern "C" int skytorch_flash_bwd_dkv(int dtype, int causal, const void* q,
     return launch_dkv<T, decltype(d)::value, decltype(c)::value>(
         q, k, v, dout, lse, delta, dk, dv, s, st);
   });
+}
+
+// The bf16 bodies' launch at this shape (sm90::plan): out[7] = {blocks,
+// SMs, query rows a tile, keys a tile, ring stages, shared memory bytes,
+// K1's (batch, head)s a section of its work list} of kernel 0 (K1), 1 (K2)
+// or 2 (K3).
+extern "C" int skytorch_flash_plan(int kernel, int head_dim, int batch,
+                                   int hq, int hkv, int seq, int* out) {
+  const Shape s{batch, hq, hkv, seq, 1.f};
+  if (!valid(s) || kernel < 0 || kernel > 2) return cudaErrorInvalidValue;
+  if (head_dim == 64) {
+    sm90::plan<64>(kernel, batch, hq, hkv, seq, out);
+  } else if (head_dim == 128) {
+    sm90::plan<128>(kernel, batch, hq, hkv, seq, out);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
 }
 
 extern "C" const char* skytorch_cuda_error_string(int code) {

@@ -8,8 +8,10 @@ products on wgmma), the fp32 bodies and the C entry points in
 with ``ctypes`` (``ops/_build.py``). At the training shapes the kernels
 are bound by the tensor cores' rate, not by memory, so their design is
 about keeping wgmma busy: loads run ahead through the rings and the
-exponentials of one consumer overlap the other's products (the header
-of ``flash_attention_sm90.cuh`` says more).
+exponentials of one consumer overlap the other's products; the forward
+is persistent, one block per SM taking work tiles from a counter (the
+header of ``flash_attention_sm90.cuh`` says more; ``flash_schedule``
+mirrors how the bodies cut their work).
 
 * K1 ``flash_fwd`` (``_flash_fwd_kernel``, ``attention.py:106``): o and
   the fp32 log-sum-exp;
@@ -38,6 +40,7 @@ from typing import Tuple
 import torch
 
 from skypilot_tpu_torch.ops import _build
+from skypilot_tpu_torch.ops import flash_schedule
 
 _NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # the head widths the presets use
@@ -148,13 +151,14 @@ def _configure(lib) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     shape = [i32, i32, i32, i32, i32, f32, ptr]  # b, hq, hkv, s, d, scale,
     lib.skytorch_flash_fwd.argtypes = [           # stream
-        i32, i32, ptr, ptr, ptr, ptr, ptr] + shape  # o, lse
+        i32, i32, ptr, ptr, ptr, ptr, ptr, ptr] + shape  # o, lse, counter
     lib.skytorch_flash_bwd_dq.argtypes = [
         i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr] + shape  # .., dq
     lib.skytorch_flash_bwd_dkv.argtypes = [
         i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr] + shape  # dk, dv
+    lib.skytorch_flash_plan.argtypes = [i32] * 6 + [ptr]
     for fn in (lib.skytorch_flash_fwd, lib.skytorch_flash_bwd_dq,
-               lib.skytorch_flash_bwd_dkv):
+               lib.skytorch_flash_bwd_dkv, lib.skytorch_flash_plan):
         fn.restype = i32
 
 
@@ -176,6 +180,24 @@ def compiler_report() -> str:
 def sass() -> str:
     """The loaded library's SASS (``cuobjdump -sass``)."""
     return _LIBRARY.sass()
+
+
+def plan(kernel: str, head_dim: int, batch: int, hq: int, hkv: int,
+         seq: int) -> Tuple[int, ...]:
+    """The library's own account of a bf16 launch of ``kernel`` ('fwd',
+    'dq' or 'dkv') on the current card: (blocks, SMs, query rows a tile,
+    keys a tile, ring stages, shared memory bytes, K1's (batch, head)s a
+    section of its work list, 0 for K2 and K3).
+    ``flash_schedule.plan`` mirrors it."""
+    if kernel not in flash_schedule.KERNELS:
+        raise ValueError(f'flash_plan: kernel {kernel!r} is not one of '
+                         f'{flash_schedule.KERNELS}')
+    out = (ctypes.c_int * 7)()
+    rc = _LIBRARY.get().skytorch_flash_plan(
+        flash_schedule.KERNELS.index(kernel), head_dim, batch, hq, hkv, seq,
+        out)
+    _LIBRARY.check(rc, 'flash_plan')
+    return tuple(out)
 
 
 def _check(q, k, v, *rows) -> None:
@@ -230,6 +252,19 @@ def _on_cuda(q: torch.Tensor) -> bool:
     return True
 
 
+_COUNTERS = {}  # (device, stream) -> K1's int32 work-tile counter
+
+
+def _fwd_counter(device: torch.device, stream: int) -> torch.Tensor:
+    """K1's work-tile counter for launches on this stream: zero, and left
+    zero by every launch, so launches in stream order share it; another
+    stream's launches may overlap them, so each stream has its own."""
+    key = (device, stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _COUNTERS[key]
+
+
 def _shape_args(q, k, stream):
     b, hq, s, d = q.shape
     return [b, hq, k.shape[1], s, d, d ** -0.5, stream]
@@ -249,6 +284,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = lib.skytorch_flash_fwd(
         _DTYPE_CODES[q.dtype], int(causal), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        _fwd_counter(q.device, stream).data_ptr(),
         *_shape_args(q, k, stream))
     _LIBRARY.check(rc, 'flash_fwd')
     flash_attention.fwd_launches += 1
