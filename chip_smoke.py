@@ -540,6 +540,8 @@ MOE_CASE = 'moe-8x1b B=2 S=2048'  # K1-K3 at train-moe's shape (phase 14d)
 # K1-K3 at one rank's rows of train-multislice (phase 19a: 32 rows over
 # data=2,fsdp=2).
 SHARD_CASE = 'bench-1b rank B=8 S=2048'
+# K2's and K3's work lists over several L2 sections, GQA group 4 (phase 3).
+WALK_CASE = 'walk G=4 B=3 S=3000'
 # The int8 ``mm`` on the card against the CPU's. Float32 sums taken in
 # another order differ by up to ~1e-6 of the output's scale: that moves a
 # rounded bf16 output across a rounding boundary now and then (one ulp),
@@ -892,7 +894,16 @@ def attention_phase(fa):
         ('walk D=64 B=3 S=1000', 3, 12, 4, 1000, 64, bf16, True),
         ('walk B=5 S=1537', 5, 16, 8, 1537, 128, bf16, True),
         ('D=64 full S=1000', 2, 8, 2, 1000, 64, bf16, False),
+        # K2's and K3's lists over several L2 sections, the last partial
+        # (K2: 96 heads in sections of 84; K3: 24 kv heads in sections of
+        # 5), GQA group 4 at D=128.
+        (WALK_CASE, 3, 32, 8, 3000, 128, bf16, True),
     ]
+    # K2 and K3 run twice on these and must give the same bits: blocks
+    # take work tiles from a counter in any order, but each tile is
+    # computed by one block in a fixed order.
+    twice = {'walk D=64 B=3 S=1000', 'walk B=5 S=1537', WALK_CASE,
+             LORA_CASE}
     worst = {name: 0.0 for name in FLASH}
     timed = {TRAIN_CASE: {}, FINETUNE_CASE: {}, LORA_CASE: {},
              MOE_CASE: {}, SHARD_CASE: {}}
@@ -903,6 +914,17 @@ def attention_phase(fa):
         dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
         torch.cuda.synchronize()
+        if label in twice:
+            dq2 = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+            dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+            torch.cuda.synchronize()
+            for name, a, b2 in (('dq', dq, dq2), ('dk', dk, dk2),
+                                ('dv', dv, dv2)):
+                if not torch.equal(a, b2):
+                    raise AssertionError(
+                        f'{label}: two runs of {name} differ by '
+                        f'{float((a.float() - b2.float()).abs().max())}')
+            del dq2, dk2, dv2
         ro, rlse = fa.flash_fwd_reference(q, k, v, causal)
         rdq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
         rdk, rdv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
@@ -947,8 +969,10 @@ def attention_phase(fa):
                 if got != want:
                     raise AssertionError(f'{label}: {kern} launches {got}, '
                                          f'ops/flash_schedule says {want}')
-            grid = (f'K1 grid={got_plan["fwd"][0]} '
-                    f'SMs={got_plan["fwd"][1]} ')
+            grid = ('grids K1/K2/K3=' + '/'.join(
+                str(got_plan[kern][0]) for kern in flash_schedule.KERNELS)
+                + f' SMs={got_plan["fwd"][1]} '
+                + ('same-bits-twice ' if label in twice else ''))
         print(f'  {label:18s} {str(dtype).split(".")[-1]:8s} causal={causal} '
               + grid
               + ' '.join(f'{k}_err={v:.3g}' for k, v in errs.items())

@@ -541,10 +541,11 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
 template <typename T, int D, bool kCausal>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
-                      void* dq, Shape s, cudaStream_t stream) {
+                      void* dq, void* counter, Shape s, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    return sm90::launch_dq<D, kCausal>(q, k, v, dout, lse, delta, dq, s.batch,
-                                       s.hq, s.hkv, s.seq, s.scale, stream);
+    return sm90::launch_dq<D, kCausal>(q, k, v, dout, lse, delta, dq, counter,
+                                       s.batch, s.hq, s.hkv, s.seq, s.scale,
+                                       stream);
   } else {
     const dim3 grid((s.seq + kTile - 1) / kTile, s.hq, s.batch);
     const int group = s.hq / s.hkv;
@@ -563,11 +564,12 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 template <typename T, int D, bool kCausal>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, Shape s, cudaStream_t stream) {
+                       void* dk, void* dv, void* counter, Shape s,
+                       cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
     return sm90::launch_dkv<D, kCausal>(q, k, v, dout, lse, delta, dk, dv,
-                                        s.batch, s.hq, s.hkv, s.seq, s.scale,
-                                        stream);
+                                        counter, s.batch, s.hq, s.hkv, s.seq,
+                                        s.scale, stream);
   } else {
     const dim3 grid((s.seq + kTile - 1) / kTile, s.hkv, s.batch);
     const int group = s.hq / s.hkv;
@@ -616,7 +618,7 @@ bool valid(Shape s) {
 
 // dtype: 0 = fp32, 1 = bf16 (q, k, v, o, dO, dq). Each returns the
 // cudaError_t of its launch (0 = launched).
-// counter (bf16 only; the fp32 body ignores it): one int32 in device
+// counter (bf16 only; the fp32 bodies ignore it): one int32 in device
 // memory, zero, which no other launch uses at the same time; the kernel
 // takes its work tiles from it and leaves it zero.
 extern "C" int skytorch_flash_fwd(int dtype, int causal, const void* q,
@@ -637,8 +639,9 @@ extern "C" int skytorch_flash_fwd(int dtype, int causal, const void* q,
 extern "C" int skytorch_flash_bwd_dq(int dtype, int causal, const void* q,
                                      const void* k, const void* v,
                                      const void* dout, const void* lse,
-                                     const void* delta, void* dq, int batch,
-                                     int hq, int hkv, int seq, int head_dim,
+                                     const void* delta, void* dq,
+                                     void* counter, int batch, int hq,
+                                     int hkv, int seq, int head_dim,
                                      float scale, void* stream) {
   const Shape s{batch, hq, hkv, seq, scale};
   if (!valid(s)) return cudaErrorInvalidValue;
@@ -646,7 +649,7 @@ extern "C" int skytorch_flash_bwd_dq(int dtype, int causal, const void* q,
   return dispatch(dtype, head_dim, causal, [&](auto t, auto d, auto c) {
     using T = typename decltype(t)::type;
     return launch_dq<T, decltype(d)::value, decltype(c)::value>(
-        q, k, v, dout, lse, delta, dq, s, st);
+        q, k, v, dout, lse, delta, dq, counter, s, st);
   });
 }
 
@@ -654,23 +657,22 @@ extern "C" int skytorch_flash_bwd_dkv(int dtype, int causal, const void* q,
                                       const void* k, const void* v,
                                       const void* dout, const void* lse,
                                       const void* delta, void* dk, void* dv,
-                                      int batch, int hq, int hkv, int seq,
-                                      int head_dim, float scale,
-                                      void* stream) {
+                                      void* counter, int batch, int hq,
+                                      int hkv, int seq, int head_dim,
+                                      float scale, void* stream) {
   const Shape s{batch, hq, hkv, seq, scale};
   if (!valid(s)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, head_dim, causal, [&](auto t, auto d, auto c) {
     using T = typename decltype(t)::type;
     return launch_dkv<T, decltype(d)::value, decltype(c)::value>(
-        q, k, v, dout, lse, delta, dk, dv, s, st);
+        q, k, v, dout, lse, delta, dk, dv, counter, s, st);
   });
 }
 
 // The bf16 bodies' launch at this shape (sm90::plan): out[7] = {blocks,
 // SMs, query rows a tile, keys a tile, ring stages, shared memory bytes,
-// K1's (batch, head)s a section of its work list} of kernel 0 (K1), 1 (K2)
-// or 2 (K3).
+// units of a section of the work list} of kernel 0 (K1), 1 (K2) or 2 (K3).
 extern "C" int skytorch_flash_plan(int kernel, int head_dim, int batch,
                                    int hq, int hkv, int seq, int* out) {
   const Shape s{batch, hq, hkv, seq, 1.f};

@@ -8,10 +8,10 @@ products on wgmma), the fp32 bodies and the C entry points in
 with ``ctypes`` (``ops/_build.py``). At the training shapes the kernels
 are bound by the tensor cores' rate, not by memory, so their design is
 about keeping wgmma busy: loads run ahead through the rings and the
-exponentials of one consumer overlap the other's products; the forward
-is persistent, one block per SM taking work tiles from a counter (the
-header of ``flash_attention_sm90.cuh`` says more; ``flash_schedule``
-mirrors how the bodies cut their work).
+exponentials of one consumer overlap the other's products; all three are
+persistent, one block per SM taking work tiles from a counter in
+L2-sized sections (the header of ``flash_attention_sm90.cuh`` says more;
+``flash_schedule`` mirrors how the bodies cut their work).
 
 * K1 ``flash_fwd`` (``_flash_fwd_kernel``, ``attention.py:106``): o and
   the fp32 log-sum-exp;
@@ -153,9 +153,9 @@ def _configure(lib) -> None:
     lib.skytorch_flash_fwd.argtypes = [           # stream
         i32, i32, ptr, ptr, ptr, ptr, ptr, ptr] + shape  # o, lse, counter
     lib.skytorch_flash_bwd_dq.argtypes = [
-        i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr] + shape  # .., dq
+        i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr] + shape  # dq, ctr
     lib.skytorch_flash_bwd_dkv.argtypes = [
-        i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr] + shape  # dk, dv
+        i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr] + shape
     lib.skytorch_flash_plan.argtypes = [i32] * 6 + [ptr]
     for fn in (lib.skytorch_flash_fwd, lib.skytorch_flash_bwd_dq,
                lib.skytorch_flash_bwd_dkv, lib.skytorch_flash_plan):
@@ -186,8 +186,9 @@ def plan(kernel: str, head_dim: int, batch: int, hq: int, hkv: int,
          seq: int) -> Tuple[int, ...]:
     """The library's own account of a bf16 launch of ``kernel`` ('fwd',
     'dq' or 'dkv') on the current card: (blocks, SMs, query rows a tile,
-    keys a tile, ring stages, shared memory bytes, K1's (batch, head)s a
-    section of its work list, 0 for K2 and K3).
+    keys a tile, ring stages, shared memory bytes, units of a section of
+    the work list: (batch, head)s for K1 and K2, (batch, kv head)s for
+    K3).
     ``flash_schedule.plan`` mirrors it."""
     if kernel not in flash_schedule.KERNELS:
         raise ValueError(f'flash_plan: kernel {kernel!r} is not one of '
@@ -252,17 +253,19 @@ def _on_cuda(q: torch.Tensor) -> bool:
     return True
 
 
-_COUNTERS = {}  # (device, stream) -> K1's int32 work-tile counter
+_COUNTERS = {}  # (device, stream) -> K1's, K2's and K3's int32 counters
 
 
-def _fwd_counter(device: torch.device, stream: int) -> torch.Tensor:
-    """K1's work-tile counter for launches on this stream: zero, and left
-    zero by every launch, so launches in stream order share it; another
-    stream's launches may overlap them, so each stream has its own."""
+def _counter(device: torch.device, stream: int, kernel: str) -> int:
+    """Address of ``kernel``'s work-tile counter for launches on this
+    stream: zero, and left zero by every launch, so launches in stream
+    order share it; another stream's launches may overlap them, so each
+    stream has its own, and each kernel its own on it."""
     key = (device, stream)
     if key not in _COUNTERS:
-        _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _COUNTERS[key]
+        _COUNTERS[key] = torch.zeros(len(flash_schedule.KERNELS),
+                                     dtype=torch.int32, device=device)
+    return _COUNTERS[key][flash_schedule.KERNELS.index(kernel)].data_ptr()
 
 
 def _shape_args(q, k, stream):
@@ -284,7 +287,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = lib.skytorch_flash_fwd(
         _DTYPE_CODES[q.dtype], int(causal), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        _fwd_counter(q.device, stream).data_ptr(),
+        _counter(q.device, stream, 'fwd'),
         *_shape_args(q, k, stream))
     _LIBRARY.check(rc, 'flash_fwd')
     flash_attention.fwd_launches += 1
@@ -303,7 +306,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True
     rc = lib.skytorch_flash_bwd_dq(
         _DTYPE_CODES[q.dtype], int(causal), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), *_shape_args(q, k, stream))
+        dq.data_ptr(), _counter(q.device, stream, 'dq'),
+        *_shape_args(q, k, stream))
     _LIBRARY.check(rc, 'flash_bwd_dq')
     flash_attention.bwd_dq_launches += 1
     return dq
@@ -322,7 +326,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True
     rc = lib.skytorch_flash_bwd_dkv(
         _DTYPE_CODES[q.dtype], int(causal), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), *_shape_args(q, k, stream))
+        dk.data_ptr(), dv.data_ptr(), _counter(q.device, stream, 'dkv'),
+        *_shape_args(q, k, stream))
     _LIBRARY.check(rc, 'flash_bwd_dkv')
     flash_attention.bwd_dkv_launches += 1
     return dk, dv
