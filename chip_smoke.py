@@ -7,15 +7,15 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero). Depth cuts, widths untouched, so
 that phases 18 and 19 fit the script's time limit: phases 7-8, 12-14,
-15b, 16a-16b, 18a, 18c-18f and 19a-19b run bench-1b and moe-8x1b at
+15b, 16a-16b, 18a, 18c-18g and 19a-19b run bench-1b and moe-8x1b at
 ``SERVE_LAYERS`` (4) of their 18 layers; phases 9 and 11 serve
 llama3-1b at ``RECIPE_LAYERS`` (4) of its 16 and phase 10 trains it at
 ``FINETUNE_LAYERS`` (4); 18b serves llama3-8b at ``TP8_LAYERS`` (4) of
 its 32; 19d trains moe-8x1b at ``MOE_MESH_LAYERS`` (4) and 19e bench-1b
 at ``STAGE_LAYERS`` (4). Phase 6 trains bench-1b, phase 15a boots it and
 phase 17 serves it at all 18 layers. A ``sitecustomize`` cuts the preset
-in the subprocesses of phases 10, 18 and 19 (18f's ranks cut it
-themselves):
+in the subprocesses of phases 10, 18 and 19 (18f's and 18g's ranks cut
+it themselves):
 
 1. Build: compiles both kernel libraries of ``skypilot_tpu_torch/csrc``
    (flash-decode K4, flash-attention K1-K3), one nvcc each, started
@@ -397,7 +397,19 @@ themselves):
    x rounds) at its block, B=8 Hq 8 Hkv 4; a slot-layout rank holds a
    quarter of tp 1's cache; the paged block accounts reconcile and the
    pools but the junk sink are equal across the data ranks of a tensor
-   index.
+   index. 18g (its own gang of four ranks, started before phase 17 and
+   serving beside it and 18a-18f): the same
+   engine on fsdp=2,tensor=2, pipe=2,tensor=2 and seq=2,tensor=2
+   (bench-1b) and expert=2,tensor=2 (moe-8x1b), each mesh's slot and
+   paged runs in turn with 18f's traffic (8 of its 24 requests, as
+   18f's MoE run): the same answer, stream,
+   lone-request, digest, engine-state, block-account and pool checks
+   (the pools equal on the ranks of one layer block and head shard), K4
+   calls = the layers the rank holds x chunk_steps x dispatches at its
+   shard (B=8 on fsdp, B=16 elsewhere, Hq 8 Hkv 4), and every rank's
+   weights exactly its slices (its layers, embed columns, heads and
+   experts) and their bytes; tok/s, host ms a step, collectives a step,
+   peak memory, weight and cache bytes a rank by run.
 19. Sharded training, every rank a process on the one card, gloo staged
    through the host. 19a: the multislice-train recipe (``python -m
    skypilot_tpu_torch.train.run --model bench-1b --global-batch-size 32
@@ -443,8 +455,8 @@ themselves):
    kernels (K1-K3's launches are phases 6, 10, 12, 14, 19a, 19b, 19c's
    programs A, B and B4, 19d and 19e (every rank's; 19c's program C
    launches none), K4's phase
-   8's, 13's, 14's, 15's, 16's, 17a's and 18a's, 18c's, 18d's, 18e's and
-   18f's for the bf16 cache,
+   8's, 13's, 14's, 15's, 16's, 17a's and 18a's, 18c's, 18d's, 18e's,
+   18f's and 18g's (by run) for the bf16 cache,
    phases 8's, 9's, 11's, 14's, 17b's and 18b's for the int8 cache, each
    path's count in ``launches_by_path``, 18's summed over the ranks;
    K4's times are the engine-shape case of phase 2, K1-K3's the
@@ -470,10 +482,13 @@ moe-finetune recipe at all 18 layers on ``fsdp=2,expert=2`` as two hosts
 of two cards (no checkpoint: ``fsdp`` crosses the hosts, whose views of
 a leaf split over it are not whole), 19c's programs B and B4 over NCCL
 on ``pipe=2,expert=2`` (four ranks, one host), held to one process on
-the rank's card, 19e's checks on two cards, and 18f's on four (data=2,
-tensor=2, a card a rank); last, 18c at ``--tp 4`` on one host (the KV
+the rank's card, 19e's checks on two cards and 18f's on four (data=2,
+tensor=2, a card a rank); then 18c at ``--tp 4`` on one host (the KV
 tiers' and handoffs' gathers and scatters to the head on the model's
-NCCL groups beside the gloo arrival broadcast).
+NCCL groups beside the gloo arrival broadcast); last, 18g's on four
+cards (moe-8x1b on expert=4 at all 18 layers, whose lone answer must
+equal a one-device engine's token for token, and bench-1b on
+pipe=2,tensor=2).
 """
 import collections
 import concurrent.futures
@@ -5369,10 +5384,11 @@ def tp_moe_phase(srv_lib, gen_lib, llama, log_dir, label='18e',
     return launches
 
 
-def tp_phase(srv_lib, gen_lib, llama):
-    """Phase 18. 18f's gang runs beside all the others: 18a beside 18b,
-    then 18c-18e beside each other. Returns K4's launches per rank of
-    18a (bf16) and 18b (int8), and of 18c-18f."""
+def tp_phase(srv_lib, gen_lib, llama, axes_gang):
+    """Phase 18. 18f's gang runs beside all the others, and 18g's
+    (``axes_gang``, started before phase 17) is checked beside them: 18a
+    beside 18b, then 18c-18e beside each other. Returns K4's launches per
+    rank of 18a (bf16) and 18b (int8), and of 18c-18g."""
     print(f'  two NCCL ranks on one card: {_nccl_refusal()}', flush=True)
     log_dir = tempfile.mkdtemp(prefix='skytpu-tp-')
     t0 = time.perf_counter()
@@ -5380,10 +5396,13 @@ def tp_phase(srv_lib, gen_lib, llama):
         with _cut_depth(llama, 'bench-1b', SERVE_LAYERS), \
                 _cut_depth(llama, 'moe-8x1b', SERVE_LAYERS), \
                 _cut_depth(llama, 'llama3-8b', TP8_LAYERS), \
-                concurrent.futures.ThreadPoolExecutor(1) as pool:
+                concurrent.futures.ThreadPoolExecutor(2) as pool:
             data = pool.submit(_side_by_side, '18f', {
                 '18f': lambda: tp_data_phase(srv_lib, gen_lib, llama,
                                              log_dir)})
+            axes = pool.submit(_side_by_side, '18g', {
+                '18g': lambda: serve_axes_phase(srv_lib, gen_lib, llama,
+                                                axes_gang)})
             bench, recipe = _side_by_side('18a-18b', {
                 '18a': lambda: tp_bench_phase(srv_lib, gen_lib, llama,
                                               log_dir, layers=SERVE_LAYERS),
@@ -5391,9 +5410,10 @@ def tp_phase(srv_lib, gen_lib, llama):
                                                log_dir, layers=TP8_LAYERS)})
             more = tp_options_phase(srv_lib, gen_lib, llama, log_dir)
             more['18f'] = data.result()[0]
+            more['18g'] = axes.result()[0]
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
-    _phase(f'  18a-18f: {time.perf_counter() - t0:.1f} s')
+    _phase(f'  18a-18g: {time.perf_counter() - t0:.1f} s')
     return bench, recipe, more
 
 
@@ -5450,8 +5470,9 @@ from skypilot_tpu_torch.parallel import gang as gang_lib
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.serve import disagg, llm_server, spmd
 
-world, plan, out_dir, label = (int(sys.argv[1]), json.loads(sys.argv[2]),
-                               sys.argv[3], sys.argv[4])
+with open(sys.argv[2]) as f:  # the plan: too long for a command line
+    plan = json.load(f)
+world, out_dir, label = int(sys.argv[1]), sys.argv[3], sys.argv[4]
 for name, n_layers in plan['layers'].items():  # depth cuts, widths whole
     llama.PRESETS[name] = dataclasses.replace(llama.PRESETS[name],
                                               n_layers=n_layers)
@@ -5459,7 +5480,15 @@ gang = gang_lib.initialize(world, 'cuda', sys.argv[1:],
                            [sys.executable, __file__], label)
 dev = gang.device
 torch.cuda.set_device(dev)
-mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(**plan['mesh']), device=dev)
+meshes = {}
+
+def mesh_for(spec):
+    # Built once for each spec, in the plan's order on every rank.
+    key = json.dumps(spec, sort_keys=True)
+    if key not in meshes:
+        meshes[key] = mesh_lib.build_mesh(mesh_lib.MeshSpec(**spec),
+                                          device=dev)
+    return meshes[key]
 kernel = da.flash_decode
 shapes = set()
 
@@ -5471,11 +5500,16 @@ def recording(q, k, *args, **kw):
 recording.launches = 0
 da.flash_decode = recording
 
-def weights(name, seed):
+def weights(name, seed, mesh):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return llama.init_params_sharded(llama.PRESETS[name], gen, mesh,
                                      device=dev)
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in leaves(v)]
+    return [tree]
 
 def submit(eng, r, **kw):
     return eng.submit(r['tokens'][0], r['max_new_tokens'],
@@ -5527,10 +5561,11 @@ for run in plan['runs']:
     if run.get('spill'):
         spill = tempfile.mkdtemp(prefix='kvspill-', dir=out_dir)
         os.environ['SKYTPU_KV_SPILL_DIR'] = spill
-    params = weights(run['model'], 0)
+    mesh = mesh_for(run.get('mesh', plan['mesh']))
+    params = weights(run['model'], 0, mesh)
     kw = dict(run.get('kw', {}))
     if run.get('draft'):
-        kw.update(draft_params=weights(run['draft'], 1),
+        kw.update(draft_params=weights(run['draft'], 1, mesh),
                   draft_cfg=llama.PRESETS[run['draft']])
     torch.cuda.empty_cache()
     collectives.reset_stats()
@@ -5539,8 +5574,16 @@ for run in plan['runs']:
     eng = spmd.SpmdEngine(params, llama.PRESETS[run['model']],
                           slots=plan['slots'], max_len=plan['max_len'],
                           mesh=mesh, device=dev, **kw)
+    layers = eng.params['layers']
     got = {'name': run['name'], 'rank': gang.rank,
            'coords': [mesh.axis_index('data'), mesh.axis_index('tensor')],
+           'at': {a: mesh.axis_index(a) for a in mesh.axis_names},
+           'param_bytes': sum(t.numel() * t.element_size()
+                              for t in leaves(eng.params)),
+           'shapes': {'wq': list(layers['wq'].shape),
+                      'embed': list(eng.params['embed'].shape),
+                      'we_gate': list(layers['moe']['we_gate'].shape)
+                      if 'moe' in layers else None},
            'backend': gang.backend,
            'cache_bytes': sum(t.numel() * t.element_size()
                               for t in (eng._cache.k, eng._cache.v)),
@@ -5560,7 +5603,8 @@ for run in plan['runs']:
     torch.cuda.synchronize(dev)
     st = eng.stats()
     got.update(digest=eng.sampled_digest, dispatches=eng.dispatches,
-               k4=recording.launches, shapes=sorted(shapes),
+               gap_ms=st['pipeline']['dispatch_gap_ms'],
+               k4=recording.launches, k4_shapes=sorted(shapes),
                state=llm_server._rank_engine_state(eng),
                kv_blocks=st['kv_blocks'], spec=st['speculative'],
                collectives=collectives.STATS['calls'],
@@ -5621,39 +5665,62 @@ def _dp_plan(llama, layers):
                  'kw': {'role': 'decode'}}]}
 
 
-def _dp_gang(plan, log_dir, label, world=DP_WORLD):
-    """``_DATA_SERVE_SCRIPT`` as ``world`` ranks; returns each run's
-    records by rank."""
-    script = os.path.join(log_dir, 'data_serve.py')
+def _dp_spawn(plan, log_dir, label, world=DP_WORLD):
+    """Start ``_DATA_SERVE_SCRIPT`` as ``world`` ranks, in a session of
+    their own; returns the handle that ``_dp_collect`` reads."""
+    script = os.path.join(log_dir, f'serve_{label}.py')
     with open(script, 'w') as f:
         f.write(_DATA_SERVE_SCRIPT)
+    plan_path = os.path.join(log_dir, f'{label}.plan.json')
+    with open(plan_path, 'w') as f:
+        json.dump(plan, f)
     log = os.path.join(log_dir, f'{label}.log')
     env = dict(os.environ, PYTHONPATH=os.getcwd())
     with open(log, 'a') as out:  # O_APPEND: the ranks write to it
         proc = subprocess.Popen([sys.executable, script, str(world),
-                                 json.dumps(plan), log_dir, label],
+                                 plan_path, log_dir, label],
                                 stdout=out, stderr=subprocess.STDOUT,
                                 env=env, start_new_session=True)
-        try:
-            proc.wait(DP_RUN_S)
-        except subprocess.TimeoutExpired:
-            pass
-        finally:
-            try:
-                os.killpg(proc.pid, signal.SIGKILL)
-            except ProcessLookupError:
-                pass
-            proc.wait()
-    text = open(log, errors='replace').read()
+    return {'proc': proc, 'plan': plan, 'log_dir': log_dir, 'log': log,
+            'label': label, 'world': world, 't0': time.monotonic()}
+
+
+def _dp_stop(gang):
+    """Kill what is left of a gang's session and reap its head."""
+    try:
+        os.killpg(gang['proc'].pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    gang['proc'].wait()
+
+
+def _dp_collect(gang):
+    """Wait for a gang (at most ``DP_RUN_S`` from its start), stop what is
+    left of it, and return each run's records by rank."""
+    proc = gang['proc']
+    try:
+        proc.wait(max(1.0, gang['t0'] + DP_RUN_S - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        _dp_stop(gang)
+    text = open(gang['log'], errors='replace').read()
     if proc.returncode:
-        raise AssertionError(f'{label} exited {proc.returncode}:\n'
+        raise AssertionError(f'{gang["label"]} exited {proc.returncode}:\n'
                              f'{text[-6000:]}')
     ranks = []
-    for r in range(world):
-        with open(os.path.join(log_dir, f'{label}.{r}.json')) as f:
+    for r in range(gang['world']):
+        with open(os.path.join(gang['log_dir'],
+                               f'{gang["label"]}.{r}.json')) as f:
             ranks.append(json.load(f))
     return {run['name']: [recs[i] for recs in ranks]
-            for i, run in enumerate(plan['runs'])}
+            for i, run in enumerate(gang['plan']['runs'])}
+
+
+def _dp_gang(plan, log_dir, label, world=DP_WORLD):
+    """``_DATA_SERVE_SCRIPT`` as ``world`` ranks; returns each run's
+    records by rank."""
+    return _dp_collect(_dp_spawn(plan, log_dir, label, world))
 
 
 def _dp_check(label, name, ranks, cfg, want_k4, shape):
@@ -5668,10 +5735,11 @@ def _dp_check(label, name, ranks, cfg, want_k4, shape):
                              f'{[r["state"] for r in ranks]}')
     for r in ranks:
         want = want_k4(r)
-        if r['k4'] != want or not want or r['shapes'] != [list(shape)]:
+        if r['k4'] != want or not want \
+                or r['k4_shapes'] != [list(shape)]:
             raise AssertionError(f'{label} {name}: rank {r["rank"]} K4 '
-                                 f'{r["k4"]} at {r["shapes"]}, expected '
-                                 f'{want} at {list(shape)}')
+                                 f'{r["k4"]} at {r["k4_shapes"]}, '
+                                 f'expected {want} at {list(shape)}')
     return [r['k4'] for r in ranks]
 
 
@@ -5810,6 +5878,261 @@ def tp_data_phase(srv_lib, gen_lib, llama, log_dir, label='18f',
     return out
 
 
+# 18g: the continuous engine on the other axes JAX serves on (fsdp, pipe,
+# seq, expert), each beside tensor, in one gang of four ranks, the meshes
+# in turn (``SpmdEngine(mesh=)``, as 18f: no flag builds these meshes).
+AXES_MESHES = {'fsdp2_tp2': {'fsdp': 2, 'tensor': 2},
+               'pipe2_tp2': {'pipe': 2, 'fsdp': 1, 'tensor': 2},
+               'seq2_tp2': {'seq': 2, 'fsdp': 1, 'tensor': 2},
+               'expert2_tp2': {'expert': 2, 'fsdp': 1, 'tensor': 2}}
+# --nccl: moe-8x1b on expert=4 at all of its layers, and bench-1b on
+# pipe=2,tensor=2, a card a rank.
+NCCL_AXES_MESHES = {'expert4': {'expert': 4, 'fsdp': 1},
+                    'pipe2_tp2': AXES_MESHES['pipe2_tp2']}
+
+
+def _axes_plan(llama, layers, meshes=AXES_MESHES):
+    """18g's runs: on each mesh the slot layout and the paged layout (18f's
+    paged run: blocks of 16, 257 blocks, sharing and tiers on), with 18f's
+    traffic: bench-1b phase 8's 24 requests, its stream and the 4 lone
+    greedy requests; moe-8x1b (the ``expert`` meshes) 8 of them, the
+    stream and a lone greedy request, as 18f's MoE run. A run-length cut
+    for the script's time limit, as 18f's MoE run's: 8 of the 24
+    requests on every mesh."""
+    base = _dp_plan(llama, layers)
+    by_name = {run['name']: run for run in base['runs']}
+    runs = []
+    for mesh_name, spec in meshes.items():
+        moe = 'expert' in mesh_name
+        for layout in ('slot', 'paged'):
+            run = dict(by_name['moe' if moe else 'slot'],
+                       name=f'{mesh_name} {layout}', mesh=spec)
+            run['reqs'] = run['reqs'][:8]
+            if layout == 'paged':
+                for key in ('kw', 'env', 'spill'):
+                    run[key] = by_name['paged'][key]
+            runs.append(run)
+    return dict(base, runs=runs)
+
+
+def _rank_weight_bytes(llama, cfg, spec):
+    """The bytes of one rank's slices of a ``cfg`` tree on a mesh of
+    ``spec``, by JAX's rules (the router float32)."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import sharding as sharding_lib
+    sizes = dict(dict.fromkeys(mesh_lib.AXIS_ORDER, 1), **spec)
+    mesh = mesh_lib.Mesh(sizes, torch.device('cpu'))
+    rules = sharding_lib.ShardingRules()
+    elt = torch.tensor([], dtype=cfg.dtype).element_size()
+    total = 0
+
+    def walk(shapes, axes, name=''):
+        nonlocal total
+        if isinstance(shapes, dict):
+            for k in shapes:
+                walk(shapes[k], axes[k], k)
+            return
+        local = sharding_lib.local_shape(shapes, sharding_lib.logical_sharding(
+            mesh, rules, axes))
+        total += math.prod(local) * (4 if name == 'router' else elt)
+    walk(llama.param_shapes(cfg), llama.param_logical_axes(cfg))
+    return total
+
+
+def _check_slices(label, name, ranks, cfg, spec, want_bytes):
+    """Each rank holds its slices: its layers (``pipe``), ``embed``
+    columns (``fsdp``), heads (``tensor``) and experts (``expert``), and
+    its weight bytes are those of its split; no rank holds a whole
+    weight under ``fsdp`` nor the whole expert set under ``expert``."""
+    a = dict(dict.fromkeys(('pipe', 'fsdp', 'expert', 'tensor'), 1), **spec)
+    want = {'wq': [cfg.n_layers // a['pipe'], cfg.d_model // a['fsdp'],
+                   cfg.n_heads // a['tensor'], cfg.head_dim],
+            'embed': [cfg.vocab_size // a['tensor'],
+                      cfg.d_model // a['fsdp']],
+            'we_gate': None if not cfg.num_experts else [
+                cfg.n_layers // a['pipe'], cfg.num_experts // a['expert'],
+                cfg.d_model // a['fsdp'], cfg.d_ff // a['tensor']]}
+    for r in ranks:
+        if r['shapes'] != want or r['param_bytes'] != want_bytes:
+            raise AssertionError(f'{label} {name}: rank {r["rank"]} holds '
+                                 f'{r["shapes"]}, {r["param_bytes"]} B; '
+                                 f'expected {want}, {want_bytes} B')
+
+
+def start_serve_axes(llama, log_dir, label='18g', layers=SERVE_LAYERS,
+                     meshes=AXES_MESHES, moe_layers=None):
+    """Start 18g's gang: four ranks (gloo on the one card; NCCL a card a
+    rank under ``--nccl``, with its own ``meshes``), bench-1b at
+    ``layers`` layers and moe-8x1b at ``moe_layers`` (default
+    ``layers``), each mesh's runs in turn (``_axes_plan``). Returns the
+    handle that ``serve_axes_phase`` checks."""
+    plan = _axes_plan(llama, layers, meshes)
+    plan['layers']['moe-8x1b'] = moe_layers or layers
+    return _dp_spawn(plan, log_dir, label, DP_WORLD)
+
+
+def _only_expert(spec):
+    """Whether a mesh splits nothing but the experts: each token's expert
+    outputs are then summed over ``expert`` with exact zeros from the
+    ranks that hold none of its experts, so its logits are one device's
+    bit for bit."""
+    return {a for a, n in spec.items() if n > 1} == {'expert'}
+
+
+def _one_device_lone(llama, model, n_layers, run):
+    """``run``'s lone greedy requests through a one-device engine of the
+    same seed-0 weights, slots, max_len and layout, sent at once on an
+    idle engine, as the gang's head sent them."""
+    from skypilot_tpu_torch.models import engine as engine_lib
+    cfg = dataclasses.replace(llama.PRESETS[model], n_layers=n_layers)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, device='cuda')
+    eng = engine_lib.ContinuousEngine(params, cfg, slots=DP_SLOTS,
+                                      max_len=DP_MAX_LEN, device='cuda',
+                                      **run.get('kw', {}))
+    eng.start()
+    try:
+        futs = [eng.submit(p, run['new']) for p in run['lone']]
+        return [list(f.result(timeout=600)) for f in futs]
+    finally:
+        eng.stop()
+        del eng, params
+        torch.cuda.empty_cache()
+
+
+def serve_axes_phase(srv_lib, gen_lib, llama, gang):
+    """18g: ``serve.spmd.SpmdEngine`` on fsdp=2,tensor=2, pipe=2,tensor=2
+    and seq=2,tensor=2 (bench-1b) and expert=2,tensor=2 (moe-8x1b), 16
+    slots, max_len 1024, bf16 + bf16 KV, the slot and paged layouts of
+    each mesh, served by ``gang`` (``start_serve_axes``). In every run
+    every rank's digest and engine state are equal, its K4 calls are the
+    layers it holds x chunk_steps x dispatches at its shard, and it holds
+    exactly its slices; a slot-layout rank holds its share of tp 1's
+    cache; the paged block accounts reconcile and the pools (but the junk
+    sink) are equal on the ranks that hold the same layers and heads; the
+    answers have their lengths, the stream adds up to its answer, and the
+    lone greedy requests equal a tp 1 replica of the same seed under the
+    gap rule, or, on a mesh that splits only the experts
+    (``_only_expert``), a one-device engine's token for token. Returns
+    K4's launches per rank by run."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    plan, label = gang['plan'], gang['label']
+    layers, moe_layers = (plan['layers'][m] for m in ('bench-1b',
+                                                       'moe-8x1b'))
+    cfg = dataclasses.replace(llama.PRESETS['bench-1b'], n_layers=layers)
+    moe_cfg = dataclasses.replace(llama.PRESETS['moe-8x1b'],
+                                  n_layers=moe_layers)
+    runs = _dp_collect(gang)
+    wall = time.monotonic() - gang['t0']
+    chunk = 8  # SKYTPU_LLM_CHUNK_STEPS's default
+    elt = torch.tensor([], dtype=cfg.dtype).element_size()
+    out, figs = {}, []
+    for run in plan['runs']:
+        name, spec = run['name'], run['mesh']
+        a = dict(dict.fromkeys(mesh_lib.AXIS_ORDER, 1), **spec)
+        c = moe_cfg if run['model'] == 'moe-8x1b' else cfg
+        ranks = runs[name]
+        b = DP_SLOTS // (a['data'] * a['fsdp'])
+        shape = (b, c.n_heads // a['tensor'], c.n_kv_heads // a['tensor'])
+        out[name] = _dp_check(
+            label, name, ranks, c,
+            lambda r, n=c.n_layers // a['pipe']: n * chunk * r['dispatches'],
+            shape)
+        _check_slices(label, name, ranks, c, spec,
+                      _rank_weight_bytes(llama, c, spec))
+        h = ranks[0]
+        _check_answers(run['reqs'], [(200, {'tokens': [x]})
+                                     for x in h['answers']], c.vocab_size)
+        n_lines, adds_up, same, n = h['stream']
+        if not adds_up or n != 40 or n_lines < 2 \
+                or not (same or name.endswith('paged')):
+            raise AssertionError(f'{label} {name}: the stream {h["stream"]}')
+        if name.endswith('paged'):
+            pools = {}
+            for r in ranks:
+                kb = r['kv_blocks']
+                if kb['owned'] or kb['free'] + kb['cached'] != kb['usable'] \
+                        or kb['used'] != kb['cached']:
+                    raise AssertionError(f'{label} {name}: rank '
+                                         f'{r["rank"]} blocks {kb}')
+                pools.setdefault((r['at']['pipe'], r['at']['tensor']),
+                                 set()).add(r['pool_crc'])
+            if any(len(crcs) != 1 for crcs in pools.values()):
+                raise AssertionError(f'{label} {name}: pools differ across '
+                                     f'the ranks of one shard: {pools}')
+        else:
+            whole = (2 * c.n_layers * DP_SLOTS * c.n_kv_heads * DP_MAX_LEN
+                     * c.head_dim * elt)
+            share = a['pipe'] * a['data'] * a['fsdp'] * a['tensor']
+            if any(r['cache_bytes'] * share != whole for r in ranks):
+                raise AssertionError(
+                    f'{label} {name}: ranks hold '
+                    f'{[r["cache_bytes"] for r in ranks]} B of cache, not '
+                    f'1/{share} of {whole}')
+        figs.append((name, run, h, ranks, shape))
+    # The lone greedy requests against tp 1 replicas of the same seed,
+    # each (prompt, answer) checked once: the meshes' answers agree.
+    parts, seen = {}, {}
+    for name, run, h, _, _ in figs:
+        if not _only_expert(run['mesh']):
+            continue
+        want = _one_device_lone(llama, run['model'], moe_layers
+                                if run['model'] == 'moe-8x1b' else layers,
+                                run)
+        if h['lone'] != want:
+            raise AssertionError(f'{label} {name}: lone answers {h["lone"]}'
+                                 f', a one-device engine {want}')
+        parts[name] = 'equal to a one-device engine token for token'
+    for model, n_layers in (('bench-1b', layers), ('moe-8x1b', moe_layers)):
+        mine = [f for f in figs if f[1]['model'] == model
+                and f[0] not in parts]
+        if not mine:
+            continue
+        with _cut_depth(llama, model, n_layers):
+            server = srv_lib.LlmServer(model, engine='off',
+                                       max_len=DP_MAX_LEN)
+        try:
+            for name, run, h, _, _ in mine:
+                parts[name] = []
+                for p, got in zip(run['lone'], h['lone']):
+                    key = (model, tuple(p), tuple(got))
+                    if key not in seen:
+                        seen[key] = _check_greedy(gen_lib, server, p, got,
+                                                  False)
+                    parts[name].append(seen[key])
+                parts[name] = (f'against tp 1, partings (position, top-2 '
+                               f'gap) {parts[name]}')
+        finally:
+            server.stop()
+            del server
+            torch.cuda.empty_cache()
+    card = _card()
+    for name, run, h, ranks, shape in figs:
+        tokens = sum(len(x) for x in h['answers'])
+        steps = [r['dispatches'] * chunk for r in ranks]
+        per_step = [round(r['collectives'] / n, 1)
+                    for r, n in zip(ranks, steps)]
+        layers_of = (moe_layers if run['model'] == 'moe-8x1b' else layers)
+        print(f'  [{card}] {label} {name} ({run["model"]} at {layers_of} '
+              f'layers, {ranks[0]["backend"]}, {DP_WORLD} ranks): '
+              f'{len(h["answers"])} concurrent requests, {tokens} tokens in '
+              f'{h["wall"]:.2f} s = {tokens / h["wall"]:.2f} tok/s; host ms '
+              f'a decode step (dispatch gap / {chunk}) by rank '
+              f'{[round(r["gap_ms"] / chunk, 2) for r in ranks]}; '
+              f'collectives by rank {per_step} a decode step of its life; '
+              f'peak by rank {[r["peak"] for r in ranks]} B; weights by '
+              f'rank {[r["param_bytes"] for r in ranks]} B; cache by rank '
+              f'{[r["cache_bytes"] for r in ranks]} B; K4 by rank '
+              f'{out[name]} at B={shape[0]} Hq {shape[1]} Hkv {shape[2]}; '
+              f'lone greedy: {parts[name]}', flush=True)
+    print(f'  {label}: digests and engine states equal on every rank in '
+          f'every run; gang {wall:.1f} s, the head\'s seconds by run '
+          f'{ {n: round(recs[0]["run_s"], 1) for n, recs in runs.items()} }',
+          flush=True)
+    return out
+
+
 # --nccl: tensor-parallel serving over NCCL, one rank a card, on a machine
 # with four cards. Two hosts of two cards each, as two machines would see
 # them.
@@ -5908,11 +6231,18 @@ def nccl_main() -> int:
                 _cut_depth(llama, 'moe-8x1b', SERVE_LAYERS):
             data = tp_data_phase(srv_lib, gen_lib, llama, log_dir,
                                  'nccl-18f')
-        # Last: its tp 1 prefill replica runs in this process, on card 0.
+        # Its tp 1 prefill replica runs in this process, on card 0.
         _phase(f'nccl 9: 18c at --tp {NCCL_TP} (bench-1b, paged, sharing '
                'and tiers on, the decode role), one host, NCCL')
         paged = tp_paged_phase(srv_lib, gen_lib, llama, log_dir, NCCL_TP,
                                'nccl', 'nccl-c')
+        _phase('nccl 10: 18g, the engine on expert=4 (moe-8x1b, all '
+               f'{llama.MOE_8X1B.n_layers} layers) and on pipe=2,tensor=2 '
+               f'(bench-1b, {SERVE_LAYERS} layers), a card a rank')
+        with _cut_depth(llama, 'bench-1b', SERVE_LAYERS):
+            axes = serve_axes_phase(srv_lib, gen_lib, llama, start_serve_axes(
+                llama, log_dir, 'nccl-18g', meshes=NCCL_AXES_MESHES,
+                moe_layers=llama.MOE_8X1B.n_layers))
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
         shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
@@ -5928,7 +6258,10 @@ def nccl_main() -> int:
                                moe, 'bench-1b 4 stages on pipe=2 K1-K3 '
                                'launches': stages,
                                'data=2,tensor=2 K4 launches by run and '
-                               'rank': data, **staged}}), flush=True)
+                               'rank': data,
+                               'expert=4 and pipe=2,tensor=2 K4 launches '
+                               'by run and rank': axes, **staged}}),
+          flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)
@@ -6872,24 +7205,36 @@ def main() -> int:
     finally:
         shutil.rmtree(kernel_cache, ignore_errors=True)
 
-    _phase('phase 17: serve-disagg (bench-1b): colocated, prefill and decode '
-           'replicas, the export -> prepare -> fetch -> import legs over '
-           'HTTP; 17a paged bf16, 17c transports and failures, 17b slot '
-           'int8')
-    disagg = disagg_phase(srv_lib, gen_lib, engine_lib, paged_lib,
-                          disagg_lib, da)
-    by_path['bf16']['phase 17 serve-disagg'] = disagg['bf16']
-    by_path['int8']['phase 17 serve-disagg int8'] = disagg['int8']
+    # 18g's gang (its own processes) starts here and serves beside phase
+    # 17 (one process) and 18a-18f; phase 18 checks what it served.
+    axes_dir, axes_gang = tempfile.mkdtemp(prefix='skytpu-axes-'), None
+    try:
+        axes_gang = start_serve_axes(llama, axes_dir)
+        _phase('phase 17: serve-disagg (bench-1b): colocated, prefill and '
+               'decode replicas, the export -> prepare -> fetch -> import '
+               'legs over HTTP; 17a paged bf16, 17c transports and '
+               'failures, 17b slot int8')
+        disagg = disagg_phase(srv_lib, gen_lib, engine_lib, paged_lib,
+                              disagg_lib, da)
+        by_path['bf16']['phase 17 serve-disagg'] = disagg['bf16']
+        by_path['int8']['phase 17 serve-disagg int8'] = disagg['int8']
 
-    _phase(f'phase 18: serve-tp: bench-1b at {SERVE_LAYERS} of 18 layers, '
-           '--tp 2 (18a), the '
-           f'serve-multihost recipe (llama3-8b int8 at {TP8_LAYERS} of 32 '
-           'layers, --tp 8 as 2 hosts x 4 ranks, 18b), then at tp 2 the '
-           'paged decode replica with sharing and tiers (18c), a draft '
-           f'(18d), moe-8x1b at {SERVE_LAYERS} layers (18e), and the engine '
-           'on data=2,tensor=2 (18f); every rank a process on the one card, '
-           'gloo')
-    tp_bench, tp_recipe, tp_more = tp_phase(srv_lib, gen_lib, llama)
+        _phase(f'phase 18: serve-tp: bench-1b at {SERVE_LAYERS} of 18 '
+               'layers, --tp 2 (18a), the '
+               f'serve-multihost recipe (llama3-8b int8 at {TP8_LAYERS} of '
+               '32 layers, --tp 8 as 2 hosts x 4 ranks, 18b), then at tp 2 '
+               'the paged decode replica with sharing and tiers (18c), a '
+               f'draft (18d), moe-8x1b at {SERVE_LAYERS} layers (18e), the '
+               'engine on data=2,tensor=2 (18f) and on fsdp=2,tensor=2, '
+               'pipe=2,tensor=2, seq=2,tensor=2 and (moe-8x1b) '
+               'expert=2,tensor=2 (18g, serving since phase 17); every '
+               'rank a process on the one card, gloo')
+        tp_bench, tp_recipe, tp_more = tp_phase(srv_lib, gen_lib, llama,
+                                                axes_gang)
+    finally:
+        if axes_gang is not None:
+            _dp_stop(axes_gang)
+        shutil.rmtree(axes_dir, ignore_errors=True)
     by_path['bf16']['phase 18a serve-tp (2 ranks)'] = sum(tp_bench)
     by_path['int8']['phase 18b serve-multihost (8 ranks)'] = sum(tp_recipe)
     by_path['bf16']['phase 18c serve-tp-paged (2 ranks)'] = sum(
@@ -6900,6 +7245,8 @@ def main() -> int:
         tp_more['18e'])
     for run, n in tp_more['18f'].items():
         by_path['bf16'][f'phase 18f serve-dp {run} (4 ranks)'] = sum(n)
+    for run, n in tp_more['18g'].items():
+        by_path['bf16'][f'phase 18g serve-axes {run} (4 ranks)'] = sum(n)
 
     _phase('phase 19: sharded training: the multislice-train recipe '
            '(bench-1b, data=2,fsdp=2 as 2 hosts x 2 ranks, 19a), the '

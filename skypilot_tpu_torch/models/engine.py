@@ -139,26 +139,34 @@ so the engine is bound by the host's time to issue them.
   from the head to each rank when it admits.
 
 * Data parallelism (a mesh whose ``data`` axis is larger than 1, beside
-  ``tensor``; JAX's rule ``batch -> data``): the weights are whole over
-  ``data``. The slot layout's cache, the prefix pool and the draft's
-  dense cache split their rows over it, each rank holding a contiguous
-  block (``generate.data_rows``) of its kv heads; the paged pool stays
-  whole over ``data`` and split on kv_heads, as in JAX. Host accounting
-  and the slot vectors (last tokens, write limits, the paged tables and
-  lengths) stay whole on every rank. A decode chunk or a spec round runs
-  the rank's block of the rows (the generator draws the whole batch's
-  noise and keeps the block's, so it stays in step on every rank) and
-  all-gathers the block's tokens over ``data``; a paged step also
-  gathers each layer's new K/V, so that every data rank writes every
-  row. A prefill group, a chunked prefill and a share hit's tail run
-  whole on every data rank (the mesh's ``tensor`` view), and each rank
-  inserts only the rows of its block; a prefix-pool hit is summed over
-  ``data`` from the rank that holds it. The KV tiers and the handoffs
-  stay within data index 0's tensor group, whose head is the replica's;
-  what the head scatters there (a promote, an import) is then broadcast
-  over ``data`` to the other ranks of each tensor index. A mesh axis
-  other than ``data`` and ``tensor`` raises ``NotImplementedError`` at
-  construction, by name.
+  ``tensor``; JAX's rule ``batch -> (data, fsdp)``): the weights are
+  whole over ``data``. The slot layout's cache, the prefix pool and the
+  draft's dense cache split their rows over the row axes (``data`` and
+  ``fsdp``), each rank holding a contiguous block (``generate.data_rows``,
+  ``data`` outermost) of its kv heads; the paged pool stays whole over
+  them and split on kv_heads, as in JAX. Host accounting and the slot
+  vectors (last tokens, write limits, the paged tables and lengths) stay
+  whole on every rank. A decode chunk or a spec round runs the rank's
+  block of the rows (the generator draws the whole batch's noise and
+  keeps the block's, so it stays in step on every rank) and all-gathers
+  the block's tokens over the row axes; a paged step also gathers each
+  layer's new K/V, so that every rank writes every row. A prefill group,
+  a chunked prefill and a share hit's tail run whole on every rank of
+  the row axes (the mesh's ``whole_rows`` view), and each rank inserts
+  only the rows of its block; a prefix-pool hit is summed over the row
+  axes from the rank that holds it.
+
+* The other axes JAX serves on (``generate.py``'s module docstring):
+  ``fsdp`` also splits the weights on their ``embed`` dim, each layer
+  gathered over ``fsdp`` just before it runs; ``pipe`` gives each rank
+  its block of the layers and of every cache (``layers -> pipe``), the
+  hidden state passing rank to rank in each forward; ``seq`` splits a
+  prefill's positions (the caches and weights stay whole over it);
+  ``expert`` gives each rank its experts. The KV tiers and the handoffs
+  stay with the head: a plane bound there is gathered over ``tensor``
+  (heads) and ``pipe`` (layers) by the ranks at index 0 of the other
+  axes (``_REPLICA_AXES``), and what the head scatters back (a promote,
+  an import) is then broadcast over each of those axes in turn.
 """
 from __future__ import annotations
 
@@ -166,6 +174,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import os
 import threading
 import time
@@ -454,18 +463,17 @@ def _gather_prefix_impl(pool: gen_lib.KVCache, idx: torch.Tensor,
     miss: the zeros gathered from pool row 0 are never attended, and the
     suffix write starts at 0). One indexed copy per cache tensor.
     ``mine`` [N] bool (the pool holds a block of its rows over ``mesh``'s
-    ``data`` axis; ``idx`` are rows of the block): rows held elsewhere
-    are zeros here, and the sum over ``data`` gives every rank every
-    row (one nonzero term each: exact)."""
+    row axes, ``data`` and ``fsdp``; ``idx`` are rows of the block): rows
+    held elsewhere are zeros here, and the sum over the row axes gives
+    every rank every row (one nonzero term each: exact)."""
 
     def take(arr):
         out = arr[:, idx, :, :width]
         if mine is None:
             return out
         keep = mine.view(1, -1, *(1,) * (out.dim() - 2))
-        return collectives.psum(torch.where(keep, out,
-                                            torch.zeros_like(out)),
-                                mesh, 'data')
+        return gen_lib.sum_rows(torch.where(keep, out,
+                                            torch.zeros_like(out)), mesh)
     ks = vs = None
     if pool.quantized:
         ks, vs = take(pool.k_s), take(pool.v_s)
@@ -505,9 +513,10 @@ def _chunk_impl(cfg: llama.LlamaConfig, k_steps: int, params,
     ``occupied`` [B] is the host's slot snapshot at dispatch (JAX's
     ``active``). Per-slot sampling params ride as data (temps 0 = greedy,
     top_ks 0 / top_ps 1 = filters off); ``generator`` None = every row
-    greedy. Where ``mesh``'s ``data`` axis splits the slots, the cache is
-    this rank's block of them: the chunk decodes the block and gathers
-    its tokens over ``data``, so ``last`` and ``toks`` are whole."""
+    greedy. Where ``mesh``'s row axes (``data``, ``fsdp``) split the
+    slots, the cache is this rank's block of them: the chunk decodes the
+    block and gathers its tokens over those axes, so ``last`` and
+    ``toks`` are whole."""
     b = last.shape[0]
     rows = gen_lib.data_rows(mesh, b)
     last, limit, occupied, temps, top_ks, top_ps = _block(
@@ -536,11 +545,11 @@ def _block(rows: Optional[slice], *vectors):
 
 
 def _gather_rows(toks: torch.Tensor, rows: Optional[slice], mesh) -> tuple:
-    """(last, toks): a chunk's tokens [K, block] gathered whole over
-    ``data``, and the last step's [B] (a copy: the engine writes into
+    """(last, toks): a chunk's tokens [K, block] gathered whole over the
+    row axes, and the last step's [B] (a copy: the engine writes into
     it)."""
     if rows is not None:
-        toks = collectives.all_gather(toks, mesh, 'data', dim=1)
+        toks = gen_lib.gather_rows(toks, mesh, dim=1)
     return toks[-1].clone(), toks
 
 
@@ -572,9 +581,9 @@ def _paged_chunk_impl(cfg: llama.LlamaConfig, k_steps: int, params,
     routes its junk for the rest of the chunk, so it must also write and
     read that junk where JAX's does, in its own blocks. MoE dispatches
     serially, so the chunk is read before those blocks are released.
-    Where ``mesh``'s ``data`` axis splits the slots, the rank decodes its
-    block of them over the whole pool (``paged.forward_paged``) and
-    gathers the block's tokens over ``data``."""
+    Where ``mesh``'s row axes split the slots, the rank decodes its block
+    of them over the whole pool (``paged.forward_paged``) and gathers the
+    block's tokens over those axes."""
     b = last.shape[0]
     rows = gen_lib.data_rows(mesh, b)
     mine, temps, top_ks, top_ps = _block(rows, last, temps, top_ks, top_ps)
@@ -618,9 +627,9 @@ def _spec_impl(t_cfg: llama.LlamaConfig, d_cfg: llama.LlamaConfig, k: int,
     tensor ``mesh`` both models' forwards run sharded (the draft's k+1
     steps run the decode kernel on its head shard) and every rank holds
     the whole logits, so the proposals and the verdicts agree. Where its
-    ``data`` axis splits the slots, the round runs this rank's block of
-    them (the draft's cache and a dense target's hold the block; a paged
-    target's pool is whole) and ``out`` is gathered over ``data``."""
+    row axes split the slots, the round runs this rank's block of them
+    (the draft's cache and a dense target's hold the block; a paged
+    target's pool is whole) and ``out`` is gathered over those axes."""
     b = last.shape[0]
     rows = gen_lib.data_rows(mesh, b)
     paged = not isinstance(t_cache, gen_lib.KVCache)
@@ -655,7 +664,7 @@ def _spec_impl(t_cfg: llama.LlamaConfig, d_cfg: llama.LlamaConfig, k: int,
                            top_ps, rows, b)
     out = torch.cat([props, tgt, samp.to(torch.int32)[:, None]], dim=1)
     if rows is not None:
-        out = collectives.all_gather(out, mesh, 'data', dim=0)
+        out = gen_lib.gather_rows(out, mesh, dim=0)
     return t_cache, d_cache, out
 
 
@@ -683,12 +692,6 @@ _gather_prefix = profiler.profiled('engine.gather_prefix',
 _store_prefix = profiler.profiled('engine.store_prefix', _store_prefix_impl)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f'{what} under a mesh is not ported yet: skypilot_tpu_torch '
-        'serves on a data x tensor mesh only')
-
-
 def check_options(*, kv_layout: Optional[str] = None,
                   prefix_slots: Optional[int] = None,
                   prefill_chunk: Optional[int] = None, draft: bool = False,
@@ -706,8 +709,10 @@ def check_options(*, kv_layout: Optional[str] = None,
     (``engine.py:680-726`` of the JAX package): expert capacity is per
     forward call, so each would route differently from the monolithic
     prefill. Needs no weights, so a replica checks its flags before it
-    builds them. A mesh may split ``data`` and ``tensor``; on it every
-    layout, a draft, MoE and each role serve as on one device."""
+    builds them. A mesh may split any axis JAX serves on (``data``,
+    ``pipe``, ``fsdp``, ``seq``, ``expert``, ``tensor``); on it every
+    layout, a draft, MoE, the KV tiers and each role serve as on one
+    device."""
     kv_layout = (kv_layout or os.environ.get('SKYTPU_LLM_KV_LAYOUT')
                  or 'slot')
     if kv_layout not in ('slot', 'paged'):
@@ -730,31 +735,48 @@ def check_options(*, kv_layout: Optional[str] = None,
     if role not in ('colocated', 'prefill', 'decode'):
         raise ValueError(f'Unknown engine role {role!r}; '
                          "'colocated', 'prefill' or 'decode'")
-    if mesh is not None and mesh.size > 1 \
-            and mesh.size != mesh.shape['tensor'] * mesh.shape['data']:
-        raise _not_ported('a mesh axis other than data and tensor')
     return (kv_layout, max(int(prefix_slots), 0), max(int(prefill_chunk), 0),
             role, prefix_share, kv_tiers)
 
 
 def _local_params(params, cfg: llama.LlamaConfig, mesh):
     """This rank's slices of ``params`` on ``mesh``: a whole tree is
-    sliced (``quantization.shard_params``), a tree of slices passes. The
-    draft rides the same rules, so its heads and kv_heads must divide
-    the tensor axis as the target's do."""
+    sliced (``quantization.shard_params``), a tree of slices passes
+    (``llama.init_params_sharded``). The draft rides the same rules, so
+    its heads and kv_heads must divide the tensor axis, and its layers
+    ``pipe``, as the target's do."""
     from skypilot_tpu_torch.models import quantization as quant_lib
+    from skypilot_tpu_torch.parallel import sharding as sharding_lib
     tp = mesh.shape['tensor']
     if cfg.n_kv_heads % tp or cfg.n_heads % tp:
         raise ValueError(f'{cfg.n_heads} heads and {cfg.n_kv_heads} kv '
                          f'heads do not split over tensor ({tp} shards)')
-    wq = params['layers']['wq']
-    heads = (wq['q8'] if quant_lib.is_quantized(wq) else wq).shape[2]
-    if heads == cfg.n_heads:
-        return quant_lib.shard_params(params, cfg, mesh)
-    if heads * mesh.shape['tensor'] != cfg.n_heads:
-        raise ValueError(f'wq holds {heads} heads: neither the whole '
-                         f'{cfg.n_heads} nor a {mesh} slice of them')
-    return params
+    llama.check_mesh(cfg, mesh.shape)
+    # Leaves whose shape tells a whole tree from a tree of slices: a
+    # sharded mesh splits some dim of one of them.
+    paths = [('embed',), ('layers', 'wq')] + (
+        [('layers', 'moe', 'we_gate')] if cfg.num_experts else [])
+    rules = sharding_lib.ShardingRules()
+    for path in paths:
+        leaf, shape, logical = (functools.reduce(dict.__getitem__, path, t)
+                                for t in (params, llama.param_shapes(cfg),
+                                          llama.param_logical_axes(cfg)))
+        got = tuple((leaf['q8'] if quant_lib.is_quantized(leaf)
+                     else leaf).shape)
+        local = sharding_lib.local_shape(
+            shape, sharding_lib.logical_sharding(mesh, rules, logical))
+        if got == tuple(local) != tuple(shape):
+            return params
+        if got != tuple(shape):
+            raise ValueError(f'{"/".join(path)} of shape {got}: neither the '
+                             f'whole {tuple(shape)} nor a {mesh} slice '
+                             f'{tuple(local)}')
+    return quant_lib.shard_params(params, cfg, mesh)
+
+
+# The mesh axes over which the KV planes a replica's head sends and
+# receives are whole (neither ``layers`` nor ``kv_heads`` maps there).
+_REPLICA_AXES = ('data', 'fsdp', 'seq', 'expert')
 
 
 class ContinuousEngine:
@@ -821,9 +843,9 @@ class ContinuousEngine:
             role=role, moe=cfg.num_experts > 0)
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
-        # Work each data rank does for the whole batch (prefill) runs on
-        # the mesh's tensor view.
-        self._tp = None if self.mesh is None else self.mesh.only('tensor')
+        # Work each rank of the row axes does for the whole batch (a
+        # prefill group) runs on the mesh's whole-rows view.
+        self._whole = None if self.mesh is None else self.mesh.whole_rows()
         if self.mesh is not None:
             params = _local_params(params, cfg, self.mesh)
             if draft_params is not None:
@@ -933,8 +955,8 @@ class ContinuousEngine:
         self.prefill_tokens_saved = 0  # prompt tokens the pool skipped
         self.chunks_run = 0
         self.tokens_emitted = 0
-        # A running crc32 of every sampled token read back, free slots'
-        # included: the ranks of a tensor-parallel replica must agree.
+        # A running crc32 of every token emitted (``_fold_sampled``): the
+        # ranks of a sharded replica must agree.
         self.sampled_digest = 0
         self.peak_active = 0
         self.spec_rounds = 0
@@ -1081,33 +1103,48 @@ class ContinuousEngine:
         del share
         return fn()
 
+    def _replica_zero(self, axes: tuple = _REPLICA_AXES) -> bool:
+        """True on the ranks at index 0 of each of ``axes``: by default
+        every axis that splits neither the layers nor the KV heads."""
+        return all(self.mesh.axis_index(a) == 0 for a in axes)
+
     def _heads_to_head(self, t: torch.Tensor) -> Optional[torch.Tensor]:
-        """A KV plane (heads on dim 2) with every KV head, on the head:
-        under a mesh the ranks' heads are gathered there (a collective of
-        data index 0's tensor group, which holds what the head needs;
-        None on the other ranks)."""
+        """A KV plane (layers on dim 0, heads on dim 2) whole, on the
+        head: under a mesh the ranks' heads are gathered there over
+        ``tensor``, then their layers over ``pipe`` (collectives of the
+        ranks at index 0 of the other axes, which hold what the head
+        needs; None on the other ranks)."""
         if self.mesh is None:
             return t
-        if self.mesh.axis_index('data') != 0:
+        if not self._replica_zero():
             return None
-        return collectives.gather_to(t, self.mesh, dim=2)
+        t = collectives.gather_to(t, self.mesh, dim=2)
+        if self.mesh.axis_index('tensor') != 0:
+            return None
+        return collectives.gather_to(t, self.mesh, 'pipe', dim=0)
 
     def _heads_from_head(self, t: Optional[torch.Tensor], shape: tuple,
                          dtype: torch.dtype) -> torch.Tensor:
-        """This rank's KV heads of the head's whole plane ``t`` of
-        ``shape`` (heads on dim 2; None on the other ranks): under a mesh
-        the head scatters them in data index 0's tensor group (a
-        collective of that group), which broadcasts them over ``data``."""
+        """This rank's layers and KV heads of the head's whole plane ``t``
+        of ``shape`` (layers on dim 0, heads on dim 2; None on the other
+        ranks): under a mesh the head scatters the layers over ``pipe``
+        and each of those ranks the heads over ``tensor``, at index 0 of
+        the other axes, which then broadcast them over each of those
+        axes in turn."""
         if self.mesh is None:
             return t
-        local = list(shape)
-        local[2] //= self.mesh.shape['tensor']
-        local = tuple(local)
-        if self.mesh.axis_index('data') != 0:
-            t = None
-        else:
+        pipe, tp = self.mesh.shape['pipe'], self.mesh.shape['tensor']
+        mid = (shape[0] // pipe,) + tuple(shape[1:])
+        local = mid[:2] + (shape[2] // tp,) + mid[3:]
+        if self._replica_zero():
+            if self.mesh.axis_index('tensor') == 0:
+                t = collectives.scatter_from(t, self.mesh, mid, dtype,
+                                             'pipe', dim=0)
             t = collectives.scatter_from(t, self.mesh, local, dtype, dim=2)
-        return collectives.broadcast(t, self.mesh, local, dtype)
+        for i, axis in enumerate(_REPLICA_AXES):
+            if self._replica_zero(_REPLICA_AXES[i + 1:]):
+                t = collectives.broadcast(t, self.mesh, local, dtype, axis)
+        return t
 
     def _owned(self, slots) -> Optional[tuple]:
         """``_insert_impl``'s ``owned`` for a group bound for ``slots``
@@ -1955,7 +1992,7 @@ class ContinuousEngine:
             _to_device(table[None], dev), slot,
             _to_device(np.asarray([covered], np.int32), dev),
             _to_device(np.asarray([len(suffix)], np.int32), dev),
-            mesh=self._tp)
+            mesh=self._whole)
         first = _sample(logits, *self._sampling_args(
             np.asarray([req.temperature], np.float32),
             np.asarray([req.top_k], np.int32),
@@ -2113,7 +2150,7 @@ class ContinuousEngine:
         logits, cache1 = _prefill(
             params, _to_device(padded, dev), cache1, cfg,
             _to_device(np.asarray([len(chunk)], np.int32), dev),
-            mesh=self._tp)
+            mesh=self._whole)
         if params is self.params:  # the draft's chunks do not count
             with self._lock:
                 self.prefill_tokens += len(chunk)
@@ -2195,12 +2232,12 @@ class ContinuousEngine:
             if cache1 is None:
                 cache1 = gen_lib.init_cache(self.cfg, 1, self.max_len,
                                             quantize=self.kv_quantize,
-                                            device=dev, mesh=self._tp)
+                                            device=dev, mesh=self._whole)
             entry.cache, entry.consumed = cache1, p_hit
             if spec:
                 entry.d_cache = gen_lib.init_cache(
                     self.draft_cfg, 1, self.max_len,
-                    quantize=self.kv_quantize, device=dev, mesh=self._tp)
+                    quantize=self.kv_quantize, device=dev, mesh=self._whole)
         logits, entry.cache, entry.consumed = self._prefill_one_chunk(
             self.params, self.cfg, entry.cache, req.row, entry.consumed)
         with self._lock:
@@ -2379,10 +2416,10 @@ class ContinuousEngine:
         else:
             cache_n = gen_lib.init_cache(self.cfg, n, cache_width,
                                          quantize=self.kv_quantize,
-                                         device=dev, mesh=self._tp)
+                                         device=dev, mesh=self._whole)
         logits, cache_n = _prefill(self.params, _to_device(padded, dev),
                                    cache_n, self.cfg, _to_device(lens, dev),
-                                   mesh=self._tp)
+                                   mesh=self._whole)
         with self._lock:
             self.prefill_tokens += int(lens.sum())
             self.prefill_tokens_saved += sum(p_lens)
@@ -2443,11 +2480,11 @@ class ContinuousEngine:
                 lens_f[i] = len(r)
             d_cache_n = gen_lib.init_cache(self.draft_cfg, n, width_f,
                                            quantize=self.kv_quantize,
-                                           device=dev, mesh=self._tp)
+                                           device=dev, mesh=self._whole)
             _, d_cache_n = _prefill(self.draft_params,
                                     _to_device(padded_f, dev), d_cache_n,
                                     self.draft_cfg, _to_device(lens_f, dev),
-                                    mesh=self._tp)
+                                    mesh=self._whole)
             _insert_cache(self._d_cache, d_cache_n, slots_d,
                           self._owned(slots))
         with self._lock:
@@ -2836,7 +2873,6 @@ class ContinuousEngine:
         # every admitted request's list already holding its prefill token.
         self._drain_firsts()
         host = out.numpy()
-        self._fold_sampled(host)
         t0 = time.perf_counter()
         props_h, tgt_h, samp_h = (host[:, :k + 1], host[:, k + 1:2 * k + 2],
                                   host[:, 2 * k + 2])
@@ -2851,14 +2887,13 @@ class ContinuousEngine:
                 if req is None or self._slot_req[i] is not req \
                         or req.future.done() or req.export:
                     continue  # a free slot's junk, or an export's
+                a = None
                 if req.temperature == 0.0:
                     a = 0
                     while a < k and props_h[i, a] == tgt_h[i, a]:
                         a += 1
                     new = [int(t) for t in props_h[i, :a]]
                     new.append(int(tgt_h[i, a]))
-                    self.spec_proposals += k
-                    self.spec_accepted += a
                     committed[i] = a + 1
                     new_last[i] = int(tgt_h[i, a])
                 else:
@@ -2868,6 +2903,15 @@ class ContinuousEngine:
                     new_last[i] = int(samp_h[i])
                 new = new[:req.max_new - len(req.tokens)]
                 new, hit_eos = gen_lib.truncate_at_stop(new, req.eos)
+                self._fold_sampled(new)
+                if a is not None:
+                    # Counted after the clamp and the stop: a round cut
+                    # inside its accepted prefix proposed and accepted
+                    # only what it emitted. JAX counts k and a before the
+                    # cut (ROADMAP, faults of the reference).
+                    cut = len(new) < a + 1
+                    self.spec_proposals += len(new) if cut else k
+                    self.spec_accepted += len(new) if cut else a
                 req.tokens.extend(new)
                 self.tokens_emitted += len(new)
                 if req.on_tokens is not None and new:
@@ -2980,9 +3024,16 @@ class ContinuousEngine:
         if self._no_flight_since is None:
             self._no_flight_since = time.perf_counter()
 
-    def _fold_sampled(self, host: np.ndarray) -> None:
+    def _fold_sampled(self, tokens) -> None:
+        """Fold ``tokens`` (int32) into ``sampled_digest``: a prefill
+        group's first tokens, and each request's tokens as it emits
+        them. Nothing else a chunk or round samples: a free slot's row,
+        a row past its limit and a row that finished in the chunk before
+        read the junk sink, where the writes of rows not active collide
+        and a GPU orders them as it likes, so ranks that decode the same
+        rows (seq, expert) may read other junk there."""
         self.sampled_digest = zlib.crc32(
-            np.ascontiguousarray(host).tobytes(), self.sampled_digest)
+            np.asarray(tokens, dtype=np.int32).tobytes(), self.sampled_digest)
 
     def _retire_chunk(self, flight: _Inflight, quiet: bool = False) -> None:
         """Read an issued chunk's tokens and run the host bookkeeping:
@@ -2995,7 +3046,6 @@ class ContinuousEngine:
         # could be appended).
         self._drain_firsts()
         toks_host = flight.toks.numpy()  # [K, B]
-        self._fold_sampled(toks_host)
         t0 = time.perf_counter()
         done: List[_Request] = []
         emitted: List[tuple] = []
@@ -3014,6 +3064,7 @@ class ContinuousEngine:
                 # Stop at the first stop id; the slot frees now instead
                 # of burning max_new's tail.
                 new, hit_eos = gen_lib.truncate_at_stop(new, req.eos)
+                self._fold_sampled(new)
                 req.tokens.extend(new)
                 self.tokens_emitted += len(new)
                 if req.on_tokens is not None and new:

@@ -42,8 +42,8 @@ the global mean's. The other three axes:
   kernel on this path);
 * ``expert``: the MoE block runs its rank's experts (``models/moe.py``);
 * ``pipe``: the layers run as a GPipe pipeline of ``cfg.pipeline_stages``
-  stages, a multiple of ``pipe``, each rank holding its block of
-  contiguous stages (``parallel/pipeline.py``,
+  stages, each rank running its block of ``ceil(stages / pipe)``
+  contiguous stages, the last ranks fewer (``parallel/pipeline.py``,
   ``cfg.pipeline_microbatches`` microbatches; a dense preset's
   ``pipeline_stages`` of 1 is one stage a rank, which computes JAX's
   values): stage 0 embeds, the last stage runs the final norm, the
@@ -613,23 +613,17 @@ def _layer_stack(cfg: LlamaConfig, x: torch.Tensor, layers: Params,
 def check_mesh(cfg: LlamaConfig, sizes: Dict[str, int]) -> None:
     """Raise ``ValueError`` where ``cfg`` does not split over a mesh of
     axis ``sizes``: the layers over ``pipe`` (JAX's ``split_stages``
-    error), the stages over ``pipe`` ranks, the experts over ``expert``.
-    JAX also trains stages that are not a multiple of ``pipe`` (GSPMD
-    pads the stage dim, and a stage's layers may then span two devices);
-    a rank here holds whole stages, so it refuses them."""
+    error) and the experts over ``expert``. Stages that are not a
+    multiple of ``pipe`` train, as in JAX (which pads the stage dim):
+    each rank runs its block of ``ceil(stages / pipe)`` stages
+    (``pipeline.stage_block``)."""
     if cfg.num_experts and cfg.num_experts % sizes['expert']:
         raise ValueError(f'{cfg.num_experts} experts do not split over '
                          f'expert ({sizes["expert"]} shards)')
     pipe = sizes['pipe']
-    if pipe > 1:
-        if cfg.n_layers % pipe:
-            raise ValueError(
-                f'{cfg.n_layers} layers not divisible by {pipe} stages')
-        if cfg.pipeline_stages > 1 and cfg.pipeline_stages % pipe:
-            raise ValueError(
-                f'pipeline_stages={cfg.pipeline_stages} over pipe={pipe}: '
-                'a pipe rank runs whole stages, so the stages must be 1 '
-                'or a multiple of the pipe axis')
+    if pipe > 1 and cfg.n_layers % pipe:
+        raise ValueError(
+            f'{cfg.n_layers} layers not divisible by {pipe} stages')
 
 
 def _block_of(mesh, axis: str, size: int) -> Tuple[int, int]:
@@ -703,7 +697,8 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
         return _layer_stack(cfg, x_mb, layers, mb_positions, remat,
                             remat_policy, mesh, rules)
 
-    layers = (params['layers'] if pipe > 1
+    layers = (_stage_layers(params['layers'], cfg, n_stages, mesh)
+              if pipe > 1
               else pipe_lib.split_stages(params['layers'], n_stages))
     out, aux = pipe_lib.pipeline_apply(
         stage_fn, layers, x.reshape(n_micro, b // n_micro, s_loc, -1),
@@ -711,9 +706,36 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     if pipe > 1:
         from skypilot_tpu_torch.parallel import collectives
         aux = collectives.reduce_from(aux, mesh, 'pipe')
+    per_rank = pipe_lib.stage_block(n_stages, pipe, 0)[1]
     # Summed over microbatches x stages: per microbatch, as one pass's.
     return (out.reshape(b, s_loc, -1), aux / n_micro,
-            pipe == 1 or stage == pipe - 1)
+            pipe == 1 or stage == (n_stages - 1) // per_rank)
+
+
+def _stage_layers(layers: Params, cfg: LlamaConfig, n_stages: int,
+                  mesh) -> Params:
+    """This ``pipe`` rank's layers of its block of the stages. The layer
+    stack splits evenly over ``pipe`` (``layers -> pipe``); where the
+    stages do not, each leaf is gathered over ``pipe``
+    (``collectives.gather_fsdp``: its gradient comes back summed there and
+    cut to this rank's block) and cut to the block's layers. Every pipe
+    rank then holds the whole stack, and its gradients, for the step;
+    only the weights at rest and the optimizer state stay split (JAX
+    moves only the layers of a stage that lie on another device)."""
+    pipe = mesh.shape['pipe']
+    if n_stages % pipe == 0:
+        return layers
+    from skypilot_tpu_torch.parallel import collectives
+    first, count = pipe_lib.stage_block(n_stages, pipe,
+                                        mesh.axis_index('pipe'))
+    per = cfg.n_layers // n_stages
+
+    def cut(w):
+        if isinstance(w, dict):  # the MoE block's leaves
+            return {k: cut(v) for k, v in w.items()}
+        return collectives.gather_fsdp(w, mesh, 0, axis='pipe').narrow(
+            0, first * per, count * per)
+    return cut(layers)
 
 
 def forward_with_aux(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,

@@ -54,9 +54,12 @@ import torch
 
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models.generate import (KVCache, _cached_attention,
-                                                _embed, _mlp_tail, _moe_mesh,
+                                                _embed, _mlp_tail, _moe_on,
                                                 _qkv_proj, _quantize_block,
-                                                data_rows, tensor_mesh)
+                                                data_rows, first_stage,
+                                                gather_rows, run_layers,
+                                                seq_block, serve_rules,
+                                                tensor_mesh, unembed)
 from skypilot_tpu_torch.models.quantization import mm as _mm
 from skypilot_tpu_torch.parallel import collectives
 from skypilot_tpu_torch.parallel import sharding as sharding_lib
@@ -101,11 +104,12 @@ def init_pool(cfg: llama.LlamaConfig, slots: int, max_len: int,
     junk sink): usable capacity is ``(n_blocks - 1) * block`` positions.
     ``max_blocks`` per slot covers ``max_len``. The block size must be a
     power of two: prefill widths are power-of-two buckets, and the
-    insert scatters ``width // block`` whole blocks. With a tensor-parallel
-    ``mesh`` the planes are born sharded on kv_heads (JAX's
-    ``engine.py:1373-1388``): this rank's heads of every block, whole
-    over ``data``; the tables and lengths stay whole, as the scatters and
-    gathers index those dims only."""
+    insert scatters ``width // block`` whole blocks. With a sharded
+    ``mesh`` the planes are born sharded by ``POOL_AXES`` (JAX's
+    ``engine.py:1373-1388``): this rank's layers (``pipe``) and kv heads
+    (``tensor``) of every block, whole over the other axes; the tables
+    and lengths stay whole, as the scatters and gathers index those dims
+    only."""
     if block < 1 or block & (block - 1):
         raise ValueError(f'block size must be a power of two, '
                          f'got {block}')
@@ -114,9 +118,9 @@ def init_pool(cfg: llama.LlamaConfig, slots: int, max_len: int,
                          f'block size {block}')
     mb = max_len // block
     shape = (cfg.n_layers, n_blocks, cfg.n_kv_heads, block, cfg.head_dim)
-    if tensor_mesh(mesh) is not None:
+    if mesh is not None and mesh.size > 1:
         shape = sharding_lib.local_shape(shape, sharding_lib.logical_sharding(
-            mesh, sharding_lib.ShardingRules(), POOL_AXES))
+            mesh, serve_rules(mesh), POOL_AXES))
     tables = torch.zeros((slots, mb), dtype=torch.int32, device=device)
     lengths = torch.zeros((slots,), dtype=torch.int32, device=device)
     if quantize:
@@ -177,13 +181,15 @@ def _insert_impl(pool: PagedKVCache, cache_n: KVCache,
 # (``_prefill_shared_impl``) and a speculative verify window.
 
 
-def _block_offsets(tables: torch.Tensor, lengths: torch.Tensor, s: int,
-                   p: int, active_rows: Optional[torch.Tensor]
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _write_plan(tables: torch.Tensor, lengths: torch.Tensor, s: int,
+                p: int, active_rows: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flattened (block ids, in-block offsets) for positions
     [lengths, lengths+S) per row: the ONE definition of the table lookup
     (past-table positions clip to the last entry; rows not active divert
-    to the junk sink), shared by the code and scale planes."""
+    to the junk sink), shared by every layer and by the code and scale
+    planes. Only rows diverted to block 0 can share a (block, offset)
+    pair."""
     mb = tables.shape[1]
     pos = lengths[:, None] + torch.arange(s, dtype=torch.int32,
                                           device=lengths.device)[None]
@@ -193,28 +199,17 @@ def _block_offsets(tables: torch.Tensor, lengths: torch.Tensor, s: int,
     return blk.reshape(-1).long(), (pos % p).reshape(-1).long()
 
 
-def _scatter_multi(pool: torch.Tensor, tables: torch.Tensor,
-                   lengths: torch.Tensor, new: torch.Tensor,
-                   active_rows: Optional[torch.Tensor]) -> None:
-    """Scatter ``new`` [B, H, S, D] at positions [lengths, lengths+S) per
-    row into ``pool`` [NB, H, P, D] under ``tables`` [B, MB], in place.
-    The two index tensors are split by a slice, so the indexed dimension
-    comes first: ``pool[blk, :, off]`` is [B*S, H, D]. Only rows diverted
-    to block 0 can share a (block, offset) pair."""
-    b, h, s, d = new.shape
-    blk, off = _block_offsets(tables, lengths, s, pool.shape[2],
-                              active_rows)
-    pool[blk, :, off] = new.transpose(1, 2).reshape(b * s, h, d)
-
-
-def _scatter_multi_s(pool_s: torch.Tensor, tables: torch.Tensor,
-                     lengths: torch.Tensor, new_s: torch.Tensor,
-                     active_rows: Optional[torch.Tensor]) -> None:
-    """[B, H, S] scale-plane counterpart of ``_scatter_multi``."""
-    b, h, s = new_s.shape
-    blk, off = _block_offsets(tables, lengths, s, pool_s.shape[2],
-                              active_rows)
-    pool_s[blk, :, off] = new_s.transpose(1, 2).reshape(b * s, h)
+def _scatter_multi(pool: torch.Tensor, plan: tuple,
+                   new: torch.Tensor) -> None:
+    """Scatter ``new`` [B, H, S, ...] (a code plane's [B, H, S, D] or a
+    scale plane's [B, H, S]) into ``pool`` [NB, H, P, ...] at ``plan``
+    (``_write_plan``), in place. The two index tensors are split by a
+    slice, so the indexed dimension comes first: ``pool[blk, :, off]``
+    is [B*S, H, ...]."""
+    blk, off = plan
+    b, h, s = new.shape[:3]
+    pool[blk, :, off] = new.transpose(1, 2).reshape(b * s, h,
+                                                    *new.shape[3:])
 
 
 def _view(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -231,16 +226,17 @@ def _view(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
 def _paged_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer,
                  lengths: torch.Tensor, tables: torch.Tensor,
                  k_pool: torch.Tensor, v_pool: torch.Tensor,
-                 active_rows: Optional[torch.Tensor],
-                 k_s: Optional[torch.Tensor],
+                 plan: tuple, k_s: Optional[torch.Tensor],
                  v_s: Optional[torch.Tensor],
                  token_mask: Optional[torch.Tensor] = None,
-                 mesh=None, rows: Optional[slice] = None) -> torch.Tensor:
+                 mesh=None, rows: Optional[slice] = None,
+                 span: Tuple[int, int, int] = (0, 0, 0)) -> torch.Tensor:
     """One decoder block at S >= 1 over the paged pool (per-layer views
     ``[NB, H, P, D]``, written in place). The math is ``generate``'s
     (``_qkv_proj`` / ``_cached_attention`` / ``_mlp_tail``); only the
     cache write (pool scatter) and read (block gather) differ from the
-    dense layer. Rows not active write the junk sink: within a chunk a
+    dense layer; ``plan`` is the step's writes (``_write_plan``). Rows
+    not active write the junk sink: within a chunk a
     finishing row stays active and its blocks are released only after
     the chunk is read, so active writes never race a reallocation.
     ``token_mask`` [B, S]: the positions MoE routes. ``mesh``: the pool
@@ -248,32 +244,37 @@ def _paged_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer,
     ``wo`` and ``w_down`` products are summed over ``tensor`` before their
     one rounding, as in ``generate._cached_layer``. ``rows``: ``x`` is
     this block of the rows (``lengths``, ``tables`` and ``active_rows``
-    are whole); the block's new K/V are gathered over ``data`` and every
-    row is written, so the pools of the data ranks stay equal."""
+    are whole); the block's new K/V are gathered over the row axes and
+    every row is written, so the pools of the row ranks stay equal.
+    ``span`` (start, length, S) of this rank's positions where ``seq``
+    splits the call's S (``seq_block``): the block's K/V are gathered
+    over ``seq`` before the write, as in the dense layer."""
     tp = tensor_mesh(mesh)
     reduce = None if tp is None else (
         lambda t: collectives.psum(t, tp))
-    s = x.shape[1]
+    lo, n, s = span
     mine = slice(None) if rows is None else rows
     positions = lengths[mine, None] + torch.arange(
-        s, dtype=torch.int32, device=x.device)[None]  # [B, S]
+        lo, lo + n, dtype=torch.int32, device=x.device)[None]  # [B, n]
     q, k, v = _qkv_proj(cfg, x, layer, positions)
-    kt = k.transpose(1, 2)  # [B, Hkv, S, D]
+    kt = k.transpose(1, 2)  # [B, Hkv, n, D]
     vt = v.transpose(1, 2)
+    if n < s:
+        kt, vt = (collectives.all_gather(t, mesh, 'seq', dim=2)
+                  for t in (kt, vt))
     if k_s is not None:
         new = _quantize_block(kt) + _quantize_block(vt)
     else:
         new = (kt.to(k_pool.dtype), None, vt.to(v_pool.dtype), None)
     if rows is not None:  # every rank writes every row
-        new = tuple(None if t is None else
-                    collectives.all_gather(t, mesh, 'data', dim=0)
+        new = tuple(None if t is None else gather_rows(t, mesh)
                     for t in new)
     k_new, ks_new, v_new, vs_new = new
-    _scatter_multi(k_pool, tables, lengths, k_new, active_rows)
-    _scatter_multi(v_pool, tables, lengths, v_new, active_rows)
+    _scatter_multi(k_pool, plan, k_new)
+    _scatter_multi(v_pool, plan, v_new)
     if k_s is not None:
-        _scatter_multi_s(k_s, tables, lengths, ks_new, active_rows)
-        _scatter_multi_s(v_s, tables, lengths, vs_new, active_rows)
+        _scatter_multi(k_s, plan, ks_new)
+        _scatter_multi(v_s, plan, vs_new)
     tables = tables[mine]
     att = _cached_attention(
         q, _view(k_pool, tables), _view(v_pool, tables), positions,
@@ -281,7 +282,8 @@ def _paged_layer(cfg: llama.LlamaConfig, x: torch.Tensor, layer,
         _view(k_s, tables) if k_s is not None else None,
         _view(v_s, tables) if v_s is not None else None)
     x = x + _mm(att, layer['wo'], 'bshk,hkd->bsd', reduce=reduce)
-    return _mlp_tail(cfg, x, layer, token_mask, reduce, _moe_mesh(mesh))
+    return _mlp_tail(cfg, x, layer, token_mask, reduce,
+                     _moe_on(mesh, n < s))
 
 
 def forward_paged(params, tokens: torch.Tensor, cache: PagedKVCache,
@@ -301,48 +303,51 @@ def forward_paged(params, tokens: torch.Tensor, cache: PagedKVCache,
     ``paged.py:280`` of the JAX package: there is no padding term, as the
     JAX engine runs MoE through this forward at S = 1 only.
 
-    ``mesh`` (tensor parallelism, ``generate.forward_cached``'s):
-    ``params`` and the pool planes are this rank's slices; the embedding
-    is the vocab-split lookup and its ``psum``, the decode kernel runs per
-    head shard on the gathered view, and the vocab-split logits
-    (``all_logits``' too) are all-gathered, so every rank of the tensor
-    axis holds them whole. Where the mesh's ``data`` axis splits the
-    rows (``generate.data_rows`` of the tables' rows), ``tokens`` and the
-    logits are this rank's block of them while the tables, lengths and
-    ``active_rows`` stay whole (module docstring)."""
-    tp = tensor_mesh(mesh)
+    ``mesh`` (``generate.forward_cached``'s): ``params`` and the pool
+    planes are this rank's slices; the embedding is the vocab-split
+    lookup and its ``psum``, the decode kernel runs per head shard on the
+    gathered view, and the vocab-split logits (``all_logits``' too) are
+    all-gathered, so every rank of the tensor axis holds them whole.
+    Where the mesh's row axes split the rows (``generate.data_rows`` of
+    the tables' rows), ``tokens`` and the logits are this rank's block of
+    them while the tables, lengths and ``active_rows`` stay whole (module
+    docstring). ``pipe`` runs each rank's layers of the pool, ``seq``
+    splits a prefill's positions and ``fsdp`` gathers each layer's
+    weights, as in ``generate.forward_cached``."""
+    mesh = mesh if mesh is not None and mesh.size > 1 else None
     rows = data_rows(mesh, cache.tables.shape[0])
     b, s = tokens.shape
+    lo, n = seq_block(mesh, s)
     token_mask = None
     if cfg.num_experts > 0:
-        mask = torch.ones((b, s), dtype=torch.bool, device=tokens.device)
+        mask = torch.ones((b, n), dtype=torch.bool, device=tokens.device)
         if active_rows is not None:
             mine = active_rows if rows is None else active_rows[rows]
             mask = mask & mine[:, None]
         token_mask = mask.to(cfg.dtype)
-    x = _embed(params['embed'], tokens, cfg, tp)
-    for i in range(cfg.n_layers):
-        x = _paged_layer(
-            cfg, x, llama.layer_params(params['layers'], i), cache.lengths,
-            cache.tables, cache.k[i], cache.v[i], active_rows,
-            cache.k_s[i] if cache.quantized else None,
+    x = (_embed(params, tokens[:, lo:lo + n], cfg, mesh)
+         if first_stage(mesh) else None)
+    plan = _write_plan(cache.tables, cache.lengths, s, cache.block,
+                       active_rows)
+
+    def layer_fn(layer, i, x):
+        return _paged_layer(
+            cfg, x, layer, cache.lengths, cache.tables, cache.k[i],
+            cache.v[i], plan, cache.k_s[i] if cache.quantized else None,
             cache.v_s[i] if cache.quantized else None, token_mask, mesh,
-            rows)
+            rows, (lo, n, s))
+    x = run_layers(params, cfg, mesh, x, (b, n, cfg.d_model), layer_fn)
+    if n < s:
+        x = collectives.all_gather(x, mesh, 'seq', dim=1)
     x = llama.rms_norm(x, params['final_norm'], cfg.norm_eps)
     new_cache = dataclasses.replace(cache, lengths=cache.lengths + s)
     if all_logits:
-        logits = _mm(x, params['lm_head'], 'bsd,dv->bsv',
-                     out_dtype=torch.float32)
+        return unembed(params, x, cfg, mesh, 'bsd,dv->bsv'), new_cache
+    if logit_index is not None:
+        last = x[torch.arange(b, device=x.device), logit_index.long()]
     else:
-        if logit_index is not None:
-            last = x[torch.arange(b, device=x.device), logit_index.long()]
-        else:
-            last = x[:, -1]
-        logits = _mm(last, params['lm_head'], 'bd,dv->bv',
-                     out_dtype=torch.float32)
-    if tp is not None:
-        logits = collectives.all_gather(logits, tp, dim=-1)
-    return logits, new_cache
+        last = x[:, -1]
+    return unembed(params, last, cfg, mesh, 'bd,dv->bv'), new_cache
 
 
 # ---------------------------------------------------------------------------

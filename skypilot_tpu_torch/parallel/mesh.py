@@ -82,6 +82,9 @@ class Mesh:
         # through the host (``collectives._Arena``), False for a group
         # whose ranks do not all run on one machine.
         self.arenas: Dict[str, object] = {}
+        # True on a serving view whose work is every row of the batch on
+        # each rank (``whole_rows``): JAX's ``batch`` axes split nothing.
+        self.rows_whole = False
 
     @property
     def size(self) -> int:
@@ -99,15 +102,15 @@ class Mesh:
             return 0
         return int(self.device_mesh.get_local_rank(axis))
 
-    def only(self, *axes: str) -> 'Mesh':
-        """This mesh with every axis but ``axes`` at size 1: the view for
-        work that each rank of the other axes does whole (a serving
-        replica's prefill, which every ``data`` rank runs for the whole
-        group). Groups, coordinates and arenas are the mesh's."""
-        view = Mesh({a: (n if a in axes else 1)
-                     for a, n in self.shape.items()},
-                    self.device, self.device_mesh, self.backend)
+    def whole_rows(self) -> 'Mesh':
+        """This mesh for work each rank does for every row of a serving
+        batch (a prefill group, which every rank of ``data`` and ``fsdp``
+        runs whole): every axis keeps its size, group, coordinate and
+        arena, so the weights stay split as the mesh splits them, but the
+        rows are not split over the batch axes."""
+        view = Mesh(self.shape, self.device, self.device_mesh, self.backend)
         view.arenas = self.arenas
+        view.rows_whole = True
         return view
 
     @property

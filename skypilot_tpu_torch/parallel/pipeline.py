@@ -13,10 +13,11 @@ a regulariser such as MoE's balance loss stays exact.
   layers are here, stacked on a leading stage dim, and each tick runs
   the valid stages one after another (JAX vmaps them). Plain autograd
   differentiates it; the results are JAX's on one device.
-* Ranks over ``pipe``: ``S = k * pipe`` stages, and rank p holds the
-  layers of stages ``p*k .. p*k + k - 1`` (JAX shards the stage dim over
-  ``pipe``, so a rank's block of the layer stack is its k contiguous
-  stages). At each tick a rank runs its valid stages one after another;
+* Ranks over ``pipe``: with ``k = ceil(S / pipe)``, rank p holds the
+  layers of stages ``p*k .. min(p*k + k, S) - 1`` (``stage_block``: JAX
+  shards the stage dim over ``pipe``, padding it to a multiple of
+  ``pipe`` where it does not divide, so the last ranks hold fewer stages,
+  or none). At each tick a rank runs its valid stages one after another;
   its stage j's output feeds its stage j + 1 at the next tick in memory,
   and only its last stage's output crosses to the next rank: after each
   tick but the last, every rank hands it over (``collectives.ppermute_ring``
@@ -74,6 +75,16 @@ def split_stages(stacked_params: Any, num_stages: int) -> Any:
     return _tree_map(reshape, stacked_params)
 
 
+def stage_block(num_stages: int, ranks: int, index: int) -> Tuple[int, int]:
+    """(first stage, stage count) of rank ``index`` of ``ranks``: blocks
+    of ``ceil(num_stages / ranks)`` consecutive stages, as JAX's stage dim
+    padded to a multiple of the ranks splits; the last ranks hold fewer
+    stages, or none."""
+    k = -(-num_stages // ranks)
+    first = min(index * k, num_stages)
+    return first, min(k, num_stages - first)
+
+
 def _valid(stage: int, tick: int, num_micro: int) -> bool:
     return stage <= tick < stage + num_micro
 
@@ -89,17 +100,13 @@ def pipeline_apply(stage_fn: StageFn, stage_params: Any,
     ``stage_fn(params, x_mb) -> (y_mb, aux_scalar)`` applies one stage's
     layers to one microbatch. With no ``pipe`` ranks, ``stage_params``
     carries a leading stage dim on every leaf (``split_stages``). Over
-    ``pipe`` ranks (``num_stages`` a multiple of ``mesh.shape[axis]``) it
-    is this rank's block of the layer stack, the layers of its
-    ``num_stages // pipe`` stages; the outputs are real on the last
-    stage's rank (zeros elsewhere) and ``aux`` is the sum over this
-    rank's stages; every rank of the axis must call it."""
+    ``pipe`` ranks it is this rank's layers of its block of the stages
+    (``stage_block``; no layers on a rank that holds none); the outputs
+    are real on the last stage's rank (zeros elsewhere) and ``aux`` is
+    the sum over this rank's stages; every rank of the axis must call
+    it."""
     if mesh is None or mesh.shape[axis] == 1:
         return _local(stage_fn, stage_params, microbatches, num_stages)
-    if num_stages % mesh.shape[axis]:
-        raise ValueError(f'{num_stages} stages over {axis}='
-                         f'{mesh.shape[axis]} ranks: each rank holds the '
-                         'same number of stages')
     return _Pipeline.apply(stage_fn, stage_params, mesh, axis, microbatches,
                            num_stages, *_leaves(stage_params))
 
@@ -137,7 +144,7 @@ class _Pipeline(torch.autograd.Function):
     def forward(ctx, stage_fn: StageFn, tree: Any, mesh, axis: str,
                 microbatches: torch.Tensor, num_stages: int, *leaves):
         p, n = mesh.axis_index(axis), mesh.shape[axis]
-        k = num_stages // n
+        first, k = stage_block(num_stages, n, p)
         num_micro = microbatches.shape[0]
         ticks = num_micro + num_stages - 1
         params = [t.detach().requires_grad_(t.requires_grad) for t in leaves]
@@ -148,13 +155,13 @@ class _Pipeline(torch.autograd.Function):
         held: List[Any] = [None] * k  # each local stage's last output
         with torch.enable_grad():
             # The rank's stages: views of its layers, inside the graph.
-            local = split_stages(_rebuild(tree, params), k)
+            local = split_stages(_rebuild(tree, params), k) if k else None
             stages = [_tree_map(lambda t, j=j: t[j], local)
                       for j in range(k)]
             for i in range(ticks):
                 outs: List[Any] = [None] * k
                 for j in range(k):
-                    s = p * k + j
+                    s = first + j
                     if not _valid(s, i, num_micro):
                         continue
                     if j > 0:  # the rank's previous stage, last tick
@@ -171,7 +178,7 @@ class _Pipeline(torch.autograd.Function):
                         outputs[i - s] = outs[j]
                 held = outs
                 if i < ticks - 1:  # a bubble sends zeros
-                    out = (outs[-1] if outs[-1] is not None
+                    out = (outs[-1] if k and outs[-1] is not None
                            else torch.zeros_like(microbatches[0]))
                     received = collectives.ppermute_ring(out, mesh, axis)
         ctx.mesh, ctx.axis, ctx.saved, ctx.params = mesh, axis, saved, params
@@ -183,7 +190,7 @@ class _Pipeline(torch.autograd.Function):
         mesh, axis, saved, params = ctx.mesh, ctx.axis, ctx.saved, ctx.params
         num_stages = ctx.num_stages
         p, n = mesh.axis_index(axis), mesh.shape[axis]
-        k = num_stages // n
+        first, k = stage_block(num_stages, n, p)
         ticks = g_outputs.shape[0] + num_stages - 1
         trainable = [t for t in params if t.requires_grad]
         g_micro = torch.zeros_like(g_outputs)
@@ -202,7 +209,7 @@ class _Pipeline(torch.autograd.Function):
                 if (i, j) not in saved:
                     continue
                 x, y, a = saved.pop((i, j))
-                s = p * k + j
+                s = first + j
                 if s == num_stages - 1:  # the loss's
                     g_out = g_outputs[i - s]
                 elif j == k - 1:

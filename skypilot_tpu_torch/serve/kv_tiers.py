@@ -42,7 +42,11 @@ Tiering can never lose or fail a request.
 Thread/lock discipline: the engine calls into this module under ITS
 lock; this module's own lock is leaf-level (engine lock -> KVTiers lock,
 never the reverse: completion callbacks fire with no KVTiers lock held).
-The JAX module's trace spans are not ported.
+
+Tracing: a demotion records a ``serve.kv_demote`` span and a spill fetch
+a ``serve.kv_fetch`` span, each joining the trace of the request that
+caused it; the engine records ``serve.kv_promote``. JAX names these
+spans but never records them (ROADMAP section 3).
 """
 from __future__ import annotations
 

@@ -12,6 +12,7 @@ for range and for their filters (top_k=1 is greedy).
 """
 import dataclasses
 import time
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -23,10 +24,12 @@ from skypilot_tpu.models import engine as jax_engine
 from skypilot_tpu.models import generate as jax_gen
 from skypilot_tpu.models import llama as jax_llama
 from skypilot_tpu.observability import profiler as jax_profiler
+from skypilot_tpu.parallel import mesh as jax_mesh
 from skypilot_tpu_torch.models import engine as port_engine
 from skypilot_tpu_torch.models import generate as port_gen
 from skypilot_tpu_torch.models import llama as port_llama
 from skypilot_tpu_torch.observability import profiler as port_profiler
+from test_torch_tp import _numpy_tree, run_gang
 
 LOGIT_TOL = 1e-5
 MAX_LEN = 64
@@ -756,22 +759,29 @@ def test_chunked_prefill_with_the_prefix_pool(weights):
     assert (pst['stores'], pst['hits'], pst['hit_tokens']) == (1, 1, 32)
 
 
-# -- options not ported yet -------------------------------------------------------
+# -- options once refused, ported since ----------------------------------------
 
 
-def _fsdp_mesh():
-    """A mesh with an fsdp axis: serving takes data and tensor alone
-    (tests/test_torch_tp.py and tests/test_torch_tp_data.py serve on
-    them; the data axis was refused here until it was ported)."""
-    from skypilot_tpu_torch.parallel import mesh as port_mesh
-    sizes = {a: 1 for a in port_mesh.AXIS_ORDER}
-    return port_mesh.Mesh(dict(sizes, fsdp=2, tensor=2),
-                          torch.device('cpu'))
-
-
-UNPORTED = {
-    'mesh': dict(mesh=_fsdp_mesh()),
-}
+# A mesh with an fsdp axis. Refused until every mesh axis JAX serves on
+# was ported (tests/test_torch_serve_axes.py); now built in a gang of four
+# ranks beside JAX's engine on the same mesh of virtual devices.
+MESH_SPEC = {'fsdp': 2, 'tensor': 2}
+_MESH_BODY = '''
+import dataclasses
+from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.serve import spmd
+cfg = dataclasses.replace(llama.TINY, dtype=torch.float32)
+eng = spmd.SpmdEngine(llama.params_from_numpy(inputs['params'], cfg, 'cpu'),
+                      cfg, slots=2, max_len=32, mesh=mesh, device='cpu')
+out['attrs'] = {a: getattr(eng, a) for a in inputs['attrs']}
+out['tiers'] = eng._kv_tiers is None
+if rank == 0:
+    out['tokens'] = eng.submit(inputs['row'], 4).result(timeout=120)
+    eng.stop()
+else:
+    eng.start()
+    eng._thread.join()
+'''
 # Refused until the paged layout, block sharing and KV tiers, draft
 # rounds (a draft model, paged or not) and the prefill and decode roles
 # were ported; now accepted and resolved as the JAX engine resolves them
@@ -780,6 +790,7 @@ UNPORTED = {
 # submit). 'draft' and 'draft_params' name the pair; a half pair is
 # refused with JAX's ValueError.
 PORTED = {
+    'mesh': dict(mesh=MESH_SPEC),
     'paged': dict(kv_layout='paged'),
     'block_sharing': dict(prefix_share=True),
     'kv_tiers': dict(kv_tiers=True),
@@ -791,15 +802,11 @@ PORTED = {
 }
 
 
-@pytest.mark.parametrize('name', sorted(set(UNPORTED) | set(PORTED)))
-def test_unported_options_raise_at_construction(weights, name):
+@pytest.mark.parametrize('name', sorted(PORTED))
+def test_unported_options_raise_at_construction(weights, name, tmp_path):
     jp, pp = weights
-    if name in UNPORTED:
-        with pytest.raises(NotImplementedError,
-                           match='other than data and tensor under a mesh '
-                                 'is not ported yet'):
-            port_engine.ContinuousEngine(pp, PORT_CFG, slots=2, max_len=32,
-                                         device='cpu', **UNPORTED[name])
+    if name == 'mesh':
+        _mesh_case(jp, pp, tmp_path)
         return
     opts = dict(PORTED[name])
     draft = opts.pop('draft', None)
@@ -830,6 +837,29 @@ def test_unported_options_raise_at_construction(weights, name):
         assert eng.submit(row, 4).result(timeout=120) == _solo(pp, row, 4)
     finally:
         eng.stop()
+
+
+def _mesh_case(jp, pp, tmp_path):
+    """The engine on fsdp=2,tensor=2 (four gloo ranks) resolves its
+    options as JAX's engine on the same mesh does, and serves a row as
+    one device does."""
+    attrs = ('kv_layout', 'prefix_share', 'pipeline_depth', 'role')
+    jeng = jax_engine.ContinuousEngine(
+        jp, JAX_CFG, slots=2, max_len=32, mesh=jax_mesh.build_mesh(
+            jax_mesh.MeshSpec(**MESH_SPEC), devices=jax.devices()[:4]))
+    row = [5, 6, 7]
+    jeng.start()
+    try:
+        want = jeng.submit(row, 4).result(timeout=120)
+    finally:
+        jeng.stop()
+    ranks = run_gang(tmp_path, 4, _MESH_BODY, spec=MESH_SPEC,
+                     inputs={'params': _numpy_tree(jp), 'attrs': attrs,
+                             'row': row})
+    for out in ranks:
+        assert out['attrs'] == {a: getattr(jeng, a) for a in attrs}
+        assert out['tiers'] == (jeng._kv_tiers is None)  # noqa: SLF001
+    assert ranks[0]['tokens'] == list(want) == _solo(pp, row, 4)
 
 
 def test_unported_methods_and_bad_options(weights):
@@ -915,3 +945,22 @@ def test_engine_registers_its_cache(weights):
                                        device='cpu')
     assert port_profiler.logical_bytes()['kv_cache'] == \
         port_profiler.tree_nbytes(eng._cache)  # noqa: SLF001
+
+
+def test_sampled_digest_folds_only_emitted_tokens(weights):
+    """A chunk's rows past what a request emits are junk: a free slot's
+    row, a row past its limit and a row that finished in the chunk before
+    read the junk sink, where the writes of rows not active collide in an
+    order a GPU does not fix. So the digest that a sharded replica's ranks
+    compare folds each request's first token and the tokens it emits, and
+    nothing else: here one request that ends inside a chunk, beside a
+    free slot."""
+    _, pp = weights
+    eng = _mk(pp, slots=2)
+    try:
+        out = eng.submit([3, 4, 5], 6).result(timeout=120)
+    finally:
+        eng.stop()
+    assert len(out) == 6 and eng.chunks_run >= 2
+    assert eng.sampled_digest == zlib.crc32(
+        np.asarray(out, dtype=np.int32).tobytes())

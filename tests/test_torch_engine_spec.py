@@ -436,3 +436,31 @@ def test_llm_server_refuses_bad_drafts_as_jax(name):
     with pytest.raises(ValueError, match=match):
         port_srv.LlmServer(model, max_len=64, engine='off', device='cpu',
                            **kw)
+
+
+@pytest.mark.parametrize('cut', ['max_new', 'eos'])
+def test_spec_counts_only_what_a_cut_round_emits(weights, cut):
+    """A greedy request that ends inside a round: with the identical
+    draft (k=3) the first round accepts all 3 proposals, but ``max_new``
+    3, or a stop id at the third token, leaves room for 2 of them after
+    the prefill's token. The tokens equal JAX's engine. JAX adds k and a
+    before the clamp and the stop (``engine.py:2767-2768``), so its
+    counts exceed the 2 tokens the round emitted: a fault of the
+    reference (ROADMAP section 3). The port counts after the cut: 2
+    proposed, 2 accepted."""
+    row = [5, 6, 7, 8]
+    solo = _solo(weights[1], row, 9)
+    kw = dict(max_new=3) if cut == 'max_new' else dict(max_new=9,
+                                                       eos=[solo[2]])
+
+    def script(eng):
+        got = eng.submit(row, kw['max_new'],
+                         eos=kw.get('eos')).result(timeout=300)
+        return got, _spec_counts(eng, rounds=True)
+    (jout, jst), (pout, pst) = _on_both(weights, weights, script)
+    assert pout == jout == solo[:3]
+    emitted = len(pout) - 1  # the first token is the prefill's
+    assert jst['rounds'] == pst['rounds'] == 1
+    assert jst['proposals'] == jst['accepted'] == 3 > emitted
+    assert pst['proposals'] == pst['accepted'] == emitted == 2
+    assert pst['acceptance_rate'] == 1.0

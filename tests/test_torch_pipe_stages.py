@@ -19,7 +19,10 @@ One 8-rank gloo gang (``run_gang`` of ``tests/test_torch_tp.py``) on
 - ``tests/test_pipeline_moe.py:158``'s program (MoE, batch 4, seq 64)
   with a 4-layer ``MOE_TINY``, ``pipeline_stages`` 4 and 2 microbatches:
   two Adafactor steps of the port's ``Trainer`` against JAX's on 8
-  virtual devices, the metrics and every leaf within 1e-4.
+  virtual devices, the metrics and every leaf within 1e-4;
+- the same program at 6 layers in 3 stages, which ``pipe=2`` does not
+  divide: JAX pads the stage dim, so pipe rank 0 runs stages 0 and 1 and
+  rank 1 stage 2 (``pipeline.stage_block``).
 """
 import dataclasses
 import os
@@ -52,9 +55,14 @@ MESH = {'pipe': 2, 'expert': 2, 'tensor': 2, 'fsdp': 1}
 BATCH, SEQ = 4, 64
 
 
-def _jax_cfg():
+# (layers, pipeline_stages) of each Trainer program.
+PROGRAMS = {'four': (4, 4), 'three': (6, 3)}
+
+
+def _jax_cfg(name='four'):
+    layers, stages = PROGRAMS[name]
     return dataclasses.replace(jax_llama.MOE_TINY, dtype=jnp.float32,
-                               n_layers=4, pipeline_stages=4,
+                               n_layers=layers, pipeline_stages=stages,
                                pipeline_microbatches=2)
 
 
@@ -64,8 +72,8 @@ def _tokens(cfg):
         for i in range(STEPS)]
 
 
-def _jax_run():
-    cfg = _jax_cfg()
+def _jax_run(name='four'):
+    cfg = _jax_cfg(name)
     mesh = jax_mesh.build_mesh(jax_mesh.MeshSpec(**MESH),
                                devices=jax.devices()[:8])
     tr = jax_trainer.Trainer(jax_trainer.TrainerConfig(
@@ -116,20 +124,23 @@ out['pipe'] = {'rank': p, 'outputs': outputs.detach().numpy(),
                'aux': float(aux_all), 'g_w': g_w.numpy(),
                'g_x': g_x.numpy()}
 
-cfg = dataclasses.replace(llama.MOE_TINY, dtype=torch.float32, n_layers=4,
-                          pipeline_stages=4, pipeline_microbatches=2)
-tr = trainer_lib.Trainer(trainer_lib.TrainerConfig(
-    model=cfg, global_batch_size=inputs['batch'], seq_len=inputs['seq'],
-    optimizer='adafactor', remat=True, warmup_steps=1), mesh=pm)
-st = tr.init_state_from_numpy(inputs['init'])
-metrics = []
-for toks in inputs['tokens']:
-    st, m = tr.step(st, toks)
-    metrics.append({k: float(v) for k, v in m.items()})
-whole = tr.host_view(st, world)
-out['train'] = {'metrics': metrics,
-                'final': optim.tree_map(lambda a: a.detach().numpy(),
-                                        whole['params'])}
+for name, (layers, stages) in inputs['programs'].items():
+    cfg = dataclasses.replace(llama.MOE_TINY, dtype=torch.float32,
+                              n_layers=layers, pipeline_stages=stages,
+                              pipeline_microbatches=2)
+    tr = trainer_lib.Trainer(trainer_lib.TrainerConfig(
+        model=cfg, global_batch_size=inputs['batch'], seq_len=inputs['seq'],
+        optimizer='adafactor', remat=True, warmup_steps=1), mesh=pm)
+    st = tr.init_state_from_numpy(inputs['init'][name])
+    metrics = []
+    for toks in inputs['tokens']:
+        st, m = tr.step(st, toks)
+        metrics.append({k: float(v) for k, v in m.items()})
+    whole = tr.host_view(st, world)
+    out[name] = {'metrics': metrics,
+                 'layers': tuple(st['params']['layers']['wq'].shape),
+                 'final': optim.tree_map(lambda a: a.detach().numpy(),
+                                         whole['params'])}
 '''
 
 
@@ -137,13 +148,15 @@ out['train'] = {'metrics': metrics,
 def runs(tmp_path_factory):
     """JAX's 4-stage program on 8 virtual devices, and the port's 8-rank
     gang running the toy and the program from the same inputs."""
-    jax_run = _jax_run()
+    jax_runs = {name: _jax_run(name) for name in PROGRAMS}
     inputs = {'mesh': MESH, 'toy': _toy_inputs(), 'stages': TOY_STAGES,
               'aux_w': AUX_W, 'batch': BATCH, 'seq': SEQ,
-              'init': jax_run[0], 'tokens': _tokens(_jax_cfg())}
+              'programs': PROGRAMS,
+              'init': {name: run[0] for name, run in jax_runs.items()},
+              'tokens': _tokens(_jax_cfg())}
     ranks = run_gang(tmp_path_factory.mktemp('pipe_stages'), 8, _BODY,
                      spec={'fsdp': 8}, inputs=inputs)
-    return jax_run, ranks
+    return jax_runs, ranks
 
 
 def _close(got, want, tol):
@@ -157,7 +170,7 @@ def test_pipeline_apply_two_stages_a_rank_matches_jax(runs):
     rank holds the outputs, every rank the summed aux; each rank's layer
     gradients are its block of JAX's, and the input gradient lands on the
     first stage's rank."""
-    _, ranks = runs
+    ranks = runs[1]
     want_out, want_aux, want_gws, want_gx = _jax_toy(TOY_STAGES)
     per = want_gws.shape[0] // 2
     for rank in ranks:
@@ -173,19 +186,19 @@ def test_pipeline_apply_two_stages_a_rank_matches_jax(runs):
     assert {r['pipe']['rank'] for r in ranks} == {0, 1}
 
 
-def test_trainer_four_stages_on_two_pipe_ranks_matches_jax(runs):
-    """Two Trainer steps of the 4-layer MoE in 4 stages on
-    ``pipe=2,expert=2,tensor=2``: every rank's loss, grad_norm and
-    moe_aux within 1e-4 of JAX's, one grad_norm on every rank, and every
-    leaf of the gathered params after the steps."""
-    (init, want_metrics, final), ranks = runs
+def _check_program(runs, name):
+    """Every rank's loss, grad_norm and moe_aux within 1e-4 of JAX's, one
+    grad_norm on every rank, and every leaf of the gathered params after
+    the steps."""
+    jax_runs, ranks = runs
+    init, want_metrics, final = jax_runs[name]
     for rank in ranks:
-        for got, want in zip(rank['train']['metrics'], want_metrics):
+        for got, want in zip(rank[name]['metrics'], want_metrics):
             for key in ('loss', 'grad_norm', 'moe_aux'):
                 _close(got[key], want[key], RTOL)
-    assert len({tuple(m['grad_norm'] for m in r['train']['metrics'])
+    assert len({tuple(m['grad_norm'] for m in r[name]['metrics'])
                 for r in ranks}) == 1
-    got = ranks[0]['train']['final']
+    got = ranks[0][name]['final']
     for w, g in zip(_leaves(final), _leaves(got)):
         assert g.shape == w.shape
         _close(g, w, RTOL)
@@ -194,16 +207,37 @@ def test_trainer_four_stages_on_two_pipe_ranks_matches_jax(runs):
     assert moved > 1e-4
 
 
+def test_trainer_four_stages_on_two_pipe_ranks_matches_jax(runs):
+    """Two Trainer steps of the 4-layer MoE in 4 stages on
+    ``pipe=2,expert=2,tensor=2``: every rank's loss, grad_norm and
+    moe_aux within 1e-4 of JAX's, one grad_norm on every rank, and every
+    leaf of the gathered params after the steps."""
+    _check_program(runs, 'four')
+
+
+def test_trainer_three_stages_on_two_pipe_ranks_matches_jax(runs):
+    """Two Trainer steps of a 6-layer MoE in 3 stages on
+    ``pipe=2,expert=2,tensor=2``, which JAX trains by padding the stage
+    dim: pipe rank 0 runs stages 0-1 and rank 1 stage 2, each still
+    holding its 3 layers of the stack (``layers -> pipe``). The metrics
+    and every leaf within 1e-4 of JAX's."""
+    _check_program(runs, 'three')
+    for rank in runs[1]:
+        assert rank['three']['layers'][0] == 3
+
+
 @pytest.mark.parametrize('layers,stages,pipe,ok', [
     (4, 4, 2, True), (8, 8, 2, True), (4, 2, 2, True), (4, 1, 2, True),
-    (6, 3, 2, False), (4, 2, 4, False), (8, 4, 8, False),
+    (6, 3, 2, True), (4, 2, 4, True), (8, 4, 8, True),
     (6, 2, 4, False)])
 def test_check_mesh_takes_whole_stages_a_rank(layers, stages, pipe, ok):
-    """Stages that are a multiple of ``pipe`` (or 1: one stage a rank)
-    pass. Others are refused by name: JAX trains them (GSPMD pads the
-    stage dim, and a stage's layers may span two devices), a departure of
-    form that ROADMAP records. Layers that do not split over ``pipe`` keep
-    JAX's ``split_stages`` words."""
+    """Every stage count JAX's Trainer trains passes: a multiple of
+    ``pipe``, 1 (one stage a rank), or one that ``pipe`` does not divide
+    (3 on pipe=2, 2 on pipe=4, 4 on pipe=8: JAX pads the stage dim, and
+    each rank runs a block of ``ceil(stages / pipe)`` whole stages, the
+    last ranks fewer or none). Layers that do not split over ``pipe``
+    are refused, as JAX refuses to place them, in JAX's
+    ``split_stages`` words."""
     cfg = dataclasses.replace(port_llama.MOE_TINY, n_layers=layers,
                               pipeline_stages=stages)
     sizes = dict.fromkeys(('data', 'fsdp', 'seq', 'expert', 'tensor'), 1)
@@ -213,14 +247,19 @@ def test_check_mesh_takes_whole_stages_a_rank(layers, stages, pipe, ok):
         return
     with pytest.raises(ValueError) as err:
         port_llama.check_mesh(cfg, sizes)
-    if layers % pipe:
-        assert str(err.value) == f'{layers} layers not divisible by ' \
-                                 f'{pipe} stages'
-    else:
-        assert str(err.value) == (
-            f'pipeline_stages={stages} over pipe={pipe}: a pipe rank runs '
-            'whole stages, so the stages must be 1 or a multiple of the '
-            'pipe axis')
+    assert str(err.value) == f'{layers} layers not divisible by ' \
+                             f'{pipe} stages'
+
+
+@pytest.mark.parametrize('stages,ranks,blocks', [
+    (3, 2, [(0, 2), (2, 1)]), (4, 2, [(0, 2), (2, 2)]),
+    (2, 4, [(0, 1), (1, 1), (2, 0), (2, 0)]),
+    (5, 4, [(0, 2), (2, 2), (4, 1), (5, 0)])])
+def test_stage_blocks_follow_the_padded_stage_dim(stages, ranks, blocks):
+    """Each rank's (first stage, count): ``ceil(stages / ranks)`` a rank,
+    as the stage dim padded to a multiple of the ranks splits."""
+    assert [port_pipe.stage_block(stages, ranks, p)
+            for p in range(ranks)] == blocks
 
 
 def test_split_stages_words_match_jax():

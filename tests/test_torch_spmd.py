@@ -269,13 +269,14 @@ def test_engine_off_with_tp_is_refused_in_jaxs_words():
 
 
 def test_mesh_refusals_name_what_is_not_ported():
-    """A mesh axis other than data and tensor raises a named
-    NotImplementedError. The paged layout, a draft, MoE and both roles
-    were refused on a tensor mesh until they were ported, and the data
-    axis until it was; now each passes ``check_options`` on a tensor and
-    on a data x tensor mesh as on one device, and the engine admits an
-    export and an import under a mesh (``tests/test_torch_tp_*.py`` serve
-    them on two and four ranks)."""
+    """Nothing is refused on a mesh any more. The paged layout, a draft,
+    MoE and both roles were refused on a tensor mesh until they were
+    ported, the data axis until it was, and fsdp, pipe, seq and expert
+    until they were; now each option passes ``check_options`` on every
+    such mesh as on one device, and the engine admits an export and an
+    import under a mesh (``tests/test_torch_tp_*.py`` and
+    ``tests/test_torch_serve_axes.py`` serve them on two and four
+    ranks)."""
     from skypilot_tpu_torch.models import engine as port_engine
     from skypilot_tpu_torch.parallel import mesh as port_mesh
 
@@ -286,20 +287,18 @@ def test_mesh_refusals_name_what_is_not_ported():
     mesh = port_mesh.Mesh(dict(sizes, tensor=2), None, _Coords(), 'gloo')
     data = port_mesh.Mesh(dict(sizes, data=2, tensor=2), None, _Coords(),
                           'gloo')
+    others = [port_mesh.Mesh(dict(sizes, data=2, tensor=2, **{axis: 2}),
+                             None, _Coords(), 'gloo')
+              for axis in ('fsdp', 'pipe', 'seq', 'expert')]
     for kw, want in ((dict(kv_layout='paged'), ('paged', 'colocated')),
                      (dict(draft=True), ('slot', 'colocated')),
                      (dict(moe=True), ('slot', 'colocated')),
                      (dict(role='prefill'), ('slot', 'prefill')),
                      (dict(role='decode'), ('slot', 'decode'))):
-        for m in (mesh, data):
+        for m in [mesh, data] + others:
             got = port_engine.check_options(mesh=m, **kw)
+            assert got == port_engine.check_options(**kw)
             assert (got[0], got[3]) == want
-    for axis in ('fsdp', 'pipe', 'seq', 'expert'):
-        other = port_mesh.Mesh(dict(sizes, data=2, tensor=2, **{axis: 2}),
-                               None, _Coords(), 'gloo')
-        with pytest.raises(NotImplementedError,
-                           match='a mesh axis other than data and tensor'):
-            port_engine.check_options(mesh=other)
     # An export and an import queue under a mesh (a bare engine: the
     # admissions' checks and queues, no device state).
     eng = port_engine.ContinuousEngine.__new__(port_engine.ContinuousEngine)
