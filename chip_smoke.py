@@ -12,10 +12,10 @@ that phases 18 and 19 fit the script's time limit: phases 7-8, 12-14,
 llama3-1b at ``RECIPE_LAYERS`` (4) of its 16 and phase 10 trains it at
 ``FINETUNE_LAYERS`` (4); 18b serves llama3-8b at ``TP8_LAYERS`` (4) of
 its 32; 19d trains moe-8x1b at ``MOE_MESH_LAYERS`` (4) and 19e bench-1b
-at ``STAGE_LAYERS`` (4). Phase 6 trains bench-1b, phase 15a boots it and
-phase 17 serves it at all 18 layers. A ``sitecustomize`` cuts the preset
-in the subprocesses of phases 10, 18 and 19 (18f's and 18g's ranks cut
-it themselves):
+at ``STAGE_LAYERS`` (4) and ``UNEVEN_LAYERS`` (6). Phase 6 trains
+bench-1b, phase 15a boots it and phase 17 serves it at all 18 layers. A
+``sitecustomize`` cuts the preset in the subprocesses of phases 10, 18
+and 19 (18f's and 18g's ranks cut it themselves):
 
 1. Build: compiles both kernel libraries of ``skypilot_tpu_torch/csrc``
    (flash-decode K4, flash-attention K1-K3), one nvcc each, started
@@ -447,10 +447,17 @@ it themselves):
    ``STAGE_LAYERS`` (4) layers in 4 pipeline stages of 4 microbatches
    through ``train.run --mesh pipe=2,fsdp=1`` (two stages a rank, global
    batch 8, seq 2048, 2 steps), then the same batch on one rank: 19a's
-   limits, K1-K3 2 x 8 / 8 / 8 a step a rank. Prints each rank's step ms,
-   collectives a step (calls, bytes, host s by kind), weight bytes and
-   peak memory. K1-K3 at a rank's rows of 19a (B=8, S=2048) are timed in
-   phase 3; 19d's ranks run train-moe's shape (B=2, ``MOE_CASE``).
+   limits, K1-K3 2 x 8 / 8 / 8 a step a rank; then, its gang run beside
+   the first, ``UNEVEN_LAYERS`` (6) layers in ``UNEVEN_STAGES`` (3)
+   stages, which pipe=2 does not divide (rank 0 runs layers 0-3 and
+   holds 0-2, rank 1 runs 4-5 of its 3-5): the same checks, K1-K3 2 x 16
+   / 16 / 16 and 2 x 8 / 8 / 8 a step by rank, and one exchange each way
+   a step: one bench-1b layer (113,254,400 B) from rank 1 to rank 0,
+   its gradient back, and no all-gather or reduce-scatter. Prints each
+   rank's step ms, collectives a step (calls, bytes, host s by kind),
+   weight bytes and peak memory. K1-K3 at a rank's rows of 19a (B=8,
+   S=2048) are timed in phase 3; 19d's ranks run train-moe's shape (B=2,
+   ``MOE_CASE``).
 20. Summary: the card's name and power limit again, one JSON line of
    kernels (K1-K3's launches are phases 6, 10, 12, 14, 19a, 19b, 19c's
    programs A, B and B4, 19d and 19e (every rank's; 19c's program C
@@ -482,12 +489,12 @@ moe-finetune recipe at all 18 layers on ``fsdp=2,expert=2`` as two hosts
 of two cards (no checkpoint: ``fsdp`` crosses the hosts, whose views of
 a leaf split over it are not whole), 19c's programs B and B4 over NCCL
 on ``pipe=2,expert=2`` (four ranks, one host), held to one process on
-the rank's card, 19e's checks on two cards and 18f's on four (data=2,
-tensor=2, a card a rank); then 18c at ``--tp 4`` on one host (the KV
-tiers' and handoffs' gathers and scatters to the head on the model's
-NCCL groups beside the gloo arrival broadcast); last, 18g's on four
-cards (moe-8x1b on expert=4 at all 18 layers, whose lone answer must
-equal a one-device engine's token for token, and bench-1b on
+the rank's card, 19e's checks (both gangs) on two cards and 18f's on
+four (data=2, tensor=2, a card a rank); then 18c at ``--tp 4`` on one
+host (the KV tiers' and handoffs' gathers and scatters to the head on
+the model's NCCL groups beside the gloo arrival broadcast); last, 18g's
+on four cards (moe-8x1b on expert=4 at all 18 layers, whose lone answer
+must equal a one-device engine's token for token, and bench-1b on
 pipe=2,tensor=2).
 """
 import collections
@@ -6221,10 +6228,13 @@ def nccl_main() -> int:
             prog[:1] + ('pipe=2,expert=2,fsdp=1',) + prog[2:]
             for prog in SMALL_MESHES if prog[0] in ('B', 'B4')),
             NCCL_TP, 'nccl-19c')
-        _phase('nccl 7: 19e, bench-1b in 4 stages on pipe=2, a card a '
-               'rank')
+        _phase('nccl 7: 19e, bench-1b in 4 stages, then 6 layers in 3, on '
+               'pipe=2, a card a rank')
         stages = pipe_stage_phase(llama, train_run, log_dir, 'nccl-19e',
                                   NCCL_HOSTS[:1])
+        uneven = pipe_stage_phase(llama, train_run, log_dir,
+                                  'nccl-19e-uneven', NCCL_HOSTS[:1],
+                                  UNEVEN_LAYERS, UNEVEN_STAGES)
         _phase('nccl 8: 18f, the engine on data=2,tensor=2 (bench-1b, '
                f'{SERVE_LAYERS} layers), a card a rank')
         with _cut_depth(llama, 'bench-1b', SERVE_LAYERS), \
@@ -6257,6 +6267,8 @@ def nccl_main() -> int:
                                'moe-8x1b fsdp=2,expert=2 K1-K3 launches':
                                moe, 'bench-1b 4 stages on pipe=2 K1-K3 '
                                'launches': stages,
+                               'bench-1b 3 stages on pipe=2 K1-K3 '
+                               'launches': uneven,
                                'data=2,tensor=2 K4 launches by run and '
                                'rank': data,
                                'expert=4 and pipe=2,tensor=2 K4 launches '
@@ -6378,14 +6390,17 @@ def _step_state(root, step):
 
 def _check_ranks(label, summaries, world, steps, n_layers):
     """Every rank ran every step with the same finite losses and the same
-    grad_norm bits, and launched K1/K2/K3 2L / L / L times a step."""
+    grad_norm bits, and launched K1/K2/K3 2L / L / L times a step (L
+    ``n_layers``, or ``n_layers[rank]`` where ranks run different
+    counts; then the wants come back by rank)."""
     if len(summaries) != world:
         raise AssertionError(f'{label}: {len(summaries)} rank summaries of '
                              f'{world}')
-    want = {'flash_fwd': 2 * n_layers * steps,
-            'flash_bwd_dq': n_layers * steps,
-            'flash_bwd_dkv': n_layers * steps}
+    wants = [{'flash_fwd': 2 * n * steps, 'flash_bwd_dq': n * steps,
+              'flash_bwd_dkv': n * steps} for n in (
+        n_layers if isinstance(n_layers, list) else [n_layers] * world)]
     for s in summaries:
+        want = wants[s['rank']]
         if s['launches'] != want:
             raise AssertionError(f'{label}: rank {s["rank"]} launched '
                                  f'{s["launches"]}, expected {want}')
@@ -6398,7 +6413,7 @@ def _check_ranks(label, summaries, world, steps, n_layers):
         raise AssertionError(f'{label}: ranks disagree: '
                              + '; '.join(f'{s["losses"]} {s["grad_norms"]} '
                                          f'{s["moe_aux"]}' for s in summaries))
-    return want
+    return wants if isinstance(n_layers, list) else wants[0]
 
 
 def _rank_figs(label, summaries, steps):
@@ -6414,7 +6429,8 @@ def _rank_figs(label, summaries, steps):
               f'{c["bytes"] / steps / 1e6:.1f} MB, '
               f'{c["seconds"] / steps:.3f} host s ({kinds}); weights '
               f'{s["weight_bytes"]} B; peak '
-              f'{(s["peak_bytes"] or 0) / 2 ** 30:.2f} GiB', flush=True)
+              f'{(s["peak_bytes"] or 0) / 2 ** 30:.2f} GiB '
+              f'({s["peak_bytes"]} B)', flush=True)
 
 
 def mesh_train_phase(llama, train_run, log_dir, label='19a', host_env=None,
@@ -6469,53 +6485,123 @@ def mesh_train_phase(llama, train_run, log_dir, label='19a', host_env=None,
 # 19e: several pipeline stages on each pipe rank (no flag: a model's
 # ``pipeline_stages`` with ``Trainer(mesh=)``), bench-1b at full width and
 # STAGE_LAYERS layers in as many stages of STAGE_MICRO microbatches, on
-# pipe=2 (two stages a rank), global batch 8, seq 2048, 2 steps.
+# pipe=2 (two stages a rank), global batch 8, seq 2048, 2 steps; then a
+# second gang at UNEVEN_LAYERS layers in UNEVEN_STAGES stages, which
+# pipe=2 does not divide: rank 0 runs stages 0-1 (layers 0-3, holding
+# 0-2 at rest), rank 1 stage 2 (layers 4-5 of its 3-5), so one layer
+# goes from rank 1 to rank 0 a step and its gradient back.
 STAGE_LAYERS = 4
 STAGE_MICRO = 4
 STAGE_ARGV = ['--model', 'bench-1b', '--global-batch-size', '8',
               '--seq-len', '2048', '--mesh', 'pipe=2,fsdp=1', '--steps',
               '2', '--warmup-steps', '1', '--log-every', '1']
 STAGE_HALF = 4   # 19e: a wrong gradient, which the limits must catch
+UNEVEN_LAYERS, UNEVEN_STAGES = 6, 3
+
+
+def _stage_fields(stages):
+    return dict(pipeline_stages=stages, pipeline_microbatches=STAGE_MICRO)
+
+
+def _stage_ckpt(label):
+    return os.path.abspath(os.path.join(MESH_CKPT_DIR, label))
+
+
+def stage_gang(llama, log_dir, label='19e', host_env=None,
+               layers=STAGE_LAYERS, stages=STAGE_LAYERS):
+    """19e's gang alone: ``train.run`` on ``pipe=2`` as two ranks,
+    bench-1b at ``layers`` layers in ``stages`` stages (``_train_gang``'s
+    result). Runs only subprocesses, so it may run beside this process's
+    own work."""
+    return _train_gang(
+        STAGE_ARGV + ['--ckpt-dir', _stage_ckpt(label), '--save-every',
+                      '1000'], 1, log_dir, label, host_env,
+        _depth_env(log_dir, 'bench-1b', layers, **_stage_fields(stages)))
+
+
+def _stage_sets(layers, stages, pipe):
+    """(each rank's layers of its stage block, each rank's layers at
+    rest), by arithmetic: blocks of ceil(stages / pipe) stages, the last
+    ranks fewer or none; the stack split evenly at rest."""
+    per, held, k = layers // stages, layers // pipe, -(-stages // pipe)
+    need = [set(range(min(p * k, stages) * per, min(p * k + k, stages) * per))
+            for p in range(pipe)]
+    return need, [set(range(p * held, (p + 1) * held)) for p in range(pipe)]
+
+
+def _check_exchange(label, llama, cfg, summaries, steps):
+    """Each rank's ``exchange`` (forward) and ``exchange_grad`` (backward)
+    a step: one call each way, carrying the layers its stage block lacks
+    from their owners and their gradients back, as many bytes as those
+    layers, none where the stages split evenly; and no all-gather or
+    reduce-scatter at all (nothing gathers the stack). Returns the
+    readings."""
+    pipe = len(summaries)
+    need, rest = _stage_sets(cfg.n_layers, cfg.pipeline_stages, pipe)
+    layer_bytes = 2 * sum(math.prod(shape[1:]) for shape in _flat_shapes(
+        llama.param_shapes(cfg)['layers']))
+    moves = any(need[u] & rest[o] for o in range(pipe) for u in range(pipe)
+                if o != u)
+    readings = []
+    for s in summaries:
+        p, by = s['rank'], s['collectives']['by_kind']
+        sent = sum(len(need[u] & rest[p]) for u in range(pipe) if u != p)
+        back = sum(len(need[p] & rest[o]) for o in range(pipe) if o != p)
+        want = ({'exchange': [steps, sent * layer_bytes * steps],
+                 'exchange_grad': [steps, back * layer_bytes * steps]}
+                if moves else {})
+        got = {kind: [by[kind]['calls'], by[kind]['bytes']]
+               for kind in ('exchange', 'exchange_grad') if kind in by}
+        if got != want or {'all_gather', 'reduce_scatter'} & by.keys():
+            raise AssertionError(
+                f'{label}: rank {p} moved {got} ({sorted(by)}), expected '
+                f'{want} and no all_gather or reduce_scatter')
+        readings.append(f'rank {p} sends {sent * layer_bytes} B forward, '
+                        f'{back * layer_bytes} B of gradients back a step')
+    return '; '.join(readings) + f' (a layer {layer_bytes} B)'
 
 
 def pipe_stage_phase(llama, train_run, log_dir, label='19e',
-                     host_env=None):
+                     host_env=None, layers=STAGE_LAYERS,
+                     stages=STAGE_LAYERS, gang=None):
     """19e: ``train.run`` on ``pipe=2`` as two ranks (gloo on the one
-    card; NCCL with ``host_env``'s cards), bench-1b at STAGE_LAYERS
-    layers in STAGE_LAYERS pipeline stages (two a rank, the schedule's
-    M + S - 1 ticks over all four) of STAGE_MICRO microbatches, 2 steps,
-    then the same batch on one rank in this process (every stage in one
-    process): each step's loss within MESH_LOSS_RTOL, grad_norm within
-    MESH_NORM_RTOL, the final weights within MESH_WEIGHT_RTOL and their
-    update within MESH_UPDATE_RTOL of one rank's, limits that one rank on
-    STAGE_HALF rows must exceed; every rank's grad_norm bits equal and
-    K1/K2/K3 2 x its layers x the microbatches / half that a step.
-    Returns the launches of the gang's ranks, summed per kernel."""
-    fields = dict(pipeline_stages=STAGE_LAYERS,
-                  pipeline_microbatches=STAGE_MICRO)
-    cfg = dataclasses.replace(llama.BENCH_1B, n_layers=STAGE_LAYERS,
-                              **fields)
+    card; NCCL with ``host_env``'s cards; ``gang``, a future of
+    ``stage_gang``'s result, when it was started already), bench-1b at
+    ``layers`` layers in ``stages`` pipeline stages (blocks of
+    ceil(stages / 2) a rank, the schedule's M + S - 1 ticks over all) of
+    STAGE_MICRO microbatches, 2 steps, then the same batch on one rank in
+    this process (every stage in one process): each step's loss within
+    MESH_LOSS_RTOL, grad_norm within MESH_NORM_RTOL, the final weights
+    within MESH_WEIGHT_RTOL and their update within MESH_UPDATE_RTOL of
+    one rank's, limits that one rank on STAGE_HALF rows must exceed;
+    every rank's grad_norm bits equal, K1/K2/K3 2 x its block's layers x
+    the microbatches / half that a step, and the exchange of the layers a
+    rank's block lacks (``_check_exchange``). Returns the launches of the
+    gang's ranks, summed per kernel."""
+    fields = _stage_fields(stages)
+    cfg = dataclasses.replace(llama.BENCH_1B, n_layers=layers, **fields)
     steps, world = 2, 2
-    ckpt = os.path.abspath(os.path.join(MESH_CKPT_DIR, label))
-    with _cut_depth(llama, 'bench-1b', STAGE_LAYERS, **fields):
-        (summaries, _, wall), (one, half, one_s) = _gang_and_one_rank(
-            train_run, STAGE_ARGV + ['--ckpt-dir', ckpt, '--save-every',
-                                     '1000'],
-            1, log_dir, label, host_env,
-            _depth_env(log_dir, 'bench-1b', STAGE_LAYERS, **fields),
-            STAGE_ARGV, STAGE_HALF, beside=False)
-    # A rank runs its layers (half the stack) on every microbatch.
+    summaries, _, wall = (gang.result() if gang is not None else
+                          stage_gang(llama, log_dir, label, host_env, layers,
+                                     stages))
+    with _cut_depth(llama, 'bench-1b', layers, **fields):
+        one, half, one_s = _one_rank_runs(train_run, STAGE_ARGV, STAGE_HALF)
+    # A rank runs its block's layers on every microbatch.
+    need = _stage_sets(layers, stages, world)[0]
     per_rank = _check_ranks(label, summaries, world, steps,
-                            STAGE_LAYERS // 2 * STAGE_MICRO)
+                            [len(n) * STAGE_MICRO for n in need])
+    moved = _check_exchange(label, llama, cfg, summaries, steps)
     _rank_figs(label, summaries, steps)
     readings = _against_one_rank(label, llama, cfg, one, half, STAGE_HALF,
-                                 summaries[0], _step_state(ckpt, steps))
-    print(f'  {label} bench-1b at {STAGE_LAYERS} of 18 layers in '
-          f'{STAGE_LAYERS} stages x {STAGE_MICRO} microbatches on pipe=2 '
-          f'(2 stages a rank, {summaries[0]["backend"]}): {readings}; '
-          f'K1/K2/K3 by rank {per_rank} = expected; gang {wall:.1f} s, one '
-          f'rank {one_s:.1f} s', flush=True)
-    return {k: v * world for k, v in per_rank.items()}
+                                 summaries[0],
+                                 _step_state(_stage_ckpt(label), steps))
+    print(f'  {label} bench-1b at {layers} of 18 layers in {stages} stages '
+          f'x {STAGE_MICRO} microbatches on pipe=2 (layers by rank '
+          f'{[sorted(n) for n in need]}, {summaries[0]["backend"]}): '
+          f'{readings}; K1/K2/K3 by rank {per_rank} = expected; {moved}; '
+          f'peak by rank {[s["peak_bytes"] for s in summaries]} B; gang '
+          f'{wall:.1f} s, one rank {one_s:.1f} s', flush=True)
+    return {k: sum(w[k] for w in per_rank) for k in per_rank[0]}
 
 
 def _named_params(params):
@@ -6994,13 +7080,21 @@ def mesh_phase(llama, train_run):
             _phase('  19b done')
             launches['phase 19a train-multislice'] = multislice.result()
         _phase(f'  19a-19b side by side: {time.perf_counter() - t0:.1f} s')
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # 19e's uneven gang (subprocesses) runs beside its 4-stage gang,
+        # whose one-rank runs come first; then the uneven one-rank runs.
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
             small = pool.submit(small_mesh_phase, log_dir)
             launches['phase 19d moe-finetune'] = moe_mesh_phase(
                 llama, train_run, log_dir)
             _phase('  19d done')
+            uneven = pool.submit(stage_gang, llama, log_dir, '19e-uneven',
+                                 None, UNEVEN_LAYERS, UNEVEN_STAGES)
             launches['phase 19e pipe-stages'] = pipe_stage_phase(
                 llama, train_run, log_dir)
+            _phase('  19e 4 stages done')
+            launches['phase 19e pipe-stages uneven'] = pipe_stage_phase(
+                llama, train_run, log_dir, '19e-uneven',
+                layers=UNEVEN_LAYERS, stages=UNEVEN_STAGES, gang=uneven)
             _phase('  19e done')
             launches.update(small.result())
     finally:

@@ -616,7 +616,8 @@ def check_mesh(cfg: LlamaConfig, sizes: Dict[str, int]) -> None:
     error) and the experts over ``expert``. Stages that are not a
     multiple of ``pipe`` train, as in JAX (which pads the stage dim):
     each rank runs its block of ``ceil(stages / pipe)`` stages
-    (``pipeline.stage_block``)."""
+    (``pipeline.stage_block``), and receives only the layers of it that
+    another rank holds (``_stage_layers``)."""
     if cfg.num_experts and cfg.num_experts % sizes['expert']:
         raise ValueError(f'{cfg.num_experts} experts do not split over '
                          f'expert ({sizes["expert"]} shards)')
@@ -716,26 +717,21 @@ def _stage_layers(layers: Params, cfg: LlamaConfig, n_stages: int,
                   mesh) -> Params:
     """This ``pipe`` rank's layers of its block of the stages. The layer
     stack splits evenly over ``pipe`` (``layers -> pipe``); where the
-    stages do not, each leaf is gathered over ``pipe``
-    (``collectives.gather_fsdp``: its gradient comes back summed there and
-    cut to this rank's block) and cut to the block's layers. Every pipe
-    rank then holds the whole stack, and its gradients, for the step;
-    only the weights at rest and the optimizer state stay split (JAX
-    moves only the layers of a stage that lie on another device)."""
+    stages do not, a rank's block (``pipeline.stage_rows``) may hold
+    layers another rank holds at rest. Only those move
+    (``collectives.exchange_rows``: from their owner to this rank, their
+    gradients back to the owner); the rank's own layers stay views where
+    they are its whole block. No rank builds the whole stack or its
+    gradient, as JAX moves only the layers of a stage that lie on another
+    device."""
     pipe = mesh.shape['pipe']
     if n_stages % pipe == 0:
         return layers
     from skypilot_tpu_torch.parallel import collectives
-    first, count = pipe_lib.stage_block(n_stages, pipe,
-                                        mesh.axis_index('pipe'))
-    per = cfg.n_layers // n_stages
-
-    def cut(w):
-        if isinstance(w, dict):  # the MoE block's leaves
-            return {k: cut(v) for k, v in w.items()}
-        return collectives.gather_fsdp(w, mesh, 0, axis='pipe').narrow(
-            0, first * per, count * per)
-    return cut(layers)
+    blocks = collectives.exchange_rows(
+        pipe_lib.tree_leaves(layers), mesh, 'pipe',
+        pipe_lib.stage_rows(cfg.n_layers, n_stages, pipe))
+    return pipe_lib.tree_rebuild(layers, blocks)
 
 
 def forward_with_aux(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,

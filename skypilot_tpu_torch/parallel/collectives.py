@@ -22,7 +22,10 @@ backward: a row-split product's partial sums) and ``psum_grads`` (the
 gradient all-reduce over the batch axes) are JAX's transpose rules for
 the collectives GSPMD would insert, and ``rotate`` (a ring permute whose
 gradient takes the inverse rotation: ring attention's K/V hop) is
-``ppermute``'s. On an axis of size 1 each returns its input.
+``ppermute``'s. ``exchange_rows`` (an uneven ``all_to_all`` forward,
+the reverse one backward) hands a pipe rank the layers of its stage
+block that other ranks hold, where the stages do not split evenly over
+``pipe``. On an axis of size 1 each returns its input.
 
 On a gloo mesh whose ranks compute on CUDA (``Mesh.stages_on_host``)
 every collective stages through host memory, and the copies wait for
@@ -45,6 +48,7 @@ lost a rank cannot go on in lockstep.
 """
 from __future__ import annotations
 
+import math
 import os
 import socket
 import time
@@ -174,28 +178,31 @@ def _bytes(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().reshape(-1).view(torch.uint8)
 
 
-def _shared(x: torch.Tensor, mesh, axis: str, read, write=None):
+def _shared(x: torch.Tensor, mesh, axis: str, read, write=None,
+            size: Optional[int] = None):
     """A collective through the group's arena, or None when the mesh does
     not stage through the host or the group spans machines: this rank's
     ``x`` into its slot (or ``write(slot)`` fills any slots, ``slot(i)``
-    being rank i's ``x``-sized bytes of this turn), the barrier, then
+    being rank i's bytes of this turn: ``x``'s size, or ``size`` bytes,
+    which every rank of the group must pass alike), the barrier, then
     ``read(slots, arena)`` on this rank's device, ``slots(i, start,
     nbytes)`` giving a device copy of rank i's bytes."""
     if not mesh.stages_on_host:
         return None
     group = mesh.group(axis)
     raw = _bytes(x)
-    arena = _arena(group, mesh, axis, raw.numel())
+    size = raw.numel() if size is None else size
+    arena = _arena(group, mesh, axis, size)
     if arena is None:
         return None
     half, arena.turn = arena.turn, arena.turn ^ 1
     if write is None:
         arena.slot(half, arena.index, raw.numel()).copy_(raw)
     else:
-        write(lambda i: arena.slot(half, i, raw.numel()))
+        write(lambda i: arena.slot(half, i, size))
     dist.barrier(group=group)
 
-    def slots(i, start=0, nbytes=raw.numel()):
+    def slots(i, start=0, nbytes=size):
         out = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
         return out.copy_(arena.slot(half, i, start + nbytes)[start:])
     return read(slots, arena)
@@ -400,6 +407,45 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str,
                   _nbytes(x))
 
 
+def all_to_all(x: torch.Tensor, mesh, axis: str, counts,
+               kind: str = 'exchange') -> torch.Tensor:
+    """An uneven all-to-all over ``axis``: ``counts[i][j]`` elements of
+    ``x``'s dtype go from rank i to rank j. ``x`` is this rank's pieces,
+    flat, in the order of their destinations; the result is the pieces
+    this rank receives, flat, in the order of their sources. Every rank
+    of the axis passes the same ``counts`` and calls it, those with
+    nothing to send or receive too. ``STATS`` counts ``x``'s bytes (what
+    this rank sends) under ``kind``."""
+    group = mesh.group(axis)
+    if group is None:
+        return x
+    n, me = mesh.shape[axis], mesh.axis_index(axis)
+    send = [int(counts[me][j]) for j in range(n)]
+    recv = [int(counts[i][me]) for i in range(n)]
+    width = x.element_size()
+
+    def write(slot):
+        slot(me)[:_nbytes(x)].copy_(_bytes(x))
+
+    def read(slots, arena):
+        parts = [slots(i, sum(counts[i][:me]) * width, recv[i] * width)
+                 for i in range(n) if recv[i]]
+        out = parts[0] if len(parts) == 1 else torch.cat(
+            parts or [x.new_empty(0, dtype=torch.uint8)])
+        return out.view(x.dtype)
+
+    def run():
+        out = _shared(x, mesh, axis, read, write,
+                      max(sum(row) for row in counts) * width)
+        if out is not None:
+            return out
+        y = _to_medium(x, mesh) if mesh.stages_on_host else x.contiguous()
+        out = torch.empty(sum(recv), dtype=x.dtype, device=y.device)
+        dist.all_to_all_single(out, y, recv, send, group=group)
+        return out.to(x.device)
+    return _timed(f'all_to_all over {axis}', run, kind, _nbytes(x))
+
+
 # -- collectives autograd passes through ------------------------------------
 
 
@@ -459,14 +505,131 @@ class _Rotate(torch.autograd.Function):
                              shift=-1), None, None
 
 
-def gather_fsdp(x: torch.Tensor, mesh, dim: int,
-                axis: str = 'fsdp') -> torch.Tensor:
-    """A parameter's shard gathered along ``dim`` over ``axis`` for use;
+def _rows_from(needs, held: int, src: int, dst: int):
+    """The rows [lo, hi) that rank ``dst`` needs (``needs[dst]``) of those
+    rank ``src`` holds (``[src * held, (src + 1) * held)``), or None."""
+    lo = max(needs[dst][0], src * held)
+    hi = min(needs[dst][1], (src + 1) * held)
+    return (lo, hi) if lo < hi else None
+
+
+def _row_counts(moves, width: int):
+    """Elements each rank sends each other rank: ``width`` a row."""
+    return [[(m[1] - m[0]) * width if m else 0 for m in row]
+            for row in moves]
+
+
+def _move_rows(tensors, take, moves, mesh, axis: str, kind: str):
+    """The rows ``moves[i][j]`` (``(lo, hi)``, whole-stack rows that rank
+    i sends rank j, or None) of each tensor that is not None, in one
+    ``all_to_all`` a dtype (in the order of first appearance, the same on
+    every rank); ``take(i, m)`` cuts this rank's rows ``m`` of tensor i.
+    Returns (tensor index, rows, what came) for each piece this rank
+    received, by source rank."""
+    n, me = mesh.shape[axis], mesh.axis_index(axis)
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(tensors):
+        if t is not None:
+            groups.setdefault(t.dtype, []).append(i)
+    out = []
+    for idx in groups.values():
+        widths = [math.prod(tensors[i].shape[1:]) for i in idx]
+        send = [take(i, m).reshape(-1) for m in moves[me] if m for i in idx]
+        got = all_to_all(torch.cat(send) if send
+                         else tensors[idx[0]].new_empty(0), mesh, axis,
+                         _row_counts(moves, sum(widths)), kind)
+        start = 0
+        for src in range(n):
+            m = moves[src][me]
+            for i, width in zip(idx, widths) if m else ():
+                size = (m[1] - m[0]) * width
+                out.append((i, m, got[start:start + size].view(
+                    (m[1] - m[0],) + tuple(tensors[i].shape[1:]))))
+                start += size
+    return out
+
+
+class _ExchangeRows(torch.autograd.Function):
+    """Row-stacked leaves held over ``axis`` in even blocks (rank i holds
+    rows ``[i * held, (i + 1) * held)``), each rank's ``needs`` rows out:
+    the rows another rank holds come through one ``all_to_all`` a dtype,
+    and their gradients go back to that rank the same way; a rank's own
+    rows are a view where they are its whole block, else copied into the
+    block beside the received ones, and their gradients stay here."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, needs, *leaves):
+        n, me = mesh.shape[axis], mesh.axis_index(axis)
+        held = leaves[0].shape[0]
+        base = me * held
+        moves = [[_rows_from(needs, held, i, j) if i != j else None
+                  for j in range(n)] for i in range(n)]
+        pieces: List[List] = [[] for _ in leaves]  # (first row, rows)
+        for i, m, rows in _move_rows(
+                leaves, lambda i, m: leaves[i][m[0] - base:m[1] - base],
+                moves, mesh, axis, 'exchange'):
+            pieces[i].append((m[0], rows))
+        own = _rows_from(needs, held, me, me)
+        blocks = []
+        for leaf, got in zip(leaves, pieces):
+            mine = leaf[own[0] - base:own[1] - base] if own else leaf[:0]
+            if not got:  # the own rows, as they lie
+                blocks.append(mine)
+                continue
+            if own:
+                got.append((own[0], mine))
+            blocks.append(torch.cat([t for _, t in sorted(
+                got, key=lambda p: p[0])]))
+        ctx.mesh, ctx.axis, ctx.needs, ctx.moves = mesh, axis, needs, moves
+        ctx.held, ctx.own = held, own
+        ctx.leaves = [(t.shape, t.dtype, t.device) for t in leaves]
+        return tuple(blocks)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, axis, moves, own = ctx.mesh, ctx.axis, ctx.moves, ctx.own
+        n, me = mesh.shape[axis], mesh.axis_index(axis)
+        base, first = me * ctx.held, ctx.needs[me][0]
+        wanted = ctx.needs_input_grad[3:]
+        out = [torch.zeros(shape, dtype=dtype, device=device) if w else None
+               for (shape, dtype, device), w in zip(ctx.leaves, wanted)]
+        for g, block in zip(out, grads):
+            if g is not None and own:
+                g[own[0] - base:own[1] - base] += block[
+                    own[0] - first:own[1] - first]
+        # Each received piece's gradient back to its owner.
+        back = [[moves[j][i] for j in range(n)] for i in range(n)]
+        for i, m, rows in _move_rows(
+                [g if w else None for g, w in zip(grads, wanted)],
+                lambda i, m: grads[i][m[0] - first:m[1] - first], back,
+                mesh, axis, 'exchange_grad'):
+            out[i][m[0] - base:m[1] - base] += rows
+        return (None, None, None, *out)
+
+
+def exchange_rows(leaves: Sequence[torch.Tensor], mesh, axis: str,
+                  needs: Sequence[Sequence[int]]) -> List[torch.Tensor]:
+    """Rows ``needs[r]`` (``(start, end)``, whole-stack row numbers) of
+    leaves stacked on dim 0 whose rows the ranks of ``axis`` hold in even
+    blocks (these ``leaves`` are this rank's), for rank r of the axis:
+    only the rows another rank holds move (an uneven ``all_to_all`` a
+    dtype, counted under ``exchange``), and their gradients go back to
+    their owners (``exchange_grad``); no leaf of the whole stack, nor its
+    gradient, is built. Every rank of the axis calls it with the same
+    ``needs``, those that need or hold nothing another needs too."""
+    if mesh.group(axis) is None:
+        return [t[needs[0][0]:needs[0][1]] for t in leaves]
+    return list(_ExchangeRows.apply(mesh, axis, tuple(map(tuple, needs)),
+                                    *leaves))
+
+
+def gather_fsdp(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """A parameter's shard gathered along ``dim`` over ``fsdp`` for use;
     its gradient comes back reduce-scattered: summed over the axis's
     ranks (their rows of the batch), this rank's block kept."""
-    if mesh.group(axis) is None:
+    if mesh.group('fsdp') is None:
         return x
-    return _GatherFsdp.apply(x, mesh, axis, dim)
+    return _GatherFsdp.apply(x, mesh, 'fsdp', dim)
 
 
 def copy_to(x: torch.Tensor, mesh, axis: str = 'tensor') -> torch.Tensor:

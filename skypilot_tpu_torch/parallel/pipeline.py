@@ -49,13 +49,13 @@ def _tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
-def _leaves(tree: Any) -> List[torch.Tensor]:
+def tree_leaves(tree: Any) -> List[torch.Tensor]:
     if isinstance(tree, dict):
-        return [x for k in tree for x in _leaves(tree[k])]
+        return [x for k in tree for x in tree_leaves(tree[k])]
     return [tree]
 
 
-def _rebuild(tree: Any, leaves) -> Any:
+def tree_rebuild(tree: Any, leaves) -> Any:
     it = iter(leaves)
     return _tree_map(lambda _: next(it), tree)
 
@@ -85,6 +85,18 @@ def stage_block(num_stages: int, ranks: int, index: int) -> Tuple[int, int]:
     return first, min(k, num_stages - first)
 
 
+def stage_rows(n_layers: int, num_stages: int, ranks: int
+               ) -> List[Tuple[int, int]]:
+    """Each rank's (first layer, end layer) of the stack: the layers of
+    its ``stage_block``, ``n_layers // num_stages`` a stage."""
+    per = n_layers // num_stages
+    out = []
+    for index in range(ranks):
+        first, count = stage_block(num_stages, ranks, index)
+        out.append((first * per, (first + count) * per))
+    return out
+
+
 def _valid(stage: int, tick: int, num_micro: int) -> bool:
     return stage <= tick < stage + num_micro
 
@@ -108,7 +120,7 @@ def pipeline_apply(stage_fn: StageFn, stage_params: Any,
     if mesh is None or mesh.shape[axis] == 1:
         return _local(stage_fn, stage_params, microbatches, num_stages)
     return _Pipeline.apply(stage_fn, stage_params, mesh, axis, microbatches,
-                           num_stages, *_leaves(stage_params))
+                           num_stages, *tree_leaves(stage_params))
 
 
 def _local(stage_fn: StageFn, stage_params: Any,
@@ -155,7 +167,7 @@ class _Pipeline(torch.autograd.Function):
         held: List[Any] = [None] * k  # each local stage's last output
         with torch.enable_grad():
             # The rank's stages: views of its layers, inside the graph.
-            local = split_stages(_rebuild(tree, params), k) if k else None
+            local = split_stages(tree_rebuild(tree, params), k) if k else None
             stages = [_tree_map(lambda t, j=j: t[j], local)
                       for j in range(k)]
             for i in range(ticks):
